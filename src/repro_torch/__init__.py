@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of ``repro`` (Scalable Dual Coordinate Descent for
+Kernel Methods), for NVIDIA Hopper.
+
+The module layout mirrors the JAX package: ``core/kernels.py`` (kernel
+math and ``ExactGramOperator``), the four solvers, the round driver
+``core/loop.py``, ``core/objectives.py``, ``core/predict.py`` and the
+``api.py`` facade.  The two kernels of the solve path (KMV and gram) are
+hand-written CUDA C++ under ``csrc/``, built at first use
+(``kernels/build.py``); on CPU tensors every wrapper runs its plain
+PyTorch version instead.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,103 @@
+"""s-Step Block Dual Coordinate Descent (paper Algorithm 4) for K-RR —
+the counterpart of ``repro/core/sstep_bdcd.py``.
+
+One outer round gathers everything ``s`` exact b x b block solves need —
+the (sb x sb) cross block and ``Q^T alpha`` (one gram launch and one KMV
+launch on the card) — then repairs the deferred alpha update with the
+correction sums of paper eq. (3):
+
+    dalpha_{sk+j} = G^{-1}( V_j^T y - m V_j^T alpha_sk
+                            - m     sum_{t<j} V_j^T V_t dalpha_t
+                            - 1/lam U_j^T alpha_sk
+                            - 1/lam sum_{t<j} U_j^T V_t dalpha_t )
+
+Ragged schedules (``H % s != 0``) run a masked final short round.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from .bdcd import KRRConfig, solve_small
+from .kernels import ExactGramOperator
+from .loop import as_schedule, pad_rounds, run_rounds
+
+
+def sstep_bdcd_inner(Gblk, QTalpha, alpha_at, y_at, flat, m, inv_lam,
+                     s, b, valid=None):
+    """The local phase: ``s`` sequential b x b solves with eq. (3)
+    corrections.
+
+    Gblk: (sb, sb), QTalpha: (sb,), alpha_at/y_at: (s, b), flat: (sb,),
+    valid: (s,) 1/0 mask for the ragged final round (padded blocks get
+    dalpha = 0).  Returns dalpha: (s, b).  On the card these are s small
+    solves of a few launches each: bound by launch overhead.
+    """
+    dtype = alpha_at.dtype
+    dev = alpha_at.device
+    ones = (torch.ones(s, dtype=dtype, device=dev) if valid is None
+            else valid.to(dtype))
+    # collide[t, q, j, p] = 1 iff flat[t*b+q] == flat[j*b+p]
+    collide4 = (flat[:, None] == flat[None, :]).to(dtype).reshape(s, b, s, b)
+    Gblk4 = Gblk.reshape(s, b, s, b)                  # [t, q, j, p]
+    m_eye = m * torch.eye(b, dtype=dtype, device=dev)
+    dalpha = torch.zeros((s, b), dtype=dtype, device=dev)
+    for j in range(s):
+        # dalpha rows t >= j are still 0, so dalpha is the t < j prefix
+        vv = torch.einsum("tq,tqp->p", dalpha, collide4[:, :, j, :])
+        uv = torch.einsum("tq,tqp->p", dalpha, Gblk4[:, :, j, :])
+        G = inv_lam * Gblk4[j, :, j, :] + m_eye
+        rhs = (y_at[j] - m * alpha_at[j] - m * vv
+               - inv_lam * QTalpha[j * b:(j + 1) * b] - inv_lam * uv)
+        dalpha[j] = solve_small(G, rhs) * ones[j]
+    return dalpha
+
+
+def make_sstep_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor,
+                             cfg: KRRConfig, s: int,
+                             gram_fn: Optional[Callable] = None,
+                             op=None) -> Callable:
+    """``round_fn(alpha, (idx, valid)) -> alpha`` for ``loop.run_rounds``:
+    one Algorithm-4 outer round; idx: (s, b), valid: (s,)."""
+    if gram_fn is not None and op is not None:
+        raise ValueError("pass at most one of gram_fn (materialized "
+                         "slab) or op (prebuilt operator)")
+    m = A.shape[0]
+    inv_lam = 1.0 / cfg.lam
+    if op is None and gram_fn is None:
+        op = ExactGramOperator(A, cfg.kernel)
+
+    def round_fn(alpha, xs):
+        idx, valid = xs                        # idx: (s, b)
+        b = idx.shape[1]
+        flat = idx.reshape(s * b)
+        # --- kernel phase ------------------------------------------------
+        if gram_fn is not None:                # materialized m x sb slab
+            Q = gram_fn(A, A[flat], cfg.kernel)
+            Gblk = Q[flat, :]
+            QTalpha = Q.T @ alpha
+        else:
+            Gblk, QTalpha = op.round_data(flat, alpha)
+        # --- local phase: s block solves ---------------------------------
+        dalpha = sstep_bdcd_inner(Gblk, QTalpha, alpha[idx], y[idx], flat,
+                                  m, inv_lam, s, b, valid)
+        # blocks may overlap inside a round: index_add sums every
+        # duplicate, as JAX's .at[].add does
+        return alpha.index_add(0, flat, dalpha.reshape(s * b))
+
+    return round_fn
+
+
+def sstep_bdcd_krr(A: torch.Tensor, y: torch.Tensor, alpha0: torch.Tensor,
+                   schedule, cfg: KRRConfig, s: int,
+                   record_rounds: bool = False,
+                   gram_fn: Optional[Callable] = None, op=None,
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Run Algorithm 4 over the (H, b) block schedule; ragged H runs a
+    masked final short round."""
+    round_fn = make_sstep_bdcd_round_fn(A, y, cfg, s, gram_fn=gram_fn,
+                                        op=op)
+    xs = pad_rounds(as_schedule(schedule, A.device), s)
+    res = run_rounds(round_fn, alpha0, xs, record_state=record_rounds)
+    return res.state, (res.state_hist if record_rounds else None)

@@ -1,0 +1,115 @@
+"""Build the CUDA sources under ``repro_torch/csrc/`` at first use and
+bind them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles, with its own ``nvcc`` process (all
+started together), into ``lib<name>.so`` with a plain C interface for
+``sm_90a``.  The libraries land in ``build/repro_torch/<hash>/`` at the
+root of the checkout (git-ignored), keyed by a hash of every source in
+``csrc/`` and the compiler flags, so an edited source rebuilds and an
+unchanged one is reused.  A failed build raises; nothing falls back to
+the plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point and argument types of each library (see csrc/*.cu)
+SIGNATURES = {
+    "kmv": ("kmv_launch", [_P] * 5 + [_I] * 9 + [_F, _F, _P]),
+    "gram": ("gram_launch", [_P] * 3 + [_I] * 7 + [_F, _F, _P]),
+}
+
+_LAUNCHERS: Dict[str, object] = {}
+
+
+def find_nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin",
+                              "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin and PATH): the CUDA kernels "
+                       "cannot be built")
+
+
+def sources() -> Dict[str, Path]:
+    """``{name: path}`` of every ``csrc/*.cu`` translation unit."""
+    return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build_all() -> Dict[str, dict]:
+    """Compile every source whose library is missing, in parallel.
+
+    Returns ``{name: {"path", "seconds", "log"}}``; ``seconds`` is 0 and
+    ``log`` the saved compiler output for a library that was already
+    built.  Raises ``RuntimeError`` with the compiler's output if any
+    build fails."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    info, procs = {}, {}
+    for name, src in sources().items():
+        lib = out_dir / f"lib{name}.so"
+        log = out_dir / f"{name}.log"
+        if lib.exists():
+            info[name] = {"path": lib, "seconds": 0.0,
+                          "log": log.read_text() if log.exists() else ""}
+            continue
+        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True),
+                       time.perf_counter(), tmp, lib, log)
+    failures = []
+    for name, (proc, t0, tmp, lib, log) in procs.items():
+        text, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"--- {name} (exit {proc.returncode}) ---\n"
+                            f"{text}")
+            continue
+        log.write_text(text)
+        os.replace(tmp, lib)          # atomic: concurrent builds agree
+        info[name] = {"path": lib, "seconds": seconds, "log": text}
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n"
+                           + "\n".join(failures))
+    return info
+
+
+def launcher(name: str):
+    """The C entry point of ``lib<name>.so``, built on first use, with
+    its ctypes argument types set (pointers and the stream as
+    ``c_void_p``, so they are not cut to 32 bits)."""
+    fn = _LAUNCHERS.get(name)
+    if fn is None:
+        lib = ctypes.CDLL(str(build_all()[name]["path"]))
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LAUNCHERS[name] = fn
+    return fn
