@@ -16,7 +16,26 @@ Phases (each one fails the run with a non-zero exit):
   4. K-RR     KernelRidge(lam=1, rbf), s-step BDCD (s = 8, b = 32) on
               the tolerance path, the relative-residual history, 2048
               predictions
-  5. report   launch counts of phases 3-4, kernel times against their
+  5. stream + Nystrom, on the same data
+       a. the streamed KMV pipe (A chunked in pinned host memory) and
+          the row gather against their plain versions and the resident
+          KMV, f32 and bf16, vector and (m, 4) X, r = 32, 256 and the
+          full-matvec piece r = chunk_rows, at chunk_rows = 2048 (ragged
+          tail) and 6000 (four chunks)
+       b. KernelRidge(stream=2048) replaying phase 4's schedule at full
+          depth, its residual history from the streamed full KMV; its
+          device-memory growth must stay below A's bytes
+       c. KernelSVM(s=32, stream=2048) replaying phase 3's schedule at
+          full depth with one streamed duality gap (a check only at the
+          last round: the depth cut is in checks, not iterations), and
+          2048 predictions through BatchedPredictor(stream=1024)
+       d. KernelRidge(approx="nystrom", landmarks=1024, uniform): the
+          factor product on 512 rows against the plain build (and what a
+          TF32 build reads against the same tolerance), the kernel error
+          on a 2048-row subsample
+       e. pipelined, copy-only and compute-only times of the streamed
+          KMV, the streamed full KMV against the resident one
+  6. report   launch counts of phases 3-4, kernel times against their
               plain versions, bounds and library calls, the inner-phase
               share of a round, the card's name and power limit
 
@@ -34,11 +53,16 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and FP32 outside the
 # tensor cores, the rate the kernels' f32 FMAs run at.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# Host-to-device link of the streamed KMV: PCIe Gen5 x16, 128 GB/s both
+# directions together in the H100 data sheet, so 64 GB/s one way (32 GT/s
+# x 16 lanes, 128b/130b encoding: 63 GB/s of payload at best).
+PCIE_H2D_BYTES_PER_S = 64e9
 
 # Parity tolerances and their reasons.
 TOL_KMV_F32 = 2e-4     # tests/test_kmv.py: f32 summation-order differences
@@ -51,6 +75,20 @@ TOL_BF16 = 2e-2        # bf16 inputs (both sides see the same bf16 values)
 TOL_SSTEP_VS_CLASSICAL = 1e-3
 TOL_ORACLE = 1e-4      # facade predictions vs the dense oracle, relative
                        # to the largest decision value
+# Rows per pinned chunk of the streamed phase: 64 MB of f32 at n = 8192,
+# so ten chunks with a ragged tail at m = 19 996.
+STREAM_CHUNK_ROWS = 2048
+# Streamed vs resident metric histories on one schedule: the same f32
+# full-KMV sums taken chunk by chunk in another order (~1e-6 relative).
+TOL_STREAM_METRIC = 1e-4
+# Nystrom factor product Phi Phi^T, kernels against the plain build, in
+# units of f32 eps x kappa(K_LL) x max|Phi Phi^T|: the gram kernel and
+# its plain version sum the same f32 products in another order, so their
+# entries of K (at most 1 for rbf) agree within a few eps (phase 2 reads
+# ~6.5 eps at 256 x 256), and K_LL^{-1/2} amplifies a relative error in
+# K_LL by up to kappa.
+TOL_NYSTROM_EPS_KAPPA = 8.0
+F32_EPS = 2.0 ** -23
 
 
 def fail(msg: str) -> int:
@@ -88,6 +126,349 @@ def bound_ms(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def phase_split(kernel_phase, local_phase, rounds):
+    """Mean host milliseconds of a round's kernel phase and local phase,
+    synchronised after each."""
+    import torch
+    t_kernel = t_local = 0.0
+    for k in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = kernel_phase(k)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        local_phase(k, data)
+        torch.cuda.synchronize()
+        t_kernel += t1 - t0
+        t_local += time.perf_counter() - t1
+    return t_kernel / rounds * 1e3, t_local / rounds * 1e3
+
+
+def stream_phase(c, args, failures):
+    """Phase 5 (module docstring).  ``c`` holds phases 3-4's data and
+    fits; returns the ``kmv_stream`` entry of the kernels record."""
+    import torch
+    from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
+    from repro_torch.core import (BatchedPredictor, StreamingGramOperator,
+                                  ksvm_predict, nystrom, pad_rounds,
+                                  sstep_dcd_inner)
+    from repro_torch.core.kernels import _chunk
+    from repro_torch.kernels.gram import gram_cuda, gram_plain
+    from repro_torch.kernels.kmv import kmv_cuda
+    from repro_torch.kernels.kmv_stream import (gather_rows_cuda,
+                                                kmv_stream_cuda,
+                                                kmv_stream_plain,
+                                                kmv_stream_resident)
+
+    dev, m, n, rbf = c.dev, c.m, c.n, c.kernels["rbf"]
+    CR = STREAM_CHUNK_ROWS
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    # ---- a. parity ---------------------------------------------------
+    t0 = time.perf_counter()
+    A_h = c.A.cpu()
+    A_d = {f32: c.A, bf16: c.A.to(bf16)}
+    Xc_of = {(dt, cr): _chunk(A_h.to(dt), cr, pin=True)
+             for dt in (f32, bf16) for cr in (CR, 6000)}
+    print(f"[stream] pinned chunks of A built in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{str(dt)[6:]} {cr} rows x {Xc.shape[0]}"
+                      for (dt, cr), Xc in Xc_of.items()))
+    err_at = {}
+    t0 = time.perf_counter()
+    cases = [(cfg_name, dt, cr, bname, xname)
+             for dt in (f32, bf16) for cr in (CR, 6000)
+             for bname in ("r32", "r256", "piece")
+             for xname in ("vec", "mat4") for cfg_name in ("rbf",)]
+    cases += [(k, f32, CR, "r256", "vec") for k in ("linear", "polynomial")]
+    for kname, dt, cr, bname, xname in cases:
+        cfg = c.kernels[kname]
+        tol = TOL_KMV_F32 if dt == f32 else TOL_BF16
+        Xc = Xc_of[(dt, cr)]
+        B = (A_d[dt][:cr] if bname == "piece"
+             else c.B_of[bname].to(dt)).contiguous()
+        X = c.Xv if xname == "vec" else c.Xm
+        Xvc = _chunk(X.reshape(m, -1), cr)
+        got = kmv_stream_cuda(Xc, B, Xvc, cfg, m=m)
+        want = kmv_stream_plain(Xc, B, Xvc, cfg, m=m)
+        resident = kmv_cuda(A_d[dt], B, X, cfg).reshape(got.shape)
+        poly = kname == "polynomial"
+        for ref_name, ref in (("plain", want), ("resident kmv", resident)):
+            ratio, err = allclose_ratio(got, ref, tol, poly)
+            err_at[(kname, str(dt), cr, bname, xname, ref_name)] = err
+            if not ratio <= 1.0 or got.shape != ref.shape:
+                failures.append(f"kmv_stream {kname} {dt} cr={cr} {bname} "
+                                f"{xname} vs {ref_name}: max abs err "
+                                f"{err:.3e} ({ratio:.2f}x tolerance)")
+    sel = torch.cat([c.pick[:256], c.pick[:7]])       # with repeats
+    for dt in (f32, bf16):
+        got = gather_rows_cuda(Xc_of[(dt, CR)], sel)
+        if not torch.equal(got, A_d[dt][sel]):
+            failures.append(f"gather_rows {dt}: rows differ")
+    torch.cuda.synchronize()
+    print(f"[stream] {len(err_at)} kmv_stream comparisons and 2 gathers in "
+          f"{time.perf_counter() - t0:.1f} s; tolerances: f32 {TOL_KMV_F32}"
+          f", bf16 {TOL_BF16}, polynomial relative to max |output|; gather "
+          f"exact")
+    for key in (("rbf", "torch.float32", CR, "r32", "vec", "plain"),
+                ("rbf", "torch.float32", CR, "r32", "vec", "resident kmv"),
+                ("rbf", "torch.float32", CR, "piece", "mat4", "plain"),
+                ("rbf", "torch.float32", 6000, "r256", "vec",
+                 "resident kmv"),
+                ("rbf", "torch.bfloat16", CR, "r256", "mat4", "plain"),
+                ("polynomial", "torch.float32", CR, "r256", "vec",
+                 "plain")):
+        print(f"[stream] parity {' '.join(map(str, key))}: max abs err "
+              f"{err_at[key]:.3e}")
+    del A_d[bf16]
+    for key in [k for k in Xc_of if k != (f32, CR)]:
+        del Xc_of[key]
+    if failures:
+        return None
+
+    # ---- b-d. the streamed and Nystrom paths ------------------------------
+    for fn in (kmv_cuda, gram_cuda, kmv_stream_cuda, gather_rows_cuda):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    krr_s = KernelRidge(lam=1.0, kernel="rbf", device=dev,
+                        options=SolverOptions(
+                            method="sstep", s=8, b=32, stream=CR,
+                            record=True, check_every=16,
+                            max_iters=args.krr_iters, seed=args.seed))
+    r_ks = krr_s.fit(c.Ar.cpu(), c.yr, schedule=c.r_k.schedule)
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    a_bytes = c.Ar.numel() * c.Ar.element_size()
+    d_krr = float((r_ks.alpha - c.r_k.alpha).abs().max())
+    h_s, h_r = r_ks.history, c.r_k.history
+    d_hist = (float(abs(h_s - h_r).max() / abs(h_r).max())
+              if h_s.shape == h_r.shape else float("inf"))
+    print(f"[stream-krr] s=8 b=32 stream={CR}: {r_ks.iters_run} iters, "
+          f"{r_ks.rounds_run} rounds, {len(h_s)} streamed residual checks,"
+          f" {r_ks.wall_time_s:.2f} s (resident fit {c.r_k.wall_time_s:.2f}"
+          f" s)")
+    print(f"[stream-krr] max|a_stream - a_resident| = {d_krr:.3e} (bound "
+          f"{TOL_SSTEP_VS_CLASSICAL}); residual history max rel diff "
+          f"{d_hist:.3e} (bound {TOL_STREAM_METRIC}); last "
+          f"{float(h_s[-1]):.4e}")
+    print(f"[stream-krr] device memory growth during the fit: "
+          f"{growth / 1e6:.1f} MB (A itself: {a_bytes / 1e6:.1f} MB)")
+    if not d_krr <= TOL_SSTEP_VS_CLASSICAL:
+        failures.append(f"streamed vs resident K-RR alpha {d_krr:.3e}")
+    if not d_hist <= TOL_STREAM_METRIC:
+        failures.append(f"streamed vs resident K-RR residuals {d_hist:.3e}")
+    if not growth < a_bytes:
+        failures.append(f"the streamed K-RR fit grew device memory by "
+                        f"{growth} bytes, not below A's {a_bytes}")
+
+    rounds = -(-c.r_s.iters_run // 32)
+    svm_s = KernelSVM(C=1.0, kernel="rbf", device=dev,
+                      options=SolverOptions(
+                          method="sstep", s=32, stream=CR, record=True,
+                          check_every=rounds, max_iters=args.svm_iters,
+                          seed=args.seed))
+    r_ss = svm_s.fit(c.A.cpu(), c.y, schedule=c.r_s.schedule)
+    d_svm = float((r_ss.alpha - c.r_s.alpha).abs().max())
+    gap_s = float(r_ss.history[-1])
+    d_gap = abs(gap_s - c.gap) / max(1.0, abs(c.gap))
+    t0 = time.perf_counter()
+    pred = BatchedPredictor(svm_s.op_, svm_s.alpha_ * svm_s.y_, batch=1024,
+                            compact=True, stream=1024)
+    f_qs = pred(c.Aq.cpu())
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    f_ref = ksvm_predict(c.A, c.y, r_ss.alpha, c.Aq[:64], svm_s.cfg)
+    ratio, err = allclose_ratio(f_qs[:64], f_ref, TOL_ORACLE, True)
+    print(f"[stream-ksvm] s=32 stream={CR}: {r_ss.iters_run} iters, "
+          f"{r_ss.rounds_run} rounds, {r_ss.wall_time_s:.2f} s (resident "
+          f"{c.r_s.wall_time_s:.2f} s)")
+    print(f"[stream-ksvm] max|a_stream - a_resident| = {d_svm:.3e}; "
+          f"streamed duality gap {gap_s:.6e} vs resident {c.gap:.6e} "
+          f"(rel diff {d_gap:.3e})")
+    print(f"[stream-ksvm] predict {f_qs.shape[0]} host queries in chunks of"
+          f" 1024 on {pred.op.n_samples} support vectors: "
+          f"{t_pred * 1e3:.1f} ms; vs dense oracle max abs err {err:.3e}")
+    if not d_svm <= TOL_SSTEP_VS_CLASSICAL:
+        failures.append(f"streamed vs resident K-SVM alpha {d_svm:.3e}")
+    if not d_gap <= TOL_STREAM_METRIC:
+        failures.append(f"streamed vs resident duality gap {d_gap:.3e}")
+    if not (f_qs.shape == (c.q,) and bool(torch.isfinite(f_qs).all())
+            and ratio <= 1.0):
+        failures.append(f"streamed K-SVM predictions vs dense oracle "
+                        f"{err:.3e}")
+
+    nys = KernelRidge(lam=1.0, kernel="rbf", device=dev,
+                      options=SolverOptions(
+                          method="sstep", s=8, b=32, approx="nystrom",
+                          landmarks=1024, landmark_method="uniform",
+                          tol=1e-4, check_every=16, max_iters=args.krr_iters,
+                          seed=args.seed))
+    r_n = nys.fit(c.Ar, c.yr)
+    p_n = nys.predict(c.Arq)
+    torch.cuda.synchronize()
+    launches = {"kmv_stream": kmv_stream_cuda.launches,
+                "gather_rows": gather_rows_cuda.launches,
+                "gram": gram_cuda.launches, "kmv": kmv_cuda.launches}
+    print(f"[stream path] launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    if min(launches.values()) < 1:
+        failures.append(f"a kernel of the stream/Nystrom path was never "
+                        f"launched: {launches}")
+
+    # the factor product against the same build through the plain versions
+    fmap, jitter = nys.op_.fmap, 1e-6
+    L = fmap.landmarks
+    sidx = c.pick[:512]
+    A_s = c.Ar[sidx].contiguous()
+
+    def plain_map():
+        lam, V = torch.linalg.eigh(gram_plain(L, L, rbf))
+        T = (V * torch.clamp(lam, min=jitter) ** -0.5) @ V.T
+        return lam, T, gram_plain(A_s, L, rbf) @ T
+
+    lam, T_p, Phi_p = plain_map()
+    # a relative error d in K_LL moves K_LL^{-1} by up to kappa * d
+    kappa = float(lam.max() / torch.clamp(lam.min(), min=jitter))
+    tol_phi = TOL_NYSTROM_EPS_KAPPA * F32_EPS * kappa
+    Phi_k = nys.op_.Phi[sidx]
+    P_p = Phi_p @ Phi_p.T
+    ratio, err = allclose_ratio(Phi_k @ Phi_k.T, P_p, tol_phi, True)
+    # what a build with TF32 products would read against the same check
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        Phi_t = plain_map()[2]
+        P_t = Phi_t @ Phi_t.T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ratio_t, err_t = allclose_ratio(P_t, P_p, tol_phi, True)
+    w_p = (gram_plain(c.Ar, L, rbf) @ T_p).T @ r_n.alpha
+    f_ref = (gram_plain(c.Arq[:64].contiguous(), L, rbf) @ T_p) @ w_p
+    ratio_f, err_f = allclose_ratio(p_n[:64], f_ref / nys.cfg.lam, tol_phi,
+                                    True)
+    k_err = nystrom.nystrom_kernel_error(c.Ar[:2048].contiguous(), L, rbf)
+    hist = [float(v) for v in r_n.history]
+    print(f"[nystrom] l=1024 uniform: {r_n.iters_run} iters, "
+          f"{r_n.rounds_run} rounds, converged={r_n.converged}, "
+          f"{r_n.wall_time_s:.2f} s; residual history "
+          + " ".join(f"{v:.4e}" for v in hist))
+    print(f"[nystrom] K_LL eigenvalues {float(lam.min()):.4e} .. "
+          f"{float(lam.max()):.4e} (floor {jitter}), kappa {kappa:.1f}: "
+          f"Phi Phi^T on 512 rows vs plain build max abs err {err:.3e} "
+          f"({ratio:.3f} x tolerance {tol_phi:.2e} = "
+          f"{TOL_NYSTROM_EPS_KAPPA:g} x f32 eps x kappa); a TF32 build "
+          f"reads {err_t:.3e} ({ratio_t:.3f} x tolerance); predictions vs "
+          f"plain map max abs err {err_f:.3e}")
+    print(f"[nystrom] kernel error ||K - Phi Phi^T||_F / ||K||_F on 2048 "
+          f"rows: {k_err:.4e}")
+    if not ratio <= 1.0:
+        failures.append(f"Nystrom factor product vs plain build {err:.3e}")
+    if not (ratio_f <= 1.0 and p_n.shape == (c.q,)
+            and bool(torch.isfinite(p_n).all())):
+        failures.append(f"Nystrom predictions vs plain map {err_f:.3e}")
+    if not (hist and all(v == v for v in hist) and hist[-1] < hist[0]):
+        failures.append(f"Nystrom residual history does not fall: {hist}")
+    if not 0.0 <= k_err < 1.0:
+        failures.append(f"Nystrom kernel error {k_err}")
+    if failures:
+        return None
+
+    # ---- e. pipelined, copy-only and compute-only times -------------------
+    Xc = Xc_of[(f32, CR)]
+    nc = Xc.shape[0]
+    Xc_dev = Xc.to(dev)
+    slots = torch.empty((2, CR, n), device=dev)
+
+    def copy_only():                      # the library yardstick: the
+        for i in range(nc):               # same chunks, one stream
+            slots[i % 2].copy_(Xc[i], non_blocking=True)
+
+    Xvc = _chunk(c.Xv[:, None], CR)
+    x_bytes = Xc.numel() * Xc.element_size()       # copied, padded tail too
+    a_bytes = m * n * Xc.element_size()            # what K(A,B)^T X must move
+    copy_ms = time_cuda(copy_only, 10)
+    rows = {}
+    for label, B, iters in (("r32", c.B_of["r32"], 10),
+                            ("r256", c.B_of["r256"], 5),
+                            ("piece", c.A[:CR].contiguous(), 3)):
+        r = B.shape[0]
+        ms = time_cuda(lambda: kmv_stream_cuda(Xc, B, Xvc, rbf, m=m), iters)
+        comp = time_cuda(lambda: kmv_stream_resident(Xc_dev, B, Xvc, rbf,
+                                                     m=m), iters)
+        plain = time_cuda(lambda: kmv_stream_plain(Xc, B, Xvc, rbf, m=m),
+                          iters)
+        flops = 2 * m * r * n + 2 * m * r + 2 * (m + r) * n + 6 * m * r
+        t_link, t_ops = a_bytes / PCIE_H2D_BYTES_PER_S, flops / FP32_FLOP_PER_S
+        b_ms = max(t_link, t_ops) * 1e3
+        b_by = "bytes" if t_link >= t_ops else "operations"
+        rows[label] = dict(ms=ms, copy=copy_ms, comp=comp, plain=plain,
+                           bound=b_ms, by=b_by, r=r)
+        print(f"[stream-time] kmv_stream rbf ({m}, {r}, {n}) c=1 in {nc} "
+              f"chunks of {CR}: pipelined {ms:.4f} ms | copy-only "
+              f"{copy_ms:.4f} ms ({x_bytes / copy_ms / 1e6:.1f} GB/s) | "
+              f"compute-only {comp:.4f} ms | plain {plain:.4f} ms | bound "
+              f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it) | overlap: "
+              f"pipelined / max(copy, compute) = "
+              f"{ms / max(copy_ms, comp):.3f}")
+    for k in (32, 256):                   # the rows a round gathers
+        g_ms = time_cuda(lambda: gather_rows_cuda(Xc, c.pick[:k]), 20)
+        print(f"[stream-time] gather_rows of {k} sampled rows "
+              f"({k * n * 4 / 1e6:.2f} MB read from the mapped host "
+              f"buffer): {g_ms:.4f} ms")
+    t0 = time.perf_counter()
+    op = StreamingGramOperator.from_dense(c.A, rbf, CR, device=dev)
+    t1 = time.perf_counter()
+    op.scale_rows(c.y)
+    t2 = time.perf_counter()
+    print(f"[stream-time] streamed representation build, A (on the card "
+          f"here) to pinned chunks: {(t1 - t0) * 1e3:.1f} ms; K-SVM "
+          f"scale_rows on the host into new pinned chunks: "
+          f"{(t2 - t1) * 1e3:.1f} ms")
+    op_svm = svm_s.op_.scale_rows(c.y)
+    idx_s, valid_s = pad_rounds(r_ss.schedule, 32)
+    a_s, cfg_svm = r_ss.alpha, svm_s.cfg
+    sk, sl = phase_split(
+        lambda k: op_svm.round_data(idx_s[k], a_s),
+        lambda k, d: sstep_dcd_inner(d[0], d[1], a_s[idx_s[k]], idx_s[k],
+                                     cfg_svm.nu, cfg_svm.omega, 32,
+                                     valid_s[k]), min(16, len(idx_s)))
+    print(f"[rounds] streamed K-SVM s=32: kernel phase {sk:.3f} ms "
+          f"(gather, gram, kmv_stream), local phase {sl:.3f} ms, local "
+          f"share {sl / (sk + sl):.1%}")
+    del op_svm
+    full_s = time_cuda(lambda: op.full_matvec(c.Xv), 2, warmup=1)
+    full_r = time_cuda(lambda: kmv_cuda(c.A, c.A, c.Xv, rbf), 2, warmup=1)
+    full_c = time_cuda(lambda: [kmv_stream_resident(
+        Xc_dev, Xc_dev[j], Xvc, rbf, m=m) for j in range(nc)], 1, warmup=0)
+    full_copy = nc * copy_ms
+    print(f"[stream-time] full K @ x ({m}^2 x {n}) streamed: {full_s:.1f} ms"
+          f" | resident kmv {full_r:.1f} ms (streamed / resident "
+          f"{full_s / full_r:.3f}) | copy-only {full_copy:.1f} ms + "
+          f"compute-only {full_c:.1f} ms = {full_copy + full_c:.1f} ms")
+    print(f"[stream-time] launches on the streamed fits: kmv_stream "
+          f"{launches['kmv_stream']}, gather_rows {launches['gather_rows']}")
+    if not full_s < full_copy + full_c:
+        failures.append(f"the pipe does not overlap: streamed full KMV "
+                        f"{full_s:.1f} ms >= copy-only {full_copy:.1f} + "
+                        f"compute-only {full_c:.1f} ms")
+    del Xc_dev, slots
+    r32 = rows["r32"]
+    return {"name": "kmv_stream", "route": "cuda",
+            "source": "src/repro_torch/csrc/kmv_stream.cu",
+            "replaces": "src/repro/kernels/kmv_stream.py:111",
+            "shape": f"rbf (m, r, n, c) = ({m}, 32, {n}, 1) in {nc} pinned "
+                     f"chunks of {CR}",
+            "launches": launches["kmv_stream"],
+            "max_abs_err": err_at[("rbf", "torch.float32", CR, "r32", "vec",
+                                   "plain")],
+            "ms": r32["ms"], "plain_ms": r32["plain"],
+            "bound_ms": r32["bound"], "bound_by": r32["by"],
+            "library_ms": None, "copy_only_ms": r32["copy"],
+            "compute_only_ms": r32["comp"],
+            "gather_rows_launches": launches["gather_rows"]}
 
 
 def main(argv=None) -> int:
@@ -129,7 +510,8 @@ def main(argv=None) -> int:
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     info = build.build_all()
-    build.launcher("kmv"), build.launcher("gram")
+    for entry in build.SIGNATURES:
+        build.launcher(entry)
     print(f"[build] {time.perf_counter() - t0:.1f} s total")
     for name, rec in info.items():
         print(f"[build] {name}: {rec['seconds']:.1f} s -> {rec['path']}")
@@ -292,11 +674,26 @@ def main(argv=None) -> int:
     if not ratio_krr <= 1.0:
         failures.append(f"K-RR predictions vs dense oracle {err_krr:.3e}")
 
-    # ---- 5. counts, times, bounds -----------------------------------------
     print(f"[main path] launches: kmv {counts[0]}, gram {counts[1]}")
     if counts[0] < 1 or counts[1] < 1:
         failures.append(f"a kernel was never launched on the main path "
                         f"(kmv {counts[0]}, gram {counts[1]})")
+    if failures:
+        for f in failures:
+            print(f"[check] FAIL {f}")
+        return fail(f"{len(failures)} main-path check(s) failed")
+
+    # ---- 5. stream and Nystrom --------------------------------------------
+    stream_entry = stream_phase(SimpleNamespace(
+        dev=dev, m=m, n=n, q=q, kernels=kernels, A=A, y=y, Aq=Aq,
+        B_of=B_of, pick=pick, Xv=Xv, Xm=Xm, r_s=r_s, gap=gap, Ar=Ar, yr=yr,
+        Arq=Arq, r_k=r_k), args, failures)
+    if failures:
+        for f in failures:
+            print(f"[stream] FAIL {f}")
+        return fail(f"{len(failures)} stream/Nystrom check(s) failed")
+
+    # ---- 6. counts, times, bounds -----------------------------------------
 
     rbf, lin = kernels["rbf"], kernels["linear"]
     rows = []
@@ -350,20 +747,6 @@ def main(argv=None) -> int:
               f"library {lib_s}")
 
     # inner (local) phase share of an s-step round, synchronised per phase
-    def phase_split(kernel_phase, local_phase, rounds):
-        t_kernel = t_local = 0.0
-        for k in range(rounds):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            data = kernel_phase(k)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            local_phase(k, data)
-            torch.cuda.synchronize()
-            t_kernel += t1 - t0
-            t_local += time.perf_counter() - t1
-        return t_kernel / rounds * 1e3, t_local / rounds * 1e3
-
     op_svm = ExactGramOperator(A, rbf).scale_rows(y)
     idx_s, valid_s = pad_rounds(r_s.schedule, 32)
     a_s = r_s.alpha
@@ -414,6 +797,7 @@ def main(argv=None) -> int:
                                 "256x256")],
          "ms": g256[0], "plain_ms": g256[1], "bound_ms": g256[2],
          "bound_by": g256[3], "library_ms": g256[4]},
+        stream_entry,
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -77,8 +77,8 @@ def make_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: KRRConfig,
             uTa = U.T @ alpha
         else:                                 # slab-free operator path
             Gblk, uTa = op.round_data(idx, alpha)
-        G = inv_lam * Gblk + m * torch.eye(b, dtype=A.dtype,
-                                           device=A.device)
+        G = inv_lam * Gblk + m * torch.eye(b, dtype=alpha.dtype,
+                                           device=alpha.device)
         rhs = y[idx] - m * alpha[idx] - inv_lam * uTa
         return alpha.index_add(0, idx, solve_small(G, rhs))
 

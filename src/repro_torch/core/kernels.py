@@ -7,8 +7,11 @@ through an operator's three reductions (``matvec``, ``cross_block``,
 which launches the hand-written KMV / gram CUDA kernels for tensors on
 the card and the plain PyTorch versions for tensors on the CPU.
 
-Only the exact representation is ported here; the low-rank and
-streaming operators are later slices of the port.
+Three representations: ``ExactGramOperator`` (raw features on the
+device), ``LowRankGramOperator`` (a Nystrom factor ``Phi``, every
+reduction an O(l)-wide product) and ``StreamingGramOperator`` (raw
+features chunked in pinned host memory, streamed through the
+``kmv_stream`` pipeline).
 """
 from __future__ import annotations
 
@@ -272,3 +275,224 @@ class ExactGramOperator(GramOperator):
     def full_matvec(self, X):
         # K symmetric: K @ X == K(A, A)^T X — one full-width KMV
         return _ops().kmv(self.A, self.A, X, self.cfg).to(X.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class LowRankGramOperator(GramOperator):
+    """Low-rank representation ``K ~= Phi Phi^T`` (Nystrom): every
+    reduction is an O(l)-wide linear contraction over the factor
+    ``Phi`` (m, l); the raw features and the nonlinear epilogue are
+    never touched again.  ``fmap`` (a ``nystrom.NystromMap``) maps new
+    points into the same feature space and is needed only to serve."""
+
+    Phi: torch.Tensor
+    fmap: Optional[object] = None
+
+    def rows(self, idx):
+        return self.Phi[idx]
+
+    def matvec(self, idx, X):
+        return self.Phi[idx] @ (self.Phi.T @ X)
+
+    def cross_block(self, idx):
+        R = self.Phi[idx]
+        return R @ R.T
+
+    def diag(self, idx):
+        R = self.Phi[idx]
+        return torch.sum(R * R, dim=1)
+
+    @property
+    def n_samples(self) -> int:
+        return self.Phi.shape[0]
+
+    @property
+    def rank(self) -> int:
+        return self.Phi.shape[1]
+
+    @property
+    def feature_dim(self) -> Optional[int]:
+        # queries arrive in raw feature space and go through the map
+        if self.fmap is None:
+            return None
+        return self.fmap.landmarks.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.Phi.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.Phi.device
+
+    def scale_rows(self, y):
+        """``diag(y) Phi``: exactly ``diag(y) K~ diag(y)``, the textbook
+        K-SVM scaling.  For nonlinear kernels this differs from the exact
+        path's ``K(diag(y) A)`` convention, as in the JAX package."""
+        return dataclasses.replace(self, Phi=y[:, None] * self.Phi)
+
+    def take(self, idx):
+        return dataclasses.replace(self, Phi=self.Phi[idx])
+
+    def serve_weights(self, w):
+        return self.Phi.T @ w                     # (l,): the whole model
+
+    def serve_block(self, Xq, sw):
+        if self.fmap is None:
+            raise ValueError(
+                "LowRankGramOperator has no feature map (fmap=None): "
+                "serving new points needs one — build the operator with "
+                "repro_torch.core.nystrom.fit_nystrom or the facade "
+                "(SolverOptions(approx='nystrom'))")
+        return self.fmap(Xq) @ sw                 # O(l) per query
+
+    def full_matvec(self, X):
+        return self.Phi @ (self.Phi.T @ X)        # O(m l), exact in K~
+
+
+def _chunk(X: torch.Tensor, chunk_rows: int,
+           pin: bool = False) -> torch.Tensor:
+    """(m, ...) -> (nc, chunk_rows, ...) with a zero-padded tail chunk,
+    in one fresh buffer on X's device (page-locked when ``pin``).
+    Chunks are contiguous, so row i of X is row i of the flattened
+    result."""
+    m = X.shape[0]
+    nc = -(-m // chunk_rows)
+    out = torch.empty((nc * chunk_rows,) + tuple(X.shape[1:]),
+                      dtype=X.dtype, device=X.device, pin_memory=pin)
+    out[:m].copy_(X)
+    out[m:].zero_()
+    return out.view((nc, chunk_rows) + tuple(X.shape[1:]))
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingGramOperator(GramOperator):
+    """Out-of-core exact-kernel representation: the data lives on the
+    HOST, chunked as ``Xc: (n_chunks, chunk_rows, n)`` with a
+    zero-padded tail.  When the contractions run on the card
+    (``compute_device`` is CUDA), ``Xc`` is page-locked and is never
+    copied to the device whole: every reduction streams it through the
+    ``kmv_stream`` pipeline (pinned host -> two device slots, copies on
+    a side stream overlapping the contraction), so the device holds two
+    chunks, the right-hand side and the sampled rows, never A.
+
+      ``matvec``/``serve_block``/``full_matvec``  one streamed KMV each
+          (``full_matvec``: one per chunk of output rows);
+      ``cross_block``/``diag``/``rows``  gather only the sampled rows
+          from host memory: on the card a small kernel reads them
+          straight from the mapped pinned buffer at device-side indices,
+          so a round never waits on the host for its schedule.
+
+    ``scale_rows`` and ``take`` build new pinned chunked buffers on the
+    host.  With ``compute_device`` the CPU, everything is ordinary CPU
+    tensors and the plain versions run.
+    """
+
+    Xc: torch.Tensor                       # (nc, chunk_rows, n), host
+    cfg: KernelConfig
+    m: int                                 # true rows
+    compute_device: torch.device
+
+    @classmethod
+    def from_dense(cls, A: torch.Tensor, cfg: KernelConfig,
+                   chunk_rows: int, device=None
+                   ) -> "StreamingGramOperator":
+        """Chunk A (any device; it is read once, to the host) for
+        streamed contractions on ``device`` (default: the CPU)."""
+        if not isinstance(chunk_rows, int) or isinstance(chunk_rows, bool) \
+                or chunk_rows < 1:
+            raise ValueError(f"chunk_rows must be a positive int, got "
+                             f"{chunk_rows!r}")
+        dev = torch.device(device if device is not None else "cpu")
+        chunk_rows = min(chunk_rows, A.shape[0])
+        Xc = _chunk(A.cpu(), chunk_rows, pin=dev.type == "cuda")
+        return cls(Xc, cfg, A.shape[0], dev)
+
+    @property
+    def chunk_rows(self) -> int:
+        return self.Xc.shape[1]
+
+    @property
+    def n_chunks(self) -> int:
+        return self.Xc.shape[0]
+
+    @property
+    def _pin(self) -> bool:
+        return self.compute_device.type == "cuda"
+
+    def rows(self, idx):
+        return _ops().gather_rows(self.Xc, idx.to(self.compute_device))
+
+    def _stream_kmv(self, B: torch.Tensor, X: torch.Tensor
+                    ) -> torch.Tensor:
+        """``K(A, B)^T X`` streamed over the chunks."""
+        vec = X.ndim == 1
+        Xvc = _chunk(X.reshape(X.shape[0], -1).to(torch.float32),
+                     self.chunk_rows)                  # (nc, cr, c)
+        out = _ops().kmv_stream(self.Xc, B, Xvc, self.cfg,
+                                m=self.m).to(X.dtype)
+        return out[:, 0] if vec else out
+
+    def matvec(self, idx, X):
+        return self._stream_kmv(self.rows(idx), X)
+
+    def cross_block(self, idx):
+        B = self.rows(idx)
+        return _ops().gram(B, B, self.cfg).to(self.dtype)
+
+    def diag(self, idx):
+        return kernel_diag(self.rows(idx), self.cfg)
+
+    def round_data(self, idx, X):
+        # one gather of the sampled rows serves both launches
+        B = self.rows(idx)
+        return (_ops().gram(B, B, self.cfg).to(self.dtype),
+                self._stream_kmv(B, X))
+
+    @property
+    def n_samples(self) -> int:
+        return self.m
+
+    @property
+    def feature_dim(self) -> int:
+        return self.Xc.shape[2]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.Xc.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.compute_device
+
+    def scale_rows(self, y):
+        """Operator over ``diag(y) A`` (the exact path's K-SVM
+        convention), computed on the host into a new chunked buffer; the
+        padded tail stays zero."""
+        dtype = torch.promote_types(y.dtype, self.dtype)   # as y * A
+        yc = _chunk(y.to("cpu")[:, None], self.chunk_rows)
+        out = torch.empty(self.Xc.shape, dtype=dtype, pin_memory=self._pin)
+        torch.mul(yc, self.Xc, out=out)
+        return dataclasses.replace(self, Xc=out)
+
+    def take(self, idx):
+        """Support-vector compaction (host side): gather the kept rows
+        and re-chunk them into a new buffer."""
+        kept = self.Xc.view(-1, self.Xc.shape[2])[idx.cpu()]
+        cr = min(self.chunk_rows, kept.shape[0])
+        return dataclasses.replace(self, Xc=_chunk(kept, cr, self._pin),
+                                   m=kept.shape[0])
+
+    def serve_block(self, Xq, sw):
+        # K(Xq, A) @ sw == K(A, Xq)^T sw: the queries are the sampled
+        # rows of one streamed KMV, the same pipe as training
+        return self._stream_kmv(Xq, sw)
+
+    def full_matvec(self, X):
+        """``K @ X``, chunk by chunk: output piece j is ``K(A,
+        chunk_j)^T X``, one streamed KMV with chunk j (copied to the
+        device) as the sampled rows."""
+        pieces = [self._stream_kmv(
+            self.Xc[j].to(self.compute_device, non_blocking=True), X)
+            for j in range(self.n_chunks)]
+        return torch.cat(pieces)[:self.m]

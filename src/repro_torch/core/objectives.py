@@ -68,6 +68,31 @@ def ksvm_duality_gap(A, y, alpha, cfg: SVMConfig):
                             cfg.loss)
 
 
+def ksvm_duality_gap_lowrank(Phi, y, alpha, cfg: SVMConfig):
+    """Duality gap under the factored kernel ``K~ = Phi Phi^T``: the
+    shared ``Qa`` is the O(m l) product ``y * (Phi (Phi^T (y alpha)))``
+    — the low-rank facade's tolerance metric."""
+    Qa = y * (Phi @ (Phi.T @ (y * alpha)))
+    return ksvm_gap_from_Qa(Qa, alpha, cfg.C, cfg.loss)
+
+
+def ksvm_duality_gap_op(op, y, alpha, cfg: SVMConfig):
+    """The duality gap with ``Qa = y * (K @ (y * alpha))`` read through an
+    operator's ``full_matvec`` (over the unscaled data): for a streamed
+    operator one streamed full KMV, where ``ksvm_duality_gap`` reads a
+    device-resident A."""
+    Qa = y * op.full_matvec(y * alpha)
+    return ksvm_gap_from_Qa(Qa, alpha, cfg.C, cfg.loss)
+
+
+def krr_rel_residual_op(op, y, alpha, cfg: KRRConfig):
+    """``krr_rel_residual`` with ``K @ alpha`` read through an operator's
+    ``full_matvec`` (the streamed fit's metric)."""
+    m = op.n_samples
+    r = y - (op.full_matvec(alpha) / cfg.lam + m * alpha)
+    return torch.linalg.norm(r) / torch.linalg.norm(y)
+
+
 def krr_dual_objective(A, y, alpha, cfg: KRRConfig):
     """Paper eq. (2): 1/2 alpha^T ((1/lam) K + m I) alpha - alpha^T y."""
     m = A.shape[0]

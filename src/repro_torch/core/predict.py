@@ -10,9 +10,14 @@ to their support vectors first (``compact_support``).
 Queries are cut into power-of-two blocks (capped at ``batch``), as in
 the JAX package: a stream of varying query counts then reaches the
 kernel with at most log2(batch) distinct block shapes.  ``w`` may be F
-stacked models (m, F), served by one block call per bucket.
+stacked models (m, F), served by one block call per bucket.  With
+``stream=k`` the queries may be a host tensor larger than device memory:
+k rows move to the device at a time, and each chunk's scores return to
+the host before the next chunk starts.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -29,6 +34,11 @@ def validate_queries(op: GramOperator, X, name: str = "A_test"
     if X.ndim != 2:
         raise ValueError(f"{name} must be 2-D (queries x features), got "
                          f"shape {tuple(X.shape)}")
+    if op.feature_dim is None:
+        raise ValueError(
+            f"{name}: this operator cannot serve new points (a low-rank "
+            f"factor without a feature map — build it with "
+            f"repro_torch.core.nystrom.fit_nystrom or the facade)")
     if X.shape[1] != op.feature_dim:
         raise ValueError(
             f"{name} has {X.shape[1]} features but the fitted operator "
@@ -70,14 +80,22 @@ class BatchedPredictor:
 
     def __init__(self, op: GramOperator, w: torch.Tensor, *,
                  batch: int = 1024, scale: float = 1.0,
-                 compact: bool = False, compact_tol: float = 0.0):
+                 compact: bool = False, compact_tol: float = 0.0,
+                 stream: Optional[int] = None):
         if not isinstance(batch, int) or batch < 1:
             raise ValueError(f"batch must be a positive int, got {batch!r}")
+        if stream is not None and (not isinstance(stream, int)
+                                   or isinstance(stream, bool)
+                                   or stream < 1):
+            raise ValueError(f"stream must be None or a positive int "
+                             f"(query rows per host chunk), got "
+                             f"{stream!r}")
         if compact:
             op, w = compact_support(op, w, tol=compact_tol)
         self.op = op
         self.batch = batch
         self.scale = scale
+        self.stream = stream
         self.sw = op.serve_weights(w)
 
     def block_shape(self, q: int) -> int:
@@ -87,11 +105,29 @@ class BatchedPredictor:
             return self.batch
         return min(self.batch, max(8, 1 << (q - 1).bit_length()))
 
-    def __call__(self, A_test: torch.Tensor) -> torch.Tensor:
+    def __call__(self, A_test) -> torch.Tensor:
+        A_test = as_tensor(A_test)
         q = A_test.shape[0]
         if q == 0:
             return torch.zeros((0,) + tuple(self.sw.shape[1:]),
                                dtype=self.sw.dtype, device=self.sw.device)
+        if self.stream is not None and q > self.stream:
+            # out-of-core queries: only ``stream`` rows are on the device
+            # at a time, and their scores are back on the host before
+            # the next chunk is touched
+            dev = self.sw.device
+            parts = [self._serve_chunk(
+                A_test[lo:lo + self.stream].to(dev)).cpu()
+                for lo in range(0, q, self.stream)]
+            f = torch.cat(parts).to(dev)
+        else:
+            f = self._serve_chunk(A_test.to(self.sw.device))
+        return f * self.scale if self.scale != 1.0 else f
+
+    def _serve_chunk(self, A_test: torch.Tensor) -> torch.Tensor:
+        """The bucketed block loop over one device-resident query chunk,
+        unscaled."""
+        q = A_test.shape[0]
         out, lo = [], 0
         while lo < q:
             qb = self.block_shape(q - lo)
@@ -101,8 +137,7 @@ class BatchedPredictor:
                                                   Xq.shape[1]))])
             out.append(self.op.serve_block(Xq.contiguous(), self.sw))
             lo += qb
-        f = (torch.cat(out) if len(out) > 1 else out[0])[:q]
-        return f * self.scale if self.scale != 1.0 else f
+        return (torch.cat(out) if len(out) > 1 else out[0])[:q]
 
 
 def batched_predict(op: GramOperator, w: torch.Tensor, A_test, *,

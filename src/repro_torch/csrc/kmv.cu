@@ -24,71 +24,7 @@
 // kernel sums the slices in a fixed order, so results repeat from run to
 // run (no atomics).  Rows at or past m are masked in the kernel and
 // contribute exactly zero (K(0, b) != 0 for rbf and polynomial).
-#include "kernel_tile.cuh"
-
-namespace rt {
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    kmv_partial_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                       const float* __restrict__ X, float* __restrict__ ws,
-                       int m, int r, int n, int c, int rows_per_split,
-                       KernelParams p) {
-  __shared__ TileSmem sm;
-  __shared__ float Kt[BM][BR + 1];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % COL_STRIDE;
-  const int ty = tid / COL_STRIDE;
-  const int col0 = blockIdx.x * BR;
-  const int m_begin = blockIdx.y * rows_per_split;
-  const int m_end = min(m, m_begin + rows_per_split);
-  const int npairs = min(BR, r - col0) * c;
-  // this block's (BR x c) slice of the workspace; pair q = j*c + cc is
-  // always owned by the same thread, so the read-modify-writes below
-  // need no synchronisation
-  float* wsb = ws + (size_t)blockIdx.y * r * c + (size_t)col0 * c;
-  for (int q = tid; q < npairs; q += THREADS) wsb[q] = 0.0f;
-
-  for (int i0 = m_begin; i0 < m_end; i0 += BM) {
-    float acc[TM][TN];
-    tile_dots<T>(A, B, i0, m_end, col0, r, n, p.kind == KERNEL_RBF, sm, acc);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = ty + ROW_STRIDE * i;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = tx + COL_STRIDE * j;
-        Kt[row][col] = (i0 + row < m_end)
-                           ? epilogue(acc[i][j], sm.rs[row], sm.cs[col], p)
-                           : 0.0f;
-      }
-    }
-    __syncthreads();
-    const int nrows = min(BM, m_end - i0);
-    const float* Xt = X + (size_t)i0 * c;
-    for (int q = tid; q < npairs; q += THREADS) {
-      const int j = q / c, cc = q % c;
-      float s = 0.0f;
-      for (int rr = 0; rr < nrows; ++rr) s = fmaf(Kt[rr][j], Xt[(size_t)rr * c + cc], s);
-      wsb[q] += s;
-    }
-    __syncthreads();
-  }
-}
-
-// out[e] = sum over splits of ws[split, e], in split order.
-__global__ void kmv_reduce_kernel(const float* __restrict__ ws,
-                                  float* __restrict__ out, int splits,
-                                  long long rc) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= rc) return;
-  float s = 0.0f;
-  for (int k = 0; k < splits; ++k) s += ws[(size_t)k * rc + e];
-  out[e] = s;
-}
-
-}  // namespace rt
+#include "kmv_partial.cuh"
 
 // A (m, n), B (r, n): row-major, dtype f32 (0) or bf16 (1), the same for
 // both.  X (m, c) row-major f32.  ws (splits, r, c) f32 scratch, out (r, c)
@@ -107,12 +43,12 @@ extern "C" int kmv_launch(const void* A, const void* B, const void* X,
     kmv_partial_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(A),
         static_cast<const __nv_bfloat16*>(B), static_cast<const float*>(X),
-        static_cast<float*>(ws), m, r, n, c, rows_per_split, p);
+        static_cast<float*>(ws), m, r, n, c, rows_per_split, 0, p);
   } else {
     kmv_partial_kernel<float><<<grid, THREADS, 0, st>>>(
         static_cast<const float*>(A), static_cast<const float*>(B),
         static_cast<const float*>(X), static_cast<float*>(ws), m, r, n, c,
-        rows_per_split, p);
+        rows_per_split, 0, p);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

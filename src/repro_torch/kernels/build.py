@@ -26,10 +26,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry point and argument types of each library (see csrc/*.cu)
+# each C entry point: its library (csrc/<library>.cu), symbol and
+# argument types
 SIGNATURES = {
-    "kmv": ("kmv_launch", [_P] * 5 + [_I] * 9 + [_F, _F, _P]),
-    "gram": ("gram_launch", [_P] * 3 + [_I] * 7 + [_F, _F, _P]),
+    "kmv": ("kmv", "kmv_launch", [_P] * 5 + [_I] * 9 + [_F, _F, _P]),
+    "gram": ("gram", "gram_launch", [_P] * 3 + [_I] * 7 + [_F, _F, _P]),
+    "kmv_stream": ("kmv_stream", "kmv_stream_launch",
+                   [_P] * 7 + [_I] * 12 + [_F, _F, _P, _P]),
+    "gather_rows": ("kmv_stream", "gather_rows_launch",
+                    [_P] * 3 + [_I] * 4 + [_P]),
 }
 
 _LAUNCHERS: Dict[str, object] = {}
@@ -101,13 +106,13 @@ def build_all() -> Dict[str, dict]:
 
 
 def launcher(name: str):
-    """The C entry point of ``lib<name>.so``, built on first use, with
-    its ctypes argument types set (pointers and the stream as
-    ``c_void_p``, so they are not cut to 32 bits)."""
+    """The C entry point ``name`` of ``SIGNATURES``, its library built on
+    first use, with its ctypes argument types set (pointers and streams
+    as ``c_void_p``, so they are not cut to 32 bits)."""
     fn = _LAUNCHERS.get(name)
     if fn is None:
-        lib = ctypes.CDLL(str(build_all()[name]["path"]))
-        symbol, argtypes = SIGNATURES[name]
+        library, symbol, argtypes = SIGNATURES[name]
+        lib = ctypes.CDLL(str(build_all()[library]["path"]))
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

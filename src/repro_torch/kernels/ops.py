@@ -7,11 +7,15 @@ no fallback from one to the other.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.kernels import KernelConfig
 from .gram import gram_cuda, gram_plain
 from .kmv import kmv_cuda, kmv_plain
+from .kmv_stream import (gather_rows_cuda, gather_rows_plain,
+                         kmv_stream_cuda, kmv_stream_plain)
 
 
 def _on_card(A: torch.Tensor, name: str) -> bool:
@@ -35,6 +39,45 @@ def gram(A: torch.Tensor, B: torch.Tensor, cfg: KernelConfig,
     """``K(A, B) = epilogue(A B^T)``: (m, r)."""
     fn = gram_cuda if _on_card(A, "gram") else gram_plain
     return fn(A, B, cfg, out_dtype)
+
+
+def _stream_on_card(Xc: torch.Tensor, B: torch.Tensor, name: str) -> bool:
+    """The streamed kernels run on the card when the data is in pinned
+    host memory and the device-side operand on the card, and plainly
+    when everything is on the CPU; anything else raises — in particular
+    pageable host data on the card path, whose copies would serialise
+    the pipe."""
+    if Xc.device.type != "cpu":
+        raise ValueError(f"{name}: the chunked data must live in host "
+                         f"memory, got {Xc.device}")
+    if B.device.type == "cuda":
+        if not Xc.is_pinned():
+            raise ValueError(f"{name}: the chunked data must be pinned "
+                             f"(page-locked) host memory on the card path")
+        return True
+    if B.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for device {B.device}")
+
+
+def kmv_stream(Xc: torch.Tensor, B: torch.Tensor, Xvc: torch.Tensor,
+               cfg: KernelConfig, out_dtype: torch.dtype = torch.float32,
+               m: Optional[int] = None) -> torch.Tensor:
+    """``K(A, B)^T X`` over host-resident chunks ``Xc (nc, cr, n)`` with
+    the right-hand side chunked alike, ``Xvc (nc, cr, c)``, on B's
+    device; rows at or past ``m`` are left out.  (r, c)."""
+    on_card = _stream_on_card(Xc, B, "kmv_stream")
+    if not on_card and Xvc.device.type != "cpu":
+        raise ValueError(f"kmv_stream: Xvc on {Xvc.device} but B on the "
+                         f"CPU")
+    fn = kmv_stream_cuda if on_card else kmv_stream_plain
+    return fn(Xc, B, Xvc, cfg, out_dtype, m=m)
+
+
+def gather_rows(Xc: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of host-resident chunks ``Xc``, on idx's device."""
+    on_card = _stream_on_card(Xc, idx, "gather_rows")
+    return (gather_rows_cuda if on_card else gather_rows_plain)(Xc, idx)
 
 
 def make_solver_gram_fn():

@@ -6,6 +6,10 @@ unless ``--device cpu`` is given.
         --dataset duke --s 32 --H 2048
     PYTHONPATH=src python -m repro_torch.launch.solve --problem krr \
         --dataset abalone --b 64 --s 16 --H 1024 --tol 1e-4
+    # A in pinned host memory, streamed in chunks of 512 rows
+    ... --problem krr --dataset abalone --b 8 --s 8 --stream 512
+    # Nystrom low-rank representation with 256 landmarks
+    ... --problem krr --dataset abalone --b 8 --s 8 --landmarks 256
 
 Solves K-SVM (DCD / s-step DCD) or K-RR (BDCD / s-step BDCD) on a
 synthetic dataset at the paper's Table 2 scales and reports the duality
@@ -41,6 +45,13 @@ def main(argv=None):
     ap.add_argument("--tol", type=float, default=0.0,
                     help="early-stop tolerance (0 = run the full budget)")
     ap.add_argument("--seed", type=int, default=0)
+    rep = ap.add_mutually_exclusive_group()
+    rep.add_argument("--stream", type=int, default=None,
+                     help="stream A from pinned host memory in chunks of "
+                          "this many rows")
+    rep.add_argument("--landmarks", type=int, default=None,
+                     help="Nystrom representation with this many "
+                          "landmarks")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
@@ -51,14 +62,17 @@ def main(argv=None):
                           torch.Generator().manual_seed(args.seed),
                           device=device)
     m = A.shape[0]
+    rep = (dict(stream=args.stream) if args.stream else
+           dict(approx="nystrom", landmarks=args.landmarks)
+           if args.landmarks else {})
     print(f"{args.problem} on {args.dataset}: m={m} n={A.shape[1]} "
           f"kernel={args.kernel} H={args.H} s={args.s} tol={args.tol} "
-          f"device={device}")
+          f"device={device} {rep or 'exact'}")
 
     def opts(method, s=1):
         return SolverOptions(method=method, s=s, b=max(args.b, 1),
                              tol=args.tol, max_iters=args.H,
-                             seed=args.seed + 1)
+                             seed=args.seed + 1, **rep)
 
     if args.problem == "ksvm":
         est = KernelSVM(C=args.C, loss=args.loss, kernel=kern,
@@ -67,6 +81,7 @@ def main(argv=None):
         ref = KernelSVM(C=args.C, loss=args.loss, kernel=kern,
                         options=opts("classical"), device=device)
         r_ref = ref.fit(A, y, schedule=r_s.schedule)
+        # the exact-kernel gap (for a Nystrom fit: of the exact problem)
         gap = float(ksvm_duality_gap(A, y, r_s.alpha, est.cfg))
         acc = float((est.predict(A) == y).float().mean())
         print(f"DCD {r_ref.wall_time_s:.2f}s | s-step "

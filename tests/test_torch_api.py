@@ -164,8 +164,8 @@ def test_convert_carries_a_jax_fit_across():
         np.asarray(jreg.y_), np.asarray(jreg.alpha_), device="cpu")
     np.testing.assert_allclose(reg.predict(Q).numpy(),
                                np.asarray(jreg.predict(Q)), **TOL)
-    with pytest.raises(ValueError, match="A4"):
-        convert.solver_options({"approx": "nystrom"})
+    with pytest.raises(ValueError, match="A7"):
+        convert.solver_options({"guard": True})
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
