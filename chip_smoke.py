@@ -37,7 +37,24 @@ Phases (each one fails the run with a non-zero exit):
           KMV, the streamed full KMV against the resident one
   6. report   launch counts of phases 3-4, kernel times against their
               plain versions, bounds and library calls, the inner-phase
-              share of a round, the card's name and power limit
+              share of a round
+  7. LM       Qwen3-1.7B at its published widths (28 layers, d_model
+              2048, 16 heads / 8 kv x 128, vocab 151 936), bf16,
+              attn_impl="flash", random f32 weights from --seed:
+       a. the rmsnorm and flash_fwd kernels against their plain versions
+          at the path's shapes (and ragged, f32 and hd != hdv cases), and
+          what the flash check reads for wrong variants (scale 5% off, a
+          k tile skipped: both must fail it; p rounded to bf16: shown)
+       b. prefill: forward on 4 prompts of 2048 tokens; finite logits,
+          113 rmsnorm and 28 flash launches, held against the same
+          forward with naive attention (bf16 and f32; TF32 attention
+          must fail the f32 bound); time, tokens/s, device-memory peak
+       c. 64 teacher-forced decode steps against the prefill logits
+       d. ServingEngine(n_slots=4, max_seq=256) answers 8 requests (16-64
+          prompt tokens, 32 new each, some arriving mid-flight), each
+          held against the same request decoded alone by greedy_generate
+       e. kernel times against bounds, plain versions, F.rms_norm and
+          scaled_dot_product_attention; the card's name and power limit
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
@@ -59,6 +76,8 @@ from types import SimpleNamespace
 # tensor cores, the rate the kernels' f32 FMAs run at.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# bf16 dense tensor-core rate: the bound of a bf16 kernel's operations.
+BF16_FLOP_PER_S = 989e12
 # Host-to-device link of the streamed KMV: PCIe Gen5 x16, 128 GB/s both
 # directions together in the H100 data sheet, so 64 GB/s one way (32 GT/s
 # x 16 lanes, 128b/130b encoding: 63 GB/s of payload at best).
@@ -89,6 +108,40 @@ TOL_STREAM_METRIC = 1e-4
 # K_LL by up to kappa.
 TOL_NYSTROM_EPS_KAPPA = 8.0
 F32_EPS = 2.0 ** -23
+# Phase 7 (the LM at Qwen3-1.7B width): B prompts of S tokens prefill, a
+# teacher-forced decode of the first LM_DECODE_PROMPT of them, and an
+# engine answering LM_REQUESTS requests of LM_NEW_TOKENS new tokens.
+LM_BATCH, LM_SEQ = 4, 2048
+LM_DECODE_PROMPT = 64
+LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_SEQ = 8, 32, 256
+LM_PROFILE_STEPS = 8            # decode steps timed and profiled
+TOL_RMSNORM_F32 = 1e-5          # tests/test_pallas_rmsnorm.py
+TOL_FLASH_F32_R, TOL_FLASH_F32_A = 2e-4, 2e-5   # tests/test_flash_attention.py
+# bf16 flash: the kernel and flash_fwd_plain widen the same bf16 q/k/v
+# and compute in f32, so o differs only in its final bf16 rounding (at
+# most one ulp, 2^-7 of |o|) and lse, f32 on both sides, is held to the
+# f32 limits.  (The JAX test's bf16 3e-2 covers its Pallas kernel
+# rounding p to bf16, which this kernel does not do.)
+TOL_FLASH_BF16_R, TOL_FLASH_BF16_A = 1e-2, 1e-3
+# Relative Frobenius error of whole-model logits between two routes on
+# the same weights.  bf16 (2^-8 relative) rounds the activations at every
+# product, and the two routes round in different places (naive attention
+# rounds the scores and probabilities to bf16, the flash kernel keeps
+# them in f32; decode rounds each step's cache read and product): a
+# relative error of a few 1e-3 per layer, summed along the residual
+# stream of 28 layers, stays within the bf16 bound of the JAX model tests
+# (tests/test_flash_attention.py, tests/test_models_smoke.py: 5e-2).  In
+# f32 the routes differ only in summation order: the flash and naive
+# logits read 2.97e-6 on the H100; attention with TF32 products reads far
+# above TOL_LM_F32, which phase 7b checks on every run.
+TOL_LM_BF16 = 5e-2
+TOL_LM_F32 = 1e-5
+
+
+def lm_norms(cfg) -> int:
+    """RMSNorm launches in one forward or decode step: norm1 and norm2 of
+    every layer, q_norm and k_norm with qk-norm, and final_norm."""
+    return (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
 
 
 def fail(msg: str) -> int:
@@ -122,8 +175,9 @@ def time_cuda(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float,
+             flop_rate: float = FP32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -471,6 +525,479 @@ def stream_phase(c, args, failures):
             "gather_rows_launches": launches["gather_rows"]}
 
 
+
+def device_profile(run, calls: int):
+    """Device-busy ms per call (the sum of the kernel durations that
+    torch.profiler records), kernel launches per call, and the five
+    kernels with the most device time, as (name, ms per call, launches
+    per call), over ``calls`` calls of ``run``; (None, 0, []) where the
+    profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    launches = sum(e.count for e in kernels) / calls
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return ((busy if busy > 0 else None), launches,
+            [(e.key[:80], e.self_device_time_total / 1e3 / calls,
+              e.count / calls) for e in top])
+
+
+def rel_fro(got, want) -> float:
+    """||got - want||_F / ||want||_F in f64."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def flash_err(got, want, what: str, dtype) -> tuple:
+    """(max abs err, max of err / tolerance) of a flash output against its
+    plain version: bf16 o at TOL_FLASH_BF16_*, f32 o and every lse at the
+    f32 limits."""
+    import torch
+    rtol, atol = ((TOL_FLASH_BF16_R, TOL_FLASH_BF16_A)
+                  if what == "o" and dtype == torch.bfloat16
+                  else (TOL_FLASH_F32_R, TOL_FLASH_F32_A))
+    got, want = got.double(), want.double()
+    e = (got - want).abs()
+    return float(e.max()), float((e / (atol + rtol * want.abs())).max())
+
+
+def flash_variant(q, k, v, skip=None, p_bf16=False):
+    """A wrong causal flash forward, ``(o, lse)``, for phase 7a's check of
+    its own tolerance: keys ``skip = (lo, hi)`` left out of every row at
+    or past ``hi`` (a k tile skipped), or p rounded to bf16 before the PV
+    product."""
+    import torch
+    from repro_torch.kernels.ref import attention_scores
+    s = attention_scores(q, k, True)
+    if skip is not None:
+        lo, hi = skip
+        rows = torch.arange(s.shape[1], device=s.device)[:, None]
+        s[:, :, lo:hi] = torch.where(rows >= hi, -1e30, s[:, :, lo:hi])
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    if p_bf16:
+        p = p.to(torch.bfloat16).float()
+    o = torch.einsum("bqk,bkd->bqd", p, v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def lm_phase(dev, args, failures):
+    """Phase 7 (module docstring): the LM's prefill and serving at full
+    Qwen3-1.7B width.  Returns the ``rmsnorm`` and ``flash_fwd`` entries
+    of the kernels record."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_fwd_cuda,
+                                                     flash_fwd_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+    from repro_torch.models import (decode_step, forward, init_decode_state,
+                                    init_params)
+    from repro_torch.train import Request, ServingEngine, greedy_generate
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cfg = dataclasses.replace(get_config("qwen3_1p7b"), attn_impl="flash")
+    B, S, H, hd = LM_BATCH, LM_SEQ, cfg.n_heads, cfg.head_dim
+    D, V = cfg.d_model, cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    mib = 2.0 ** 20
+
+    def counts():
+        return {"rmsnorm": rmsnorm_cuda.launches,
+                "flash_fwd": flash_fwd_cuda.launches}
+
+    def reset():
+        rmsnorm_cuda.launches = flash_fwd_cuda.launches = 0
+
+    # ---- a. parity of the kernels with their plain versions ---------------
+    err_at = {}
+    for n_rows, d in ((B * S, D), (B * S * H, hd), (B * S - 5, D),
+                      (1001, 384)):
+        x32 = torch.randn((n_rows, d), generator=gen, device=dev)
+        scale = torch.randn((d,), generator=gen, device=dev)
+        for dt, tol in ((f32, TOL_RMSNORM_F32), (bf16, TOL_BF16)):
+            x = x32.to(dt)
+            got, want = rmsnorm_cuda(x, scale), rmsnorm_plain(x, scale)
+            ratio, err = allclose_ratio(got.float(), want.float(), tol)
+            err_at[("rmsnorm", n_rows, d, str(dt))] = err
+            if not (ratio <= 1.0 and got.dtype == dt
+                    and got.shape == x.shape):
+                failures.append(f"rmsnorm ({n_rows}, {d}) {dt}: max abs err "
+                                f"{err:.3e} ({ratio:.2f}x tolerance)")
+    flash_cases = [((B * H, S, S, hd, hd), bf16, True),
+                   ((B * H, S, S, hd, hd), bf16, False),
+                   ((B * H, S, S, hd, hd), f32, True),
+                   ((16, 512, 512, 64, hd), bf16, True),
+                   ((8, 100, 100, hd, 32), f32, False)]
+    for (BH, s_q, s_k, d_qk, d_v), dt, causal in flash_cases:
+        q = torch.randn((BH, s_q, d_qk), generator=gen, device=dev).to(dt)
+        k = torch.randn((BH, s_k, d_qk), generator=gen, device=dev).to(dt)
+        v = torch.randn((BH, s_k, d_v), generator=gen, device=dev).to(dt)
+        o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+        o_p, lse_p = flash_fwd_plain(q, k, v, causal=causal)
+        for what, got, want in (("o", o, o_p), ("lse", lse, lse_p)):
+            err, ratio = flash_err(got, want, what, dt)
+            err_at[("flash", BH, s_q, d_qk, d_v, str(dt), causal, what)] = (
+                err, ratio)
+            if not ratio <= 1.0:
+                failures.append(f"flash_fwd {(BH, s_q, d_qk, d_v)} {dt} "
+                                f"causal={causal} {what}: max abs err "
+                                f"{err:.3e} ({ratio:.2f}x tolerance)")
+    del o, lse, o_p, lse_p, x32, x
+    # What the flash check reads for wrong functions at the path's shape
+    # (bf16, causal): a kernel whose softmax scale is 5% off, the plain
+    # version with the second 64-key tile left out of every later q tile
+    # (a skipped k tile), and with p rounded to bf16 before the PV product
+    # (what the Pallas kernel does; shown, not gated).  The first two must
+    # fail the tolerance, or it would pass a wrong kernel.
+    q, k, v = (torch.randn((B * H, S, hd), generator=gen, device=dev)
+               .to(bf16) for _ in range(3))
+    o_p, lse_p = flash_fwd_plain(q, k, v, causal=True)
+    wrong = {"scale x 1.05": flash_fwd_cuda(q, k, v, True,
+                                            1.05 * hd ** -0.5),
+             "k tile 64:128 skipped": flash_variant(q, k, v, skip=(64, 128)),
+             "p rounded to bf16": flash_variant(q, k, v, p_bf16=True)}
+    for name, (o, lse) in wrong.items():
+        reads = [flash_err(o, o_p, "o", bf16), flash_err(lse, lse_p, "lse",
+                                                         bf16)]
+        err_at[("flash-wrong", name)] = reads
+        if name != "p rounded to bf16" and max(r for _, r in reads) <= 1.0:
+            failures.append(f"flash check passes a wrong kernel ({name})")
+    del q, k, v, o, lse, o_p, lse_p, wrong
+    torch.cuda.synchronize()
+    print(f"[lm-parity] {len(err_at)} comparisons; tolerances: rmsnorm f32 "
+          f"{TOL_RMSNORM_F32}, bf16 {TOL_BF16}; flash o f32 "
+          f"{TOL_FLASH_F32_R} rel / {TOL_FLASH_F32_A} abs, bf16 "
+          f"{TOL_FLASH_BF16_R} / {TOL_FLASH_BF16_A}, lse f32 limits")
+    for key, err in err_at.items():
+        if key[0] == "rmsnorm":
+            print(f"[lm-parity] {' '.join(map(str, key))}: max abs err "
+                  f"{err:.3e}")
+        elif key[0] == "flash":
+            print(f"[lm-parity] {' '.join(map(str, key))}: max abs err "
+                  f"{err[0]:.3e} ({err[1]:.3f}x tolerance)")
+        else:
+            (eo, ro), (el, rl) = err
+            print(f"[lm-parity] wrong flash at {(B * H, S, hd)} bf16 causal"
+                  f", {key[1]}: o {eo:.3e} ({ro:.3f}x tolerance), lse "
+                  f"{el:.3e} ({rl:.3f}x tolerance)")
+    if failures:
+        return None
+
+    # ---- b. prefill -------------------------------------------------------
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    # param_count leaves out the norms' scale vectors
+    n_norm = cfg.n_layers * (2 * D + (2 * hd if cfg.qk_norm else 0)) + D
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {D}, {H} heads "
+          f"({cfg.n_kv_heads} kv) x {hd}, d_ff {cfg.d_ff}, vocab {V}; "
+          f"{n_par} f32 params ({n_par * 4 / 1e9:.2f} GB: param_count "
+          f"{cfg.param_count()} + {n_norm} norm scales) drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if n_par != cfg.param_count() + n_norm:
+        failures.append(f"{n_par} params, not param_count "
+                        f"{cfg.param_count()} + {n_norm} norm scales")
+    tokens = torch.randint(0, V, (B, S), generator=gen, device=dev)
+    logits = forward(params, cfg, tokens)           # warm-up (cuBLAS init)
+    del logits
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    logits = forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    prefill_counts = counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        forward(params, cfg, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t_best = min([t_prefill] + times)
+    finite = bool(torch.isfinite(logits).all())
+    print(f"[lm-prefill] forward B={B} S={S} bf16 flash: {t_prefill * 1e3:.1f}"
+          f" ms (then {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; best "
+          f"{B * S / t_best:.0f} tokens/s); logits {tuple(logits.shape)} "
+          f"{logits.dtype}, finite={finite}; device memory peak "
+          f"{peak / mib:.0f} MiB above the {base / mib:.0f} MiB allocated "
+          f"before it (the params and what earlier phases hold)")
+    print(f"[lm-prefill] launches in the forward: rmsnorm "
+          f"{prefill_counts['rmsnorm']} (expected {lm_norms(cfg)}), "
+          f"flash_fwd {prefill_counts['flash_fwd']} (expected "
+          f"{cfg.n_layers})")
+    if not (finite and logits.shape == (B, S, V)):
+        failures.append("prefill logits not finite or misshapen")
+    if prefill_counts != {"rmsnorm": lm_norms(cfg),
+                          "flash_fwd": cfg.n_layers}:
+        failures.append(f"prefill launches {prefill_counts}")
+    naive = dataclasses.replace(cfg, attn_impl="naive")
+    e_naive = rel_fro(logits, forward(params, naive, tokens))
+    torch.cuda.synchronize()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    l32 = forward(params, cfg32, tokens)
+    e32 = rel_fro(l32, forward(params, dataclasses.replace(
+        cfg32, attn_impl="naive"), tokens))
+    # the same f32 forward with attention's products in TF32 (a wrong
+    # attention kernel of the kind the f32 bound must catch)
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    sdpa_flash = ops.sdpa_flash
+
+    def tf32_attention(q, k, v, causal=True):
+        mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                          device=q.device).tril()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return attn._sdpa(q, k, v, mask, q.dtype)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    ops.sdpa_flash = tf32_attention
+    try:
+        e_tf32 = rel_fro(forward(params, cfg32, tokens), l32)
+    finally:
+        ops.sdpa_flash = sdpa_flash
+    del l32
+    print(f"[lm-prefill] flash vs naive attention, same weights and tokens,"
+          f" ||a - b||_F / ||b||_F: bf16 {e_naive:.3e} (bound "
+          f"{TOL_LM_BF16}), f32 {e32:.3e} (bound {TOL_LM_F32}); f32 with "
+          f"TF32 attention products vs f32 flash {e_tf32:.3e}")
+    if not e_naive <= TOL_LM_BF16:
+        failures.append(f"bf16 prefill flash vs naive {e_naive:.3e}")
+    if not e32 <= TOL_LM_F32:
+        failures.append(f"f32 prefill flash vs naive {e32:.3e}")
+    if not e_tf32 > TOL_LM_F32:
+        failures.append(f"f32 bound {TOL_LM_F32} passes TF32 attention "
+                        f"({e_tf32:.3e})")
+
+    # ---- c. decode against prefill ----------------------------------------
+    P = LM_DECODE_PROMPT
+    prompt = tokens[:, :P].contiguous()
+    ref = logits[:, :P].clone()
+    del logits
+    state = init_decode_state(cfg, B, P, device=dev)
+    outs = []
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    for t in range(P):
+        step_logits, state = decode_step(params, cfg, state,
+                                         prompt[:, t:t + 1])
+        outs.append(step_logits)
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / P
+    decode_counts = counts()
+    got = torch.stack(outs, 1)
+    e_dec = rel_fro(got, ref)
+    top1 = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    print(f"[lm-decode] {P} teacher-forced decode steps (B={B}): "
+          f"{t_dec * 1e3:.2f} ms a step; vs prefill logits ||a - b||_F / "
+          f"||b||_F {e_dec:.3e} (bound {TOL_LM_BF16}), top-1 agreement "
+          f"{top1:.4f}; launches rmsnorm {decode_counts['rmsnorm']} "
+          f"(expected {P * lm_norms(cfg)}), flash_fwd "
+          f"{decode_counts['flash_fwd']}")
+    if not (e_dec <= TOL_LM_BF16 and bool(torch.isfinite(got).all())):
+        failures.append(f"decode vs prefill {e_dec:.3e}")
+    if decode_counts["rmsnorm"] != P * lm_norms(cfg):
+        failures.append(f"decode launches {decode_counts}")
+    del got, outs, ref, state
+
+    # ---- d. serving -------------------------------------------------------
+    lens = torch.randint(16, 65, (LM_REQUESTS,), generator=gen,
+                         device=dev).tolist()
+    reqs = [Request(rid=i, prompt=torch.randint(
+        0, V, (n,), generator=gen, device=dev).tolist(),
+        max_new_tokens=LM_NEW_TOKENS) for i, n in enumerate(lens)]
+    eng = ServingEngine(params, cfg, n_slots=4, max_seq=LM_MAX_SEQ)
+    arrivals = {0: reqs[:4], 8: reqs[4:6], 40: reqs[6:]}  # some mid-flight
+    torch.cuda.synchronize()
+    reset()
+    steps = 0
+    t0 = time.perf_counter()
+    while steps < 2000:
+        for r in arrivals.get(steps, []):
+            eng.submit(r)
+        if steps > max(arrivals) and not eng.pending and \
+                all(s is None for s in eng.slots):
+            break
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    serve_counts = counts()
+    n_gen = sum(len(r.generated) for r in reqs)
+    ok = all(r.done and len(r.generated) == LM_NEW_TOKENS
+             and all(0 <= t < V for t in r.generated) for r in reqs)
+    print(f"[lm-serve] ServingEngine(n_slots=4, max_seq={LM_MAX_SEQ}): "
+          f"{LM_REQUESTS} requests, prompts {lens} tokens, "
+          f"{LM_NEW_TOKENS} new each; {steps} steps in {t_serve:.2f} s, "
+          f"mean decode step {t_serve / steps * 1e3:.2f} ms, {n_gen} "
+          f"generated tokens, {n_gen / t_serve:.1f} generated tokens/s; "
+          f"all finished: {ok}; launches rmsnorm {serve_counts['rmsnorm']} "
+          f"(expected {steps * lm_norms(cfg)})")
+    if not ok:
+        failures.append("the engine did not answer every request")
+    if serve_counts["rmsnorm"] != steps * lm_norms(cfg):
+        failures.append(f"serving launches {serve_counts}")
+    agree = checked = 0
+    for r in reqs:
+        alone, _ = greedy_generate(params, cfg, init_decode_state(
+            cfg, 1, LM_MAX_SEQ, device=dev), torch.tensor(
+            [r.prompt], device=dev), LM_NEW_TOKENS)
+        alone = alone[0].tolist()
+        # the isolated run's logits at each generated position (the same
+        # batch-1 computation, teacher-forced), for its top-1/top-2 margin
+        seq = torch.tensor([r.prompt + alone[:-1]], device=dev)
+        st = init_decode_state(cfg, 1, LM_MAX_SEQ, device=dev)
+        margins = []
+        for t in range(seq.shape[1]):
+            lg, st = decode_step(params, cfg, st, seq[:, t:t + 1])
+            if t >= len(r.prompt) - 1:
+                top2 = lg[0].topk(2).values
+                margins.append(float(top2[0] - top2[1])
+                               / max(1.0, abs(float(top2[0]))))
+        for t, (a, b) in enumerate(zip(r.generated, alone)):
+            if a != b:           # later tokens follow different contexts
+                if margins[t] > TOL_LM_BF16:
+                    failures.append(f"request {r.rid}: token {t} differs "
+                                    f"from the isolated run ({a} vs {b}) "
+                                    f"at a margin {margins[t]:.3e}")
+                break
+            agree += 1
+        checked += len(alone)
+    print(f"[lm-serve] agreement with each request decoded alone by "
+          f"greedy_generate: {agree} of {checked} tokens agree up to each "
+          f"request's first difference (a difference is allowed only where"
+          f" the isolated top-1/top-2 logit margin is at most {TOL_LM_BF16}"
+          f" of max(1, |top-1|))")
+
+    # where the time goes: device-busy time against the unprofiled wall
+    st = init_decode_state(cfg, B, LM_MAX_SEQ, device=dev)
+    tok1 = tokens[:, :1].contiguous()
+
+    def one_step():
+        nonlocal st
+        st = decode_step(params, cfg, st, tok1)[1]
+
+    one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LM_PROFILE_STEPS):
+        one_step()
+    torch.cuda.synchronize()
+    t_step = (time.perf_counter() - t0) / LM_PROFILE_STEPS
+    for label, run, calls, wall in (
+            ("prefill forward", lambda: forward(params, cfg, tokens), 1,
+             t_best),
+            (f"decode step (B={B}, cache {LM_MAX_SEQ})", one_step,
+             LM_PROFILE_STEPS, t_step)):
+        busy, launches, top = device_profile(run, calls)
+        if busy is None:
+            print(f"[lm-profile] {label}: wall {wall * 1e3:.2f} ms; device "
+                  f"time not measured (the profiler recorded none)")
+            continue
+        print(f"[lm-profile] {label}: wall {wall * 1e3:.2f} ms, device busy "
+              f"{busy:.2f} ms (idle share {1 - busy / (wall * 1e3):.1%}) in "
+              f"{launches:g} kernel launches")
+        for name, ms, n in top:
+            print(f"[lm-profile]   {ms:8.3f} ms  x{n:g}  {name}")
+    del eng, params, tokens, st
+    torch.cuda.empty_cache()
+    if failures:
+        return None
+
+    # ---- e. times against bounds, plain versions and library calls -------
+    x = torch.randn((B * S, D), generator=gen, device=dev).to(bf16)
+    scale = torch.randn((D,), generator=gen, device=dev)
+    xq = torch.randn((B * S * H, hd), generator=gen, device=dev).to(bf16)
+    sq = torch.randn((hd,), generator=gen, device=dev)
+    rows = {}
+    for label, xx, ss in (("rows", x, scale), ("qk", xq, sq)):
+        ms = time_cuda(lambda: rmsnorm_cuda(xx, ss), 50)
+        plain = time_cuda(lambda: rmsnorm_plain(xx, ss), 20)
+        s16 = ss.to(xx.dtype)
+        lib = time_cuda(lambda: F.rms_norm(xx, (xx.shape[-1],), s16, 1e-6),
+                        50)
+        nbytes = 2 * xx.numel() * xx.element_size() + ss.numel() * 4
+        b_ms, b_by = bound_ms(nbytes, 4 * xx.numel(), BF16_FLOP_PER_S)
+        rows[label] = (ms, plain, lib, b_ms, b_by)
+        print(f"[lm-time] rmsnorm {tuple(xx.shape)} bf16: {ms:.4f} ms | "
+              f"plain {plain:.4f} ms | F.rms_norm {lib:.4f} ms | bound "
+              f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it)")
+    del x, xq
+    q4 = torch.randn((B, H, S, hd), generator=gen, device=dev).to(bf16)
+    k4 = torch.randn((B, H, S, hd), generator=gen, device=dev).to(bf16)
+    v4 = torch.randn((B, H, S, hd), generator=gen, device=dev).to(bf16)
+    q3, k3, v3 = (t.reshape(B * H, S, hd) for t in (q4, k4, v4))
+    f_ms = time_cuda(lambda: flash_fwd_cuda(q3, k3, v3, causal=True), 20)
+    f_plain = time_cuda(lambda: flash_fwd_plain(q3, k3, v3, causal=True), 5)
+    f_lib = time_cuda(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), 20)
+    pairs = S * (S + 1) // 2                   # causal (row, col) pairs
+    f_flops = 4 * B * H * hd * pairs
+    f_bytes = 4 * B * H * S * hd * 2 + B * H * S * 4
+    fb_ms, fb_by = bound_ms(f_bytes, f_flops, BF16_FLOP_PER_S)
+    print(f"[lm-time] flash_fwd (BH, S, hd) = ({B * H}, {S}, {hd}) bf16 "
+          f"causal: {f_ms:.4f} ms ({f_flops / f_ms / 1e9:.1f} TFLOP/s) | "
+          f"plain {f_plain:.4f} ms | scaled_dot_product_attention "
+          f"{f_lib:.4f} ms | bound {fb_ms:.4f} ms ({fb_by}, operations "
+          f"at the bf16 tensor-core rate; {fb_ms / f_ms:.1%} of it) | "
+          f"{f_flops / FP32_FLOP_PER_S * 1e3:.3f} ms at the FP32 rate")
+    print(f"[lm] phase 7 launches: prefill forward {prefill_counts}, "
+          f"{P} decode steps {decode_counts}, {steps} engine steps "
+          f"{serve_counts}")
+    del q4, k4, v4
+    torch.cuda.empty_cache()
+    r = rows["rows"]
+    return [
+        {"name": "rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:34",
+         "shape": f"x ({B * S}, {D}) bf16, scale ({D},) f32",
+         "launches": prefill_counts["rmsnorm"],
+         "max_abs_err": err_at[("rmsnorm", B * S, D, str(bf16))],
+         "ms": r[0], "plain_ms": r[1], "bound_ms": r[3], "bound_by": r[4],
+         "library_ms": r[2], "decode_launches": decode_counts["rmsnorm"],
+         "serving_launches": serve_counts["rmsnorm"]},
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_fwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:81",
+         "shape": f"(BH, S, T, hd) = ({B * H}, {S}, {S}, {hd}) bf16 causal",
+         "launches": prefill_counts["flash_fwd"],
+         "max_abs_err": err_at[("flash", B * H, S, hd, hd, str(bf16), True,
+                                "o")],
+         "ms": f_ms, "plain_ms": f_plain, "bound_ms": fb_ms,
+         "bound_by": fb_by, "library_ms": f_lib},
+    ]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -774,6 +1301,15 @@ def main(argv=None) -> int:
             print(f"[check] FAIL {f}")
         return fail(f"{len(failures)} main-path check(s) failed")
 
+    # ---- 7. LM prefill and serving ----------------------------------------
+    del A, Ar, Aq, Arq, B_of, Xv, Xm, op_svm, op_krr, svm, krr, dcd
+    torch.cuda.empty_cache()
+    lm_entries = lm_phase(dev, args, failures)
+    if failures:
+        for f in failures:
+            print(f"[lm] FAIL {f}")
+        return fail(f"{len(failures)} LM check(s) failed")
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
@@ -798,6 +1334,7 @@ def main(argv=None) -> int:
          "ms": g256[0], "plain_ms": g256[1], "bound_ms": g256[2],
          "bound_by": g256[3], "library_ms": g256[4]},
         stream_entry,
+        *lm_entries,
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,16 @@ of ``repro``.  ``fitted_estimator`` returns a ``KernelSVM`` /
 Nystrom representations too (``nystrom_map`` carries a fitted JAX
 ``NystromMap`` across); ``schedule`` turns a JAX ``FitResult.schedule``
 (int32) into the int64 schedule ``fit(..., schedule=)`` replays.
+``lm_params`` and ``decode_state`` carry an LM's params and decode state
+(numpy pytrees of the JAX ``init_params`` / ``init_decode_state``) across,
+unstacking the per-period layer axis into the port's list of layers.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Mapping, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
@@ -113,3 +117,56 @@ def fitted_estimator(problem: str, cfg: Mapping, A, y, alpha, *,
                          "options approx='nystrom'")
     est._adopt(A_t, y_t, alpha_t, op)
     return est
+
+
+def _tree(fn, x):
+    """``fn`` on every leaf of nested dicts / lists / tuples."""
+    if isinstance(x, Mapping):
+        return {k: _tree(fn, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree(fn, v) for v in x)
+    return fn(x)
+
+
+def _layers(stacks, cfg):
+    """Per-layer slices, in execution order, of a tuple with one pytree
+    per pattern position, each stacked over the ``n_periods`` axis."""
+    if len(stacks) != len(cfg.pattern):
+        raise ValueError(f"expected {len(cfg.pattern)} stacked pattern "
+                         f"positions, got {len(stacks)}")
+    return [_tree(lambda a: a[period], stacks[i])
+            for period in range(cfg.n_periods)
+            for i in range(len(cfg.pattern))]
+
+
+def lm_params(params: Mapping, cfg, device=None) -> dict:
+    """The port's LM params (``models.lm``) from a JAX ``init_params``
+    pytree given as numpy arrays (``jax.tree.map(np.asarray, params)``):
+    f32 tensors on ``device`` with ``blocks`` unstacked into one dict per
+    layer."""
+    from repro_torch.models import check_supported
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return as_tensor(a, dev).float().contiguous()
+
+    out = {k: _tree(tensor, v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = _tree(tensor, _layers(params["blocks"], cfg))
+    return out
+
+
+def decode_state(state: Mapping, cfg, device=None) -> dict:
+    """The port's decode state from a JAX ``init_decode_state`` /
+    ``decode_step`` state given as numpy arrays: one (k, v) pair per layer
+    in the compute dtype and ``pos`` as int64."""
+    from repro_torch.models import check_supported
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = cfg.activation_dtype
+    # through f32: torch cannot read numpy's bf16 (ml_dtypes) arrays
+    caches = [tuple(as_tensor(np.asarray(c, np.float32), dev).to(dtype)
+                    for c in kv)
+              for kv in _layers(state["caches"], cfg)]
+    return {"caches": caches,
+            "pos": as_tensor(state["pos"], dev).to(torch.int64)}

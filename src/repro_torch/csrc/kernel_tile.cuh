@@ -10,18 +10,15 @@
 // bf16 (converted to f32 as they are loaded into shared memory).
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "dtype.cuh"
 
 namespace rt {
 
 constexpr int KERNEL_LINEAR = 0;
 constexpr int KERNEL_POLYNOMIAL = 1;
 constexpr int KERNEL_RBF = 2;
-
-constexpr int DTYPE_F32 = 0;
-constexpr int DTYPE_BF16 = 1;
 
 constexpr int BM = 64;                 // tile rows (rows of A)
 constexpr int BR = 64;                 // tile columns (rows of B)
@@ -45,20 +42,6 @@ struct TileSmem {
   float rs[BM];                        // squared norms of the tile's A rows
   float cs[BR];                        // squared norms of the tile's B rows
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename O>
-__device__ __forceinline__ O from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // x^d by binary exponentiation: the same products as jnp's integer **.
 __device__ __forceinline__ float integer_pow(float x, int d) {

@@ -35,6 +35,9 @@ SIGNATURES = {
                    [_P] * 7 + [_I] * 12 + [_F, _F, _P, _P]),
     "gather_rows": ("kmv_stream", "gather_rows_launch",
                     [_P] * 3 + [_I] * 4 + [_P]),
+    "rmsnorm": ("rmsnorm", "rmsnorm_launch", [_P] * 3 + [_I] * 3 + [_F, _P]),
+    "flash_fwd": ("flash_fwd", "flash_fwd_launch",
+                  [_P] * 5 + [_I] * 7 + [_F, _P]),
 }
 
 _LAUNCHERS: Dict[str, object] = {}

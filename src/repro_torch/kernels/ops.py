@@ -1,5 +1,6 @@
-"""Dispatch for the kernels of the solve path (the counterpart of
-``repro/kernels/ops.py``).
+"""Dispatch for the port's kernels (the counterpart of
+``repro/kernels/ops.py``): those of the solve path and the LM's flash
+attention and RMSNorm.
 
 A tensor on the card launches the hand-written CUDA kernel, or raises;
 a tensor on the CPU runs the kernel's plain PyTorch version.  There is
@@ -12,10 +13,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core.kernels import KernelConfig
+from .flash_attention import flash_fwd_cuda, flash_fwd_plain
 from .gram import gram_cuda, gram_plain
 from .kmv import kmv_cuda, kmv_plain
 from .kmv_stream import (gather_rows_cuda, gather_rows_plain,
                          kmv_stream_cuda, kmv_stream_plain)
+from .rmsnorm import rmsnorm_cuda, rmsnorm_plain
 
 
 def _on_card(A: torch.Tensor, name: str) -> bool:
@@ -89,3 +92,32 @@ def make_solver_gram_fn():
         return gram(A, B, cfg).to(A.dtype)
 
     return fn
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, scale: Optional[float] = None):
+    """Flash attention forward over (BH, S|T, hd): ``(o, lse)``."""
+    fn = flash_fwd_cuda if _on_card(q, "flash_fwd") else flash_fwd_plain
+    return fn(q, k, v, causal, scale)
+
+
+def sdpa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool = True) -> torch.Tensor:
+    """Flash attention on (B, S, H, hd)-layout tensors (the model's
+    convention); returns (B, S, H, hdv).  K/V must already be
+    head-repeated (GQA)."""
+    B, S, H, hd = q.shape
+    T, hdv = k.shape[1], v.shape[-1]
+    qt = q.transpose(1, 2).reshape(B * H, S, hd)
+    kt = k.transpose(1, 2).reshape(B * H, T, hd)
+    vt = v.transpose(1, 2).reshape(B * H, T, hdv)
+    o, _ = flash_fwd(qt, kt, vt, causal)
+    return o.reshape(B, H, S, hdv).transpose(1, 2)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis of x (any leading shape), in x's dtype."""
+    if not _on_card(x, "rmsnorm"):
+        return rmsnorm_plain(x, scale, eps)
+    return rmsnorm_cuda(x.contiguous(), scale, eps)

@@ -11,17 +11,26 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
 Tolerances: KMV and the streamed KMV 2e-4 (tests/test_kmv.py), gram
 1e-4 (tests/test_pallas_gram.py), bf16 inputs 2e-2; polynomial absolute
 tolerance relative to the largest output value (ROADMAP C2).  The row
-gather copies bits and is held to exact equality.
+gather copies bits and is held to exact equality.  RMSNorm 1e-5 f32
+and 2e-2 bf16 (tests/test_pallas_rmsnorm.py); flash attention 2e-4 /
+2e-5 f32 (tests/test_flash_attention.py), and for bf16 inputs 1e-2 /
+1e-3 on o (one bf16 ulp: kernel and plain version both compute in f32
+and differ only in the final rounding) with lse at the f32 limits.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
+from repro_torch.configs import get_config
 from repro_torch.core.kernels import (KernelConfig, StreamingGramOperator,
                                       _chunk)
 from repro_torch.core.predict import BatchedPredictor
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (flash_fwd_cuda,
+                                                 flash_fwd_plain)
 from repro_torch.kernels.gram import gram_cuda, gram_plain
 from repro_torch.kernels.kmv import kmv_cuda, kmv_plain
 from repro_torch.kernels.kmv_stream import (gather_rows_cuda,
@@ -29,6 +38,10 @@ from repro_torch.kernels.kmv_stream import (gather_rows_cuda,
                                             kmv_stream_cuda,
                                             kmv_stream_plain,
                                             kmv_stream_resident)
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+from repro_torch.models import (decode_step, forward, init_decode_state,
+                                init_params)
+from repro_torch.train import Request, ServingEngine
 
 KERNELS = [dict(name="linear"),
            dict(name="polynomial", degree=3, coef0=1.0),
@@ -358,3 +371,161 @@ def test_nystrom_fit_on_card_matches_fit_on_host(cuda_device, problem):
               else card.predict(Q))
     np.testing.assert_allclose(f_card.cpu().numpy(), f_host.numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 16, 128), (2, 128), (3, 7, 384),
+                                   (1, 1, 256), (37, 2048), (300, 16, 128),
+                                   (5, 100)])
+def test_rmsnorm_cuda_matches_plain(cuda_device, dtype, shape):
+    """Ragged row counts, D not a multiple of the 16-byte vector (100),
+    and the model's widths (128 qk-norm rows, 2048)."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    scale = torch.from_numpy(
+        rng.standard_normal(shape[-1]).astype(np.float32))
+    x_d, s_d = x.to(cuda_device, dtype), scale.to(cuda_device)
+    before = rmsnorm_cuda.launches
+    got = rmsnorm_cuda(x_d, s_d)
+    want = rmsnorm_plain(x_d, s_d)
+    torch.cuda.synchronize()
+    assert rmsnorm_cuda.launches == before + 1
+    assert got.shape == x_d.shape and got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+def test_rmsnorm_cuda_unaligned_view(cuda_device):
+    """A contiguous view that starts off a 16-byte boundary takes the
+    element-by-element path and still agrees."""
+    rng = np.random.default_rng(12)
+    base = torch.from_numpy(rng.standard_normal(3 * 256 + 1)
+                            .astype(np.float32)).to(cuda_device)
+    x = base[1:].view(3, 256)
+    scale = torch.ones(256, device=cuda_device)
+    got = rmsnorm_cuda(x, scale)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               rmsnorm_plain(x, scale).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _qkv(BH, S, T, hd, hdv, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda n, d: torch.from_numpy(  # noqa: E731
+        rng.standard_normal((BH, n, d)).astype(np.float32)).to(device, dtype)
+    return mk(S, hd), mk(T, hd), mk(T, hdv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 128, 128, 32, 32),
+                                   (1, 256, 256, 64, 64),
+                                   (3, 64, 64, 16, 8),
+                                   (2, 17, 17, 128, 128),
+                                   (2, 100, 40, 24, 128),
+                                   (2, 512, 512, 128, 128)])
+def test_flash_fwd_cuda_matches_plain(cuda_device, causal, dtype, shape):
+    """The JAX test's shapes, ragged tiles (S = 17, 100; T = 40), hd != hdv
+    both ways, and full 128-wide heads over several k tiles; o and lse."""
+    q, k, v = _qkv(*shape, dtype, cuda_device, seed=13)
+    before = flash_fwd_cuda.launches
+    o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+    o_p, lse_p = flash_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_fwd_cuda.launches == before + 1
+    assert o.shape == o_p.shape and o.dtype == dtype
+    assert lse.shape == lse_p.shape and lse.dtype == torch.float32
+    # both sides widen the same inputs and compute in f32: bf16 o differs
+    # by its final rounding (one ulp), lse is f32 on both
+    rtol, atol = (1e-2, 1e-3) if dtype == torch.bfloat16 else (2e-4, 2e-5)
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               o_p.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_cuda_refuses_what_the_tpu_kernel_refuses(cuda_device):
+    q, k, v = _qkv(1, 300, 300, 32, 32, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_fwd_cuda(q, k, v)
+    q, k, v = _qkv(1, 64, 64, 160, 32, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="exceed"):
+        flash_fwd_cuda(q, k, v)
+
+
+def _reduced_lm(arch, impl, dtype="float32"):
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype=dtype,
+                              attn_impl=impl)
+    params = init_params(torch.Generator().manual_seed(0), cfg,
+                         device="cpu")
+    return cfg, params
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3_1p7b", "granite_20b"])
+@pytest.mark.parametrize("impl", ["naive", "flash"])
+def test_reduced_lm_forward_on_card_matches_host(cuda_device, arch, impl):
+    """The reduced model's f32 forward through the kernels (card) and the
+    plain versions (host), same weights: 1e-4, f32 summation order; every
+    norm is one rmsnorm launch and every layer one flash launch."""
+    cfg, params = _reduced_lm(arch, impl)
+    toks = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (2, 64)))
+    host = forward(params, cfg, toks)
+    r0, f0 = rmsnorm_cuda.launches, flash_fwd_cuda.launches
+    card = forward(_to(params, cuda_device), cfg, toks.to(cuda_device))
+    torch.cuda.synchronize()
+    n_norms = (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
+    assert rmsnorm_cuda.launches - r0 == n_norms
+    assert flash_fwd_cuda.launches - f0 == (cfg.n_layers if impl == "flash"
+                                            else 0)
+    np.testing.assert_allclose(card.cpu().numpy(), host.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_reduced_decode_and_engine_on_card_match_host(cuda_device):
+    """Teacher-forced decode logits (1e-4) and the engine's greedy tokens
+    (equal) on the card against the host, f32, reduced Qwen3."""
+    cfg, params = _reduced_lm("qwen3_1p7b", "flash")
+    params_d = _to(params, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (2, 12)))
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", params_d)):
+        st = init_decode_state(cfg, 2, 16, device=dev)
+        logits = []
+        for t in range(toks.shape[1]):
+            lg, st = decode_step(p, cfg, st, toks[:, t:t + 1].to(dev))
+            logits.append(lg.cpu())
+        outs[dev] = torch.stack(logits, 1)
+    np.testing.assert_allclose(outs["cuda"].numpy(), outs["cpu"].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    generated = {}
+    for dev, p in (("cpu", params), ("cuda", params_d)):
+        eng = ServingEngine(p, cfg, n_slots=2, max_seq=32)
+        reqs = [Request(rid=i, prompt=[3 + i, 7, 11], max_new_tokens=5)
+                for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done(200)
+        assert all(r.done for r in reqs)
+        generated[dev] = [r.generated for r in reqs]
+    assert generated["cuda"] == generated["cpu"]
