@@ -55,6 +55,26 @@ Phases (each one fails the run with a non-zero exit):
           held against the same request decoded alone by greedy_generate
        e. kernel times against bounds, plain versions, F.rms_norm and
           scaled_dot_product_attention; the card's name and power limit
+  8. LM training, Qwen3-1.7B at the same widths, bf16 activations over f32
+     params, attn_impl="flash", remat="full", random weights from --seed:
+       a. the flash backward kernels (dq, dkv) against their plain version
+          on the same saved lse and delta at the path's shape (bf16,
+          causal) and f32, not causal, hd != hdv and ragged cases; what the
+          check reads for wrong variants (delta left out, scale 5% off, a
+          causal k tile skipped in dq, lse of the neighbouring row: each
+          must fail it); the RMSNorm Function's dx and dscale against
+          autograd through its oracle
+       b. loss_fn gradients at full width on 1 x 2048 tokens, through the
+          kernels against the same model with naive attention (plain
+          autograd): every leaf's gradient finite and non-zero, per-leaf
+          relative error in f32 (TF32 attention must fail that bound) and
+          bf16
+       c. LM_TRAIN_STEPS steps of make_train_step on TokenPipeline batches
+          of 4 x 2048 tokens in 2 microbatches, AdamW (lr 3e-5, warmup 2):
+          finite and falling loss, lr on its schedule; launch counts per
+          step; step time, tokens/s, device-memory peak, a profiled step
+       d. the backward kernels' times against their bound, the plain
+          version and the backward of scaled_dot_product_attention
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
@@ -66,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -136,6 +157,35 @@ TOL_FLASH_BF16_R, TOL_FLASH_BF16_A = 1e-2, 1e-3
 # above TOL_LM_F32, which phase 7b checks on every run.
 TOL_LM_BF16 = 5e-2
 TOL_LM_F32 = 1e-5
+# Phase 8 (LM training at Qwen3-1.7B width).  A step is LM_TRAIN_BATCH
+# sequences of LM_SEQ tokens in LM_MICROBATCHES microbatches.
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_MICROBATCHES = 6, 4, 2
+# lr 3e-5 peak after 2 warmup steps.  AdamW's sign-like early updates move
+# every weight of the fresh model by lr, coherently: at peak 3e-4 the loss
+# overshot at the second step (12.37, 11.99, 15.81, 10.89, 13.15, 11.19 on
+# the H100), at 1e-4 at the third (12.37, 10.93, 13.62, 14.45, 10.65,
+# 10.29), while one update at 5e-5 took 1.45 nats off.
+LM_TRAIN_LR, LM_TRAIN_WARMUP = 3e-5, 2
+# Flash backward, kernels against their plain version on the same saved lse
+# and delta.  f32: 2e-4 / 2e-5, ten times tighter than the JAX gradient
+# test's 2e-3 / 2e-4 (tests/test_flash_attention.py:68), which covers the
+# Pallas kernels' own rounding: here both sides sum the same f32 products
+# (no bf16 rounding of p) in at most another order.  bf16: one ulp of the
+# single final rounding of dq, dk, dv, as for the forward's o.
+TOL_FLASH_BWD_F32_R, TOL_FLASH_BWD_F32_A = 2e-4, 2e-5
+# RMSNorm backward on the card (kernel forward, plain f32 backward) against
+# autograd through the oracle: dx one bf16 rounding (TOL_BF16); dscale, f32
+# sums over the rows in another order, relative to its largest entry.
+TOL_RMSNORM_DSCALE = 1e-4
+# Per-leaf relative Frobenius error of whole-model gradients, flash kernels
+# against naive attention on the same weights and tokens.  f32: the two
+# routes differ in summation order only; the worst of the 311 leaves read
+# 2.6e-6 on the H100 (the forward logits 2.9e-6), attention with TF32
+# products 6.1e-4 at the median leaf and 1.1e-3 at the worst, so the bound
+# is the logits' 1e-5, and TF32 attention must read above it.  bf16: the
+# JAX model tests' bound.
+TOL_GRAD_F32 = 1e-5
+TOL_GRAD_BF16 = 5e-2
 
 
 def lm_norms(cfg) -> int:
@@ -605,6 +655,7 @@ def lm_phase(dev, args, failures):
     from repro_torch.models import (decode_step, forward, init_decode_state,
                                     init_params)
     from repro_torch.train import Request, ServingEngine, greedy_generate
+    from repro_torch.tree import leaves
 
     f32, bf16 = torch.float32, torch.bfloat16
     cfg = dataclasses.replace(get_config("qwen3_1p7b"), attn_impl="flash")
@@ -699,7 +750,7 @@ def lm_phase(dev, args, failures):
     t0 = time.perf_counter()
     params = init_params(gen, cfg, device=dev)
     torch.cuda.synchronize()
-    n_par = sum(t.numel() for t in _leaves(params))
+    n_par = sum(t.numel() for t in leaves(params))
     # param_count leaves out the norms' scale vectors
     n_norm = cfg.n_layers * (2 * D + (2 * hd if cfg.qk_norm else 0)) + D
     print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {D}, {H} heads "
@@ -987,15 +1038,402 @@ def lm_phase(dev, args, failures):
     ]
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
+def flash_bwd_variant(q, k, v, do, lse, delta, skip):
+    """The plain backward with keys ``skip = (lo, hi)`` left out of dq for
+    every row at or past ``hi`` (a causal k tile the dq kernel skipped);
+    dk and dv as the plain version computes them (phase 8a's wrong
+    variant)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_bwd_plain
+    from repro_torch.kernels.ref import attention_scores
+    dq, dk, dv = flash_bwd_plain(q, k, v, do, lse, delta, causal=True)
+    scale = q.shape[-1] ** -0.5
+    p = torch.exp(attention_scores(q, k, True) - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    lo, hi = skip
+    ds[:, hi:, lo:hi] = 0.0
+    return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype), dk, dv
+
+
+def train_phase(dev, args, failures):
+    """Phase 8 (module docstring): LM training at full Qwen3-1.7B width.
+    Returns the ``flash_bwd_dq`` and ``flash_bwd_dkv`` entries of the
+    kernels record and the training run's rmsnorm and flash_fwd launch
+    counts."""
+    import dataclasses
+    import statistics
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels._launch import DTYPE_CODES
+    from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
+                                                     flash_bwd_plain,
+                                                     flash_delta,
+                                                     flash_fwd_cuda)
+    from repro_torch.kernels.ref import rmsnorm_ref
+    from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_cuda
+    from repro_torch.models import attention as attn
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init, schedule
+    from repro_torch.train import (TrainConfig, loss_and_grads,
+                                   make_train_step)
+    from repro_torch.tree import leaves_with_paths
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cfg = dataclasses.replace(get_config("qwen3_1p7b"), attn_impl="flash",
+                              remat="full")
+    B, S, H, hd = LM_TRAIN_BATCH, LM_SEQ, cfg.n_heads, cfg.head_dim
+    BH = B // LM_MICROBATCHES * H          # one microbatch's attention
+    D, V = cfg.d_model, cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    gib = 2.0 ** 30
+
+    def counts():
+        return {"rmsnorm": rmsnorm_cuda.launches,
+                "flash_fwd": flash_fwd_cuda.launches,
+                "flash_bwd_dq": flash_bwd_cuda.launches_dq,
+                "flash_bwd_dkv": flash_bwd_cuda.launches_dkv}
+
+    def reset():
+        rmsnorm_cuda.launches = flash_fwd_cuda.launches = 0
+        flash_bwd_cuda.launches_dq = flash_bwd_cuda.launches_dkv = 0
+
+    # ---- a. parity of the backward kernels with their plain version ------
+    def bwd_inputs(BHx, s_q, s_k, d_qk, d_v, dt, causal):
+        q = torch.randn((BHx, s_q, d_qk), generator=gen, device=dev).to(dt)
+        k = torch.randn((BHx, s_k, d_qk), generator=gen, device=dev).to(dt)
+        v = torch.randn((BHx, s_k, d_v), generator=gen, device=dev).to(dt)
+        do = torch.randn((BHx, s_q, d_v), generator=gen, device=dev).to(dt)
+        o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+        return q, k, v, do, lse, flash_delta(o, do)
+
+    def bwd_err(got, want, dt):
+        """[(max abs err, max err / tolerance, entries that differ)] of
+        dq, dk, dv."""
+        rtol, atol = ((TOL_FLASH_BF16_R, TOL_FLASH_BF16_A) if dt == bf16
+                      else (TOL_FLASH_BWD_F32_R, TOL_FLASH_BWD_F32_A))
+        out = []
+        for a, b in zip(got, want):
+            e = (a.double() - b.double()).abs()
+            out.append((float(e.max()),
+                        float((e / (atol + rtol * b.double().abs())).max()),
+                        int((a != b).sum())))
+        return out
+
+    err_at = {}
+    cases = [((BH, S, S, hd, hd), bf16, True),
+             ((BH, S, S, hd, hd), f32, True),
+             ((8, 512, 512, hd, 64), f32, False),
+             ((8, 200, 136, 64, hd), f32, False),
+             ((8, 200, 200, 96, 96), bf16, True)]
+    for shape, dt, causal in cases:
+        args_b = bwd_inputs(*shape, dt, causal)
+        got = flash_bwd_cuda(*args_b, causal=causal)
+        want = flash_bwd_plain(*args_b, causal=causal)
+        reads = bwd_err(got, want, dt)
+        err_at[(shape, str(dt)[6:], causal)] = reads
+        for name, (err, ratio, _), a, ref in zip(("dq", "dk", "dv"), reads,
+                                                 got, args_b[:3]):
+            if not (ratio <= 1.0 and a.shape == ref.shape
+                    and a.dtype == dt):
+                failures.append(f"flash_bwd {shape} {dt} causal={causal} "
+                                f"{name}: max abs err {err:.3e} "
+                                f"({ratio:.2f}x tolerance)")
+    del got, want, args_b
+    # what the check reads for wrong functions at the path's shape (bf16,
+    # causal); each must fail it, or it would pass a wrong kernel
+    q, k, v, do, lse, delta = bwd_inputs(BH, S, S, hd, hd, bf16, True)
+    want = flash_bwd_plain(q, k, v, do, lse, delta, causal=True)
+    wrong = {
+        "delta left out": flash_bwd_cuda(q, k, v, do, lse,
+                                         torch.zeros_like(delta)),
+        "scale x 1.05": flash_bwd_cuda(q, k, v, do, lse, delta, True,
+                                       1.05 * hd ** -0.5),
+        "k tile 64:128 skipped in dq": flash_bwd_variant(
+            q, k, v, do, lse, delta, (64, 128)),
+        "lse of the neighbouring row": flash_bwd_cuda(
+            q, k, v, do, torch.roll(lse, 1, dims=1), delta)}
+    for name, got in wrong.items():
+        reads = bwd_err(got, want, bf16)
+        err_at[("wrong", name)] = reads
+        if max(r for _, r, _ in reads) <= 1.0:
+            failures.append(f"flash_bwd check passes a wrong kernel "
+                            f"({name})")
+    del wrong, got, want
+    # the RMSNorm Function on the card against autograd through the oracle
+    for rows, d in ((B // LM_MICROBATCHES * S, D),
+                    (B // LM_MICROBATCHES * S * H, hd)):
+        x = torch.randn((rows, d), generator=gen, device=dev).to(bf16)
+        sc = torch.randn((d,), generator=gen, device=dev)
+        dy = torch.randn((rows, d), generator=gen, device=dev).to(bf16)
+        grads = []
+        for fn in (RMSNorm.apply, rmsnorm_ref):
+            xl, sl = x.clone().requires_grad_(), sc.clone().requires_grad_()
+            fn(xl, sl, 1e-6).backward(dy)
+            grads.append((xl.grad, sl.grad))
+        (dx, ds), (dx_r, ds_r) = grads
+        r_dx, e_dx = allclose_ratio(dx.float(), dx_r.float(), TOL_BF16)
+        r_ds, e_ds = allclose_ratio(ds, ds_r, TOL_RMSNORM_DSCALE, True)
+        err_at[("rmsnorm-bwd", rows, d)] = (e_dx, r_dx, e_ds, r_ds)
+        if not (r_dx <= 1.0 and r_ds <= 1.0 and dx.dtype == bf16):
+            failures.append(f"RMSNorm backward ({rows}, {d}): dx {e_dx:.3e}"
+                            f" ({r_dx:.2f}x), dscale {e_ds:.3e} "
+                            f"({r_ds:.2f}x)")
+    del x, dy, grads, dx, ds, dx_r, ds_r
+    torch.cuda.synchronize()
+    print(f"[train-parity] tolerances: flash_bwd f32 {TOL_FLASH_BWD_F32_R} "
+          f"rel / {TOL_FLASH_BWD_F32_A} abs, bf16 {TOL_FLASH_BF16_R} / "
+          f"{TOL_FLASH_BF16_A}; RMSNorm dx {TOL_BF16}, dscale "
+          f"{TOL_RMSNORM_DSCALE} of its largest entry")
+    for key, reads in err_at.items():
+        if key[0] == "rmsnorm-bwd":
+            e_dx, r_dx, e_ds, r_ds = reads
+            print(f"[train-parity] RMSNorm backward ({key[1]}, {key[2]}) "
+                  f"bf16: dx {e_dx:.3e} ({r_dx:.3f}x tolerance), dscale "
+                  f"{e_ds:.3e} ({r_ds:.3f}x)")
+            continue
+        what = (f"wrong flash_bwd at {(BH, S, hd)} bf16 causal, {key[1]}"
+                if key[0] == "wrong" else
+                f"flash_bwd {key[0]} {key[1]} causal={key[2]}")
+        print(f"[train-parity] {what}: " + ", ".join(
+            f"{n} {e:.3e} ({r:.3f}x tolerance, {c} entries differ)"
+            for n, (e, r, c) in zip(("dq", "dk", "dv"), reads)))
+    if failures:
+        return None
+
+    # ---- b. whole-model gradients at full width --------------------------
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, device=dev)
+    pipe = TokenPipeline(vocab_size=V, seq_len=S, global_batch=B,
+                         seed=args.seed)
+    one = {k: t[:1].to(dev) for k, t in pipe.batch(10 ** 6).items()}
+    names = ["/".join(map(str, p)) for p, _ in leaves_with_paths(params)]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    naive = dataclasses.replace(cfg, attn_impl="naive")
+    naive32 = dataclasses.replace(cfg32, attn_impl="naive")
+
+    def tf32_attention(q, k, v, causal=True):
+        mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                          device=q.device).tril()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return attn._sdpa(q, k, v, mask, q.dtype)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def leaf_errors(grads, ref):
+        return [rel_fro(g, r) for g, r in zip(grads, ref)]
+
+    def check_leaves(grads, what):
+        bad = [n for n, g in zip(names, grads)
+               if g is None or not bool(torch.isfinite(g).all())
+               or not bool(g.abs().max() > 0)]
+        if bad:
+            failures.append(f"{what}: {len(bad)} leaves without a finite, "
+                            f"non-zero gradient: {bad[:6]}")
+
+    _, g_ref = loss_and_grads(params, naive32, one)
+    reset()
+    loss32, g = loss_and_grads(params, cfg32, one)
+    grad_counts = counts()
+    check_leaves(g, "f32 flash gradients")
+    e32 = leaf_errors(g, g_ref)
+    del g
+    sdpa_flash = ops.sdpa_flash
+    ops.sdpa_flash = tf32_attention
+    try:
+        _, g = loss_and_grads(params, cfg32, one)
+    finally:
+        ops.sdpa_flash = sdpa_flash
+    e_tf32 = leaf_errors(g, g_ref)
+    del g, g_ref
+    _, g_ref = loss_and_grads(params, naive, one)
+    loss16, g = loss_and_grads(params, cfg, one)
+    check_leaves(g, "bf16 flash gradients")
+    e16 = leaf_errors(g, g_ref)
+    del g, g_ref
+    torch.cuda.synchronize()
+    worst = {what: max(zip(e, names)) for what, e in
+             (("f32", e32), ("tf32", e_tf32), ("bf16", e16))}
+    print(f"[train-grad] {cfg.name} at full width, loss_fn on 1 x {S} "
+          f"tokens ({time.perf_counter() - t0:.1f} s with init): f32 loss "
+          f"{float(loss32):.5f}, bf16 loss {float(loss16):.5f}; launches in"
+          f" one f32 backward with remat {grad_counts}")
+    print(f"[train-grad] per-leaf ||g_flash - g_naive||_F / ||g_naive||_F "
+          f"over {len(names)} leaves: f32 median "
+          f"{statistics.median(e32):.3e}, worst {worst['f32'][0]:.3e} "
+          f"({worst['f32'][1]}; bound {TOL_GRAD_F32}); f32 with TF32 "
+          f"attention products: median {statistics.median(e_tf32):.3e}, "
+          f"worst {worst['tf32'][0]:.3e} ({worst['tf32'][1]}); bf16 median "
+          f"{statistics.median(e16):.3e}, worst {worst['bf16'][0]:.3e} "
+          f"({worst['bf16'][1]}; bound {TOL_GRAD_BF16})")
+    if not worst["f32"][0] <= TOL_GRAD_F32:
+        failures.append(f"f32 gradients flash vs naive {worst['f32']}")
+    if not worst["tf32"][0] > TOL_GRAD_F32:
+        failures.append(f"f32 gradient bound {TOL_GRAD_F32} passes TF32 "
+                        f"attention ({worst['tf32']})")
+    if not worst["bf16"][0] <= TOL_GRAD_BF16:
+        failures.append(f"bf16 gradients flash vs naive {worst['bf16']}")
+    n_layers = cfg.n_layers
+    want_grad = {"rmsnorm": lm_norms(cfg) + lm_norms(cfg) - 1,
+                 "flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
+                 "flash_bwd_dkv": n_layers}
+    if grad_counts != want_grad:
+        failures.append(f"gradient launches {grad_counts}, expected "
+                        f"{want_grad}")
+    del one
+    if failures:
+        return None
+
+    # ---- c. training steps -----------------------------------------------
+    acfg = AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=LM_TRAIN_WARMUP,
+                       total_steps=LM_TRAIN_STEPS)
+    step_fn = make_train_step(cfg, acfg,
+                              TrainConfig(microbatches=LM_MICROBATCHES))
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = {"rmsnorm": LM_MICROBATCHES * (2 * lm_norms(cfg) - 1),
+                "flash_fwd": LM_MICROBATCHES * 2 * n_layers,
+                "flash_bwd_dq": LM_MICROBATCHES * n_layers,
+                "flash_bwd_dkv": LM_MICROBATCHES * n_layers}
+    rows, times, step_counts = [], [], []
+    reset()
+    for s in range(LM_TRAIN_STEPS):
+        batch = pipe.batch(s)
+        before = counts()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        step_counts.append({k: v - before[k] for k, v in counts().items()})
+        rows.append({k: float(v) for k, v in m.items()})
+    train_counts = counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = B * S
+    t_best, t_med = min(times[1:]), statistics.median(times[1:])
+    for s, (r, t, c) in enumerate(zip(rows, times, step_counts)):
+        print(f"[train] step {s + 1}: loss {r['loss']:.5f}, grad_norm "
+              f"{r['grad_norm']:.4f}, lr {r['lr']:.4e} (schedule "
+              f"{schedule(acfg, s + 1):.4e}); {t * 1e3:.1f} ms; launches "
+              f"{c}")
+    print(f"[train] {LM_TRAIN_STEPS} steps of {B} x {S} tokens in "
+          f"{LM_MICROBATCHES} microbatches, bf16 flash remat, AdamW lr "
+          f"{LM_TRAIN_LR} warmup {LM_TRAIN_WARMUP}: step {t_med * 1e3:.1f} "
+          f"ms median of steps 2-{LM_TRAIN_STEPS} (best {t_best * 1e3:.1f}, "
+          f"first {times[0] * 1e3:.1f}); {tokens / t_med:.0f} training "
+          f"tokens/s (best {tokens / t_best:.0f}); device memory peak "
+          f"{peak / gib:.2f} GiB, {(peak - base) / gib:.2f} GiB above the "
+          f"{base / gib:.2f} GiB of params and AdamW state")
+    losses = [r["loss"] for r in rows]
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        failures.append(f"training loss not finite or not falling: "
+                        f"{losses}")
+    for s, r in enumerate(rows):
+        if not (math.isfinite(r["grad_norm"]) and math.isfinite(r["lr"])
+                and abs(r["lr"] - schedule(acfg, s + 1))
+                <= 1e-6 * abs(schedule(acfg, s + 1))):
+            failures.append(f"step {s + 1}: grad_norm {r['grad_norm']}, lr "
+                            f"{r['lr']} (schedule {schedule(acfg, s + 1)})")
+    for s, c in enumerate(step_counts):
+        if c != per_step:
+            failures.append(f"step {s + 1} launches {c}, expected "
+                            f"{per_step}")
+
+    # where the time goes: one more step under the profiler
+    def one_step():
+        nonlocal params, opt
+        params, opt, _ = step_fn(params, opt, pipe.batch(LM_TRAIN_STEPS))
+
+    busy, launches, top = device_profile(one_step, 1)
+    if busy is None:
+        print(f"[train-profile] step: wall {t_med * 1e3:.1f} ms; device time "
+              f"not measured (the profiler recorded none)")
     else:
-        yield tree
+        print(f"[train-profile] step: wall {t_med * 1e3:.1f} ms (median, "
+              f"unprofiled), device busy {busy:.1f} ms (idle share "
+              f"{1 - busy / (t_med * 1e3):.1%}) in {launches:g} kernel "
+              f"launches")
+        for name, ms, n in top:
+            print(f"[train-profile]   {ms:8.3f} ms  x{n:g}  {name}")
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    if failures:
+        return None
+
+    # ---- d. backward kernel times ----------------------------------------
+    q, k, v, do, lse, delta = bwd_inputs(BH, S, S, hd, hd, bf16, True)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    launch = build.launcher("flash_bwd")
+    stream = torch.cuda.current_stream().cuda_stream
+    raw = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+           dv.data_ptr(), BH, S, S, hd, hd, DTYPE_CODES[bf16], 1,
+           float(hd ** -0.5))
+    for which in (0, 1):
+        if launch(*raw, which, stream) != 0:
+            failures.append(f"flash_bwd launch {which} failed")
+            return None
+    ms = {"dq": time_cuda(lambda: launch(*raw, 0, stream), 20),
+          "dkv": time_cuda(lambda: launch(*raw, 1, stream), 20)}
+    both = time_cuda(lambda: flash_bwd_cuda(q, k, v, do, lse, delta), 10)
+    plain = time_cuda(lambda: flash_bwd_plain(q, k, v, do, lse, delta), 5)
+    q4, k4, v4, do4 = (t.reshape(B // LM_MICROBATCHES, H, S, hd)
+                       for t in (q, k, v, do))
+    leaves4 = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(*leaves4, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        sdpa_fwd().backward(do4)
+
+    lib = time_cuda(sdpa_fwd_bwd, 20) - time_cuda(sdpa_fwd, 20)
+    pairs = S * (S + 1) // 2                   # causal (row, col) pairs
+    product = 2 * BH * pairs * hd              # one of the five products
+    in_bytes = 4 * BH * S * hd * 2 + 2 * BH * S * 4
+    out_bytes = {"dq": BH * S * hd * 2, "dkv": 2 * BH * S * hd * 2}
+    n_products = {"dq": 3, "dkv": 4}
+    bounds = {w: bound_ms(in_bytes + out_bytes[w], n_products[w] * product,
+                          BF16_FLOP_PER_S) for w in ("dq", "dkv")}
+    b_all = bound_ms(in_bytes + out_bytes["dq"] + out_bytes["dkv"],
+                     5 * product, BF16_FLOP_PER_S)
+    for w in ("dq", "dkv"):
+        flops = n_products[w] * product
+        print(f"[train-time] flash_bwd_{w} (BH, S, hd) = ({BH}, {S}, {hd}) "
+              f"bf16 causal: {ms[w]:.4f} ms ({flops / ms[w] / 1e9:.1f} "
+              f"TFLOP/s in its {n_products[w]} products) | bound "
+              f"{bounds[w][0]:.4f} ms ({bounds[w][1]}; operations at the "
+              f"bf16 tensor-core rate; {bounds[w][0] / ms[w]:.1%} of it) | "
+              f"{flops / FP32_FLOP_PER_S * 1e3:.3f} ms at the FP32 rate")
+    print(f"[train-time] flash_bwd (dq + dkv through the wrapper): "
+          f"{both:.4f} ms | plain (dq, dk, dv) {plain:.4f} ms | backward of "
+          f"scaled_dot_product_attention(is_causal=True) {lib:.4f} ms | "
+          f"bound of the five products {b_all[0]:.4f} ms ({b_all[1]}); "
+          f"{5 * product / 1e9:.1f} GFLOP, "
+          f"{(in_bytes + out_bytes['dq'] + out_bytes['dkv']) / 1e6:.1f} MB")
+    print(f"[train] phase 8 launches over {LM_TRAIN_STEPS} steps: "
+          f"{train_counts}")
+    del q, k, v, do, lse, delta, dq, dk, dv, q4, k4, v4, do4, leaves4
+    torch.cuda.empty_cache()
+    path = err_at[((BH, S, S, hd, hd), "bfloat16", True)]
+    entries = [
+        {"name": f"flash_bwd_{w}", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_bwd.cu",
+         "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+         "shape": f"(BH, S, T, hd) = ({BH}, {S}, {S}, {hd}) bf16 causal",
+         "launches": train_counts[f"flash_bwd_{w}"],
+         "max_abs_err": max(e for e, _, _ in
+                            (path[:1] if w == "dq" else path[1:])),
+         "ms": ms[w], "plain_ms": plain, "bound_ms": bounds[w][0],
+         "bound_by": bounds[w][1], "library_ms": lib}
+        for w, line in (("dq", 220), ("dkv", 240))]
+    return entries, train_counts
 
 
 def main(argv=None) -> int:
@@ -1310,6 +1748,16 @@ def main(argv=None) -> int:
             print(f"[lm] FAIL {f}")
         return fail(f"{len(failures)} LM check(s) failed")
 
+    # ---- 8. LM training ---------------------------------------------------
+    train = train_phase(dev, args, failures)
+    if failures:
+        for f in failures:
+            print(f"[train] FAIL {f}")
+        return fail(f"{len(failures)} LM training check(s) failed")
+    train_entries, train_counts = train
+    for entry in lm_entries:
+        entry["train_launches"] = train_counts[entry["name"]]
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
@@ -1335,6 +1783,7 @@ def main(argv=None) -> int:
          "bound_by": g256[3], "library_ms": g256[4]},
         stream_entry,
         *lm_entries,
+        *train_entries,
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

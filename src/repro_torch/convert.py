@@ -8,8 +8,9 @@ of ``repro``.  ``fitted_estimator`` returns a ``KernelSVM`` /
 Nystrom representations too (``nystrom_map`` carries a fitted JAX
 ``NystromMap`` across); ``schedule`` turns a JAX ``FitResult.schedule``
 (int32) into the int64 schedule ``fit(..., schedule=)`` replays.
-``lm_params`` and ``decode_state`` carry an LM's params and decode state
-(numpy pytrees of the JAX ``init_params`` / ``init_decode_state``) across,
+``lm_params``, ``decode_state`` and ``adamw_state`` carry an LM's
+params, decode state and AdamW state (numpy pytrees of the JAX
+``init_params`` / ``init_decode_state`` / ``adamw_init``) across,
 unstacking the per-period layer axis into the port's list of layers.
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
 from repro_torch.core import (KernelConfig, KRRConfig, NystromMap,
                               SVMConfig, as_schedule, lowrank_operator)
 from repro_torch.device import as_tensor, resolve_device
+from repro_torch.tree import map_tree
 
 
 def kernel_config(d: Mapping) -> KernelConfig:
@@ -119,22 +121,13 @@ def fitted_estimator(problem: str, cfg: Mapping, A, y, alpha, *,
     return est
 
 
-def _tree(fn, x):
-    """``fn`` on every leaf of nested dicts / lists / tuples."""
-    if isinstance(x, Mapping):
-        return {k: _tree(fn, v) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return type(x)(_tree(fn, v) for v in x)
-    return fn(x)
-
-
 def _layers(stacks, cfg):
     """Per-layer slices, in execution order, of a tuple with one pytree
     per pattern position, each stacked over the ``n_periods`` axis."""
     if len(stacks) != len(cfg.pattern):
         raise ValueError(f"expected {len(cfg.pattern)} stacked pattern "
                          f"positions, got {len(stacks)}")
-    return [_tree(lambda a: a[period], stacks[i])
+    return [map_tree(lambda a: a[period], stacks[i])
             for period in range(cfg.n_periods)
             for i in range(len(cfg.pattern))]
 
@@ -151,8 +144,9 @@ def lm_params(params: Mapping, cfg, device=None) -> dict:
     def tensor(a):
         return as_tensor(a, dev).float().contiguous()
 
-    out = {k: _tree(tensor, v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = _tree(tensor, _layers(params["blocks"], cfg))
+    out = {k: map_tree(tensor, v) for k, v in params.items()
+           if k != "blocks"}
+    out["blocks"] = map_tree(tensor, _layers(params["blocks"], cfg))
     return out
 
 
@@ -170,3 +164,14 @@ def decode_state(state: Mapping, cfg, device=None) -> dict:
               for kv in _layers(state["caches"], cfg)]
     return {"caches": caches,
             "pos": as_tensor(state["pos"], dev).to(torch.int64)}
+
+
+def adamw_state(opt: Mapping, cfg, device=None) -> dict:
+    """The port's AdamW state (``optim.adamw_init``'s form) from a JAX
+    ``adamw_init`` / ``adamw_update`` state given as numpy arrays: ``m``
+    and ``v`` unstacked like ``lm_params`` (f32 on ``device``), ``step``
+    a 0-dim int32 tensor on the host."""
+    return {"m": lm_params(opt["m"], cfg, device),
+            "v": lm_params(opt["v"], cfg, device),
+            "step": torch.tensor(int(np.asarray(opt["step"])),
+                                 dtype=torch.int32)}

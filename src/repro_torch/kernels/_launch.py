@@ -44,6 +44,16 @@ def kernel_args(cfg: KernelConfig):
             float(cfg.sigma))
 
 
+def on_card(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
 def raise_on_error(name: str, code: int) -> None:
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "

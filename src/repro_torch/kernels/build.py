@@ -38,6 +38,8 @@ SIGNATURES = {
     "rmsnorm": ("rmsnorm", "rmsnorm_launch", [_P] * 3 + [_I] * 3 + [_F, _P]),
     "flash_fwd": ("flash_fwd", "flash_fwd_launch",
                   [_P] * 5 + [_I] * 7 + [_F, _P]),
+    "flash_bwd": ("flash_bwd", "flash_bwd_launch",
+                  [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
 }
 
 _LAUNCHERS: Dict[str, object] = {}

@@ -1,14 +1,23 @@
-"""Flash attention, forward: ``o = softmax(q k^T * scale) v`` and the row
-log-sum-exp, over (BH, S, hd) q and (BH, T, hd) / (BH, T, hdv) k and v.
+"""Flash attention, forward and backward: ``o = softmax(q k^T * scale) v``
+and the row log-sum-exp over (BH, S, hd) q and (BH, T, hd) / (BH, T,
+hdv) k and v, and ``dq, dk, dv`` from the saved log-sum-exp.
 
-The counterpart of ``flash_fwd`` in ``repro/kernels/flash_attention.py``.
-The kernel is ``csrc/flash_fwd.cu`` (one block per (bh, 64-row q tile),
-the online-softmax recurrence in f32 registers, FP32 FMAs for f32 and
-bf16 inputs alike; the causal mask is ``col <= row``, tiles above the
+The counterpart of ``repro/kernels/flash_attention.py``.  Forward: the
+kernel is ``csrc/flash_fwd.cu`` (one block per (bh, 64-row q tile), the
+online-softmax recurrence in f32 registers, FP32 FMAs for f32 and bf16
+inputs alike; the causal mask is ``col <= row``, tiles above the
 diagonal are skipped); ``flash_fwd_cuda`` launches it and counts the
 launches, ``flash_fwd_plain`` is the plain PyTorch version (the oracle
-plus the log-sum-exp).  ``kernels.ops.flash_fwd`` picks between them by
-device.  The backward (``flash_bwd``) belongs to the training slice.
+plus the log-sum-exp).  Backward: ``csrc/flash_bwd.cu`` holds the dq
+kernel (one block per q tile) and the dkv kernel (one block per k/v
+tile), no atomics; ``flash_bwd_cuda`` launches both and counts each,
+``flash_bwd_plain`` is the plain version.  ``FlashAttention`` (the
+counterpart of the JAX ``custom_vjp``) runs the forward and, in its
+backward, ``delta = sum(do * o, -1)`` in f32 and then
+``kernels.ops.flash_bwd``; each picks the kernel for a CUDA tensor and
+the plain version for a CPU tensor.  ``flash_attention`` is the
+differentiable entry point the LM's flash path takes (training and
+prefill).
 """
 from __future__ import annotations
 
@@ -17,8 +26,8 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
-from ._launch import DTYPE_CODES, raise_on_error
-from .ref import flash_attention_ref
+from ._launch import DTYPE_CODES, on_card, raise_on_error
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 HD_MAX = 128              # csrc/flash_fwd.cu FA_HD_MAX
 MAX_GRID_Y = 65535        # CUDA's limit on gridDim.y (the BH axis)
@@ -61,6 +70,25 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_ref(q, k, v, causal, scale, with_lse=True)
 
 
+def _check_card(name: str, tensors, q: torch.Tensor, BH: int) -> None:
+    """The card-side checks of a flash kernel's (name, tensor) operands:
+    CUDA tensors on q's device, one dtype the kernels take, contiguous;
+    and BH within the grid."""
+    for arg, t in tensors:
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor on "
+                             f"{q.device}, got {t.device}")
+        if t.dtype not in DTYPE_CODES or t.dtype != q.dtype:
+            raise ValueError(f"{name}: " + ", ".join(a for a, _ in tensors)
+                             + f" must share a dtype in {list(DTYPE_CODES)},"
+                             f" got {[u.dtype for _, u in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if BH > MAX_GRID_Y:
+        raise ValueError(f"{name}: BH = {BH} exceeds the kernel's grid "
+                         f"({MAX_GRID_Y})")
+
+
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True, scale: Optional[float] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -68,19 +96,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors of one dtype (f32 or bf16).  Returns ``(o, lse)`` as
     ``flash_fwd_plain`` does.  Never synchronises."""
     BH, S, T, hd, hdv = check_shapes(q, k, v)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"flash_fwd: {name} must be a CUDA tensor on "
-                             f"{q.device}, got {t.device}")
-        if t.dtype not in DTYPE_CODES or t.dtype != q.dtype:
-            raise ValueError(f"flash_fwd: q, k and v must share a dtype in "
-                             f"{list(DTYPE_CODES)}, got {q.dtype}, "
-                             f"{k.dtype}, {v.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_fwd: {name} must be contiguous")
-    if BH > MAX_GRID_Y:
-        raise ValueError(f"flash_fwd: BH = {BH} exceeds the kernel's grid "
-                         f"({MAX_GRID_Y})")
+    _check_card("flash_fwd", (("q", q), ("k", k), ("v", v)), q, BH)
     scale = scale if scale is not None else hd ** -0.5
     o = torch.empty((BH, S, hdv), dtype=q.dtype, device=q.device)
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
@@ -96,3 +112,107 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_fwd_cuda.launches = 0
+
+
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = sum(do * o, -1)`` in f32, (BH, S): computed outside the
+    backward kernels, as the JAX package does."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    BH, S, T, hd, hdv = check_shapes(q, k, v)
+    if do.shape != (BH, S, hdv):
+        raise ValueError(f"flash_bwd: do {tuple(do.shape)} must be "
+                         f"{(BH, S, hdv)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (BH, S) or t.dtype != torch.float32
+                or t.device != q.device):
+            raise ValueError(f"flash_bwd: {name} must be a ({BH}, {S}) f32 "
+                             f"tensor on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return BH, S, T, hd, hdv
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor, lse: torch.Tensor,
+                    delta: torch.Tensor, causal: bool = True,
+                    scale: Optional[float] = None):
+    """``(dq, dk, dv)`` in q's, k's and v's dtypes through the whole (S, T)
+    softmax in f32: ``ref.flash_attention_bwd_ref``."""
+    _check_bwd(q, k, v, do, lse, delta)
+    return flash_attention_bwd_ref(q, k, v, do, lse, delta, causal, scale)
+
+
+def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                   causal: bool = True, scale: Optional[float] = None):
+    """Launch the dq kernel and then the dkv kernel on the card: q, k, v
+    and do contiguous CUDA tensors of one dtype (f32 or bf16), lse and
+    delta (BH, S) f32.  Returns ``(dq, dk, dv)`` as ``flash_bwd_plain``
+    does.  Counts each launch (``flash_bwd_cuda.launches_dq``,
+    ``.launches_dkv``).  Never synchronises."""
+    BH, S, T, hd, hdv = _check_bwd(q, k, v, do, lse, delta)
+    _check_card("flash_bwd", (("q", q), ("k", k), ("v", v), ("do", do)), q,
+                BH)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_bwd: {name} must be contiguous")
+    scale = scale if scale is not None else hd ** -0.5
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), BH, S, T, hd, hdv,
+                DTYPE_CODES[q.dtype], int(bool(causal)), float(scale))
+        stream = torch.cuda.current_stream().cuda_stream
+        launch = build.launcher("flash_bwd")
+        raise_on_error("flash_bwd_dq", launch(*args, 0, stream))
+        flash_bwd_cuda.launches_dq += 1
+        raise_on_error("flash_bwd_dkv", launch(*args, 1, stream))
+        flash_bwd_cuda.launches_dkv += 1
+    return dq, dk, dv
+
+
+flash_bwd_cuda.launches_dq = 0
+flash_bwd_cuda.launches_dkv = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention over (BH, S|T, hd): ``(o, lse)``,
+    with ``lse`` not differentiable (the counterpart of the JAX
+    ``custom_vjp`` ``flash_attention``).  The forward runs the flash
+    forward (the kernel on the card, its plain version on the CPU) and
+    saves ``q, k, v, o, lse``; the backward computes ``delta`` in f32 and
+    runs ``kernels.ops.flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, scale=None):
+        # the kernels take contiguous operands; a (B, S, H, hd) -> (B H,
+        # S, hd) reshape with B = 1 is a strided view
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        fn = flash_fwd_cuda if on_card(q, "flash_fwd") else flash_fwd_plain
+        o, lse = fn(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        from . import ops          # ops imports this module
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = ops.flash_bwd(q, k, v, do, lse, flash_delta(o, do),
+                                   ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable flash attention over (BH, S|T, hd): ``o`` (BH, S,
+    hdv) in q's dtype."""
+    return FlashAttention.apply(q, k, v, causal, scale)[0]

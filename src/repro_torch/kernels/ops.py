@@ -1,10 +1,12 @@
 """Dispatch for the port's kernels (the counterpart of
 ``repro/kernels/ops.py``): those of the solve path and the LM's flash
-attention and RMSNorm.
+attention (forward and backward) and RMSNorm.
 
 A tensor on the card launches the hand-written CUDA kernel, or raises;
 a tensor on the CPU runs the kernel's plain PyTorch version.  There is
-no fallback from one to the other.
+no fallback from one to the other.  The LM's kernels go through
+``torch.autograd.Function``s (``FlashAttention``, ``RMSNorm``) on both
+devices, so the CPU runs the same autograd wiring as the card.
 """
 from __future__ import annotations
 
@@ -13,20 +15,14 @@ from typing import Optional
 import torch
 
 from repro_torch.core.kernels import KernelConfig
-from .flash_attention import flash_fwd_cuda, flash_fwd_plain
+from ._launch import on_card as _on_card
+from .flash_attention import (FlashAttention, flash_attention,
+                              flash_bwd_cuda, flash_bwd_plain)
 from .gram import gram_cuda, gram_plain
 from .kmv import kmv_cuda, kmv_plain
 from .kmv_stream import (gather_rows_cuda, gather_rows_plain,
                          kmv_stream_cuda, kmv_stream_plain)
-from .rmsnorm import rmsnorm_cuda, rmsnorm_plain
-
-
-def _on_card(A: torch.Tensor, name: str) -> bool:
-    if A.device.type == "cuda":
-        return True
-    if A.device.type == "cpu":
-        return False
-    raise ValueError(f"{name}: no kernel for device {A.device}")
+from .rmsnorm import RMSNorm
 
 
 def kmv(A: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
@@ -96,28 +92,40 @@ def make_solver_gram_fn():
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, scale: Optional[float] = None):
-    """Flash attention forward over (BH, S|T, hd): ``(o, lse)``."""
-    fn = flash_fwd_cuda if _on_card(q, "flash_fwd") else flash_fwd_plain
-    return fn(q, k, v, causal, scale)
+    """Flash attention forward over (BH, S|T, hd): ``(o, lse)``, through
+    ``FlashAttention`` (the kernel on the card, its plain version on the
+    CPU), so ``o`` is differentiable."""
+    return FlashAttention.apply(q, k, v, causal, scale)
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+              causal: bool = True, scale: Optional[float] = None):
+    """Flash attention backward: ``(dq, dk, dv)`` from the forward's
+    ``lse`` and ``delta = sum(do * o, -1)``; the dq and dkv kernels on the
+    card, their plain version on the CPU (``FlashAttention.backward``
+    calls this)."""
+    fn = flash_bwd_cuda if _on_card(q, "flash_bwd") else flash_bwd_plain
+    return fn(q, k, v, do, lse, delta, causal, scale)
 
 
 def sdpa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                causal: bool = True) -> torch.Tensor:
-    """Flash attention on (B, S, H, hd)-layout tensors (the model's
-    convention); returns (B, S, H, hdv).  K/V must already be
+    """Differentiable flash attention on (B, S, H, hd)-layout tensors (the
+    model's convention); returns (B, S, H, hdv).  K/V must already be
     head-repeated (GQA)."""
     B, S, H, hd = q.shape
     T, hdv = k.shape[1], v.shape[-1]
     qt = q.transpose(1, 2).reshape(B * H, S, hd)
     kt = k.transpose(1, 2).reshape(B * H, T, hd)
     vt = v.transpose(1, 2).reshape(B * H, T, hdv)
-    o, _ = flash_fwd(qt, kt, vt, causal)
+    o = flash_attention(qt, kt, vt, causal)
     return o.reshape(B, H, S, hdv).transpose(1, 2)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last axis of x (any leading shape), in x's dtype."""
-    if not _on_card(x, "rmsnorm"):
-        return rmsnorm_plain(x, scale, eps)
-    return rmsnorm_cuda(x.contiguous(), scale, eps)
+    """RMSNorm over the last axis of x (any leading shape), in x's dtype,
+    through ``RMSNorm`` (the kernel on the card, its plain version on the
+    CPU; the backward is plain PyTorch on both)."""
+    return RMSNorm.apply(x, scale, eps)

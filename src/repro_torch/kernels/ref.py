@@ -1,6 +1,7 @@
 """Plain oracles for the kernels of this package (the counterpart of
 ``repro/kernels/ref.py``): the gram and KMV oracles materialize the
-kernel slab in f32, the attention oracle the whole (S, T) softmax."""
+kernel slab in f32, the attention oracles (forward and backward) the
+whole (S, T) softmax."""
 from __future__ import annotations
 
 import torch
@@ -53,6 +54,27 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bqk,bkd->bqd", p / l, v.float()).to(q.dtype)
     return (o, (m + torch.log(l))[..., 0]) if with_lse else o
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            causal: bool = True, scale=None):
+    """Oracle for the flash backward kernels: ``(dq, dk, dv)`` through the
+    whole (S, T) softmax in f32, from the forward's saved ``lse`` and
+    ``delta = sum(do * o, -1)`` (both (BH, S) f32), as the TPU kernels
+    compute them (``p = exp(s - lse)``, ``ds = p (do v^T - delta)
+    scale``); each result is rounded once, to its input's dtype."""
+    hd = q.shape[-1]
+    scale = scale if scale is not None else hd ** -0.5
+    p = torch.exp(attention_scores(q, k, causal, scale) - lse[..., None])
+    dof = do.float()
+    dp = torch.einsum("bqd,bkd->bqk", dof, v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bqk,bkd->bqd", ds, k.float())
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,

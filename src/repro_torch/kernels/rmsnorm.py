@@ -4,16 +4,20 @@ The counterpart of ``repro/kernels/rmsnorm.py`` (``rmsnorm_pallas``).  The
 kernel is ``csrc/rmsnorm.cu`` (one warp per row, f32 statistics, the
 result in x's dtype; bound by reading x and writing y once);
 ``rmsnorm_cuda`` launches it and counts the launches, ``rmsnorm_plain``
-is the plain PyTorch version.  ``kernels.ops.rmsnorm`` picks between
-them by device, and ``models.layers.rmsnorm`` goes through it, so every
-norm of the LM runs this kernel on the card.
+is the plain PyTorch version.  ``RMSNorm`` is the differentiable
+operator: its forward picks between them by device, its backward is
+plain PyTorch in f32 (``dx`` and ``dscale`` by the analytic formula from
+the saved x; the JAX model differentiates its jnp rmsnorm with autodiff
+and has no backward kernel).  ``kernels.ops.rmsnorm`` applies it, and
+``models.layers.rmsnorm`` goes through that, so every norm of the LM
+runs this kernel on the card, in training too.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
-from ._launch import DTYPE_CODES, raise_on_error
+from ._launch import DTYPE_CODES, on_card, raise_on_error
 from .ref import rmsnorm_ref
 
 MAX_ROWS = 2 ** 31 - 1
@@ -59,3 +63,38 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
 
 
 rmsnorm_cuda.launches = 0
+
+
+class RMSNorm(torch.autograd.Function):
+    """``y = rmsnorm(x, scale, eps)`` (x any leading shape, scale (D,) f32),
+    differentiable in x and scale.  Forward: the kernel on the card, its
+    plain version on the CPU.  Backward, plain PyTorch in f32 on both:
+    with ``r = rsqrt(mean(x^2) + eps)``, ``xn = x r`` and ``gs = dy
+    scale``, ``dx = r (gs - xn mean(gs xn))`` in x's dtype and ``dscale =
+    sum over rows of dy xn`` in f32."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps=1e-6):
+        if on_card(x, "rmsnorm"):
+            y = rmsnorm_cuda(x.contiguous(), scale, eps)
+        else:
+            y = rmsnorm_plain(x, scale, eps)
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        xf, g = x.float(), dy.float()
+        r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + ctx.eps)
+        xn = xf * r
+        dx = dscale = None
+        if ctx.needs_input_grad[0]:
+            gs = g * scale.float()
+            dx = (r * (gs - xn * (gs * xn).mean(-1, keepdim=True))
+                  ).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dscale = (g * xn).reshape(-1, x.shape[-1]).sum(0).to(
+                scale.dtype)
+        return dx, dscale, None

@@ -1,12 +1,15 @@
-"""GQA attention (covers MHA and MQA) with qk-norm (Qwen3) and RoPE, causal
-prefill and single-token decode against a KV cache (the counterpart of the
-GQA part of ``repro/models/attention.py``).
+"""GQA attention (covers MHA and MQA) with qk-norm (Qwen3) and RoPE: causal
+full-sequence attention (training and prefill) and single-token decode
+against a KV cache (the counterpart of the GQA part of
+``repro/models/attention.py``).
 
 Softmax and logit math in f32; products in the config's compute dtype.
-With ``attn_impl="flash"`` the causal prefill goes through the flash
-forward kernel (``kernels.ops.sdpa_flash``); ``"naive"`` is plain
-PyTorch, as in the JAX package.  MLA (DeepSeek), M-RoPE (Qwen2-VL) and
-cross-attention (Whisper) are not ported yet and raise.
+With ``attn_impl="flash"`` causal full-sequence attention (training and
+prefill) goes through ``kernels.ops.sdpa_flash``, differentiable: the
+flash forward kernel, and in the backward the dq and dkv kernels;
+``"naive"`` is plain PyTorch, as in the JAX package.  MLA (DeepSeek),
+M-RoPE (Qwen2-VL) and cross-attention (Whisper) are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -63,8 +66,8 @@ def _project(x, w, dtype):
 
 def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, rope_cache=None) -> torch.Tensor:
-    """Full-sequence self-attention (prefill): x (B, S, D) -> (B, S, D),
-    causal unless ``cfg.causal`` is False."""
+    """Full-sequence self-attention (training and prefill): x (B, S, D) ->
+    (B, S, D), causal unless ``cfg.causal`` is False."""
     if cfg.mrope:
         raise NotImplementedError(UNPORTED_MROPE)
     dtype = x.dtype

@@ -85,7 +85,8 @@ class ModelConfig:
     ce_impl: str = "gather"           # "gather" | "onehot" (onehot
                                       # keeps the CE local under V-sharding)
     attn_impl: str = "naive"          # "naive" | "flash" (the flash
-                                      # forward kernel, csrc/flash_fwd.cu)
+                                      # kernels, forward and backward:
+                                      # csrc/flash_{fwd,bwd}.cu)
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     remat: str = "full"               # "full" | "none"

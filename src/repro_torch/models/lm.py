@@ -1,19 +1,25 @@
-"""Model assembly for dense GQA decoders: init, prefill forward and the
-single-token decode step (the counterpart of ``repro/models/lm.py``).
+"""Model assembly for dense GQA decoders: init, the training / prefill
+forward, the loss and the single-token decode step (the counterpart of
+``repro/models/lm.py``).
 
 The JAX package stacks each pattern position's params over the
 ``n_periods`` repeats and walks them with ``lax.scan``; here
 ``params["blocks"]`` is a list with one dict per layer, in execution
 order (period by period, the pattern inside each period), and a Python
 loop walks it.  ``convert.lm_params`` unstacks a JAX pytree into that
-form.  Families the port does not run yet raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+form.  With ``cfg.remat == "full"`` each layer of a forward that is
+being differentiated runs under ``torch.utils.checkpoint`` (the
+counterpart of ``jax.checkpoint`` on the scan body): only the layer
+inputs are kept, and the backward recomputes each layer.  Families the
+port does not run yet raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from .attention import (attention_decode, attention_forward,
@@ -100,6 +106,21 @@ def _block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
     return x
 
 
+def _differentiated(p: dict, x: torch.Tensor) -> bool:
+    """Whether autograd records this layer: grad mode is on and x or one
+    of the layer's params requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    stack = [p]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif node.requires_grad:
+            return True
+    return x.requires_grad
+
+
 def _default_positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int64, device=device).expand(B, S)
 
@@ -107,7 +128,10 @@ def _default_positions(B: int, S: int, device) -> torch.Tensor:
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             rules=None) -> torch.Tensor:
-    """Prefill forward: tokens (B, S) -> f32 logits (B, S, V)."""
+    """Training / prefill forward: tokens (B, S) -> f32 logits (B, S, V).
+    Layers run under activation checkpointing when ``cfg.remat ==
+    "full"`` and the forward is being differentiated; the final norm and
+    the head stay outside, as in the JAX package."""
     check_supported(cfg, rules)
     dtype = cfg.activation_dtype
     B, S = tokens.shape
@@ -116,9 +140,33 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         positions = _default_positions(B, S, tokens.device)
     rope_cache = make_rope_cache(positions, cfg.head_dim, cfg.rope_theta)
     for kind, p in zip(layer_kinds(cfg), params["blocks"]):
-        x = _block_forward(kind, p, cfg, x, positions, rope_cache)
+        if cfg.remat == "full" and _differentiated(p, x):
+            x = checkpoint(_block_forward, kind, p, cfg, x, positions,
+                           rope_cache, use_reentrant=False)
+        else:
+            x = _block_forward(kind, p, cfg, x, positions, rope_cache)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     return unembed(_head(params, cfg), x, dtype)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
+            rules=None) -> torch.Tensor:
+    """Mean next-token cross entropy ``logsumexp(logits) - logits[label]``
+    over f32 logits; ``batch`` holds ``tokens`` and ``labels`` (B, S)
+    (and optionally ``positions``).  ``cfg.ce_impl``: "gather" takes the
+    gold logit by index, "onehot" contracts with a one-hot (the JAX
+    package's V-sharding-friendly form; the same value)."""
+    logits = forward(params, cfg, batch["tokens"],
+                     positions=batch.get("positions"), rules=rules)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    if cfg.ce_impl == "onehot":
+        onehot = torch.nn.functional.one_hot(
+            labels, logits.shape[-1]).to(logits.dtype)
+        gold = torch.einsum("bsv,bsv->bs", logits, onehot)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return (logz - gold).mean()
 
 
 # ------------------------------------------------------------- decode -----

@@ -1,0 +1,163 @@
+"""The port's flash attention backward on the CPU (``flash_bwd_plain`` and
+the ``FlashAttention`` autograd Function, whose backward on a CPU tensor
+is the plain version) against the JAX package's Pallas ``flash_bwd`` in
+interpret mode, ``jax.grad`` through its ``flash_attention`` and torch
+autograd through the oracle, on the same numpy inputs.  The CUDA kernels
+against their plain version are in tests/test_torch_gpu.py.
+
+Tolerances.  f32: 2e-4 relative / 2e-5 absolute, tighter than the JAX
+gradient test's 2e-3 / 2e-4 (tests/test_flash_attention.py:68): both
+sides sum the same f32 products in another order (~1e-6 measured).
+bf16 from the same saved o and lse: 1e-2 / 1e-3, one bf16 ulp (both
+widen the same bf16 inputs, compute in f32 and round dq, dk, dv once).
+bf16 gradients through each package's own forward: the JAX bf16 bound
+3e-2 (the Pallas forward rounds p to bf16 before PV, so o, lse and
+delta differ by a bf16 rounding).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.flash_attention import flash_bwd as j_flash_bwd
+from repro.kernels.flash_attention import flash_fwd as j_flash_fwd
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention,
+                                                 flash_bwd_cuda,
+                                                 flash_bwd_plain,
+                                                 flash_delta)
+from repro_torch.kernels.ref import flash_attention_ref
+
+# (BH, S, T, hd, hdv): the JAX gradient tests' shapes (hd != hdv as in
+# test_grads_mla_vdim) and a three-block causal case
+SHAPES = [(2, 128, 128, 32, 32), (2, 64, 64, 48, 32), (3, 64, 64, 16, 8),
+          (1, 192, 192, 32, 16)]
+
+
+def _inputs(BH, S, T, hd, hdv, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((BH, S, hd)).astype(np.float32),
+            rng.standard_normal((BH, T, hd)).astype(np.float32),
+            rng.standard_normal((BH, T, hdv)).astype(np.float32),
+            rng.standard_normal((BH, S, hdv)).astype(np.float32))
+
+
+def _j(*arrs, dtype=jnp.float32):
+    return [jnp.asarray(a).astype(dtype) for a in arrs]
+
+
+def _t(*arrs, dtype=torch.float32):
+    return [torch.from_numpy(np.array(a, np.float32)).to(dtype)
+            for a in arrs]
+
+
+def _close(got, want, rtol, atol, what=""):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=rtol,
+                               atol=atol, err_msg=what)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_flash_bwd_plain_matches_pallas(causal, shape):
+    """dq, dk, dv from the JAX forward's o and lse, the JAX kernels at
+    32-row blocks (several blocks, causal skipping) vs the plain
+    version; ``ops.flash_bwd`` on CPU tensors runs the plain version."""
+    q, k, v, do = _inputs(*shape)
+    jq, jk, jv, jdo = _j(q, k, v, do)
+    o, lse = j_flash_fwd(jq, jk, jv, causal=causal, bq=32, bk=32,
+                         interpret=True)
+    want = j_flash_bwd(jq, jk, jv, o, lse, jdo, causal=causal, bq=32,
+                       bk=32, interpret=True)
+    tq, tk, tv, tdo, to, tlse = _t(q, k, v, do, o, lse)
+    before = (flash_bwd_cuda.launches_dq, flash_bwd_cuda.launches_dkv)
+    got = ops.flash_bwd(tq, tk, tv, tdo, tlse, flash_delta(to, tdo),
+                        causal=causal)
+    assert (flash_bwd_cuda.launches_dq,
+            flash_bwd_cuda.launches_dkv) == before
+    for name, a, b, ref in zip(("dq", "dk", "dv"), got, want, (tq, tk, tv)):
+        assert a.shape == ref.shape and a.dtype == torch.float32
+        _close(a, b, 2e-4, 2e-5, name)
+
+
+def test_flash_bwd_plain_bf16_matches_pallas():
+    q, k, v, do = _inputs(2, 128, 128, 32, 32, seed=1)
+    jq, jk, jv, jdo = _j(q, k, v, do, dtype=jnp.bfloat16)
+    o, lse = j_flash_fwd(jq, jk, jv, causal=True, bq=64, bk=64,
+                         interpret=True)
+    want = j_flash_bwd(jq, jk, jv, o, lse, jdo, causal=True, bq=64, bk=64,
+                       interpret=True)
+    # both packages round the f32 inputs to bf16 to nearest even
+    tq, tk, tv, tdo, to = _t(q, k, v, do, o, dtype=torch.bfloat16)
+    tlse = torch.from_numpy(np.array(lse))
+    got = flash_bwd_plain(tq, tk, tv, tdo, tlse, flash_delta(to, tdo))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        _close(a, b, 1e-2, 1e-3, name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_function_grads_match_jax_grad(causal, shape):
+    """Gradients of sum(o * do) through the port's Function against
+    jax.grad through the JAX custom_vjp (Pallas forward and backward in
+    interpret mode) and against torch autograd through the oracle."""
+    q, k, v, do = _inputs(*shape, seed=2)
+
+    def j_loss(q, k, v):
+        return jnp.sum(j_flash(q, k, v, causal, None, 32, 32, True)
+                       * jnp.asarray(do))
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(*_j(q, k, v))
+    grads = []
+    for fn in (flash_attention, flash_attention_ref):
+        leaves = [t.requires_grad_() for t in _t(q, k, v)]
+        (fn(*leaves, causal=causal) * torch.from_numpy(do)).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for name, a, b, c in zip("qkv", grads[0], grads[1], want):
+        _close(a, c, 2e-4, 2e-5, f"d{name} vs jax.grad")
+        _close(a, b.numpy(), 2e-4, 2e-5, f"d{name} vs oracle autograd")
+
+
+def test_function_grads_bf16_match_jax_grad():
+    q, k, v, do = _inputs(2, 128, 128, 32, 32, seed=3)
+    jq, jk, jv = _j(q, k, v, dtype=jnp.bfloat16)
+    jdo = jnp.asarray(do).astype(jnp.bfloat16)
+
+    def j_loss(q, k, v):
+        o = j_flash(q, k, v, True, None, 64, 64, True)
+        return jnp.sum(o.astype(jnp.float32) * jdo.astype(jnp.float32))
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [torch.from_numpy(np.asarray(a, np.float32)).to(
+        torch.bfloat16).requires_grad_() for a in (jq, jk, jv)]
+    tdo = torch.from_numpy(np.asarray(jdo, np.float32))
+    (flash_attention(*leaves).float() * tdo).sum().backward()
+    for name, t, b in zip("qkv", leaves, want):
+        assert t.grad.dtype == torch.bfloat16
+        _close(t.grad, b, 3e-2, 3e-2, f"d{name}")
+
+
+def test_lse_is_returned_and_not_differentiable():
+    q, k, v, _ = _inputs(1, 64, 64, 16, 16, seed=4)
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    o, lse = FlashAttention.apply(tq, tk, tv, True, None)
+    assert o.requires_grad and not lse.requires_grad
+    o_ref, lse_ref = flash_attention_ref(tq, tk, tv, True, with_lse=True)
+    _close(lse.detach(), lse_ref.detach().numpy(), 2e-4, 2e-5)
+
+
+def test_bad_backward_operands_are_refused():
+    q, k, v, do = _t(*_inputs(1, 64, 64, 32, 32, seed=5))
+    lse = torch.zeros((1, 64))
+    with pytest.raises(ValueError, match="do"):
+        flash_bwd_plain(q, k, v, do[:, :32], lse, lse)
+    with pytest.raises(ValueError, match="lse"):
+        flash_bwd_plain(q, k, v, do, lse.double(), lse)
+    with pytest.raises(ValueError, match="delta"):
+        flash_bwd_plain(q, k, v, do, lse, lse[:, :8])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_bwd_cuda(q, k, v, do, lse, lse)

@@ -15,7 +15,11 @@ gather copies bits and is held to exact equality.  RMSNorm 1e-5 f32
 and 2e-2 bf16 (tests/test_pallas_rmsnorm.py); flash attention 2e-4 /
 2e-5 f32 (tests/test_flash_attention.py), and for bf16 inputs 1e-2 /
 1e-3 on o (one bf16 ulp: kernel and plain version both compute in f32
-and differ only in the final rounding) with lse at the f32 limits.
+and differ only in the final rounding) with lse at the f32 limits.  The
+flash backward (dq, dk, dv): f32 2e-4 / 2e-5 (tighter than the JAX
+gradient test's 2e-3 / 2e-4: kernel and plain version sum the same f32
+products in another order, with no bf16 rounding of p), bf16 one ulp,
+1e-2 / 1e-3.
 """
 import dataclasses
 
@@ -29,7 +33,11 @@ from repro_torch.core.kernels import (KernelConfig, StreamingGramOperator,
                                       _chunk)
 from repro_torch.core.predict import BatchedPredictor
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (flash_fwd_cuda,
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_bwd_cuda,
+                                                 flash_bwd_plain,
+                                                 flash_delta,
+                                                 flash_fwd_cuda,
                                                  flash_fwd_plain)
 from repro_torch.kernels.gram import gram_cuda, gram_plain
 from repro_torch.kernels.kmv import kmv_cuda, kmv_plain
@@ -38,10 +46,15 @@ from repro_torch.kernels.kmv_stream import (gather_rows_cuda,
                                             kmv_stream_cuda,
                                             kmv_stream_plain,
                                             kmv_stream_resident)
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref
+from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_cuda, rmsnorm_plain
+from repro_torch.data.tokens import TokenPipeline
 from repro_torch.models import (decode_step, forward, init_decode_state,
                                 init_params)
-from repro_torch.train import Request, ServingEngine
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.train import (Request, ServingEngine, TrainConfig,
+                               loss_and_grads, make_train_step)
+from repro_torch.tree import leaves_with_paths
 
 KERNELS = [dict(name="linear"),
            dict(name="polynomial", degree=3, coef0=1.0),
@@ -462,6 +475,158 @@ def test_flash_fwd_cuda_refuses_what_the_tpu_kernel_refuses(cuda_device):
         flash_fwd_cuda(q, k, v)
 
 
+BWD_SHAPES = [(2, 128, 128, 32, 32), (2, 64, 64, 48, 32),
+              (3, 64, 64, 16, 8), (2, 17, 17, 128, 128),
+              (2, 100, 40, 24, 128), (2, 40, 100, 128, 64),
+              (2, 512, 512, 128, 128)]
+
+
+def _bwd_inputs(shape, dtype, device, causal, seed):
+    q, k, v = _qkv(*shape, dtype, device, seed=seed)
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        q.shape[:2] + v.shape[2:]).astype(np.float32)).to(device, dtype)
+    o, lse = flash_fwd_plain(q, k, v, causal=causal)
+    return q, k, v, do, lse, flash_delta(o, do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_bwd_cuda_matches_plain(cuda_device, causal, dtype, shape):
+    """The JAX gradient tests' shapes (hd != hdv as in test_grads_mla_vdim),
+    ragged tails in S and T both ways, and full 128-wide heads over
+    several tiles: dq, dk, dv from the same lse and delta; one launch of
+    each kernel."""
+    q, k, v, do, lse, delta = _bwd_inputs(shape, dtype, cuda_device, causal,
+                                          16)
+    before = (flash_bwd_cuda.launches_dq, flash_bwd_cuda.launches_dkv)
+    got = flash_bwd_cuda(q, k, v, do, lse, delta, causal=causal)
+    want = flash_bwd_plain(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_bwd_cuda.launches_dq, flash_bwd_cuda.launches_dkv) == (
+        before[0] + 1, before[1] + 1)
+    rtol, atol = (1e-2, 1e-3) if dtype == torch.bfloat16 else (2e-4, 2e-5)
+    for name, a, b, ref in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert a.shape == ref.shape and a.dtype == dtype, name
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   b.float().cpu().numpy(), rtol=rtol,
+                                   atol=atol, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_cuda_repeats_bit_for_bit(cuda_device):
+    """No atomics: two calls on the same inputs give the same bits."""
+    args = _bwd_inputs((4, 512, 512, 128, 128), torch.bfloat16, cuda_device,
+                       True, 17)
+    a = flash_bwd_cuda(*args)
+    b = flash_bwd_cuda(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_cuda_refuses_bad_operands(cuda_device):
+    q, k, v, do, lse, delta = _bwd_inputs((1, 64, 64, 32, 32), torch.float32,
+                                          cuda_device, True, 18)
+    with pytest.raises(ValueError, match="do"):
+        flash_bwd_cuda(q, k, v, do[:, :32], lse, delta)
+    with pytest.raises(ValueError, match="lse"):
+        flash_bwd_cuda(q, k, v, do, lse.double(), delta)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_bwd_cuda(q, k, v, do.bfloat16(), lse, delta)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_grads_on_card(cuda_device, causal, dtype):
+    """The autograd Function on the card (kernels forward and backward):
+    every input gets a gradient, held against autograd through the plain
+    oracle on the same inputs (f32 2e-3 / 2e-4, the JAX gradient test's;
+    bf16 3e-2, its bf16 bound, since the oracle's autograd rounds its own
+    intermediates to bf16)."""
+    q, k, v = _qkv(2, 256, 256, 64, 32, dtype, cuda_device, seed=19)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    do = torch.randn(q.shape[:2] + v.shape[2:], device=cuda_device,
+                     generator=gen).to(dtype)
+    grads = []
+    for fn in (flash_attention, flash_attention_ref):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = flash_bwd_cuda.launches_dq
+        (fn(*leaves, causal=causal).float() * do.float()).sum().backward()
+        if fn is flash_attention:
+            assert flash_bwd_cuda.launches_dq == before + 1
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    tol = (3e-2, 3e-2) if dtype == torch.bfloat16 else (2e-3, 2e-4)
+    for a, b in zip(*grads):
+        assert a is not None and bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   b.float().cpu().numpy(), rtol=tol[0],
+                                   atol=tol[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2])
+def test_sdpa_flash_grads_on_card_match_host(cuda_device, B):
+    """The model's (B, S, H, hd) layout through ops.sdpa_flash, forward
+    and backward, on the card against the host; with B = 1 the head
+    reshape is a strided view, which the Function makes contiguous for
+    the kernels.  f32 2e-4 / 2e-5."""
+    rng = np.random.default_rng(21)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B, 128, 4, 32)).astype(np.float32)) for _ in range(4))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaves_ = [t.detach().clone().to(dev).requires_grad_()
+                   for t in (q, k, v)]
+        o = ops.sdpa_flash(*leaves_, causal=True)
+        (o * do.to(dev)).sum().backward()
+        grads[str(dev)] = [o.detach().cpu()] + [t.grad.cpu()
+                                                for t in leaves_]
+    for a, b in zip(grads[str(cuda_device)], grads["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-4,
+                                   atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 16, 128), (37, 2048), (5, 100)])
+def test_rmsnorm_backward_on_card(cuda_device, dtype, shape):
+    """The RMSNorm Function on the card (the kernel forward, the plain f32
+    backward): dx and dscale against autograd through rmsnorm_ref, f32
+    1e-5, bf16 2e-2 on dx (one bf16 rounding) and 1e-4 relative on the f32
+    dscale; one kernel launch."""
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda_device, dtype)
+    scale = torch.from_numpy(rng.standard_normal(shape[-1]).astype(
+        np.float32)).to(cuda_device)
+    dy = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, dtype)
+    grads = []
+    for fn in (RMSNorm.apply, rmsnorm_ref):
+        xl, sl = x.clone().requires_grad_(), scale.clone().requires_grad_()
+        before = rmsnorm_cuda.launches
+        fn(xl, sl, 1e-6).backward(dy)
+        if fn is RMSNorm.apply:
+            assert rmsnorm_cuda.launches == before + 1
+        grads.append((xl.grad, sl.grad))
+    torch.cuda.synchronize()
+    (dx, ds), (dx_r, ds_r) = grads
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert dx.dtype == dtype and ds.dtype == torch.float32
+    np.testing.assert_allclose(dx.float().cpu().numpy(),
+                               dx_r.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(ds.cpu().numpy(), ds_r.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
 def _reduced_lm(arch, impl, dtype="float32"):
     cfg = dataclasses.replace(get_config(arch, reduced=True), dtype=dtype,
                               attn_impl=impl)
@@ -529,3 +694,58 @@ def test_reduced_decode_and_engine_on_card_match_host(cuda_device):
         assert all(r.done for r in reqs)
         generated[dev] = [r.generated for r in reqs]
     assert generated["cuda"] == generated["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["full", "none"])
+def test_reduced_lm_grads_on_card_match_host(cuda_device, remat):
+    """loss_fn's gradients through the kernels (card: flash forward, dq,
+    dkv, rmsnorm) against the plain versions (host), f32, same weights:
+    1e-4; every leaf gets a finite, non-zero gradient (no kernel cuts the
+    graph); launches: every norm and layer once in the forward, and again
+    in the remat recompute (the final norm outside it), one dq and one
+    dkv per layer."""
+    cfg, params = _reduced_lm("qwen3_1p7b", "flash")
+    cfg = dataclasses.replace(cfg, remat=remat)
+    batch = TokenPipeline(cfg.vocab_size, 64, 2, seed=1).batch(0)
+    l_host, g_host = loss_and_grads(params, cfg, batch)
+    params_d = _to(params, cuda_device)
+    before = (rmsnorm_cuda.launches, flash_fwd_cuda.launches,
+              flash_bwd_cuda.launches_dq, flash_bwd_cuda.launches_dkv)
+    l_card, g_card = loss_and_grads(params_d, cfg, _to(batch, cuda_device))
+    torch.cuda.synchronize()
+    n_norms = 4 * cfg.n_layers + 1
+    again = remat == "full"
+    assert (rmsnorm_cuda.launches - before[0],
+            flash_fwd_cuda.launches - before[1],
+            flash_bwd_cuda.launches_dq - before[2],
+            flash_bwd_cuda.launches_dkv - before[3]) == (
+        n_norms + again * (n_norms - 1), cfg.n_layers * (1 + again),
+        cfg.n_layers, cfg.n_layers)
+    np.testing.assert_allclose(float(l_card), float(l_host), rtol=1e-5)
+    for (path, _), a, b in zip(leaves_with_paths(params), g_card, g_host):
+        assert a is not None and bool(torch.isfinite(a).all()), path
+        assert bool(a.abs().max() > 0), path
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=str(path))
+
+
+@pytest.mark.gpu
+def test_reduced_train_steps_on_card_match_host(cuda_device):
+    """Three microbatched (2) train steps, bf16 activations, remat, flash,
+    on the card and on the host from the same weights and batches: the
+    losses within bf16's 5e-2 and falling on the card; lr equal."""
+    cfg, params = _reduced_lm("qwen3_1p7b", "flash", dtype="bfloat16")
+    acfg = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=3)
+    step = make_train_step(cfg, acfg, TrainConfig(microbatches=2))
+    pipe = TokenPipeline(cfg.vocab_size, 64, 4, seed=2)
+    runs = {}
+    for dev, p in (("cpu", params), ("cuda", _to(params, cuda_device))):
+        opt, losses = adamw_init(p), []
+        for s in range(3):
+            p, opt, m = step(p, opt, pipe.batch(s))
+            losses.append((float(m["loss"]), float(m["lr"])))
+        runs[dev] = losses
+    for (lc, rc), (lh, rh) in zip(runs["cuda"], runs["cpu"]):
+        assert abs(lc - lh) <= 5e-2 * abs(lh) and rc == rh
+    assert runs["cuda"][-1][0] < runs["cuda"][0][0]

@@ -6,7 +6,12 @@ kernel against its plain version is in tests/test_torch_gpu.py.
 Tolerances are the reference's own (tests/test_pallas_rmsnorm.py): f32
 1e-5, bf16 2e-2.  bf16 inputs are made in f32 with numpy and rounded to
 bf16 on both sides (round to nearest even in both: the same values).
+The backward (the ``RMSNorm`` Function's analytic dx and dscale against
+``jax.grad`` of the JAX model's rmsnorm): dx at the same bounds (in bf16
+one rounding of an f32 result on each side), dscale, f32 in both dtypes
+(a sum over rows in another order), 1e-4.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +21,8 @@ from repro.kernels.rmsnorm import rmsnorm_pallas
 from repro.models.layers import rmsnorm as j_rmsnorm
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import rmsnorm_ref
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (RMSNorm, rmsnorm_cuda,
+                                         rmsnorm_plain)
 from repro_torch.models.layers import rmsnorm
 
 SHAPES = [(4, 16, 128), (2, 128), (3, 7, 384), (1, 1, 256), (37, 2048)]
@@ -80,3 +86,48 @@ def test_kernel_wrapper_refuses_host_tensors():
     takes the plain version only because the tensor lies on the CPU."""
     with pytest.raises(ValueError, match="CUDA tensor"):
         rmsnorm_cuda(torch.ones(2, 8), torch.ones(8))
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 128), (37, 2048), (3, 7, 384)])
+@pytest.mark.parametrize("name,jdt,tdt,tol", DTYPES,
+                         ids=[d[0] for d in DTYPES])
+def test_rmsnorm_backward_matches_jax_grad(shape, name, jdt, tdt, tol):
+    """dx and dscale of sum(rmsnorm(x) * dy) through the Function (its
+    forward is the plain version here, its backward the analytic f32
+    formula) and through ``ops.rmsnorm`` / ``models.layers.rmsnorm``,
+    against jax.grad of the JAX model's rmsnorm."""
+    x, scale = _inputs(shape, seed=7)
+    dy = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+    xj, dyj = jnp.asarray(x).astype(jdt), jnp.asarray(dy).astype(jdt)
+
+    def j_loss(xj, s):
+        y = j_rmsnorm({"scale": s}, xj)
+        return jnp.sum(y.astype(jnp.float32) * dyj.astype(jnp.float32))
+
+    dx_j, ds_j = jax.grad(j_loss, argnums=(0, 1))(xj, jnp.asarray(scale))
+    for fn in (RMSNorm.apply, ops.rmsnorm,
+               lambda x, s, eps: rmsnorm({"scale": s}, x, eps)):
+        xt = torch.from_numpy(x).to(tdt).requires_grad_()
+        st = torch.from_numpy(scale).requires_grad_()
+        y = fn(xt, st, 1e-6)
+        (y.float() * torch.from_numpy(dy).to(tdt).float()).sum().backward()
+        assert xt.grad.dtype == tdt and st.grad.dtype == torch.float32
+        np.testing.assert_allclose(xt.grad.float().numpy(),
+                                   np.asarray(dx_j, np.float32), rtol=tol,
+                                   atol=tol)
+        np.testing.assert_allclose(st.grad.numpy(), np.asarray(ds_j),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_rmsnorm_backward_of_a_view_and_of_scale_only():
+    """The model normalises strided views; a gradient asked for scale
+    alone leaves x without one."""
+    x, _ = _inputs((6, 128, 3), seed=9)
+    _, scale = _inputs((1, 128), seed=10)
+    xt = torch.from_numpy(x).transpose(1, 2)
+    st = torch.from_numpy(scale).requires_grad_()
+    RMSNorm.apply(xt, st, 1e-6).sum().backward()
+    st_ref = st.detach().clone().requires_grad_()
+    rmsnorm_ref(xt, st_ref).sum().backward()
+    np.testing.assert_allclose(st.grad.numpy(), st_ref.grad.numpy(),
+                               rtol=1e-5, atol=1e-5)
