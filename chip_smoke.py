@@ -6,7 +6,9 @@ card: the quickest proof that the port builds and runs its main path.
 
 Phases (each one fails the run with a non-zero exit):
 
-  1. build    compile every csrc/*.cu (one nvcc each, in parallel)
+  1. build    compile every csrc/*.cu (one nvcc each, in parallel); the
+              tensor-core flash kernels' SASS must hold HGMMA and UTMALDG
+              (cuobjdump -sass)
   2. parity   KMV and gram kernels against their plain PyTorch versions
               at the main path's shapes, f32 and bf16
   3. K-SVM    KernelSVM(C=1, rbf) at the news20-like shape (m = 19996,
@@ -41,40 +43,47 @@ Phases (each one fails the run with a non-zero exit):
   7. LM       Qwen3-1.7B at its published widths (28 layers, d_model
               2048, 16 heads / 8 kv x 128, vocab 151 936), bf16,
               attn_impl="flash", random f32 weights from --seed:
-       a. the rmsnorm and flash_fwd kernels against their plain versions
-          at the path's shapes (and ragged, f32 and hd != hdv cases), and
-          what the flash check reads for wrong variants (scale 5% off, a
-          k tile skipped: both must fail it; p rounded to bf16: shown)
+       a. the rmsnorm and flash forward kernels against their plain
+          versions at the path's shapes: the tensor-core forward (bf16,
+          hd 64 and 128, ragged S and T) within its derived bf16 bound,
+          the FP32-FMA forward (f32, hd != hdv); what the flash check
+          reads for wrong variants (scale 5% off, a k tile skipped, k
+          rows swapped in pairs within each tile: each must fail it)
        b. prefill: forward on 4 prompts of 2048 tokens; finite logits,
-          113 rmsnorm and 28 flash launches, held against the same
-          forward with naive attention (bf16 and f32; TF32 attention
-          must fail the f32 bound); time, tokens/s, device-memory peak
+          113 rmsnorm and 28 tensor-core flash launches, held against the
+          same forward with naive attention (bf16 and f32; the f32
+          forward takes the FP32-FMA flash kernel 28 times; TF32
+          attention must fail the f32 bound); time, tokens/s, memory peak
        c. 64 teacher-forced decode steps against the prefill logits
        d. ServingEngine(n_slots=4, max_seq=256) answers 8 requests (16-64
           prompt tokens, 32 new each, some arriving mid-flight), each
           held against the same request decoded alone by greedy_generate
        e. kernel times against bounds, plain versions, F.rms_norm and
-          scaled_dot_product_attention; the card's name and power limit
+          scaled_dot_product_attention, the tensor-core forward beside
+          the FP32-FMA one at (64, 2048, 128) and (32, 2048, 128)
   8. LM training, Qwen3-1.7B at the same widths, bf16 activations over f32
      params, attn_impl="flash", remat="full", random weights from --seed:
-       a. the flash backward kernels (dq, dkv) against their plain version
-          on the same saved lse and delta at the path's shape (bf16,
-          causal) and f32, not causal, hd != hdv and ragged cases; what the
-          check reads for wrong variants (delta left out, scale 5% off, a
-          causal k tile skipped in dq, lse of the neighbouring row: each
-          must fail it); the RMSNorm Function's dx and dscale against
-          autograd through its oracle
+       a. the flash backward kernels (dq, and the tensor-core or the
+          FP32-FMA dkv) against their plain version on the same saved lse
+          and delta at the path's shape (bf16, causal; dk and dv within
+          the derived bf16 bound, repeating bit for bit) and f32, not
+          causal, hd != hdv, hd 64 and ragged cases; what the check reads
+          for wrong variants (delta left out, scale 5% off, a causal k
+          tile skipped in dq, lse of the neighbouring row, k rows swapped
+          in pairs: each must fail it); the RMSNorm Function's dx and
+          dscale against autograd through its oracle
        b. loss_fn gradients at full width on 1 x 2048 tokens, through the
           kernels against the same model with naive attention (plain
           autograd): every leaf's gradient finite and non-zero, per-leaf
-          relative error in f32 (TF32 attention must fail that bound) and
-          bf16
+          relative error in f32 (the FP32-FMA kernels; TF32 attention
+          must fail that bound) and bf16 (the tensor-core kernels)
        c. LM_TRAIN_STEPS steps of make_train_step on TokenPipeline batches
           of 4 x 2048 tokens in 2 microbatches, AdamW (lr 3e-5, warmup 2):
           finite and falling loss, lr on its schedule; launch counts per
           step; step time, tokens/s, device-memory peak, a profiled step
        d. the backward kernels' times against their bound, the plain
-          version and the backward of scaled_dot_product_attention
+          version and the backward of scaled_dot_product_attention, the
+          tensor-core dkv beside the FP32-FMA one
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
@@ -138,12 +147,23 @@ LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_SEQ = 8, 32, 256
 LM_PROFILE_STEPS = 8            # decode steps timed and profiled
 TOL_RMSNORM_F32 = 1e-5          # tests/test_pallas_rmsnorm.py
 TOL_FLASH_F32_R, TOL_FLASH_F32_A = 2e-4, 2e-5   # tests/test_flash_attention.py
-# bf16 flash: the kernel and flash_fwd_plain widen the same bf16 q/k/v
-# and compute in f32, so o differs only in its final bf16 rounding (at
-# most one ulp, 2^-7 of |o|) and lse, f32 on both sides, is held to the
-# f32 limits.  (The JAX test's bf16 3e-2 covers its Pallas kernel
-# rounding p to bf16, which this kernel does not do.)
+# bf16 flash through the FP32-FMA kernels (head dims other than 64 and
+# 128, hd != hdv): the kernel and flash_fwd_plain widen the same bf16
+# q/k/v and compute in f32, so o differs only in its final bf16 rounding
+# (at most one ulp, 2^-7 of |o|) and lse, f32 on both sides, is held to
+# the f32 limits.
 TOL_FLASH_BF16_R, TOL_FLASH_BF16_A = 1e-2, 1e-3
+# bf16 flash through the tensor-core kernels (hd = hdv in {64, 128}): the
+# derived elementwise bound of ref.flash_fwd_bf16_tolerance.  The kernel
+# rounds each p (relative to the running max) to bf16 before the PV
+# product, a relative error of at most u = 2^-8 per entry, so o = sum_j
+# (p_j / l) v_j moves by at most u sum_j (p_j / l) |v_j|; the f32 sums
+# add 2 T 2^-24 of the same terms and both sides' final rounding of o 2u
+# |o|.  The bound is capped at the JAX package's bf16 bound, 3e-2
+# (tests/test_flash_attention.py:49), so it is never looser; lse, from the
+# f32 p on both sides, stays at the f32 limits.  The dk / dv bound of the
+# tensor-core dkv kernel is the same sum over q with p and |ds| |q|
+# (ref.flash_dkv_bf16_tolerance); dq (FP32-FMA) stays at one ulp.
 # Relative Frobenius error of whole-model logits between two routes on
 # the same weights.  bf16 (2^-8 relative) rounds the activations at every
 # product, and the two routes round in different places (naive attention
@@ -186,6 +206,11 @@ TOL_RMSNORM_DSCALE = 1e-4
 # JAX model tests' bound.
 TOL_GRAD_F32 = 1e-5
 TOL_GRAD_BF16 = 5e-2
+
+
+# The libraries of the tensor-core flash kernels, whose SASS must hold
+# HGMMA (wgmma) and UTMALDG (TMA loads).
+WGMMA_LIBS = ("flash_fwd_wgmma", "flash_bwd_wgmma")
 
 
 def lm_norms(cfg) -> int:
@@ -607,36 +632,45 @@ def rel_fro(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
-def flash_err(got, want, what: str, dtype) -> tuple:
+def flash_err(got, want, what: str, dtype, tol=None) -> tuple:
     """(max abs err, max of err / tolerance) of a flash output against its
-    plain version: bf16 o at TOL_FLASH_BF16_*, f32 o and every lse at the
-    f32 limits."""
+    plain version: ``tol``, an elementwise bound, where given (the
+    tensor-core kernels' derived bf16 bound), else bf16 o at
+    TOL_FLASH_BF16_*, f32 o and every lse at the f32 limits."""
     import torch
-    rtol, atol = ((TOL_FLASH_BF16_R, TOL_FLASH_BF16_A)
-                  if what == "o" and dtype == torch.bfloat16
-                  else (TOL_FLASH_F32_R, TOL_FLASH_F32_A))
     got, want = got.double(), want.double()
     e = (got - want).abs()
-    return float(e.max()), float((e / (atol + rtol * want.abs())).max())
+    if tol is None:
+        rtol, atol = ((TOL_FLASH_BF16_R, TOL_FLASH_BF16_A)
+                      if what == "o" and dtype == torch.bfloat16
+                      else (TOL_FLASH_F32_R, TOL_FLASH_F32_A))
+        tol = atol + rtol * want.abs()
+    return float(e.max()), float((e / tol.double()).max())
 
 
-def flash_variant(q, k, v, skip=None, p_bf16=False):
+def swap_pairs(t):
+    """Rows 2i and 2i + 1 of every (BH, len, d) head swapped: the layout
+    fault a wrong shared-memory descriptor would make inside a tile."""
+    n = t.shape[1] // 2 * 2
+    out = t.clone()
+    out[:, :n] = t[:, :n].reshape(t.shape[0], n // 2, 2, t.shape[2]).flip(
+        2).reshape(t.shape[0], n, t.shape[2])
+    return out
+
+
+def flash_variant(q, k, v, skip):
     """A wrong causal flash forward, ``(o, lse)``, for phase 7a's check of
     its own tolerance: keys ``skip = (lo, hi)`` left out of every row at
-    or past ``hi`` (a k tile skipped), or p rounded to bf16 before the PV
-    product."""
+    or past ``hi`` (a k tile skipped)."""
     import torch
     from repro_torch.kernels.ref import attention_scores
     s = attention_scores(q, k, True)
-    if skip is not None:
-        lo, hi = skip
-        rows = torch.arange(s.shape[1], device=s.device)[:, None]
-        s[:, :, lo:hi] = torch.where(rows >= hi, -1e30, s[:, :, lo:hi])
+    lo, hi = skip
+    rows = torch.arange(s.shape[1], device=s.device)[:, None]
+    s[:, :, lo:hi] = torch.where(rows >= hi, -1e30, s[:, :, lo:hi])
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    if p_bf16:
-        p = p.to(torch.bfloat16).float()
     o = torch.einsum("bqk,bkd->bqd", p, v.float()) / l
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
@@ -649,8 +683,12 @@ def lm_phase(dev, args, failures):
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels._launch import DTYPE_CODES
     from repro_torch.kernels.flash_attention import (flash_fwd_cuda,
-                                                     flash_fwd_plain)
+                                                     flash_fwd_plain,
+                                                     flash_route)
+    from repro_torch.kernels.ref import flash_fwd_bf16_tolerance
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
     from repro_torch.models import (decode_step, forward, init_decode_state,
                                     init_params)
@@ -666,10 +704,12 @@ def lm_phase(dev, args, failures):
 
     def counts():
         return {"rmsnorm": rmsnorm_cuda.launches,
-                "flash_fwd": flash_fwd_cuda.launches}
+                "flash_fwd": flash_fwd_cuda.launches,
+                "flash_fwd_wgmma": flash_fwd_cuda.launches_wgmma}
 
     def reset():
         rmsnorm_cuda.launches = flash_fwd_cuda.launches = 0
+        flash_fwd_cuda.launches_wgmma = 0
 
     # ---- a. parity of the kernels with their plain versions ---------------
     err_at = {}
@@ -686,8 +726,14 @@ def lm_phase(dev, args, failures):
                     and got.shape == x.shape):
                 failures.append(f"rmsnorm ({n_rows}, {d}) {dt}: max abs err "
                                 f"{err:.3e} ({ratio:.2f}x tolerance)")
+    # the tensor-core forward (bf16, hd = hdv in {64, 128}) at the path's
+    # shape, hd 64 and ragged S and T; the FP32-FMA forward (f32, hd !=
+    # hdv); each held within its route's bound
     flash_cases = [((B * H, S, S, hd, hd), bf16, True),
                    ((B * H, S, S, hd, hd), bf16, False),
+                   ((16, 512, 512, 64, 64), bf16, True),
+                   ((8, 100, 40, hd, hd), bf16, False),
+                   ((8, 17, 17, hd, hd), bf16, True),
                    ((B * H, S, S, hd, hd), f32, True),
                    ((16, 512, 512, 64, hd), bf16, True),
                    ((8, 100, 100, hd, 32), f32, False)]
@@ -695,44 +741,77 @@ def lm_phase(dev, args, failures):
         q = torch.randn((BH, s_q, d_qk), generator=gen, device=dev).to(dt)
         k = torch.randn((BH, s_k, d_qk), generator=gen, device=dev).to(dt)
         v = torch.randn((BH, s_k, d_v), generator=gen, device=dev).to(dt)
+        route = flash_route(dt, d_qk, d_v)
+        before = counts()
         o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+        moved = {n: c - before[n] for n, c in counts().items()}
+        want_moved = "flash_fwd_wgmma" if route == "wgmma" else "flash_fwd"
+        if moved[want_moved] != 1 or sum(moved.values()) != 1:
+            failures.append(f"flash_fwd {(BH, s_q, d_qk, d_v)} {dt}: "
+                            f"launches {moved}, expected one {want_moved}")
         o_p, lse_p = flash_fwd_plain(q, k, v, causal=causal)
-        for what, got, want in (("o", o, o_p), ("lse", lse, lse_p)):
-            err, ratio = flash_err(got, want, what, dt)
-            err_at[("flash", BH, s_q, d_qk, d_v, str(dt), causal, what)] = (
-                err, ratio)
+        tol = (flash_fwd_bf16_tolerance(q, k, v, o_p, causal)
+               if route == "wgmma" else None)
+        key = ("flash", BH, s_q, s_k, d_qk, d_v, str(dt)[6:], causal, route)
+        for what, got, want, t in (("o", o, o_p, tol),
+                                   ("lse", lse, lse_p, None)):
+            err, ratio = flash_err(got, want, what, dt, t)
+            err_at[key + (what,)] = (err, ratio)
             if not ratio <= 1.0:
-                failures.append(f"flash_fwd {(BH, s_q, d_qk, d_v)} {dt} "
-                                f"causal={causal} {what}: max abs err "
+                failures.append(f"flash_fwd {(BH, s_q, s_k, d_qk, d_v)} {dt}"
+                                f" causal={causal} {what}: max abs err "
                                 f"{err:.3e} ({ratio:.2f}x tolerance)")
+        if key[1:] == (B * H, S, S, hd, hd, "bfloat16", True, "wgmma"):
+            # the path's bf16 forward: its error as a median too, and
+            # against the plain version that rounds p to bf16 as it does
+            e = (o.float() - o_p.float()).abs()
+            o_r, _ = flash_fwd_plain(q, k, v, causal=True, round_p=True)
+            err_at["flash-path"] = (float(e.max()), float(e.median()),
+                                    float(e.mean()),
+                                    float((o.float() - o_r.float())
+                                          .abs().max()))
+            del e, o_r
+        del tol
     del o, lse, o_p, lse_p, x32, x
     # What the flash check reads for wrong functions at the path's shape
-    # (bf16, causal): a kernel whose softmax scale is 5% off, the plain
-    # version with the second 64-key tile left out of every later q tile
-    # (a skipped k tile), and with p rounded to bf16 before the PV product
-    # (what the Pallas kernel does; shown, not gated).  The first two must
-    # fail the tolerance, or it would pass a wrong kernel.
+    # (bf16, causal, the tensor-core route and its derived bound): the
+    # kernel with the softmax scale 5% off, the plain version with the
+    # second 64-key tile left out of every later q tile (a skipped k tile),
+    # and the kernel fed k with rows swapped in pairs (a descriptor fault
+    # inside a tile).  Each must fail the tolerance, or it would pass a
+    # wrong kernel.  (A "p rounded to bf16" variant would be what this
+    # kernel computes, as the TPU kernel does: it marks no fault.)
     q, k, v = (torch.randn((B * H, S, hd), generator=gen, device=dev)
                .to(bf16) for _ in range(3))
     o_p, lse_p = flash_fwd_plain(q, k, v, causal=True)
+    tol = flash_fwd_bf16_tolerance(q, k, v, o_p, True)
     wrong = {"scale x 1.05": flash_fwd_cuda(q, k, v, True,
                                             1.05 * hd ** -0.5),
-             "k tile 64:128 skipped": flash_variant(q, k, v, skip=(64, 128)),
-             "p rounded to bf16": flash_variant(q, k, v, p_bf16=True)}
+             "k tile 64:128 skipped": flash_variant(q, k, v, (64, 128)),
+             "k rows swapped in pairs": flash_fwd_cuda(q, swap_pairs(k), v,
+                                                       True)}
     for name, (o, lse) in wrong.items():
-        reads = [flash_err(o, o_p, "o", bf16), flash_err(lse, lse_p, "lse",
-                                                         bf16)]
+        reads = [flash_err(o, o_p, "o", bf16, tol),
+                 flash_err(lse, lse_p, "lse", bf16)]
         err_at[("flash-wrong", name)] = reads
-        if name != "p rounded to bf16" and max(r for _, r in reads) <= 1.0:
+        if max(r for _, r in reads) <= 1.0:
             failures.append(f"flash check passes a wrong kernel ({name})")
-    del q, k, v, o, lse, o_p, lse_p, wrong
+    del q, k, v, o, lse, o_p, lse_p, wrong, tol
     torch.cuda.synchronize()
     print(f"[lm-parity] {len(err_at)} comparisons; tolerances: rmsnorm f32 "
           f"{TOL_RMSNORM_F32}, bf16 {TOL_BF16}; flash o f32 "
-          f"{TOL_FLASH_F32_R} rel / {TOL_FLASH_F32_A} abs, bf16 "
-          f"{TOL_FLASH_BF16_R} / {TOL_FLASH_BF16_A}, lse f32 limits")
+          f"{TOL_FLASH_F32_R} rel / {TOL_FLASH_F32_A} abs, bf16 FP32-FMA "
+          f"route {TOL_FLASH_BF16_R} / {TOL_FLASH_BF16_A}, bf16 wgmma "
+          f"route the derived bound (ref.flash_fwd_bf16_tolerance); lse "
+          f"f32 limits")
     for key, err in err_at.items():
-        if key[0] == "rmsnorm":
+        if key == "flash-path":
+            print(f"[lm-parity] tensor-core flash_fwd at {(B * H, S, hd)} "
+                  f"bf16 causal, |o - o_plain| over all entries: max "
+                  f"{err[0]:.3e}, median {err[1]:.3e}, mean {err[2]:.3e}; "
+                  f"against the plain version with p rounded to bf16: max "
+                  f"{err[3]:.3e}")
+        elif key[0] == "rmsnorm":
             print(f"[lm-parity] {' '.join(map(str, key))}: max abs err "
                   f"{err:.3e}")
         elif key[0] == "flash":
@@ -788,20 +867,29 @@ def lm_phase(dev, args, failures):
           f"{logits.dtype}, finite={finite}; device memory peak "
           f"{peak / mib:.0f} MiB above the {base / mib:.0f} MiB allocated "
           f"before it (the params and what earlier phases hold)")
-    print(f"[lm-prefill] launches in the forward: rmsnorm "
-          f"{prefill_counts['rmsnorm']} (expected {lm_norms(cfg)}), "
-          f"flash_fwd {prefill_counts['flash_fwd']} (expected "
-          f"{cfg.n_layers})")
+    want_prefill = {"rmsnorm": lm_norms(cfg), "flash_fwd": 0,
+                    "flash_fwd_wgmma": cfg.n_layers}
+    print(f"[lm-prefill] launches in the forward: {prefill_counts} "
+          f"(expected {want_prefill}: the bf16 hd-{hd} path takes the "
+          f"tensor-core forward)")
     if not (finite and logits.shape == (B, S, V)):
         failures.append("prefill logits not finite or misshapen")
-    if prefill_counts != {"rmsnorm": lm_norms(cfg),
-                          "flash_fwd": cfg.n_layers}:
+    if prefill_counts != want_prefill:
         failures.append(f"prefill launches {prefill_counts}")
     naive = dataclasses.replace(cfg, attn_impl="naive")
     e_naive = rel_fro(logits, forward(params, naive, tokens))
     torch.cuda.synchronize()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
+    reset()
     l32 = forward(params, cfg32, tokens)
+    torch.cuda.synchronize()
+    f32_counts = counts()
+    want_f32 = {"rmsnorm": lm_norms(cfg), "flash_fwd": cfg.n_layers,
+                "flash_fwd_wgmma": 0}
+    print(f"[lm-prefill] launches in the f32 forward: {f32_counts} "
+          f"(expected {want_f32}: f32 takes the FP32-FMA forward)")
+    if f32_counts != want_f32:
+        failures.append(f"f32 prefill launches {f32_counts}")
     e32 = rel_fro(l32, forward(params, dataclasses.replace(
         cfg32, attn_impl="naive"), tokens))
     # the same f32 forward with attention's products in TF32 (a wrong
@@ -992,30 +1080,48 @@ def lm_phase(dev, args, failures):
               f"plain {plain:.4f} ms | F.rms_norm {lib:.4f} ms | bound "
               f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it)")
     del x, xq
-    q4 = torch.randn((B, H, S, hd), generator=gen, device=dev).to(bf16)
-    k4 = torch.randn((B, H, S, hd), generator=gen, device=dev).to(bf16)
-    v4 = torch.randn((B, H, S, hd), generator=gen, device=dev).to(bf16)
-    q3, k3, v3 = (t.reshape(B * H, S, hd) for t in (q4, k4, v4))
-    f_ms = time_cuda(lambda: flash_fwd_cuda(q3, k3, v3, causal=True), 20)
-    f_plain = time_cuda(lambda: flash_fwd_plain(q3, k3, v3, causal=True), 5)
-    f_lib = time_cuda(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), 20)
+    # the tensor-core forward (the path's) and the FP32-FMA one launched at
+    # the same bf16 shapes, against the plain version and SDPA: at the
+    # prefill's (64, 2048, 128) and the training microbatch's (32, ...)
+    fma = build.launcher("flash_fwd")
+    stream = torch.cuda.current_stream().cuda_stream
     pairs = S * (S + 1) // 2                   # causal (row, col) pairs
-    f_flops = 4 * B * H * hd * pairs
-    f_bytes = 4 * B * H * S * hd * 2 + B * H * S * 4
-    fb_ms, fb_by = bound_ms(f_bytes, f_flops, BF16_FLOP_PER_S)
-    print(f"[lm-time] flash_fwd (BH, S, hd) = ({B * H}, {S}, {hd}) bf16 "
-          f"causal: {f_ms:.4f} ms ({f_flops / f_ms / 1e9:.1f} TFLOP/s) | "
-          f"plain {f_plain:.4f} ms | scaled_dot_product_attention "
-          f"{f_lib:.4f} ms | bound {fb_ms:.4f} ms ({fb_by}, operations "
-          f"at the bf16 tensor-core rate; {fb_ms / f_ms:.1%} of it) | "
-          f"{f_flops / FP32_FLOP_PER_S * 1e3:.3f} ms at the FP32 rate")
-    print(f"[lm] phase 7 launches: prefill forward {prefill_counts}, "
-          f"{P} decode steps {decode_counts}, {steps} engine steps "
-          f"{serve_counts}")
-    del q4, k4, v4
+    f_times = {}
+    for nb in (B, B // 2):
+        q4, k4, v4 = (torch.randn((nb, H, S, hd), generator=gen, device=dev)
+                      .to(bf16) for _ in range(3))
+        q3, k3, v3 = (t.reshape(nb * H, S, hd) for t in (q4, k4, v4))
+        o3 = torch.empty_like(q3)
+        lse3 = torch.empty((nb * H, S), device=dev)
+        ms = time_cuda(lambda: flash_fwd_cuda(q3, k3, v3, causal=True), 50)
+        ms_fma = time_cuda(lambda: fma(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o3.data_ptr(),
+            lse3.data_ptr(), nb * H, S, S, hd, hd, DTYPE_CODES[bf16], 1,
+            float(hd ** -0.5), stream), 10)
+        plain = time_cuda(lambda: flash_fwd_plain(q3, k3, v3, causal=True),
+                          5)
+        lib = time_cuda(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 50)
+        flops = 4 * nb * H * hd * pairs
+        nbytes = 4 * nb * H * S * hd * 2 + nb * H * S * 4
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+        f_times[nb * H] = (ms, ms_fma, plain, lib, b_ms, b_by)
+        print(f"[lm-time] flash_fwd (BH, S, hd) = ({nb * H}, {S}, {hd}) bf16"
+              f" causal: tensor-core {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s) | FP32-FMA {ms_fma:.4f} ms "
+              f"({flops / ms_fma / 1e9:.1f} TFLOP/s) | plain {plain:.4f} ms | "
+              f"scaled_dot_product_attention {lib:.4f} ms | bound "
+              f"{b_ms:.4f} ms ({b_by} at the bf16 tensor-core rate; "
+              f"tensor-core {b_ms / ms:.1%}, FP32-FMA {b_ms / ms_fma:.1%} "
+              f"of it)")
+        del q4, k4, v4, q3, k3, v3, o3, lse3
+    print(f"[lm] phase 7 launches: prefill forward {prefill_counts}, f32 "
+          f"forward {f32_counts}, {P} decode steps {decode_counts}, {steps}"
+          f" engine steps {serve_counts}")
     torch.cuda.empty_cache()
     r = rows["rows"]
+    ms, ms_fma, plain, lib, b_ms, b_by = f_times[B * H]
+    shape = f"(BH, S, T, hd) = ({B * H}, {S}, {S}, {hd}) bf16 causal"
     return [
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
@@ -1026,15 +1132,25 @@ def lm_phase(dev, args, failures):
          "ms": r[0], "plain_ms": r[1], "bound_ms": r[3], "bound_by": r[4],
          "library_ms": r[2], "decode_launches": decode_counts["rmsnorm"],
          "serving_launches": serve_counts["rmsnorm"]},
+        {"name": "flash_fwd_wgmma", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_fwd_wgmma.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:95",
+         "shape": shape, "launches": prefill_counts["flash_fwd_wgmma"],
+         "max_abs_err": err_at["flash-path"][0],
+         "median_abs_err": err_at["flash-path"][1],
+         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": lib, "ms_bh32": f_times[B // 2 * H][0],
+         "library_ms_bh32": f_times[B // 2 * H][3]},
         {"name": "flash_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:81",
-         "shape": f"(BH, S, T, hd) = ({B * H}, {S}, {S}, {hd}) bf16 causal",
-         "launches": prefill_counts["flash_fwd"],
-         "max_abs_err": err_at[("flash", B * H, S, hd, hd, str(bf16), True,
-                                "o")],
-         "ms": f_ms, "plain_ms": f_plain, "bound_ms": fb_ms,
-         "bound_by": fb_by, "library_ms": f_lib},
+         "shape": shape + " (timed); launches from the f32 prefill",
+         "launches": f32_counts["flash_fwd"],
+         "max_abs_err": err_at[("flash", B * H, S, S, hd, hd, "float32",
+                                True, "fma", "o")][0],
+         "ms": ms_fma, "plain_ms": plain, "bound_ms": b_ms,
+         "bound_by": b_by, "library_ms": lib,
+         "ms_bh32": f_times[B // 2 * H][1]},
     ]
 
 
@@ -1072,8 +1188,10 @@ def train_phase(dev, args, failures):
     from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
                                                      flash_bwd_plain,
                                                      flash_delta,
-                                                     flash_fwd_cuda)
-    from repro_torch.kernels.ref import rmsnorm_ref
+                                                     flash_fwd_cuda,
+                                                     flash_route)
+    from repro_torch.kernels.ref import (flash_dkv_bf16_tolerance,
+                                         rmsnorm_ref)
     from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_cuda
     from repro_torch.models import attention as attn
     from repro_torch.models import init_params
@@ -1094,12 +1212,16 @@ def train_phase(dev, args, failures):
     def counts():
         return {"rmsnorm": rmsnorm_cuda.launches,
                 "flash_fwd": flash_fwd_cuda.launches,
+                "flash_fwd_wgmma": flash_fwd_cuda.launches_wgmma,
                 "flash_bwd_dq": flash_bwd_cuda.launches_dq,
-                "flash_bwd_dkv": flash_bwd_cuda.launches_dkv}
+                "flash_bwd_dkv": flash_bwd_cuda.launches_dkv,
+                "flash_bwd_dkv_wgmma": flash_bwd_cuda.launches_dkv_wgmma}
 
     def reset():
         rmsnorm_cuda.launches = flash_fwd_cuda.launches = 0
+        flash_fwd_cuda.launches_wgmma = 0
         flash_bwd_cuda.launches_dq = flash_bwd_cuda.launches_dkv = 0
+        flash_bwd_cuda.launches_dkv_wgmma = 0
 
     # ---- a. parity of the backward kernels with their plain version ------
     def bwd_inputs(BHx, s_q, s_k, d_qk, d_v, dt, causal):
@@ -1110,31 +1232,55 @@ def train_phase(dev, args, failures):
         o, lse = flash_fwd_cuda(q, k, v, causal=causal)
         return q, k, v, do, lse, flash_delta(o, do)
 
-    def bwd_err(got, want, dt):
+    def bwd_err(got, want, dt, tols=(None, None, None)):
         """[(max abs err, max err / tolerance, entries that differ)] of
-        dq, dk, dv."""
+        dq, dk, dv; ``tols`` holds elementwise bounds where a route has
+        them (the tensor-core dkv's derived bf16 bound on dk and dv)."""
         rtol, atol = ((TOL_FLASH_BF16_R, TOL_FLASH_BF16_A) if dt == bf16
                       else (TOL_FLASH_BWD_F32_R, TOL_FLASH_BWD_F32_A))
         out = []
-        for a, b in zip(got, want):
+        for a, b, t in zip(got, want, tols):
             e = (a.double() - b.double()).abs()
-            out.append((float(e.max()),
-                        float((e / (atol + rtol * b.double().abs())).max()),
+            t = atol + rtol * b.double().abs() if t is None else t.double()
+            out.append((float(e.max()), float((e / t).max()),
                         int((a != b).sum())))
         return out
 
+    def dkv_tols(args_b, want, causal, dt):
+        """The bounds on (dq, dk, dv) of the route a case takes."""
+        q, k, v = args_b[:3]
+        if flash_route(dt, q.shape[2], v.shape[2]) == "fma":
+            return (None, None, None)
+        return (None,) + flash_dkv_bf16_tolerance(*args_b, want[1], want[2],
+                                                  causal)
+
     err_at = {}
+    # the tensor-core dkv (bf16, hd = hdv in {64, 128}) at the path's
+    # shape, hd 64 and ragged S and T; the FP32-FMA dkv (f32, hd != hdv,
+    # hd 96); dq (FP32-FMA) in every case
     cases = [((BH, S, S, hd, hd), bf16, True),
+             ((8, 512, 512, 64, 64), bf16, True),
+             ((8, 200, 136, hd, hd), bf16, False),
+             ((8, 136, 200, hd, hd), bf16, True),
              ((BH, S, S, hd, hd), f32, True),
              ((8, 512, 512, hd, 64), f32, False),
              ((8, 200, 136, 64, hd), f32, False),
              ((8, 200, 200, 96, 96), bf16, True)]
     for shape, dt, causal in cases:
         args_b = bwd_inputs(*shape, dt, causal)
+        route = flash_route(dt, shape[3], shape[4])
+        before = counts()
         got = flash_bwd_cuda(*args_b, causal=causal)
+        moved = {n: c - before[n] for n, c in counts().items()}
+        dkv_name = ("flash_bwd_dkv_wgmma" if route == "wgmma"
+                    else "flash_bwd_dkv")
+        if not (moved["flash_bwd_dq"] == moved[dkv_name] == 1
+                and sum(moved.values()) == 2):
+            failures.append(f"flash_bwd {shape} {dt}: launches {moved}, "
+                            f"expected one dq and one {dkv_name}")
         want = flash_bwd_plain(*args_b, causal=causal)
-        reads = bwd_err(got, want, dt)
-        err_at[(shape, str(dt)[6:], causal)] = reads
+        reads = bwd_err(got, want, dt, dkv_tols(args_b, want, causal, dt))
+        err_at[(shape, str(dt)[6:], causal, route)] = reads
         for name, (err, ratio, _), a, ref in zip(("dq", "dk", "dv"), reads,
                                                  got, args_b[:3]):
             if not (ratio <= 1.0 and a.shape == ref.shape
@@ -1142,11 +1288,21 @@ def train_phase(dev, args, failures):
                 failures.append(f"flash_bwd {shape} {dt} causal={causal} "
                                 f"{name}: max abs err {err:.3e} "
                                 f"({ratio:.2f}x tolerance)")
+        if route == "wgmma":
+            # one owner CTA an output, no atomics: the same bits again
+            again = flash_bwd_cuda(*args_b, causal=causal)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                failures.append(f"flash_bwd {shape} {dt}: a second call "
+                                f"gave other bits")
+            del again
     del got, want, args_b
     # what the check reads for wrong functions at the path's shape (bf16,
-    # causal); each must fail it, or it would pass a wrong kernel
+    # causal); each must fail it, or it would pass a wrong kernel.  "k rows
+    # swapped in pairs" is the fault a wrong descriptor would make inside a
+    # tile of the tensor-core dkv.
     q, k, v, do, lse, delta = bwd_inputs(BH, S, S, hd, hd, bf16, True)
     want = flash_bwd_plain(q, k, v, do, lse, delta, causal=True)
+    tols = dkv_tols((q, k, v, do, lse, delta), want, True, bf16)
     wrong = {
         "delta left out": flash_bwd_cuda(q, k, v, do, lse,
                                          torch.zeros_like(delta)),
@@ -1155,14 +1311,16 @@ def train_phase(dev, args, failures):
         "k tile 64:128 skipped in dq": flash_bwd_variant(
             q, k, v, do, lse, delta, (64, 128)),
         "lse of the neighbouring row": flash_bwd_cuda(
-            q, k, v, do, torch.roll(lse, 1, dims=1), delta)}
+            q, k, v, do, torch.roll(lse, 1, dims=1), delta),
+        "k rows swapped in pairs": flash_bwd_cuda(
+            q, swap_pairs(k), v, do, lse, delta)}
     for name, got in wrong.items():
-        reads = bwd_err(got, want, bf16)
+        reads = bwd_err(got, want, bf16, tols)
         err_at[("wrong", name)] = reads
         if max(r for _, r, _ in reads) <= 1.0:
             failures.append(f"flash_bwd check passes a wrong kernel "
                             f"({name})")
-    del wrong, got, want
+    del wrong, got, want, tols
     # the RMSNorm Function on the card against autograd through the oracle
     for rows, d in ((B // LM_MICROBATCHES * S, D),
                     (B // LM_MICROBATCHES * S * H, hd)):
@@ -1185,9 +1343,10 @@ def train_phase(dev, args, failures):
     del x, dy, grads, dx, ds, dx_r, ds_r
     torch.cuda.synchronize()
     print(f"[train-parity] tolerances: flash_bwd f32 {TOL_FLASH_BWD_F32_R} "
-          f"rel / {TOL_FLASH_BWD_F32_A} abs, bf16 {TOL_FLASH_BF16_R} / "
-          f"{TOL_FLASH_BF16_A}; RMSNorm dx {TOL_BF16}, dscale "
-          f"{TOL_RMSNORM_DSCALE} of its largest entry")
+          f"rel / {TOL_FLASH_BWD_F32_A} abs, bf16 dq and FP32-FMA dk, dv "
+          f"{TOL_FLASH_BF16_R} / {TOL_FLASH_BF16_A}, tensor-core dk, dv the "
+          f"derived bound (ref.flash_dkv_bf16_tolerance); RMSNorm dx "
+          f"{TOL_BF16}, dscale {TOL_RMSNORM_DSCALE} of its largest entry")
     for key, reads in err_at.items():
         if key[0] == "rmsnorm-bwd":
             e_dx, r_dx, e_ds, r_ds = reads
@@ -1197,7 +1356,8 @@ def train_phase(dev, args, failures):
             continue
         what = (f"wrong flash_bwd at {(BH, S, hd)} bf16 causal, {key[1]}"
                 if key[0] == "wrong" else
-                f"flash_bwd {key[0]} {key[1]} causal={key[2]}")
+                f"flash_bwd {key[0]} {key[1]} causal={key[2]} ({key[3]} "
+                f"dkv)")
         print(f"[train-parity] {what}: " + ", ".join(
             f"{n} {e:.3e} ({r:.3f}x tolerance, {c} entries differ)"
             for n, (e, r, c) in zip(("dq", "dk", "dv"), reads)))
@@ -1251,7 +1411,9 @@ def train_phase(dev, args, failures):
     e_tf32 = leaf_errors(g, g_ref)
     del g, g_ref
     _, g_ref = loss_and_grads(params, naive, one)
+    reset()
     loss16, g = loss_and_grads(params, cfg, one)
+    grad_counts16 = counts()
     check_leaves(g, "bf16 flash gradients")
     e16 = leaf_errors(g, g_ref)
     del g, g_ref
@@ -1261,7 +1423,8 @@ def train_phase(dev, args, failures):
     print(f"[train-grad] {cfg.name} at full width, loss_fn on 1 x {S} "
           f"tokens ({time.perf_counter() - t0:.1f} s with init): f32 loss "
           f"{float(loss32):.5f}, bf16 loss {float(loss16):.5f}; launches in"
-          f" one f32 backward with remat {grad_counts}")
+          f" one f32 backward with remat {grad_counts}, in one bf16 "
+          f"{grad_counts16}")
     print(f"[train-grad] per-leaf ||g_flash - g_naive||_F / ||g_naive||_F "
           f"over {len(names)} leaves: f32 median "
           f"{statistics.median(e32):.3e}, worst {worst['f32'][0]:.3e} "
@@ -1278,12 +1441,18 @@ def train_phase(dev, args, failures):
     if not worst["bf16"][0] <= TOL_GRAD_BF16:
         failures.append(f"bf16 gradients flash vs naive {worst['bf16']}")
     n_layers = cfg.n_layers
+    # f32 takes the FP32-FMA forward and dkv, bf16 at hd 128 the
+    # tensor-core ones; dq is one kernel for both
     want_grad = {"rmsnorm": lm_norms(cfg) + lm_norms(cfg) - 1,
-                 "flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
-                 "flash_bwd_dkv": n_layers}
-    if grad_counts != want_grad:
-        failures.append(f"gradient launches {grad_counts}, expected "
-                        f"{want_grad}")
+                 "flash_fwd": 2 * n_layers, "flash_fwd_wgmma": 0,
+                 "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers,
+                 "flash_bwd_dkv_wgmma": 0}
+    want_grad16 = dict(want_grad, flash_fwd=0, flash_fwd_wgmma=2 * n_layers,
+                       flash_bwd_dkv=0, flash_bwd_dkv_wgmma=n_layers)
+    for got, want in ((grad_counts, want_grad),
+                      (grad_counts16, want_grad16)):
+        if got != want:
+            failures.append(f"gradient launches {got}, expected {want}")
     del one
     if failures:
         return None
@@ -1298,9 +1467,11 @@ def train_phase(dev, args, failures):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     per_step = {"rmsnorm": LM_MICROBATCHES * (2 * lm_norms(cfg) - 1),
-                "flash_fwd": LM_MICROBATCHES * 2 * n_layers,
+                "flash_fwd": 0,
+                "flash_fwd_wgmma": LM_MICROBATCHES * 2 * n_layers,
                 "flash_bwd_dq": LM_MICROBATCHES * n_layers,
-                "flash_bwd_dkv": LM_MICROBATCHES * n_layers}
+                "flash_bwd_dkv": 0,
+                "flash_bwd_dkv_wgmma": LM_MICROBATCHES * n_layers}
     rows, times, step_counts = [], [], []
     reset()
     for s in range(LM_TRAIN_STEPS):
@@ -1370,17 +1541,25 @@ def train_phase(dev, args, failures):
     q, k, v, do, lse, delta = bwd_inputs(BH, S, S, hd, hd, bf16, True)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     launch = build.launcher("flash_bwd")
+    launch_w = build.launcher("flash_bwd_dkv_wgmma")
     stream = torch.cuda.current_stream().cuda_stream
     raw = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
            dv.data_ptr(), BH, S, S, hd, hd, DTYPE_CODES[bf16], 1,
            float(hd ** -0.5))
-    for which in (0, 1):
-        if launch(*raw, which, stream) != 0:
-            failures.append(f"flash_bwd launch {which} failed")
+    raw_w = raw[:6] + (dk.data_ptr(), dv.data_ptr(), BH, S, S, hd, 1,
+                       float(hd ** -0.5), stream)
+    # dq and the FP32-FMA dkv through the C entry point, at the same
+    # bf16 shape as the tensor-core dkv the path takes
+    runs = {"dq": lambda: launch(*raw, 0, stream),
+            "dkv": lambda: launch(*raw, 1, stream),
+            "dkv_wgmma": lambda: launch_w(*raw_w)}
+    for w, run in runs.items():
+        if run() != 0:
+            failures.append(f"flash_bwd_{w} launch failed")
             return None
-    ms = {"dq": time_cuda(lambda: launch(*raw, 0, stream), 20),
-          "dkv": time_cuda(lambda: launch(*raw, 1, stream), 20)}
+    ms = {w: time_cuda(run, 50 if w == "dkv_wgmma" else 10)
+          for w, run in runs.items()}
     both = time_cuda(lambda: flash_bwd_cuda(q, k, v, do, lse, delta), 10)
     plain = time_cuda(lambda: flash_bwd_plain(q, k, v, do, lse, delta), 5)
     q4, k4, v4, do4 = (t.reshape(B // LM_MICROBATCHES, H, S, hd)
@@ -1401,38 +1580,54 @@ def train_phase(dev, args, failures):
     n_products = {"dq": 3, "dkv": 4}
     bounds = {w: bound_ms(in_bytes + out_bytes[w], n_products[w] * product,
                           BF16_FLOP_PER_S) for w in ("dq", "dkv")}
+    bounds["dkv_wgmma"] = bounds["dkv"]
+    n_products["dkv_wgmma"] = n_products["dkv"]
     b_all = bound_ms(in_bytes + out_bytes["dq"] + out_bytes["dkv"],
                      5 * product, BF16_FLOP_PER_S)
-    for w in ("dq", "dkv"):
+    for w, label in (("dq", "FP32-FMA"), ("dkv", "FP32-FMA"),
+                     ("dkv_wgmma", "tensor-core")):
         flops = n_products[w] * product
-        print(f"[train-time] flash_bwd_{w} (BH, S, hd) = ({BH}, {S}, {hd}) "
-              f"bf16 causal: {ms[w]:.4f} ms ({flops / ms[w] / 1e9:.1f} "
-              f"TFLOP/s in its {n_products[w]} products) | bound "
+        print(f"[train-time] flash_bwd_{w} ({label}) (BH, S, hd) = ({BH}, "
+              f"{S}, {hd}) bf16 causal: {ms[w]:.4f} ms "
+              f"({flops / ms[w] / 1e9:.1f} TFLOP/s in its {n_products[w]} "
+              f"products) | bound "
               f"{bounds[w][0]:.4f} ms ({bounds[w][1]}; operations at the "
-              f"bf16 tensor-core rate; {bounds[w][0] / ms[w]:.1%} of it) | "
-              f"{flops / FP32_FLOP_PER_S * 1e3:.3f} ms at the FP32 rate")
-    print(f"[train-time] flash_bwd (dq + dkv through the wrapper): "
-          f"{both:.4f} ms | plain (dq, dk, dv) {plain:.4f} ms | backward of "
-          f"scaled_dot_product_attention(is_causal=True) {lib:.4f} ms | "
-          f"bound of the five products {b_all[0]:.4f} ms ({b_all[1]}); "
-          f"{5 * product / 1e9:.1f} GFLOP, "
+              f"bf16 tensor-core rate; {bounds[w][0] / ms[w]:.1%} of it)")
+    print(f"[train-time] flash_bwd (dq + tensor-core dkv through the "
+          f"wrapper): {both:.4f} ms | plain (dq, dk, dv) {plain:.4f} ms | "
+          f"backward of scaled_dot_product_attention(is_causal=True) "
+          f"{lib:.4f} ms | bound of the five products {b_all[0]:.4f} ms "
+          f"({b_all[1]}); {5 * product / 1e9:.1f} GFLOP, "
           f"{(in_bytes + out_bytes['dq'] + out_bytes['dkv']) / 1e6:.1f} MB")
     print(f"[train] phase 8 launches over {LM_TRAIN_STEPS} steps: "
-          f"{train_counts}")
+          f"{train_counts}; in the f32 gradient of 8b {grad_counts}")
     del q, k, v, do, lse, delta, dq, dk, dv, q4, k4, v4, do4, leaves4
     torch.cuda.empty_cache()
-    path = err_at[((BH, S, S, hd, hd), "bfloat16", True)]
+    path = err_at[((BH, S, S, hd, hd), "bfloat16", True, "wgmma")]
+    path32 = err_at[((BH, S, S, hd, hd), "float32", True, "fma")]
+    shape = f"(BH, S, T, hd) = ({BH}, {S}, {S}, {hd}) bf16 causal"
+    entry = {"route": "cuda", "plain_ms": plain, "library_ms": lib}
     entries = [
-        {"name": f"flash_bwd_{w}", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_bwd.cu",
-         "replaces": f"src/repro/kernels/flash_attention.py:{line}",
-         "shape": f"(BH, S, T, hd) = ({BH}, {S}, {S}, {hd}) bf16 causal",
-         "launches": train_counts[f"flash_bwd_{w}"],
-         "max_abs_err": max(e for e, _, _ in
-                            (path[:1] if w == "dq" else path[1:])),
-         "ms": ms[w], "plain_ms": plain, "bound_ms": bounds[w][0],
-         "bound_by": bounds[w][1], "library_ms": lib}
-        for w, line in (("dq", 220), ("dkv", 240))]
+        dict(entry, name="flash_bwd_dq",
+             source="src/repro_torch/csrc/flash_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:220",
+             shape=shape, launches=train_counts["flash_bwd_dq"],
+             max_abs_err=path[0][0], ms=ms["dq"], bound_ms=bounds["dq"][0],
+             bound_by=bounds["dq"][1]),
+        dict(entry, name="flash_bwd_dkv_wgmma",
+             source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
+             replaces="src/repro/kernels/flash_attention.py:240",
+             shape=shape, launches=train_counts["flash_bwd_dkv_wgmma"],
+             max_abs_err=max(path[1][0], path[2][0]), ms=ms["dkv_wgmma"],
+             bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1]),
+        dict(entry, name="flash_bwd_dkv",
+             source="src/repro_torch/csrc/flash_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:240",
+             shape=shape + " (timed); launches from the f32 gradient of 8b",
+             launches=grad_counts["flash_bwd_dkv"],
+             max_abs_err=max(path32[1][0], path32[2][0]), ms=ms["dkv"],
+             bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1]),
+    ]
     return entries, train_counts
 
 
@@ -1481,8 +1676,19 @@ def main(argv=None) -> int:
     for name, rec in info.items():
         print(f"[build] {name}: {rec['seconds']:.1f} s -> {rec['path']}")
         for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning")):
                 print(f"[build]   {line.strip()}")
+    for lib in WGMMA_LIBS:
+        kernels = build.sass_counts(lib)
+        for name, ops in kernels.items():
+            print(f"[build] SASS {lib}: {name}: HGMMA x{ops['HGMMA']}, "
+                  f"UTMALDG x{ops['UTMALDG']}")
+            if not (ops["HGMMA"] and ops["UTMALDG"]):
+                failures.append(f"{lib}: {name} lacks HGMMA or UTMALDG")
+        if not kernels:
+            failures.append(f"{lib}: no kernel in its SASS")
+    if failures:
+        return fail("; ".join(failures))
 
     # ---- data at the news20-like shape ------------------------------------
     spec = PAPER_DATASETS["news20-like"]

@@ -55,6 +55,12 @@ def on_card(t: torch.Tensor, name: str) -> bool:
 
 
 def raise_on_error(name: str, code: int) -> None:
+    """Raise for a C entry point's non-zero return: a CUDA error code, or
+    from 1000 on (csrc/wgmma_tile.cuh WG_ERR_*) a tensor map that could
+    not be made."""
+    if code >= 1000:
+        raise RuntimeError(f"{name}: the TMA tensor maps could not be made "
+                           f"(code {code})")
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{code}")

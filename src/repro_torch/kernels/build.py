@@ -40,6 +40,10 @@ SIGNATURES = {
                   [_P] * 5 + [_I] * 7 + [_F, _P]),
     "flash_bwd": ("flash_bwd", "flash_bwd_launch",
                   [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
+    "flash_fwd_wgmma": ("flash_fwd_wgmma", "flash_fwd_wgmma_launch",
+                        [_P] * 5 + [_I] * 5 + [_F, _P]),
+    "flash_bwd_dkv_wgmma": ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma_launch",
+                            [_P] * 8 + [_I] * 5 + [_F, _P]),
 }
 
 _LAUNCHERS: Dict[str, object] = {}
@@ -108,6 +112,26 @@ def build_all() -> Dict[str, dict]:
         raise RuntimeError("CUDA kernel build failed:\n"
                            + "\n".join(failures))
     return info
+
+
+def sass_counts(library: str, ops=("HGMMA", "UTMALDG")) -> Dict[str, dict]:
+    """``{kernel: {op: n}}``: the SASS lines of every kernel in the built
+    ``lib<library>.so`` that hold each instruction of ``ops``, read with
+    ``cuobjdump -sass`` from nvcc's directory (so a run can show that the
+    tensor-core kernels hold ``HGMMA`` and the TMA loads ``UTMALDG``)."""
+    cuobjdump = Path(find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass",
+                           str(build_all()[library]["path"])],
+                          capture_output=True, text=True, check=True).stdout
+    kernels, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            kernels[name] = dict.fromkeys(ops, 0)
+        elif name is not None:
+            for op in ops:
+                kernels[name][op] += op in line
+    return kernels
 
 
 def launcher(name: str):

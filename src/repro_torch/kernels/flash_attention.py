@@ -2,21 +2,34 @@
 and the row log-sum-exp over (BH, S, hd) q and (BH, T, hd) / (BH, T,
 hdv) k and v, and ``dq, dk, dv`` from the saved log-sum-exp.
 
-The counterpart of ``repro/kernels/flash_attention.py``.  Forward: the
-kernel is ``csrc/flash_fwd.cu`` (one block per (bh, 64-row q tile), the
-online-softmax recurrence in f32 registers, FP32 FMAs for f32 and bf16
-inputs alike; the causal mask is ``col <= row``, tiles above the
-diagonal are skipped); ``flash_fwd_cuda`` launches it and counts the
-launches, ``flash_fwd_plain`` is the plain PyTorch version (the oracle
-plus the log-sum-exp).  Backward: ``csrc/flash_bwd.cu`` holds the dq
-kernel (one block per q tile) and the dkv kernel (one block per k/v
-tile), no atomics; ``flash_bwd_cuda`` launches both and counts each,
-``flash_bwd_plain`` is the plain version.  ``FlashAttention`` (the
-counterpart of the JAX ``custom_vjp``) runs the forward and, in its
-backward, ``delta = sum(do * o, -1)`` in f32 and then
-``kernels.ops.flash_bwd``; each picks the kernel for a CUDA tensor and
-the plain version for a CPU tensor.  ``flash_attention`` is the
-differentiable entry point the LM's flash path takes (training and
+The counterpart of ``repro/kernels/flash_attention.py``.  Two routes,
+picked by ``flash_route`` from the dtype and head dims alone:
+
+- ``"wgmma"`` (bf16, hd = hdv in {64, 128}, the LM's shapes): the
+  forward is ``csrc/flash_fwd_wgmma.cu`` and the dk/dv backward
+  ``csrc/flash_bwd_wgmma.cu``, both on the tensor cores (bf16 ``wgmma``
+  on tiles that TMA brings into shared memory; ``csrc/wgmma_tile.cuh``).
+  The forward rounds p to bf16 before the PV product, as the TPU kernel
+  does; the dk/dv kernel rounds p and ds to bf16 for its products, which
+  the TPU kernel does not (ROADMAP C5).
+- ``"fma"`` (f32, and bf16 at other head dims): ``csrc/flash_fwd.cu``
+  (one block per (bh, 64-row q tile), the online-softmax recurrence in
+  f32 registers, FP32 FMAs) and ``csrc/flash_bwd.cu``'s dkv kernel, all
+  in f32 from the widened inputs.
+
+The dq kernel (``csrc/flash_bwd.cu``, FP32 FMAs) serves both routes.
+The causal mask is ``col <= row``; tiles above the diagonal are skipped.
+``flash_fwd_cuda`` and ``flash_bwd_cuda`` launch the kernels and count
+each launch by kernel (``launches`` / ``launches_wgmma`` for the
+forward, ``launches_dq``, ``launches_dkv`` / ``launches_dkv_wgmma`` for
+the backward); ``flash_fwd_plain`` and ``flash_bwd_plain`` are the
+plain PyTorch versions (the oracle with its log-sum-exp; ``round_p``
+rounds p, and in the backward ds, to bf16 where the tensor-core kernels
+do).  ``FlashAttention`` (the counterpart of the JAX ``custom_vjp``)
+runs the forward and, in its backward, ``delta = sum(do * o, -1)`` in
+f32 and then ``kernels.ops.flash_bwd``; each picks the kernel for a CUDA
+tensor and the plain version for a CPU tensor.  ``flash_attention`` is
+the differentiable entry point the LM's flash path takes (training and
 prefill).
 """
 from __future__ import annotations
@@ -32,6 +45,19 @@ from .ref import flash_attention_bwd_ref, flash_attention_ref
 HD_MAX = 128              # csrc/flash_fwd.cu FA_HD_MAX
 MAX_GRID_Y = 65535        # CUDA's limit on gridDim.y (the BH axis)
 BLOCK = 256               # the TPU kernel's default bq = bk
+WGMMA_HEAD_DIMS = (64, 128)   # csrc/flash_{fwd,bwd}_wgmma.cu
+TMA_ALIGN = 16            # bytes: a TMA tensor map's base address
+
+
+def flash_route(dtype: torch.dtype, hd: int, hdv: int) -> str:
+    """The kernel family for a flash call: ``"wgmma"`` (the tensor-core
+    forward and dk/dv kernels) for bf16 with ``hd == hdv`` in
+    ``WGMMA_HEAD_DIMS``, ``"fma"`` (the FP32-FMA kernels) otherwise: f32,
+    whose whole-model gradients are held to 1e-5, which bf16 operands
+    cannot meet; head dims the wgmma tiles do not take (16, 24, 32, ...);
+    and hd != hdv."""
+    return ("wgmma" if dtype == torch.bfloat16 and hd == hdv
+            and hd in WGMMA_HEAD_DIMS else "fma")
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor,
@@ -62,12 +88,15 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: Optional[float] = None
+                    causal: bool = True, scale: Optional[float] = None,
+                    round_p: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o (BH, S, hdv) in q's dtype, lse (BH, S) f32)`` through the whole
-    (S, T) softmax in f32: ``ref.flash_attention_ref`` with its lse."""
+    (S, T) softmax in f32: ``ref.flash_attention_ref`` with its lse
+    (``round_p``: p rounded to v's dtype before the PV product)."""
     check_shapes(q, k, v)
-    return flash_attention_ref(q, k, v, causal, scale, with_lse=True)
+    return flash_attention_ref(q, k, v, causal, scale, with_lse=True,
+                               round_p=round_p)
 
 
 def _check_card(name: str, tensors, q: torch.Tensor, BH: int) -> None:
@@ -89,29 +118,50 @@ def _check_card(name: str, tensors, q: torch.Tensor, BH: int) -> None:
                          f"({MAX_GRID_Y})")
 
 
+def _check_tma(name: str, tensors) -> None:
+    """The tensor-core kernels read their operands through TMA tensor
+    maps, whose base addresses must be 16-byte aligned."""
+    for arg, t in tensors:
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name}: {arg} must start on a {TMA_ALIGN}-"
+                             f"byte boundary for the tensor-core kernel")
+
+
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True, scale: Optional[float] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the flash forward kernel on the card: q, k, v contiguous CUDA
-    tensors of one dtype (f32 or bf16).  Returns ``(o, lse)`` as
-    ``flash_fwd_plain`` does.  Never synchronises."""
+    """Launch the flash forward kernel that ``flash_route`` names on the
+    card: q, k, v contiguous CUDA tensors of one dtype (f32 or bf16).
+    Returns ``(o, lse)`` as ``flash_fwd_plain`` does (the wgmma route
+    with p rounded to bf16, as ``round_p``).  Counts the launch
+    (``flash_fwd_cuda.launches`` for the FP32-FMA kernel,
+    ``.launches_wgmma`` for the tensor-core one).  Never synchronises."""
     BH, S, T, hd, hdv = check_shapes(q, k, v)
-    _check_card("flash_fwd", (("q", q), ("k", k), ("v", v)), q, BH)
+    operands = (("q", q), ("k", k), ("v", v))
+    _check_card("flash_fwd", operands, q, BH)
     scale = scale if scale is not None else hd ** -0.5
     o = torch.empty((BH, S, hdv), dtype=q.dtype, device=q.device)
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr())
     with torch.cuda.device(q.device):
-        code = build.launcher("flash_fwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), BH, S, T, hd, hdv, DTYPE_CODES[q.dtype],
-            int(bool(causal)), float(scale),
-            torch.cuda.current_stream().cuda_stream)
-    raise_on_error("flash_fwd", code)
-    flash_fwd_cuda.launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if flash_route(q.dtype, hd, hdv) == "wgmma":
+            _check_tma("flash_fwd", operands)
+            raise_on_error("flash_fwd_wgmma", build.launcher(
+                "flash_fwd_wgmma")(*ptrs, BH, S, T, hd, int(bool(causal)),
+                                   float(scale), stream))
+            flash_fwd_cuda.launches_wgmma += 1
+        else:
+            raise_on_error("flash_fwd", build.launcher("flash_fwd")(
+                *ptrs, BH, S, T, hd, hdv, DTYPE_CODES[q.dtype],
+                int(bool(causal)), float(scale), stream))
+            flash_fwd_cuda.launches += 1
     return o, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.launches_wgmma = 0
 
 
 def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -137,27 +187,34 @@ def _check_bwd(q, k, v, do, lse, delta):
 def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     do: torch.Tensor, lse: torch.Tensor,
                     delta: torch.Tensor, causal: bool = True,
-                    scale: Optional[float] = None):
+                    scale: Optional[float] = None, round_p: bool = False):
     """``(dq, dk, dv)`` in q's, k's and v's dtypes through the whole (S, T)
-    softmax in f32: ``ref.flash_attention_bwd_ref``."""
+    softmax in f32: ``ref.flash_attention_bwd_ref`` (``round_p``: p and
+    ds rounded to the inputs' dtype in the dk and dv products)."""
     _check_bwd(q, k, v, do, lse, delta)
-    return flash_attention_bwd_ref(q, k, v, do, lse, delta, causal, scale)
+    return flash_attention_bwd_ref(q, k, v, do, lse, delta, causal, scale,
+                                   round_p=round_p)
 
 
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                    causal: bool = True, scale: Optional[float] = None):
-    """Launch the dq kernel and then the dkv kernel on the card: q, k, v
-    and do contiguous CUDA tensors of one dtype (f32 or bf16), lse and
-    delta (BH, S) f32.  Returns ``(dq, dk, dv)`` as ``flash_bwd_plain``
-    does.  Counts each launch (``flash_bwd_cuda.launches_dq``,
-    ``.launches_dkv``).  Never synchronises."""
+    """Launch the dq kernel and then the dkv kernel that ``flash_route``
+    names on the card: q, k, v and do contiguous CUDA tensors of one dtype
+    (f32 or bf16), lse and delta (BH, S) f32.  Returns ``(dq, dk, dv)`` as
+    ``flash_bwd_plain`` does (the wgmma route's dk and dv as with
+    ``round_p``).  Counts each launch (``flash_bwd_cuda.launches_dq``;
+    ``.launches_dkv`` for the FP32-FMA dkv kernel, ``.launches_dkv_wgmma``
+    for the tensor-core one).  Never synchronises."""
     BH, S, T, hd, hdv = _check_bwd(q, k, v, do, lse, delta)
-    _check_card("flash_bwd", (("q", q), ("k", k), ("v", v), ("do", do)), q,
-                BH)
+    operands = (("q", q), ("k", k), ("v", v), ("do", do))
+    _check_card("flash_bwd", operands, q, BH)
     for name, t in (("lse", lse), ("delta", delta)):
         if not t.is_contiguous():
             raise ValueError(f"flash_bwd: {name} must be contiguous")
+    wgmma = flash_route(q.dtype, hd, hdv) == "wgmma"
+    if wgmma:
+        _check_tma("flash_bwd", operands)
     scale = scale if scale is not None else hd ** -0.5
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -171,13 +228,22 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         launch = build.launcher("flash_bwd")
         raise_on_error("flash_bwd_dq", launch(*args, 0, stream))
         flash_bwd_cuda.launches_dq += 1
-        raise_on_error("flash_bwd_dkv", launch(*args, 1, stream))
-        flash_bwd_cuda.launches_dkv += 1
+        if wgmma:
+            raise_on_error("flash_bwd_dkv_wgmma", build.launcher(
+                "flash_bwd_dkv_wgmma")(*args[:6], dk.data_ptr(),
+                                       dv.data_ptr(), BH, S, T, hd,
+                                       int(bool(causal)), float(scale),
+                                       stream))
+            flash_bwd_cuda.launches_dkv_wgmma += 1
+        else:
+            raise_on_error("flash_bwd_dkv", launch(*args, 1, stream))
+            flash_bwd_cuda.launches_dkv += 1
     return dq, dk, dv
 
 
 flash_bwd_cuda.launches_dq = 0
 flash_bwd_cuda.launches_dkv = 0
+flash_bwd_cuda.launches_dkv_wgmma = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -43,28 +43,40 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, scale=None,
-                        with_lse: bool = False):
+                        with_lse: bool = False, round_p: bool = False):
     """Oracle for the flash kernel: the whole (S, T) softmax in f32.
     q/k/v: (BH, S|T, hd); returns o (BH, S, hdv) in q's dtype, and with
     ``with_lse`` also the row log-sum-exp (BH, S) in f32, as ``(o, lse)``
-    (the kernel's plain version, ``flash_fwd_plain``)."""
+    (the kernel's plain version, ``flash_fwd_plain``).  ``round_p``
+    rounds ``p = exp(s - max)`` to v's dtype before the PV product and
+    divides by the sum of the unrounded p afterwards, the TPU kernel's
+    rounding (``flash_attention.py:64-68``) over one k tile."""
     s = attention_scores(q, k, causal, scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    o = torch.einsum("bqk,bkd->bqd", p / l, v.float()).to(q.dtype)
+    if round_p:
+        o = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(),
+                         v.float()) / l
+    else:
+        o = torch.einsum("bqk,bkd->bqd", p / l, v.float())
+    o = o.to(q.dtype)
     return (o, (m + torch.log(l))[..., 0]) if with_lse else o
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, do: torch.Tensor,
                             lse: torch.Tensor, delta: torch.Tensor,
-                            causal: bool = True, scale=None):
+                            causal: bool = True, scale=None,
+                            round_p: bool = False):
     """Oracle for the flash backward kernels: ``(dq, dk, dv)`` through the
     whole (S, T) softmax in f32, from the forward's saved ``lse`` and
     ``delta = sum(do * o, -1)`` (both (BH, S) f32), as the TPU kernels
     compute them (``p = exp(s - lse)``, ``ds = p (do v^T - delta)
-    scale``); each result is rounded once, to its input's dtype."""
+    scale``); each result is rounded once, to its input's dtype.
+    ``round_p`` rounds p and ds to the inputs' dtype in the dv and dk
+    products, as the tensor-core dkv kernel does (ROADMAP C5); dq keeps
+    f32 ds."""
     hd = q.shape[-1]
     scale = scale if scale is not None else hd ** -0.5
     p = torch.exp(attention_scores(q, k, causal, scale) - lse[..., None])
@@ -72,9 +84,69 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dp = torch.einsum("bqd,bkd->bqk", dof, v.float())
     ds = p * (dp - delta[..., None]) * scale
     dq = torch.einsum("bqk,bkd->bqd", ds, k.float())
+    if round_p:
+        p, ds = p.to(do.dtype).float(), ds.to(q.dtype).float()
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
     dv = torch.einsum("bqk,bqd->bkd", p, dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# Unit roundoffs: bf16 keeps 8 significant bits, f32 24.
+U_BF16, U_F32 = 2.0 ** -8, 2.0 ** -24
+# The JAX package's bf16 bound (tests/test_flash_attention.py:49), which no
+# derived bound may exceed.
+JAX_BF16_TOL = 3e-2
+
+
+def _bf16_bound(terms: torch.Tensor, want: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """Elementwise tolerance of a bf16 result that is an f32 sum of n
+    products, each with one factor rounded to bf16 (relative U_BF16), then
+    rounded once to bf16 on both sides (up to 2 U_BF16 of |want|):
+    ``(U_BF16 + 2 n U_F32) terms + (2 U_BF16 + 2 n U_F32) |want|``, with
+    ``terms`` the sum of the products' magnitudes (plus the smallest
+    normal f32, so that an exact 0 passes and nothing else does where the
+    sum is 0); never looser than the JAX package's bf16 bound."""
+    f32 = 2 * n * U_F32              # the f32 sums, in any order
+    want = want.float().abs()
+    bound = ((U_BF16 + f32) * terms + (2 * U_BF16 + f32) * want
+             + torch.finfo(torch.float32).tiny)
+    return torch.minimum(bound, JAX_BF16_TOL * (1 + want))
+
+
+def flash_fwd_bf16_tolerance(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             causal: bool = True,
+                             scale=None) -> torch.Tensor:
+    """Derived elementwise bound on |o_kernel - o| for the tensor-core
+    forward against the plain version's ``o`` (f32 p): the kernel rounds
+    each p / l to bf16 (relative U_BF16), so o moves by at most U_BF16
+    sum_j (p_j / l) |v_j|, plus the f32 sums and both final roundings."""
+    s = attention_scores(q, k, causal, scale)
+    w = torch.softmax(s, -1)
+    terms = torch.einsum("bqk,bkd->bqd", w, v.float().abs())
+    return _bf16_bound(terms, o, k.shape[1])
+
+
+def flash_dkv_bf16_tolerance(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor,
+                             lse: torch.Tensor, delta: torch.Tensor,
+                             dk: torch.Tensor, dv: torch.Tensor,
+                             causal: bool = True, scale=None):
+    """Derived elementwise bounds ``(on dk, on dv)`` for the tensor-core
+    dkv kernel against the plain version's ``dk, dv`` (f32 p and ds): it
+    rounds each p and ds to bf16, so dv moves by at most U_BF16 sum_q p
+    |do| and dk by U_BF16 sum_q |ds| |q|, plus the f32 sums and both
+    final roundings."""
+    hd = q.shape[-1]
+    scale = scale if scale is not None else hd ** -0.5
+    p = torch.exp(attention_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None]) * scale).abs()
+    t_dk = torch.einsum("bqk,bqd->bkd", ds, q.float().abs())
+    t_dv = torch.einsum("bqk,bqd->bkd", p, do.float().abs())
+    S = q.shape[1]
+    return _bf16_bound(t_dk, dk, S), _bf16_bound(t_dv, dv, S)
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,

@@ -5,7 +5,10 @@ the same numpy inputs: ``o`` and the log-sum-exp ``lse``.  The CUDA
 kernel against its plain version is in tests/test_torch_gpu.py.
 
 Tolerances are the reference's own (tests/test_flash_attention.py): f32
-2e-4 relative / 2e-5 absolute, bf16 3e-2.
+2e-4 relative / 2e-5 absolute, bf16 3e-2.  ``flash_route`` (which kernel
+a call takes on the card) is a pure function of dtype and head dims, and
+the plain version with p rounded to bf16 (what the tensor-core forward
+computes) is held against the Pallas forward and its derived bound.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +21,10 @@ from repro.kernels.ref import flash_attention_ref as j_ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (check_shapes,
                                                  flash_fwd_cuda,
-                                                 flash_fwd_plain)
-from repro_torch.kernels.ref import flash_attention_ref
+                                                 flash_fwd_plain,
+                                                 flash_route)
+from repro_torch.kernels.ref import (JAX_BF16_TOL, flash_attention_ref,
+                                     flash_fwd_bf16_tolerance)
 
 SHAPES = [(2, 128, 128, 32, 32), (1, 256, 256, 64, 64), (3, 64, 64, 16, 8)]
 
@@ -118,3 +123,63 @@ def test_kernel_wrapper_refuses_host_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 64, 64, 16, 16))
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_fwd_cuda(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16], ids=["bf16", "f32",
+                                                        "f16"])
+@pytest.mark.parametrize("hd,hdv", [(128, 128), (64, 64), (32, 32),
+                                    (16, 16), (24, 24), (128, 64),
+                                    (64, 128), (96, 96)])
+def test_flash_route(dtype, hd, hdv):
+    """The tensor-core kernels take bf16 with hd = hdv in {64, 128}; every
+    other call takes the FP32-FMA kernels."""
+    want = ("wgmma" if dtype == torch.bfloat16 and hd == hdv
+            and hd in (64, 128) else "fma")
+    assert flash_route(dtype, hd, hdv) == want
+
+
+def _bf16_errors(shape, causal, block, seed):
+    """|o - o_pallas| of the f32-p and the bf16-p plain versions, the
+    Pallas forward in interpret mode at ``block`` rows, same bf16 inputs."""
+    q, k, v = _qkv(*shape, seed=seed)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    o_j, _ = j_flash_fwd(jq, jk, jv, causal=causal, bq=block, bk=block,
+                         interpret=True)
+    o_j = np.asarray(o_j.astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    return [np.abs(flash_fwd_plain(tq, tk, tv, causal, round_p=r)[0]
+                   .float().numpy() - o_j) for r in (False, True)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 128, 128, 64, 64),
+                                   (2, 256, 256, 128, 128)])
+def test_round_p_plain_matches_pallas_bf16(causal, shape):
+    """p rounded to bf16 before PV (flash_attention.py:68) brings the plain
+    version at least as close to the Pallas forward as f32 p: over one k
+    block, where the kernel's running max is the row max, in the largest
+    and the mean error; over 64-row blocks in the mean error."""
+    f32p, bf16p = _bf16_errors(shape, causal, shape[1], seed=5)
+    assert bf16p.max() <= f32p.max() and bf16p.mean() <= f32p.mean()
+    assert bf16p.max() <= JAX_BF16_TOL
+    f32p, bf16p = _bf16_errors(shape, causal, 64, seed=6)
+    assert bf16p.mean() <= f32p.mean() and bf16p.max() <= JAX_BF16_TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 256, 256, 128, 128),
+                                   (3, 100, 40, 64, 64)])
+def test_round_p_within_derived_bf16_bound(causal, shape):
+    """The derived bound that holds the tensor-core forward against the
+    f32-p plain version on the card covers the bf16 rounding of p: the
+    bf16-p plain version stays within it, and it is no looser than the
+    JAX package's bf16 bound."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(*shape, seed=7))
+    o, lse = flash_fwd_plain(q, k, v, causal)
+    o_r, lse_r = flash_fwd_plain(q, k, v, causal, round_p=True)
+    tol = flash_fwd_bf16_tolerance(q, k, v, o, causal)
+    assert bool(((o_r.float() - o.float()).abs() <= tol).all())
+    assert bool((tol <= JAX_BF16_TOL * (1 + o.float().abs())).all())
+    torch.testing.assert_close(lse_r, lse, rtol=0, atol=0)

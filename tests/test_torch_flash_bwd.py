@@ -12,7 +12,10 @@ bf16 from the same saved o and lse: 1e-2 / 1e-3, one bf16 ulp (both
 widen the same bf16 inputs, compute in f32 and round dq, dk, dv once).
 bf16 gradients through each package's own forward: the JAX bf16 bound
 3e-2 (the Pallas forward rounds p to bf16 before PV, so o, lse and
-delta differ by a bf16 rounding).
+delta differ by a bf16 rounding).  The plain backward with p and ds
+rounded to bf16 in the dk and dv products (what the tensor-core dkv
+kernel computes, ROADMAP C5): within the derived bound that holds that
+kernel on the card, and within the JAX bf16 bound of the Pallas kernels.
 """
 import jax
 import jax.numpy as jnp
@@ -29,7 +32,8 @@ from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_bwd_cuda,
                                                  flash_bwd_plain,
                                                  flash_delta)
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (JAX_BF16_TOL, flash_attention_ref,
+                                     flash_dkv_bf16_tolerance)
 
 # (BH, S, T, hd, hdv): the JAX gradient tests' shapes (hd != hdv as in
 # test_grads_mla_vdim) and a three-block causal case
@@ -161,3 +165,41 @@ def test_bad_backward_operands_are_refused():
         flash_bwd_plain(q, k, v, do, lse, lse[:, :8])
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_bwd_cuda(q, k, v, do, lse, lse)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 256, 256, 128, 128),
+                                   (2, 100, 40, 64, 64),
+                                   (2, 40, 100, 128, 128)])
+def test_dkv_round_p_within_derived_bf16_bound(causal, shape):
+    """dk and dv with p and ds rounded to bf16 stay within the derived
+    bound against the f32 plain version, which is no looser than the JAX
+    bf16 bound; dq is the f32 one on both."""
+    q, k, v, do = _t(*_inputs(*shape, seed=8), dtype=torch.bfloat16)
+    o, lse = flash_attention_ref(q, k, v, causal, with_lse=True)
+    delta = flash_delta(o, do)
+    dq, dk, dv = flash_bwd_plain(q, k, v, do, lse, delta, causal)
+    dq_r, dk_r, dv_r = flash_bwd_plain(q, k, v, do, lse, delta, causal,
+                                       round_p=True)
+    assert torch.equal(dq_r, dq)
+    tols = flash_dkv_bf16_tolerance(q, k, v, do, lse, delta, dk, dv, causal)
+    for name, a, b, tol in (("dk", dk_r, dk, tols[0]),
+                            ("dv", dv_r, dv, tols[1])):
+        assert bool(((a.float() - b.float()).abs() <= tol).all()), name
+        assert bool((tol <= JAX_BF16_TOL * (1 + b.float().abs())).all())
+
+
+def test_dkv_round_p_matches_pallas_bf16():
+    """The bf16-p/ds plain dk and dv against the Pallas backward in
+    interpret mode on the same bf16 inputs, o and lse: the JAX bound."""
+    q, k, v, do = _inputs(2, 128, 128, 64, 64, seed=9)
+    jq, jk, jv, jdo = _j(q, k, v, do, dtype=jnp.bfloat16)
+    o, lse = j_flash_fwd(jq, jk, jv, causal=True, bq=64, bk=64,
+                         interpret=True)
+    want = j_flash_bwd(jq, jk, jv, o, lse, jdo, causal=True, bq=64, bk=64,
+                       interpret=True)
+    tq, tk, tv, tdo, to = _t(q, k, v, do, o, dtype=torch.bfloat16)
+    got = flash_bwd_plain(tq, tk, tv, tdo, torch.from_numpy(np.array(lse)),
+                          flash_delta(to, tdo), round_p=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a, b, JAX_BF16_TOL, JAX_BF16_TOL, name)

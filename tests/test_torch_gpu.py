@@ -13,13 +13,20 @@ Tolerances: KMV and the streamed KMV 2e-4 (tests/test_kmv.py), gram
 tolerance relative to the largest output value (ROADMAP C2).  The row
 gather copies bits and is held to exact equality.  RMSNorm 1e-5 f32
 and 2e-2 bf16 (tests/test_pallas_rmsnorm.py); flash attention 2e-4 /
-2e-5 f32 (tests/test_flash_attention.py), and for bf16 inputs 1e-2 /
-1e-3 on o (one bf16 ulp: kernel and plain version both compute in f32
-and differ only in the final rounding) with lse at the f32 limits.  The
-flash backward (dq, dk, dv): f32 2e-4 / 2e-5 (tighter than the JAX
-gradient test's 2e-3 / 2e-4: kernel and plain version sum the same f32
-products in another order, with no bf16 rounding of p), bf16 one ulp,
-1e-2 / 1e-3.
+2e-5 f32 (tests/test_flash_attention.py), and for bf16 inputs through
+the FP32-FMA kernels 1e-2 / 1e-3 on o (one bf16 ulp: kernel and plain
+version both compute in f32 and differ only in the final rounding) with
+lse at the f32 limits.  The flash backward (dq, dk, dv): f32 2e-4 / 2e-5
+(tighter than the JAX gradient test's 2e-3 / 2e-4: kernel and plain
+version sum the same f32 products in another order, with no bf16
+rounding of p), bf16 through the FP32-FMA kernels (dq always) one ulp,
+1e-2 / 1e-3.  The tensor-core kernels (bf16, hd = hdv in {64, 128},
+``flash_route``) round p, and in dkv ds, to bf16 for their products, so
+their o, dk and dv are held to a derived elementwise bound instead:
+u = 2^-8 (bf16's unit roundoff) times the sum of the products'
+magnitudes, plus the f32 sums and both sides' final rounding, capped at
+the JAX package's bf16 bound 3e-2 (``ref.flash_fwd_bf16_tolerance``,
+``ref.flash_dkv_bf16_tolerance``); lse stays at the f32 limits.
 """
 import dataclasses
 
@@ -38,7 +45,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_bwd_plain,
                                                  flash_delta,
                                                  flash_fwd_cuda,
-                                                 flash_fwd_plain)
+                                                 flash_fwd_plain,
+                                                 flash_route)
 from repro_torch.kernels.gram import gram_cuda, gram_plain
 from repro_torch.kernels.kmv import kmv_cuda, kmv_plain
 from repro_torch.kernels.kmv_stream import (gather_rows_cuda,
@@ -46,7 +54,9 @@ from repro_torch.kernels.kmv_stream import (gather_rows_cuda,
                                             kmv_stream_cuda,
                                             kmv_stream_plain,
                                             kmv_stream_resident)
-from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref
+from repro_torch.kernels.ref import (flash_attention_ref,
+                                     flash_dkv_bf16_tolerance,
+                                     flash_fwd_bf16_tolerance, rmsnorm_ref)
 from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_cuda, rmsnorm_plain
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.models import (decode_step, forward, init_decode_state,
@@ -434,6 +444,19 @@ def _qkv(BH, S, T, hd, hdv, dtype, device, seed=0):
     return mk(S, hd), mk(T, hd), mk(T, hdv)
 
 
+def _fwd_counts():
+    return {"fma": flash_fwd_cuda.launches,
+            "wgmma": flash_fwd_cuda.launches_wgmma}
+
+
+def _assert_within(got, want, tol, what=""):
+    """|got - want| <= tol elementwise (a derived bound)."""
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol).all()), (
+        f"{what}: max abs err {float(err.max()):.3e}, "
+        f"{float((err / tol).max()):.3f}x the bound")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -443,24 +466,38 @@ def _qkv(BH, S, T, hd, hdv, dtype, device, seed=0):
                                    (3, 64, 64, 16, 8),
                                    (2, 17, 17, 128, 128),
                                    (2, 100, 40, 24, 128),
-                                   (2, 512, 512, 128, 128)])
+                                   (2, 512, 512, 128, 128),
+                                   (2, 100, 40, 128, 128),
+                                   (2, 40, 100, 128, 128),
+                                   (2, 100, 40, 64, 64)])
 def test_flash_fwd_cuda_matches_plain(cuda_device, causal, dtype, shape):
-    """The JAX test's shapes, ragged tiles (S = 17, 100; T = 40), hd != hdv
-    both ways, and full 128-wide heads over several k tiles; o and lse."""
+    """The JAX test's shapes, ragged tiles (S = 17, 100; T = 40, 100), hd
+    != hdv both ways, and full 128-wide heads over several k tiles; o and
+    lse, through the route ``flash_route`` names (bf16 at hd = hdv 64 or
+    128 the tensor-core kernel, the rest the FP32-FMA one), whose counter
+    alone moves."""
     q, k, v = _qkv(*shape, dtype, cuda_device, seed=13)
-    before = flash_fwd_cuda.launches
+    route = flash_route(dtype, shape[3], shape[4])
+    before = _fwd_counts()
     o, lse = flash_fwd_cuda(q, k, v, causal=causal)
     o_p, lse_p = flash_fwd_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_fwd_cuda.launches == before + 1
+    moved = {r: n - before[r] for r, n in _fwd_counts().items()}
+    assert moved == {r: int(r == route) for r in moved}
     assert o.shape == o_p.shape and o.dtype == dtype
     assert lse.shape == lse_p.shape and lse.dtype == torch.float32
-    # both sides widen the same inputs and compute in f32: bf16 o differs
-    # by its final rounding (one ulp), lse is f32 on both
-    rtol, atol = (1e-2, 1e-3) if dtype == torch.bfloat16 else (2e-4, 2e-5)
-    np.testing.assert_allclose(o.float().cpu().numpy(),
-                               o_p.float().cpu().numpy(), rtol=rtol,
-                               atol=atol)
+    if route == "wgmma":
+        # p rounded to bf16 before PV: the derived bound
+        _assert_within(o, o_p, flash_fwd_bf16_tolerance(q, k, v, o_p,
+                                                        causal), "o")
+    else:
+        # both sides widen the same inputs and compute in f32: bf16 o
+        # differs by its final rounding (one ulp), lse is f32 on both
+        rtol, atol = ((1e-2, 1e-3) if dtype == torch.bfloat16
+                      else (2e-4, 2e-5))
+        np.testing.assert_allclose(o.float().cpu().numpy(),
+                                   o_p.float().cpu().numpy(), rtol=rtol,
+                                   atol=atol)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
                                rtol=2e-4, atol=2e-5)
 
@@ -475,10 +512,24 @@ def test_flash_fwd_cuda_refuses_what_the_tpu_kernel_refuses(cuda_device):
         flash_fwd_cuda(q, k, v)
 
 
+@pytest.mark.gpu
+def test_tensor_core_route_refuses_unaligned_operands(cuda_device):
+    """TMA reads from 16-byte aligned addresses: a contiguous bf16 view
+    that starts 2 bytes in is refused, not read wrongly."""
+    q, k, v = _qkv(1, 64, 64, 64, 64, torch.bfloat16, cuda_device)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    q_off = flat[1:].view(q.shape)
+    q_off.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_fwd_cuda(q_off, k, v)
+
+
 BWD_SHAPES = [(2, 128, 128, 32, 32), (2, 64, 64, 48, 32),
               (3, 64, 64, 16, 8), (2, 17, 17, 128, 128),
               (2, 100, 40, 24, 128), (2, 40, 100, 128, 64),
-              (2, 512, 512, 128, 128)]
+              (2, 512, 512, 128, 128), (2, 100, 40, 128, 128),
+              (2, 40, 100, 128, 128), (2, 100, 40, 64, 64),
+              (2, 256, 256, 64, 64)]
 
 
 def _bwd_inputs(shape, dtype, device, causal, seed):
@@ -487,6 +538,12 @@ def _bwd_inputs(shape, dtype, device, causal, seed):
         q.shape[:2] + v.shape[2:]).astype(np.float32)).to(device, dtype)
     o, lse = flash_fwd_plain(q, k, v, causal=causal)
     return q, k, v, do, lse, flash_delta(o, do)
+
+
+def _bwd_counts():
+    return {"dq": flash_bwd_cuda.launches_dq,
+            "fma": flash_bwd_cuda.launches_dkv,
+            "wgmma": flash_bwd_cuda.launches_dkv_wgmma}
 
 
 @pytest.mark.gpu
@@ -498,30 +555,48 @@ def test_flash_bwd_cuda_matches_plain(cuda_device, causal, dtype, shape):
     """The JAX gradient tests' shapes (hd != hdv as in test_grads_mla_vdim),
     ragged tails in S and T both ways, and full 128-wide heads over
     several tiles: dq, dk, dv from the same lse and delta; one launch of
-    each kernel."""
+    dq and one of the dkv kernel that ``flash_route`` names."""
     q, k, v, do, lse, delta = _bwd_inputs(shape, dtype, cuda_device, causal,
                                           16)
-    before = (flash_bwd_cuda.launches_dq, flash_bwd_cuda.launches_dkv)
+    route = flash_route(dtype, shape[3], shape[4])
+    before = _bwd_counts()
     got = flash_bwd_cuda(q, k, v, do, lse, delta, causal=causal)
     want = flash_bwd_plain(q, k, v, do, lse, delta, causal=causal)
     torch.cuda.synchronize()
-    assert (flash_bwd_cuda.launches_dq, flash_bwd_cuda.launches_dkv) == (
-        before[0] + 1, before[1] + 1)
+    moved = {r: n - before[r] for r, n in _bwd_counts().items()}
+    assert moved == {"dq": 1, "fma": int(route == "fma"),
+                     "wgmma": int(route == "wgmma")}
     rtol, atol = (1e-2, 1e-3) if dtype == torch.bfloat16 else (2e-4, 2e-5)
-    for name, a, b, ref in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+    tols = (None, None)
+    if route == "wgmma":
+        tols = flash_dkv_bf16_tolerance(q, k, v, do, lse, delta, want[1],
+                                        want[2], causal)
+    for name, a, b, ref, tol in zip(("dq", "dk", "dv"), got, want,
+                                    (q, k, v), (None,) + tuple(tols)):
         assert a.shape == ref.shape and a.dtype == dtype, name
+        if tol is not None:
+            _assert_within(a, b, tol, name)
+            continue
         np.testing.assert_allclose(a.float().cpu().numpy(),
                                    b.float().cpu().numpy(), rtol=rtol,
                                    atol=atol, err_msg=name)
 
 
 @pytest.mark.gpu
-def test_flash_bwd_cuda_repeats_bit_for_bit(cuda_device):
-    """No atomics: two calls on the same inputs give the same bits."""
-    args = _bwd_inputs((4, 512, 512, 128, 128), torch.bfloat16, cuda_device,
-                       True, 17)
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((4, 512, 512, 128, 128), torch.bfloat16, "wgmma"),
+    ((4, 200, 136, 64, 64), torch.bfloat16, "wgmma"),
+    ((4, 512, 512, 128, 128), torch.float32, "fma")],
+    ids=["wgmma-hd128", "wgmma-hd64-ragged", "fma-f32"])
+def test_flash_bwd_cuda_repeats_bit_for_bit(cuda_device, shape, dtype,
+                                            route):
+    """No atomics in either dkv kernel (nor in dq): two calls on the same
+    inputs give the same bits."""
+    args = _bwd_inputs(shape, dtype, cuda_device, True, 17)
+    before = _bwd_counts()
     a = flash_bwd_cuda(*args)
     b = flash_bwd_cuda(*args)
+    assert _bwd_counts()[route] - before[route] == 2
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -539,16 +614,18 @@ def test_flash_bwd_cuda_refuses_bad_operands(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hdv", [32, 64])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_flash_attention_grads_on_card(cuda_device, causal, dtype):
-    """The autograd Function on the card (kernels forward and backward):
-    every input gets a gradient, held against autograd through the plain
-    oracle on the same inputs (f32 2e-3 / 2e-4, the JAX gradient test's;
-    bf16 3e-2, its bf16 bound, since the oracle's autograd rounds its own
+def test_flash_attention_grads_on_card(cuda_device, causal, dtype, hdv):
+    """The autograd Function on the card (kernels forward and backward;
+    bf16 with hdv = hd = 64 through the tensor-core kernels): every input
+    gets a gradient, held against autograd through the plain oracle on
+    the same inputs (f32 2e-3 / 2e-4, the JAX gradient test's; bf16 3e-2,
+    its bf16 bound, since the oracle's autograd rounds its own
     intermediates to bf16)."""
-    q, k, v = _qkv(2, 256, 256, 64, 32, dtype, cuda_device, seed=19)
+    q, k, v = _qkv(2, 256, 256, 64, hdv, dtype, cuda_device, seed=19)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     do = torch.randn(q.shape[:2] + v.shape[2:], device=cuda_device,
                      generator=gen).to(dtype)
