@@ -7,10 +7,13 @@ card: the quickest proof that the port builds and runs its main path.
 Phases (each one fails the run with a non-zero exit):
 
   1. build    compile every csrc/*.cu (one nvcc each, in parallel); the
-              tensor-core flash kernels' SASS must hold HGMMA and UTMALDG
-              (cuobjdump -sass)
+              tensor-core flash kernels' SASS (forward, dkv and dq) must
+              hold HGMMA and UTMALDG (cuobjdump -sass)
   2. parity   KMV and gram kernels against their plain PyTorch versions
-              at the main path's shapes, f32 and bf16
+              at the main path's shapes, f32 and bf16 (gram also at the
+              classical 1 x 1 and the K-SVM 32 x 32 blocks, repeating bit
+              for bit; the gram check must fail the kernel with its last
+              feature split left out of the reduce)
   3. K-SVM    KernelSVM(C=1, rbf) at the news20-like shape (m = 19996,
               n = 8192): s-step DCD (s = 32) and classical DCD on one
               schedule, the duality gap (one full KMV), prediction of
@@ -38,8 +41,11 @@ Phases (each one fails the run with a non-zero exit):
        e. pipelined, copy-only and compute-only times of the streamed
           KMV, the streamed full KMV against the resident one
   6. report   launch counts of phases 3-4, kernel times against their
-              plain versions, bounds and library calls, the inner-phase
-              share of a round
+              plain versions, bounds and library calls (gram at 1 x 1, 32
+              x 32, 256 x 256 and 19 996 x 32, timed with the launches
+              queued behind a spin kernel, so the host's enqueue does not
+              count, and eager beside it; 1 x 1 also through the 32 x 32
+              tile), the inner-phase share of a round
   7. LM       Qwen3-1.7B at its published widths (28 layers, d_model
               2048, 16 heads / 8 kv x 128, vocab 151 936), bf16,
               attn_impl="flash", random f32 weights from --seed:
@@ -63,10 +69,10 @@ Phases (each one fails the run with a non-zero exit):
           the FP32-FMA one at (64, 2048, 128) and (32, 2048, 128)
   8. LM training, Qwen3-1.7B at the same widths, bf16 activations over f32
      params, attn_impl="flash", remat="full", random weights from --seed:
-       a. the flash backward kernels (dq, and the tensor-core or the
-          FP32-FMA dkv) against their plain version on the same saved lse
-          and delta at the path's shape (bf16, causal; dk and dv within
-          the derived bf16 bound, repeating bit for bit) and f32, not
+       a. the flash backward kernels (the tensor-core or the FP32-FMA dq
+          and dkv) against their plain version on the same saved lse and
+          delta at the path's shape (bf16, causal; dq, dk and dv within
+          the derived bf16 bounds, repeating bit for bit) and f32, not
           causal, hd != hdv, hd 64 and ragged cases; what the check reads
           for wrong variants (delta left out, scale 5% off, a causal k
           tile skipped in dq, lse of the neighbouring row, k rows swapped
@@ -83,7 +89,7 @@ Phases (each one fails the run with a non-zero exit):
           step; step time, tokens/s, device-memory peak, a profiled step
        d. the backward kernels' times against their bound, the plain
           version and the backward of scaled_dot_product_attention, the
-          tensor-core dkv beside the FP32-FMA one
+          tensor-core dq and dkv beside the FP32-FMA ones
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
@@ -163,7 +169,10 @@ TOL_FLASH_BF16_R, TOL_FLASH_BF16_A = 1e-2, 1e-3
 # (tests/test_flash_attention.py:49), so it is never looser; lse, from the
 # f32 p on both sides, stays at the f32 limits.  The dk / dv bound of the
 # tensor-core dkv kernel is the same sum over q with p and |ds| |q|
-# (ref.flash_dkv_bf16_tolerance); dq (FP32-FMA) stays at one ulp.
+# (ref.flash_dkv_bf16_tolerance), and the tensor-core dq's the same sum
+# over k with |ds| |k|, plus the f32 error of the score sums, which ds
+# inherits where it is a cancellation residue of dp - delta
+# (ref.flash_dq_bf16_tolerance); the FP32-FMA dq stays at one ulp.
 # Relative Frobenius error of whole-model logits between two routes on
 # the same weights.  bf16 (2^-8 relative) rounds the activations at every
 # product, and the two routes round in different places (naive attention
@@ -209,8 +218,10 @@ TOL_GRAD_BF16 = 5e-2
 
 
 # The libraries of the tensor-core flash kernels, whose SASS must hold
-# HGMMA (wgmma) and UTMALDG (TMA loads).
-WGMMA_LIBS = ("flash_fwd_wgmma", "flash_bwd_wgmma")
+# HGMMA (wgmma) and UTMALDG (TMA loads), and a kernel each names.
+WGMMA_LIBS = {"flash_fwd_wgmma": "flash_fwd_wgmma_kernel",
+              "flash_bwd_wgmma": "flash_bwd_dkv_wgmma_kernel",
+              "flash_bwd_dq_wgmma": "flash_bwd_dq_wgmma_kernel"}
 
 
 def lm_norms(cfg) -> int:
@@ -250,11 +261,70 @@ def time_cuda(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+_CYCLES_PER_MS = []
+
+
+def time_queued(fn, iters: int) -> float:
+    """Mean device milliseconds per call of a short kernel, with the host's
+    enqueue hidden: a spin kernel (``torch.cuda._sleep``) holds the stream
+    for three times the calls' measured host time while ``iters`` calls
+    queue up behind it, so the events time them back to back on the card
+    (at tiny shapes ``time_cuda`` times the host's Python instead)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if not _CYCLES_PER_MS:              # the spin kernel's clock
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        torch.cuda.synchronize()
+        _CYCLES_PER_MS.append(1e7 / start.elapsed_time(end))
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda._sleep(int(3 * host_ms * _CYCLES_PER_MS[0]))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound_ms(nbytes: float, flops: float,
              flop_rate: float = FP32_FLOP_PER_S):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def gram_direct(A, B, cfg, bm, br, splits, per):
+    """The gram kernel through its C entry point at a chosen output tile
+    and split of the feature axis (``splits`` runs of ``per`` 32-feature
+    chunks), not counted as a launch.  With ``splits`` one less than
+    ``gram_splits`` gives, the partial grid and the reduce both leave the
+    last split's features out: a wrong kernel for the parity check to
+    catch."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels._launch import (DTYPE_CODES, check_inputs,
+                                             kernel_args, raise_on_error)
+    m, n = A.shape
+    r = B.shape[0]
+    out = torch.empty((m, r), dtype=torch.float32, device=A.device)
+    ws = torch.empty(splits * (m * r + m + r), dtype=torch.float32,
+                     device=A.device)
+    code = build.launcher("gram")(
+        A.data_ptr(), B.data_ptr(), out.data_ptr(), ws.data_ptr(), m, r, n,
+        check_inputs("gram", A, B), DTYPE_CODES[torch.float32],
+        *kernel_args(cfg), bm, br, splits, per,
+        torch.cuda.current_stream().cuda_stream)
+    raise_on_error("gram", code)
+    return out
 
 
 def phase_split(kernel_phase, local_phase, rounds):
@@ -1174,9 +1244,8 @@ def flash_bwd_variant(q, k, v, do, lse, delta, skip):
 
 def train_phase(dev, args, failures):
     """Phase 8 (module docstring): LM training at full Qwen3-1.7B width.
-    Returns the ``flash_bwd_dq`` and ``flash_bwd_dkv`` entries of the
-    kernels record and the training run's rmsnorm and flash_fwd launch
-    counts."""
+    Returns the flash_bwd entries (dq and dkv, tensor-core and FP32-FMA)
+    of the kernels record and the training run's launch counts."""
     import dataclasses
     import statistics
     import torch
@@ -1191,6 +1260,7 @@ def train_phase(dev, args, failures):
                                                      flash_fwd_cuda,
                                                      flash_route)
     from repro_torch.kernels.ref import (flash_dkv_bf16_tolerance,
+                                         flash_dq_bf16_tolerance,
                                          rmsnorm_ref)
     from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_cuda
     from repro_torch.models import attention as attn
@@ -1214,6 +1284,7 @@ def train_phase(dev, args, failures):
                 "flash_fwd": flash_fwd_cuda.launches,
                 "flash_fwd_wgmma": flash_fwd_cuda.launches_wgmma,
                 "flash_bwd_dq": flash_bwd_cuda.launches_dq,
+                "flash_bwd_dq_wgmma": flash_bwd_cuda.launches_dq_wgmma,
                 "flash_bwd_dkv": flash_bwd_cuda.launches_dkv,
                 "flash_bwd_dkv_wgmma": flash_bwd_cuda.launches_dkv_wgmma}
 
@@ -1221,6 +1292,7 @@ def train_phase(dev, args, failures):
         rmsnorm_cuda.launches = flash_fwd_cuda.launches = 0
         flash_fwd_cuda.launches_wgmma = 0
         flash_bwd_cuda.launches_dq = flash_bwd_cuda.launches_dkv = 0
+        flash_bwd_cuda.launches_dq_wgmma = 0
         flash_bwd_cuda.launches_dkv_wgmma = 0
 
     # ---- a. parity of the backward kernels with their plain version ------
@@ -1235,7 +1307,7 @@ def train_phase(dev, args, failures):
     def bwd_err(got, want, dt, tols=(None, None, None)):
         """[(max abs err, max err / tolerance, entries that differ)] of
         dq, dk, dv; ``tols`` holds elementwise bounds where a route has
-        them (the tensor-core dkv's derived bf16 bound on dk and dv)."""
+        them (the tensor-core kernels' derived bf16 bounds)."""
         rtol, atol = ((TOL_FLASH_BF16_R, TOL_FLASH_BF16_A) if dt == bf16
                       else (TOL_FLASH_BWD_F32_R, TOL_FLASH_BWD_F32_A))
         out = []
@@ -1246,18 +1318,18 @@ def train_phase(dev, args, failures):
                         int((a != b).sum())))
         return out
 
-    def dkv_tols(args_b, want, causal, dt):
+    def bwd_tols(args_b, want, causal, dt):
         """The bounds on (dq, dk, dv) of the route a case takes."""
         q, k, v = args_b[:3]
         if flash_route(dt, q.shape[2], v.shape[2]) == "fma":
             return (None, None, None)
-        return (None,) + flash_dkv_bf16_tolerance(*args_b, want[1], want[2],
-                                                  causal)
+        return (flash_dq_bf16_tolerance(*args_b, want[0], causal),
+                *flash_dkv_bf16_tolerance(*args_b, want[1], want[2], causal))
 
     err_at = {}
-    # the tensor-core dkv (bf16, hd = hdv in {64, 128}) at the path's
-    # shape, hd 64 and ragged S and T; the FP32-FMA dkv (f32, hd != hdv,
-    # hd 96); dq (FP32-FMA) in every case
+    # the tensor-core dq and dkv (bf16, hd = hdv in {64, 128}) at the
+    # path's shape, hd 64 and ragged S and T; the FP32-FMA ones (f32, hd
+    # != hdv, hd 96)
     cases = [((BH, S, S, hd, hd), bf16, True),
              ((8, 512, 512, 64, 64), bf16, True),
              ((8, 200, 136, hd, hd), bf16, False),
@@ -1272,14 +1344,14 @@ def train_phase(dev, args, failures):
         before = counts()
         got = flash_bwd_cuda(*args_b, causal=causal)
         moved = {n: c - before[n] for n, c in counts().items()}
-        dkv_name = ("flash_bwd_dkv_wgmma" if route == "wgmma"
-                    else "flash_bwd_dkv")
-        if not (moved["flash_bwd_dq"] == moved[dkv_name] == 1
+        tail = "_wgmma" if route == "wgmma" else ""
+        dq_name, dkv_name = f"flash_bwd_dq{tail}", f"flash_bwd_dkv{tail}"
+        if not (moved[dq_name] == moved[dkv_name] == 1
                 and sum(moved.values()) == 2):
             failures.append(f"flash_bwd {shape} {dt}: launches {moved}, "
-                            f"expected one dq and one {dkv_name}")
+                            f"expected one {dq_name} and one {dkv_name}")
         want = flash_bwd_plain(*args_b, causal=causal)
-        reads = bwd_err(got, want, dt, dkv_tols(args_b, want, causal, dt))
+        reads = bwd_err(got, want, dt, bwd_tols(args_b, want, causal, dt))
         err_at[(shape, str(dt)[6:], causal, route)] = reads
         for name, (err, ratio, _), a, ref in zip(("dq", "dk", "dv"), reads,
                                                  got, args_b[:3]):
@@ -1299,10 +1371,10 @@ def train_phase(dev, args, failures):
     # what the check reads for wrong functions at the path's shape (bf16,
     # causal); each must fail it, or it would pass a wrong kernel.  "k rows
     # swapped in pairs" is the fault a wrong descriptor would make inside a
-    # tile of the tensor-core dkv.
+    # tile of the tensor-core kernels.
     q, k, v, do, lse, delta = bwd_inputs(BH, S, S, hd, hd, bf16, True)
     want = flash_bwd_plain(q, k, v, do, lse, delta, causal=True)
-    tols = dkv_tols((q, k, v, do, lse, delta), want, True, bf16)
+    tols = bwd_tols((q, k, v, do, lse, delta), want, True, bf16)
     wrong = {
         "delta left out": flash_bwd_cuda(q, k, v, do, lse,
                                          torch.zeros_like(delta)),
@@ -1343,10 +1415,11 @@ def train_phase(dev, args, failures):
     del x, dy, grads, dx, ds, dx_r, ds_r
     torch.cuda.synchronize()
     print(f"[train-parity] tolerances: flash_bwd f32 {TOL_FLASH_BWD_F32_R} "
-          f"rel / {TOL_FLASH_BWD_F32_A} abs, bf16 dq and FP32-FMA dk, dv "
-          f"{TOL_FLASH_BF16_R} / {TOL_FLASH_BF16_A}, tensor-core dk, dv the "
-          f"derived bound (ref.flash_dkv_bf16_tolerance); RMSNorm dx "
-          f"{TOL_BF16}, dscale {TOL_RMSNORM_DSCALE} of its largest entry")
+          f"rel / {TOL_FLASH_BWD_F32_A} abs, bf16 FP32-FMA dq, dk, dv "
+          f"{TOL_FLASH_BF16_R} / {TOL_FLASH_BF16_A}, tensor-core dq, dk, dv "
+          f"the derived bounds (ref.flash_dq_bf16_tolerance, "
+          f"ref.flash_dkv_bf16_tolerance); RMSNorm dx {TOL_BF16}, dscale "
+          f"{TOL_RMSNORM_DSCALE} of its largest entry")
     for key, reads in err_at.items():
         if key[0] == "rmsnorm-bwd":
             e_dx, r_dx, e_ds, r_ds = reads
@@ -1357,7 +1430,7 @@ def train_phase(dev, args, failures):
         what = (f"wrong flash_bwd at {(BH, S, hd)} bf16 causal, {key[1]}"
                 if key[0] == "wrong" else
                 f"flash_bwd {key[0]} {key[1]} causal={key[2]} ({key[3]} "
-                f"dkv)")
+                f"dq, dkv)")
         print(f"[train-parity] {what}: " + ", ".join(
             f"{n} {e:.3e} ({r:.3f}x tolerance, {c} entries differ)"
             for n, (e, r, c) in zip(("dq", "dk", "dv"), reads)))
@@ -1441,13 +1514,13 @@ def train_phase(dev, args, failures):
     if not worst["bf16"][0] <= TOL_GRAD_BF16:
         failures.append(f"bf16 gradients flash vs naive {worst['bf16']}")
     n_layers = cfg.n_layers
-    # f32 takes the FP32-FMA forward and dkv, bf16 at hd 128 the
-    # tensor-core ones; dq is one kernel for both
+    # f32 takes the FP32-FMA kernels, bf16 at hd 128 the tensor-core ones
     want_grad = {"rmsnorm": lm_norms(cfg) + lm_norms(cfg) - 1,
                  "flash_fwd": 2 * n_layers, "flash_fwd_wgmma": 0,
-                 "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers,
-                 "flash_bwd_dkv_wgmma": 0}
+                 "flash_bwd_dq": n_layers, "flash_bwd_dq_wgmma": 0,
+                 "flash_bwd_dkv": n_layers, "flash_bwd_dkv_wgmma": 0}
     want_grad16 = dict(want_grad, flash_fwd=0, flash_fwd_wgmma=2 * n_layers,
+                       flash_bwd_dq=0, flash_bwd_dq_wgmma=n_layers,
                        flash_bwd_dkv=0, flash_bwd_dkv_wgmma=n_layers)
     for got, want in ((grad_counts, want_grad),
                       (grad_counts16, want_grad16)):
@@ -1469,7 +1542,8 @@ def train_phase(dev, args, failures):
     per_step = {"rmsnorm": LM_MICROBATCHES * (2 * lm_norms(cfg) - 1),
                 "flash_fwd": 0,
                 "flash_fwd_wgmma": LM_MICROBATCHES * 2 * n_layers,
-                "flash_bwd_dq": LM_MICROBATCHES * n_layers,
+                "flash_bwd_dq": 0,
+                "flash_bwd_dq_wgmma": LM_MICROBATCHES * n_layers,
                 "flash_bwd_dkv": 0,
                 "flash_bwd_dkv_wgmma": LM_MICROBATCHES * n_layers}
     rows, times, step_counts = [], [], []
@@ -1542,6 +1616,7 @@ def train_phase(dev, args, failures):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     launch = build.launcher("flash_bwd")
     launch_w = build.launcher("flash_bwd_dkv_wgmma")
+    launch_qw = build.launcher("flash_bwd_dq_wgmma")
     stream = torch.cuda.current_stream().cuda_stream
     raw = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -1549,16 +1624,18 @@ def train_phase(dev, args, failures):
            float(hd ** -0.5))
     raw_w = raw[:6] + (dk.data_ptr(), dv.data_ptr(), BH, S, S, hd, 1,
                        float(hd ** -0.5), stream)
-    # dq and the FP32-FMA dkv through the C entry point, at the same
-    # bf16 shape as the tensor-core dkv the path takes
+    raw_qw = raw[:7] + (BH, S, S, hd, 1, float(hd ** -0.5), stream)
+    # every kernel through its C entry point at the path's bf16 shape:
+    # the tensor-core dq and dkv the path takes, and the FP32-FMA ones
     runs = {"dq": lambda: launch(*raw, 0, stream),
             "dkv": lambda: launch(*raw, 1, stream),
+            "dq_wgmma": lambda: launch_qw(*raw_qw),
             "dkv_wgmma": lambda: launch_w(*raw_w)}
     for w, run in runs.items():
         if run() != 0:
             failures.append(f"flash_bwd_{w} launch failed")
             return None
-    ms = {w: time_cuda(run, 50 if w == "dkv_wgmma" else 10)
+    ms = {w: time_cuda(run, 50 if w.endswith("wgmma") else 10)
           for w, run in runs.items()}
     both = time_cuda(lambda: flash_bwd_cuda(q, k, v, do, lse, delta), 10)
     plain = time_cuda(lambda: flash_bwd_plain(q, k, v, do, lse, delta), 5)
@@ -1580,11 +1657,13 @@ def train_phase(dev, args, failures):
     n_products = {"dq": 3, "dkv": 4}
     bounds = {w: bound_ms(in_bytes + out_bytes[w], n_products[w] * product,
                           BF16_FLOP_PER_S) for w in ("dq", "dkv")}
-    bounds["dkv_wgmma"] = bounds["dkv"]
-    n_products["dkv_wgmma"] = n_products["dkv"]
+    for w in ("dq", "dkv"):
+        bounds[f"{w}_wgmma"] = bounds[w]
+        n_products[f"{w}_wgmma"] = n_products[w]
     b_all = bound_ms(in_bytes + out_bytes["dq"] + out_bytes["dkv"],
                      5 * product, BF16_FLOP_PER_S)
     for w, label in (("dq", "FP32-FMA"), ("dkv", "FP32-FMA"),
+                     ("dq_wgmma", "tensor-core"),
                      ("dkv_wgmma", "tensor-core")):
         flops = n_products[w] * product
         print(f"[train-time] flash_bwd_{w} ({label}) (BH, S, hd) = ({BH}, "
@@ -1593,7 +1672,7 @@ def train_phase(dev, args, failures):
               f"products) | bound "
               f"{bounds[w][0]:.4f} ms ({bounds[w][1]}; operations at the "
               f"bf16 tensor-core rate; {bounds[w][0] / ms[w]:.1%} of it)")
-    print(f"[train-time] flash_bwd (dq + tensor-core dkv through the "
+    print(f"[train-time] flash_bwd (tensor-core dq + dkv through the "
           f"wrapper): {both:.4f} ms | plain (dq, dk, dv) {plain:.4f} ms | "
           f"backward of scaled_dot_product_attention(is_causal=True) "
           f"{lib:.4f} ms | bound of the five products {b_all[0]:.4f} ms "
@@ -1608,11 +1687,18 @@ def train_phase(dev, args, failures):
     shape = f"(BH, S, T, hd) = ({BH}, {S}, {S}, {hd}) bf16 causal"
     entry = {"route": "cuda", "plain_ms": plain, "library_ms": lib}
     entries = [
+        dict(entry, name="flash_bwd_dq_wgmma",
+             source="src/repro_torch/csrc/flash_bwd_dq_wgmma.cu",
+             replaces="src/repro/kernels/flash_attention.py:220",
+             shape=shape, launches=train_counts["flash_bwd_dq_wgmma"],
+             max_abs_err=path[0][0], ms=ms["dq_wgmma"],
+             bound_ms=bounds["dq"][0], bound_by=bounds["dq"][1]),
         dict(entry, name="flash_bwd_dq",
              source="src/repro_torch/csrc/flash_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:220",
-             shape=shape, launches=train_counts["flash_bwd_dq"],
-             max_abs_err=path[0][0], ms=ms["dq"], bound_ms=bounds["dq"][0],
+             shape=shape + " (timed); launches from the f32 gradient of 8b",
+             launches=grad_counts["flash_bwd_dq"], max_abs_err=path32[0][0],
+             ms=ms["dq"], bound_ms=bounds["dq"][0],
              bound_by=bounds["dq"][1]),
         dict(entry, name="flash_bwd_dkv_wgmma",
              source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
@@ -1656,7 +1742,8 @@ def main(argv=None) -> int:
                                             classification_dataset,
                                             regression_dataset)
     from repro_torch.kernels import build
-    from repro_torch.kernels.gram import gram_cuda, gram_plain
+    from repro_torch.kernels._launch import sm_count
+    from repro_torch.kernels.gram import gram_cuda, gram_plain, gram_splits
     from repro_torch.kernels.kmv import kmv_cuda, kmv_plain
 
     # full-f32 products everywhere the plain versions meet the kernels
@@ -1678,15 +1765,15 @@ def main(argv=None) -> int:
         for line in rec["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "warning")):
                 print(f"[build]   {line.strip()}")
-    for lib in WGMMA_LIBS:
+    for lib, kernel in WGMMA_LIBS.items():
         kernels = build.sass_counts(lib)
         for name, ops in kernels.items():
             print(f"[build] SASS {lib}: {name}: HGMMA x{ops['HGMMA']}, "
                   f"UTMALDG x{ops['UTMALDG']}")
             if not (ops["HGMMA"] and ops["UTMALDG"]):
                 failures.append(f"{lib}: {name} lacks HGMMA or UTMALDG")
-        if not kernels:
-            failures.append(f"{lib}: no kernel in its SASS")
+        if not any(kernel in name for name in kernels):
+            failures.append(f"{lib}: no {kernel} in its SASS")
     if failures:
         return fail("; ".join(failures))
 
@@ -1713,6 +1800,12 @@ def main(argv=None) -> int:
     Xv = torch.randn(m, generator=gen, device=dev)
     Xm = torch.randn((m, 4), generator=gen, device=dev)
     A16 = A.to(torch.bfloat16)
+    # the classical round's 1 x 1 block, the K-SVM round's 32 x 32, the
+    # K-RR round's 256 x 256 and the materialized slab's m x 32
+    gram_blocks = {"1x1": (B_of["r32"][:1], B_of["r32"][1:2]),
+                   "32x32": (B_of["r32"], B_of["r32"]),
+                   "256x256": (B_of["r256"], B_of["r256"]),
+                   "mx32": (A, B_of["r32"])}
     err_at = {}
     t0 = time.perf_counter()
     for kname, cfg in kernels.items():
@@ -1732,8 +1825,7 @@ def main(argv=None) -> int:
                             f"kmv {kname} {dtype} {bname} {xname}: max "
                             f"abs err {err:.3e} ({ratio:.2f}x tolerance)")
             tol = TOL_GRAM_F32 if dtype == torch.float32 else TOL_BF16
-            for gname, (G1, G2) in {"256x256": (B_of["r256"], B_of["r256"]),
-                                    "mx32": (A, B_of["r32"])}.items():
+            for gname, (G1, G2) in gram_blocks.items():
                 G1d, G2d = G1.to(dtype), G2.to(dtype)
                 got = gram_cuda(G1d, G2d, cfg)
                 want = gram_plain(G1d, G2d, cfg)
@@ -1743,9 +1835,25 @@ def main(argv=None) -> int:
                     failures.append(f"gram {kname} {dtype} {gname}: max "
                                     f"abs err {err:.3e} ({ratio:.2f}x "
                                     f"tolerance)")
+                # fixed-order sums, no atomics: the same bits again
+                if not torch.equal(got, gram_cuda(G1d, G2d, cfg)):
+                    failures.append(f"gram {kname} {dtype} {gname}: a "
+                                    f"second call gave other bits")
+                if dtype == torch.float32 and gname != "mx32":
+                    # the last feature split left out of the reduce must
+                    # fail the check
+                    bm, br, splits, per = gram_splits(
+                        G1d.shape[0], G2d.shape[0], n, sm_count(0))
+                    bad = gram_direct(G1d, G2d, cfg, bm, br, splits - 1, per)
+                    ratio, err = allclose_ratio(bad, want, tol, poly)
+                    err_at[("gram-wrong", kname, gname)] = (err, ratio)
+                    if ratio <= 1.0:
+                        failures.append(f"gram check passes a wrong kernel "
+                                        f"({kname} {gname}, last split "
+                                        f"left out: {ratio:.2f}x)")
     torch.cuda.synchronize()
     del A16
-    n_cmp = len(err_at)
+    n_cmp = sum(k[0] != "gram-wrong" for k in err_at)
     print(f"[parity] {n_cmp} comparisons in "
           f"{time.perf_counter() - t0:.1f} s; tolerances: KMV f32 "
           f"{TOL_KMV_F32}, gram f32 {TOL_GRAM_F32}, bf16 {TOL_BF16}, "
@@ -1754,9 +1862,16 @@ def main(argv=None) -> int:
                 ("kmv", "rbf", "torch.float32", "B=A", "vec"),
                 ("kmv", "polynomial", "torch.float32", "B=A", "mat4"),
                 ("kmv", "rbf", "torch.bfloat16", "q1024", "mat4"),
+                ("gram", "rbf", "torch.float32", "1x1"),
+                ("gram", "rbf", "torch.float32", "32x32"),
                 ("gram", "rbf", "torch.float32", "256x256"),
                 ("gram", "linear", "torch.float32", "mx32")):
         print(f"[parity] {' '.join(key)}: max abs err {err_at[key]:.3e}")
+    for key, (err, ratio) in ((k, v) for k, v in err_at.items()
+                              if k[0] == "gram-wrong"):
+        print(f"[parity] gram {key[1]} {key[2]} with the last feature split "
+              f"left out of the reduce: max abs err {err:.3e} ({ratio:.1f}x "
+              f"tolerance; must fail)")
     if failures:
         for f in failures:
             print(f"[parity] FAIL {f}")
@@ -1877,21 +1992,23 @@ def main(argv=None) -> int:
         nbytes = 4 * (m * n + r * n + m * c + r * c)
         flops = 2 * m * r * n + 2 * m * r * c + 2 * (m + r) * n + 6 * m * r
         b_ms, b_by = bound_ms(nbytes, flops)
-        rows.append(("kmv", label, ms, plain, b_ms, b_by, None))
+        rows.append(("kmv", label, ms, plain, b_ms, b_by, None, None))
         return ms, plain, b_ms, b_by
 
-    def gram_row(label, G1, G2, cfg, iters, library):
+    def gram_row(label, G1, G2, cfg, iters, library, kernel=None):
         r1, r2 = G1.shape[0], G2.shape[0]
-        ms = time_cuda(lambda: gram_cuda(G1, G2, cfg), iters)
-        plain = time_cuda(lambda: gram_plain(G1, G2, cfg), iters)
-        lib = (time_cuda(lambda: torch.mm(G1, G2.T), iters) if library
+        kernel = kernel or (lambda: gram_cuda(G1, G2, cfg))
+        ms = time_queued(kernel, iters)
+        eager = time_cuda(kernel, iters)
+        plain = time_queued(lambda: gram_plain(G1, G2, cfg), iters)
+        lib = (time_queued(lambda: torch.mm(G1, G2.T), iters) if library
                else None)
         nbytes = 4 * ((r1 + r2) * n + r1 * r2)
         flops = 2 * r1 * r2 * n + (2 * (r1 + r2) * n + 6 * r1 * r2
                                    if cfg.name == "rbf" else 0)
         b_ms, b_by = bound_ms(nbytes, flops)
-        rows.append(("gram", label, ms, plain, b_ms, b_by, lib))
-        return ms, plain, b_ms, b_by, lib
+        rows.append(("gram", label, ms, plain, b_ms, b_by, lib, eager))
+        return ms, plain, b_ms, b_by, lib, eager
 
     k32 = kmv_row(f"rbf ({m}, 32, {n}) c=1 [K-SVM round]", B_of["r32"],
                   1, 20)
@@ -1901,21 +2018,33 @@ def main(argv=None) -> int:
     kmv_row(f"rbf ({m}, 1024, {n}) c=1 [prediction block]",
             B_of["q1024"], 1, 5)
     kmv_row(f"rbf ({m}, {m}, {n}) c=1 [full matvec]", A, 1, 2)
-    g256 = gram_row(f"rbf (256, 256, {n}) [K-RR cross block]",
-                    B_of["r256"], B_of["r256"], rbf, 50, False)
-    gram_row(f"rbf (32, 32, {n}) [K-SVM cross block]", B_of["r32"],
-             B_of["r32"], rbf, 50, False)
-    gram_row(f"rbf ({m}, 32, {n}) [slab_free=False slab]", A, B_of["r32"],
-             rbf, 10, False)
-    gram_row(f"linear (256, 256, {n}) vs torch.mm", B_of["r256"],
-             B_of["r256"], lin, 50, True)
-    gram_row(f"linear ({m}, 32, {n}) vs torch.mm", A, B_of["r32"], lin,
-             10, True)
-    for kind, label, ms, plain, b_ms, b_by, lib in rows:
+    for label, (G1, G2) in gram_blocks.items():
+        what = {"1x1": "classical DCD cross block",
+                "32x32": "K-SVM cross block", "256x256": "K-RR cross block",
+                "mx32": "slab_free=False slab"}[label]
+        shape = (G1.shape[0], G2.shape[0], n)
+        iters = 10 if label == "mx32" else 50
+        row = gram_row(f"rbf {shape} [{what}]", G1, G2, rbf, iters, False)
+        if label == "256x256":
+            g256 = row
+        if label == "1x1":
+            # the same block through the 32 x 32 tile kernel, against the
+            # dot kernel that gram_splits picks for it
+            _, _, splits, per = gram_splits(32, 32, n, sm_count(0))
+            gram_row(f"rbf {shape} through the 32 x 32 tile", G1, G2, rbf,
+                     iters, False, lambda: gram_direct(G1, G2, rbf, 32, 32,
+                                                       splits, per))
+        gram_row(f"linear {shape} vs torch.mm", G1, G2, lin, iters, True)
+    print("[time] gram: the kernel's, plain and library times are device "
+          "times of launches queued behind a spin kernel (time_queued); "
+          "'eager' times the same calls back to back (time_cuda), the "
+          "wrapper's host time included")
+    for kind, label, ms, plain, b_ms, b_by, lib, eager in rows:
         lib_s = f"{lib:.4f} ms" if lib is not None else "none"
-        print(f"[time] {kind} {label}: {ms:.4f} ms | plain {plain:.4f} ms "
-              f"| bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it) | "
-              f"library {lib_s}")
+        eager_s = f" (eager {eager:.4f} ms)" if eager is not None else ""
+        print(f"[time] {kind} {label}: {ms:.4f} ms{eager_s} | plain "
+              f"{plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}, "
+              f"{b_ms / ms:.1%} of it) | library {lib_s}")
 
     # inner (local) phase share of an s-step round, synchronised per phase
     op_svm = ExactGramOperator(A, rbf).scale_rows(y)
@@ -1946,7 +2075,8 @@ def main(argv=None) -> int:
         return fail(f"{len(failures)} main-path check(s) failed")
 
     # ---- 7. LM prefill and serving ----------------------------------------
-    del A, Ar, Aq, Arq, B_of, Xv, Xm, op_svm, op_krr, svm, krr, dcd
+    del A, Ar, Aq, Arq, B_of, gram_blocks, Xv, Xm, op_svm, op_krr, svm, krr
+    del dcd
     torch.cuda.empty_cache()
     lm_entries = lm_phase(dev, args, failures)
     if failures:
@@ -1986,7 +2116,11 @@ def main(argv=None) -> int:
          "max_abs_err": err_at[("gram", "rbf", "torch.float32",
                                 "256x256")],
          "ms": g256[0], "plain_ms": g256[1], "bound_ms": g256[2],
-         "bound_by": g256[3], "library_ms": g256[4]},
+         "bound_by": g256[3], "library_ms": g256[4],
+         "ms_timing": "device time, launches queued behind a spin kernel "
+                      "(time_queued); eager_ms: back to back, host "
+                      "included (time_cuda)",
+         "eager_ms": g256[5]},
         stream_entry,
         *lm_entries,
         *train_entries,

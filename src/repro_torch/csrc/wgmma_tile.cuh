@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the tensor-core flash kernels
-// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu): TMA tensor maps and loads, the
-// mbarrier ring that hands tiles from a producer warp to consumer
-// warpgroups, shared-memory matrix descriptors and the bf16 wgmma
-// instructions, all as inline PTX for sm_90a.
+// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu, flash_bwd_dq_wgmma.cu): TMA
+// tensor maps and loads, the mbarrier ring that hands tiles from a
+// producer warp to consumer warpgroups, shared-memory matrix descriptors
+// and the bf16 wgmma instructions, all as inline PTX for sm_90a.
 //
 // Tile layout.  Every tile is bf16 rows of a (BH, len, hd) tensor, brought
 // into shared memory by TMA in panels of 64 columns (128 bytes a row, the
@@ -73,6 +73,12 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N of the warpgroup's committed wgmma groups are still
+// running (groups complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving accesses of an accumulator across the

@@ -1,6 +1,8 @@
 """Argument checks and codes shared by the kernel wrappers."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.kernels import KernelConfig
@@ -42,6 +44,13 @@ def kernel_args(cfg: KernelConfig):
     """(kind, degree, coef0, sigma) as the C entry points take them."""
     return (KERNEL_CODES[cfg.name], int(cfg.degree), float(cfg.coef0),
             float(cfg.sigma))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a card: what the kernels that split
+    their work across blocks (kmv, gram) aim to fill."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def on_card(t: torch.Tensor, name: str) -> bool:

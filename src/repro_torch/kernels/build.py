@@ -30,7 +30,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types
 SIGNATURES = {
     "kmv": ("kmv", "kmv_launch", [_P] * 5 + [_I] * 9 + [_F, _F, _P]),
-    "gram": ("gram", "gram_launch", [_P] * 3 + [_I] * 7 + [_F, _F, _P]),
+    "gram": ("gram", "gram_launch",
+             [_P] * 4 + [_I] * 7 + [_F, _F] + [_I] * 4 + [_P]),
     "kmv_stream": ("kmv_stream", "kmv_stream_launch",
                    [_P] * 7 + [_I] * 12 + [_F, _F, _P, _P]),
     "gather_rows": ("kmv_stream", "gather_rows_launch",
@@ -44,6 +45,8 @@ SIGNATURES = {
                         [_P] * 5 + [_I] * 5 + [_F, _P]),
     "flash_bwd_dkv_wgmma": ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma_launch",
                             [_P] * 8 + [_I] * 5 + [_F, _P]),
+    "flash_bwd_dq_wgmma": ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma_launch",
+                           [_P] * 7 + [_I] * 5 + [_F, _P]),
 }
 
 _LAUNCHERS: Dict[str, object] = {}

@@ -6,31 +6,35 @@ The counterpart of ``repro/kernels/flash_attention.py``.  Two routes,
 picked by ``flash_route`` from the dtype and head dims alone:
 
 - ``"wgmma"`` (bf16, hd = hdv in {64, 128}, the LM's shapes): the
-  forward is ``csrc/flash_fwd_wgmma.cu`` and the dk/dv backward
-  ``csrc/flash_bwd_wgmma.cu``, both on the tensor cores (bf16 ``wgmma``
-  on tiles that TMA brings into shared memory; ``csrc/wgmma_tile.cuh``).
-  The forward rounds p to bf16 before the PV product, as the TPU kernel
-  does; the dk/dv kernel rounds p and ds to bf16 for its products, which
-  the TPU kernel does not (ROADMAP C5).
+  forward is ``csrc/flash_fwd_wgmma.cu``, the dk/dv backward
+  ``csrc/flash_bwd_wgmma.cu`` and the dq backward
+  ``csrc/flash_bwd_dq_wgmma.cu``, all on the tensor cores (bf16
+  ``wgmma`` on tiles that TMA brings into shared memory;
+  ``csrc/wgmma_tile.cuh``).  The forward rounds p to bf16 before the PV
+  product, as the TPU kernel does; the dk/dv kernel rounds p and ds to
+  bf16 for its products and the dq kernel ds, which the TPU kernels do
+  not (ROADMAP C5, C7).
 - ``"fma"`` (f32, and bf16 at other head dims): ``csrc/flash_fwd.cu``
   (one block per (bh, 64-row q tile), the online-softmax recurrence in
-  f32 registers, FP32 FMAs) and ``csrc/flash_bwd.cu``'s dkv kernel, all
-  in f32 from the widened inputs.
+  f32 registers, FP32 FMAs) and ``csrc/flash_bwd.cu``'s dq and dkv
+  kernels, all in f32 from the widened inputs.
 
-The dq kernel (``csrc/flash_bwd.cu``, FP32 FMAs) serves both routes.
 The causal mask is ``col <= row``; tiles above the diagonal are skipped.
 ``flash_fwd_cuda`` and ``flash_bwd_cuda`` launch the kernels and count
 each launch by kernel (``launches`` / ``launches_wgmma`` for the
-forward, ``launches_dq``, ``launches_dkv`` / ``launches_dkv_wgmma`` for
-the backward); ``flash_fwd_plain`` and ``flash_bwd_plain`` are the
-plain PyTorch versions (the oracle with its log-sum-exp; ``round_p``
-rounds p, and in the backward ds, to bf16 where the tensor-core kernels
-do).  ``FlashAttention`` (the counterpart of the JAX ``custom_vjp``)
-runs the forward and, in its backward, ``delta = sum(do * o, -1)`` in
-f32 and then ``kernels.ops.flash_bwd``; each picks the kernel for a CUDA
-tensor and the plain version for a CPU tensor.  ``flash_attention`` is
-the differentiable entry point the LM's flash path takes (training and
-prefill).
+forward, ``launches_dq`` / ``launches_dq_wgmma`` and ``launches_dkv`` /
+``launches_dkv_wgmma`` for the backward); ``flash_fwd_plain`` and
+``flash_bwd_plain`` are the plain PyTorch versions (the oracle with its
+log-sum-exp; ``round_p`` rounds p, and in the backward's dk and dv ds,
+to bf16 where the tensor-core kernels do, ``round_dq`` ds in dq).
+``FlashAttention`` (the counterpart of the JAX ``custom_vjp``) runs the
+forward and, in its backward, ``delta = sum(do * o, -1)`` in f32 and then
+``kernels.ops.flash_bwd``; each picks the kernel for a CUDA tensor and
+the plain version for a CPU tensor.  On the tensor-core route it first
+copies an operand that does not start on a TMA boundary (a view into a
+larger buffer) into a fresh tensor (``_tma_ready``).  ``flash_attention``
+is the differentiable entry point the LM's flash path takes (training
+and prefill).
 """
 from __future__ import annotations
 
@@ -118,6 +122,13 @@ def _check_card(name: str, tensors, q: torch.Tensor, BH: int) -> None:
                          f"({MAX_GRID_Y})")
 
 
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy of it when it does not start on a
+    ``TMA_ALIGN``-byte boundary (a contiguous view that begins inside a
+    larger buffer), so the tensor-core kernels can read it."""
+    return t.clone() if t.data_ptr() % TMA_ALIGN else t
+
+
 def _check_tma(name: str, tensors) -> None:
     """The tensor-core kernels read their operands through TMA tensor
     maps, whose base addresses must be 16-byte aligned."""
@@ -187,13 +198,15 @@ def _check_bwd(q, k, v, do, lse, delta):
 def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     do: torch.Tensor, lse: torch.Tensor,
                     delta: torch.Tensor, causal: bool = True,
-                    scale: Optional[float] = None, round_p: bool = False):
+                    scale: Optional[float] = None, round_p: bool = False,
+                    round_dq: bool = False):
     """``(dq, dk, dv)`` in q's, k's and v's dtypes through the whole (S, T)
     softmax in f32: ``ref.flash_attention_bwd_ref`` (``round_p``: p and
-    ds rounded to the inputs' dtype in the dk and dv products)."""
+    ds rounded to the inputs' dtype in the dk and dv products;
+    ``round_dq``: ds rounded in the dq product)."""
     _check_bwd(q, k, v, do, lse, delta)
     return flash_attention_bwd_ref(q, k, v, do, lse, delta, causal, scale,
-                                   round_p=round_p)
+                                   round_p=round_p, round_dq=round_dq)
 
 
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -203,9 +216,10 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     names on the card: q, k, v and do contiguous CUDA tensors of one dtype
     (f32 or bf16), lse and delta (BH, S) f32.  Returns ``(dq, dk, dv)`` as
     ``flash_bwd_plain`` does (the wgmma route's dk and dv as with
-    ``round_p``).  Counts each launch (``flash_bwd_cuda.launches_dq``;
-    ``.launches_dkv`` for the FP32-FMA dkv kernel, ``.launches_dkv_wgmma``
-    for the tensor-core one).  Never synchronises."""
+    ``round_p``, its dq as with ``round_dq``).  Counts each launch
+    (``flash_bwd_cuda.launches_dq`` and ``.launches_dkv`` for the
+    FP32-FMA kernels, ``.launches_dq_wgmma`` and ``.launches_dkv_wgmma``
+    for the tensor-core ones).  Never synchronises."""
     BH, S, T, hd, hdv = _check_bwd(q, k, v, do, lse, delta)
     operands = (("q", q), ("k", k), ("v", v), ("do", do))
     _check_card("flash_bwd", operands, q, BH)
@@ -225,10 +239,12 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 dk.data_ptr(), dv.data_ptr(), BH, S, T, hd, hdv,
                 DTYPE_CODES[q.dtype], int(bool(causal)), float(scale))
         stream = torch.cuda.current_stream().cuda_stream
-        launch = build.launcher("flash_bwd")
-        raise_on_error("flash_bwd_dq", launch(*args, 0, stream))
-        flash_bwd_cuda.launches_dq += 1
         if wgmma:
+            raise_on_error("flash_bwd_dq_wgmma", build.launcher(
+                "flash_bwd_dq_wgmma")(*args[:7], BH, S, T, hd,
+                                      int(bool(causal)), float(scale),
+                                      stream))
+            flash_bwd_cuda.launches_dq_wgmma += 1
             raise_on_error("flash_bwd_dkv_wgmma", build.launcher(
                 "flash_bwd_dkv_wgmma")(*args[:6], dk.data_ptr(),
                                        dv.data_ptr(), BH, S, T, hd,
@@ -236,12 +252,16 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        stream))
             flash_bwd_cuda.launches_dkv_wgmma += 1
         else:
+            launch = build.launcher("flash_bwd")
+            raise_on_error("flash_bwd_dq", launch(*args, 0, stream))
+            flash_bwd_cuda.launches_dq += 1
             raise_on_error("flash_bwd_dkv", launch(*args, 1, stream))
             flash_bwd_cuda.launches_dkv += 1
     return dq, dk, dv
 
 
 flash_bwd_cuda.launches_dq = 0
+flash_bwd_cuda.launches_dq_wgmma = 0
 flash_bwd_cuda.launches_dkv = 0
 flash_bwd_cuda.launches_dkv_wgmma = 0
 
@@ -252,13 +272,17 @@ class FlashAttention(torch.autograd.Function):
     ``custom_vjp`` ``flash_attention``).  The forward runs the flash
     forward (the kernel on the card, its plain version on the CPU) and
     saves ``q, k, v, o, lse``; the backward computes ``delta`` in f32 and
-    runs ``kernels.ops.flash_bwd``."""
+    runs ``kernels.ops.flash_bwd``.  On the tensor-core route every
+    operand starts on a TMA boundary (``_tma_ready``), and the aligned
+    copies are the ones saved."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True, scale=None):
         # the kernels take contiguous operands; a (B, S, H, hd) -> (B H,
         # S, hd) reshape with B = 1 is a strided view
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if flash_route(q.dtype, q.shape[-1], v.shape[-1]) == "wgmma":
+            q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
         fn = flash_fwd_cuda if on_card(q, "flash_fwd") else flash_fwd_plain
         o, lse = fn(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -271,6 +295,8 @@ class FlashAttention(torch.autograd.Function):
         from . import ops          # ops imports this module
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
+        if flash_route(q.dtype, q.shape[-1], v.shape[-1]) == "wgmma":
+            do = _tma_ready(do)
         dq, dk, dv = ops.flash_bwd(q, k, v, do, lse, flash_delta(o, do),
                                    ctx.causal, ctx.scale)
         return dq, dk, dv, None, None

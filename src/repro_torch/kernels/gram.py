@@ -3,7 +3,8 @@
 The counterpart of ``repro/kernels/gram.py`` (``gram_pallas``).  The
 kernel is ``csrc/gram.cu``; ``gram_cuda`` launches it and counts the
 launches, ``gram_plain`` is the plain PyTorch version.
-``kernels.ops.gram`` picks between them by device.
+``kernels.ops.gram`` picks between them by device.  ``gram_splits``
+picks the kernel's output tile and its split of the feature axis.
 """
 from __future__ import annotations
 
@@ -11,15 +12,44 @@ import torch
 
 from repro_torch.core.kernels import KernelConfig
 from . import build
-from ._launch import (BM, DTYPE_CODES, check_inputs, kernel_args,
-                      raise_on_error)
+from ._launch import (DTYPE_CODES, check_inputs, kernel_args, raise_on_error,
+                      sm_count)
 from .ref import gram_ref
 
-MAX_GRID_Y = 65535       # CUDA's limit on gridDim.y (row tiles)
+MAX_GRID = 65535         # CUDA's limit on gridDim.y (row tiles) and .z
+BK = 32                  # features a chunk, csrc/gram.cu G_BK
+DOT_MAX = 4              # csrc/gram.cu G_DOT_MAX: m, r <= 4 take the dot kernel
+# blocks the split aims for, per SM: at 2 the 19 996 x 32 slab (313 tiles of
+# 64 threads) takes one split and leaves an SM ~5 warps; at 4 it takes two
+BLOCKS_PER_SM = 4
 
 # The plain PyTorch version is the f32 oracle itself: one ``gram_slab``
 # in f32, cast on output.
 gram_plain = gram_ref
+
+
+def gram_tile(m: int, r: int):
+    """The kernel's (rows, columns) output tile: (4, 4), the dot kernel,
+    when m and r are both at most 4; else 32 or 64 on each side, so a
+    32-wide output does not mask half of a 64-wide tile."""
+    if m <= DOT_MAX and r <= DOT_MAX:
+        return DOT_MAX, DOT_MAX
+    return (32 if m <= 32 else 64), (32 if r <= 32 else 64)
+
+
+def gram_splits(m: int, r: int, n: int, sm_count: int):
+    """``(bm, br, splits, per)``: the output tile (``gram_tile``) and a split
+    of the feature axis into ``splits`` runs of ``per`` whole BK-feature
+    chunks, none empty, so that output tiles x splits fill the card's SMs
+    about BLOCKS_PER_SM times over; an output of that many tiles takes one
+    split."""
+    bm, br = gram_tile(m, r)
+    tiles = -(-m // bm) * -(-r // br)
+    chunks = -(-n // BK)
+    want = max(1, min(chunks, -(-BLOCKS_PER_SM * sm_count // tiles),
+                      MAX_GRID))
+    per = -(-chunks // want)
+    return bm, br, -(-chunks // per), per
 
 
 def gram_cuda(A: torch.Tensor, B: torch.Tensor, cfg: KernelConfig,
@@ -33,14 +63,19 @@ def gram_cuda(A: torch.Tensor, B: torch.Tensor, cfg: KernelConfig,
                          f"{list(DTYPE_CODES)}, got {out_dtype}")
     m, n = A.shape
     r = B.shape[0]
-    if -(-m // BM) > MAX_GRID_Y:
+    bm, br, splits, per = gram_splits(m, r, n,
+                                      sm_count(A.device.index or 0))
+    if -(-m // bm) > MAX_GRID:
         raise ValueError(f"gram: m = {m} rows exceed the kernel's grid "
-                         f"({MAX_GRID_Y} tiles of {BM} rows)")
+                         f"({MAX_GRID} tiles of {bm} rows)")
     out = torch.empty((m, r), dtype=out_dtype, device=A.device)
+    ws = (torch.empty(splits * (m * r + m + r), dtype=torch.float32,
+                      device=A.device) if splits > 1 else None)
     with torch.cuda.device(A.device):
         code = build.launcher("gram")(
-            A.data_ptr(), B.data_ptr(), out.data_ptr(), m, r, n, in_code,
-            DTYPE_CODES[out_dtype], *kernel_args(cfg),
+            A.data_ptr(), B.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, m, r, n, in_code,
+            DTYPE_CODES[out_dtype], *kernel_args(cfg), bm, br, splits, per,
             torch.cuda.current_stream().cuda_stream)
     raise_on_error("gram", code)
     gram_cuda.launches += 1

@@ -8,13 +8,12 @@ in f32).  ``kernels.ops.kmv`` picks between them by device.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.core.kernels import KernelConfig, kmv_slab_free
 from . import build
-from ._launch import BM, BR, check_inputs, kernel_args, raise_on_error
+from ._launch import (BM, BR, check_inputs, kernel_args, raise_on_error,
+                      sm_count)
 
 BLOCKS_PER_SM = 4          # grid size the m split aims for
 
@@ -24,11 +23,6 @@ def kmv_plain(A: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version: the blocked slab-free contraction in f32."""
     return kmv_slab_free(A.float(), B.float(), X.float(), cfg).to(out_dtype)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def kmv_splits(m: int, r: int, sm_count: int):
@@ -59,8 +53,7 @@ def kmv_cuda(A: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
         raise ValueError(f"kmv: X on {X.device} but A on {A.device}")
     Xc = X.reshape(m, -1).to(torch.float32).contiguous()
     c = Xc.shape[1]
-    splits, rows_per_split = kmv_splits(m, r, _sm_count(A.device.index
-                                                        or 0))
+    splits, rows_per_split = kmv_splits(m, r, sm_count(A.device.index or 0))
     ws = torch.empty((splits, r, c), dtype=torch.float32, device=A.device)
     out = torch.empty((r, c), dtype=torch.float32, device=A.device)
     with torch.cuda.device(A.device):

@@ -21,8 +21,8 @@ import torch
 from repro_torch.core.kernels import RBF, KernelConfig, apply_epilogue
 from . import build
 from ._launch import (DTYPE_CODES, check_inputs, kernel_args,
-                      raise_on_error)
-from .kmv import _sm_count, kmv_splits
+                      raise_on_error, sm_count)
+from .kmv import kmv_splits
 
 _COPY_STREAMS: Dict[int, torch.cuda.Stream] = {}
 # Pinned host buffers read by queued kernel work, each with an event
@@ -123,7 +123,7 @@ def _launch(Xc: torch.Tensor, resident: bool, B: torch.Tensor,
     Xv = Xvc.to(torch.float32).contiguous()
     c = Xv.shape[2]
     dev = B.device
-    splits, rows_per_split = kmv_splits(cr, r, _sm_count(dev.index or 0))
+    splits, rows_per_split = kmv_splits(cr, r, sm_count(dev.index or 0))
     # the two device slots of the pipe (unused when the chunks are
     # already resident), the per-block workspace and the output
     slots = torch.empty((0 if resident else 2, cr, n), dtype=Xc.dtype,

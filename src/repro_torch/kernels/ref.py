@@ -68,7 +68,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, do: torch.Tensor,
                             lse: torch.Tensor, delta: torch.Tensor,
                             causal: bool = True, scale=None,
-                            round_p: bool = False):
+                            round_p: bool = False, round_dq: bool = False):
     """Oracle for the flash backward kernels: ``(dq, dk, dv)`` through the
     whole (S, T) softmax in f32, from the forward's saved ``lse`` and
     ``delta = sum(do * o, -1)`` (both (BH, S) f32), as the TPU kernels
@@ -76,14 +76,16 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     scale``); each result is rounded once, to its input's dtype.
     ``round_p`` rounds p and ds to the inputs' dtype in the dv and dk
     products, as the tensor-core dkv kernel does (ROADMAP C5); dq keeps
-    f32 ds."""
+    f32 ds unless ``round_dq``, which rounds ds to k's dtype in the dq
+    product, as the tensor-core dq kernel does (ROADMAP C7)."""
     hd = q.shape[-1]
     scale = scale if scale is not None else hd ** -0.5
     p = torch.exp(attention_scores(q, k, causal, scale) - lse[..., None])
     dof = do.float()
     dp = torch.einsum("bqd,bkd->bqk", dof, v.float())
     ds = p * (dp - delta[..., None]) * scale
-    dq = torch.einsum("bqk,bkd->bqd", ds, k.float())
+    dq = torch.einsum("bqk,bkd->bqd",
+                      ds.to(k.dtype).float() if round_dq else ds, k.float())
     if round_p:
         p, ds = p.to(do.dtype).float(), ds.to(q.dtype).float()
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
@@ -147,6 +149,49 @@ def flash_dkv_bf16_tolerance(q: torch.Tensor, k: torch.Tensor,
     t_dv = torch.einsum("bqk,bqd->bkd", p, do.float().abs())
     S = q.shape[1]
     return _bf16_bound(t_dk, dk, S), _bf16_bound(t_dv, dv, S)
+
+
+def flash_dq_bf16_tolerance(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            dq: torch.Tensor, causal: bool = True,
+                            scale=None) -> torch.Tensor:
+    """Derived elementwise bound on |dq_kernel - dq| for the tensor-core dq
+    kernel against the plain version's ``dq`` (f32 ds): it rounds each ds
+    to bf16, so dq moves by at most U_BF16 sum_k |ds| |k|, plus the f32
+    sums and both final roundings (``_bf16_bound``).
+
+    Unlike dk, a row of dq can be a sum of few ds that are each a
+    cancellation residue: at the first causal rows dp = do . v is nearly
+    delta = do . o, so the f32 sums of the score products, which the
+    tensor cores take in another order than the plain version, move ds by
+    far more than its own size.  Both sides sum the same exact products
+    of bf16 values (hd of them for s and dp, an error of at most e = 2 hd
+    U_F32 of their magnitudes, both sides together), so ds moves by at
+    most scale (|dp - delta| dp_rel + e sum_d |do| |v|) p, with p's
+    relative error dp_rel = e scale sum_d |q| |k| (through s) + 3 U_F32
+    (|s| + |lse|) + 4 U_F32 (the exp2 argument's roundings and exp2
+    itself), plus 4 U_F32 |ds| for the products that form ds; dq adds
+    that times |k| summed over the row.  The whole bound stays capped at
+    the JAX package's bf16 bound."""
+    hd = q.shape[-1]
+    scale = scale if scale is not None else hd ** -0.5
+    s = attention_scores(q, k, causal, scale)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None]) * scale).abs()
+    ka = k.float().abs()
+    terms = torch.einsum("bqk,bkd->bqd", ds, ka)
+    e = 2 * hd * U_F32
+    p_rel = (e * scale * torch.einsum("bqd,bkd->bqk", q.float().abs(), ka)
+             + 3 * U_F32 * (s.abs() + lse.abs()[..., None]) + 4 * U_F32)
+    d_ds = (scale * p * ((dp - delta[..., None]).abs() * p_rel
+                         + e * torch.einsum("bqd,bkd->bqk", do.float().abs(),
+                                            v.float().abs()))
+            + 4 * U_F32 * ds)
+    extra = torch.einsum("bqk,bkd->bqd", d_ds, ka)
+    return torch.minimum(_bf16_bound(terms, dq, k.shape[1]) + extra,
+                         JAX_BF16_TOL * (1 + dq.float().abs()))
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,

@@ -1,7 +1,8 @@
-"""A short first call of the tensor-core flash kernels on the card: build
-them, show the compiler's register and spill report and their SASS
-(HGMMA, UTMALDG), hold them against their plain versions at small and
-ragged shapes, and time them beside the FP32-FMA kernels and SDPA.
+"""A short first call of the tensor-core flash kernels (forward, dkv, dq)
+on the card: build them, show the compiler's register and spill report
+and their SASS (HGMMA, UTMALDG), hold them against their plain versions
+at small and ragged shapes, and time them beside the FP32-FMA kernels
+and SDPA.
 
     PYTHONPATH=src python -m repro_torch.launch.flash_probe
 
@@ -99,9 +100,44 @@ def dkv_stage() -> bool:
     return ok
 
 
+def dq_stage() -> bool:
+    """The tensor-core dq kernel against the plain version (the derived
+    bound on dq) and the plain version that rounds ds to bf16; a second
+    call must give the same bits."""
+    from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
+                                                     flash_bwd_plain,
+                                                     flash_delta,
+                                                     flash_fwd_plain)
+    from repro_torch.kernels.ref import flash_dq_bf16_tolerance
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ok = True
+    for BH, S, T, hd, causal in SHAPES:
+        q, k, v, do = (_bf16(gen, BH, n, hd) for n in (S, T, T, S))
+        o, lse = flash_fwd_plain(q, k, v, causal=causal)
+        delta = flash_delta(o, do)
+        n0 = flash_bwd_cuda.launches_dq_wgmma
+        dq = flash_bwd_cuda(q, k, v, do, lse, delta, causal=causal)[0]
+        again = flash_bwd_cuda(q, k, v, do, lse, delta, causal=causal)[0]
+        torch.cuda.synchronize()
+        want = flash_bwd_plain(q, k, v, do, lse, delta, causal)[0]
+        rounded = flash_bwd_plain(q, k, v, do, lse, delta, causal,
+                                  round_dq=True)[0]
+        tol = flash_dq_bf16_tolerance(q, k, v, do, lse, delta, want, causal)
+        e = (dq.float() - want.float()).abs()
+        ratio = float((e / tol).max())
+        same = torch.equal(dq, again)
+        ok &= ratio <= 1 and same and \
+            flash_bwd_cuda.launches_dq_wgmma == n0 + 2
+        print(f"[dq] {(BH, S, T, hd)} causal={causal}: max "
+              f"{float(e.max()):.3e} ({ratio:.3f}x bound), vs bf16-ds plain "
+              f"{float((dq.float() - rounded.float()).abs().max()):.3e}; "
+              f"repeats bit for bit: {same}", flush=True)
+    return ok
+
+
 def time_stage() -> bool:
     """CUDA-event means at the LM's shapes (bf16, causal, hd 128): the
-    tensor-core forward at BH 64 and 32 and dkv at BH 32, beside the
+    tensor-core forward at BH 64 and 32, dkv and dq at BH 32, beside the
     FP32-FMA kernels at the same shapes and SDPA's forward."""
     import torch.nn.functional as F
     from repro_torch.kernels import build
@@ -122,8 +158,8 @@ def time_stage() -> bool:
     S, hd, scale = 2048, 128, 128 ** -0.5
     fwd_w, fwd_f = (build.launcher(n) for n in ("flash_fwd_wgmma",
                                                 "flash_fwd"))
-    dkv_w, bwd_f = (build.launcher(n) for n in ("flash_bwd_dkv_wgmma",
-                                                "flash_bwd"))
+    dkv_w, dq_w, bwd_f = (build.launcher(n) for n in (
+        "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma", "flash_bwd"))
     for BH in (64, 32):
         q, k, v, do = (_bf16(gen, BH, S, hd) for _ in range(4))
         o, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
@@ -152,10 +188,20 @@ def time_stage() -> bool:
             print(f"[time] flash_bwd_dkv ({BH}, {S}, {hd}): tensor-core "
                   f"{t_dw:.4f} ms ({2 * flops / t_dw / 1e9:.1f} TFLOP/s) | "
                   f"FP32-FMA {t_df:.4f}", flush=True)
+            t_qw = ms(lambda: dq_w(*a, dq.data_ptr(), BH, S, S, hd, 1,
+                                   scale, stream))
+            t_qf = ms(lambda: bwd_f(*a, dq.data_ptr(), dk.data_ptr(),
+                                    dv.data_ptr(), BH, S, S, hd, hd, 1, 1,
+                                    scale, 0, stream), 5)
+            # three products
+            print(f"[time] flash_bwd_dq ({BH}, {S}, {hd}): tensor-core "
+                  f"{t_qw:.4f} ms ({1.5 * flops / t_qw / 1e9:.1f} TFLOP/s) "
+                  f"| FP32-FMA {t_qf:.4f}", flush=True)
     return True
 
 
-STAGES = {"fwd": fwd_stage, "dkv": dkv_stage, "time": time_stage}
+STAGES = {"fwd": fwd_stage, "dkv": dkv_stage, "dq": dq_stage,
+          "time": time_stage}
 
 
 def main(argv=None) -> int:
@@ -167,7 +213,7 @@ def main(argv=None) -> int:
         return 0 if STAGES[argv[0]]() else 1
     from repro_torch.kernels import build
     info = build.build_all()
-    for lib in ("flash_fwd_wgmma", "flash_bwd_wgmma"):
+    for lib in ("flash_fwd_wgmma", "flash_bwd_wgmma", "flash_bwd_dq_wgmma"):
         print(f"[build] {lib}: {info[lib]['seconds']:.1f} s")
         for line in info[lib]["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "warning")):

@@ -15,7 +15,9 @@ bf16 gradients through each package's own forward: the JAX bf16 bound
 delta differ by a bf16 rounding).  The plain backward with p and ds
 rounded to bf16 in the dk and dv products (what the tensor-core dkv
 kernel computes, ROADMAP C5): within the derived bound that holds that
-kernel on the card, and within the JAX bf16 bound of the Pallas kernels.
+kernel on the card, and within the JAX bf16 bound of the Pallas kernels;
+the same for dq with ds rounded to bf16 (``round_dq``, what the
+tensor-core dq kernel computes, ROADMAP C7).
 """
 import jax
 import jax.numpy as jnp
@@ -27,13 +29,15 @@ from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.flash_attention import flash_bwd as j_flash_bwd
 from repro.kernels.flash_attention import flash_fwd as j_flash_fwd
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (FlashAttention,
+from repro_torch.kernels.flash_attention import (TMA_ALIGN, FlashAttention,
+                                                 _tma_ready,
                                                  flash_attention,
                                                  flash_bwd_cuda,
                                                  flash_bwd_plain,
                                                  flash_delta)
 from repro_torch.kernels.ref import (JAX_BF16_TOL, flash_attention_ref,
-                                     flash_dkv_bf16_tolerance)
+                                     flash_dkv_bf16_tolerance,
+                                     flash_dq_bf16_tolerance)
 
 # (BH, S, T, hd, hdv): the JAX gradient tests' shapes (hd != hdv as in
 # test_grads_mla_vdim) and a three-block causal case
@@ -203,3 +207,108 @@ def test_dkv_round_p_matches_pallas_bf16():
                           flash_delta(to, tdo), round_p=True)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         _close(a, b, JAX_BF16_TOL, JAX_BF16_TOL, name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 256, 256, 128, 128),
+                                   (2, 100, 40, 64, 64),
+                                   (2, 40, 100, 128, 128)])
+def test_dq_round_dq_within_derived_bf16_bound(causal, shape):
+    """dq with ds rounded to bf16 stays within the derived bound against
+    the f32-ds plain version, which is no looser than the JAX bf16 bound;
+    dk and dv do not move."""
+    q, k, v, do = _t(*_inputs(*shape, seed=10), dtype=torch.bfloat16)
+    o, lse = flash_attention_ref(q, k, v, causal, with_lse=True)
+    delta = flash_delta(o, do)
+    dq, dk, dv = flash_bwd_plain(q, k, v, do, lse, delta, causal)
+    dq_r, dk_r, dv_r = flash_bwd_plain(q, k, v, do, lse, delta, causal,
+                                       round_dq=True)
+    assert torch.equal(dk_r, dk) and torch.equal(dv_r, dv)
+    assert not torch.equal(dq_r, dq)
+    tol = flash_dq_bf16_tolerance(q, k, v, do, lse, delta, dq, causal)
+    assert bool(((dq_r.float() - dq.float()).abs() <= tol).all())
+    assert bool((tol <= JAX_BF16_TOL * (1 + dq.float().abs())).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 128, 128, 128, 128),
+                                   (2, 17, 17, 128, 128),
+                                   (2, 100, 40, 64, 64)])
+def test_dq_bound_covers_another_order_of_the_score_sums(causal, shape):
+    """The tensor-core dq sums q k^T and do v^T in another order than the
+    plain version, and at the first causal rows ds is a cancellation
+    residue of dp - delta: a dq that takes s and dp from f64 sums rounded
+    to f32, exp2 of the log2-domain argument and ds rounded to bf16 (what
+    the kernel computes, in another order) stays within the derived bound,
+    whose score-sum term that residue needs."""
+    q, k, v, do = _t(*_inputs(*shape, seed=13), dtype=torch.bfloat16)
+    BH, S, T, hd, _ = shape
+    scale, log2e = hd ** -0.5, 1.4426950408889634
+    o, lse = flash_attention_ref(q, k, v, causal, with_lse=True)
+    delta = flash_delta(o, do)
+    dq = flash_bwd_plain(q, k, v, do, lse, delta, causal)[0]
+    s = torch.einsum("bqd,bkd->bqk", q.double(), k.double()).float()
+    dp = torch.einsum("bqd,bkd->bqk", do.double(), v.double()).float()
+    p = torch.exp2(s * (scale * log2e) - lse[..., None] * log2e)
+    if causal:
+        p = p * torch.ones(S, T).tril()
+    ds = (p * (dp - delta[..., None]) * scale).to(torch.bfloat16)
+    dq_other = torch.einsum("bqk,bkd->bqd", ds.double(),
+                            k.double()).to(torch.bfloat16)
+    tol = flash_dq_bf16_tolerance(q, k, v, do, lse, delta, dq, causal)
+    assert bool(((dq_other.float() - dq.float()).abs() <= tol).all())
+
+
+def test_dq_round_dq_matches_pallas_bf16():
+    """The bf16-ds plain dq (with the bf16 p and ds of the tensor-core dkv)
+    against the Pallas backward in interpret mode on the same bf16 inputs,
+    o and lse: the JAX bound."""
+    q, k, v, do = _inputs(2, 128, 128, 64, 64, seed=11)
+    jq, jk, jv, jdo = _j(q, k, v, do, dtype=jnp.bfloat16)
+    o, lse = j_flash_fwd(jq, jk, jv, causal=True, bq=64, bk=64,
+                         interpret=True)
+    want = j_flash_bwd(jq, jk, jv, o, lse, jdo, causal=True, bq=64, bk=64,
+                       interpret=True)
+    tq, tk, tv, tdo, to = _t(q, k, v, do, o, dtype=torch.bfloat16)
+    got = flash_bwd_plain(tq, tk, tv, tdo, torch.from_numpy(np.array(lse)),
+                          flash_delta(to, tdo), round_p=True, round_dq=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a, b, JAX_BF16_TOL, JAX_BF16_TOL, name)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 8])
+def test_tma_ready_copies_only_an_unaligned_operand(offset):
+    """A contiguous bf16 view that starts ``offset`` elements into a buffer
+    comes back as a fresh aligned tensor with the same values when it is
+    off a TMA boundary, and as itself when it is on one."""
+    flat = torch.arange(2 * 64 * 64 + offset, dtype=torch.float32).to(
+        torch.bfloat16)
+    assert flat.data_ptr() % TMA_ALIGN == 0
+    view = flat[offset:].view(2, 64, 64)
+    got = _tma_ready(view)
+    assert got.data_ptr() % TMA_ALIGN == 0 and torch.equal(got, view)
+    if view.data_ptr() % TMA_ALIGN:
+        assert got.data_ptr() != view.data_ptr()
+    else:
+        assert got is view
+
+
+def test_function_takes_an_unaligned_bf16_view():
+    """The Function's tensor-core route (bf16, hd = hdv = 64) takes a view
+    that starts 2 bytes into its buffer, and gives the same bits forward and
+    backward as an aligned copy (on the CPU through the plain versions)."""
+    q, k, v, do = _t(*_inputs(1, 64, 64, 64, 64, seed=12),
+                     dtype=torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype)
+    q_off = flat[1:].view(q.shape)
+    q_off.copy_(q)
+    outs = []
+    for qq in (q_off, q.clone()):
+        leaves = [qq.detach().requires_grad_(), k.clone().requires_grad_(),
+                  v.clone().requires_grad_()]
+        assert leaves[0].data_ptr() == qq.data_ptr()
+        o = flash_attention(*leaves)
+        o.backward(do)
+        outs.append([o.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

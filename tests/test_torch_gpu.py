@@ -26,7 +26,9 @@ their o, dk and dv are held to a derived elementwise bound instead:
 u = 2^-8 (bf16's unit roundoff) times the sum of the products'
 magnitudes, plus the f32 sums and both sides' final rounding, capped at
 the JAX package's bf16 bound 3e-2 (``ref.flash_fwd_bf16_tolerance``,
-``ref.flash_dkv_bf16_tolerance``); lse stays at the f32 limits.
+``ref.flash_dkv_bf16_tolerance``); lse stays at the f32 limits.  The
+tensor-core dq kernel rounds ds to bf16 and is held to the same kind of
+bound (``ref.flash_dq_bf16_tolerance``).
 """
 import dataclasses
 
@@ -47,6 +49,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_fwd_cuda,
                                                  flash_fwd_plain,
                                                  flash_route)
+from repro_torch.kernels import gram as gram_module
 from repro_torch.kernels.gram import gram_cuda, gram_plain
 from repro_torch.kernels.kmv import kmv_cuda, kmv_plain
 from repro_torch.kernels.kmv_stream import (gather_rows_cuda,
@@ -56,6 +59,7 @@ from repro_torch.kernels.kmv_stream import (gather_rows_cuda,
                                             kmv_stream_resident)
 from repro_torch.kernels.ref import (flash_attention_ref,
                                      flash_dkv_bf16_tolerance,
+                                     flash_dq_bf16_tolerance,
                                      flash_fwd_bf16_tolerance, rmsnorm_ref)
 from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_cuda, rmsnorm_plain
 from repro_torch.data.tokens import TokenPipeline
@@ -134,6 +138,42 @@ def test_gram_cuda_matches_plain(cuda_device, kernel, dtype, shape):
     got = gram_cuda(A_d, B_d, cfg, out_dtype=dtype)
     want = gram_plain(A_d, B_d, cfg, out_dtype=dtype)
     torch.cuda.synchronize()
+    _close(got.float(), want.float(), kernel,
+           2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,sms", [((1, 1, 8192), None),
+                                       ((32, 32, 8192), None),
+                                       ((3, 2, 1000), None),
+                                       ((70, 40, 1000), 7),
+                                       ((33, 17, 102), 132)],
+                         ids=["1x1", "32x32", "dot-ragged", "ragged-split",
+                              "unaligned-n"])
+def test_gram_cuda_splits_match_plain_and_repeat(cuda_device, monkeypatch,
+                                                 kernel, dtype, shape, sms):
+    """The round shapes (classical 1 x 1, K-SVM 32 x 32, n = 8192), the dot
+    kernel on a ragged n, a split whose last run of chunks is short (70 x
+    40 tiles over 1000 features, split as for a 7-SM card) and an n the
+    vector copies cannot take: against gram_plain at the existing bounds,
+    and two launches give the same bits (no atomics)."""
+    if sms is not None:
+        monkeypatch.setattr(gram_module, "sm_count", lambda index: sms)
+    A, B, _ = _data(*shape, 1, seed=9)
+    cfg = KernelConfig(**kernel)
+    A_d = torch.from_numpy(A).to(cuda_device, dtype)
+    B_d = torch.from_numpy(B).to(cuda_device, dtype)
+    before = gram_cuda.launches
+    got = gram_cuda(A_d, B_d, cfg, out_dtype=dtype)
+    again = gram_cuda(A_d, B_d, cfg, out_dtype=dtype)
+    assert gram_cuda.launches == before + 2
+    want = gram_plain(A_d, B_d, cfg, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(got, again)
     _close(got.float(), want.float(), kernel,
            2e-2 if dtype == torch.bfloat16 else 1e-4)
 
@@ -542,6 +582,7 @@ def _bwd_inputs(shape, dtype, device, causal, seed):
 
 def _bwd_counts():
     return {"dq": flash_bwd_cuda.launches_dq,
+            "dq_wgmma": flash_bwd_cuda.launches_dq_wgmma,
             "fma": flash_bwd_cuda.launches_dkv,
             "wgmma": flash_bwd_cuda.launches_dkv_wgmma}
 
@@ -555,7 +596,7 @@ def test_flash_bwd_cuda_matches_plain(cuda_device, causal, dtype, shape):
     """The JAX gradient tests' shapes (hd != hdv as in test_grads_mla_vdim),
     ragged tails in S and T both ways, and full 128-wide heads over
     several tiles: dq, dk, dv from the same lse and delta; one launch of
-    dq and one of the dkv kernel that ``flash_route`` names."""
+    the dq and one of the dkv kernel that ``flash_route`` names."""
     q, k, v, do, lse, delta = _bwd_inputs(shape, dtype, cuda_device, causal,
                                           16)
     route = flash_route(dtype, shape[3], shape[4])
@@ -564,15 +605,18 @@ def test_flash_bwd_cuda_matches_plain(cuda_device, causal, dtype, shape):
     want = flash_bwd_plain(q, k, v, do, lse, delta, causal=causal)
     torch.cuda.synchronize()
     moved = {r: n - before[r] for r, n in _bwd_counts().items()}
-    assert moved == {"dq": 1, "fma": int(route == "fma"),
-                     "wgmma": int(route == "wgmma")}
+    fma = int(route == "fma")
+    assert moved == {"dq": fma, "dq_wgmma": 1 - fma, "fma": fma,
+                     "wgmma": 1 - fma}
     rtol, atol = (1e-2, 1e-3) if dtype == torch.bfloat16 else (2e-4, 2e-5)
-    tols = (None, None)
+    tols = (None, None, None)
     if route == "wgmma":
-        tols = flash_dkv_bf16_tolerance(q, k, v, do, lse, delta, want[1],
-                                        want[2], causal)
+        tols = (flash_dq_bf16_tolerance(q, k, v, do, lse, delta, want[0],
+                                        causal),
+                *flash_dkv_bf16_tolerance(q, k, v, do, lse, delta, want[1],
+                                          want[2], causal))
     for name, a, b, ref, tol in zip(("dq", "dk", "dv"), got, want,
-                                    (q, k, v), (None,) + tuple(tols)):
+                                    (q, k, v), tols):
         assert a.shape == ref.shape and a.dtype == dtype, name
         if tol is not None:
             _assert_within(a, b, tol, name)
@@ -590,13 +634,15 @@ def test_flash_bwd_cuda_matches_plain(cuda_device, causal, dtype, shape):
     ids=["wgmma-hd128", "wgmma-hd64-ragged", "fma-f32"])
 def test_flash_bwd_cuda_repeats_bit_for_bit(cuda_device, shape, dtype,
                                             route):
-    """No atomics in either dkv kernel (nor in dq): two calls on the same
-    inputs give the same bits."""
+    """No atomics in the dq and dkv kernels of either route: two calls on the
+    same inputs give the same bits."""
     args = _bwd_inputs(shape, dtype, cuda_device, True, 17)
     before = _bwd_counts()
     a = flash_bwd_cuda(*args)
     b = flash_bwd_cuda(*args)
+    dq_route = "dq_wgmma" if route == "wgmma" else "dq"
     assert _bwd_counts()[route] - before[route] == 2
+    assert _bwd_counts()[dq_route] - before[dq_route] == 2
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -632,10 +678,12 @@ def test_flash_attention_grads_on_card(cuda_device, causal, dtype, hdv):
     grads = []
     for fn in (flash_attention, flash_attention_ref):
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        before = flash_bwd_cuda.launches_dq
+        before = _bwd_counts()
         (fn(*leaves, causal=causal).float() * do.float()).sum().backward()
         if fn is flash_attention:
-            assert flash_bwd_cuda.launches_dq == before + 1
+            dq_route = ("dq_wgmma" if flash_route(dtype, 64, hdv) == "wgmma"
+                        else "dq")
+            assert _bwd_counts()[dq_route] == before[dq_route] + 1
         grads.append([t.grad for t in leaves])
     torch.cuda.synchronize()
     tol = (3e-2, 3e-2) if dtype == torch.bfloat16 else (2e-3, 2e-4)
@@ -644,6 +692,38 @@ def test_flash_attention_grads_on_card(cuda_device, causal, dtype, hdv):
         np.testing.assert_allclose(a.float().cpu().numpy(),
                                    b.float().cpu().numpy(), rtol=tol[0],
                                    atol=tol[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_takes_unaligned_bf16_views(cuda_device, hd):
+    """A bf16 view that starts 2 bytes into its buffer goes through the
+    tensor-core route forward and backward (the Function copies it to an
+    aligned tensor; the launchers still refuse it, see above) and gives the
+    same bits as an aligned copy of the same values."""
+    q, k, v = _qkv(2, 256, 256, hd, hd, torch.bfloat16, cuda_device, seed=22)
+    do = torch.randn(q.shape, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device)
+                     .manual_seed(1)).to(torch.bfloat16)
+    outs = []
+    for aligned in (False, True):
+        ops_ = []
+        for t in (q, k, v):
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype,
+                               device=cuda_device)
+            off = int(not aligned)
+            view = flat[off:off + t.numel()].view(t.shape)
+            view.copy_(t)
+            ops_.append(view.detach().requires_grad_())
+        assert all((u.data_ptr() % 16 == 0) == aligned for u in ops_)
+        before = _bwd_counts()
+        o = flash_attention(*ops_, causal=True)
+        o.backward(do)
+        torch.cuda.synchronize()
+        assert _bwd_counts()["dq_wgmma"] == before["dq_wgmma"] + 1
+        outs.append([o.detach()] + [u.grad for u in ops_])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -20,7 +20,8 @@ from repro.kernels.ref import gram_ref as j_gram_ref
 from repro.kernels.ref import kmv_ref as j_kmv_ref
 from repro_torch.core.kernels import KernelConfig, integer_pow
 from repro_torch.kernels import ops
-from repro_torch.kernels.gram import gram_cuda, gram_plain
+from repro_torch.kernels.gram import (BK, BLOCKS_PER_SM, DOT_MAX, gram_cuda,
+                                      gram_plain, gram_splits)
 from repro_torch.kernels.kmv import BM, kmv_cuda, kmv_plain, kmv_splits
 from repro_torch.kernels.ref import kmv_ref
 
@@ -157,3 +158,36 @@ def test_kmv_splits_cover_m_with_whole_nonempty_tiles(m, r):
     assert rows % BM == 0
     assert (splits - 1) * rows < m <= splits * rows     # none empty
     assert splits <= -(-m // BM)
+
+
+@pytest.mark.parametrize("m,r,n", [(1, 1, 8192), (32, 32, 8192),
+                                   (256, 256, 8192), (19996, 32, 8192),
+                                   (19996, 1024, 8192), (1024, 1024, 8192),
+                                   (3, 2, 100), (33, 17, 100), (700, 70, 31),
+                                   (1, 300, 40)])
+def test_gram_splits_cover_n_with_whole_nonempty_chunks(m, r, n):
+    """Every split is a whole number of BK-feature chunks, none empty, and
+    together they cover n; the tile is the dot kernel's only for m, r <=
+    DOT_MAX and never wider than 32 on a side of at most 32."""
+    bm, br, splits, per = gram_splits(m, r, n, sm_count=132)
+    chunks = -(-n // BK)
+    assert per >= 1 and (splits - 1) * per < chunks <= splits * per
+    assert ((bm, br) == (DOT_MAX, DOT_MAX)) == (m <= DOT_MAX
+                                                and r <= DOT_MAX)
+    if (bm, br) != (DOT_MAX, DOT_MAX):
+        assert bm == (32 if m <= 32 else 64)
+        assert br == (32 if r <= 32 else 64)
+
+
+@pytest.mark.parametrize("m,r", [(1, 1), (32, 32), (256, 256)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_gram_splits_fill_the_card_at_the_round_shapes(m, r, sms):
+    """The round's cross blocks (classical 1 x 1, K-SVM 32 x 32, K-RR 256 x
+    256, n = 8192) launch at least one block per SM, and at most about
+    BLOCKS_PER_SM; the large outputs (the Nystrom map's 19 996 x 1024,
+    K-RR's slab) take one split."""
+    bm, br, splits, _ = gram_splits(m, r, 8192, sm_count=sms)
+    blocks = -(-m // bm) * -(-r // br) * splits
+    assert sms <= blocks <= (BLOCKS_PER_SM + 1) * sms
+    for big in ((19996, 1024), (19996, 256)):
+        assert gram_splits(*big, 8192, sm_count=sms)[2] == 1
