@@ -10,10 +10,13 @@ Phases (each one fails the run with a non-zero exit):
               tensor-core flash kernels' SASS (forward, dkv and dq) must
               hold HGMMA and UTMALDG (cuobjdump -sass)
   2. parity   KMV and gram kernels against their plain PyTorch versions
-              at the main path's shapes, f32 and bf16 (gram also at the
-              classical 1 x 1 and the K-SVM 32 x 32 blocks, repeating bit
-              for bit; the gram check must fail the kernel with its last
-              feature split left out of the reduce)
+              at the main path's shapes, f32 and bf16, every comparison
+              repeating bit for bit: KMV in every regime of kmv_plan (r =
+              1 the classical round, 32, 256, a 1024-query block, B = A
+              the symmetric full matvec), gram also at the classical 1 x
+              1 and the K-SVM 32 x 32 blocks; the KMV check must fail each
+              regime's kernel with its last m split left out, the gram
+              check the kernel with its last feature split left out
   3. K-SVM    KernelSVM(C=1, rbf) at the news20-like shape (m = 19996,
               n = 8192): s-step DCD (s = 32) and classical DCD on one
               schedule, the duality gap (one full KMV), prediction of
@@ -41,11 +44,13 @@ Phases (each one fails the run with a non-zero exit):
        e. pipelined, copy-only and compute-only times of the streamed
           KMV, the streamed full KMV against the resident one
   6. report   launch counts of phases 3-4, kernel times against their
-              plain versions, bounds and library calls (gram at 1 x 1, 32
-              x 32, 256 x 256 and 19 996 x 32, timed with the launches
-              queued behind a spin kernel, so the host's enqueue does not
-              count, and eager beside it; 1 x 1 also through the 32 x 32
-              tile), the inner-phase share of a round
+              plain versions, bounds and library calls, timed with the
+              launches queued behind a spin kernel, so the host's enqueue
+              does not count, and eager beside it (KMV at r = 1, 32, 256,
+              1024 and m, B = A and a copy of A, each with its regime;
+              gram at 1 x 1, 32 x 32, 256 x 256 and 19 996 x 32, 1 x 1
+              also through the 32 x 32 tile), the inner-phase share of a
+              round
   7. LM       Qwen3-1.7B at its published widths (28 layers, d_model
               2048, 16 heads / 8 kv x 128, vocab 151 936), bf16,
               attn_impl="flash", random f32 weights from --seed:
@@ -65,8 +70,10 @@ Phases (each one fails the run with a non-zero exit):
           prompt tokens, 32 new each, some arriving mid-flight), each
           held against the same request decoded alone by greedy_generate
        e. kernel times against bounds, plain versions, F.rms_norm and
-          scaled_dot_product_attention, the tensor-core forward beside
-          the FP32-FMA one at (64, 2048, 128) and (32, 2048, 128)
+          scaled_dot_product_attention (rmsnorm and F.rms_norm queued and
+          eager, and the rmsnorm kernels' device time in one profiled
+          prefill), the tensor-core forward beside the FP32-FMA one at
+          (64, 2048, 128) and (32, 2048, 128)
   8. LM training, Qwen3-1.7B at the same widths, bf16 activations over f32
      params, attn_impl="flash", remat="full", random weights from --seed:
        a. the flash backward kernels (the tensor-core or the FP32-FMA dq
@@ -696,6 +703,25 @@ def device_profile(run, calls: int):
               e.count / calls) for e in top])
 
 
+def kernel_device_ms(run, match: str):
+    """(device ms a launch, launches) of the kernels whose name holds
+    ``match`` in one call of ``run``, from torch.profiler; (None, 0) where
+    the profiler records none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and match in e.key]
+    count = sum(e.count for e in hits)
+    total = sum(e.self_device_time_total for e in hits) / 1e3
+    return (total / count if count and total > 0 else None), count
+
+
 def rel_fro(got, want) -> float:
     """||got - want||_F / ||want||_F in f64."""
     got, want = got.double(), want.double()
@@ -1126,6 +1152,12 @@ def lm_phase(dev, args, failures):
               f"{launches:g} kernel launches")
         for name, ms, n in top:
             print(f"[lm-profile]   {ms:8.3f} ms  x{n:g}  {name}")
+    rms_prof = kernel_device_ms(lambda: forward(params, cfg, tokens),
+                                "rmsnorm")
+    print(f"[lm-profile] rmsnorm kernels in one profiled prefill: "
+          + ("not measured (the profiler recorded none)"
+             if rms_prof[0] is None else
+             f"{rms_prof[0]:.4f} ms a launch over {rms_prof[1]} launches"))
     del eng, params, tokens, st
     torch.cuda.empty_cache()
     if failures:
@@ -1138,16 +1170,19 @@ def lm_phase(dev, args, failures):
     sq = torch.randn((hd,), generator=gen, device=dev)
     rows = {}
     for label, xx, ss in (("rows", x, scale), ("qk", xq, sq)):
-        ms = time_cuda(lambda: rmsnorm_cuda(xx, ss), 50)
-        plain = time_cuda(lambda: rmsnorm_plain(xx, ss), 20)
+        kernel = lambda: rmsnorm_cuda(xx, ss)  # noqa: E731
         s16 = ss.to(xx.dtype)
-        lib = time_cuda(lambda: F.rms_norm(xx, (xx.shape[-1],), s16, 1e-6),
-                        50)
+        lib_call = lambda: F.rms_norm(  # noqa: E731
+            xx, (xx.shape[-1],), s16, 1e-6)
+        ms, eager = time_queued(kernel, 50), time_cuda(kernel, 50)
+        plain = time_queued(lambda: rmsnorm_plain(xx, ss), 20)
+        lib, lib_eager = time_queued(lib_call, 50), time_cuda(lib_call, 50)
         nbytes = 2 * xx.numel() * xx.element_size() + ss.numel() * 4
         b_ms, b_by = bound_ms(nbytes, 4 * xx.numel(), BF16_FLOP_PER_S)
-        rows[label] = (ms, plain, lib, b_ms, b_by)
-        print(f"[lm-time] rmsnorm {tuple(xx.shape)} bf16: {ms:.4f} ms | "
-              f"plain {plain:.4f} ms | F.rms_norm {lib:.4f} ms | bound "
+        rows[label] = (ms, plain, lib, b_ms, b_by, eager, lib_eager)
+        print(f"[lm-time] rmsnorm {tuple(xx.shape)} bf16, queued (eager): "
+              f"{ms:.4f} ({eager:.4f}) ms | plain {plain:.4f} ms | "
+              f"F.rms_norm {lib:.4f} ({lib_eager:.4f}) ms | bound "
               f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it)")
     del x, xq
     # the tensor-core forward (the path's) and the FP32-FMA one launched at
@@ -1189,7 +1224,7 @@ def lm_phase(dev, args, failures):
           f"forward {f32_counts}, {P} decode steps {decode_counts}, {steps}"
           f" engine steps {serve_counts}")
     torch.cuda.empty_cache()
-    r = rows["rows"]
+    r, rq = rows["rows"], rows["qk"]
     ms, ms_fma, plain, lib, b_ms, b_by = f_times[B * H]
     shape = f"(BH, S, T, hd) = ({B * H}, {S}, {S}, {hd}) bf16 causal"
     return [
@@ -1201,7 +1236,14 @@ def lm_phase(dev, args, failures):
          "max_abs_err": err_at[("rmsnorm", B * S, D, str(bf16))],
          "ms": r[0], "plain_ms": r[1], "bound_ms": r[3], "bound_by": r[4],
          "library_ms": r[2], "decode_launches": decode_counts["rmsnorm"],
-         "serving_launches": serve_counts["rmsnorm"]},
+         "serving_launches": serve_counts["rmsnorm"],
+         "ms_timing": "device time, launches queued behind a spin kernel "
+                      "(time_queued); eager_ms: back to back, host "
+                      "included (time_cuda); profiled_ms: torch.profiler "
+                      "over one prefill",
+         "eager_ms": r[5], "library_eager_ms": r[6],
+         "profiled_ms": rms_prof[0], "ms_qk": rq[0], "eager_ms_qk": rq[5],
+         "library_ms_qk": rq[2], "bound_ms_qk": rq[3]},
         {"name": "flash_fwd_wgmma", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_fwd_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attention.py:95",
@@ -1742,9 +1784,10 @@ def main(argv=None) -> int:
                                             classification_dataset,
                                             regression_dataset)
     from repro_torch.kernels import build
-    from repro_torch.kernels._launch import sm_count
+    from repro_torch.kernels._launch import check_inputs, sm_count
     from repro_torch.kernels.gram import gram_cuda, gram_plain, gram_splits
-    from repro_torch.kernels.kmv import kmv_cuda, kmv_plain
+    from repro_torch.kernels.kmv import kmv_cuda, kmv_plain, kmv_plan
+    from repro_torch.kernels.kmv import launch as kmv_launch
 
     # full-f32 products everywhere the plain versions meet the kernels
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1794,7 +1837,8 @@ def main(argv=None) -> int:
                                           coef0=1.0),
                "rbf": KernelConfig("rbf", sigma=1.0)}
     pick = torch.randperm(m, generator=gen, device=dev)
-    B_of = {"r32": A[pick[:32]].contiguous(),
+    B_of = {"r1": A[pick[:1]].contiguous(),
+            "r32": A[pick[:32]].contiguous(),
             "r256": A[pick[:256]].contiguous(),
             "B=A": A, "q1024": Aq[:1024].contiguous()}
     Xv = torch.randn(m, generator=gen, device=dev)
@@ -1824,6 +1868,29 @@ def main(argv=None) -> int:
                         failures.append(
                             f"kmv {kname} {dtype} {bname} {xname}: max "
                             f"abs err {err:.3e} ({ratio:.2f}x tolerance)")
+                    # fixed-order sums, no atomics: the same bits again
+                    if not torch.equal(got, kmv_cuda(Ad, Bd, X, cfg)):
+                        failures.append(f"kmv {kname} {dtype} {bname} "
+                                        f"{xname}: a second call gave "
+                                        f"other bits")
+                if dtype == torch.float32:
+                    # each regime with its last m split left out of the
+                    # partial grid and the reduce must fail the check
+                    plan = kmv_plan(m, Bd.shape[0], 1, sm_count(0),
+                                    Bd is Ad)
+                    bad = kmv_launch(Ad, Bd, Xv[:, None].contiguous(), cfg,
+                                     plan._replace(splits=plan.splits - 1),
+                                     check_inputs("kmv", Ad, Bd))[:, 0]
+                    ratio, err = allclose_ratio(bad, kmv_plain(Ad, Bd, Xv,
+                                                               cfg),
+                                                tol, poly)
+                    err_at[("kmv-wrong", kname, bname)] = (err, ratio,
+                                                           plan.regime)
+                    if ratio <= 1.0:
+                        failures.append(f"kmv check passes a wrong kernel "
+                                        f"({kname} {bname}, {plan.regime}, "
+                                        f"last split left out: "
+                                        f"{ratio:.2f}x)")
             tol = TOL_GRAM_F32 if dtype == torch.float32 else TOL_BF16
             for gname, (G1, G2) in gram_blocks.items():
                 G1d, G2d = G1.to(dtype), G2.to(dtype)
@@ -1853,12 +1920,13 @@ def main(argv=None) -> int:
                                         f"left out: {ratio:.2f}x)")
     torch.cuda.synchronize()
     del A16
-    n_cmp = sum(k[0] != "gram-wrong" for k in err_at)
+    n_cmp = sum(k[0] not in ("gram-wrong", "kmv-wrong") for k in err_at)
     print(f"[parity] {n_cmp} comparisons in "
           f"{time.perf_counter() - t0:.1f} s; tolerances: KMV f32 "
           f"{TOL_KMV_F32}, gram f32 {TOL_GRAM_F32}, bf16 {TOL_BF16}, "
           f"polynomial relative to max |output|")
-    for key in (("kmv", "rbf", "torch.float32", "r32", "vec"),
+    for key in (("kmv", "rbf", "torch.float32", "r1", "vec"),
+                ("kmv", "rbf", "torch.float32", "r32", "vec"),
                 ("kmv", "rbf", "torch.float32", "B=A", "vec"),
                 ("kmv", "polynomial", "torch.float32", "B=A", "mat4"),
                 ("kmv", "rbf", "torch.bfloat16", "q1024", "mat4"),
@@ -1867,6 +1935,11 @@ def main(argv=None) -> int:
                 ("gram", "rbf", "torch.float32", "256x256"),
                 ("gram", "linear", "torch.float32", "mx32")):
         print(f"[parity] {' '.join(key)}: max abs err {err_at[key]:.3e}")
+    for key, (err, ratio, regime) in ((k, v) for k, v in err_at.items()
+                                      if k[0] == "kmv-wrong"):
+        print(f"[parity] kmv {key[1]} {key[2]} ({regime}) with the last m "
+              f"split left out of the reduce: max abs err {err:.3e} "
+              f"({ratio:.1f}x tolerance; must fail)")
     for key, (err, ratio) in ((k, v) for k, v in err_at.items()
                               if k[0] == "gram-wrong"):
         print(f"[parity] gram {key[1]} {key[2]} with the last feature split "
@@ -1987,13 +2060,20 @@ def main(argv=None) -> int:
     def kmv_row(label, B, c, iters):
         X = Xv if c == 1 else Xm
         r = B.shape[0]
-        ms = time_cuda(lambda: kmv_cuda(A, B, X, rbf), iters)
-        plain = time_cuda(lambda: kmv_plain(A, B, X, rbf), iters)
-        nbytes = 4 * (m * n + r * n + m * c + r * c)
-        flops = 2 * m * r * n + 2 * m * r * c + 2 * (m + r) * n + 6 * m * r
+        plan = kmv_plan(m, r, c, sm_count(0), B is A)
+        kernel = lambda: kmv_cuda(A, B, X, rbf)  # noqa: E731
+        ms = time_queued(kernel, iters)
+        eager = time_cuda(kernel, iters)
+        plain = time_queued(lambda: kmv_plain(A, B, X, rbf), iters)
+        # K(A, A) is symmetric: its m (m + 1) / 2 distinct entries are the
+        # work the full matvec needs; B = A is read once
+        pairs = m * (m + 1) // 2 if B is A else m * r
+        nbytes = 4 * (m * n + (0 if B is A else r * n) + m * c + r * c)
+        flops = 2 * pairs * n + 2 * m * r * c + 2 * (m + r) * n + 6 * pairs
         b_ms, b_by = bound_ms(nbytes, flops)
-        rows.append(("kmv", label, ms, plain, b_ms, b_by, None, None))
-        return ms, plain, b_ms, b_by
+        rows.append(("kmv", f"{label} [{plan.regime} {plan.bm} x "
+                     f"{plan.br}]", ms, plain, b_ms, b_by, None, eager))
+        return ms, plain, b_ms, b_by, eager, plan.regime
 
     def gram_row(label, G1, G2, cfg, iters, library, kernel=None):
         r1, r2 = G1.shape[0], G2.shape[0]
@@ -2010,14 +2090,19 @@ def main(argv=None) -> int:
         rows.append(("gram", label, ms, plain, b_ms, b_by, lib, eager))
         return ms, plain, b_ms, b_by, lib, eager
 
-    k32 = kmv_row(f"rbf ({m}, 32, {n}) c=1 [K-SVM round]", B_of["r32"],
+    k32 = kmv_row(f"rbf ({m}, 32, {n}) c=1 K-SVM round", B_of["r32"],
                   1, 20)
-    kmv_row(f"rbf ({m}, 1, {n}) c=1 [classical DCD round]",
-            B_of["r32"][:1].contiguous(), 1, 20)
-    kmv_row(f"rbf ({m}, 256, {n}) c=1 [K-RR round]", B_of["r256"], 1, 10)
-    kmv_row(f"rbf ({m}, 1024, {n}) c=1 [prediction block]",
-            B_of["q1024"], 1, 5)
-    kmv_row(f"rbf ({m}, {m}, {n}) c=1 [full matvec]", A, 1, 2)
+    k1 = kmv_row(f"rbf ({m}, 1, {n}) c=1 classical DCD round", B_of["r1"],
+                 1, 20)
+    kmv_row(f"rbf ({m}, 256, {n}) c=1 K-RR round", B_of["r256"], 1, 10)
+    kmv_row(f"rbf ({m}, 1024, {n}) c=1 prediction block", B_of["q1024"],
+            1, 5)
+    kfull = kmv_row(f"rbf ({m}, {m}, {n}) c=1 full matvec, B = A", A, 1,
+                    2)
+    A_copy = A.clone()
+    kmv_row(f"rbf ({m}, {m}, {n}) c=1 full matvec, B a copy of A",
+            A_copy, 1, 2)
+    del A_copy
     for label, (G1, G2) in gram_blocks.items():
         what = {"1x1": "classical DCD cross block",
                 "32x32": "K-SVM cross block", "256x256": "K-RR cross block",
@@ -2035,10 +2120,11 @@ def main(argv=None) -> int:
                      iters, False, lambda: gram_direct(G1, G2, rbf, 32, 32,
                                                        splits, per))
         gram_row(f"linear {shape} vs torch.mm", G1, G2, lin, iters, True)
-    print("[time] gram: the kernel's, plain and library times are device "
-          "times of launches queued behind a spin kernel (time_queued); "
-          "'eager' times the same calls back to back (time_cuda), the "
-          "wrapper's host time included")
+    print("[time] kmv, gram: the kernel's, plain and library times are "
+          "device times of launches queued behind a spin kernel "
+          "(time_queued); 'eager' times the same calls back to back "
+          "(time_cuda), the wrapper's host time included; kmv's regime and "
+          "tile in brackets")
     for kind, label, ms, plain, b_ms, b_by, lib, eager in rows:
         lib_s = f"{lib:.4f} ms" if lib is not None else "none"
         eager_s = f" (eager {eager:.4f} ms)" if eager is not None else ""
@@ -2107,7 +2193,16 @@ def main(argv=None) -> int:
          "max_abs_err": err_at[("kmv", "rbf", "torch.float32", "r32",
                                 "vec")],
          "ms": k32[0], "plain_ms": k32[1], "bound_ms": k32[2],
-         "bound_by": k32[3], "library_ms": None},
+         "bound_by": k32[3], "library_ms": None,
+         "ms_timing": "device time, launches queued behind a spin kernel "
+                      "(time_queued); eager_ms: back to back, host "
+                      "included (time_cuda)",
+         "eager_ms": k32[4], "regime": k32[5],
+         "ms_r1": k1[0], "eager_ms_r1": k1[4], "plain_ms_r1": k1[1],
+         "bound_ms_r1": k1[2], "regime_r1": k1[5],
+         "ms_full": kfull[0], "eager_ms_full": kfull[4],
+         "plain_ms_full": kfull[1], "bound_ms_full": kfull[2],
+         "regime_full": kfull[5]},
         {"name": "gram", "route": "cuda", "source":
             "src/repro_torch/csrc/gram.cu",
          "replaces": "src/repro/kernels/gram.py:82",

@@ -49,7 +49,7 @@
 // bound (tests/test_pallas_gram.py) or the solvers' 1e-5 iterate parity.
 #include <stdint.h>
 
-#include "kernel_tile.cuh"   // KernelParams, epilogue (shared with KMV)
+#include "kernel_tile.cuh"   // shared with KMV: epilogue, cp.async, ld4
 
 namespace rt {
 
@@ -61,31 +61,6 @@ constexpr int G_LD = G_BK + 4;    // shared row stride: conflict-free reads
 constexpr int G_DOT_MAX = 4;      // the dot kernel's largest m and r
 constexpr int G_RED_X = 32;       // reduce block: 32 columns x 8 rows of
 constexpr int G_RED_Y = 8;        // outputs, and two warps for the norms
-
-// ---- copies into shared memory --------------------------------------------
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
-                                               bool in) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int src_bytes = in ? BYTES : 0;          // 0: fill with zeros
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(src_bytes)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-                 "l"(src), "n"(BYTES), "r"(src_bytes)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of the thread's committed copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Stages of the chunk ring: as many as 47 KB of static shared memory holds,
 // 2 to 4 (f32 64 x 64: 2; f32 64 x 32 and 32 x 64: 3; the rest: 4).
@@ -122,24 +97,6 @@ __device__ __forceinline__ void load_chunk(T* dst, const T* __restrict__ src,
                                 : from_f32<T>(0.0f);
     }
   }
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
 }
 
 // ---- the tiled partial kernel -----------------------------------------------
@@ -281,14 +238,6 @@ __global__ void __launch_bounds__((TBM / G_TM) * (TBR / G_TN))
 }
 
 // ---- m, r <= 4: one warp a split, a lane a feature --------------------------
-
-__device__ __forceinline__ float warp_sum(float v) {
-  // a fixed butterfly; a + b == b + a, so every lane ends with the same bits
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 template <typename T, typename O>
 __global__ void __launch_bounds__(32)

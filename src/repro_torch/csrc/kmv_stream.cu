@@ -12,8 +12,7 @@
 // at 67 TFLOP/s FP32.  For a K-SVM round (r = 32) that is ~10 ms of link
 // against well under 1 ms of FP32 work: link-bound, so the pipe must keep
 // the copy engine busy.  For a full-matvec piece (r = chunk_rows = 2048)
-// the two are level at the bound, and this simple contraction is slower
-// than the link: compute-bound in practice, the copies hidden under it.
+// the two are level at the bound.
 //
 // Design: the card's form of the TPU kernel's HBM -> VMEM double buffer is
 // pinned host -> two device slots.  One C call runs the whole pipe, so no
@@ -27,11 +26,12 @@
 // consume never share a slot (the discipline CHK-DMA checks statically for
 // the TPU kernel).  The copy stream first waits on the compute stream's
 // earlier work, since the slots were allocated on it.  The contraction is
-// the resident KMV's (kmv_partial.cuh): f32 accumulation, the rbf norms in
-// the same feature loop, rows at or past m masked.  Each block adds chunk
-// after chunk into its own workspace slice, launches ordered on one stream,
-// and one reduce sums the slices in a fixed order: no atomics, results
-// repeat from run to run.
+// the resident KMV's (kmv_partial.cuh), planned for one chunk's rows: f32
+// accumulation, B's rbf norms once before the first chunk, each chunk's in
+// its feature loop, rows at or past m masked.  Each block adds chunk after
+// chunk into its own workspace slice, launches ordered on one stream, and
+// one reduce sums the slices in a fixed order: no atomics, results repeat
+// from run to run.
 #include <algorithm>
 #include <cassert>
 #include <cstdint>
@@ -69,31 +69,22 @@ struct Events {                       // destroyed on every return path
   }
 };
 
-template <typename T>
-cudaError_t contract_chunk(const void* A, const void* B, const float* X,
-                           float* ws, int rows, int r, int n, int c,
-                           int splits, int rows_per_split, int accumulate,
-                           const KernelParams& p, cudaStream_t st) {
-  const dim3 grid((r + BR - 1) / BR, splits);
-  kmv_partial_kernel<T><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(A), static_cast<const T*>(B), X, ws, rows, r, n,
-      c, rows_per_split, accumulate, p);
-  return cudaGetLastError();
-}
-
 }  // namespace rt
 
 // Xc: (nc, cr, n) row-major, f32 (0) or bf16 (1); page-locked host memory,
 // or, with resident != 0, device memory (the compute-only yardstick: no
 // copies, the same contractions).  slot0, slot1: (cr, n) device buffers of
 // the same dtype (unused when resident).  B (r, n) in that dtype, Xv
-// (nc * cr, c) f32 and ws (splits, r, c), out (r, c) f32 on the device.
+// (nc * cr, c) f32, ws (splits * r * c + r floats: the blocks' slices,
+// then |b_j|^2) and out (r, c) f32 on the device.  The plan (regime, bm,
+// br, splits, rows_per_split) is kmv_launch's for one chunk of cr rows.
 // Rows at or past m are masked.  Returns the first CUDA error, or 0.
 extern "C" int kmv_stream_launch(const void* Xc, void* slot0, void* slot1,
                                  const void* B, const void* Xv, void* ws,
                                  void* out, int nc, int cr, int n, int r,
-                                 int c, int m, int splits, int rows_per_split,
-                                 int dtype, int resident, int kind, int degree,
+                                 int c, int m, int regime, int bm, int br,
+                                 int splits, int rows_per_split, int dtype,
+                                 int resident, int kind, int degree,
                                  float coef0, float sigma,
                                  void* compute_stream, void* copy_stream) {
   using namespace rt;
@@ -106,18 +97,23 @@ extern "C" int kmv_stream_launch(const void* Xc, void* slot0, void* slot1,
   const char* src = static_cast<const char*>(Xc);
   char* slot[2] = {static_cast<char*>(slot0), static_cast<char*>(slot1)};
   float* wsf = static_cast<float*>(ws);
+  float* bn = wsf + (size_t)splits * r * c;
 
   auto contract = [&](const void* A, int i) {
     const float* X = static_cast<const float*>(Xv) + (size_t)i * cr * c;
     const int rows = std::min(cr, m - i * cr);
     return dtype == DTYPE_BF16
-               ? contract_chunk<__nv_bfloat16>(A, B, X, wsf, rows, r, n, c,
-                                               splits, rows_per_split, i > 0,
-                                               p, cs)
-               : contract_chunk<float>(A, B, X, wsf, rows, r, n, c, splits,
-                                       rows_per_split, i > 0, p, cs);
+               ? kmv_partial<__nv_bfloat16>(A, B, bn, X, wsf, rows, r, n, c,
+                                            regime, bm, br, splits,
+                                            rows_per_split, i > 0, p, cs)
+               : kmv_partial<float>(A, B, bn, X, wsf, rows, r, n, c, regime,
+                                    bm, br, splits, rows_per_split, i > 0, p,
+                                    cs);
   };
 
+  if (kind == KERNEL_RBF)
+    RT_TRY(dtype == DTYPE_BF16 ? kmv_bnorms<__nv_bfloat16>(B, bn, r, n, cs)
+                               : kmv_bnorms<float>(B, bn, r, n, cs));
   Events ev;
   if (resident) {
     for (int i = 0; i < nc; ++i) RT_TRY(contract(src + i * chunk_bytes, i));
@@ -145,11 +141,8 @@ extern "C" int kmv_stream_launch(const void* Xc, void* slot0, void* slot1,
       RT_TRY(cudaEventRecord(freed[cur], cs));
     }
   }
-  const long long rc = (long long)r * c;
-  const int threads = 256;
-  kmv_reduce_kernel<<<(unsigned)((rc + threads - 1) / threads), threads, 0,
-                      cs>>>(wsf, static_cast<float*>(out), splits, rc);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      kmv_reduce(wsf, static_cast<float*>(out), splits, (long long)r * c, cs));
 }
 
 // Xc: page-locked host buffer of rows_total rows of n elements (f32 (0) or

@@ -8,8 +8,6 @@ import torch
 from repro_torch.core.kernels import KernelConfig
 
 KERNEL_CODES = {"linear": 0, "polynomial": 1, "rbf": 2}
-BM = 64                    # tile rows (rows of A), csrc/kernel_tile.cuh
-BR = 64                    # tile columns (rows of B)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

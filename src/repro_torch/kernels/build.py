@@ -22,18 +22,22 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# --split-compile=0 compiles a source's kernels on all the host's cores:
+# kmv.cu and kmv_stream.cu hold some forty instantiations each (the KMV
+# regimes x dtypes), which one core compiles for minutes
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each C entry point: its library (csrc/<library>.cu), symbol and
 # argument types
 SIGNATURES = {
-    "kmv": ("kmv", "kmv_launch", [_P] * 5 + [_I] * 9 + [_F, _F, _P]),
+    "kmv": ("kmv", "kmv_launch", [_P] * 5 + [_I] * 12 + [_F, _F, _P]),
     "gram": ("gram", "gram_launch",
              [_P] * 4 + [_I] * 7 + [_F, _F] + [_I] * 4 + [_P]),
     "kmv_stream": ("kmv_stream", "kmv_stream_launch",
-                   [_P] * 7 + [_I] * 12 + [_F, _F, _P, _P]),
+                   [_P] * 7 + [_I] * 15 + [_F, _F, _P, _P]),
     "gather_rows": ("kmv_stream", "gather_rows_launch",
                     [_P] * 3 + [_I] * 4 + [_P]),
     "rmsnorm": ("rmsnorm", "rmsnorm_launch", [_P] * 3 + [_I] * 3 + [_F, _P]),

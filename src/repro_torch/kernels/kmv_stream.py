@@ -22,7 +22,7 @@ from repro_torch.core.kernels import RBF, KernelConfig, apply_epilogue
 from . import build
 from ._launch import (DTYPE_CODES, check_inputs, kernel_args,
                       raise_on_error, sm_count)
-from .kmv import kmv_splits
+from .kmv import REGIME_CODES, kmv_plan
 
 _COPY_STREAMS: Dict[int, torch.cuda.Stream] = {}
 # Pinned host buffers read by queued kernel work, each with an event
@@ -123,12 +123,13 @@ def _launch(Xc: torch.Tensor, resident: bool, B: torch.Tensor,
     Xv = Xvc.to(torch.float32).contiguous()
     c = Xv.shape[2]
     dev = B.device
-    splits, rows_per_split = kmv_splits(cr, r, sm_count(dev.index or 0))
+    plan = kmv_plan(cr, r, c, sm_count(dev.index or 0))
     # the two device slots of the pipe (unused when the chunks are
-    # already resident), the per-block workspace and the output
+    # already resident), the per-block workspace with B's norms, the output
     slots = torch.empty((0 if resident else 2, cr, n), dtype=Xc.dtype,
                         device=dev)
-    ws = torch.empty((splits, r, c), dtype=torch.float32, device=dev)
+    ws = torch.empty(plan.splits * r * c + r, dtype=torch.float32,
+                     device=dev)
     out = torch.empty((r, c), dtype=torch.float32, device=dev)
     slot_bytes = cr * n * slots.element_size()
     with torch.cuda.device(dev):
@@ -138,7 +139,8 @@ def _launch(Xc: torch.Tensor, resident: bool, B: torch.Tensor,
         code = build.launcher("kmv_stream")(
             Xc.data_ptr(), s0, s0 + slot_bytes, B.data_ptr(),
             Xv.data_ptr(), ws.data_ptr(), out.data_ptr(), nc, cr, n, r, c,
-            m, splits, rows_per_split, DTYPE_CODES[Xc.dtype], int(resident),
+            m, REGIME_CODES[plan.regime], plan.bm, plan.br, plan.splits,
+            plan.rows_per_split, DTYPE_CODES[Xc.dtype], int(resident),
             *kernel_args(cfg), compute.cuda_stream, copy.cuda_stream)
         raise_on_error("kmv_stream", code)
         if not resident:

@@ -1,8 +1,9 @@
 """RMSNorm: ``y = x * rsqrt(mean(x^2, -1) + eps) * scale`` row by row.
 
 The counterpart of ``repro/kernels/rmsnorm.py`` (``rmsnorm_pallas``).  The
-kernel is ``csrc/rmsnorm.cu`` (one warp per row, f32 statistics, the
-result in x's dtype; bound by reading x and writing y once);
+kernel is ``csrc/rmsnorm.cu`` (the model's widths D = 128 and 2048
+compiled in, a row read once into registers; f32 statistics, the result
+in x's dtype; bound by reading x and writing y once);
 ``rmsnorm_cuda`` launches it and counts the launches, ``rmsnorm_plain``
 is the plain PyTorch version.  ``RMSNorm`` is the differentiable
 operator: its forward picks between them by device, its backward is

@@ -51,6 +51,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_route)
 from repro_torch.kernels import gram as gram_module
 from repro_torch.kernels.gram import gram_cuda, gram_plain
+from repro_torch.kernels import kmv as kmv_module
 from repro_torch.kernels.kmv import kmv_cuda, kmv_plain
 from repro_torch.kernels.kmv_stream import (gather_rows_cuda,
                                             gather_rows_plain,
@@ -102,13 +103,25 @@ def _close(got, want, kernel, tol):
     np.testing.assert_allclose(got, want, rtol=tol, atol=atol)
 
 
+# r across every boundary of kmv_plan's regimes (rows up to 8, narrow
+# tiles of 32 and 64 columns up to 64, wide tiles of 64 and 128 columns),
+# m ragged against every tile, n a multiple of 4 but not of a chunk (300)
+# or not of 4 (203, the element-by-element copies)
+KMV_SHAPES = [(33, 17, 100, 2), (700, 70, 384, 1), (130, 1, 64, 4),
+              (2000, 300, 96, 3)] + [
+    (517, r, 300 if i % 2 == 0 else 203, 3)
+    for i, r in enumerate([1, 2, 7, 8, 9, 31, 32, 33, 64, 65, 127, 128,
+                           129, 300])]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(33, 17, 100, 2), (700, 70, 384, 1),
-                                   (130, 1, 64, 4), (2000, 300, 96, 3)])
+@pytest.mark.parametrize("shape", KMV_SHAPES)
 def test_kmv_cuda_matches_plain(cuda_device, kernel, dtype, shape):
+    """Every regime against kmv_plain, with X of c columns and its first
+    column as a vector."""
     A, B, X = _data(*shape, seed=6)
     cfg = KernelConfig(**kernel)
     A_d = torch.from_numpy(A).to(cuda_device, dtype)
@@ -122,6 +135,72 @@ def test_kmv_cuda_matches_plain(cuda_device, kernel, dtype, shape):
         assert kmv_cuda.launches == before + 1
         assert got.shape == want.shape
         _close(got, want, kernel, 2e-2 if dtype == torch.bfloat16 else 2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [1, 7, 32, 64, 256, 1024])
+@pytest.mark.parametrize("sms", [None, 2], ids=["card", "2-SM-plan"])
+def test_kmv_cuda_repeats_bit_for_bit(cuda_device, monkeypatch, dtype, r,
+                                      sms):
+    """Fixed-order sums and no atomics in every regime: a second launch on
+    the same inputs gives the same bits (m = 3000 takes many splits).
+    Planned as for a 2-SM card, the wide regime takes its 128 x 128 tile
+    at r = 256 and 1024, and the rows regime 375-row splits."""
+    if sms is not None:
+        monkeypatch.setattr(kmv_module, "sm_count", lambda index: sms)
+    A, B, X = _data(3000, r, 1000, 2, seed=8)
+    cfg = KernelConfig(name="rbf", sigma=0.7)
+    A_d = torch.from_numpy(A).to(cuda_device, dtype)
+    B_d = torch.from_numpy(B).to(cuda_device, dtype)
+    X_d = torch.from_numpy(X).to(cuda_device)
+    got = kmv_cuda(A_d, B_d, X_d, cfg)
+    assert torch.equal(got, kmv_cuda(A_d, B_d, X_d, cfg))
+    _close(got, kmv_plain(A_d, B_d, X_d, cfg), dict(name="rbf"),
+           2e-2 if dtype == torch.bfloat16 else 2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [1, 3])
+def test_kmv_cuda_symmetric_full_matvec(cuda_device, monkeypatch, kernel,
+                                        dtype, c):
+    """B = A (the full matvec) planned as for a 2-SM card takes the
+    symmetric regime (the tiles on and above the diagonal, each also
+    standing for its mirror; m = 3000 leaves the last tile ragged):
+    against kmv_plain, against the wide kernel on a copy of A, and a
+    second call gives the same bits."""
+    monkeypatch.setattr(kmv_module, "sm_count", lambda index: 2)
+    A, _, X = _data(3000, 1, 1000, c, seed=11)
+    cfg = KernelConfig(**kernel)
+    A_d = torch.from_numpy(A).to(cuda_device, dtype)
+    X_d = torch.from_numpy(X).to(cuda_device)
+    assert kmv_module.kmv_plan(3000, 3000, c, 2, True).regime == "symmetric"
+    got = kmv_cuda(A_d, A_d, X_d, cfg)
+    assert torch.equal(got, kmv_cuda(A_d, A_d, X_d, cfg))
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    _close(got, kmv_plain(A_d, A_d, X_d, cfg), kernel, tol)
+    _close(got, kmv_cuda(A_d, A_d.clone(), X_d, cfg), kernel, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
+@pytest.mark.parametrize("r", [32, 64, 300])
+def test_kmv_cuda_splits_of_several_tiles(cuda_device, monkeypatch, kernel,
+                                          r):
+    """With the workspace held to three splits, each block of a tile
+    regime loops over several row tiles (the ragged last one masked)."""
+    monkeypatch.setattr(kmv_module, "WS_MAX_FLOATS", 3 * r * 2)
+    A, B, X = _data(1000, r, 300, 2, seed=10)
+    cfg = KernelConfig(**kernel)
+    A_d, B_d = (torch.from_numpy(t).to(cuda_device) for t in (A, B))
+    X_d = torch.from_numpy(X).to(cuda_device)
+    assert kmv_module.kmv_plan(1000, r, 2, 132).splits == 3
+    got = kmv_cuda(A_d, B_d, X_d, cfg)
+    _close(got, kmv_plain(A_d, B_d, X_d, cfg), kernel, 2e-4)
 
 
 @pytest.mark.gpu
@@ -441,10 +520,13 @@ def test_nystrom_fit_on_card_matches_fit_on_host(cuda_device, problem):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(4, 16, 128), (2, 128), (3, 7, 384),
                                    (1, 1, 256), (37, 2048), (300, 16, 128),
-                                   (5, 100)])
+                                   (5, 100), (1001, 128), (9, 1, 128),
+                                   (3, 5, 2048), (1, 2048), (67, 640)])
 def test_rmsnorm_cuda_matches_plain(cuda_device, dtype, shape):
     """Ragged row counts, D not a multiple of the 16-byte vector (100),
-    and the model's widths (128 qk-norm rows, 2048)."""
+    the model's widths compiled in (128 qk-norm rows, 2048) at row counts
+    that leave a block, a warp or half a warp short, and other widths on
+    the generic kernel (256, 384, 640)."""
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     scale = torch.from_numpy(

@@ -22,7 +22,8 @@ from repro_torch.core.kernels import KernelConfig, integer_pow
 from repro_torch.kernels import ops
 from repro_torch.kernels.gram import (BK, BLOCKS_PER_SM, DOT_MAX, gram_cuda,
                                       gram_plain, gram_splits)
-from repro_torch.kernels.kmv import BM, kmv_cuda, kmv_plain, kmv_splits
+from repro_torch.kernels.kmv import (NARROW_MAX_R, ROWS_MAX_R, WS_MAX_FLOATS,
+                                     kmv_cuda, kmv_plain, kmv_plan)
 from repro_torch.kernels.ref import kmv_ref
 
 KERNELS = [dict(name="linear"),
@@ -150,14 +151,76 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         gram_cuda(_t(A), _t(B), cfg)
 
 
+# the first seven are the cases of the earlier m split (64 x 64 tiles)
 @pytest.mark.parametrize("m,r", [(1, 1), (64, 1), (65, 32), (19996, 32),
                                  (19996, 256), (19996, 19996),
-                                 (1000, 1024)])
-def test_kmv_splits_cover_m_with_whole_nonempty_tiles(m, r):
-    splits, rows = kmv_splits(m, r, sm_count=132)
-    assert rows % BM == 0
-    assert (splits - 1) * rows < m <= splits * rows     # none empty
-    assert splits <= -(-m // BM)
+                                 (1000, 1024), (19996, 1), (19996, 1024),
+                                 (7, 8), (33, 9), (2000, 64), (130, 65),
+                                 (2000, 300), (700, 128), (5, 129)])
+@pytest.mark.parametrize("c", [1, 4])
+def test_kmv_plan_covers_m_with_nonempty_splits(m, r, c):
+    """The regime follows r (rows up to 8, a tile as wide as r up to 64,
+    wide tiles beyond); the tile covers r; the splits cover m, none
+    empty, a tile regime's in whole BM-row tiles; the grid and the
+    workspace stay within their limits."""
+    plan = kmv_plan(m, r, c, sm_count=132)
+    want = ("rows" if r <= ROWS_MAX_R else
+            "narrow" if r <= NARROW_MAX_R else "wide")
+    assert plan.regime == want
+    assert (plan.splits - 1) * plan.rows_per_split < m \
+        <= plan.splits * plan.rows_per_split
+    if plan.regime == "rows":
+        assert plan.br == r and plan.bm in (1, 2, 4)
+    else:
+        assert plan.rows_per_split % plan.bm == 0
+        assert plan.br in ((32, 64) if plan.regime == "narrow"
+                           else (64, 128))
+        assert plan.br >= min(r, 64)
+        assert plan.splits <= 65535
+        assert plan.splits == 1 or plan.splits * r * c <= WS_MAX_FLOATS
+
+
+@pytest.mark.parametrize("r", [1, 32, 256, 1024, 19996])
+def test_kmv_plan_masks_no_column_on_the_main_path(r):
+    """At the main path's widths (the classical round, the K-SVM and K-RR
+    s-step rounds, a prediction block) no launched tile has a masked
+    column; at the full matvec's r = m = 19 996 under 1% of the tile's
+    columns are masked."""
+    plan = kmv_plan(19996, r, 1, sm_count=132)
+    cols = -(-r // plan.br) * plan.br
+    if r == 19996:
+        assert (cols - r) / r < 0.01
+    else:
+        assert cols == r
+
+
+@pytest.mark.parametrize("m,sms,want", [(19996, 132, "symmetric"),
+                                         (19996, 114, "symmetric"),
+                                         (3000, 2, "symmetric"),
+                                         (1000, 132, "wide"),
+                                         (40, 132, "narrow")])
+def test_kmv_plan_is_symmetric_only_for_b_that_is_a(m, sms, want):
+    """The full matvec K(A, A)^T X takes the symmetric regime (square
+    128-row tiles, one a split) where its wide plan has them; the same
+    shapes with another B keep the plain plan."""
+    plan = kmv_plan(m, m, 1, sm_count=sms, same=True)
+    assert plan.regime == want
+    other = kmv_plan(m, m, 1, sm_count=sms)
+    assert other.regime != "symmetric"
+    if want == "symmetric":
+        assert plan._replace(regime="wide") == other
+        assert plan.bm == plan.br and plan.rows_per_split == plan.bm
+
+
+@pytest.mark.parametrize("r", [1, 32, 256])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_kmv_plan_fills_the_card_at_the_round_shapes(r, sms):
+    """The rounds' KMV (classical r = 1, K-SVM r = 32, K-RR r = 256, m =
+    19 996) launches at least one block per SM."""
+    plan = kmv_plan(19996, r, 1, sm_count=sms)
+    blocks = plan.splits * (1 if plan.regime == "rows"
+                            else -(-r // plan.br))
+    assert blocks >= sms
 
 
 @pytest.mark.parametrize("m,r,n", [(1, 1, 8192), (32, 32, 8192),
