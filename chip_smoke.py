@@ -29,7 +29,11 @@ Phases (each one fails the run with a non-zero exit):
           the row gather against their plain versions and the resident
           KMV, f32 and bf16, vector and (m, 4) X, r = 32, 256 and the
           full-matvec piece r = chunk_rows, at chunk_rows = 2048 (ragged
-          tail) and 6000 (four chunks)
+          tail) and 6000 (four chunks); the symmetric streamed full
+          matvec (each chunk pair once, serving its mirror) against its
+          plain pair loop and the resident symmetric KMV, repeating bit
+          for bit, and its wrong variants (one pair's mirror product, the
+          tail chunk's pair left out), which must fail
        b. KernelRidge(stream=2048) replaying phase 4's schedule at full
           depth, its residual history from the streamed full KMV; its
           device-memory growth must stay below A's bytes
@@ -42,7 +46,9 @@ Phases (each one fails the run with a non-zero exit):
           TF32 build reads against the same tolerance), the kernel error
           on a 2048-row subsample
        e. pipelined, copy-only and compute-only times of the streamed
-          KMV, the streamed full KMV against the resident one
+          KMV; the symmetric streamed full matvec's, beside the resident
+          symmetric KMV and the ten-piece route it replaced, each against
+          its bound; the pipe must read below copy-only + compute-only
   6. report   launch counts of phases 3-4, kernel times against their
               plain versions, bounds and library calls, timed with the
               launches queued behind a spin kernel, so the host's enqueue
@@ -354,7 +360,8 @@ def phase_split(kernel_phase, local_phase, rounds):
 
 def stream_phase(c, args, failures):
     """Phase 5 (module docstring).  ``c`` holds phases 3-4's data and
-    fits; returns the ``kmv_stream`` entry of the kernels record."""
+    fits; returns the ``kmv_stream`` and ``kmv_stream_full`` entries of
+    the kernels record."""
     import torch
     from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
     from repro_torch.core import (BatchedPredictor, StreamingGramOperator,
@@ -363,8 +370,12 @@ def stream_phase(c, args, failures):
     from repro_torch.core.kernels import _chunk
     from repro_torch.kernels.gram import gram_cuda, gram_plain
     from repro_torch.kernels.kmv import kmv_cuda
-    from repro_torch.kernels.kmv_stream import (gather_rows_cuda,
+    from repro_torch.kernels.kmv_stream import (full_launch,
+                                                gather_rows_cuda,
                                                 kmv_stream_cuda,
+                                                kmv_stream_full_cuda,
+                                                kmv_stream_full_plain,
+                                                kmv_stream_full_resident,
                                                 kmv_stream_plain,
                                                 kmv_stream_resident)
 
@@ -408,16 +419,51 @@ def stream_phase(c, args, failures):
                 failures.append(f"kmv_stream {kname} {dt} cr={cr} {bname} "
                                 f"{xname} vs {ref_name}: max abs err "
                                 f"{err:.3e} ({ratio:.2f}x tolerance)")
+    # the symmetric full matvec of every check, K(A, A) X
+    full_cases = [(k, dt, cr, xname) for dt in (f32, bf16)
+                  for cr in (CR, 6000) for xname in ("vec", "mat4")
+                  for k in ("rbf",)]
+    full_cases += [(k, f32, CR, "vec") for k in ("linear", "polynomial")]
+    for kname, dt, cr, xname in full_cases:
+        cfg = c.kernels[kname]
+        tol = TOL_KMV_F32 if dt == f32 else TOL_BF16
+        X = (c.Xv if xname == "vec" else c.Xm).reshape(m, -1)
+        Xvc = _chunk(X, cr)
+        got = kmv_stream_full_cuda(Xc_of[(dt, cr)], Xvc, cfg, m=m)
+        want = kmv_stream_full_plain(Xc_of[(dt, cr)], Xvc, cfg, m=m)
+        resident = kmv_cuda(A_d[dt], A_d[dt], X, cfg)
+        poly = kname == "polynomial"
+        for ref_name, ref in (("plain", want), ("resident kmv", resident)):
+            ratio, err = allclose_ratio(got, ref, tol, poly)
+            err_at[("full", kname, str(dt), cr, xname, ref_name)] = err
+            if not ratio <= 1.0 or got.shape != ref.shape:
+                failures.append(f"kmv_stream_full {kname} {dt} cr={cr} "
+                                f"{xname} vs {ref_name}: max abs err "
+                                f"{err:.3e} ({ratio:.2f}x tolerance)")
+        if not torch.equal(got, kmv_stream_full_cuda(Xc_of[(dt, cr)], Xvc,
+                                                     cfg, m=m)):
+            failures.append(f"kmv_stream_full {kname} {dt} cr={cr} "
+                            f"{xname}: a second call gave other bits")
+        if (kname, dt, cr, xname) == ("rbf", f32, CR, "vec"):
+            for drop, what in ((1, "pair (0, 1) without its mirror product"),
+                               (2, "pair (0, tail chunk) left out")):
+                bad = full_launch(Xc_of[(dt, cr)], Xvc, cfg, m, drop=drop)
+                ratio, err = allclose_ratio(bad, want, tol)
+                err_at[("full-wrong", what)] = (err, ratio)
+                if ratio <= 1.0:
+                    failures.append(f"kmv_stream_full check passes a wrong "
+                                    f"pipe ({what}: {ratio:.2f}x)")
     sel = torch.cat([c.pick[:256], c.pick[:7]])       # with repeats
     for dt in (f32, bf16):
         got = gather_rows_cuda(Xc_of[(dt, CR)], sel)
         if not torch.equal(got, A_d[dt][sel]):
             failures.append(f"gather_rows {dt}: rows differ")
     torch.cuda.synchronize()
-    print(f"[stream] {len(err_at)} kmv_stream comparisons and 2 gathers in "
-          f"{time.perf_counter() - t0:.1f} s; tolerances: f32 {TOL_KMV_F32}"
-          f", bf16 {TOL_BF16}, polynomial relative to max |output|; gather "
-          f"exact")
+    n_cmp = sum(k[0] != "full-wrong" for k in err_at)
+    print(f"[stream] {n_cmp} kmv_stream / kmv_stream_full comparisons and 2"
+          f" gathers in {time.perf_counter() - t0:.1f} s; tolerances: f32 "
+          f"{TOL_KMV_F32}, bf16 {TOL_BF16}, polynomial relative to max "
+          f"|output|; gather exact")
     for key in (("rbf", "torch.float32", CR, "r32", "vec", "plain"),
                 ("rbf", "torch.float32", CR, "r32", "vec", "resident kmv"),
                 ("rbf", "torch.float32", CR, "piece", "mat4", "plain"),
@@ -425,9 +471,18 @@ def stream_phase(c, args, failures):
                  "resident kmv"),
                 ("rbf", "torch.bfloat16", CR, "r256", "mat4", "plain"),
                 ("polynomial", "torch.float32", CR, "r256", "vec",
+                 "plain"),
+                ("full", "rbf", "torch.float32", CR, "vec", "plain"),
+                ("full", "rbf", "torch.float32", CR, "vec", "resident kmv"),
+                ("full", "rbf", "torch.bfloat16", 6000, "mat4", "plain"),
+                ("full", "polynomial", "torch.float32", CR, "vec",
                  "plain")):
         print(f"[stream] parity {' '.join(map(str, key))}: max abs err "
               f"{err_at[key]:.3e}")
+    for key, (err, ratio) in ((k, v) for k, v in err_at.items()
+                              if k[0] == "full-wrong"):
+        print(f"[stream] kmv_stream_full with {key[1]}: max abs err "
+              f"{err:.3e} ({ratio:.1f}x tolerance; must fail)")
     del A_d[bf16]
     for key in [k for k in Xc_of if k != (f32, CR)]:
         del Xc_of[key]
@@ -435,7 +490,8 @@ def stream_phase(c, args, failures):
         return None
 
     # ---- b-d. the streamed and Nystrom paths ------------------------------
-    for fn in (kmv_cuda, gram_cuda, kmv_stream_cuda, gather_rows_cuda):
+    for fn in (kmv_cuda, gram_cuda, kmv_stream_cuda, kmv_stream_full_cuda,
+               gather_rows_cuda):
         fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -517,6 +573,7 @@ def stream_phase(c, args, failures):
     p_n = nys.predict(c.Arq)
     torch.cuda.synchronize()
     launches = {"kmv_stream": kmv_stream_cuda.launches,
+                "kmv_stream_full": kmv_stream_full_cuda.launches,
                 "gather_rows": gather_rows_cuda.launches,
                 "gram": gram_cuda.launches, "kmv": kmv_cuda.launches}
     print(f"[stream path] launches: " + ", ".join(
@@ -645,24 +702,63 @@ def stream_phase(c, args, failures):
           f"(gather, gram, kmv_stream), local phase {sl:.3f} ms, local "
           f"share {sl / (sk + sl):.1%}")
     del op_svm
-    full_s = time_cuda(lambda: op.full_matvec(c.Xv), 2, warmup=1)
+    # the full matvec K(A, A) x of every check: the symmetric pipe, its
+    # chunk copies alone (in its order, through its three slots), its
+    # launches over resident chunks, the resident symmetric KMV and the
+    # ten-piece route of PR 12-17 (one kmv_stream_cuda a chunk of output
+    # rows, built here as a yardstick only)
+    Xvc1 = _chunk(c.Xv[:, None], CR)
+    order = [0] + [j for i in range(nc) for j in range(nc - 1, i, -1)]
+    slots3 = torch.empty((3, CR, n), device=dev)
+
+    def full_copy_only():
+        for k, j in enumerate(order):
+            slots3[k % 3].copy_(Xc[j], non_blocking=True)
+
+    def pieces():
+        return torch.cat([kmv_stream_cuda(
+            Xc, Xc[j].to(dev, non_blocking=True), Xvc1, rbf, m=m)
+            for j in range(nc)])[:m]
+
+    full_s = time_cuda(lambda: op.full_matvec(c.Xv), 3, warmup=1)
+    full_copy = time_cuda(full_copy_only, 3)
+    full_c = time_cuda(lambda: kmv_stream_full_resident(Xc_dev, Xvc1, rbf,
+                                                        m=m), 3)
     full_r = time_cuda(lambda: kmv_cuda(c.A, c.A, c.Xv, rbf), 2, warmup=1)
-    full_c = time_cuda(lambda: [kmv_stream_resident(
-        Xc_dev, Xc_dev[j], Xvc, rbf, m=m) for j in range(nc)], 1, warmup=0)
-    full_copy = nc * copy_ms
-    print(f"[stream-time] full K @ x ({m}^2 x {n}) streamed: {full_s:.1f} ms"
-          f" | resident kmv {full_r:.1f} ms (streamed / resident "
-          f"{full_s / full_r:.3f}) | copy-only {full_copy:.1f} ms + "
-          f"compute-only {full_c:.1f} ms = {full_copy + full_c:.1f} ms")
+    full_p = time_cuda(pieces, 2, warmup=1)
+    full_plain = time_cuda(lambda: kmv_stream_full_plain(Xc, Xvc1, rbf,
+                                                         m=m), 2)
+    # K(A, A) is symmetric: the work of its m (m + 1) / 2 distinct
+    # entries (as phase 6 counts the resident B = A row), against A's
+    # bytes over the link once
+    pairs = m * (m + 1) // 2
+    t_link = a_bytes / PCIE_H2D_BYTES_PER_S
+    t_ops = (2 * pairs * n + 2 * m * m + 4 * m * n + 6 * pairs) \
+        / FP32_FLOP_PER_S
+    full_b = max(t_link, t_ops) * 1e3
+    full_by = "bytes" if t_link >= t_ops else "operations"
+    del slots3
+    print(f"[stream-time] full K @ x ({m}^2 x {n}) c=1, symmetric pipe "
+          f"({len(order)} chunk copies, {nc} anchors): {full_s:.2f} ms "
+          f"({full_b / full_s:.1%} of its bound {full_b:.2f} ms, "
+          f"{full_by}) | copy-only {full_copy:.2f} ms "
+          f"({len(order) * Xc[0].numel() * 4 / full_copy / 1e6:.1f} GB/s) "
+          f"+ compute-only {full_c:.2f} ms ({full_b / full_c:.1%}) = "
+          f"{full_copy + full_c:.2f} ms | resident symmetric kmv "
+          f"{full_r:.2f} ms ({full_b / full_r:.1%}) | ten-piece route "
+          f"{full_p:.2f} ms ({full_b / full_p:.1%}) | plain pair loop "
+          f"{full_plain:.2f} ms")
     print(f"[stream-time] launches on the streamed fits: kmv_stream "
-          f"{launches['kmv_stream']}, gather_rows {launches['gather_rows']}")
+          f"{launches['kmv_stream']}, kmv_stream_full "
+          f"{launches['kmv_stream_full']}, gather_rows "
+          f"{launches['gather_rows']}")
     if not full_s < full_copy + full_c:
-        failures.append(f"the pipe does not overlap: streamed full KMV "
-                        f"{full_s:.1f} ms >= copy-only {full_copy:.1f} + "
-                        f"compute-only {full_c:.1f} ms")
+        failures.append(f"the symmetric pipe does not overlap: streamed full "
+                        f"KMV {full_s:.2f} ms >= copy-only {full_copy:.2f} "
+                        f"+ compute-only {full_c:.2f} ms")
     del Xc_dev, slots
     r32 = rows["r32"]
-    return {"name": "kmv_stream", "route": "cuda",
+    return [{"name": "kmv_stream", "route": "cuda",
             "source": "src/repro_torch/csrc/kmv_stream.cu",
             "replaces": "src/repro/kernels/kmv_stream.py:111",
             "shape": f"rbf (m, r, n, c) = ({m}, 32, {n}, 1) in {nc} pinned "
@@ -674,7 +770,20 @@ def stream_phase(c, args, failures):
             "bound_ms": r32["bound"], "bound_by": r32["by"],
             "library_ms": None, "copy_only_ms": r32["copy"],
             "compute_only_ms": r32["comp"],
-            "gather_rows_launches": launches["gather_rows"]}
+            "gather_rows_launches": launches["gather_rows"]}, {
+            "name": "kmv_stream_full", "route": "cuda",
+            "source": "src/repro_torch/csrc/kmv_stream.cu",
+            "replaces": "src/repro/kernels/kmv_stream.py:111",
+            "shape": f"rbf full matvec K(A, A) x, (m, n, c) = ({m}, {n}, 1)"
+                     f" in {nc} pinned chunks of {CR}, {len(order)} chunk "
+                     f"copies",
+            "launches": launches["kmv_stream_full"],
+            "max_abs_err": err_at[("full", "rbf", "torch.float32", CR,
+                                   "vec", "plain")],
+            "ms": full_s, "plain_ms": full_plain, "bound_ms": full_b,
+            "bound_by": full_by, "library_ms": None,
+            "copy_only_ms": full_copy, "compute_only_ms": full_c,
+            "resident_kmv_ms": full_r, "ten_piece_route_ms": full_p}]
 
 
 
@@ -2043,7 +2152,7 @@ def main(argv=None) -> int:
         return fail(f"{len(failures)} main-path check(s) failed")
 
     # ---- 5. stream and Nystrom --------------------------------------------
-    stream_entry = stream_phase(SimpleNamespace(
+    stream_entries = stream_phase(SimpleNamespace(
         dev=dev, m=m, n=n, q=q, kernels=kernels, A=A, y=y, Aq=Aq,
         B_of=B_of, pick=pick, Xv=Xv, Xm=Xm, r_s=r_s, gap=gap, Ar=Ar, yr=yr,
         Arq=Arq, r_k=r_k), args, failures)
@@ -2216,7 +2325,7 @@ def main(argv=None) -> int:
                       "(time_queued); eager_ms: back to back, host "
                       "included (time_cuda)",
          "eager_ms": g256[5]},
-        stream_entry,
+        *stream_entries,
         *lm_entries,
         *train_entries,
     ]}

@@ -374,10 +374,12 @@ class StreamingGramOperator(GramOperator):
     copied to the device whole: every reduction streams it through the
     ``kmv_stream`` pipeline (pinned host -> two device slots, copies on
     a side stream overlapping the contraction), so the device holds two
-    chunks, the right-hand side and the sampled rows, never A.
+    chunks (three in ``full_matvec``), the right-hand side and the
+    sampled rows, never A.
 
-      ``matvec``/``serve_block``/``full_matvec``  one streamed KMV each
-          (``full_matvec``: one per chunk of output rows);
+      ``matvec``/``serve_block``  one streamed KMV each;
+      ``full_matvec``  one symmetric streamed pass (an anchor chunk in a
+          third device slot, each chunk pair computed once);
       ``cross_block``/``diag``/``rows``  gather only the sampled rows
           from host memory: on the card a small kernel reads them
           straight from the mapped pinned buffer at device-side indices,
@@ -489,10 +491,13 @@ class StreamingGramOperator(GramOperator):
         return self._stream_kmv(Xq, sw)
 
     def full_matvec(self, X):
-        """``K @ X``, chunk by chunk: output piece j is ``K(A,
-        chunk_j)^T X``, one streamed KMV with chunk j (copied to the
-        device) as the sampled rows."""
-        pieces = [self._stream_kmv(
-            self.Xc[j].to(self.compute_device, non_blocking=True), X)
-            for j in range(self.n_chunks)]
-        return torch.cat(pieces)[:self.m]
+        """``K @ X`` in one symmetric streamed pass: K is symmetric, so
+        each chunk pair i <= j is computed once and serves its mirror
+        (the JAX operator computes the nc pieces ``K(A, chunk_j)^T X``,
+        the same values)."""
+        vec = X.ndim == 1
+        Xvc = _chunk(X.reshape(X.shape[0], -1).to(torch.float32),
+                     self.chunk_rows)                  # (nc, cr, c)
+        out = _ops().kmv_stream_full(self.Xc, Xvc, self.cfg,
+                                     m=self.m).to(X.dtype)
+        return out[:, 0] if vec else out

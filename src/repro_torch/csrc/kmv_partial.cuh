@@ -35,6 +35,11 @@
 //           product with X's rows of tile J goes where tile (J, I)'s
 //           would: half the FMAs, and every slot of the workspace still
 //           written once.
+//   pairs   the streamed full matvec (kmv_stream.cu's symmetric pipe): A
+//           arrives a chunk at a time, so the symmetric plan runs on
+//           chunk pairs a <= b, two different row sets; a wide tile of
+//           pair (a, b) serves its mirror too, into slots of a workspace
+//           that launches add to in the pipe's fixed order.
 //
 // The tiles keep their chunks row-major in shared memory with a row stride
 // of BK + 4 elements, so the float4 reads along the feature axis of a
@@ -303,18 +308,42 @@ __device__ __forceinline__ void kmv_load_chunk(T* dst,
   }
 }
 
-// Block (x, y) = (column tile, m split): columns x * BR .., rows [y *
-// rows_per_split, ...) in BM-row tiles.  Thread tid is thread t = tid %
-// NTG of group kg = tid / NTG; (tx, ty) = (t % TX, t / TX) owns tile rows
-// ty + TY i and columns tx + TX j.  bn: |b_j|^2 (rbf only).  Dynamic
-// shared memory G::SMEM bytes.
-template <typename T, typename G>
-__global__ void __launch_bounds__(G::NT, G::MINB)
-    kmv_tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                    const float* __restrict__ bn, const float* __restrict__ X,
-                    float* __restrict__ ws, int m, int r, int n, int c,
-                    int rows_per_split, int accumulate, int vec, int sym,
-                    KernelParams p) {
+// Where a block of the resident plan puts its shares: its columns' slice
+// of split y; for B = A (sym, a tile a split) also the mirror's, into
+// split x's slice of the tile's rows.
+struct KmvSlices {
+  static constexpr bool PAIR = false;
+  float* ws;
+  int r, c, sym;
+  __device__ __forceinline__ float* main(int col0) const {
+    return ws + (size_t)blockIdx.y * r * c + (size_t)col0 * c;
+  }
+  __device__ __forceinline__ bool mirrored() const {
+    return sym && blockIdx.x != blockIdx.y;
+  }
+  __device__ __forceinline__ float* mirror(int i0) const {
+    return ws + (size_t)blockIdx.x * r * c + (size_t)i0 * c;
+  }
+};
+
+// A block's work: rows [m_begin, m_end) of A in BM-row tiles against the
+// BR columns of B from col0 (those at or past r masked).  Thread tid is
+// thread t = tid % NTG of group kg = tid / NTG; (tx, ty) = (t % TX, t /
+// TX) owns tile rows ty + TY i and columns tx + TX j.  The tiles' product
+// with X (A's rows) goes to o.main(col0), the block's (BR x c) slice of
+// the workspace.  Where o.mirrored() (one tile a block), the tile also
+// stands for its mirror K^T, whose product with XB (B's rows) goes to
+// o.mirror(i0), a (BM x c) slice for A's rows, added to it for pairs.
+// For pairs (O::PAIR) a null X or XB stands for zeros.  accumulate: add
+// to what the main slice holds.  bn: |b_j|^2 (rbf only).  Dynamic shared
+// memory G::SMEM bytes.
+template <typename T, typename G, typename O>
+__device__ __forceinline__ void kmv_tile_run(
+    const T* __restrict__ A, const T* __restrict__ B,
+    const float* __restrict__ bn, const float* __restrict__ X,
+    const float* __restrict__ XB, int m_begin, int m_end, int col0, int r,
+    int n, int c, int accumulate, int vec, const O& o,
+    const KernelParams& p) {
   constexpr int BM = G::BM, BR = G::BR, TM = G::TM, TN = G::TN, KG = G::KG;
   constexpr int BK = G::BK, KS = G::KS, LD = G::LD, TX = G::TX, TY = G::TY;
   constexpr int NTG = G::NTG, NT = G::NT, STAGES = G::STAGES, NU = G::NU;
@@ -325,18 +354,14 @@ __global__ void __launch_bounds__(G::NT, G::MINB)
   float* nred = reinterpret_cast<float*>(smem + G::FRONT);
   float* red = nred + KG * BM;
 
-  if (sym && blockIdx.y > blockIdx.x) return;   // the mirror of a tile
   const int tid = threadIdx.x, kg = tid / NTG, t = tid % NTG;
   const int tx = t % TX, ty = t / TX;
   const int k_lo = kg * KS;                // this group's part of a chunk
-  const int col0 = blockIdx.x * BR;
   const int ncols = min(BR, r - col0);
-  const int m_begin = blockIdx.y * rows_per_split;
-  const int m_end = min(m, m_begin + rows_per_split);
   const int chunks = (n + BK - 1) / BK;
   const bool rbf = p.kind == KERNEL_RBF;
   // thread q < ncols owns entries (col0 + q, :) of the block's slice
-  float* wsb = ws + (size_t)blockIdx.y * r * c + (size_t)col0 * c;
+  float* wsb = o.main(col0);
   bool fresh = !accumulate;
 
   for (int i0 = m_begin; i0 < m_end; i0 += BM) {
@@ -469,7 +494,9 @@ __global__ void __launch_bounds__(G::NT, G::MINB)
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
           const int row = i0 + ty + TY * i;
-          xv[i] = row < m_end ? X[(size_t)row * c + cc] : 0.0f;
+          xv[i] = (!O::PAIR || X != nullptr) && row < m_end
+                      ? X[(size_t)row * c + cc]
+                      : 0.0f;
         }
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
@@ -489,18 +516,19 @@ __global__ void __launch_bounds__(G::NT, G::MINB)
       }
       __syncthreads();
     }
-    if (sym && blockIdx.x != blockIdx.y) {
-      // B = A: the tile also stands for its mirror (J, I) = K^T, whose
-      // product with X's rows of tile J goes to split J's slice of the
-      // columns of tile I: a thread's TN columns in registers, then the
-      // TX thread columns in order
-      float* wsm = ws + (size_t)blockIdx.x * r * c + (size_t)i0 * c;
+    if (o.mirrored()) {
+      // the mirror K^T: its product with XB's rows of the tile's columns,
+      // a thread's TN columns in registers, then the TX thread columns in
+      // order
+      float* wsm = o.mirror(i0);
       for (int cc = 0; cc < c; ++cc) {
         float xc[TN];
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           const int col = col0 + tx + TX * j;
-          xc[j] = col < r ? X[(size_t)col * c + cc] : 0.0f;
+          xc[j] = (!O::PAIR || XB != nullptr) && col < r
+                      ? XB[(size_t)col * c + cc]
+                      : 0.0f;
         }
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
@@ -514,7 +542,8 @@ __global__ void __launch_bounds__(G::NT, G::MINB)
           float s = 0.0f;
 #pragma unroll
           for (int x = 0; x < TX; ++x) s += red[x * BM + tid];
-          wsm[(size_t)tid * c + cc] = s;
+          float* w = wsm + (size_t)tid * c + cc;
+          *w = O::PAIR ? *w + s : s;
         }
         __syncthreads();
       }
@@ -523,6 +552,125 @@ __global__ void __launch_bounds__(G::NT, G::MINB)
   }
   if (fresh && tid < ncols)         // no rows in this split: a zero slice
     for (int cc = 0; cc < c; ++cc) wsb[(size_t)tid * c + cc] = 0.0f;
+}
+
+// Block (x, y) = (column tile, m split): columns x * BR .., rows [y *
+// rows_per_split, ...) in BM-row tiles.  sym (B = A, a tile a split): only
+// the tiles on and above the diagonal run, an off-diagonal tile (y, x)
+// also writing its mirror's product into split x's slice of rows y.
+template <typename T, typename G>
+__global__ void __launch_bounds__(G::NT, G::MINB)
+    kmv_tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                    const float* __restrict__ bn, const float* __restrict__ X,
+                    float* __restrict__ ws, int m, int r, int n, int c,
+                    int rows_per_split, int accumulate, int vec, int sym,
+                    KernelParams p) {
+  if (sym && blockIdx.y > blockIdx.x) return;   // the mirror of a tile
+  const int m_begin = blockIdx.y * rows_per_split;
+  kmv_tile_run<T, G>(A, B, bn, X, X, m_begin,
+                     min(m, m_begin + rows_per_split), blockIdx.x * G::BR,
+                     r, n, c, accumulate, vec, KmvSlices{ws, r, c, sym}, p);
+}
+
+// ---- pairs of chunks: the symmetric streamed pipe (kmv_stream.cu) ----------
+
+// The full matvec K(A, A)^T X over A in chunks computes each chunk pair
+// (a, b), a <= b, once, in 128 x 128 tiles of the wide plan: a's rows are
+// the tile rows, b's the columns.  A tile's product with a's rows of X is
+// b's rows' share of the output, and its mirror's product with b's rows
+// of X is a's rows' share; on the diagonal (a = b) only the tiles on and
+// above it run, as in the resident symmetric plan.  Every share goes to
+// its own slot of an f32 workspace of 2 x tiles-a-chunk slots, each an
+// (m x c) array over A's rows: the product of tile (y, x) to slot y at
+// b's rows of tile x, the mirror's to slot x (diagonal) or slot tiles-a-
+// chunk + x (a < b) at a's rows of tile y.  No two blocks of a launch
+// write one entry; launches on one stream add to the slots in the pipe's
+// fixed order, and kmv_reduce sums the slots in a fixed order: no
+// atomics, the same bits every call.
+constexpr int KMV_PAIR_BM = 128;
+template <typename T>
+using KmvPairTile = KmvTile<T, KMV_PAIR_BM, KMV_PAIR_BM, 8, 8, 64, 2, 1, 1,
+                            false>;
+
+// One chunk pair of a launch.  A = B on the diagonal.
+struct KmvPairSeg {
+  const void* A;          // chunk a's rows, (rows_a, n)
+  const void* B;          // chunk b's rows, (rows_b, n)
+  const float* bn;        // |b_j|^2 of b's rows (rbf only)
+  const float* xa;        // X's rows of chunk a, (rows_a, c); null: zeros
+  const float* xb;        // X's rows of chunk b; null: zeros
+  float* wb;              // slot 0 at b's first row: the products' base
+  float* wa;              // the mirrors' slot base at a's first row
+  int rows_a, rows_b;     // rows before m
+  int tiles_a, tiles_b;   // 128-row tiles of them
+  int upper;              // a = b: the tiles on and above the diagonal
+  int blocks;             // tiles this pair launches
+};
+
+// Where tile (y, x) of a pair puts its shares (kmv_pair_kernel).
+struct KmvPairSlices {
+  static constexpr bool PAIR = true;
+  float* wb;
+  float* wa;
+  long long stride;
+  int y, x, c, upper;
+  __device__ __forceinline__ float* main(int col0) const {
+    return wb + (size_t)y * stride + (size_t)col0 * c;
+  }
+  __device__ __forceinline__ bool mirrored() const {
+    return !(upper && x == y);
+  }
+  __device__ __forceinline__ float* mirror(int i0) const {
+    return wa + (size_t)x * stride + (size_t)i0 * c;
+  }
+};
+
+// Blocks [0, s0.blocks) take pair s0's tiles, the rest s1's: a diagonal
+// and an off-diagonal pair share one launch, so the diagonal's 136 tiles
+// of a 2048-row chunk do not end in a wave of their own.  stride: floats
+// a slot.
+template <typename T, typename G>
+__global__ void __launch_bounds__(G::NT, G::MINB)
+    kmv_pair_kernel(KmvPairSeg s0, KmvPairSeg s1, long long stride, int n,
+                    int c, int vec, KernelParams p) {
+  const bool second = (int)blockIdx.x >= s0.blocks;
+  const KmvPairSeg s = second ? s1 : s0;
+  int k = second ? (int)blockIdx.x - s0.blocks : (int)blockIdx.x;
+  int y = 0, x;
+  if (s.upper) {                    // row y holds tiles y .. tiles_b - 1
+    while (k >= s.tiles_b - y) {
+      k -= s.tiles_b - y;
+      ++y;
+    }
+    x = y + k;
+  } else {
+    y = k / s.tiles_b;
+    x = k % s.tiles_b;
+  }
+  const int m_begin = y * G::BM;
+  kmv_tile_run<T, G>(static_cast<const T*>(s.A), static_cast<const T*>(s.B),
+                     s.bn, s.xa, s.xb, m_begin,
+                     min(s.rows_a, m_begin + G::BM), x * G::BR, s.rows_b, n,
+                     c, 1, vec,
+                     KmvPairSlices{s.wb, s.wa, stride, y, x, c, s.upper}, p);
+}
+
+// One launch of up to two pairs (s1.blocks = 0: one).
+template <typename T>
+cudaError_t launch_kmv_pair(const KmvPairSeg& s0, const KmvPairSeg& s1,
+                            long long stride, int n, int c, int vec,
+                            const KernelParams& p, cudaStream_t st) {
+  using G = KmvPairTile<T>;
+  static_assert(G::SYM, "the pair tile serves its mirror");
+  if (G::SMEM > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kmv_pair_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)G::SMEM);
+    if (err != cudaSuccess) return err;
+  }
+  kmv_pair_kernel<T, G><<<s0.blocks + s1.blocks, G::NT, G::SMEM, st>>>(
+      s0, s1, stride, n, c, vec, p);
+  return cudaGetLastError();
 }
 
 // ---- the reduce -------------------------------------------------------------

@@ -32,9 +32,25 @@
 // chunk into its own workspace slice, launches ordered on one stream, and
 // one reduce sums the slices in a fixed order: no atomics, results repeat
 // from run to run.
+//
+// The symmetric pipe (kmv_stream_sym_launch) is the full matvec K(A, A) X
+// of every convergence check.  Run as nc pieces K(A, chunk_j)^T X, it
+// would stream all of A nc times and compute every chunk pair twice, as
+// K is symmetric.  Instead it keeps an anchor chunk i on the device in a
+// third slot while chunks j > i stream through the two others, and
+// computes each pair (i, j) once, its tiles serving their mirrors
+// (kmv_partial.cuh, pairs): half the FMAs of the pieces.  Chunks j stream
+// in descending order, so the last of anchor i's pass is chunk i + 1, the
+// next anchor, which stays where it is: 1 + nc (nc - 1) / 2 chunk copies
+// (46 at nc = 10), against nc (nc + 1) / 2 if every anchor were copied
+// and nc^2 + nc as pieces.  Each anchor's diagonal pair shares a launch
+// with its first off-diagonal pair, so its half-wave of tiles fills out.
+// Every copy waits for the last read of its slot and every launch for
+// the copies of its slots, through events, as above.
 #include <algorithm>
 #include <cassert>
 #include <cstdint>
+#include <vector>
 
 #include "kmv_partial.cuh"
 
@@ -61,13 +77,137 @@ __global__ void gather_rows_kernel(const W* __restrict__ src,
   for (int k = threadIdx.x; k < words_per_row; k += blockDim.x) d[k] = s[k];
 }
 
+template <int N>
 struct Events {                       // destroyed on every return path
-  cudaEvent_t e[5] = {};
+  cudaEvent_t e[N] = {};
   ~Events() {
     for (cudaEvent_t x : e)
       if (x) cudaEventDestroy(x);     // safe while still pending
   }
 };
+
+// The symmetric pipe for element type T (kmv_stream_sym_launch).
+template <typename T>
+int stream_sym(const char* src, char* slots, const float* Xv,
+                       float* ws, float* out, int nc, int cr, int n, int c,
+                       int m, bool resident, int drop, const KernelParams& p,
+                       cudaStream_t cs, cudaStream_t ps) {
+  constexpr int BM = KMV_PAIR_BM;
+  const size_t chunk_bytes = (size_t)cr * n * sizeof(T);
+  const int tpc = (cr + BM - 1) / BM;               // tiles a chunk
+  const long long stride = (long long)m * c;        // floats a slot
+  float* bn = ws + 2 * tpc * stride;                // |a_i|^2, (nc * cr)
+  auto rows = [&](int k) { return std::min(cr, m - k * cr); };
+  auto tiles = [&](int k) { return (rows(k) + BM - 1) / BM; };
+  const char* base = resident ? src : slots;
+  const int vec = n % KMV_VEC == 0 &&
+                  reinterpret_cast<uintptr_t>(base) % (KMV_VEC * sizeof(T)) ==
+                      0;
+  if (drop != 0 && nc < 2) return static_cast<int>(cudaErrorInvalidValue);
+
+  // The schedule: anchor i's pass is steps (i, j) for j = nc - 1 down to
+  // i + 1, its diagonal in the first (or alone, for the last anchor).
+  // Slots: the anchor's, and two that take the streamed chunks in turn;
+  // after the pass the slot holding chunk i + 1 becomes the anchor's, and
+  // the other two, the one freed first leading, the streaming pair.
+  struct Step { int a, aslot, b, bslot, diag; };
+  struct Load { int chunk, slot, after; };   // after: its slot's last read
+  std::vector<Step> steps;
+  std::vector<Load> loads{{0, 0, -1}};
+  int as = 0, ss[2] = {1, 2}, last[3] = {-1, -1, -1};
+  for (int i = 0; i < nc; ++i) {
+    const int L = nc - 1 - i;
+    if (L == 0) steps.push_back({i, as, -1, -1, 1});
+    for (int q = 0; q < L; ++q) {
+      const int j = nc - 1 - q, slot = ss[q & 1];
+      loads.push_back({j, slot, last[slot]});
+      last[as] = last[slot] = (int)steps.size();
+      steps.push_back({i, as, j, slot, q == 0});
+    }
+    if (L > 0) {
+      const int old = as;
+      as = ss[(L - 1) & 1];
+      ss[0] = ss[L & 1];
+      ss[1] = old;
+    }
+  }
+
+  auto at = [&](int chunk, int slot) -> const T* {
+    return reinterpret_cast<const T*>(
+        resident ? src + (size_t)chunk * chunk_bytes
+                 : slots + (size_t)slot * chunk_bytes);
+  };
+  auto pair_of = [&](int a, const T* A, int b, const T* B) {
+    KmvPairSeg s{};
+    s.A = A;
+    s.B = B;
+    s.bn = bn + (size_t)b * cr;
+    s.xa = Xv + (size_t)a * cr * c;
+    s.xb = Xv + (size_t)b * cr * c;
+    s.wb = ws + (size_t)b * cr * c;
+    s.wa = ws + (a == b ? 0 : tpc * stride) + (size_t)a * cr * c;
+    s.rows_a = rows(a);
+    s.rows_b = rows(b);
+    s.tiles_a = tiles(a);
+    s.tiles_b = tiles(b);
+    s.upper = a == b;
+    s.blocks = a == b ? s.tiles_a * (s.tiles_a + 1) / 2
+                      : s.tiles_a * s.tiles_b;
+    if ((drop == 1 && a == 0 && b == 1) || (drop == 2 && a == 0 &&
+                                            b == nc - 1)) {
+      s.xb = nullptr;                   // the mirror's product left out
+      if (drop == 2) s.xa = nullptr;    // and the pair's
+    }
+    return s;
+  };
+
+  RT_TRY(cudaMemsetAsync(ws, 0, sizeof(float) * 2 * tpc * stride, cs));
+  Events<7> ev;
+  if (!resident) {
+    for (cudaEvent_t& e : ev.e)
+      RT_TRY(cudaEventCreateWithFlags(&e, cudaEventDisableTiming));
+    RT_TRY(cudaEventRecord(ev.e[0], cs));   // the slots were allocated on cs
+    RT_TRY(cudaStreamWaitEvent(ps, ev.e[0], 0));
+  }
+  const cudaEvent_t* filled = ev.e + 1;     // a slot's copy has landed
+  const cudaEvent_t* freed = ev.e + 4;      // a slot's last read is done
+  size_t next = 0;
+  for (int t = 0; t < (int)steps.size(); ++t) {
+    const Step& st = steps[t];
+    if (!resident) {
+      // every copy whose slot has been read for the last time is queued
+      // before step t, so the copy engine runs ahead of the contractions
+      for (; next < loads.size() && loads[next].after < t; ++next) {
+        const Load& l = loads[next];
+        if (l.after >= 0) RT_TRY(cudaStreamWaitEvent(ps, freed[l.slot], 0));
+        RT_TRY(cudaMemcpyAsync(slots + (size_t)l.slot * chunk_bytes,
+                               src + (size_t)l.chunk * chunk_bytes,
+                               chunk_bytes, cudaMemcpyHostToDevice, ps));
+        RT_TRY(cudaEventRecord(filled[l.slot], ps));
+      }
+      RT_TRY(cudaStreamWaitEvent(cs, filled[st.aslot], 0));
+      if (st.b >= 0) RT_TRY(cudaStreamWaitEvent(cs, filled[st.bslot], 0));
+    }
+    const T* A = at(st.a, st.aslot);
+    const T* B = st.b >= 0 ? at(st.b, st.bslot) : nullptr;
+    if (p.kind == KERNEL_RBF && st.a == 0) {  // anchor 0's pass sees every
+      if (t == 0)                              // chunk: the norms, once
+        RT_TRY(kmv_bnorms<T>(A, bn, rows(0), n, cs));
+      if (B) RT_TRY(kmv_bnorms<T>(B, bn + (size_t)st.b * cr, rows(st.b), n,
+                                  cs));
+    }
+    KmvPairSeg seg[2] = {};
+    int k = 0;
+    if (st.diag) seg[k++] = pair_of(st.a, A, st.a, A);
+    if (B) seg[k++] = pair_of(st.a, A, st.b, B);
+    RT_TRY(launch_kmv_pair<T>(seg[0], seg[1], stride, n, c, vec, p, cs));
+    if (!resident) {
+      RT_TRY(cudaEventRecord(freed[st.aslot], cs));
+      if (B) RT_TRY(cudaEventRecord(freed[st.bslot], cs));
+    }
+  }
+  return static_cast<int>(kmv_reduce(ws, out, 2 * tpc, stride, cs));
+}
 
 }  // namespace rt
 
@@ -114,7 +254,7 @@ extern "C" int kmv_stream_launch(const void* Xc, void* slot0, void* slot1,
   if (kind == KERNEL_RBF)
     RT_TRY(dtype == DTYPE_BF16 ? kmv_bnorms<__nv_bfloat16>(B, bn, r, n, cs)
                                : kmv_bnorms<float>(B, bn, r, n, cs));
-  Events ev;
+  Events<5> ev;
   if (resident) {
     for (int i = 0; i < nc; ++i) RT_TRY(contract(src + i * chunk_bytes, i));
   } else {
@@ -143,6 +283,39 @@ extern "C" int kmv_stream_launch(const void* Xc, void* slot0, void* slot1,
   }
   return static_cast<int>(
       kmv_reduce(wsf, static_cast<float*>(out), splits, (long long)r * c, cs));
+}
+
+// out = K(A, A) X, (m, c) f32, for the A of Xc (nc, cr, n) row-major, f32
+// (0) or bf16 (1), in page-locked host memory with a zero-padded tail
+// (rows at or past m masked), or, with resident != 0, device memory (the
+// compute-only yardstick: no copies, the same launches).  slots: three
+// (cr, n) device buffers of that dtype, one after the other (unused when
+// resident); Xv (nc * cr, c) f32, ws (2 * ceil(cr / 128) * m * c + nc * cr
+// floats: the slots of kmv_partial.cuh's pairs, then |a_i|^2) and out on
+// the device.  drop, for the wrong variants a parity check must fail: 1
+// leaves the mirror's product of pair (0, 1) out, 2 the whole pair (0,
+// nc - 1); 0 computes the function.  Returns the first CUDA error, or 0.
+extern "C" int kmv_stream_sym_launch(const void* Xc, void* slots,
+                                     const void* Xv, void* ws, void* out,
+                                     int nc, int cr, int n, int c, int m,
+                                     int dtype, int resident, int drop,
+                                     int kind, int degree, float coef0,
+                                     float sigma, void* compute_stream,
+                                     void* copy_stream) {
+  using namespace rt;
+  const KernelParams p{kind, degree, coef0, sigma};
+  const char* src = static_cast<const char*>(Xc);
+  char* sl = static_cast<char*>(slots);
+  const float* X = static_cast<const float*>(Xv);
+  float* w = static_cast<float*>(ws);
+  float* o = static_cast<float*>(out);
+  cudaStream_t cs = static_cast<cudaStream_t>(compute_stream);
+  cudaStream_t ps = static_cast<cudaStream_t>(copy_stream);
+  return dtype == DTYPE_BF16
+             ? stream_sym<__nv_bfloat16>(src, sl, X, w, o, nc, cr, n, c, m,
+                                         resident != 0, drop, p, cs, ps)
+             : stream_sym<float>(src, sl, X, w, o, nc, cr, n, c, m,
+                                 resident != 0, drop, p, cs, ps);
 }
 
 // Xc: page-locked host buffer of rows_total rows of n elements (f32 (0) or

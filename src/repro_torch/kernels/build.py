@@ -38,6 +38,8 @@ SIGNATURES = {
              [_P] * 4 + [_I] * 7 + [_F, _F] + [_I] * 4 + [_P]),
     "kmv_stream": ("kmv_stream", "kmv_stream_launch",
                    [_P] * 7 + [_I] * 15 + [_F, _F, _P, _P]),
+    "kmv_stream_sym": ("kmv_stream", "kmv_stream_sym_launch",
+                       [_P] * 5 + [_I] * 10 + [_F, _F, _P, _P]),
     "gather_rows": ("kmv_stream", "gather_rows_launch",
                     [_P] * 3 + [_I] * 4 + [_P]),
     "rmsnorm": ("rmsnorm", "rmsnorm_launch", [_P] * 3 + [_I] * 3 + [_F, _P]),

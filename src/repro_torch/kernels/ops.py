@@ -21,7 +21,8 @@ from .flash_attention import (FlashAttention, flash_attention,
 from .gram import gram_cuda, gram_plain
 from .kmv import kmv_cuda, kmv_plain
 from .kmv_stream import (gather_rows_cuda, gather_rows_plain,
-                         kmv_stream_cuda, kmv_stream_plain)
+                         kmv_stream_cuda, kmv_stream_full_cuda,
+                         kmv_stream_full_plain, kmv_stream_plain)
 from .rmsnorm import RMSNorm
 
 
@@ -71,6 +72,17 @@ def kmv_stream(Xc: torch.Tensor, B: torch.Tensor, Xvc: torch.Tensor,
                          f"CPU")
     fn = kmv_stream_cuda if on_card else kmv_stream_plain
     return fn(Xc, B, Xvc, cfg, out_dtype, m=m)
+
+
+def kmv_stream_full(Xc: torch.Tensor, Xvc: torch.Tensor, cfg: KernelConfig,
+                    m: Optional[int] = None) -> torch.Tensor:
+    """``K(A, A) X`` for the A of host-resident chunks ``Xc (nc, cr, n)``,
+    X chunked alike as ``Xvc (nc, cr, c)``, on Xvc's device: the
+    symmetric pipe on the card; rows at or past ``m`` are left out.
+    (m, c) f32."""
+    on_card = _stream_on_card(Xc, Xvc, "kmv_stream_full")
+    fn = kmv_stream_full_cuda if on_card else kmv_stream_full_plain
+    return fn(Xc, Xvc, cfg, m=m)
 
 
 def gather_rows(Xc: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

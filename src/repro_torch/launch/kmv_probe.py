@@ -2,7 +2,11 @@
 show the compiler's register and spill report, hold KMV against its plain
 version at the solver path's full width (m = 19 996, n = 8192) in every
 regime of ``kmv_plan``, with a second call's bits and the kernel with its
-last m split left out, and time both kernels at the main path's shapes.
+last m split left out, and the streamed full matvec (the symmetric
+``kmv_stream`` pipe over 2048-row pinned chunks) against its plain pair
+loop, with its wrong variants; then time KMV, RMSNorm and the streamed
+full matvec (``StreamingGramOperator.full_matvec``) at the main path's
+shapes.
 
     PYTHONPATH=src python -m repro_torch.launch.kmv_probe [--src DIR ...]
 
@@ -29,6 +33,7 @@ SHAPES = [("classical round", 1), ("K-SVM round", 32), ("K-RR round", 256),
           ("prediction block", 1024), ("full matvec", M),
           ("B a copy of A", -M)]
 RMS_SHAPES = [(8192, 2048), (131072, 128)]
+STREAM_CHUNK_ROWS = 2048
 
 
 def _data(torch, seed):
@@ -91,17 +96,61 @@ def parity_stage() -> bool:
             ok &= ratio > 1.0
             print(f"[parity] {label} {plan}: the last split left out reads "
                   f"{ratio:.1f}x tol (must fail)", flush=True)
+    return ok & stream_parity(A, X4, cfgs)
+
+
+def stream_parity(A, X4, cfgs) -> bool:
+    """The symmetric streamed full matvec at full width against its plain
+    pair loop (rbf f32 at c = 1 and 4, bf16, linear and polynomial at
+    c = 1): a second call's bits, and its two wrong variants (one pair's
+    mirror product left out, the tail chunk's pair with chunk 0 left out)
+    must fail."""
+    import torch
+    from chip_smoke import TOL_BF16, TOL_KMV_F32, allclose_ratio
+    from repro_torch.core.kernels import _chunk
+    from repro_torch.kernels.kmv_stream import (full_launch,
+                                                kmv_stream_full_cuda,
+                                                kmv_stream_full_plain)
+    ok = True
+    cr = STREAM_CHUNK_ROWS
+    for dtype in (torch.float32, torch.bfloat16):
+        Xc = _chunk(A.cpu().to(dtype), cr, pin=True)
+        tol = TOL_KMV_F32 if dtype == torch.float32 else TOL_BF16
+        for kname, cfg in cfgs.items():
+            if kname != "rbf" and dtype != torch.float32:
+                continue
+            for c in (1, 4) if kname == "rbf" else (1,):
+                Xvc = _chunk(X4[:, :c].contiguous(), cr)
+                got = kmv_stream_full_cuda(Xc, Xvc, cfg, m=M)
+                same = bool(torch.equal(got, kmv_stream_full_cuda(
+                    Xc, Xvc, cfg, m=M)))
+                want = kmv_stream_full_plain(Xc, Xvc, cfg, m=M)
+                ratio, err = allclose_ratio(got, want, tol,
+                                            kname == "polynomial")
+                ok &= ratio <= 1.0 and same
+                print(f"[parity] streamed full matvec {kname} {dtype} c={c}"
+                      f": max abs err {err:.3e} ({ratio:.3f}x tol), repeat "
+                      f"{'same bits' if same else 'OTHER BITS'}", flush=True)
+                if dtype == torch.float32 and kname == "rbf" and c == 1:
+                    for drop, what in ((1, "pair (0, 1) without its mirror"),
+                                       (2, "pair (0, tail) left out")):
+                        bad = full_launch(Xc, Xvc, cfg, M, drop=drop)
+                        ratio, err = allclose_ratio(bad, want, tol)
+                        ok &= ratio > 1.0
+                        print(f"[parity] streamed full matvec, {what}: "
+                              f"{ratio:.1f}x tol (must fail)", flush=True)
     return ok
 
 
 def time_stage() -> bool:
     """Device times of the package on sys.path: KMV at the main shapes and
     RMSNorm at the LM's, queued behind a spin kernel (device time) and
-    back to back (host included), beside F.rms_norm."""
+    back to back (host included), beside F.rms_norm; the streamed full
+    matvec over pinned 2048-row chunks, back to back."""
     import torch
     import torch.nn.functional as F
     from chip_smoke import time_cuda, time_queued
-    from repro_torch.core.kernels import KernelConfig
+    from repro_torch.core.kernels import KernelConfig, StreamingGramOperator
     from repro_torch.kernels.kmv import kmv_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     gen, A, X4 = _data(torch, 1)
@@ -120,7 +169,12 @@ def time_stage() -> bool:
               f"{'-' if q is None else f'{q:.4f}'} ms, eager {e:.4f} ms "
               f"({flop / (q or e) / 1e9:.1f} TFLOP/s in the products)",
               flush=True)
-    del A
+    op = StreamingGramOperator.from_dense(A, cfg, STREAM_CHUNK_ROWS,
+                                          device="cuda")
+    e = time_cuda(lambda: op.full_matvec(X), 3)
+    print(f"[time] {src} streamed full matvec, {op.n_chunks} pinned chunks "
+          f"of {STREAM_CHUNK_ROWS}: {e:.2f} ms", flush=True)
+    del A, op
     for rows, D in RMS_SHAPES:
         x = torch.randn((rows, D), generator=gen, device="cuda").bfloat16()
         s = torch.randn((D,), generator=gen, device="cuda")
@@ -146,7 +200,7 @@ def main(argv=None) -> int:
         if args.src:
             sys.path[:0] = args.src
             from repro_torch.kernels import build
-            keep = ("kmv", "rmsnorm")
+            keep = ("kmv", "kmv_stream", "rmsnorm")
             every = build.sources
             build.sources = lambda: {k: v for k, v in every().items()
                                      if k in keep}

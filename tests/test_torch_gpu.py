@@ -8,7 +8,8 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: KMV and the streamed KMV 2e-4 (tests/test_kmv.py), gram
+Tolerances: KMV and the streamed KMV (the symmetric full matvec too)
+2e-4 (tests/test_kmv.py), gram
 1e-4 (tests/test_pallas_gram.py), bf16 inputs 2e-2; polynomial absolute
 tolerance relative to the largest output value (ROADMAP C2).  The row
 gather copies bits and is held to exact equality.  RMSNorm 1e-5 f32
@@ -53,9 +54,13 @@ from repro_torch.kernels import gram as gram_module
 from repro_torch.kernels.gram import gram_cuda, gram_plain
 from repro_torch.kernels import kmv as kmv_module
 from repro_torch.kernels.kmv import kmv_cuda, kmv_plain
+from repro_torch.kernels import kmv_stream as kmv_stream_module
 from repro_torch.kernels.kmv_stream import (gather_rows_cuda,
                                             gather_rows_plain,
                                             kmv_stream_cuda,
+                                            kmv_stream_full_cuda,
+                                            kmv_stream_full_plain,
+                                            kmv_stream_full_resident,
                                             kmv_stream_plain,
                                             kmv_stream_resident)
 from repro_torch.kernels.ref import (flash_attention_ref,
@@ -328,6 +333,122 @@ def test_kmv_stream_cuda_matches_plain(cuda_device, kernel, dtype, shape):
         _close(got, want, kernel, tol)
         _close(got, resident.reshape(got.shape), kernel, tol)
         _close(compute_only, got, kernel, tol)
+
+
+# (m, cr, n, c) of the symmetric streamed full matvec: nc = 1 (a padded
+# chunk), 2, 4 and 5 chunks, partial tails and chunks of several 128-row
+# tiles, one partial tile a chunk at cr = 130 and 160, n off a multiple of
+# 4 (203: element-by-element loads)
+FULL_SHAPES = [(200, 256, 100, 1), (300, 160, 64, 3), (1000, 256, 203, 2),
+               (520, 130, 96, 5), (2100, 512, 64, 1)]
+
+
+def _full_inputs(dev, m, cr, n, c, dtype=torch.float32, seed=10, pin=True):
+    A, _, X = _data(m, 1, n, c, seed=seed)
+    Xc = _chunk(torch.from_numpy(A).to(dtype), cr, pin=pin)
+    return Xc, _chunk(torch.from_numpy(X).to(dev), cr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FULL_SHAPES)
+def test_kmv_stream_full_cuda_matches_plain(cuda_device, kernel, dtype,
+                                            shape):
+    """The symmetric pipe against its plain pair loop; a second call gives
+    the same bits, and so do the same launches over chunks already on the
+    card; each call counts one launch."""
+    m, cr, n, c = shape
+    Xc, Xvc = _full_inputs(cuda_device, m, cr, n, c, dtype)
+    cfg = KernelConfig(**kernel)
+    before = kmv_stream_full_cuda.launches
+    got = kmv_stream_full_cuda(Xc, Xvc, cfg, m=m)
+    again = kmv_stream_full_cuda(Xc, Xvc, cfg, m=m)
+    resident = kmv_stream_full_resident(Xc.to(cuda_device), Xvc, cfg, m=m)
+    want = kmv_stream_full_plain(Xc, Xvc, cfg, m=m)
+    torch.cuda.synchronize()
+    assert kmv_stream_full_cuda.launches == before + 2
+    assert got.shape == want.shape == (m, c)
+    _close(got, want, kernel, 2e-2 if dtype == torch.bfloat16 else 2e-4)
+    assert torch.equal(got, again)
+    assert torch.equal(got, resident)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("drop", [1, 2], ids=["mirror-of-pair-0-1",
+                                              "tail-pair"])
+def test_kmv_stream_full_check_fails_wrong_variants(cuda_device, drop):
+    """The parity check of the symmetric pipe fails by far a pipe that
+    leaves one off-diagonal pair's mirror product out, or the pair of
+    chunk 0 with the partial tail chunk."""
+    m, cr, n, c = 1000, 256, 96, 2
+    Xc, Xvc = _full_inputs(cuda_device, m, cr, n, c)
+    cfg = KernelConfig("rbf", sigma=0.7)
+    bad = kmv_stream_module.full_launch(Xc, Xvc, cfg, m, drop=drop)
+    want = kmv_stream_full_plain(Xc, Xvc, cfg, m=m).double()
+    ratio = float(((bad.double().cpu() - want.cpu()).abs()
+                   / (2e-4 + 2e-4 * want.cpu().abs())).max())
+    assert ratio > 100.0, ratio
+
+
+@pytest.mark.gpu
+def test_kmv_stream_full_refuses_pageable_chunks(cuda_device):
+    Xc, Xvc = _full_inputs(cuda_device, 300, 128, 32, 1, pin=False)
+    cfg = KernelConfig("rbf")
+    for call in (lambda: kmv_stream_full_cuda(Xc, Xvc, cfg, m=300),
+                 lambda: ops.kmv_stream_full(Xc, Xvc, cfg, m=300)):
+        with pytest.raises(ValueError, match="pinned"):
+            call()
+
+
+@pytest.mark.gpu
+def test_kmv_stream_full_holds_three_chunks(cuda_device):
+    """A call's peak device memory above what was allocated before it is
+    the anchor's and the two streaming slots, the pairs' workspace with
+    the rows' norms, and the output: never more chunks of A."""
+    m, cr, n, c = 4000, 512, 1024, 1
+    Xc, Xvc = _full_inputs(cuda_device, m, cr, n, c)
+    cfg = KernelConfig("rbf")
+    kmv_stream_full_cuda(Xc, Xvc, cfg, m=m)             # loads the kernel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kmv_stream_full_cuda(Xc, Xvc, cfg, m=m)
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    tiles = -(-cr // kmv_stream_module.PAIR_BM)
+    ws = 4 * (2 * tiles * m * c + Xc.shape[0] * cr)
+    chunk = cr * n * 4
+    assert 3 * chunk <= growth <= 3 * chunk + ws + 4 * m * c + 4096, growth
+
+
+@pytest.mark.gpu
+def test_streamed_full_matvec_is_one_symmetric_launch(cuda_device):
+    """StreamingGramOperator.full_matvec on the card: one launch of the
+    symmetric pipe a call and none of the piece pipe, against the same
+    operator on the host (the plain pair loop), also for scale_rows(y)."""
+    rng = np.random.default_rng(8)
+    m, n = 600, 80
+    A = torch.from_numpy((rng.standard_normal((m, n)) / np.sqrt(n)).astype(
+        np.float32))
+    y = torch.from_numpy(np.where(rng.random(m) < 0.5, 1.0,
+                                  -1.0).astype(np.float32))
+    cfg = KernelConfig("rbf", sigma=0.7)
+    card = StreamingGramOperator.from_dense(A, cfg, 128, device=cuda_device)
+    host = StreamingGramOperator.from_dense(A, cfg, 128)
+    X = torch.from_numpy(rng.standard_normal((m, 3)).astype(np.float32))
+    for op_c, op_h in ((card, host), (card.scale_rows(y.to(cuda_device)),
+                                      host.scale_rows(y))):
+        for Xin in (X, X[:, 0].contiguous()):
+            before = (kmv_stream_full_cuda.launches,
+                      kmv_stream_cuda.launches)
+            got = op_c.full_matvec(Xin.to(cuda_device))
+            torch.cuda.synchronize()
+            assert (kmv_stream_full_cuda.launches,
+                    kmv_stream_cuda.launches) == (before[0] + 1, before[1])
+            assert got.shape == Xin.shape
+            _close(got, op_h.full_matvec(Xin), dict(name="rbf"), 2e-4)
 
 
 @pytest.mark.gpu

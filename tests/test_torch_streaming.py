@@ -48,6 +48,7 @@ from repro_torch.core.kernels import _chunk
 from repro_torch.core.predict import BatchedPredictor
 from repro_torch.kernels import ops
 from repro_torch.kernels.kmv_stream import (gather_rows_plain,
+                                            kmv_stream_full_plain,
                                             kmv_stream_plain)
 
 KERNELS = [dict(name="linear"),
@@ -163,6 +164,83 @@ def test_ragged_tail_rows_contribute_nothing(kernel):
     masked = kmv_stream_plain(op.Xc, B, Xvc, op.cfg, m=50)
     unmasked = kmv_stream_plain(op.Xc, B, Xvc, op.cfg)
     _close(masked, unmasked, kernel, 1e-6)
+
+
+# chunk rows giving nc = 1, 2 and 4 chunks of m = 50 rows (partial tails
+# of 18 and 2 rows at nc = 2 and 4)
+FULL_CHUNKS = {1: 64, 2: 32, 4: 16}
+
+
+@pytest.mark.parametrize("c", [1, 5], ids=["vec", "mat"])
+@pytest.mark.parametrize("nc", sorted(FULL_CHUNKS), ids=lambda v: f"nc{v}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
+def test_symmetric_full_matvec_matches_jax(kernel, dtype, nc, c):
+    """The port's full_matvec (one symmetric pass over the chunk pairs
+    i <= j, the plain version on the CPU) against the JAX streamed
+    operator's (nc pieces K(A, chunk_j)^T X) and the JAX exact
+    operator's, also for the K-SVM operator scale_rows(y), within the
+    KMV bound 2e-4.  bf16 data: the JAX operators get the same bf16
+    values widened to f32, since the port computes in f32 from bf16."""
+    m = 50
+    A = _data(m=m, seed=11)
+    if dtype == torch.bfloat16:
+        A = torch.from_numpy(A).bfloat16().float().numpy()
+    rng = np.random.default_rng(12)
+    X = rng.standard_normal((m, c)).astype(np.float32)
+    y = np.where(rng.random(m) < 0.5, 1.0, -1.0).astype(np.float32)
+    if c == 1:
+        X = X[:, 0]
+    jcfg = JKernelConfig(**kernel)
+    jex = JExact(jnp.asarray(A), jcfg)
+    jst = JStream.from_dense(jnp.asarray(A), jcfg,
+                             chunk_rows=FULL_CHUNKS[nc])
+    op = StreamingGramOperator.from_dense(
+        torch.from_numpy(A).to(dtype), KernelConfig(**kernel),
+        FULL_CHUNKS[nc])
+    assert op.n_chunks == jst.n_chunks == nc
+    for got_op, refs in ((op, (jst, jex)),
+                         (op.scale_rows(torch.from_numpy(y)),
+                          (jst.scale_rows(jnp.asarray(y)),
+                           jex.scale_rows(jnp.asarray(y))))):
+        got = got_op.full_matvec(torch.from_numpy(X))
+        assert got.shape == X.shape and got.dtype == torch.float32
+        for ref in refs:
+            _close(got, ref.full_matvec(jnp.asarray(X)), kernel, 2e-4)
+
+
+@pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
+def test_symmetric_full_matvec_equals_the_piece_loop(kernel):
+    """kmv_stream_full_plain (each chunk pair once, with its mirror)
+    against the piece loop it replaces (one kmv_stream_plain a chunk of
+    output rows) to 1e-5 relative: 4 chunks of 16 rows, a 2-row tail."""
+    m, cr = 50, 16
+    A = torch.from_numpy(_data(m=m, seed=13))
+    X = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (m, 3)).astype(np.float32))
+    cfg = KernelConfig(**kernel)
+    Xc, Xvc = _chunk(A, cr), _chunk(X, cr)
+    got = kmv_stream_full_plain(Xc, Xvc, cfg, m=m)
+    want = torch.cat([kmv_stream_plain(Xc, Xc[j], Xvc, cfg, m=m)
+                      for j in range(Xc.shape[0])])[:m]
+    assert got.shape == (m, 3)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    via_ops = ops.kmv_stream_full(Xc, Xvc, cfg, m=m)
+    np.testing.assert_array_equal(via_ops.numpy(), got.numpy())
+
+
+def test_full_matvec_dispatch_raises_off_the_two_routes():
+    Xc = _chunk(torch.from_numpy(_data()), CR)
+    Xvc = torch.zeros((Xc.shape[0], CR, 1))
+    cfg = KernelConfig("rbf")
+    with pytest.raises(ValueError, match="host"):
+        ops.kmv_stream_full(Xc.to("meta"), Xvc, cfg)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.kmv_stream_full(Xc, Xvc.to("meta"), cfg)
+    with pytest.raises(ValueError, match="true rows"):
+        kmv_stream_full_plain(Xc, Xvc, cfg, m=3)
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
