@@ -23,7 +23,16 @@ Phases (each one fails the run with a non-zero exit):
               2048 held-out queries through support-vector compaction
   4. K-RR     KernelRidge(lam=1, rbf), s-step BDCD (s = 8, b = 32) on
               the tolerance path, the relative-residual history, 2048
-              predictions
+              predictions.  Phases 3-4's fits run their rounds as
+              captured CUDA graphs (core.loop.RoundGraphs); their kmv and
+              gram counts must be the launches the fits make (one each a
+              round, one kmv a check, gap and prediction block), the
+              warm-up rounds' launches printed apart; then (3-4b) each
+              fit again with the operator not capturable (the eager
+              loop) must give the same alpha and residual history bit for
+              bit, and the s-step K-SVM rounds replayed with a stale
+              schedule buffer (every run the first run's coordinates)
+              must not
   5. stream + Nystrom, on the same data
        a. the streamed KMV pipe (A chunked in pinned host memory) and
           the row gather against their plain versions and the resident
@@ -36,15 +45,18 @@ Phases (each one fails the run with a non-zero exit):
           tail chunk's pair left out), which must fail
        b. KernelRidge(stream=2048) replaying phase 4's schedule at full
           depth, its residual history from the streamed full KMV; its
-          device-memory growth must stay below A's bytes
+          device-memory growth must stay below A's bytes; its rounds
+          take the eager loop (the streamed operator is not capturable)
        c. KernelSVM(s=32, stream=2048) replaying phase 3's schedule at
           full depth with one streamed duality gap (a check only at the
           last round: the depth cut is in checks, not iterations), and
-          2048 predictions through BatchedPredictor(stream=1024)
+          2048 predictions through BatchedPredictor(stream=1024); eager
+          rounds too
        d. KernelRidge(approx="nystrom", landmarks=1024, uniform): the
           factor product on 512 rows against the plain build (and what a
           TF32 build reads against the same tolerance), the kernel error
-          on a 2048-row subsample
+          on a 2048-row subsample; its rounds captured, alpha and history
+          equal to the eager loop's bit for bit, its runs timed
        e. pipelined, copy-only and compute-only times of the streamed
           KMV; the symmetric streamed full matvec's, beside the resident
           symmetric KMV and the ten-piece route it replaced, each against
@@ -55,8 +67,11 @@ Phases (each one fails the run with a non-zero exit):
               does not count, and eager beside it (KMV at r = 1, 32, 256,
               1024 and m, B = A and a copy of A, each with its regime;
               gram at 1 x 1, 32 x 32, 256 x 256 and 19 996 x 32, 1 x 1
-              also through the 32 x 32 tile), the inner-phase share of a
-              round
+              also through the 32 x 32 tile), the inner-phase share of an
+              eager round; the fits' runs replayed as graphs (device ms a
+              run and a round from events around 8 replays, host ms a
+              run, capture time, graph pool bytes) and what is left of a
+              replayed round beside its KMV and gram, per node
   7. LM       Qwen3-1.7B at its published widths (28 layers, d_model
               2048, 16 heads / 8 kv x 128, vocab 151 936), bf16,
               attn_impl="flash", random f32 weights from --seed:
@@ -113,6 +128,7 @@ versions and the kernels are compared in full f32.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -120,6 +136,7 @@ import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
+from unittest import mock
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and FP32 outside the
 # tensor cores, the rate the kernels' f32 FMAs run at.
@@ -358,15 +375,96 @@ def phase_split(kernel_phase, local_phase, rounds):
     return t_kernel / rounds * 1e3, t_local / rounds * 1e3
 
 
+class DriverSpy:
+    """Counts the round drivers the port's fits take, captured CUDA graphs
+    (``core.loop.RoundGraphs``) or the eager loop
+    (``core.loop._run_rounds_eager``), by wrapping both in ``core.loop``
+    for the run's life."""
+
+    def __init__(self):
+        from repro_torch.core import loop
+        self.graphs = self.eager = 0
+        spy, graphs, eager = self, loop.RoundGraphs, loop._run_rounds_eager
+
+        class Graphs(graphs):
+            def __init__(self, *a, **k):
+                spy.graphs += 1
+                super().__init__(*a, **k)
+
+        def run_eager(*a, **k):
+            spy.eager += 1
+            return eager(*a, **k)
+
+        loop.RoundGraphs, loop._run_rounds_eager = Graphs, run_eager
+
+    def take(self):
+        """(graph drivers, eager loops) since the last take."""
+        out = (self.graphs, self.eager)
+        self.graphs = self.eager = 0
+        return out
+
+
+def bit_equal(got, want) -> tuple:
+    """(equal bit for bit, max |got - want|) of two tensors or arrays."""
+    import numpy as np
+    import torch
+    if isinstance(got, torch.Tensor):
+        got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        return False, float("inf")
+    return bool(np.array_equal(got, want)), float(np.abs(got - want).max(
+        initial=0.0))
+
+
+def graph_timing(label, rf, a0, xs, c, runs=8, metric_fn=None):
+    """Build ``RoundGraphs`` for one fit shape (runs of ``c`` rounds, the
+    check's metric at the end of each with ``metric_fn``) and time its
+    full-length runs: device ms per run from CUDA events around ``runs``
+    replays, host ms per run (the copy of the schedule slice and the
+    replay, no synchronise), the capture's seconds and its pool's bytes.
+    Prints one line; returns the numbers."""
+    import torch
+    from repro_torch.core.loop import RoundGraphs
+    with RoundGraphs(rf, a0, xs, c, metric_fn=metric_fn) as g:
+        full = g.R // c
+        g.run(0)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(runs):
+            g.run(i % full)
+        host = (time.perf_counter() - t0) / runs * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms = start.elapsed_time(end) / runs
+        out = dict(run_ms=dev_ms, round_ms=dev_ms / c, host_ms=host,
+                   capture_s=g.capture_s, warmup_s=g.warmup_s,
+                   pool_bytes=g.pool_bytes, rounds=c,
+                   launches=g.graph_launches[c])
+    print(f"[graphs] {label}: runs of {c} rounds"
+          f"{' + the check' if metric_fn else ''}: device {dev_ms:.3f} ms a "
+          f"run over {runs} replays ({dev_ms / c:.4f} ms a round), host "
+          f"{host:.3f} ms a run; capture {out['capture_s'] * 1e3:.1f} ms "
+          f"(warm-up round {out['warmup_s'] * 1e3:.1f} ms), graph pool "
+          f"{out['pool_bytes'] / 1e6:.2f} MB; kernel launches a run "
+          f"{out['launches']}")
+    return out
+
+
 def stream_phase(c, args, failures):
     """Phase 5 (module docstring).  ``c`` holds phases 3-4's data and
     fits; returns the ``kmv_stream`` and ``kmv_stream_full`` entries of
     the kernels record."""
     import torch
     from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
-    from repro_torch.core import (BatchedPredictor, StreamingGramOperator,
-                                  ksvm_predict, nystrom, pad_rounds,
-                                  sstep_dcd_inner)
+    from repro_torch.core import (BatchedPredictor, KernelConfig,
+                                  LowRankGramOperator, StreamingGramOperator,
+                                  krr_rel_residual, ksvm_predict,
+                                  make_sstep_bdcd_round_fn,
+                                  nystrom, pad_rounds, sstep_dcd_inner)
     from repro_torch.core.kernels import _chunk
     from repro_torch.kernels.gram import gram_cuda, gram_plain
     from repro_torch.kernels.kmv import kmv_cuda
@@ -501,8 +599,15 @@ def stream_phase(c, args, failures):
                             method="sstep", s=8, b=32, stream=CR,
                             record=True, check_every=16,
                             max_iters=args.krr_iters, seed=args.seed))
+    c.spy.take()
     r_ks = krr_s.fit(c.Ar.cpu(), c.yr, schedule=c.r_k.schedule)
     torch.cuda.synchronize()
+    drivers = c.spy.take()
+    print(f"[stream-krr] driver: {drivers[1]} eager loop, {drivers[0]} "
+          f"captured (StreamingGramOperator.capturable = "
+          f"{StreamingGramOperator.capturable})")
+    if drivers != (0, 1):
+        failures.append(f"the streamed K-RR fit took drivers {drivers}")
     growth = torch.cuda.max_memory_allocated() - base
     a_bytes = c.Ar.numel() * c.Ar.element_size()
     d_krr = float((r_ks.alpha - c.r_k.alpha).abs().max())
@@ -534,6 +639,11 @@ def stream_phase(c, args, failures):
                           check_every=rounds, max_iters=args.svm_iters,
                           seed=args.seed))
     r_ss = svm_s.fit(c.A.cpu(), c.y, schedule=c.r_s.schedule)
+    drivers = c.spy.take()
+    print(f"[stream-ksvm] driver: {drivers[1]} eager loop, {drivers[0]} "
+          f"captured")
+    if drivers != (0, 1):
+        failures.append(f"the streamed K-SVM fit took drivers {drivers}")
     d_svm = float((r_ss.alpha - c.r_s.alpha).abs().max())
     gap_s = float(r_ss.history[-1])
     d_gap = abs(gap_s - c.gap) / max(1.0, abs(c.gap))
@@ -572,6 +682,33 @@ def stream_phase(c, args, failures):
     r_n = nys.fit(c.Ar, c.yr)
     p_n = nys.predict(c.Arq)
     torch.cuda.synchronize()
+    drivers = c.spy.take()
+    with mock.patch.object(LowRankGramOperator, "capturable", False):
+        e_n = KernelRidge(lam=1.0, kernel="rbf", device=dev,
+                          options=nys.options).fit(c.Ar, c.yr)
+    e_drivers = c.spy.take()
+    print(f"[nystrom] drivers: the fit {drivers[0]} captured, {drivers[1]} "
+          f"eager; its refit with the operator not capturable "
+          f"{e_drivers[1]} eager, {e_drivers[0]} captured")
+    if drivers != (1, 0) or e_drivers != (0, 1):
+        failures.append(f"the Nystrom fits took drivers {drivers}, "
+                        f"{e_drivers}")
+    for label, got, want in (("alpha", r_n.alpha, e_n.alpha),
+                             ("residual history", r_n.history,
+                              e_n.history)):
+        same, diff = bit_equal(got, want)
+        print(f"[nystrom] {label}: captured vs eager "
+              f"{'equal bit for bit' if same else 'DIFFER'} (max abs diff "
+              f"{diff:.3e})")
+        if not same:
+            failures.append(f"Nystrom captured vs eager {label}: {diff:.3e}")
+    # the fit's runs as the facade builds them: the linear kernel over Phi
+    lin = dataclasses.replace(nys.cfg, kernel=KernelConfig("linear"))
+    Phi = nys.op_.Phi
+    graph_timing("K-RR Nystrom l=1024 s=8 b=32",
+                 make_sstep_bdcd_round_fn(Phi, c.yr, lin, 8, op=nys.op_),
+                 torch.zeros_like(c.yr), pad_rounds(r_n.schedule, 8), 16,
+                 metric_fn=lambda a: krr_rel_residual(Phi, c.yr, a, lin))
     launches = {"kmv_stream": kmv_stream_cuda.launches,
                 "kmv_stream_full": kmv_stream_full_cuda.launches,
                 "gather_rows": gather_rows_cuda.launches,
@@ -1886,9 +2023,13 @@ def main(argv=None) -> int:
 
     from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
     from repro_torch.core import (ExactGramOperator, KernelConfig,
-                                  krr_predict, ksvm_duality_gap,
-                                  ksvm_predict, pad_rounds,
+                                  krr_predict, krr_rel_residual_op,
+                                  ksvm_duality_gap, ksvm_predict,
+                                  make_dcd_round_fn,
+                                  make_sstep_bdcd_round_fn,
+                                  make_sstep_dcd_round_fn, pad_rounds,
                                   sstep_bdcd_inner, sstep_dcd_inner)
+    from repro_torch.core.loop import FAST_RUN, RoundGraphs
     from repro_torch.data.synthetic import (PAPER_DATASETS,
                                             classification_dataset,
                                             regression_dataset)
@@ -2061,8 +2202,9 @@ def main(argv=None) -> int:
     print("[parity] all kernels agree with their plain versions")
 
     # ---- 3. K-SVM main path -----------------------------------------------
-    kmv_cuda.launches = 0
-    gram_cuda.launches = 0
+    spy = DriverSpy()
+    for fn in (kmv_cuda, gram_cuda):
+        fn.launches = fn.warmup_launches = 0
     svm_opts = dict(max_iters=args.svm_iters, seed=args.seed)
     svm = KernelSVM(C=1.0, kernel="rbf", device=dev, options=SolverOptions(
         method="sstep", s=32, **svm_opts))
@@ -2081,6 +2223,7 @@ def main(argv=None) -> int:
     f_ref = ksvm_predict(A, y, r_s.alpha, Aq[:64], svm.cfg)
     ratio_svm, err_svm = allclose_ratio(f_q[:64], f_ref, TOL_ORACLE, True)
     svm_counts = (kmv_cuda.launches, gram_cuda.launches)
+    svm_drivers = spy.take()
     print(f"[ksvm] s-step s=32: {r_s.iters_run} iters, {r_s.rounds_run} "
           f"rounds, {r_s.wall_time_s:.2f} s | classical: "
           f"{r_c.rounds_run} rounds, {r_c.wall_time_s:.2f} s")
@@ -2090,7 +2233,11 @@ def main(argv=None) -> int:
     print(f"[ksvm] predict {q} queries on {n_sv} support vectors: "
           f"{t_pred * 1e3:.1f} ms, accuracy {acc:.4f}; vs dense oracle "
           f"max abs err {err_svm:.3e}")
-    print(f"[ksvm] launches: kmv {svm_counts[0]}, gram {svm_counts[1]}")
+    print(f"[ksvm] launches: kmv {svm_counts[0]}, gram {svm_counts[1]}; "
+          f"drivers: {svm_drivers[0]} captured, {svm_drivers[1]} eager")
+    if svm_drivers != (2, 0):
+        failures.append(f"the K-SVM fits did not both run captured: "
+                        f"{svm_drivers}")
     if not agree <= TOL_SSTEP_VS_CLASSICAL:
         failures.append(f"s-step vs classical {agree:.3e}")
     if not (torch.isfinite(r_s.alpha).all() and
@@ -2124,6 +2271,8 @@ def main(argv=None) -> int:
     rmse = float(((p_q - yrq) ** 2).mean().sqrt())
     hist = [float(v) for v in r_k.history]
     counts = (kmv_cuda.launches, gram_cuda.launches)   # the main path's
+    warmup = (kmv_cuda.warmup_launches, gram_cuda.warmup_launches)
+    krr_drivers = spy.take()
     print(f"[krr] s-step s=8 b=32: {r_k.iters_run} iters, "
           f"{r_k.rounds_run} rounds, converged={r_k.converged}, "
           f"{r_k.wall_time_s:.2f} s")
@@ -2133,7 +2282,10 @@ def main(argv=None) -> int:
           f"{rmse:.4f} (target std {float(yrq.std()):.4f}); vs dense "
           f"oracle max abs err {err_krr:.3e}")
     print(f"[krr] launches: kmv {counts[0] - svm_counts[0]}, gram "
-          f"{counts[1] - svm_counts[1]}")
+          f"{counts[1] - svm_counts[1]}; drivers: {krr_drivers[0]} "
+          f"captured, {krr_drivers[1]} eager")
+    if krr_drivers != (1, 0):
+        failures.append(f"the K-RR fit did not run captured: {krr_drivers}")
     if not (hist and all(v == v and v < float("inf") for v in hist)
             and hist[-1] < hist[0]):
         failures.append(f"K-RR residual history does not fall: {hist}")
@@ -2143,9 +2295,72 @@ def main(argv=None) -> int:
         failures.append(f"K-RR predictions vs dense oracle {err_krr:.3e}")
 
     print(f"[main path] launches: kmv {counts[0]}, gram {counts[1]}")
+    print(f"[main path] warm-up launches, apart from those (one eager round "
+          f"and check a fit before its captures): kmv {warmup[0]}, gram "
+          f"{warmup[1]}")
     if counts[0] < 1 or counts[1] < 1:
         failures.append(f"a kernel was never launched on the main path "
                         f"(kmv {counts[0]}, gram {counts[1]})")
+    # every round launches one KMV and one gram; a check or a prediction
+    # block one KMV more: the counts are the launches the fits made
+    rounds = r_s.rounds_run + r_c.rounds_run + r_k.rounds_run
+    n_pred = -(-q // svm.predict_batch) + -(-q // krr.predict_batch)
+    want = (rounds + len(hist) + 1 + n_pred, rounds)
+    if counts != want:
+        failures.append(f"main-path launch counts {counts}, not the "
+                        f"{want} launches the fits make")
+
+    # ---- 3-4b. the captured fits against the eager loop -------------------
+    t0 = time.perf_counter()
+    with mock.patch.object(ExactGramOperator, "capturable", False):
+        e_s = KernelSVM(C=1.0, kernel="rbf", device=dev,
+                        options=svm.options).fit(A, y)
+        e_c = KernelSVM(C=1.0, kernel="rbf", device=dev,
+                        options=dcd.options).fit(A, y, schedule=e_s.schedule)
+        e_k = KernelRidge(lam=1.0, kernel="rbf", device=dev,
+                          options=krr.options).fit(Ar, yr)
+    eager_drivers = spy.take()
+    print(f"[graphs] the same fits with the operator not capturable: "
+          f"{eager_drivers[1]} eager loops, {eager_drivers[0]} captured, "
+          f"{time.perf_counter() - t0:.1f} s; fit walls eager (captured): "
+          f"K-SVM s=32 {e_s.wall_time_s:.2f} s ({r_s.wall_time_s:.2f}), "
+          f"classical {e_c.wall_time_s:.2f} s ({r_c.wall_time_s:.2f}), "
+          f"K-RR {e_k.wall_time_s:.2f} s ({r_k.wall_time_s:.2f})")
+    if eager_drivers != (0, 3):
+        failures.append(f"the eager refits took {eager_drivers}")
+    for label, got, want_ in (
+            ("K-SVM s=32 alpha", r_s.alpha, e_s.alpha),
+            ("K-SVM classical alpha", r_c.alpha, e_c.alpha),
+            ("K-RR alpha", r_k.alpha, e_k.alpha),
+            ("K-RR residual history", r_k.history, e_k.history)):
+        same, diff = bit_equal(got, want_)
+        print(f"[graphs] {label}: captured vs eager "
+              f"{'equal bit for bit' if same else 'DIFFER'} (max abs "
+              f"diff {diff:.3e})")
+        if not same:
+            failures.append(f"captured vs eager {label}: {diff:.3e}")
+    # the wrong driver: every run after the first replayed without its
+    # schedule slice repeats the first run's coordinates
+    rf_s = make_sstep_dcd_round_fn(A, y, svm.cfg, 32,
+                                   op=ExactGramOperator(A, kernels["rbf"])
+                                   .scale_rows(y))
+    xs_s = pad_rounds(r_s.schedule, 32)
+    for refresh in (True, False):
+        with RoundGraphs(rf_s, torch.zeros_like(y), xs_s,
+                         min(FAST_RUN, xs_s[0].shape[0])) as g:
+            for j in range(g.n_runs):
+                g.run(j, refresh=refresh or j == 0)
+            same, diff = bit_equal(g.state, e_s.alpha)
+        spy.take()
+        what = ("refreshed" if refresh else
+                "stale (every run the first run's coordinates)")
+        print(f"[graphs] K-SVM s=32 through RoundGraphs, schedule buffer "
+              f"{what}: vs eager {'equal' if same else 'differs'} (max abs "
+              f"diff {diff:.3e}){'' if refresh else '; must differ'}")
+        if same != refresh:
+            failures.append(f"the bit-for-bit check "
+                            f"{'fails' if refresh else 'passes'} the "
+                            f"{what} driver")
     if failures:
         for f in failures:
             print(f"[check] FAIL {f}")
@@ -2155,7 +2370,7 @@ def main(argv=None) -> int:
     stream_entries = stream_phase(SimpleNamespace(
         dev=dev, m=m, n=n, q=q, kernels=kernels, A=A, y=y, Aq=Aq,
         B_of=B_of, pick=pick, Xv=Xv, Xm=Xm, r_s=r_s, gap=gap, Ar=Ar, yr=yr,
-        Arq=Arq, r_k=r_k), args, failures)
+        Arq=Arq, r_k=r_k, spy=spy), args, failures)
     if failures:
         for f in failures:
             print(f"[stream] FAIL {f}")
@@ -2203,7 +2418,8 @@ def main(argv=None) -> int:
                   1, 20)
     k1 = kmv_row(f"rbf ({m}, 1, {n}) c=1 classical DCD round", B_of["r1"],
                  1, 20)
-    kmv_row(f"rbf ({m}, 256, {n}) c=1 K-RR round", B_of["r256"], 1, 10)
+    k256 = kmv_row(f"rbf ({m}, 256, {n}) c=1 K-RR round", B_of["r256"],
+                   1, 10)
     kmv_row(f"rbf ({m}, 1024, {n}) c=1 prediction block", B_of["q1024"],
             1, 5)
     kfull = kmv_row(f"rbf ({m}, {m}, {n}) c=1 full matvec, B = A", A, 1,
@@ -2212,6 +2428,7 @@ def main(argv=None) -> int:
     kmv_row(f"rbf ({m}, {m}, {n}) c=1 full matvec, B a copy of A",
             A_copy, 1, 2)
     del A_copy
+    g_ms = {}
     for label, (G1, G2) in gram_blocks.items():
         what = {"1x1": "classical DCD cross block",
                 "32x32": "K-SVM cross block", "256x256": "K-RR cross block",
@@ -2219,6 +2436,7 @@ def main(argv=None) -> int:
         shape = (G1.shape[0], G2.shape[0], n)
         iters = 10 if label == "mx32" else 50
         row = gram_row(f"rbf {shape} [{what}]", G1, G2, rbf, iters, False)
+        g_ms[label] = row[0]
         if label == "256x256":
             g256 = row
         if label == "1x1":
@@ -2264,6 +2482,43 @@ def main(argv=None) -> int:
     print(f"[rounds] K-RR s=8 b=32: kernel phase {kk:.3f} ms, local phase "
           f"{kl:.3f} ms, local share {kl / (kk + kl):.1%}")
 
+    # the same rounds replayed as CUDA graphs, as the fits run them: device
+    # ms a round from events around the replays; what is left of the local
+    # phase beside the rounds' KMV and gram (their queued times above),
+    # spread over the round's other launches (an eager round profiled)
+    op_krr_c = ExactGramOperator(Ar, rbf)
+    rf_c = make_dcd_round_fn(A, y, svm.cfg, op=op_svm)
+    rf_k = make_sstep_bdcd_round_fn(Ar, yr, krr.cfg, 8, op=op_krr_c)
+    xs_k = pad_rounds(r_k.schedule, 8)
+    gap_k = lambda a: krr_rel_residual_op(op_krr_c, yr, a,  # noqa: E731
+                                          krr.cfg)
+    zero = torch.zeros_like(y)
+    shapes = [
+        ("K-SVM s=32", rf_s, xs_s, FAST_RUN, None, k32[0] + g_ms["32x32"],
+         lambda: rf_s(zero, (xs_s[0][0], xs_s[1][0]))),
+        ("K-SVM classical", rf_c, r_c.schedule, FAST_RUN, None,
+         k1[0] + g_ms["1x1"], lambda: rf_c(zero, r_c.schedule[0])),
+        ("K-RR s=8 b=32", rf_k, xs_k, 16, None, k256[0] + g256[0],
+         lambda: rf_k(zero, (xs_k[0][0], xs_k[1][0]))),
+        ("K-RR s=8 b=32, each run ending in its check", rf_k, xs_k, 16,
+         gap_k, None, None)]
+    for label, rf, xs, c_len, metric, kernels_ms, one_round in shapes:
+        gt = graph_timing(label, rf, zero, xs, c_len, metric_fn=metric)
+        if one_round is None:
+            continue
+        busy, nodes, _ = device_profile(one_round, 1)
+        local = gt["round_ms"] - kernels_ms
+        per_node = (f"{local / (nodes - 2) * 1e3:.2f} us" if nodes > 2
+                    else "not measured")
+        print(f"[rounds] {label} replayed: {gt['round_ms']:.4f} ms a round "
+              f"(eager kernel + local phase above); its KMV + gram "
+              f"{kernels_ms:.4f} ms, the rest {local:.4f} ms, local share "
+              f"{local / gt['round_ms']:.1%}; an eager round launches "
+              f"{nodes:.0f} device operations (busy "
+              f"{busy if busy is None else round(busy, 4)} ms), so "
+              f"{per_node} a node beside KMV and gram")
+    spy.take()
+
     if failures:
         for f in failures:
             print(f"[check] FAIL {f}")
@@ -2271,7 +2526,7 @@ def main(argv=None) -> int:
 
     # ---- 7. LM prefill and serving ----------------------------------------
     del A, Ar, Aq, Arq, B_of, gram_blocks, Xv, Xm, op_svm, op_krr, svm, krr
-    del dcd
+    del dcd, rf_s, rf_c, rf_k, op_krr_c, gap_k, shapes
     torch.cuda.empty_cache()
     lm_entries = lm_phase(dev, args, failures)
     if failures:

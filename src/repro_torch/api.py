@@ -17,8 +17,11 @@ the card whole, streamed through the ``kmv_stream`` pipeline) or
 the linear kernel over the Nystrom factor Phi) — drives the s-step or
 classical round function through
 ``core.loop.run_rounds`` — the plain loop when no tolerance or recording
-is asked for, the checked loop otherwise — and keeps the operator for
-prediction, which runs batched and slab-free through ``core.predict``.
+is asked for, the checked loop otherwise; on the card its rounds replay
+as captured CUDA graphs, the counterpart of the JAX fit's ``jit``,
+unless the operator is not ``capturable`` (the streamed one, whose
+rounds stay eager) — and keeps the operator for prediction, which runs
+batched and slab-free through ``core.predict``.
 K-SVM stops on the duality gap, K-RR on the relative residual; both are
 one full KMV per check, read through the operator's ``full_matvec`` (for
 a streamed fit the streamed pipe, since A is not on the card; for a
@@ -370,10 +373,12 @@ def _fit(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
     metric_fn = _metric_fn(problem, op, A_s, y, cfg, opts)
     xs = schedule if s == 1 else pad_rounds(schedule, s)
     want_metric = opts.tol > 0.0 or opts.record
+    # captured CUDA graphs where the operator allows, else eager rounds
     res = run_rounds(rf, a0, xs,
                      tol=opts.tol if opts.tol > 0.0 else NO_TOL,
                      check_every=opts.check_every,
-                     metric_fn=metric_fn if want_metric else None)
+                     metric_fn=metric_fn if want_metric else None,
+                     capture=op.capturable)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0

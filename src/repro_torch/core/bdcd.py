@@ -70,15 +70,14 @@ def make_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: KRRConfig,
         op = ExactGramOperator(A, cfg.kernel)
 
     def round_fn(alpha, idx):                 # idx: (b,)
-        b = idx.shape[0]
         if gram_fn is not None:               # materialized m x b slab
             U = gram_fn(A, A[idx], cfg.kernel)
             Gblk = U[idx, :]
             uTa = U.T @ alpha
         else:                                 # slab-free operator path
             Gblk, uTa = op.round_data(idx, alpha)
-        G = inv_lam * Gblk + m * torch.eye(b, dtype=alpha.dtype,
-                                           device=alpha.device)
+        G = inv_lam * Gblk
+        G.diagonal().add_(m)                  # + m I
         rhs = y[idx] - m * alpha[idx] - inv_lam * uTa
         return alpha.index_add(0, idx, solve_small(G, rhs))
 
@@ -92,7 +91,8 @@ def bdcd_krr(A: torch.Tensor, y: torch.Tensor, alpha0: torch.Tensor,
     """Run Algorithm 3 for H = schedule.shape[0] iterations."""
     round_fn = make_bdcd_round_fn(A, y, cfg, gram_fn=gram_fn, op=op)
     res = run_rounds(round_fn, alpha0, as_schedule(schedule, A.device),
-                     record_state=bool(record_every))
+                     record_state=bool(record_every),
+                     capture=op is None or op.capturable)
     if record_every:
         return res.state, res.state_hist[record_every - 1::record_every]
     return res.state, None

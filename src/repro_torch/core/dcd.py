@@ -62,7 +62,7 @@ def _dcd_theta(alpha_i, g, eta, nu):
     cand = torch.clamp(alpha_i - g, 0.0, nu) - alpha_i
     return torch.where(cand.abs() != 0.0,
                        torch.clamp(alpha_i - g / eta, 0.0, nu) - alpha_i,
-                       torch.zeros_like(cand))
+                       0.0)
 
 
 def make_dcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: SVMConfig,
@@ -85,16 +85,19 @@ def make_dcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: SVMConfig,
         op = ExactGramOperator(A, cfg.kernel).scale_rows(y)
 
     def round_fn(alpha, i):
+        # gather through the (1,) index: indexing with the 0-dim i itself
+        # would read it on the host, which a captured round cannot do
         idx = i.reshape(1)
+        a_i = alpha[idx][0]
         if gram_fn is not None:                 # materialized m x 1 column
             u = gram_fn(Atil, Atil[idx], cfg.kernel)[:, 0]
-            eta = u[i] + omega
-            g = u @ alpha - 1.0 + omega * alpha[i]
+            eta = u[idx][0] + omega
+            g = u @ alpha - 1.0 + omega * a_i
         else:                                   # slab-free operator path
             G, uTa = op.round_data(idx, alpha)  # (1, 1), (1,)
             eta = G[0, 0] + omega
-            g = uTa[0] - 1.0 + omega * alpha[i]
-        theta = _dcd_theta(alpha[i], g, eta, nu)
+            g = uTa[0] - 1.0 + omega * a_i
+        theta = _dcd_theta(a_i, g, eta, nu)
         return alpha.index_add(0, idx, theta.reshape(1))
 
     return round_fn
@@ -110,7 +113,8 @@ def dcd_ksvm(A: torch.Tensor, y: torch.Tensor, alpha0: torch.Tensor,
     ``record_every`` iterations (None when 0)."""
     round_fn = make_dcd_round_fn(A, y, cfg, gram_fn=gram_fn, op=op)
     res = run_rounds(round_fn, alpha0, as_schedule(schedule, A.device),
-                     record_state=bool(record_every))
+                     record_state=bool(record_every),
+                     capture=op is None or op.capturable)
     if record_every:
         return res.state, res.state_hist[record_every - 1::record_every]
     return res.state, None

@@ -159,7 +159,15 @@ class GramOperator:
     plus ``scale_rows(y)`` (the K-SVM ``diag(y)`` data scaling) and
     ``take(idx)`` (support-vector compaction), both returning a new
     operator.
+
+    ``capturable`` says whether a round and a check through the operator
+    can be captured as a CUDA graph (``core.loop.RoundGraphs``): launches
+    on the current stream only, no host synchronisation.  The solvers and
+    the facade drive a capturable operator's rounds through the graphs,
+    any other's through the eager loop.
     """
+
+    capturable = False
 
     def rows(self, idx: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -219,6 +227,8 @@ class ExactGramOperator(GramOperator):
     ``matvec``, ``round_data``, ``full_matvec`` and ``serve_block`` run
     the KMV kernel and ``cross_block`` the gram kernel (``kernels.ops``);
     on CPU tensors both dispatch to their plain PyTorch versions."""
+
+    capturable = True
 
     A: torch.Tensor
     cfg: KernelConfig
@@ -284,6 +294,8 @@ class LowRankGramOperator(GramOperator):
     ``Phi`` (m, l); the raw features and the nonlinear epilogue are
     never touched again.  ``fmap`` (a ``nystrom.NystromMap``) maps new
     points into the same feature space and is needed only to serve."""
+
+    capturable = True
 
     Phi: torch.Tensor
     fmap: Optional[object] = None
@@ -387,7 +399,9 @@ class StreamingGramOperator(GramOperator):
 
     ``scale_rows`` and ``take`` build new pinned chunked buffers on the
     host.  With ``compute_device`` the CPU, everything is ordinary CPU
-    tensors and the plain versions run.
+    tensors and the plain versions run.  Not ``capturable`` yet: the
+    pipe's pinned copies and cross-stream events stay eager (ROADMAP
+    A14d).
     """
 
     Xc: torch.Tensor                       # (nc, chunk_rows, n), host

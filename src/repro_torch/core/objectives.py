@@ -11,6 +11,12 @@ the m x m slab.
 K-RR: the closed form ``alpha* = ((1/lam) K + m I)^{-1} y`` (a dense
 oracle), the relative solution error, and the relative residual of the
 optimality system (one full KMV).
+
+The facade's tolerance metrics (``ksvm_duality_gap_op``,
+``krr_rel_residual_op``, and ``krr_rel_residual`` for a Nystrom fit)
+launch on the current stream and never synchronise: on the card each
+check is captured at the end of its run's CUDA graph
+(``core.loop.RoundGraphs``), and the host reads only its value.
 """
 from __future__ import annotations
 

@@ -32,7 +32,8 @@ def sstep_bdcd_inner(Gblk, QTalpha, alpha_at, y_at, flat, m, inv_lam,
     Gblk: (sb, sb), QTalpha: (sb,), alpha_at/y_at: (s, b), flat: (sb,),
     valid: (s,) 1/0 mask for the ragged final round (padded blocks get
     dalpha = 0).  Returns dalpha: (s, b).  On the card these are s small
-    solves of a few launches each: bound by launch overhead.
+    solves of a few launches each: bound by launch overhead unless the
+    rounds are replayed as a graph (``core.loop``).
     """
     dtype = alpha_at.dtype
     dev = alpha_at.device
@@ -41,13 +42,13 @@ def sstep_bdcd_inner(Gblk, QTalpha, alpha_at, y_at, flat, m, inv_lam,
     # collide[t, q, j, p] = 1 iff flat[t*b+q] == flat[j*b+p]
     collide4 = (flat[:, None] == flat[None, :]).to(dtype).reshape(s, b, s, b)
     Gblk4 = Gblk.reshape(s, b, s, b)                  # [t, q, j, p]
-    m_eye = m * torch.eye(b, dtype=dtype, device=dev)
     dalpha = torch.zeros((s, b), dtype=dtype, device=dev)
     for j in range(s):
         # dalpha rows t >= j are still 0, so dalpha is the t < j prefix
         vv = torch.einsum("tq,tqp->p", dalpha, collide4[:, :, j, :])
         uv = torch.einsum("tq,tqp->p", dalpha, Gblk4[:, :, j, :])
-        G = inv_lam * Gblk4[j, :, j, :] + m_eye
+        G = inv_lam * Gblk4[j, :, j, :]
+        G.diagonal().add_(m)                      # + m I
         rhs = (y_at[j] - m * alpha_at[j] - m * vv
                - inv_lam * QTalpha[j * b:(j + 1) * b] - inv_lam * uv)
         dalpha[j] = solve_small(G, rhs) * ones[j]
@@ -82,9 +83,11 @@ def make_sstep_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor,
         # --- local phase: s block solves ---------------------------------
         dalpha = sstep_bdcd_inner(Gblk, QTalpha, alpha[idx], y[idx], flat,
                                   m, inv_lam, s, b, valid)
-        # blocks may overlap inside a round: index_add sums every
-        # duplicate, as JAX's .at[].add does
-        return alpha.index_add(0, flat, dalpha.reshape(s * b))
+        # blocks may overlap inside a round: the accumulating index_put
+        # sums every duplicate, as JAX's .at[].add does, and on the card in
+        # a fixed order (index_add's atomics would not repeat bit for bit)
+        return alpha.index_put((flat,), dalpha.reshape(s * b),
+                               accumulate=True)
 
     return round_fn
 
@@ -99,5 +102,6 @@ def sstep_bdcd_krr(A: torch.Tensor, y: torch.Tensor, alpha0: torch.Tensor,
     round_fn = make_sstep_bdcd_round_fn(A, y, cfg, s, gram_fn=gram_fn,
                                         op=op)
     xs = pad_rounds(as_schedule(schedule, A.device), s)
-    res = run_rounds(round_fn, alpha0, xs, record_state=record_rounds)
+    res = run_rounds(round_fn, alpha0, xs, record_state=record_rounds,
+                     capture=op is None or op.capturable)
     return res.state, (res.state_hist if record_rounds else None)

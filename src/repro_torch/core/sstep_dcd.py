@@ -28,8 +28,9 @@ def sstep_dcd_inner(G0, u_dot_alpha, alpha_at, idx_s, nu, omega, s,
     idx_s: (s,) the round's coordinates, valid: (s,) 1/0 mask for the
     ragged final round (padded slots get theta = 0).  Returns thetas (s,).
 
-    Eager PyTorch runs this as ~15 small launches per solve, s solves per
-    round: on the card it is bound by launch overhead.
+    This is ~13 small launches per solve, s solves per round: eager on
+    the card it is bound by launch overhead, which the captured driver
+    (``core.loop.RoundGraphs``) takes off by replaying them as a graph.
     """
     dtype = alpha_at.dtype
     ones = (torch.ones(s, dtype=dtype, device=alpha_at.device)
@@ -47,7 +48,7 @@ def sstep_dcd_inner(G0, u_dot_alpha, alpha_at, idx_s, nu, omega, s,
         cand = torch.clamp(rho - g, 0.0, nu) - rho
         theta = torch.where(cand.abs() != 0.0,
                             torch.clamp(rho - g / eta[j], 0.0, nu) - rho,
-                            torch.zeros_like(cand))
+                            0.0)
         thetas[j] = theta * ones[j]
     return thetas
 
@@ -81,8 +82,10 @@ def make_sstep_dcd_round_fn(A: torch.Tensor, y: torch.Tensor,
         # --- local phase: s sequential scalar solves --------------------
         thetas = sstep_dcd_inner(G0, u_dot_alpha, alpha[idx_s], idx_s,
                                  nu, omega, s, valid)
-        # index_add sums repeated coordinates, as JAX's .at[].add does
-        return alpha.index_add(0, idx_s, thetas)
+        # the accumulating index_put sums repeated coordinates, as JAX's
+        # .at[].add does, and on the card in a fixed order (index_add's
+        # atomics would not repeat bit for bit)
+        return alpha.index_put((idx_s,), thetas, accumulate=True)
 
     return round_fn
 
@@ -96,5 +99,6 @@ def sstep_dcd_ksvm(A: torch.Tensor, y: torch.Tensor, alpha0: torch.Tensor,
     round_fn = make_sstep_dcd_round_fn(A, y, cfg, s, gram_fn=gram_fn,
                                        op=op)
     xs = pad_rounds(as_schedule(schedule, A.device), s)
-    res = run_rounds(round_fn, alpha0, xs, record_state=record_rounds)
+    res = run_rounds(round_fn, alpha0, xs, record_state=record_rounds,
+                     capture=op is None or op.capturable)
     return res.state, (res.state_hist if record_rounds else None)

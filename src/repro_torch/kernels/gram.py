@@ -83,3 +83,4 @@ def gram_cuda(A: torch.Tensor, B: torch.Tensor, cfg: KernelConfig,
 
 
 gram_cuda.launches = 0
+gram_cuda.warmup_launches = 0     # core.loop.RoundGraphs' warm-up rounds

@@ -25,6 +25,11 @@ from .kmv_stream import (gather_rows_cuda, gather_rows_plain,
                          kmv_stream_full_plain, kmv_stream_plain)
 from .rmsnorm import RMSNorm
 
+# The counted wrappers a captured round or check launches
+# (``core.loop.RoundGraphs`` keeps their ``launches`` exact across a
+# graph's capture and replays).
+CAPTURED = (kmv_cuda, gram_cuda)
+
 
 def kmv(A: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
         cfg: KernelConfig,

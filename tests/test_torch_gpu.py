@@ -41,6 +41,10 @@ from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
 from repro_torch.configs import get_config
 from repro_torch.core.kernels import (KernelConfig, StreamingGramOperator,
                                       _chunk)
+from repro_torch.core import (KRRConfig, NO_TOL, SVMConfig,
+                              krr_rel_residual, loop, make_bdcd_round_fn,
+                              make_dcd_round_fn, make_sstep_bdcd_round_fn,
+                              make_sstep_dcd_round_fn, pad_rounds)
 from repro_torch.core.predict import BatchedPredictor
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -1109,3 +1113,203 @@ def test_reduced_train_steps_on_card_match_host(cuda_device):
     for (lc, rc), (lh, rh) in zip(runs["cuda"], runs["cpu"]):
         assert abs(lc - lh) <= 5e-2 * abs(lh) and rc == rh
     assert runs["cuda"][-1][0] < runs["cuda"][0][0]
+
+
+# ---- the captured round driver (core.loop.RoundGraphs) -----------------
+
+def _card_solvers(dev, seed=5):
+    """(name, round fn, xs, m, metric fn) for the four solvers on the card,
+    rbf through the KMV and gram kernels, each over a schedule with a
+    tail run (R not a multiple of the runs' length)."""
+    rng = np.random.default_rng(seed)
+    m, n = 300, 40
+    A = torch.tensor(rng.standard_normal((m, n)) / np.sqrt(n),
+                     dtype=torch.float32, device=dev)
+    y = torch.tensor(np.where(rng.random(m) < 0.5, 1.0, -1.0),
+                     dtype=torch.float32, device=dev)
+    yk = torch.sin(A @ torch.ones(n, device=dev))
+    rbf = KernelConfig("rbf", sigma=0.7)
+    svm, krr = SVMConfig(C=1.0, kernel=rbf), KRRConfig(lam=0.5, kernel=rbf)
+    gen = torch.Generator().manual_seed(seed)
+    sched = torch.randint(0, m, (loop.FAST_RUN + 37,), generator=gen).to(dev)
+    blocks = torch.stack([torch.randperm(m, generator=gen)[:8]
+                          for _ in range(4 * 21)]).to(dev)
+    gap = lambda a: krr_rel_residual(A, yk, a, krr)  # noqa: E731
+    return [
+        ("dcd", make_dcd_round_fn(A, y, svm), sched, m, gap),
+        ("sstep_dcd", make_sstep_dcd_round_fn(A, y, svm, 8),
+         pad_rounds(sched, 8), m, gap),
+        ("bdcd", make_bdcd_round_fn(A, yk, krr), blocks, m, gap),
+        ("sstep_bdcd", make_sstep_bdcd_round_fn(A, yk, krr, 4),
+         pad_rounds(blocks, 4), m, gap),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["fast", "record", "tol"])
+@pytest.mark.parametrize("solver", ["dcd", "sstep_dcd", "bdcd",
+                                    "sstep_bdcd"])
+def test_captured_rounds_equal_eager_loop_bit_for_bit(cuda_device, solver,
+                                                      path):
+    """The rounds replayed as CUDA graphs launch the same kernels in the
+    same order as the eager loop: the same bits in alpha, the recorded
+    states and the metric history (the K-RR ones through torch's small
+    solve captured in the graph)."""
+    _, rf, xs, m, metric = next(c for c in _card_solvers(cuda_device)
+                                if c[0] == solver)
+    a0 = torch.zeros(m, device=cuda_device)
+    kw = {"fast": {}, "record": dict(record_state=True),
+          "tol": dict(tol=NO_TOL, check_every=5, metric_fn=metric)}[path]
+    got = loop.run_rounds(rf, a0, xs, **kw)
+    want = loop._run_rounds_eager(rf, a0, xs, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.state).all())
+    assert torch.equal(got.state, want.state)
+    for name in ("state_hist", "metric_hist"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert torch.equal(g, w), name
+    assert (got.checks_run, got.rounds_run) == (want.checks_run,
+                                                want.rounds_run)
+
+
+@pytest.mark.gpu
+def test_stale_schedule_buffer_breaks_bit_equality_on_card(cuda_device):
+    """Replays that skip the copy of their schedule slice repeat the first
+    run's coordinates and must not match the eager loop."""
+    _, rf, xs, m, _ = _card_solvers(cuda_device)[1]
+    a0 = torch.zeros(m, device=cuda_device)
+    want = loop._run_rounds_eager(rf, a0, xs)
+    with loop.RoundGraphs(rf, a0, xs, 4) as g:
+        assert g.on_card and g.capture_s > 0 and g.pool_bytes > 0
+        for j in range(g.n_runs):
+            g.run(j, refresh=j == 0)
+        stale = g.state.clone()
+    assert not torch.equal(stale, want.state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("problem", ["ksvm", "krr"])
+def test_captured_fit_counts_exact_launches(cuda_device, problem):
+    """kmv and gram count the launches a captured fit makes, once per
+    round and once per check, and the warm-up's apart."""
+    rng = np.random.default_rng(4)
+    m, n = 200, 24
+    A = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
+    if problem == "ksvm":
+        y = np.where(rng.random(m) < 0.5, 1.0, -1.0).astype(np.float32)
+        opts = SolverOptions(method="sstep", s=4, max_iters=4 * 150, seed=1)
+        est = KernelSVM(C=1.0, kernel="rbf", options=opts,
+                        device=cuda_device)
+        rounds, checks = 150, 0
+    else:
+        y = rng.standard_normal(m).astype(np.float32)
+        opts = SolverOptions(method="sstep", s=4, b=6, max_iters=4 * 23,
+                             seed=1, record=True, check_every=5)
+        est = KernelRidge(lam=0.5, kernel="rbf", options=opts,
+                          device=cuda_device)
+        rounds, checks = 23, 5
+    for fn in (kmv_cuda, gram_cuda):
+        fn.launches = fn.warmup_launches = 0
+    res = est.fit(A, y)
+    torch.cuda.synchronize()
+    assert res.rounds_run == rounds
+    assert (kmv_cuda.launches, gram_cuda.launches) == (rounds + checks,
+                                                       rounds)
+    # one eager round (and check) before the captures
+    assert (kmv_cuda.warmup_launches, gram_cuda.warmup_launches) == (
+        1 + (checks > 0), 1)
+
+
+@pytest.mark.gpu
+def test_round_with_a_host_read_fails_its_capture(cuda_device,
+                                                  monkeypatch):
+    """A round that reads a value on the host cannot be captured: the
+    driver raises and does not run the rounds eagerly instead."""
+    _, rf, xs, m, _ = _card_solvers(cuda_device)[0]
+    eager = []
+    monkeypatch.setattr(loop, "_run_rounds_eager",
+                        lambda *a, **k: eager.append(1))
+
+    def reads_host(alpha, i):
+        if float(alpha.sum().item()) > 1e30:
+            return alpha
+        return rf(alpha, i)
+
+    with pytest.raises(RuntimeError):
+        loop.run_rounds(reads_host, torch.zeros(m, device=cuda_device), xs)
+    assert not eager
+    # the card still works: the same rounds, captured, run
+    monkeypatch.undo()
+    res = loop.run_rounds(rf, torch.zeros(m, device=cuda_device), xs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(res.state).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("problem", ["ksvm", "krr"])
+@pytest.mark.parametrize("rep", ["exact", "nystrom"])
+def test_captured_facade_fit_equals_eager_fit(cuda_device, monkeypatch,
+                                             problem, rep):
+    """The facade's fit through the graphs against the same fit with the
+    operator declared not capturable (the eager loop): the same alpha and
+    metric history, bit for bit."""
+    rng = np.random.default_rng(11)
+    m, n = 240, 24
+    A = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
+    extra = dict(approx="nystrom", landmarks=32) if rep == "nystrom" else {}
+    if problem == "ksvm":
+        y = np.where(rng.random(m) < 0.5, 1.0, -1.0).astype(np.float32)
+        opts = SolverOptions(method="sstep", s=8, max_iters=400, seed=2,
+                             tol=1e-9, check_every=7, **extra)
+        make = lambda: KernelSVM(C=1.0, kernel="rbf",  # noqa: E731
+                                 options=opts, device=cuda_device)
+    else:
+        y = rng.standard_normal(m).astype(np.float32)
+        opts = SolverOptions(method="sstep", s=4, b=8, max_iters=160,
+                             seed=2, tol=1e-9, check_every=6, **extra)
+        make = lambda: KernelRidge(lam=0.5, kernel="rbf",  # noqa: E731
+                                   options=opts, device=cuda_device)
+    est = make()
+    got = est.fit(A, y)
+    monkeypatch.setattr(type(est.op_), "capturable", False)
+    want = make().fit(A, y, schedule=got.schedule)
+    torch.cuda.synchronize()
+    assert torch.equal(got.alpha, want.alpha)
+    np.testing.assert_array_equal(got.history, want.history)
+    assert got.rounds_run == want.rounds_run
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["sstep_dcd", "sstep_bdcd"])
+def test_rounds_with_repeated_coordinates_repeat_bit_for_bit(cuda_device,
+                                                             solver):
+    """Rounds whose coordinates repeat many times over (m = 48, 32 or 64
+    coordinates a round) sum the repeats in a fixed order: two captured
+    drives and two eager ones give the same bits."""
+    rng = np.random.default_rng(13)
+    m, n = 48, 16
+    A = torch.tensor(rng.standard_normal((m, n)) / np.sqrt(n),
+                     dtype=torch.float32, device=cuda_device)
+    y = torch.tensor(np.where(rng.random(m) < 0.5, 1.0, -1.0),
+                     dtype=torch.float32, device=cuda_device)
+    rbf = KernelConfig("rbf", sigma=0.7)
+    gen = torch.Generator().manual_seed(3)
+    if solver == "sstep_dcd":
+        rf = make_sstep_dcd_round_fn(A, y, SVMConfig(C=1.0, kernel=rbf), 32)
+        xs = pad_rounds(torch.randint(0, m, (32 * 20,),
+                                      generator=gen).to(cuda_device), 32)
+    else:
+        rf = make_sstep_bdcd_round_fn(A, y, KRRConfig(lam=0.5, kernel=rbf),
+                                      8)
+        blocks = torch.stack([torch.randperm(m, generator=gen)[:8]
+                              for _ in range(8 * 20)])
+        xs = pad_rounds(blocks.to(cuda_device), 8)
+    a0 = torch.zeros(m, device=cuda_device)
+    runs = [loop.run_rounds(rf, a0, xs).state for _ in range(2)]
+    runs += [loop._run_rounds_eager(rf, a0, xs).state for _ in range(2)]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(runs[0]).all())
+    for other in runs[1:]:
+        assert torch.equal(runs[0], other)
