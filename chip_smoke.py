@@ -119,6 +119,37 @@ Phases (each one fails the run with a non-zero exit):
           version and the backward of scaled_dot_product_attention, the
           tensor-core dq and dkv beside the FP32-FMA ones
 
+  9. sweeps, on phases 3-4's data (it runs after phase 6, before the LM
+     phases free that data); nothing cut in width:
+       a. KMV at c = F against its plain version, repeating bit for bit:
+          r = 256 at c = 16 (the K-RR fleet round), r = 32 at c = 8 (the
+          K-SVM fleet round), the full matvec B = A at c = 4, 8 and 16,
+          each with the regime kmv_plan picks; at c = 16 the kernel with
+          its last m split left out must fail; times against F launches at
+          c = 1, the plain version and the bound; at c = 8 and 16 the wide
+          plan kmv_plan took before beside the symmetric one
+       b. solve_fleet(16 lambdas 1e-2..1e2 with 1.0, s=8 b=32 tol=1e-4)
+          replaying phase 4's schedule: member lambda = 1 against phase 4
+          and lambda = 100 against its own fit (1e-5), one kmv and one gram
+          launch a round for the whole fleet and one kmv a check; an F = 1
+          fleet equal to phase 4's fit bit for bit; the fleet cut at the
+          check where its first member converged gives that member's alpha
+          bit for bit
+       c. solve_fleet(8 Cs with 1.0, s=32) replaying phase 3's schedule,
+          held likewise against phase 3; both fleets' rounds and checks
+          replayed and timed
+       d. KernelRidge(s="auto", b="auto", probe=2) to the residual phase 4
+          reached (its frontier, probes and winner); KernelRidge(stream=
+          True): the chunk rows from the device's budget, measured link
+          and chunk floor, its first residual check against phase 4's,
+          its wall at most STREAM_AUTO_SLACK x the same fit's at 2048-row
+          chunks
+       e. reg_path over 4 lambdas (warm iterations against the fleet's
+          cold ones) and cross_validate (3 folds, 4 lambdas, via the
+          fleet, H = 512: a depth cut)
+       f. FitResult.comm of phases 3-4, the fleets' modeled and measured
+          speedups
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
 device, or without the port's sources beside this file, it exits
@@ -166,6 +197,21 @@ STREAM_CHUNK_ROWS = 2048
 # Streamed vs resident metric histories on one schedule: the same f32
 # full-KMV sums taken chunk by chunk in another order (~1e-6 relative).
 TOL_STREAM_METRIC = 1e-4
+# A fleet member against its single fit on one schedule: the reference's
+# f32 iterate bound (tests/test_slabfree_parity.py).
+TOL_ITERATE = 1e-5
+# Phase 9d: the autotuned K-RR fit's budget (the model picks b = 1: it
+# needs about the coordinate updates phase 4's b = 32 took to its check
+# TUNED_CHECK, 16 384, and drawing its schedule costs the host O(H m):
+# about 20 s at 2 ** 17 here), the check of phase 4 whose residual it must
+# reach, and the checks of the stream=True fit (depth cuts of phase 4's
+# and 5b's 16).
+TUNED_MAX_ITERS = 2 ** 15
+TUNED_CHECK = 4
+STREAM_AUTO_CHECKS = 1
+# how much slower than the same fit at 2048-row chunks the stream=True
+# fit's wall may read (both pin A anew; run-to-run spread of such walls)
+STREAM_AUTO_SLACK = 1.25
 # Nystrom factor product Phi Phi^T, kernels against the plain build, in
 # units of f32 eps x kappa(K_LL) x max|Phi Phi^T|: the gram kernel and
 # its plain version sum the same f32 products in another order, so their
@@ -922,6 +968,434 @@ def stream_phase(c, args, failures):
             "copy_only_ms": full_copy, "compute_only_ms": full_c,
             "resident_kmv_ms": full_r, "ten_piece_route_ms": full_p}]
 
+
+
+def sweep_phase(c, args, failures):
+    """Phase 9 (module docstring), on phases 3-4's data and fits in ``c``:
+    KMV at c = F, the K-RR and K-SVM fleets, the autotuner, a streamed fit
+    with its chunk rows from the device's budget, the warm-started path
+    and cross-validation.  Returns the c = F KMV entries of the kernels
+    record."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
+    from repro_torch.core import ExactGramOperator, pad_rounds
+    from repro_torch.core.perf_model import stream_working_set_bytes
+    from repro_torch.kernels.gram import gram_cuda
+    from repro_torch.kernels.kmv import (WS_MAX_FLOATS, KmvPlan, kmv_cuda,
+                                         kmv_plain, kmv_plan)
+    from repro_torch.kernels.kmv import launch as kmv_launch
+    from repro_torch.kernels._launch import check_inputs, sm_count
+    from repro_torch.core.loop import FAST_RUN
+    from repro_torch.tune import cross_validate, reg_path, solve_fleet
+    from repro_torch.tune.fleet import fleet_metric
+
+    dev, m, n, A, Ar = c.dev, c.m, c.n, c.A, c.Ar
+    rbf = c.kernels["rbf"]
+    sms = sm_count(0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    t_phase = time.perf_counter()
+
+    def counts():
+        return kmv_cuda.launches, gram_cuda.launches
+
+    def reset():
+        for fn in (kmv_cuda, gram_cuda):
+            fn.launches = fn.warmup_launches = 0
+
+    # ---- 9a. KMV at c = F ---------------------------------------------
+    code = check_inputs("kmv", A, A)
+    kmv_at = {}
+    for label, B, F in (("K-RR fleet round", c.B_of["r256"], 16),
+                        ("K-SVM fleet round", c.B_of["r32"], 8),
+                        ("full matvec, B = A", A, 4),
+                        ("full matvec, B = A", A, 8),
+                        ("full matvec, B = A", A, 16)):
+        r = B.shape[0]
+        X = torch.randn((m, F), generator=gen, device=dev)
+        plan = kmv_plan(m, r, F, sms, B is A)
+        got = kmv_cuda(A, B, X, rbf)
+        want = kmv_plain(A, B, X, rbf)
+        ratio, err = allclose_ratio(got, want, TOL_KMV_F32)
+        same = torch.equal(got, kmv_cuda(A, B, X, rbf))
+        iters = 2 if B is A else 10
+        ms = time_queued(lambda: kmv_cuda(A, B, X, rbf), iters)
+        one = time_queued(lambda: kmv_cuda(A, B, X[:, 0], rbf), iters)
+        plain = time_queued(lambda: kmv_plain(A, B, X, rbf), 1 if B is A
+                            else iters)
+        pairs = m * (m + 1) // 2 if B is A else m * r
+        nbytes = 4 * (m * n + (0 if B is A else r * n) + m * F + r * F)
+        flops = 2 * pairs * n + 2 * m * r * F + 2 * (m + r) * n + 6 * pairs
+        b_ms, b_by = bound_ms(nbytes, flops)
+        row = dict(label=label, r=r, F=F, plan=plan, err=err, ms=ms,
+                   one=one, plain=plain, bound=b_ms, by=b_by)
+        if B is A and F >= 8:
+            # the plan kmv_plan took before the symmetric workspace limit:
+            # every tile, the split in runs of whole tiles
+            m_tiles = -(-m // 128)
+            per = -(-m_tiles // min(m_tiles, WS_MAX_FLOATS // (r * F)))
+            wide = KmvPlan("wide", 128, 128, -(-m_tiles // per), per * 128)
+            row["wide"] = time_queued(
+                lambda: kmv_launch(A, A, X, rbf, wide, code), iters)
+            wide_err = float((kmv_launch(A, A, X, rbf, wide, code)
+                              - want).abs().max())
+            row["wide_err"] = wide_err
+        if B is A and F == 16:
+            bad = kmv_launch(A, A, X, rbf,
+                             plan._replace(splits=plan.splits - 1), code)
+            bad_ratio, bad_err = allclose_ratio(bad, want, TOL_KMV_F32)
+            print(f"[sweep] kmv c=16 B = A ({plan.regime}) with its last m "
+                  f"split left out: max abs err {bad_err:.3e} "
+                  f"({bad_ratio:.1f}x tolerance; must fail)")
+            if bad_ratio <= 1.0:
+                failures.append("the c = 16 KMV check passes a kernel with "
+                                "its last split left out")
+        kmv_at[(label, F)] = row
+        print(f"[sweep] kmv rbf ({m}, {r}, {n}) c={F} [{plan.regime} "
+              f"{plan.bm} x {plan.br}, {plan.splits} splits]: {ms:.4f} ms "
+              f"against {F} x c=1 {F * one:.4f} ms (c=1 {one:.4f}) | plain "
+              f"{plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}, "
+              f"{b_ms / ms:.1%} of it) | max abs err {err:.3e}"
+              + (f" | the wide plan of the same call {row['wide']:.4f} ms "
+                 f"(max abs err {row['wide_err']:.3e})" if "wide" in row
+                 else ""))
+        if not ratio <= 1.0:
+            failures.append(f"kmv c={F} {label}: {err:.3e} ({ratio:.2f}x "
+                            f"tolerance)")
+        if not same:
+            failures.append(f"kmv c={F} {label}: a second call gave other "
+                            f"bits")
+    del X, got, want
+    torch.cuda.empty_cache()
+
+    # ---- 9b. the K-RR fleet -------------------------------------------
+    lams = np.delete(np.logspace(-2, 2, 17), 1)         # 16, 1.0 among them
+    i_one, i_big = int(np.argmin(abs(lams - 1.0))), len(lams) - 1
+    opts_k = c.krr.options
+    full_k = api._schedule("krr", opts_k, m, 32, dev)   # phase 4's draw
+    if not torch.equal(full_k[:c.r_k.iters_run], c.r_k.schedule):
+        failures.append("the redrawn K-RR schedule is not phase 4's")
+    c.spy.take()
+    reset()
+    fk = solve_fleet(Ar, c.yr, lams=lams, kernel="rbf", options=opts_k,
+                     schedule=full_k, device=dev)
+    fk_counts = counts()
+    fk_warm = (kmv_cuda.warmup_launches, gram_cuda.warmup_launches)
+    drivers = c.spy.take()
+    checks = fk.history.shape[0]
+    want_counts = (fk.rounds_run + checks, fk.rounds_run)
+    print(f"[sweep] K-RR fleet, F = {len(lams)} lambdas "
+          f"{lams.min():.0e}..{lams.max():.0e}, s=8 b=32 tol="
+          f"{opts_k.tol:g}: {fk.rounds_run} rounds, {checks} checks, "
+          f"converged {int(fk.converged.sum())}/{len(lams)}, "
+          f"{fk.wall_time_s:.2f} s against {len(lams)} x the single fit's "
+          f"{c.r_k.wall_time_s:.2f} s = {len(lams) * c.r_k.wall_time_s:.2f}"
+          f" s ({len(lams) * c.r_k.wall_time_s / fk.wall_time_s:.1f}x)")
+    print(f"[sweep] K-RR fleet launches: kmv {fk_counts[0]}, gram "
+          f"{fk_counts[1]} (one each a round for the whole fleet, one kmv "
+          f"a check: {want_counts}); warm-up kmv {fk_warm[0]}, gram "
+          f"{fk_warm[1]}; drivers {drivers[0]} captured, {drivers[1]} eager")
+    if fk_counts != want_counts:
+        failures.append(f"K-RR fleet launches {fk_counts}, not {want_counts}")
+    if drivers != (1, 0):
+        failures.append(f"the K-RR fleet did not run captured: {drivers}")
+    r_big = KernelRidge(lam=float(lams[i_big]), kernel="rbf", device=dev,
+                        options=opts_k).fit(Ar, c.yr, schedule=full_k)
+    f1 = solve_fleet(Ar, c.yr, lams=[1.0], kernel="rbf", options=opts_k,
+                     schedule=full_k, device=dev)
+    c.spy.take()
+    for label, got, want in (
+            ("member lambda = 1 vs phase 4", fk.alpha[i_one], c.r_k.alpha),
+            (f"member lambda = {lams[i_big]:g} vs its single fit",
+             fk.alpha[i_big], r_big.alpha)):
+        ratio, err = allclose_ratio(got, want, TOL_ITERATE)
+        print(f"[sweep] K-RR fleet {label}: max abs err {err:.3e} (bound "
+              f"{TOL_ITERATE})")
+        if not ratio <= 1.0:
+            failures.append(f"K-RR fleet {label}: {err:.3e}")
+    for label, got, want in (("alpha", f1.alpha[0], c.r_k.alpha),
+                             ("residual history", f1.history[:, 0],
+                              c.r_k.history)):
+        same, diff = bit_equal(got, want)
+        print(f"[sweep] K-RR fleet F = 1 vs phase 4's fit: {label} "
+              f"{'equal bit for bit' if same else 'DIFFERS'} (max abs diff "
+              f"{diff:.3e})")
+        if not same:
+            failures.append(f"the F = 1 K-RR fleet's {label} differs from "
+                            f"phase 4's: {diff:.3e}")
+    # the frozen members: on this data every lambda's residual falls alike
+    # (it is the share of coordinates not yet drawn), so a member warm
+    # started at phase 4's solution converges at the first check while a
+    # cold one needs about half the budget; cut at that check, the warm
+    # member's alpha must be the full run's bit for bit, the cold one's
+    # must have moved on
+    tol_f = float(c.r_k.history[len(c.r_k.history) // 2])
+    opts_f = dataclasses.replace(opts_k, tol=tol_f)
+    warm = torch.stack((c.r_k.alpha, torch.zeros_like(c.r_k.alpha)))
+    ff = solve_fleet(Ar, c.yr, lams=[1.0, 1.0], kernel="rbf",
+                     options=opts_f, schedule=full_k, warm_start=warm,
+                     device=dev)
+    done_at = [int(np.argmax(ff.history[:, j] <= tol_f)) + 1
+               if ff.converged[j] else None for j in range(2)]
+    fc = solve_fleet(Ar, c.yr, lams=[1.0, 1.0], kernel="rbf",
+                     options=opts_f, warm_start=warm, device=dev,
+                     schedule=full_k[:opts_k.check_every * 8])
+    c.spy.take()
+    same, diff = bit_equal(fc.alpha[0], ff.alpha[0])
+    moved = not bit_equal(fc.alpha[1], ff.alpha[1])[0]
+    print(f"[sweep] K-RR fleet of a warm and a cold member, tol "
+          f"{tol_f:.4e} (phase 4's residual at its check "
+          f"{len(c.r_k.history) // 2 + 1}): done at checks {done_at} of "
+          f"{ff.history.shape[0]}; the warm member's alpha cut at its check "
+          f"vs the full run's {'equal bit for bit' if same else 'DIFFERS'} "
+          f"(max abs diff {diff:.3e}), the cold one's "
+          f"{'moved on' if moved else 'DID NOT MOVE'}")
+    if not (same and moved and done_at[0] == 1
+            and (done_at[1] or 0) > 1):
+        failures.append(f"the frozen-member check: warm member done at "
+                        f"{done_at}, bit equal {same}, cold moved {moved}")
+
+    # ---- 9c. the K-SVM fleet ------------------------------------------
+    Cs = np.array([0.1, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0])
+    opts_s = c.svm.options
+    reset()
+    fs = solve_fleet(A, c.y, Cs=Cs, kernel="rbf", options=opts_s,
+                     schedule=c.r_s.schedule, device=dev)
+    fs_counts = counts()
+    drivers = c.spy.take()
+    print(f"[sweep] K-SVM fleet, F = {len(Cs)} Cs {Cs.min():g}..{Cs.max():g}"
+          f", s=32: {fs.rounds_run} rounds, {fs.wall_time_s:.2f} s against "
+          f"{len(Cs)} x the single fit's {c.r_s.wall_time_s:.2f} s = "
+          f"{len(Cs) * c.r_s.wall_time_s:.2f} s; launches kmv "
+          f"{fs_counts[0]}, gram {fs_counts[1]}; drivers {drivers}")
+    if fs_counts != (fs.rounds_run, fs.rounds_run):
+        failures.append(f"K-SVM fleet launches {fs_counts}, not one kmv and "
+                        f"one gram a round ({fs.rounds_run})")
+    if drivers != (1, 0):
+        failures.append(f"the K-SVM fleet did not run captured: {drivers}")
+    s_one = int(np.argmin(abs(Cs - 1.0)))
+    r_c25 = KernelSVM(C=0.25, kernel="rbf", device=dev,
+                      options=opts_s).fit(A, c.y, schedule=c.r_s.schedule)
+    f1s = solve_fleet(A, c.y, Cs=[1.0], kernel="rbf", options=opts_s,
+                      schedule=c.r_s.schedule, device=dev)
+    c.spy.take()
+    for label, got, want in (
+            ("member C = 1 vs phase 3", fs.alpha[s_one], c.r_s.alpha),
+            ("member C = 0.25 vs its single fit", fs.alpha[1], r_c25.alpha)):
+        ratio, err = allclose_ratio(got, want, TOL_ITERATE)
+        print(f"[sweep] K-SVM fleet {label}: max abs err {err:.3e} (bound "
+              f"{TOL_ITERATE})")
+        if not ratio <= 1.0:
+            failures.append(f"K-SVM fleet {label}: {err:.3e}")
+    same, diff = bit_equal(f1s.alpha[0], c.r_s.alpha)
+    print(f"[sweep] K-SVM fleet F = 1 vs phase 3's fit: alpha "
+          f"{'equal bit for bit' if same else 'DIFFERS'} (max abs diff "
+          f"{diff:.3e})")
+    if not same:
+        failures.append(f"the F = 1 K-SVM fleet differs from phase 3: "
+                        f"{diff:.3e}")
+
+    # the fleet rounds replayed: device ms a round and a check, capture
+    op_k = ExactGramOperator(Ar, rbf)
+    params_k = torch.tensor(lams, dtype=torch.float32, device=dev)
+    rf_k = api._round_fn("krr", Ar, c.yr, c.krr.cfg, 8, None, op_k,
+                         params_k)
+    xs_k = pad_rounds(full_k, 8)
+    a0_k = torch.zeros((len(lams), m), device=dev)
+    met_k = fleet_metric("krr", op_k, Ar, c.yr, c.krr.cfg, opts_k, lams)
+    g_round = graph_timing(f"K-RR fleet F={len(lams)}", rf_k, a0_k, xs_k,
+                           FAST_RUN)
+    g_check = graph_timing(f"K-RR fleet F={len(lams)}, each run ending in "
+                           f"its check", rf_k, a0_k, xs_k,
+                           opts_k.check_every, metric_fn=met_k)
+    op_s = ExactGramOperator(A, rbf).scale_rows(c.y)
+    rf_s = api._round_fn("ksvm", A, c.y, c.svm.cfg, 32, None, op_s,
+                         torch.tensor(Cs, dtype=torch.float32, device=dev))
+    g_svm = graph_timing(f"K-SVM fleet F={len(Cs)}", rf_s,
+                         torch.zeros((len(Cs), m), device=dev),
+                         pad_rounds(c.r_s.schedule, 32), FAST_RUN)
+    c.spy.take()
+    check_ms = g_check["run_ms"] - opts_k.check_every * g_round["round_ms"]
+    kr = kmv_at[("K-RR fleet round", 16)]
+    print(f"[sweep] K-RR fleet F=16 replayed: {g_round['round_ms']:.4f} ms a "
+          f"round (its KMV c=16 {kr['ms']:.4f} ms), a check "
+          f"{check_ms:.2f} ms (KMV c=16 B = A "
+          f"{kmv_at[('full matvec, B = A', 16)]['ms']:.2f} ms), capture "
+          f"{g_check['capture_s'] * 1e3:.1f} ms; K-SVM fleet F=8: "
+          f"{g_svm['round_ms']:.4f} ms a round, capture "
+          f"{g_svm['capture_s'] * 1e3:.1f} ms")
+    del rf_k, op_k, rf_s, op_s, a0_k
+    fleet_counts = (fk_counts[0] + fs_counts[0], fk_counts[1] + fs_counts[1])
+
+    # ---- 9d. the autotuner and stream="auto" ----------------------------
+    # phase 4 never reaches its tol (its residual is the share of
+    # coordinates not yet drawn, 0.19 after its 2048 x 32 updates): the
+    # tuned fit must reach what phase 4 had at TUNED_CHECK (a depth cut)
+    tol_k = max(opts_k.tol, float(c.r_k.history[TUNED_CHECK - 1]))
+    opts_a = SolverOptions(s="auto", b="auto", probe=2, tol=tol_k,
+                           check_every=opts_k.check_every,
+                           max_iters=TUNED_MAX_ITERS, seed=args.seed)
+    ra = KernelRidge(lam=1.0, kernel="rbf", device=dev,
+                     options=opts_a).fit(Ar, c.yr)
+    c.spy.take()
+    plan = ra.plan
+    top = sorted((f for f in plan.frontier if f["feasible"]),
+                 key=lambda f: (f["time"], f["s"], f["b"]))[:5]
+    print(f"[tune] KernelRidge(s='auto', b='auto', probe=2): budget "
+          f"{plan.budget.hbm_bytes / 2 ** 30:.2f} GiB free device memory, "
+          f"link {plan.budget.dma_bps / 1e9:.2f} GB/s (measured); "
+          f"{len(plan.frontier)} candidates, the modeled top 5: "
+          + ", ".join(f"s={f['s']} b={f['b']} {f['time']:.4f} s"
+                      for f in top))
+    for p in plan.probed:
+        print(f"[tune] probe s={p['s']} b={p['b']}: {p['measured_s'] * 1e3:.3f}"
+              f" ms device time of 2 replayed rounds (fit wall "
+              f"{p['wall_s'] * 1e3:.1f} ms, its capture "
+              f"{p['capture_s'] * 1e3:.1f} ms and warm-up "
+              f"{p['warmup_s'] * 1e3:.1f} ms excluded)")
+    print(f"[tune] winner s={ra.options.s} b={ra.options.b}: "
+          f"{ra.iters_run} iters, {ra.rounds_run} rounds, converged="
+          f"{ra.converged}, last residual {float(ra.history[-1]):.4e} "
+          f"(tol {tol_k:.4e}: phase 4's residual at check {TUNED_CHECK}, "
+          f"after {TUNED_CHECK * opts_k.check_every * 8 * 32} coordinate "
+          f"updates), {ra.wall_time_s:.2f} s; modeled "
+          f"{plan.modeled['time']:.4f} s")
+    if not (ra.converged and float(ra.history[-1]) <= tol_k):
+        failures.append(f"the autotuned K-RR fit did not reach phase 4's "
+                        f"residual {tol_k:.3e}")
+    # its shape replayed: where its wall goes beside the probe's rounds
+    s_a, b_a = ra.options.s, ra.options.b
+    op_a = ExactGramOperator(Ar, rbf)
+    rf_a = api._round_fn("krr", Ar, c.yr, c.krr.cfg, s_a, None, op_a)
+    xs_a = pad_rounds(api._schedule("krr", ra.options, m, b_a, dev), s_a)
+    graph_timing(f"K-RR autotuned s={s_a} b={b_a}, each run ending in its "
+                 f"check", rf_a, torch.zeros_like(c.yr), xs_a,
+                 opts_k.check_every, runs=2,
+                 metric_fn=lambda a: api._metric_fn(
+                     "krr", op_a, Ar, c.yr, c.krr.cfg, ra.options)(a))
+    c.spy.take()
+    del op_a, rf_a, xs_a
+    if not all(p["measured_s"] < p["wall_s"] for p in plan.probed):
+        failures.append("a probe's measured time holds its capture")
+
+    opts_st = dataclasses.replace(opts_k, stream=True, tol=0.0, record=True,
+                                  max_iters=STREAM_AUTO_CHECKS
+                                  * opts_k.check_every * 8)
+    # the same fit at phase 5b's 2048-row chunks, first (it pays any cold
+    # pinned allocation): the chosen chunk must not read slower (a 128-row
+    # chunk, which the JAX model alone would pick, makes a check 12 403
+    # one-tile pair launches)
+    r2k = KernelRidge(lam=1.0, kernel="rbf", device=dev,
+                      options=dataclasses.replace(opts_st, stream=2048)).fit(
+        Ar.cpu(), c.yr, schedule=full_k[:opts_st.max_iters])
+    c.spy.take()
+    rst = KernelRidge(lam=1.0, kernel="rbf", device=dev,
+                      options=opts_st).fit(
+        Ar.cpu(), c.yr, schedule=full_k[:opts_st.max_iters])
+    drivers = c.spy.take()
+    cr = rst.options.stream
+    ws = stream_working_set_bytes(cr, n, 8 * 32, slots=rst.plan.budget.slots)
+    h_s, h_r = rst.history, c.r_k.history[:len(rst.history)]
+    d_hist = float(abs(h_s - h_r).max() / abs(h_r).max())
+    print(f"[tune] KernelRidge(stream=True): {cr} chunk rows chosen "
+          f"({-(-m // cr)} chunks), link {rst.plan.budget.dma_bps / 1e9:.2f}"
+          f" GB/s, working set {ws / 1e6:.1f} MB of {rst.plan.budget.slots}"
+          f" slots against a budget of "
+          f"{rst.plan.budget.stream_bytes / 1e9:.2f} GB; {rst.rounds_run} "
+          f"rounds and {len(h_s)} checks (a depth cut of phase 5b's), "
+          f"{rst.wall_time_s:.2f} s; residual history vs phase 4's max rel "
+          f"diff {d_hist:.3e} (bound {TOL_STREAM_METRIC}); drivers "
+          f"{drivers}")
+    if not d_hist <= TOL_STREAM_METRIC:
+        failures.append(f"stream=True residuals vs phase 4's {d_hist:.3e}")
+    print(f"[tune] the same fit at 2048-row chunks: {r2k.wall_time_s:.3f} s "
+          f"against the chosen {cr} rows' {rst.wall_time_s:.3f} s (must be "
+          f"at most {STREAM_AUTO_SLACK}x it; chunk floor "
+          f"{rst.plan.budget.min_chunk_rows} rows, the fewest whose chunk "
+          f"pair has a 128 x 128 tile for every SM)")
+    if not rst.wall_time_s <= STREAM_AUTO_SLACK * r2k.wall_time_s:
+        failures.append(f"stream=True chose {cr}-row chunks: "
+                        f"{rst.wall_time_s:.3f} s against 2048 rows' "
+                        f"{r2k.wall_time_s:.3f} s")
+
+    # ---- 9e. the warm-started path and cross-validation ----------------
+    lams_p = [100.0, 10.0, 1.0, 0.1]
+    t0 = time.perf_counter()
+    path = reg_path(Ar, c.yr, lams=lams_p, kernel="rbf", options=opts_f,
+                    schedule=full_k, device=dev)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    c.spy.take()
+    cold = []
+    for v in path.values:           # cold iterations to tol_f: the 16-lambda
+        j = int(np.argmin(abs(lams - v)))     # fleet's members, which ran
+        below = fk.history[:, j] <= tol_f     # every check on this schedule
+        cold.append(int(np.argmax(below) + 1) * opts_k.check_every * 8
+                    if below.any() else opts_k.max_iters)
+    warm = [r.iters_run for r in path.results]
+    print(f"[sweep] reg_path lambda {[float(v) for v in path.values]}, "
+          f"tol {tol_f:.4e}: iterations warm "
+          f"{warm} (total {sum(warm)}) against cold {cold} (total "
+          f"{sum(cold)}), last residuals "
+          + " ".join(f"{float(r.history[-1]):.2e}" for r in path.results)
+          + f"; {t_path:.2f} s")
+    if not sum(warm) <= sum(cold):
+        failures.append(f"the warm-started path took more iterations "
+                        f"({sum(warm)}) than cold fits ({sum(cold)})")
+    opts_cv = dataclasses.replace(opts_k, max_iters=512)
+    t0 = time.perf_counter()
+    cv = cross_validate(Ar, c.yr, lams=lams_p, kernel="rbf",
+                        options=opts_cv, folds=3, via="fleet",
+                        seed=args.seed, device=dev)
+    t_cv = time.perf_counter() - t0
+    c.spy.take()
+    print(f"[sweep] cross_validate 3 folds x {len(lams_p)} lambdas via the "
+          f"fleet, H = {opts_cv.max_iters} (a depth cut; the width is "
+          f"full): mean mse " + " ".join(f"{v:.4f}" for v in cv.mean_scores)
+          + f"; best lambda {cv.best_value:g}; {t_cv:.2f} s")
+    if not (cv.scores.shape == (3, len(lams_p))
+            and np.isfinite(cv.scores).all()
+            and cv.best_value in lams_p):
+        failures.append(f"cross_validate scores {cv.scores}")
+
+    # ---- 9f. report -----------------------------------------------------
+    for label, r in (("K-SVM s-step", c.r_s), ("K-SVM classical", c.r_c),
+                     ("K-RR s-step", c.r_k)):
+        cm = r.comm
+        print(f"[comm] {label} FitResult.comm (Hockney model, the paper's "
+              f"machine): time {cm['time']:.4e} s, flops {cm['flops']:.4e}, "
+              f"words {cm['words']:.4e}, msgs {cm['msgs']:.0f}")
+    print(f"[comm] K-RR fleet: modeled {fk.comm['time']:.4e} s against "
+          f"{fk.comm['sequential_time']:.4e} s sequential "
+          f"({fk.comm['modeled_speedup']:.2f}x); measured "
+          f"{len(lams) * c.r_k.wall_time_s / fk.wall_time_s:.2f}x")
+    print(f"[sweep] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+    entries = []
+    for key, what, launches in (
+            (("K-RR fleet round", 16), "krr_fleet_round", fk.rounds_run),
+            (("K-SVM fleet round", 8), "ksvm_fleet_round", fs.rounds_run),
+            (("full matvec, B = A", 16), "fleet_check",
+             fk.history.shape[0])):
+        row = kmv_at[key]
+        entries.append({
+            "name": f"kmv_c{row['F']}_{what}", "route": "cuda",
+            "source": "src/repro_torch/csrc/kmv.cu",
+            "replaces": "src/repro/kernels/kmv.py:93",
+            "shape": f"rbf (m, r, n, c) = ({m}, {row['r']}, {n}, "
+                     f"{row['F']}) [{row['plan'].regime}]",
+            "launches": launches,
+            "launches_note": "kmv launches at this shape in the fleet "
+                             "that runs it: its rounds, or its checks",
+            "max_abs_err": row["err"], "ms": row["ms"],
+            "plain_ms": row["plain"], "bound_ms": row["bound"],
+            "bound_by": row["by"], "library_ms": None,
+            "ms_c1_times_F": row["one"] * row["F"],
+            "ms_wide_plan": row.get("wide"),
+            "ms_timing": "device time, launches queued behind a spin "
+                         "kernel (time_queued)"})
+    return entries, fleet_counts
 
 
 def device_profile(run, calls: int):
@@ -2524,9 +2998,23 @@ def main(argv=None) -> int:
             print(f"[check] FAIL {f}")
         return fail(f"{len(failures)} main-path check(s) failed")
 
+    # ---- 9. sweeps (on phases 3-4's data, before the LM frees it) ---------
+    del rf_s, rf_c, rf_k, op_krr_c, gap_k, shapes, op_svm, op_krr
+    torch.cuda.empty_cache()
+    sweep_entries, fleet_counts = sweep_phase(SimpleNamespace(
+        dev=dev, m=m, n=n, kernels=kernels, A=A, y=y, Ar=Ar, yr=yr,
+        B_of=B_of, r_s=r_s, r_c=r_c, r_k=r_k, svm=svm, krr=krr, spy=spy),
+        args, failures)
+    print(f"[sweep] phase 9 launches (the fleets, counted from 0): kmv "
+          f"{fleet_counts[0]}, gram {fleet_counts[1]}")
+    if failures:
+        for f in failures:
+            print(f"[sweep] FAIL {f}")
+        return fail(f"{len(failures)} sweep check(s) failed")
+
     # ---- 7. LM prefill and serving ----------------------------------------
-    del A, Ar, Aq, Arq, B_of, gram_blocks, Xv, Xm, op_svm, op_krr, svm, krr
-    del dcd, rf_s, rf_c, rf_k, op_krr_c, gap_k, shapes
+    del A, Ar, Aq, Arq, B_of, gram_blocks, Xv, Xm, svm, krr
+    del dcd
     torch.cuda.empty_cache()
     lm_entries = lm_phase(dev, args, failures)
     if failures:
@@ -2581,6 +3069,7 @@ def main(argv=None) -> int:
                       "included (time_cuda)",
          "eager_ms": g256[5]},
         *stream_entries,
+        *sweep_entries,
         *lm_entries,
         *train_entries,
     ]}

@@ -31,6 +31,15 @@ Estimators run on the CUDA card unless constructed with
 ``device="cpu"``; without a card and without that argument they raise.
 ``fit(..., schedule=...)`` replays a given coordinate schedule (for
 example the ``FitResult.schedule`` of a JAX fit) instead of drawing one.
+
+Knobs left at ``"auto"`` (``SolverOptions(s="auto", b="auto",
+approx="auto", stream="auto")``) resolve through the autotuner
+(``tune.autotune.resolve_options``, priced by ``core.perf_model`` within
+the device's ``DeviceBudget``, refined by ``probe`` measured rounds)
+before the solve; the plan lands on ``FitResult.plan``.  Every fit
+carries ``FitResult.comm``, the Hockney model of its run.  ``fit_path``
+solves a warm-started regularisation ladder (``tune.reg_path``); whole
+grids solve as one fleet (``tune.solve_fleet``).
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from repro_torch.core import (LANDMARK_METHODS, NO_TOL, BatchedPredictor,
                               make_sstep_bdcd_round_fn,
                               make_sstep_dcd_round_fn, pad_rounds,
                               run_rounds, validate_queries)
+from repro_torch.core.perf_model import modeled_fit_cost
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.kernels.ops import make_solver_gram_fn
 
@@ -60,11 +70,11 @@ APPROX = (None, "nystrom")
 AUTO = "auto"
 
 # Knobs of the JAX SolverOptions that this slice of the port does not
-# run yet: their JAX defaults, and the ROADMAP item that ports each.
+# run yet: their JAX defaults, and the ROADMAP item that ports each
+# (``layout="auto"`` runs: it resolves to "serial").
 UNPORTED = {
     "layout": ("serial", "A11"),
     "mesh": (None, "A11"),
-    "probe": (0, "A8"),
     "guard": (False, "A7"),
     "recompute_every": (AUTO, "A7"),
     "checkpoint_every": (0, "A7"),
@@ -80,8 +90,13 @@ class SolverOptions:
 
     method:      "classical" or "sstep" (same iterates, one kernel round
                  per s iterations).
-    s:           s-step depth (ignored for method="classical").
-    b:           block size (K-RR only; K-SVM is scalar-coordinate).
+    s:           s-step depth (ignored for method="classical"), or "auto":
+                 resolved by the autotuner (``tune.autotune``) before the
+                 solve; the plan lands on ``FitResult.plan``.
+    b:           block size (K-RR only; K-SVM is scalar-coordinate), or
+                 "auto" (tuned with s).
+    layout:      "serial", or "auto" (resolves to "serial": the 1d and 2d
+                 layouts are ROADMAP A11).
     slab_free:   read the kernel through the operator (default); False
                  forces the materialized-slab parity-oracle path.
     tol:         stop once the convergence metric (duality gap for K-SVM,
@@ -94,13 +109,19 @@ class SolverOptions:
     approx:      None (exact kernel) or "nystrom": the solvers run the
                  linear kernel over the factor Phi of ``landmarks``
                  landmark rows chosen by ``landmark_method`` ("uniform"
-                 or "kmeans").
+                 or "kmeans"); or "auto" (the autotuner picks the cheaper
+                 modeled representation).
+    probe:       autotune refinement: when > 0 and a knob is "auto", the
+                 top modeled candidates each run ``probe`` outer rounds
+                 and the fastest measured one wins (on the card the
+                 device time of the replayed rounds, capture excluded).
     stream:      None, or a positive int: A stays in pinned host memory
                  in chunks of that many rows and every kernel reduction
-                 streams it through the ``kmv_stream`` pipeline.  Needs
-                 slab_free and the exact representation.  True and
-                 "auto" (chunk size from the perf model) are not ported
-                 yet (ROADMAP A5, A8).
+                 streams it through the ``kmv_stream`` pipeline; "auto"
+                 (or True) resolves the chunk size from the streaming
+                 cost model within the device's budget and measured link
+                 (``perf_model.choose_chunk_rows``).  Needs slab_free,
+                 the exact representation and the serial layout.
 
     The remaining fields are the JAX package's other knobs, accepted only
     at their defaults: any other value raises ``ValueError`` naming the
@@ -133,6 +154,8 @@ class SolverOptions:
     def __post_init__(self):
         for name, (default, item) in UNPORTED.items():
             value = getattr(self, name)
+            if name == "layout" and value == AUTO:
+                continue
             if value is not default and value != default:
                 raise ValueError(
                     f"{name}={value!r} is not ported to repro_torch yet "
@@ -143,50 +166,46 @@ class SolverOptions:
                 f"method must be one of {METHODS}, got {self.method!r}")
         for name in ("s", "b"):
             v = getattr(self, name)
-            if v == AUTO:
-                raise ValueError(f'{name}="auto" is not ported to '
-                                 f'repro_torch yet (ROADMAP A8, the '
-                                 f'autotuner priced by the A5 model)')
-            if not isinstance(v, int) or isinstance(v, bool) or v < 1:
-                raise ValueError(f"{name} must be a positive int, got {v!r}")
+            if v != AUTO and (not isinstance(v, int) or isinstance(v, bool)
+                              or v < 1):
+                raise ValueError(f"{name} must be a positive int or "
+                                 f"{AUTO!r}, got {v!r}")
         for name in ("max_iters", "check_every"):
             v = getattr(self, name)
             if not isinstance(v, int) or isinstance(v, bool) or v < 1:
                 raise ValueError(f"{name} must be a positive int, got {v!r}")
+        if not isinstance(self.probe, int) or isinstance(self.probe, bool) \
+                or self.probe < 0:
+            raise ValueError(f"probe must be an int >= 0, got "
+                             f"{self.probe!r}")
         if not self.tol >= 0.0:
             raise ValueError(f"tol must be >= 0, got {self.tol!r}")
 
     def _check_representation(self):
         """The ``stream`` / ``approx`` knobs, under the JAX package's
-        rules (``stream=False`` means None)."""
-        if self.stream is False:
+        rules (``stream=True`` means "auto", ``stream=False`` None)."""
+        if self.stream is True:
+            object.__setattr__(self, "stream", AUTO)
+        elif self.stream is False:
             object.__setattr__(self, "stream", None)
-        if self.stream is True or self.stream == AUTO:
-            raise ValueError(
-                f"stream={self.stream!r} is not ported to repro_torch yet: "
-                f"the chunk size comes from the streaming perf model "
-                f"(ROADMAP A5) through the autotuner (ROADMAP A8); pass a "
-                f"positive int")
         if self.stream is not None:
-            if not isinstance(self.stream, int) or self.stream < 1:
-                raise ValueError(f"stream must be None or a positive int "
-                                 f"chunk size, got {self.stream!r}")
+            if self.stream != AUTO and (
+                    not isinstance(self.stream, int) or self.stream < 1):
+                raise ValueError(f"stream must be None, a positive int "
+                                 f"chunk size, or {AUTO!r}, got "
+                                 f"{self.stream!r}")
             if not self.slab_free:
                 raise ValueError("stream= requires slab_free=True: the "
                                  "streamed representation only exists "
                                  "behind the GramOperator interface")
-            if self.approx is not None:
+            if self.approx not in (None, AUTO):
                 raise ValueError("stream= requires the exact "
                                  "representation (a low-rank factor is "
                                  "already O(m*l)-small — stream and "
                                  "approx are mutually exclusive)")
-        if self.approx == AUTO:
-            raise ValueError('approx="auto" is not ported to repro_torch '
-                             'yet (ROADMAP A8, the autotuner priced by '
-                             'the A5 model)')
-        if self.approx not in APPROX:
-            raise ValueError(f"approx must be one of {APPROX}, got "
-                             f"{self.approx!r}")
+        if self.approx not in APPROX + (AUTO,):
+            raise ValueError(f"approx must be one of {APPROX + (AUTO,)}, "
+                             f"got {self.approx!r}")
         if not isinstance(self.landmarks, int) or \
                 isinstance(self.landmarks, bool) or self.landmarks < 1:
             raise ValueError(f"landmarks must be a positive int, got "
@@ -197,14 +216,28 @@ class SolverOptions:
                              f"{self.landmark_method!r}")
 
     @property
+    def needs_autotune(self) -> bool:
+        """Any knob left at "auto": ``fit`` resolves them through
+        ``tune.autotune.resolve_options`` before solving."""
+        return AUTO in (self.s, self.b, self.layout, self.approx,
+                        self.stream)
+
+    @property
     def s_eff(self) -> int:
         """Inner iterations per kernel round (1 for classical)."""
-        return self.s if self.method == "sstep" else 1
+        if self.method != "sstep":
+            return 1
+        if self.s == AUTO:
+            raise ValueError('s="auto" is unresolved — fit() resolves it '
+                             'via tune.autotune.resolve_options before '
+                             'solving')
+        return self.s
 
 
 @dataclasses.dataclass
 class FitResult:
-    """What ``fit`` observed: the solution and its trajectory."""
+    """What ``fit`` observed: the solution, its trajectory and the
+    modeled cost of the run."""
 
     alpha: torch.Tensor
     schedule: torch.Tensor         # the iterations actually executed —
@@ -216,9 +249,12 @@ class FitResult:
     rounds_run: int
     iters_run: int
     wall_time_s: float
-    options: SolverOptions
-    comm: Optional[dict] = None    # communication model: not ported (A5)
+    comm: dict                     # Hockney model: flops/words/msgs/time
+                                   # (perf_model.modeled_fit_cost)
+    options: SolverOptions         # the RESOLVED options the solve ran
+                                   # with (auto knobs already concrete)
     representation: str = "exact"  # "exact" | "nystrom(l=...)"
+    plan: Optional[object] = None  # tune.TunedPlan when a knob was "auto"
 
     def metric_history(self) -> Optional[np.ndarray]:
         """Every recorded metric value in evaluation order, or None when
@@ -282,6 +318,10 @@ def _build_representation(A: torch.Tensor, cfg, opts: SolverOptions,
     whose shape is all the solvers read), Phi for Nystrom.  The landmark
     draw uses its own stream of ``opts.seed``; ``landmarks`` replays a
     given landmark set instead."""
+    if opts.stream == AUTO or opts.approx == AUTO:
+        raise ValueError("an 'auto' representation is unresolved — fit() "
+                         "resolves it via tune.autotune.resolve_options "
+                         "before building the representation")
     if opts.approx is None:
         if opts.stream is not None:
             return (StreamingGramOperator.from_dense(
@@ -322,27 +362,71 @@ def _metric_fn(problem: str, op, A_s, y, cfg, opts: SolverOptions):
     return lambda a: krr_rel_residual_op(op, y, a, cfg)
 
 
+def _round_fn(problem: str, A_s, y, cfg_s, s: int, gram_fn, train_op,
+              param=None):
+    """The solver's round: classical at s = 1, s-step above; ``param``
+    (an (F,) tensor of C or lambda values) makes it a fleet's."""
+    if problem == "ksvm":
+        if s == 1:
+            return make_dcd_round_fn(A_s, y, cfg_s, gram_fn=gram_fn,
+                                     op=train_op, C=param)
+        return make_sstep_dcd_round_fn(A_s, y, cfg_s, s, gram_fn=gram_fn,
+                                       op=train_op, C=param)
+    if s == 1:
+        return make_bdcd_round_fn(A_s, y, cfg_s, gram_fn=gram_fn,
+                                  op=train_op, lam=param)
+    return make_sstep_bdcd_round_fn(A_s, y, cfg_s, s, gram_fn=gram_fn,
+                                    op=train_op, lam=param)
+
+
+def _schedule(problem: str, opts: SolverOptions, m: int, b: int,
+              device: torch.device, schedule=None) -> torch.Tensor:
+    """The coordinate schedule: ``schedule`` replayed (validated), or
+    ``max_iters`` draws from ``opts.seed``."""
+    if schedule is not None:
+        return _check_schedule(schedule, problem, m, b, device)
+    gen = torch.Generator().manual_seed(opts.seed)
+    if problem == "ksvm":
+        return coordinate_schedule(gen, opts.max_iters, m, device)
+    return block_schedule(gen, opts.max_iters, m, b, device)
+
+
+def _comm(m: int, n: int, cfg, problem: str, opts: SolverOptions, op,
+          iters: int) -> dict:
+    """``FitResult.comm``: the Hockney model of the run, serial (P = 1),
+    as the JAX facade prices it."""
+    return modeled_fit_cost(
+        m, n, cfg.kernel.name, b=opts.b if problem == "krr" else 1,
+        s=opts.s_eff, iters=iters, P=1, approx=opts.approx,
+        landmarks=op.rank if opts.approx is not None else 0)
+
+
 def _fit(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
          opts: SolverOptions, device: torch.device, *, a0=None,
-         schedule=None, landmarks=None):
+         schedule=None, landmarks=None, rep=None, stats=None):
     """One serial solve on ``device``; returns ``(FitResult, operator)``.
-    A is on ``device``, or on the host for a streamed fit."""
+    A is on ``device``, or on the host for a streamed fit.  "auto" knobs
+    resolve first (``tune.autotune.resolve_options`` within the device's
+    own budget).  ``rep`` injects a prebuilt
+    ``(operator, A_solve)`` (a warm-started ladder builds one for all its
+    rungs); ``stats`` receives the captured rounds' timing
+    (``core.loop.RoundGraphs.stats``)."""
+    m, n = A.shape
+    plan = None
+    if opts.needs_autotune:
+        from repro_torch.tune.autotune import resolve_options
+        plan = resolve_options(m, n, cfg, opts, problem=problem, A=A, y=y,
+                               device=device)
+        opts = plan.options
     s = opts.s_eff
     b = opts.b if problem == "krr" else 1
     t0 = time.perf_counter()
-    op, A_s = _build_representation(A, cfg, opts, device,
-                                     landmarks=landmarks)
+    op, A_s = rep if rep is not None else _build_representation(
+        A, cfg, opts, device, landmarks=landmarks)
     cfg_s = _solve_cfg(cfg, opts)
     m = op.n_samples
-    if schedule is None:
-        gen = torch.Generator().manual_seed(opts.seed)
-        H = opts.max_iters
-        schedule = (coordinate_schedule(gen, H, m, device)
-                    if problem == "ksvm"
-                    else block_schedule(gen, H, m, b, device))
-    else:
-        schedule = _check_schedule(schedule, problem, m, b, device)
-        H = schedule.shape[0]
+    schedule = _schedule(problem, opts, m, b, device, schedule)
+    H = schedule.shape[0]
     if a0 is None:
         a0 = torch.zeros(m, dtype=A.dtype, device=device)
     else:
@@ -357,19 +441,8 @@ def _fit(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
         # K-SVM trains on diag(y) A (diag(y) Phi); prediction keeps the
         # unscaled op
         train_op = op.scale_rows(y) if problem == "ksvm" else op
-    if problem == "ksvm":
-        rf = (make_dcd_round_fn(A_s, y, cfg_s, gram_fn=gram_fn, op=train_op)
-              if s == 1 else
-              make_sstep_dcd_round_fn(A_s, y, cfg_s, s, gram_fn=gram_fn,
-                                      op=train_op))
-        metric_name = "duality_gap"
-    else:
-        rf = (make_bdcd_round_fn(A_s, y, cfg_s, gram_fn=gram_fn,
-                                 op=train_op)
-              if s == 1 else
-              make_sstep_bdcd_round_fn(A_s, y, cfg_s, s, gram_fn=gram_fn,
-                                       op=train_op))
-        metric_name = "rel_residual"
+    rf = _round_fn(problem, A_s, y, cfg_s, s, gram_fn, train_op)
+    metric_name = "duality_gap" if problem == "ksvm" else "rel_residual"
     metric_fn = _metric_fn(problem, op, A_s, y, cfg, opts)
     xs = schedule if s == 1 else pad_rounds(schedule, s)
     want_metric = opts.tol > 0.0 or opts.record
@@ -378,7 +451,7 @@ def _fit(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
                      tol=opts.tol if opts.tol > 0.0 else NO_TOL,
                      check_every=opts.check_every,
                      metric_fn=metric_fn if want_metric else None,
-                     capture=op.capturable)
+                     capture=op.capturable, stats=stats)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -390,8 +463,9 @@ def _fit(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
     result = FitResult(alpha=res.state, schedule=schedule[:iters_run],
                        history=history, metric=metric_name,
                        converged=res.converged, rounds_run=res.rounds_run,
-                       iters_run=iters_run, wall_time_s=wall, options=opts,
-                       representation=rep_name)
+                       iters_run=iters_run, wall_time_s=wall,
+                       comm=_comm(m, n, cfg, problem, opts, op, iters_run),
+                       options=opts, representation=rep_name, plan=plan)
     return result, op
 
 
@@ -426,6 +500,26 @@ class _Estimator:
                           landmarks=landmarks)
         self._adopt(A, y, result.alpha, op, result)
         return result
+
+    def fit_path(self, A, y, values, schedule=None, landmarks=None):
+        """Warm-started solve ladder over a grid of this estimator's
+        regulariser (``tune.path.reg_path``): one representation build,
+        each solve seeded from its neighbour's solution; ``schedule`` and
+        ``landmarks`` replay as in ``fit``, for every rung.  Returns a
+        ``PathResult``; the estimator is left fitted at the ladder's last
+        (least regularised) member."""
+        from repro_torch.tune.path import reg_path
+        A = _check_finite(A, "A", self._data_device)
+        y = _check_finite(y, "y", self.device)
+        grid = {"lams" if self.problem == "krr" else "Cs": values}
+        path = reg_path(A, y, cfg=self.cfg, options=self.options,
+                        schedule=schedule, landmarks=landmarks,
+                        device=self.device, **grid)
+        last = path.results[-1]
+        self.cfg = dataclasses.replace(
+            self.cfg, **{path.param: float(path.values[-1])})
+        self._adopt(A, y, last.alpha, path.op, last)
+        return path
 
     @property
     def _data_device(self) -> torch.device:

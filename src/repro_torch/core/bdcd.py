@@ -10,7 +10,10 @@ exactly:
 
 ``U_k`` enters only through ``U_k^T alpha`` and its sampled block, so the
 default path is slab-free through a ``GramOperator``; ``gram_fn`` forces
-the materialized-slab path (the parity oracle).
+the materialized-slab path (the parity oracle).  ``lam=`` given as an
+(F,) tensor makes the round a fleet's: F problems of a lambda grid
+advance an (F, m) alpha in lockstep (``tune.fleet``; the fleets
+themselves run the s-step rounds).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from .dcd import _fleet_update
 from .kernels import ExactGramOperator, KernelConfig
 from .loop import as_schedule, run_rounds
 
@@ -55,19 +59,34 @@ def solve_small(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_ex(G, rhs)[0]
 
 
+def fleet_inv_lam(lam: torch.Tensor) -> torch.Tensor:
+    """1/lam for a fleet's (F,) lambda grid, taken in f64 and rounded
+    once, as the single round's Python float is when it meets an f32
+    tensor."""
+    return (1.0 / lam.double()).to(lam.dtype)
+
+
 def make_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: KRRConfig,
                        gram_fn: Optional[Callable] = None,
-                       op=None) -> Callable:
+                       op=None, lam=None) -> Callable:
     """``round_fn(alpha, idx) -> alpha`` for ``loop.run_rounds``: one
     Algorithm-3 exact b x b block solve.  ``op`` injects a prebuilt
-    operator over the training representation."""
+    operator over the training representation.  ``lam`` overrides
+    ``cfg.lam``: a number replaces it, an (F,) tensor makes the round a
+    fleet's over an (F, m) alpha (slab-free only)."""
     if gram_fn is not None and op is not None:
         raise ValueError("pass at most one of gram_fn (materialized "
                          "slab) or op (prebuilt operator)")
     m = A.shape[0]
-    inv_lam = 1.0 / cfg.lam
     if op is None and gram_fn is None:
         op = ExactGramOperator(A, cfg.kernel)
+    if isinstance(lam, torch.Tensor):
+        if gram_fn is not None:
+            raise ValueError("a fleet round is slab-free (one shared "
+                             "operator); gram_fn= is the single-solve "
+                             "oracle")
+        return _fleet_bdcd_round_fn(y, m, op, fleet_inv_lam(lam))
+    inv_lam = 1.0 / (cfg.lam if lam is None else float(lam))
 
     def round_fn(alpha, idx):                 # idx: (b,)
         if gram_fn is not None:               # materialized m x b slab
@@ -80,6 +99,19 @@ def make_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: KRRConfig,
         G.diagonal().add_(m)                  # + m I
         rhs = y[idx] - m * alpha[idx] - inv_lam * uTa
         return alpha.index_add(0, idx, solve_small(G, rhs))
+
+    return round_fn
+
+
+def _fleet_bdcd_round_fn(y, m, op, inv_lam):
+    """The fleet round of ``make_bdcd_round_fn(lam=tensor)``."""
+
+    def round_fn(alpha, idx):                 # alpha (F, m), idx (b,)
+        Gblk, uTa = op.round_data(idx, alpha.T)        # (b, b), (b, F)
+        G = inv_lam[:, None, None] * Gblk
+        G.diagonal(dim1=-2, dim2=-1).add_(m)
+        rhs = y[idx] - m * alpha[:, idx] - inv_lam[:, None] * uTa.T
+        return _fleet_update(alpha, idx, solve_small(G, rhs))
 
     return round_fn
 

@@ -6,7 +6,9 @@ reads one column ``u = K(Atil, a_i)`` only through ``u^T alpha`` and
 ``u[i]``, so the default path reads both through a slab-free
 ``GramOperator`` (one KMV launch and one 1 x 1 gram launch per iteration
 on the card); ``gram_fn`` forces the materialized-column path, kept as
-the parity oracle.
+the parity oracle.  ``C=`` given as an (F,) tensor makes the round a
+fleet's: F problems of a C grid advance an (F, m) alpha in lockstep
+(``tune.fleet``; the fleets themselves run the s-step rounds).
 """
 from __future__ import annotations
 
@@ -43,8 +45,40 @@ class SVMConfig:
         return 0.0 if self.loss == L1 else 1.0 / (2.0 * self.C)
 
 
-def _nu_omega(cfg: SVMConfig):
+def _nu_omega(cfg: SVMConfig, C=None):
+    """(nu, omega) from the config, with ``C`` (a number) in place of
+    ``cfg.C`` when given."""
+    if C is not None:
+        cfg = dataclasses.replace(cfg, C=float(C))
     return cfg.nu, cfg.omega
+
+
+def fleet_nu_omega(cfg: SVMConfig, C: torch.Tensor):
+    """(nu, omega) as (F,) tensors for a fleet's C grid (C: (F,) in the
+    state's dtype).  omega is 1/(2C) taken in f64 and rounded once, as
+    the single round's Python float is when it meets an f32 tensor."""
+    if cfg.loss == L1:
+        return C, torch.zeros_like(C)
+    return (torch.full_like(C, float("inf")),
+            (1.0 / (2.0 * C.double())).to(C.dtype))
+
+
+def _clip(x, nu):
+    """``clamp(x, 0, nu)`` with a per-member (F,) upper bound."""
+    return torch.minimum(torch.clamp(x, min=0.0), nu)
+
+
+def _fleet_update(alpha: torch.Tensor, idx: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """``alpha[f, idx] += vals[f]`` for an (F, m) alpha and (F, k) vals:
+    the accumulating ``index_put`` of the single rounds on the flattened
+    state, so repeated coordinates sum in a fixed order (and one member's
+    update is the single round's own call)."""
+    F, m = alpha.shape
+    flat = (torch.arange(F, device=alpha.device)[:, None] * m
+            + idx[None, :]).reshape(-1)
+    return alpha.reshape(-1).index_put(
+        (flat,), vals.reshape(-1), accumulate=True).reshape(F, m)
 
 
 def coordinate_schedule(gen: torch.Generator, H: int, m: int,
@@ -67,17 +101,25 @@ def _dcd_theta(alpha_i, g, eta, nu):
 
 def make_dcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: SVMConfig,
                       gram_fn: Optional[Callable] = None,
-                      op=None) -> Callable:
+                      op=None, C=None) -> Callable:
     """``round_fn(alpha, i) -> alpha`` for ``loop.run_rounds``: one
     Algorithm-1 coordinate step.
 
     ``op`` injects a prebuilt operator over the training representation,
     already row-scaled by ``diag(y)`` (``operator.scale_rows(y)``);
-    ``gram_fn(Atil, rows, kernel)`` selects the materialized path."""
+    ``gram_fn(Atil, rows, kernel)`` selects the materialized path.  ``C``
+    overrides ``cfg.C``: a number replaces it, an (F,) tensor makes the
+    round a fleet's over an (F, m) alpha (slab-free only)."""
     if gram_fn is not None and op is not None:
         raise ValueError("pass at most one of gram_fn (materialized "
                          "slab) or op (prebuilt operator)")
-    nu, omega = _nu_omega(cfg)
+    if isinstance(C, torch.Tensor):
+        if gram_fn is not None:
+            raise ValueError("a fleet round is slab-free (one shared "
+                             "operator); gram_fn= is the single-solve "
+                             "oracle")
+        return _fleet_dcd_round_fn(A, y, cfg, op, C)
+    nu, omega = _nu_omega(cfg, C)
     Atil = None
     if gram_fn is not None:
         Atil = y[:, None] * A                   # diag(y) @ A
@@ -99,6 +141,26 @@ def make_dcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: SVMConfig,
             g = uTa[0] - 1.0 + omega * a_i
         theta = _dcd_theta(a_i, g, eta, nu)
         return alpha.index_add(0, idx, theta.reshape(1))
+
+    return round_fn
+
+
+def _fleet_dcd_round_fn(A, y, cfg, op, C):
+    """The fleet round of ``make_dcd_round_fn(C=tensor)``."""
+    nu, omega = fleet_nu_omega(cfg, C)
+    if op is None:
+        op = ExactGramOperator(A, cfg.kernel).scale_rows(y)
+
+    def round_fn(alpha, i):
+        idx = i.reshape(1)
+        a_i = alpha[:, idx][:, 0]                     # (F,)
+        G, uTa = op.round_data(idx, alpha.T)          # (1, 1), (1, F)
+        eta = G[0, 0] + omega
+        g = uTa[0] - 1.0 + omega * a_i
+        cand = _clip(a_i - g, nu) - a_i
+        theta = torch.where(cand.abs() != 0.0,
+                            _clip(a_i - g / eta, nu) - a_i, 0.0)
+        return _fleet_update(alpha, idx, theta[:, None])
 
     return round_fn
 

@@ -27,9 +27,15 @@ round cannot be captured (``GramOperator.capturable`` is False: the
 streamed pipe's cross-stream copies) takes the eager loop,
 ``_run_rounds_eager``, through ``run_rounds(capture=False)``.
 
+``run_rounds_fleet`` drives F problems of one schedule in lockstep (a
+fleet, ``tune.fleet``): an (F, m) state, a per-member metric, and a
+per-member ``done`` mask that freezes converged members; on the card its
+runs replay through the same ``RoundGraphs``, the mask a static device
+buffer the captured checks update.
+
 ``pad_rounds`` pads a ragged schedule to whole s-step rounds with a
 validity mask, so the final short round makes exactly-zero updates.
-The guarded and fleet drivers are later slices of the port.
+The guarded driver is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -62,10 +68,12 @@ class LoopResult(NamedTuple):
     state_hist:  per-round stacked states (fast path + record_state) or
                  None.
     metric_hist: (n_check_slots,) metric values (tolerance path; only the
-                 first ``checks_run`` slots were evaluated) or None.
+                 first ``checks_run`` slots were evaluated) or None; a
+                 fleet's is (n_check_slots, F).
     checks_run:  number of metric evaluations performed.
     rounds_run:  number of rounds executed.
-    converged:   metric <= tol at some check.
+    converged:   metric <= tol at some check; a fleet's is an (F,) bool
+                 tensor, member by member.
     """
 
     state: Any
@@ -160,13 +168,15 @@ class RoundGraphs:
     Attributes read after construction: ``capture_s`` (seconds of the
     captures, instantiation included), ``warmup_s``, ``pool_bytes``
     (device memory the captures reserved) and ``graph_launches`` (each
-    graph's launches a replay, by run length and wrapper name).
+    graph's launches a replay, by run length and wrapper name).  With
+    ``timed``, CUDA events bracket every replay, and ``replay_s()`` sums
+    their device seconds.
     """
 
     def __init__(self, round_fn: Callable, state0: torch.Tensor,
                  xs: Rounds, run_len: int, *,
                  metric_fn: Optional[Callable] = None,
-                 record_state: bool = False):
+                 record_state: bool = False, timed: bool = False):
         self.R = _n_rounds(xs)
         if not 1 <= run_len <= self.R:
             raise ValueError(f"run_len must be in [1, {self.R}] for "
@@ -185,6 +195,7 @@ class RoundGraphs:
         self.capture_s = self.warmup_s = 0.0
         self.pool_bytes = 0
         self.graph_launches: Dict[int, Dict[str, int]] = {}
+        self._events = [] if timed and self.on_card else None
         lengths = sorted({self.run_len(j) for j in range(self.n_runs)},
                          reverse=True)
         self._graphs: Dict[int, Any] = {}
@@ -254,10 +265,33 @@ class RoundGraphs:
         if not self.on_card:
             return self._body(n)
         g, out = self._graphs[n]
-        g.replay()
+        if self._events is None:
+            g.replay()
+        else:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            g.replay()
+            ev[1].record()
+            self._events.append(ev)
         for fn in _counted():
             fn.launches += self.graph_launches[n][fn.__name__]
         return out
+
+    def replay_s(self) -> Optional[float]:
+        """Device seconds of the replays so far (``timed`` on the card),
+        else None; synchronises."""
+        if self._events is None:
+            return None
+        torch.cuda.synchronize(self.state.device)
+        return sum(a.elapsed_time(b) for a, b in self._events) * 1e-3
+
+    def stats(self) -> Dict[str, Any]:
+        """What a caller timing the rounds reads: the replays' device
+        seconds (``replay_s``, None unless ``timed`` on the card) and the
+        capture and warm-up seconds they exclude."""
+        return {"replay_s": self.replay_s(), "capture_s": self.capture_s,
+                "warmup_s": self.warmup_s}
 
     def close(self):
         """Release the graphs and their memory pool (the state buffer,
@@ -277,7 +311,8 @@ def run_rounds(round_fn: Callable, state0: Any, xs: Rounds, *,
                tol: float = NO_TOL, check_every: int = 1,
                metric_fn: Optional[Callable] = None,
                record_state: bool = False,
-               capture: bool = True) -> LoopResult:
+               capture: bool = True,
+               stats: Optional[dict] = None) -> LoopResult:
     """Drive ``R = len(xs)`` rounds of ``round_fn`` (module docstring).
 
     ``xs`` is a tensor, or a tuple of tensors, with a shared leading
@@ -286,7 +321,9 @@ def run_rounds(round_fn: Callable, state0: Any, xs: Rounds, *,
     through ``RoundGraphs`` (runs of ``FAST_RUN`` rounds on the fast
     path, of ``check_every`` on the tolerance path); ``capture=False``
     runs the eager loop instead, for an operator that cannot be captured
-    (``GramOperator.capturable``).
+    (``GramOperator.capturable``).  A ``stats`` dict receives the
+    captured driver's ``RoundGraphs.stats()`` (the replays timed with
+    CUDA events on the card).
     """
     if metric_fn is not None and check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
@@ -296,9 +333,10 @@ def run_rounds(round_fn: Callable, state0: Any, xs: Rounds, *,
                                  check_every=check_every,
                                  metric_fn=metric_fn,
                                  record_state=record_state)
+    timed = stats is not None
     if metric_fn is None:
         with RoundGraphs(round_fn, state0, xs, min(FAST_RUN, R),
-                         record_state=record_state) as g:
+                         record_state=record_state, timed=timed) as g:
             hist = (state0.new_empty((R,) + tuple(state0.shape))
                     if record_state else None)
             for j in range(g.n_runs):
@@ -306,13 +344,15 @@ def run_rounds(round_fn: Callable, state0: Any, xs: Rounds, *,
                 if hist is not None:
                     n = g.run_len(j)
                     hist[j * g.c:j * g.c + n].copy_(g.rec[:n])
+            if timed:
+                stats.update(g.stats())
             return LoopResult(g.state, hist, None, 0, R, False)
 
     n_checks = -(-R // check_every)
     hist = None
     nchk, k, converged = 0, 0, False
     with RoundGraphs(round_fn, state0, xs, min(check_every, R),
-                     metric_fn=metric_fn) as g:
+                     metric_fn=metric_fn, timed=timed) as g:
         for j in range(g.n_runs):
             v = g.run(j)
             k += g.run_len(j)
@@ -324,7 +364,77 @@ def run_rounds(round_fn: Callable, state0: Any, xs: Rounds, *,
             converged = bool(v <= tol)          # the check's host sync
             if converged:
                 break
+        if timed:
+            stats.update(g.stats())
         return LoopResult(g.state, None, hist, nchk, k, converged)
+
+
+def run_rounds_fleet(round_fn: Callable, state0: torch.Tensor, xs: Rounds,
+                     *, tol: float = NO_TOL, check_every: int = 1,
+                     metric_fn: Optional[Callable] = None,
+                     capture: bool = True) -> LoopResult:
+    """Drive F problems of one schedule in lockstep (the counterpart of
+    the JAX package's ``loop.run_rounds_fleet``).
+
+    ``state0`` is (F, m); ``round_fn(state, xs_k)`` advances every member
+    at once (a fleet round: one kernel launch each for the whole fleet).
+    Without ``metric_fn`` this is ``run_rounds``' fast path.  With it,
+    ``metric_fn(state) -> (F,)`` is evaluated every ``check_every``
+    rounds and at the last; a member at or below ``tol`` is done, and
+    from then on its state is frozen (each later round still computes its
+    update, ``torch.where`` keeps the old state), so a converged member
+    never drifts; the loop stops once every member is done.  The mask is
+    a static device buffer: the captured check updates it, the captured
+    rounds read it, and the host reads the check's values and the mask
+    once a check.  ``metric_hist`` is (n_checks, F) and ``converged`` the
+    final (F,) mask, both on the host.  ``capture=False`` runs the eager
+    loop (an operator that cannot be captured).
+    """
+    R = _n_rounds(xs)
+    F = state0.shape[0]
+    if metric_fn is None:
+        res = run_rounds(round_fn, state0, xs, capture=capture)
+        return LoopResult(res.state, None, None, 0, R,
+                          torch.zeros(F, dtype=torch.bool))
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    done = torch.zeros(F, dtype=torch.bool, device=state0.device)
+
+    def frozen_round(state, x):
+        return torch.where(done[:, None], state, round_fn(state, x))
+
+    def check(state):
+        v = metric_fn(state)
+        done.logical_or_(v <= tol)
+        # one tensor, so the host reads values and mask in one copy
+        return torch.stack((v, done.to(v.dtype)))
+
+    n_checks = -(-R // check_every)
+    hist = torch.full((n_checks, F), float("inf"), dtype=torch.float64)
+    nchk, k = 0, 0
+    if not capture or R == 0:
+        state = state0
+        while k < R:
+            state = frozen_round(state, _round(xs, k))
+            k += 1
+            if k % check_every == 0 or k == R:
+                out = check(state).cpu()         # the check's host read
+                hist[nchk] = out[0]
+                nchk += 1
+                if bool(out[1].all()):
+                    break
+        return LoopResult(state, None, hist, nchk, k, done.cpu())
+    with RoundGraphs(frozen_round, state0, xs, min(check_every, R),
+                     metric_fn=check) as g:
+        done.zero_()                # the warm-up's check may have set it
+        for j in range(g.n_runs):
+            out = g.run(j).cpu()                 # the check's host read
+            k += g.run_len(j)
+            hist[nchk] = out[0]
+            nchk += 1
+            if bool(out[1].all()):
+                break
+        return LoopResult(g.state, None, hist, nchk, k, done.cpu())
 
 
 def _run_rounds_eager(round_fn: Callable, state0: Any, xs: Rounds, *,

@@ -51,6 +51,30 @@ def ksvm_gap_from_Qa(Qa, alpha, C, loss):
     return primal + dual
 
 
+def ksvm_gap_fleet(Qa: torch.Tensor, alpha: torch.Tensor, Cs, loss: str
+                   ) -> torch.Tensor:
+    """The duality gaps of a fleet's F members (``tune.fleet``): column f
+    of Qa (m, F) is member f's ``(yy^T o K) alpha_f``, all F from one
+    full KMV of F columns; alpha is (F, m), Cs the F values of C.  Each
+    member's gap is ``ksvm_gap_from_Qa``'s arithmetic on its own column,
+    so a one-member fleet reads what a single fit reads.  Returns (F,)."""
+    return torch.stack([ksvm_gap_from_Qa(Qa[:, f], alpha[f], float(C), loss)
+                        for f, C in enumerate(Cs)])
+
+
+def krr_rel_residual_fleet(KA: torch.Tensor, y: torch.Tensor,
+                           alpha: torch.Tensor, lams) -> torch.Tensor:
+    """The relative residuals of a fleet's F members: column f of KA
+    (m, F) is ``K alpha_f``, all F from one full KMV of F columns; alpha
+    is (F, m), lams the F values of lambda.  Each member's residual is
+    ``krr_rel_residual_value``'s arithmetic.  Returns (F,)."""
+    m = alpha.shape[1]
+    ny = torch.linalg.norm(y)
+    return torch.stack([
+        torch.linalg.norm(y - (KA[:, f] / float(lam) + m * alpha[f])) / ny
+        for f, lam in enumerate(lams)])
+
+
 def ksvm_dual_objective(A, y, alpha, cfg: SVMConfig):
     """D(alpha) = 1/2 alpha^T Qbar alpha - sum(alpha) (minimization form;
     Qbar carries the L2 shift omega I)."""

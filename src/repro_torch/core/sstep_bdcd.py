@@ -12,6 +12,12 @@ correction sums of paper eq. (3):
                             - 1/lam sum_{t<j} U_j^T V_t dalpha_t )
 
 Ragged schedules (``H % s != 0``) run a masked final short round.
+
+``lam=`` given as an (F,) tensor makes the round a fleet's
+(``tune.fleet``): F problems of a lambda grid advance an (F, m) alpha in
+lockstep on one schedule, with one gram launch and one KMV launch of F
+columns a round for the whole fleet, and the local phase batched over F
+(``sstep_bdcd_inner_fleet``).
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from .bdcd import KRRConfig, solve_small
+from .bdcd import KRRConfig, fleet_inv_lam, solve_small
+from .dcd import _fleet_update
 from .kernels import ExactGramOperator
 from .loop import as_schedule, pad_rounds, run_rounds
 
@@ -55,19 +62,56 @@ def sstep_bdcd_inner(Gblk, QTalpha, alpha_at, y_at, flat, m, inv_lam,
     return dalpha
 
 
+def sstep_bdcd_inner_fleet(Gblk, QTalpha, alpha_at, y_at, flat, m,
+                           inv_lam, s, b, valid=None):
+    """``sstep_bdcd_inner`` for F members that share the round's blocks
+    and cross block: QTalpha (F, sb), alpha_at (F, s, b), inv_lam (F,).
+    Returns dalpha (F, s, b).  Each member's arithmetic is the single
+    local phase's, elementwise over F; the correction sums are one
+    (F, sb) x (sb, b) product each, the b x b solves one batched
+    solve."""
+    dtype = alpha_at.dtype
+    dev = alpha_at.device
+    F = alpha_at.shape[0]
+    ones = (torch.ones(s, dtype=dtype, device=dev) if valid is None
+            else valid.to(dtype))
+    collide4 = (flat[:, None] == flat[None, :]).to(dtype).reshape(s, b, s, b)
+    Gblk4 = Gblk.reshape(s, b, s, b)                  # [t, q, j, p]
+    il = inv_lam[:, None]
+    dalpha = torch.zeros((F, s, b), dtype=dtype, device=dev)
+    for j in range(s):
+        vv = torch.einsum("ftq,tqp->fp", dalpha, collide4[:, :, j, :])
+        uv = torch.einsum("ftq,tqp->fp", dalpha, Gblk4[:, :, j, :])
+        G = inv_lam[:, None, None] * Gblk4[j, :, j, :]
+        G.diagonal(dim1=-2, dim2=-1).add_(m)           # + m I
+        rhs = (y_at[j] - m * alpha_at[:, j] - m * vv
+               - il * QTalpha[:, j * b:(j + 1) * b] - il * uv)
+        dalpha[:, j] = solve_small(G, rhs) * ones[j]
+    return dalpha
+
+
 def make_sstep_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor,
                              cfg: KRRConfig, s: int,
                              gram_fn: Optional[Callable] = None,
-                             op=None) -> Callable:
+                             op=None, lam=None) -> Callable:
     """``round_fn(alpha, (idx, valid)) -> alpha`` for ``loop.run_rounds``:
-    one Algorithm-4 outer round; idx: (s, b), valid: (s,)."""
+    one Algorithm-4 outer round; idx: (s, b), valid: (s,).  ``lam``
+    overrides ``cfg.lam``: a number replaces it, an (F,) tensor makes the
+    round a fleet's over an (F, m) alpha (module docstring; slab-free
+    only)."""
     if gram_fn is not None and op is not None:
         raise ValueError("pass at most one of gram_fn (materialized "
                          "slab) or op (prebuilt operator)")
     m = A.shape[0]
-    inv_lam = 1.0 / cfg.lam
     if op is None and gram_fn is None:
         op = ExactGramOperator(A, cfg.kernel)
+    if isinstance(lam, torch.Tensor):
+        if gram_fn is not None:
+            raise ValueError("a fleet round is slab-free (one shared "
+                             "operator); gram_fn= is the single-solve "
+                             "oracle")
+        return _fleet_round_fn(y, m, s, op, fleet_inv_lam(lam))
+    inv_lam = 1.0 / (cfg.lam if lam is None else float(lam))
 
     def round_fn(alpha, xs):
         idx, valid = xs                        # idx: (s, b)
@@ -88,6 +132,23 @@ def make_sstep_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor,
         # a fixed order (index_add's atomics would not repeat bit for bit)
         return alpha.index_put((flat,), dalpha.reshape(s * b),
                                accumulate=True)
+
+    return round_fn
+
+
+def _fleet_round_fn(y, m, s, op, inv_lam):
+    """The fleet round of ``make_sstep_bdcd_round_fn(lam=tensor)``."""
+
+    def round_fn(alpha, xs):                   # alpha (F, m)
+        idx, valid = xs
+        b = idx.shape[1]
+        flat = idx.reshape(s * b)
+        # one cross block and one KMV of F columns for the whole fleet
+        Gblk, QTalpha = op.round_data(flat, alpha.T)
+        dalpha = sstep_bdcd_inner_fleet(Gblk, QTalpha.T, alpha[:, idx],
+                                        y[idx], flat, m, inv_lam, s, b,
+                                        valid)
+        return _fleet_update(alpha, flat, dalpha.reshape(-1, s * b))
 
     return round_fn
 

@@ -7,6 +7,12 @@ launch on the card) — then runs the ``s`` scalar solves in sequence with
 gradient corrections (paper lines 14-23).  Same iterates as classical
 DCD in exact arithmetic.  Ragged schedules (``H % s != 0``) run a masked
 final short round.
+
+``C=`` given as an (F,) tensor makes the round a fleet's (``tune.fleet``):
+F problems of a C grid advance an (F, m) alpha in lockstep on one
+schedule, with one gram launch and one KMV launch of F columns a round
+for the whole fleet, and the local phase batched over F
+(``sstep_dcd_inner_fleet``).
 """
 from __future__ import annotations
 
@@ -14,7 +20,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from .dcd import SVMConfig, _nu_omega
+from .dcd import (SVMConfig, _clip, _fleet_update, _nu_omega,
+                  fleet_nu_omega)
 from .kernels import ExactGramOperator
 from .loop import as_schedule, pad_rounds, run_rounds
 
@@ -53,17 +60,59 @@ def sstep_dcd_inner(G0, u_dot_alpha, alpha_at, idx_s, nu, omega, s,
     return thetas
 
 
+def _member_dots(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``M @ v`` for the F rows of M, through the single round's vector
+    dot when F = 1: on the card cuBLAS's dot and its matrix-vector
+    product sum in different orders, so a one-member fleet repeats the
+    single fit bit for bit only through the same call."""
+    if M.shape[0] == 1:
+        return (M[0] @ v).reshape(1)
+    return M @ v
+
+
+def sstep_dcd_inner_fleet(G0, u_dot_alpha, alpha_at, idx_s, nu, omega, s,
+                          valid=None):
+    """``sstep_dcd_inner`` for F members that share the round's
+    coordinates and cross block: u_dot_alpha and alpha_at (F, s), nu and
+    omega (F,).  Returns thetas (F, s).  Each member's arithmetic is the
+    single local phase's, elementwise over F; the sums over t < j are
+    (F, s) x (s,) products (``_member_dots``)."""
+    dtype = alpha_at.dtype
+    F = alpha_at.shape[0]
+    ones = (torch.ones(s, dtype=dtype, device=alpha_at.device)
+            if valid is None else valid.to(dtype))
+    same = (idx_s[:, None] == idx_s[None, :]).to(dtype)
+    eta = torch.diagonal(G0)[None, :] + omega[:, None]          # (F, s)
+    thetas = torch.zeros((F, s), dtype=dtype, device=alpha_at.device)
+    for j in range(s):
+        rep = _member_dots(thetas, same[:, j])
+        rho = alpha_at[:, j] + rep
+        g = (u_dot_alpha[:, j] - 1.0 + omega * alpha_at[:, j]
+             + _member_dots(thetas, G0[:, j]) + omega * rep)
+        cand = _clip(rho - g, nu) - rho
+        theta = torch.where(cand.abs() != 0.0,
+                            _clip(rho - g / eta[:, j], nu) - rho, 0.0)
+        thetas[:, j] = theta * ones[j]
+    return thetas
+
+
 def make_sstep_dcd_round_fn(A: torch.Tensor, y: torch.Tensor,
                             cfg: SVMConfig, s: int,
                             gram_fn: Optional[Callable] = None,
-                            op=None) -> Callable:
+                            op=None, C=None) -> Callable:
     """``round_fn(alpha, (idx_s, valid)) -> alpha`` for
     ``loop.run_rounds``: one Algorithm-2 outer round.  ``op`` injects a
-    prebuilt, already ``diag(y)``-scaled training operator."""
+    prebuilt, already ``diag(y)``-scaled training operator.
+
+    ``C`` overrides ``cfg.C``: a number replaces it, an (F,) tensor makes
+    the round a fleet's, ``round_fn(alpha (F, m), xs) -> alpha (F, m)``
+    (module docstring; slab-free only)."""
     if gram_fn is not None and op is not None:
         raise ValueError("pass at most one of gram_fn (materialized "
                          "slab) or op (prebuilt operator)")
-    nu, omega = _nu_omega(cfg)
+    if isinstance(C, torch.Tensor):
+        return _fleet_round_fn(A, y, cfg, s, gram_fn, op, C)
+    nu, omega = _nu_omega(cfg, C)
     Atil = None
     if gram_fn is not None:
         Atil = y[:, None] * A
@@ -86,6 +135,26 @@ def make_sstep_dcd_round_fn(A: torch.Tensor, y: torch.Tensor,
         # .at[].add does, and on the card in a fixed order (index_add's
         # atomics would not repeat bit for bit)
         return alpha.index_put((idx_s,), thetas, accumulate=True)
+
+    return round_fn
+
+
+def _fleet_round_fn(A, y, cfg, s, gram_fn, op, C):
+    """The fleet round of ``make_sstep_dcd_round_fn(C=tensor)``."""
+    if gram_fn is not None:
+        raise ValueError("a fleet round is slab-free (one shared "
+                         "operator); gram_fn= is the single-solve oracle")
+    nu, omega = fleet_nu_omega(cfg, C)
+    if op is None:
+        op = ExactGramOperator(A, cfg.kernel).scale_rows(y)
+
+    def round_fn(alpha, xs):
+        idx_s, valid = xs
+        # one cross block and one KMV of F columns for the whole fleet
+        G0, u_dot_alpha = op.round_data(idx_s, alpha.T)
+        thetas = sstep_dcd_inner_fleet(G0, u_dot_alpha.T, alpha[:, idx_s],
+                                       idx_s, nu, omega, s, valid)
+        return _fleet_update(alpha, idx_s, thetas)
 
     return round_fn
 

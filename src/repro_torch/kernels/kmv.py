@@ -31,6 +31,12 @@ NARROW_BM, WIDE_BM = 32, 128
 WIDE_TILES_PER_SM = 8
 MAX_GRID_Y = 65535         # CUDA's limit on gridDim.y (the m splits)
 WS_MAX_FLOATS = 1 << 24    # workspace the m split may take (64 MB)
+# ... and the symmetric plan of c > 1 columns (256 MB): it needs a tile a
+# split, and takes about half the wide plan's time for the same K(A, A), so
+# a fleet's full matvec of F columns keeps it (m = 19 996 at c = 16: 201 MB;
+# both plans timed by chip_smoke.py phase 9a).  At c = 1 the symmetric plan
+# stays within WS_MAX_FLOATS.
+SYM_WS_MAX_FLOATS = 1 << 26
 
 
 class KmvPlan(NamedTuple):
@@ -69,7 +75,8 @@ def kmv_plan(m: int, r: int, c: int, sm_count: int,
     A tile regime gives each block one BM-row tile of its column tile
     (the finest balance across SMs) unless the grid's y dimension or the
     workspace (splits x r x c floats) would grow past its limit; then
-    each split takes a run of whole tiles."""
+    each split takes a run of whole tiles.  The symmetric plan of c > 1
+    columns may take a workspace of up to SYM_WS_MAX_FLOATS."""
     if r <= ROWS_MAX_R and r * c <= ROWS_MAX_RC:
         per = -(-m // min(m, ROWS_BLOCKS_PER_SM * sm_count))
         return KmvPlan("rows", row_group(r), r, -(-m // per), per)
@@ -81,9 +88,11 @@ def kmv_plan(m: int, r: int, c: int, sm_count: int,
         br = 128 if tiles128 >= WIDE_TILES_PER_SM * sm_count else 64
     m_tiles = -(-m // bm)
     most = max(1, min(MAX_GRID_Y, WS_MAX_FLOATS // (r * c)))
+    sym_most = most if c == 1 else min(MAX_GRID_Y,
+                                       SYM_WS_MAX_FLOATS // (r * c))
+    if same and m == r and br == bm and m_tiles <= sym_most:
+        return KmvPlan("symmetric", bm, br, m_tiles, bm)
     per_tiles = -(-m_tiles // min(m_tiles, most))
-    if same and m == r and br == bm and per_tiles == 1:
-        regime = "symmetric"
     return KmvPlan(regime, bm, br, -(-m_tiles // per_tiles), per_tiles * bm)
 
 

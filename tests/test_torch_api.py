@@ -182,7 +182,7 @@ def test_unported_options_raise_naming_their_roadmap_item(name):
 
 
 @pytest.mark.parametrize("bad", [dict(method="newton"), dict(s=0),
-                                 dict(b=-1), dict(s="auto"),
+                                 dict(b=-1), dict(s="AUTO"),
                                  dict(max_iters=0), dict(check_every=0),
                                  dict(tol=-1e-3), dict(tol=float("nan"))])
 def test_bad_options_raise_eagerly(bad):

@@ -1313,3 +1313,126 @@ def test_rounds_with_repeated_coordinates_repeat_bit_for_bit(cuda_device,
     assert bool(torch.isfinite(runs[0]).all())
     for other in runs[1:]:
         assert torch.equal(runs[0], other)
+
+
+# ---------------------------------------------------------------------------
+# fleets (tune.solve_fleet): KMV at c = F, one launch a round for the whole
+# fleet, F = 1 and the captured fleet against the single fit and the eager
+# loop bit for bit, the probe's measured time
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [4, 8, 16])
+@pytest.mark.parametrize("r", [32, 256, "B=A"])
+def test_kmv_cuda_at_fleet_widths(cuda_device, monkeypatch, c, r):
+    """KMV with X of c = F columns (a fleet's round and check) against
+    kmv_plain, repeating bit for bit; B = A, planned as for a 2-SM card,
+    keeps the symmetric regime at every c (its workspace passes
+    WS_MAX_FLOATS here), and each column equals a c = 1 launch's within
+    the tolerance."""
+    monkeypatch.setattr(kmv_module, "sm_count", lambda index: 2)
+    m = 3000
+    A, B, X = _data(m, 1 if r == "B=A" else r, 1000, c, seed=12)
+    monkeypatch.setattr(kmv_module, "WS_MAX_FLOATS", m * m)
+    cfg = KernelConfig(name="rbf", sigma=0.7)
+    A_d = torch.from_numpy(A).to(cuda_device)
+    B_d = A_d if r == "B=A" else torch.from_numpy(B).to(cuda_device)
+    X_d = torch.from_numpy(X).to(cuda_device)
+    if r == "B=A":
+        assert kmv_module.kmv_plan(m, m, c, 2, True).regime == "symmetric"
+    got = kmv_cuda(A_d, B_d, X_d, cfg)
+    assert torch.equal(got, kmv_cuda(A_d, B_d, X_d, cfg))
+    _close(got, kmv_plain(A_d, B_d, X_d, cfg), dict(name="rbf"), 2e-4)
+    _close(got[:, c - 1], kmv_cuda(A_d, B_d, X_d[:, c - 1].contiguous(),
+                                   cfg), dict(name="rbf"), 2e-4)
+
+
+def _fleet_data(problem, m=400, n=48, seed=21):
+    rng = np.random.default_rng(seed)
+    A = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
+    if problem == "ksvm":
+        y = np.where(rng.random(m) < 0.5, 1.0, -1.0).astype(np.float32)
+        # the gaps of C = 0.25 fall from 91.5 to 87.8 over the ten checks
+        # (the host run): it converges midway, the others do not
+        opts = SolverOptions(method="sstep", s=16, max_iters=640, seed=4,
+                             tol=89.5, check_every=4)
+        grid = {"Cs": [0.25, 1.0, 4.0, 16.0]}
+    else:
+        y = rng.standard_normal(m).astype(np.float32)
+        opts = SolverOptions(method="sstep", s=4, b=16, max_iters=1024,
+                             seed=4, tol=1e-4, check_every=4)
+        grid = {"lams": [0.01, 0.1, 1.0, 100.0]}
+    return A, y, opts, grid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("problem", ["ksvm", "krr"])
+def test_one_member_fleet_equals_the_single_fit_on_card(cuda_device,
+                                                        problem):
+    """F = 1: the fleet's captured rounds and checks give the single fit's
+    alpha, residual (gap) history and stopping point bit for bit."""
+    from repro_torch.tune import solve_fleet
+    A, y, opts, _ = _fleet_data(problem)
+    if problem == "ksvm":
+        single = KernelSVM(C=1.0, kernel="rbf", options=opts,
+                           device=cuda_device).fit(A, y)
+        fleet = solve_fleet(A, y, Cs=[1.0], kernel="rbf", options=opts,
+                            device=cuda_device)
+    else:
+        single = KernelRidge(lam=1.0, kernel="rbf", options=opts,
+                             device=cuda_device).fit(A, y)
+        fleet = solve_fleet(A, y, lams=[1.0], kernel="rbf", options=opts,
+                            device=cuda_device)
+    assert torch.equal(fleet.alpha[0], single.alpha)
+    np.testing.assert_array_equal(fleet.history[:, 0], single.history)
+    assert fleet.rounds_run == single.rounds_run
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("problem", ["ksvm", "krr"])
+def test_captured_fleet_equals_its_eager_loop(cuda_device, monkeypatch,
+                                              problem):
+    """A four-member fleet replayed as CUDA graphs (the done mask a static
+    device buffer) against the same fleet with the operator declared not
+    capturable (the eager loop): alpha, histories and the converged mask
+    bit for bit; one kmv and one gram launch a round for the whole fleet,
+    one kmv a check, in either driver."""
+    from repro_torch.core.kernels import ExactGramOperator
+    from repro_torch.tune import solve_fleet
+    A, y, opts, grid = _fleet_data(problem)
+
+    def run():
+        before = (kmv_cuda.launches, gram_cuda.launches)
+        fr = solve_fleet(A, y, kernel="rbf", options=opts,
+                         device=cuda_device, **grid)
+        torch.cuda.synchronize()
+        got = (kmv_cuda.launches - before[0], gram_cuda.launches - before[1])
+        assert got == (fr.rounds_run + fr.history.shape[0], fr.rounds_run)
+        return fr
+
+    cap = run()
+    with monkeypatch.context() as mp:
+        mp.setattr(ExactGramOperator, "capturable", False)
+        eag = run()
+    assert torch.equal(cap.alpha, eag.alpha)
+    np.testing.assert_array_equal(cap.history, eag.history)
+    np.testing.assert_array_equal(cap.converged, eag.converged)
+    assert cap.converged.any()
+
+
+@pytest.mark.gpu
+def test_probe_measured_time_excludes_capture(cuda_device):
+    """On the card a probe's measured_s is the device time of its replayed
+    rounds: below the probe fit's wall by at least the capture and the
+    warm-up it records."""
+    A, y, _, _ = _fleet_data("krr", m=2000, n=256)
+    opts = SolverOptions(method="sstep", s="auto", b="auto", probe=2,
+                         max_iters=2048, seed=4)
+    res = KernelRidge(lam=1.0, kernel="rbf", options=opts,
+                      device=cuda_device).fit(A, y)
+    assert res.plan.probed and res.plan.budget.dma_bps > 0
+    for p in res.plan.probed:
+        assert p["capture_s"] > 0 and p["warmup_s"] > 0
+        assert p["measured_s"] < p["wall_s"] - p["capture_s"]
+    best = min(res.plan.probed, key=lambda p: p["measured_s"])
+    assert (res.options.s, res.options.b) == (best["s"], best["b"])

@@ -39,7 +39,7 @@ from repro.core.bdcd import KRRConfig as JKRRConfig
 from repro.core.dcd import SVMConfig as JSVMConfig
 from repro.core.predict import BatchedPredictor as JBatchedPredictor
 from repro.kernels.ref import kmv_ref as j_kmv_ref
-from repro_torch import convert
+from repro_torch import api, convert
 from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
 from repro_torch.core import (KernelConfig, KRRConfig, StreamingGramOperator,
                               SVMConfig, krr_rel_residual_op,
@@ -405,11 +405,16 @@ def test_options_validation():
                                   dict(approx="auto")],
                          ids=["stream-true", "stream-auto", "approx-auto"])
 def test_unported_auto_knobs_raise_naming_their_roadmap_items(knob):
-    with pytest.raises(ValueError, match="A8"):
-        SolverOptions(**knob)
-    if "stream" in knob:
-        with pytest.raises(ValueError, match="A5"):
-            SolverOptions(**knob)
+    """These knobs raised naming A5 and A8 until the performance model
+    and the autotuner were ported: they are now accepted, marked for the
+    autotuner (``stream=True`` means "auto", as in the JAX package), and
+    an unresolved one still refuses to build a representation."""
+    opts = SolverOptions(**knob)
+    assert opts.needs_autotune
+    assert opts.stream == "auto" or opts.approx == "auto"
+    with pytest.raises(ValueError, match="unresolved"):
+        api._build_representation(torch.zeros((4, 2)), KRRConfig(), opts,
+                                  torch.device("cpu"))
 
 
 def test_batched_predictor_query_stream_matches_jax():
