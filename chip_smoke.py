@@ -149,6 +149,35 @@ Phases (each one fails the run with a non-zero exit):
           fleet, H = 512: a depth cut)
        f. FitResult.comm of phases 3-4, the fleets' modeled and measured
           speedups
+ 10. guarded solves (resilience), on phases 3-4's data after phase 9:
+       a. the guarded rounds' apply_at K(A[idx], A)^T w (the KMV kernel
+          with its operands swapped) at sb = 32 and 256 against its plain
+          version, repeating bit for bit, with its plan; its last
+          contraction row left out must fail; timed beside the 128-row
+          wide tile, the unguarded round's KMV at r = sb and the gram-slab
+          route.  The f64 route: kmv (r = 32 and B = A at m = 4096, the
+          apply_at at full m), gram (32 x 32, 256 x 256) and the streamed
+          apply_at (m = 4096) against their f64 plain versions at the f64
+          bound; kmv with its last contraction row left out, and gram
+          with its last feature chunk left out, must fail
+       b. guarded K-SVM (s = 32) and K-RR (s = 8, b = 32, tol 1e-4)
+          replaying phases 3-4's schedules, recompute_every "auto" (and 16
+          for K-RR), held against phases 3-4's alpha at 1e-5, drift below
+          1e-4, exact kmv / gram counts (a round each, a kmv a check and a
+          correction); the unguarded fits refitted warm in this phase,
+          bit for bit phases 3-4's, so that the replays' device ms and
+          the walls of guarded and unguarded compare like for like,
+          beside the modeled guard overhead; the same guarded fits
+          through the eager guarded loop equal bit for bit
+       c. NaN into "f", then "alpha", of the K-SVM fit: one rung each
+          (halve_s:32->16), within 1e-5 of the clean alpha; a classical
+          K-RR fit (H = 64, a depth cut) with a fault escalates to the
+          f64 rung, its rounds on the f64 kernels with exact f64 counts
+       d. a fit killed at a checkpoint boundary (checkpoint_every=4, H =
+          1024, a depth cut) and resumed equals the uninterrupted fit bit
+          for bit; a checkpoint of another schedule is refused
+       e. a guarded streamed K-RR fit (stream=2048, 16 rounds, one
+          correction) against the resident guarded fit at 1e-5
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
@@ -175,6 +204,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # bf16 dense tensor-core rate: the bound of a bf16 kernel's operations.
 BF16_FLOP_PER_S = 989e12
+# FP64 on the tensor cores (the same data sheet: 67 TFLOP/s; 34 outside
+# them): the f64 route's bound, the least time the card could take (cuBLAS's
+# f64 products run there).  The f64 tile's DFMAs run outside the tensor
+# cores, so it can reach at most half of this bound's rate.
+FP64_FLOP_PER_S = 67e12
 # Host-to-device link of the streamed KMV: PCIe Gen5 x16, 128 GB/s both
 # directions together in the H100 data sheet, so 64 GB/s one way (32 GT/s
 # x 16 lanes, 128b/130b encoding: 63 GB/s of payload at best).
@@ -184,6 +218,12 @@ PCIE_H2D_BYTES_PER_S = 64e9
 TOL_KMV_F32 = 2e-4     # tests/test_kmv.py: f32 summation-order differences
 TOL_GRAM_F32 = 1e-4    # tests/test_pallas_gram.py
 TOL_BF16 = 2e-2        # bf16 inputs (both sides see the same bf16 values)
+# f64 kernels against their f64 plain versions (phase 10): both sum the same
+# f64 products in other orders, (n + m) u ~ 3e-12 relative at n = 8192
+# before the epilogue (rbf multiplies an error in |a - b|^2 by sigma
+# |a - b|^2 <= ~1e2); 1e-9 is above that and five orders below the f32
+# bound, which an f32 accumulation cannot meet
+TOL_F64 = 1e-9
 # s-step vs classical DCD on one schedule: each of the H = 4096 coordinate
 # solves reads u^T alpha, an f32 sum over m ~ 2e4 terms of size up to
 # ~1e2 (error ~1e-5), and the two methods round it differently; the
@@ -220,6 +260,20 @@ STREAM_AUTO_SLACK = 1.25
 # K_LL by up to kappa.
 TOL_NYSTROM_EPS_KAPPA = 8.0
 F32_EPS = 2.0 ** -23
+# Phase 10 (guarded solves): the apply_at row counts of the K-SVM s = 32 and
+# K-RR s = 8, b = 32 rounds; A's rows the f64 B = A KMV and the f64
+# streamed apply_at take (a cut of m, 275 GFLOP of f64 at 4096); the
+# iteration the K-SVM faults fire at (round 31 of 128); the classical
+# K-RR f64 rung's budget H (its exact residual is one f64 full matvec of
+# 6.5 TFLOP at full m); the kill-and-resume fit's budget (32 rounds in 8
+# segments of checkpoint_every = 4); the streamed guard's rounds.
+GUARD_SB = (32, 256)
+GUARD_F64_M = 4096
+GUARD_FAULT_ITER = 1000
+GUARD_F64_ITERS = 64
+GUARD_KILL_ITERS = 1024
+GUARD_STREAM_ROUNDS = 16
+
 # Phase 7 (the LM at Qwen3-1.7B width): B prompts of S tokens prefill, a
 # teacher-forced decode of the first LM_DECODE_PROMPT of them, and an
 # engine answering LM_REQUESTS requests of LM_NEW_TOKENS new tokens.
@@ -423,25 +477,27 @@ def phase_split(kernel_phase, local_phase, rounds):
 
 class DriverSpy:
     """Counts the round drivers the port's fits take, captured CUDA graphs
-    (``core.loop.RoundGraphs``) or the eager loop
-    (``core.loop._run_rounds_eager``), by wrapping both in ``core.loop``
-    for the run's life."""
+    (``core.loop.RoundGraphs``, ``GuardedRoundGraphs``) or the eager loop
+    (``core.loop._run_rounds_eager``, ``_run_rounds_guarded_eager``), by
+    wrapping them in ``core.loop`` for the run's life."""
 
     def __init__(self):
         from repro_torch.core import loop
         self.graphs = self.eager = 0
-        spy, graphs, eager = self, loop.RoundGraphs, loop._run_rounds_eager
+        spy = self
+        for name in ("RoundGraphs", "GuardedRoundGraphs"):
+            class Graphs(getattr(loop, name)):
+                def __init__(self, *a, **k):
+                    spy.graphs += 1
+                    super().__init__(*a, **k)
 
-        class Graphs(graphs):
-            def __init__(self, *a, **k):
-                spy.graphs += 1
-                super().__init__(*a, **k)
+            setattr(loop, name, Graphs)
+        for name in ("_run_rounds_eager", "_run_rounds_guarded_eager"):
+            def run_eager(*a, _run=getattr(loop, name), **k):
+                spy.eager += 1
+                return _run(*a, **k)
 
-        def run_eager(*a, **k):
-            spy.eager += 1
-            return eager(*a, **k)
-
-        loop.RoundGraphs, loop._run_rounds_eager = Graphs, run_eager
+            setattr(loop, name, run_eager)
 
     def take(self):
         """(graph drivers, eager loops) since the last take."""
@@ -1396,6 +1452,600 @@ def sweep_phase(c, args, failures):
             "ms_timing": "device time, launches queued behind a spin "
                          "kernel (time_queued)"})
     return entries, fleet_counts
+
+
+def guard_phase(c, args, failures):
+    """Phase 10 (module docstring), on phases 3-4's data and fits in
+    ``c``: the swapped apply_at and the f64 routes against their plain
+    versions, guarded K-SVM and K-RR fits against phases 3-4 and against
+    their eager loop, faults walking the ladder (down to f64 on the
+    card), kill and resume, and a streamed guarded fit.  Returns the
+    kernels record's entries of this phase."""
+    import shutil
+
+    import torch
+    from repro_torch import api
+    from repro_torch.api import KernelRidge, KernelSVM
+    from repro_torch.core import ExactGramOperator, KRRConfig
+    from repro_torch.core.kernels import _chunk
+    from repro_torch.core.perf_model import guard_overhead
+    from repro_torch.kernels import kmv_stream as kst
+    from repro_torch.kernels.gram import gram_cuda, gram_plain
+    from repro_torch.kernels.gram import launch_f64 as gram_launch_f64
+    from repro_torch.kernels.kmv import (KmvPlan, kmv_cuda, kmv_f64_plan,
+                                         kmv_plain, kmv_plan)
+    from repro_torch.kernels.kmv import launch as kmv_launch
+    from repro_torch.kernels.kmv import launch_f64 as kmv_launch_f64
+    from repro_torch.kernels._launch import check_inputs, sm_count
+    from repro_torch.core import loop, pad_rounds
+    from repro_torch.resilience import (FaultPlan, SimulatedKill,
+                                        finite_health, inject)
+
+    dev, m, n, A, Ar = c.dev, c.m, c.n, c.A, c.Ar
+    rbf = c.kernels["rbf"]
+    sms = sm_count(0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 10)
+    t_phase = time.perf_counter()
+    entries = []
+
+    # ---- 10a. the swapped apply_at, the f64 routes -------------------------
+    t0 = time.perf_counter()
+    apply_rows = {}
+    for sb in GUARD_SB:
+        idx = torch.randint(0, m, (sb,), generator=gen, device=dev)
+        Bs = A[idx].contiguous()
+        w = torch.randn(sb, generator=gen, device=dev)
+        plan = kmv_plan(sb, m, 1, sms)
+        got = kmv_cuda(Bs, A, w, rbf)
+        want = kmv_plain(Bs, A, w, rbf)
+        ratio, err = allclose_ratio(got, want, TOL_KMV_F32)
+        again = torch.equal(got, kmv_cuda(Bs, A, w, rbf))
+        # the wrong variant: the contraction's last row left out
+        bad_ratio, _ = allclose_ratio(kmv_launch(
+            Bs[:-1].contiguous(), A, w[:-1, None].contiguous(), rbf,
+            kmv_plan(sb - 1, m, 1, sms), check_inputs("kmv", Bs, A))[:, 0],
+            want, TOL_KMV_F32)
+        iters = 20
+        ms = time_queued(lambda: kmv_cuda(Bs, A, w, rbf), iters)
+        plain = time_queued(lambda: kmv_plain(Bs, A, w, rbf), 5)
+        wide = KmvPlan("wide", 128, 128 if sb > 64 else 64, -(-sb // 128),
+                       128)
+        ms_wide = time_queued(lambda: kmv_launch(
+            Bs, A, w[:, None], rbf, wide, 0), iters)
+        # the narrow tile 32 columns wide: twice the blocks of 32 x 64
+        n32 = KmvPlan("narrow", 32, 32, -(-sb // 32), 32)
+        ms_n32 = time_queued(lambda: kmv_launch(
+            Bs, A, w[:, None], rbf, n32, 0), iters)
+        # the unguarded round's KMV at r = sb, and the gram-slab route
+        alpha = torch.rand(m, generator=gen, device=dev)
+        ms_round = time_queued(lambda: kmv_cuda(A, Bs, alpha, rbf), iters)
+        ms_slab = time_queued(lambda: gram_cuda(A, Bs, rbf) @ w, iters)
+        nbytes = 4 * (m * n + sb * n + sb + m)
+        bound, by = bound_ms(nbytes, 2.0 * sb * m * n + 3.0 * sb * m)
+        apply_rows[sb] = dict(plan=plan, err=err, ms=ms, plain=plain,
+                              wide=ms_wide, n32=ms_n32, round=ms_round,
+                              slab=ms_slab, bound=bound, by=by)
+        print(f"[guard] apply_at K(A[idx], A)^T w, sb = {sb} "
+              f"[{plan.regime} {plan.bm}x{plan.br}, {plan.splits} split(s)"
+              f"]: max abs err {err:.3e} ({ratio:.2f}x tol), bits repeat "
+              f"{again}, last contraction row left out {bad_ratio:.1f}x "
+              f"(must fail); {ms:.4f} ms (plain {plain:.3f}, 128-row wide "
+              f"tile {ms_wide:.4f}, narrow 32 x 32 {ms_n32:.4f}, "
+              f"unguarded round's KMV at r = {sb} "
+              f"{ms_round:.4f}, gram slab @ w {ms_slab:.4f}; bound "
+              f"{bound:.4f} by {by})")
+        if not ratio <= 1.0:
+            failures.append(f"apply_at sb={sb}: {err:.3e}")
+        if not again:
+            failures.append(f"apply_at sb={sb}: a second call gave other "
+                            f"bits")
+        if bad_ratio <= 1.0:
+            failures.append(f"apply_at sb={sb}: the check passes the "
+                            f"kernel without its last contraction row")
+    f64_rows = {}
+    A64 = A[:GUARD_F64_M].double().contiguous()
+    for label, (Am, Bm) in (("r32", (A64, A64[:32].contiguous())),
+                            ("B=A", (A64, A64)),
+                            ("apply32", (A[:32].double().contiguous(),
+                                         A.double()))):
+        X = torch.randn(Am.shape[0], generator=gen, device=dev,
+                        dtype=torch.float64)
+        got = kmv_cuda(Am, Bm, X, rbf)
+        want = kmv_plain(Am, Bm, X, rbf)
+        ratio, err = allclose_ratio(got, want, TOL_F64)
+        again = torch.equal(got, kmv_cuda(Am, Bm, X, rbf))
+        mm = Am.shape[0] - 1
+        bad = kmv_launch_f64(Am[:-1].contiguous(), Bm,
+                             X[:-1, None].contiguous(), rbf,
+                             kmv_f64_plan(mm, Bm.shape[0], sms))[:, 0]
+        bad_ratio, _ = allclose_ratio(bad, want, TOL_F64)
+        ms = time_cuda(lambda: kmv_cuda(Am, Bm, X, rbf), 3)
+        plain = time_cuda(lambda: kmv_plain(Am, Bm, X, rbf), 3)
+        mA, r = Am.shape[0], Bm.shape[0]
+        bound, by = bound_ms(8 * (mA * n + (0 if Bm is Am else r * n) + mA
+                                  + r),
+                             2.0 * mA * r * n, FP64_FLOP_PER_S)
+        f64_rows[label] = dict(err=err, ms=ms, plain=plain, bound=bound,
+                               by=by, shape=(mA, r))
+        print(f"[guard] f64 kmv {label} (m, r) = ({mA}, {r}): max abs err "
+              f"{err:.3e} ({ratio:.2f}x the f64 bound {TOL_F64}), bits "
+              f"repeat {again}, last contraction row left out "
+              f"{bad_ratio:.1e}x (must fail); {ms:.3f} ms (plain "
+              f"{plain:.3f}), bound "
+              f"{bound:.4f} ms by {by} at FP64 {FP64_FLOP_PER_S / 1e12:.0f}"
+              f" TFLOP/s (tensor cores)")
+        if not (ratio <= 1.0 and again) or bad_ratio <= 1.0:
+            failures.append(f"f64 kmv {label}: {ratio:.2f}x, repeat "
+                            f"{again}, wrong variant {bad_ratio:.2f}x")
+    del A64
+    for sb in GUARD_SB:
+        G = A[:sb].double().contiguous()
+        got = gram_cuda(G, G, rbf)
+        want = gram_plain(G, G, rbf)
+        ratio, err = allclose_ratio(got, want, TOL_F64)
+        # the wrong variant: the last feature chunk (32 features) left out
+        Gs = G[:, :-32].contiguous()
+        bad_ratio, _ = allclose_ratio(gram_launch_f64(Gs, Gs, rbf), want,
+                                      TOL_F64)
+        ms = time_queued(lambda: gram_cuda(G, G, rbf), 20)
+        plain = time_queued(lambda: gram_plain(G, G, rbf), 20)
+        bound, by = bound_ms(8 * (2 * sb * n + sb * sb),
+                             2.0 * sb * sb * n, FP64_FLOP_PER_S)
+        f64_rows[f"gram{sb}"] = dict(err=err, ms=ms, plain=plain,
+                                     bound=bound, by=by)
+        print(f"[guard] f64 gram {sb}x{sb}: max abs err {err:.3e} "
+              f"({ratio:.2f}x the f64 bound), last feature chunk left out "
+              f"{bad_ratio:.1e}x (must fail); {ms:.4f} ms (plain "
+              f"{plain:.4f}), bound {bound:.4f} ms by {by}")
+        if not ratio <= 1.0 or bad_ratio <= 1.0:
+            failures.append(f"f64 gram {sb}: {ratio:.2f}x, wrong variant "
+                            f"{bad_ratio:.2f}x")
+    # the streamed apply_at of the f64 rung, at chunk rows STREAM_CHUNK_ROWS
+    mf = min(GUARD_F64_M, m)
+    Xc64 = _chunk(A[:mf].double().cpu(), STREAM_CHUNK_ROWS, pin=True)
+    Bs = A[:32].double().contiguous()
+    W = torch.randn(32, 1, generator=gen, device=dev, dtype=torch.float64)
+    got = kst.kmv_stream_apply_cuda(Xc64, Bs, W, rbf, m=mf)
+    want = kst.kmv_stream_apply_plain(Xc64, Bs, W, rbf, m=mf)
+    ratio, err = allclose_ratio(got, want, TOL_F64)
+    ms = time_cuda(lambda: kst.kmv_stream_apply_cuda(Xc64, Bs, W, rbf,
+                                                     m=mf), 3)
+    nb = 8 * mf * n
+    f64_rows["stream"] = dict(err=err, ms=ms, bound=max(
+        nb / PCIE_H2D_BYTES_PER_S,
+        2.0 * 32 * mf * n / FP64_FLOP_PER_S) * 1e3, by="bytes")
+    print(f"[guard] f64 streamed apply_at (m, sb) = ({mf}, 32) in "
+          f"{STREAM_CHUNK_ROWS}-row chunks: max abs err {err:.3e} "
+          f"({ratio:.2f}x); {ms:.3f} ms, bound "
+          f"{f64_rows['stream']['bound']:.3f} ms (the link)")
+    if not ratio <= 1.0:
+        failures.append(f"f64 streamed apply_at: {ratio:.2f}x")
+    del Xc64
+    print(f"[guard] 10a in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10b. guarded fits against phases 3-4 and the eager loop ----------
+    def reset():
+        for fn in (kmv_cuda, gram_cuda):
+            fn.launches = fn.warmup_launches = fn.launches_f64 = 0
+
+    def guarded(est_cls, kw, base, Ad, yd, sched):
+        opts = dataclasses.replace(base, guard=True, **kw)
+        est = est_cls(device=dev, options=opts, **c.hyper[est_cls])
+        return est.fit(Ad, yd, schedule=sched)
+
+    def timed_fit(est_cls, opts, Ad, yd, sched):
+        """The estimator's fit through the facade's ``_fit`` (what
+        ``fit`` calls once A and y pass their checks), its replays timed
+        by CUDA events: (FitResult, the replays' device ms, the capture
+        and warm-up ms they exclude)."""
+        est = est_cls(device=dev, options=opts, **c.hyper[est_cls])
+        st = {}
+        res = api._fit(est.problem, Ad, yd, est.cfg, opts, dev,
+                       schedule=sched, stats=st)[0]
+        rep = st.get("replay_s")
+        return res, (rep * 1e3 if rep is not None else float("nan")), \
+            (st.get("capture_s", 0.0) + st.get("warmup_s", 0.0)) * 1e3
+
+    def guard_opts(base, **kw):
+        return dataclasses.replace(base, guard=True, **kw)
+
+    t0 = time.perf_counter()
+    reset()
+    g_s, gd_s, gc_s = timed_fit(
+        KernelSVM, guard_opts(c.svm.options, recompute_every="auto"), A,
+        c.y, c.r_s.schedule)
+    g_k, gd_k, gc_k = timed_fit(
+        KernelRidge, guard_opts(c.krr.options, recompute_every="auto"), Ar,
+        c.yr, c.r_k.schedule)
+    g_k16, gd_k16, gc_k16 = timed_fit(
+        KernelRidge, guard_opts(c.krr.options, recompute_every=16), Ar,
+        c.yr, c.r_k.schedule)
+    counts = (kmv_cuda.launches, gram_cuda.launches)
+    drivers = c.spy.take()
+    fits = (g_s, g_k, g_k16)
+    rounds = sum(f.rounds_run for f in fits)
+    checks = sum(len(f.history) for f in fits if f.history is not None)
+    corr = sum(f.health.corrections for f in fits)
+    want_counts = (rounds + checks + corr, rounds)
+    for label, g, ref in (("K-SVM s=32", g_s, c.r_s),
+                          ("K-RR s=8 b=32 auto", g_k, c.r_k),
+                          ("K-RR s=8 b=32 recompute 16", g_k16, c.r_k)):
+        ratio, err = allclose_ratio(g.alpha, ref.alpha, TOL_ITERATE)
+        print(f"[guard] {label}: recompute_every resolves to "
+              f"{g.options.recompute_every}, {g.rounds_run} rounds, "
+              f"{g.health.corrections} corrections, max drift "
+              f"{g.health.max_drift:.3e}; vs the unguarded fit max abs "
+              f"err {err:.3e} ({ratio:.2f}x {TOL_ITERATE})")
+        if not ratio <= 1.0:
+            failures.append(f"guarded {label} vs unguarded: {err:.3e}")
+        if not g.health.max_drift < 1e-4:
+            failures.append(f"guarded {label}: drift {g.health.max_drift}")
+    if g_k16.health.corrections < 1:
+        failures.append("the recompute_every=16 K-RR fit made no correction")
+    print(f"[guard] launches: kmv {counts[0]}, gram {counts[1]} (rounds "
+          f"{rounds} + checks {checks} + corrections {corr}: {want_counts}); "
+          f"drivers {drivers}")
+    if counts != want_counts:
+        failures.append(f"guarded launch counts {counts}, not {want_counts}")
+    if counts[0] < 1 or counts[1] < 1:
+        failures.append("phase 10b launched no kmv or gram kernel")
+    # like for like: the unguarded fits again, warm and timed as the
+    # guarded ones were, in this phase (phases 3-4's walls hold their
+    # first captures on a cold card)
+    u_s, ud_s, uc_s = timed_fit(KernelSVM, c.svm.options, A, c.y,
+                                c.r_s.schedule)
+    u_k, ud_k, uc_k = timed_fit(KernelRidge, c.krr.options, Ar, c.yr,
+                                c.r_k.schedule)
+    c.spy.take()
+    for label, u, ref in (("K-SVM", u_s, c.r_s), ("K-RR", u_k, c.r_k)):
+        same, diff = bit_equal(u.alpha, ref.alpha)
+        if not same:
+            failures.append(f"the unguarded {label} refit differs from "
+                            f"phases 3-4: {diff:.3e}")
+    guard_rows = {}
+    for label, g, gd, gc, u, ud, uc, ref, o in (
+            ("K-SVM s=32", g_s, gd_s, gc_s, u_s, ud_s, uc_s, c.r_s,
+             c.svm.options),
+            ("K-RR auto", g_k, gd_k, gc_k, u_k, ud_k, uc_k, c.r_k,
+             c.krr.options),
+            ("K-RR recompute 16", g_k16, gd_k16, gc_k16, u_k, ud_k, uc_k,
+             c.r_k, c.krr.options)):
+        krr = label.startswith("K-RR")
+        model = guard_overhead(
+            m, n, "rbf", b=o.b if krr else 1, s=o.s_eff,
+            recompute_every=g.options.recompute_every)
+        guard_rows[label] = dict(round=gd / g.rounds_run,
+                                 uround=ud / u.rounds_run)
+        print(f"[guard] {label}: replays {gd:.2f} ms of device time over "
+              f"{g.rounds_run} rounds, "
+              f"{0 if g.history is None else len(g.history)} checks and "
+              f"{g.health.corrections} corrections ({gd / g.rounds_run:.4f}"
+              f" ms a round, all in), the unguarded refit's {ud:.2f} "
+              f"({ud / u.rounds_run:.4f}); capture + warm-up {gc:.1f} / "
+              f"{uc:.1f} ms; walls {g.wall_time_s:.3f} / "
+              f"{u.wall_time_s:.3f} s (phases 3-4's first fit "
+              f"{ref.wall_time_s:.3f}); guard overhead modeled "
+              f"{model:.4f}, measured {gd / ud - 1:.4f} on the device, "
+              f"{g.wall_time_s / u.wall_time_s - 1:.4f} on the wall")
+    per_corr = ((gd_k16 - gd_k) / g_k16.health.corrections
+                if g_k16.health.corrections else float("nan"))
+    print(f"[guard] a K-RR correction (an exact B = A matvec and the drift) "
+          f"costs {per_corr:.2f} ms of device time (recompute 16 less "
+          f"auto, over {g_k16.health.corrections} corrections)")
+    # where a guarded K-SVM round's time goes: one round of each kind
+    # profiled eagerly (torch.profiler's device time and launches), and
+    # the guarded graphs of FAST_RUN rounds replayed back to back, against
+    # the same replays each followed by its host read, as the guarded fit
+    # runs them (the unguarded fit reads nothing between its runs)
+    op_s = ExactGramOperator(A, rbf).scale_rows(c.y)
+    xs_s = pad_rounds(c.r_s.schedule, 32)
+    x0 = (xs_s[0][0], xs_s[1][0])
+    a_s = c.r_s.alpha
+    f_s = op_s.full_matvec(a_s)
+    rf_u = api._round_fn("ksvm", A, c.y, c.svm.cfg, 32, None, op_s)
+    rf_g = api._round_fn("ksvm", A, c.y, c.svm.cfg, 32, None, op_s,
+                         guard=True)
+
+    def guarded_round():
+        new = rf_g((a_s, f_s), x0)
+        ok = finite_health(new)
+        return tuple(torch.where(ok, x, o) for x, o in zip(new, (a_s, f_s)))
+
+    for label, fn in (("unguarded", lambda: rf_u(a_s, x0)),
+                      ("guarded", guarded_round)):
+        fn()
+        busy, n_ops, top = device_profile(fn, 1)
+        busy_s = "not measured" if busy is None else f"{busy:.4f} ms"
+        print(f"[guard] one eager K-SVM s=32 round, {label}: device busy "
+              f"{busy_s}, {n_ops:.0f} device operations; the longest: "
+              + "; ".join(f"{k[:48]} {t:.4f} ms x{cnt:.0f}"
+                          for k, t, cnt in top[:3]))
+    R = xs_s[0].shape[0]
+    runs = [(lo, min(loop.FAST_RUN, R - lo), False, False)
+            for lo in range(0, R, loop.FAST_RUN)]
+    spec = loop.GuardSpec(health_fn=finite_health, correct_fn=None,
+                          correct_every=0)
+    zero = torch.zeros_like(a_s)
+    with loop.GuardedRoundGraphs(rf_g, (zero, zero), xs_s, runs,
+                                 spec) as gg:
+        gg.run(0).tolist()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for j in range(len(runs)):
+            gg.run(j)
+        ev[1].record()
+        torch.cuda.synchronize()
+        b2b = ev[0].elapsed_time(ev[1]) / R
+        t_host = time.perf_counter()
+        read = 0.0
+        for j in range(len(runs)):
+            ev[0].record()
+            out = gg.run(j)
+            ev[1].record()
+            out.tolist()                         # the fit's host read
+            read += ev[0].elapsed_time(ev[1])
+        t_host = (time.perf_counter() - t_host) * 1e3 / R
+    c.spy.take()
+    print(f"[guard] guarded K-SVM s=32 runs of {loop.FAST_RUN} rounds "
+          f"replayed: back to back {b2b:.4f} ms a round; each replay "
+          f"followed by its host read (as the fit) {read / R:.4f} ms a "
+          f"round between its events, {t_host:.4f} ms of host wall")
+    with mock.patch.object(ExactGramOperator, "capturable", False):
+        reset()
+        e_s = guarded(KernelSVM, dict(recompute_every="auto"),
+                      c.svm.options, A, c.y, c.r_s.schedule)
+        e_k = guarded(KernelRidge, dict(recompute_every=16), c.krr.options,
+                      Ar, c.yr, c.r_k.schedule)
+        e_counts = (kmv_cuda.launches, gram_cuda.launches)
+    e_drivers = c.spy.take()
+    if drivers != (3, 0) or e_drivers != (0, 2):
+        failures.append(f"guarded drivers: captured fits {drivers}, eager "
+                        f"refits {e_drivers}")
+    want_e = (g_s.rounds_run + g_k16.rounds_run + len(g_k16.history)
+              + g_s.health.corrections + g_k16.health.corrections,
+              g_s.rounds_run + g_k16.rounds_run)
+    for label, got, want in (("K-SVM alpha", g_s.alpha, e_s.alpha),
+                             ("K-RR alpha", g_k16.alpha, e_k.alpha),
+                             ("K-RR history", g_k16.history, e_k.history),
+                             ("K-RR drift", g_k16.health.drift,
+                              e_k.health.drift)):
+        same, diff = bit_equal(got, want)
+        print(f"[guard] captured vs eager guarded {label}: "
+              f"{'equal bit for bit' if same else 'DIFFER'} ({diff:.3e})")
+        if not same:
+            failures.append(f"captured vs eager guarded {label}: {diff}")
+    print(f"[guard] eager guarded walls: K-SVM {e_s.wall_time_s:.2f} s "
+          f"(captured {g_s.wall_time_s:.2f}), K-RR {e_k.wall_time_s:.2f} s "
+          f"(captured {g_k16.wall_time_s:.2f}); eager launches {e_counts} "
+          f"(want {want_e})")
+    if e_counts != want_e:
+        failures.append(f"eager guarded launch counts {e_counts}, not "
+                        f"{want_e}")
+    print(f"[guard] 10b in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10c. faults: one rung each, and the f64 rung on the card ----------
+    t0 = time.perf_counter()
+    for target in ("f", "alpha"):
+        with inject(FaultPlan(nan_at_iter=GUARD_FAULT_ITER,
+                              target=target)) as plan:
+            r = guarded(KernelSVM, dict(recompute_every="auto"),
+                        c.svm.options, A, c.y, c.r_s.schedule)
+        ratio, err = allclose_ratio(r.alpha, c.r_s.alpha, TOL_ITERATE)
+        acts = [e.action for e in r.health.fallbacks]
+        print(f"[guard] NaN into {target!r} at iteration {GUARD_FAULT_ITER}"
+              f": fired {plan.carry_fired}, events {acts}, vs the clean "
+              f"alpha {err:.3e} ({ratio:.2f}x); wall {r.wall_time_s:.2f} s")
+        if acts != ["halve_s:32->16"] or not ratio <= 1.0:
+            failures.append(f"fault on {target}: {acts}, {err:.3e}")
+    base = dataclasses.replace(c.krr.options, method="classical", tol=0.0,
+                               max_iters=GUARD_F64_ITERS)
+    sched = c.r_k.schedule[:GUARD_F64_ITERS]
+    clean = KernelRidge(device=dev, options=base,
+                        **c.hyper[KernelRidge]).fit(Ar, c.yr,
+                                                     schedule=sched)
+    reset()
+    torch.cuda.synchronize()
+    stats = {}
+    with inject(FaultPlan(nan_at_iter=GUARD_F64_ITERS // 2,
+                          target="alpha")):
+        # through the facade's _fit, for the last segment's (the f64
+        # rung's) replay times
+        r64, _ = api._fit("krr", Ar, c.yr, KRRConfig(lam=1.0, kernel=rbf),
+                          dataclasses.replace(base, guard=True,
+                                              recompute_every=0), dev,
+                          schedule=sched, stats=stats)
+    f64_counts = (kmv_cuda.launches_f64, gram_cuda.launches_f64)
+    c.spy.take()
+    acts = [e.action for e in r64.health.fallbacks]
+    ratio, err = allclose_ratio(r64.alpha, clean.alpha, TOL_ITERATE)
+    f64_rounds = GUARD_F64_ITERS - GUARD_F64_ITERS // 2
+    f64_ms = (stats.get("replay_s") or float("nan")) * 1e3
+    print(f"[guard] classical K-RR, H = {GUARD_F64_ITERS} (depth cut), NaN "
+          f"into alpha at iteration {GUARD_F64_ITERS // 2}: events {acts}; "
+          f"the f64 rung's {f64_rounds} rounds and its exact residual took "
+          f"kmv {f64_counts[0]}, gram {f64_counts[1]} f64 launches; vs the "
+          f"clean alpha {err:.3e} ({ratio:.2f}x); wall {r64.wall_time_s:.2f}"
+          f" s (clean {clean.wall_time_s:.2f} s); the f64 rounds replayed "
+          f"in {f64_ms:.2f} ms of device time ({f64_ms / f64_rounds:.3f} "
+          f"ms a round)")
+    if acts != ["f64"] or not ratio <= 1.0:
+        failures.append(f"f64 rung: {acts}, {err:.3e}")
+    # the rung's rounds, an apply_at and a gram each, behind its exact
+    # residual (one f64 B = A matvec)
+    if f64_counts != (f64_rounds + 1, f64_rounds):
+        failures.append(f"the f64 rung's f64 launches {f64_counts}, not "
+                        f"{(f64_rounds + 1, f64_rounds)}")
+    print(f"[guard] 10c in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10d. kill and resume ----------------------------------------------
+    t0 = time.perf_counter()
+    ckpt = Path(__file__).resolve().parent / "build" / "guard_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kill_opts = dataclasses.replace(
+        c.svm.options, max_iters=GUARD_KILL_ITERS)
+    sched = c.r_s.schedule[:GUARD_KILL_ITERS]
+    kw = dict(recompute_every="auto", checkpoint_every=4)
+    full = guarded(KernelSVM, dict(kw, checkpoint_dir=str(ckpt / "full")),
+                   kill_opts, A, c.y, sched)
+    with inject(FaultPlan(kill_at_iter=GUARD_KILL_ITERS // 2)):
+        try:
+            guarded(KernelSVM, dict(kw, checkpoint_dir=str(ckpt / "kill")),
+                    kill_opts, A, c.y, sched)
+            killed = False
+        except SimulatedKill:
+            killed = True
+    opts = dataclasses.replace(kill_opts, guard=True,
+                               checkpoint_dir=str(ckpt / "kill"), **kw)
+    est = KernelSVM(device=dev, options=opts, **c.hyper[KernelSVM])
+    res = est.fit(A, c.y, schedule=sched, resume_from=str(ckpt / "kill"))
+    same, diff = bit_equal(res.alpha, full.alpha)
+    try:
+        est.fit(A, c.y, schedule=torch.flip(sched, [0]),
+                resume_from=str(ckpt / "kill"))
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    c.spy.take()
+    print(f"[guard] kill at iteration {GUARD_KILL_ITERS // 2} of "
+          f"{GUARD_KILL_ITERS} (depth cut), checkpoint_every=4: killed "
+          f"{killed}, {full.health.checkpoints} snapshots in the "
+          f"uninterrupted fit; resumed vs uninterrupted "
+          f"{'equal bit for bit' if same else 'DIFFER'} ({diff:.3e}); "
+          f"another schedule refused: {'schedule' in refused}")
+    if not (killed and same and "schedule" in refused):
+        failures.append(f"kill and resume: killed {killed}, same {same}, "
+                        f"refused {refused!r}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"[guard] 10d in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10e. the streamed guard -------------------------------------------
+    t0 = time.perf_counter()
+    Xc = _chunk(Ar.cpu(), STREAM_CHUNK_ROWS, pin=True)
+    sb = GUARD_SB[1]
+    idx = torch.randint(0, m, (sb,), generator=gen, device=dev)
+    Bs = Ar[idx].contiguous()
+    W = torch.randn(sb, 1, generator=gen, device=dev)
+    got = kst.kmv_stream_apply_cuda(Xc, Bs, W, rbf, m=m)
+    want = kst.kmv_stream_apply_plain(Xc, Bs, W, rbf, m=m)
+    ratio, s_err = allclose_ratio(got, want, TOL_KMV_F32)
+    again = torch.equal(got, kst.kmv_stream_apply_cuda(Xc, Bs, W, rbf, m=m))
+    s_ms = time_cuda(lambda: kst.kmv_stream_apply_cuda(Xc, Bs, W, rbf, m=m),
+                     5)
+    s_plain = time_cuda(lambda: kst.kmv_stream_apply_plain(Xc, Bs, W, rbf,
+                                                           m=m), 2)
+    s_bound = max(4 * m * n / PCIE_H2D_BYTES_PER_S,
+                  2.0 * sb * m * n / FP32_FLOP_PER_S) * 1e3
+    print(f"[guard] streamed apply_at (m, sb) = ({m}, {sb}), "
+          f"{STREAM_CHUNK_ROWS}-row pinned chunks (a ragged tail): max abs "
+          f"err {s_err:.3e} ({ratio:.2f}x tol), bits repeat {again}; "
+          f"{s_ms:.3f} ms (plain {s_plain:.3f}), bound {s_bound:.3f} ms "
+          f"(the link)")
+    if not (ratio <= 1.0 and again):
+        failures.append(f"streamed apply_at: {ratio:.2f}x, repeat {again}")
+    del Xc
+    s_opts = dataclasses.replace(c.krr.options, tol=0.0,
+                                 max_iters=GUARD_STREAM_ROUNDS * 8)
+    sched = c.r_k.schedule[:GUARD_STREAM_ROUNDS * 8]
+    resident = guarded(KernelRidge, dict(recompute_every=16), s_opts, Ar,
+                       c.yr, sched)
+    kst.kmv_stream_apply_cuda.launches = 0
+    streamed = guarded(KernelRidge, dict(recompute_every=16,
+                                         stream=STREAM_CHUNK_ROWS),
+                       s_opts, Ar.cpu(), c.yr, sched)
+    n_apply = kst.kmv_stream_apply_cuda.launches
+    c.spy.take()
+    if n_apply < 1:
+        failures.append("phase 10e launched no streamed apply_at")
+    ratio, err = allclose_ratio(streamed.alpha, resident.alpha, TOL_ITERATE)
+    print(f"[guard] streamed guarded K-RR (stream={STREAM_CHUNK_ROWS}), "
+          f"{streamed.rounds_run} rounds, {streamed.health.corrections} "
+          f"correction(s), {n_apply} streamed apply_at launches: vs the "
+          f"resident guarded fit {err:.3e} ({ratio:.2f}x); walls "
+          f"{streamed.wall_time_s:.2f} s (resident "
+          f"{resident.wall_time_s:.2f} s)")
+    if not (ratio <= 1.0 and n_apply == streamed.rounds_run
+            and streamed.health.corrections == 1):
+        failures.append(f"streamed guard: {err:.3e}, {n_apply} launches, "
+                        f"{streamed.health.corrections} corrections")
+    print(f"[guard] 10e in {time.perf_counter() - t0:.1f} s; phase 10 "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    a32 = apply_rows[32]
+    entries.append({
+        "name": "kmv_apply_at", "route": "cuda",
+        "source": "src/repro_torch/csrc/kmv.cu",
+        "replaces": "src/repro/kernels/kmv.py:93",
+        "shape": f"rbf K(A[idx], A)^T w, (sb, m, n) = (32, {m}, {n}) "
+                 f"[{a32['plan'].regime}]",
+        "launches": counts[0] - checks - corr,
+        "launches_note": "apply_at launches of phase 10b's guarded fits, "
+                         "one a round (the kmv count less the checks' and "
+                         "corrections' B = A matvecs, which "
+                         "launches_full_matvec counts)",
+        "launches_full_matvec": checks + corr,
+        "max_abs_err": a32["err"], "ms": a32["ms"], "plain_ms": a32["plain"],
+        "bound_ms": a32["bound"], "bound_by": a32["by"], "library_ms": None,
+        "ms_wide_plan": a32["wide"], "ms_narrow_32x32": a32["n32"],
+        "ms_round_kmv_r32": a32["round"],
+        "ms_gram_slab_route": a32["slab"],
+        "ms_replayed_guarded_round_ksvm": guard_rows["K-SVM s=32"]["round"],
+        "ms_replayed_unguarded_round_ksvm":
+            guard_rows["K-SVM s=32"]["uround"],
+        "ms_guarded_round_ksvm_back_to_back": b2b,
+        "ms_sb256": apply_rows[256]["ms"],
+        "bound_ms_sb256": apply_rows[256]["bound"],
+        "ms_timing": "device time, launches queued behind a spin kernel "
+                     "(time_queued)"})
+    k = f64_rows["apply32"]
+    entries.append({
+        "name": "kmv_f64", "route": "cuda",
+        "source": "src/repro_torch/csrc/f64_tile.cuh",
+        "replaces": "src/repro/kernels/kmv.py:93",
+        "shape": f"rbf f64 apply_at (sb, m, n) = (32, {m}, {n})",
+        "launches": f64_counts[0] - 1,
+        "launches_note": "f64 apply_at launches of phase 10c's f64 rung, "
+                         "one a round (its exact residual, one f64 B = A "
+                         "matvec, in launches_full_matvec)",
+        "launches_full_matvec": 1,
+        "max_abs_err": k["err"], "ms": k["ms"],
+        "plain_ms": k["plain"], "bound_ms": k["bound"], "bound_by": k["by"],
+        "library_ms": None,
+        "ms_B_eq_A_reduced": f64_rows["B=A"]["ms"],
+        "shape_B_eq_A_reduced": f64_rows["B=A"]["shape"],
+        "bound_ms_B_eq_A_reduced": f64_rows["B=A"]["bound"],
+        "ms_stream_apply_reduced": f64_rows["stream"]["ms"],
+        "ms_f64_rung_round": f64_ms / f64_rounds,
+        "bound_ms_stream_apply_reduced": f64_rows["stream"]["bound"],
+        "ms_timing": "CUDA events around back-to-back calls (time_cuda)"})
+    entries.append({
+        "name": "kmv_stream_apply", "route": "cuda",
+        "source": "src/repro_torch/csrc/kmv_stream.cu",
+        "replaces": "src/repro/kernels/kmv_stream.py:111",
+        "shape": f"rbf K(A, A[idx]) w streamed, (m, sb, n) = ({m}, {sb}, "
+                 f"{n}), {STREAM_CHUNK_ROWS}-row pinned chunks",
+        "launches": n_apply,
+        "launches_note": "streamed apply_at launches of phase 10e's "
+                         "guarded streamed fit (a round each)",
+        "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain,
+        "bound_ms": s_bound, "bound_by": "bytes", "library_ms": None,
+        "ms_timing": "CUDA events around back-to-back calls (time_cuda)"})
+    # the f64 rung (classical K-RR, b = 32) runs the 32 x 32 cross block
+    g, g256 = f64_rows["gram32"], f64_rows["gram256"]
+    entries.append({
+        "name": "gram_f64", "route": "cuda",
+        "source": "src/repro_torch/csrc/f64_tile.cuh",
+        "replaces": "src/repro/kernels/gram.py:82",
+        "shape": f"rbf f64 (m, r, n) = (32, 32, {n})",
+        "launches": f64_counts[1],
+        "launches_note": "f64 gram launches of phase 10c's f64 rung, its "
+                         "32 x 32 cross blocks",
+        "max_abs_err": g["err"], "ms": g["ms"], "plain_ms": g["plain"],
+        "bound_ms": g["bound"], "bound_by": g["by"], "library_ms": None,
+        "ms_256x256": g256["ms"], "plain_ms_256x256": g256["plain"],
+        "bound_ms_256x256": g256["bound"],
+        "ms_timing": "device time, launches queued behind a spin kernel "
+                     "(time_queued)"})
+    return entries
 
 
 def device_profile(run, calls: int):
@@ -3012,6 +3662,17 @@ def main(argv=None) -> int:
             print(f"[sweep] FAIL {f}")
         return fail(f"{len(failures)} sweep check(s) failed")
 
+    # ---- 10. guarded solves (on phases 3-4's data) ------------------------
+    guard_entries = guard_phase(SimpleNamespace(
+        dev=dev, m=m, n=n, kernels=kernels, A=A, y=y, Ar=Ar, yr=yr,
+        r_s=r_s, r_k=r_k, svm=svm, krr=krr, spy=spy,
+        hyper={KernelSVM: dict(C=1.0, kernel="rbf"),
+               KernelRidge: dict(lam=1.0, kernel="rbf")}), args, failures)
+    if failures:
+        for f in failures:
+            print(f"[guard] FAIL {f}")
+        return fail(f"{len(failures)} guard check(s) failed")
+
     # ---- 7. LM prefill and serving ----------------------------------------
     del A, Ar, Aq, Arq, B_of, gram_blocks, Xv, Xm, svm, krr
     del dcd
@@ -3070,6 +3731,7 @@ def main(argv=None) -> int:
          "eager_ms": g256[5]},
         *stream_entries,
         *sweep_entries,
+        *guard_entries,
         *lm_entries,
         *train_entries,
     ]}

@@ -40,6 +40,16 @@ before the solve; the plan lands on ``FitResult.plan``.  Every fit
 carries ``FitResult.comm``, the Hockney model of its run.  ``fit_path``
 solves a warm-started regularisation ladder (``tune.reg_path``); whole
 grids solve as one fleet (``tune.solve_fleet``).
+
+``SolverOptions(guard=True)`` runs a guarded solve (``resilience``): the
+rounds carry the residual ``f = K alpha`` (a round's KMV becomes the
+``apply_at`` of its update), check the carry every round, replace the
+residual exactly every ``recompute_every`` rounds (``"auto"``: the
+performance model's cadence), and on divergence walk the fallback
+ladder (halve s, then classical, then f64 arithmetic on the card's f64
+kernel route) from the last good state; ``checkpoint_every`` /
+``checkpoint_dir`` cut mid-solve snapshots that ``fit(resume_from=)``
+continues.  ``FitResult.health`` records what the guard saw.
 """
 from __future__ import annotations
 
@@ -50,7 +60,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core import (LANDMARK_METHODS, NO_TOL, BatchedPredictor,
+from repro_torch.core import (DIVERGED_NONFINITE, LANDMARK_METHODS, NO_TOL,
+                              BatchedPredictor, GuardSpec,
                               ExactGramOperator, KernelConfig, KRRConfig,
                               StreamingGramOperator, SVMConfig, as_schedule,
                               block_schedule, coordinate_schedule,
@@ -61,9 +72,18 @@ from repro_torch.core import (LANDMARK_METHODS, NO_TOL, BatchedPredictor,
                               make_sstep_bdcd_round_fn,
                               make_sstep_dcd_round_fn, pad_rounds,
                               run_rounds, validate_queries)
-from repro_torch.core.perf_model import modeled_fit_cost
+from repro_torch.core.perf_model import (choose_recompute_every,
+                                         modeled_fit_cost)
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.kernels.ops import make_solver_gram_fn
+from repro_torch.resilience import (DivergenceError, HealthEvent,
+                                    SimulatedKill, SolveHealth, active_plan,
+                                    finite_health, init_residual,
+                                    load_solve_state, make_correct_fn,
+                                    next_fallback, save_solve_state,
+                                    solve_fingerprint)
+from repro_torch.resilience.health import (KIND_METRIC, KIND_NONFINITE,
+                                           KIND_RESUME)
 
 METHODS = ("classical", "sstep")
 APPROX = (None, "nystrom")
@@ -75,11 +95,6 @@ AUTO = "auto"
 UNPORTED = {
     "layout": ("serial", "A11"),
     "mesh": (None, "A11"),
-    "guard": (False, "A7"),
-    "recompute_every": (AUTO, "A7"),
-    "checkpoint_every": (0, "A7"),
-    "checkpoint_dir": (None, "A7"),
-    "fallback": (True, "A7"),
     "telemetry": (None, "A10"),
 }
 
@@ -122,6 +137,21 @@ class SolverOptions:
                  cost model within the device's budget and measured link
                  (``perf_model.choose_chunk_rows``).  Needs slab_free,
                  the exact representation and the serial layout.
+    guard:       guarded solve (module docstring): the rounds carry the
+                 residual ``f = K alpha``, check the carry every round,
+                 correct the residual's drift, and on divergence fall back
+                 (halve s, classical, f64) from the last good state;
+                 ``FitResult.health`` records it.  Needs slab_free.
+    recompute_every: drift-correction cadence in outer rounds (an exact
+                 ``f = K alpha``, one full KMV); "auto" takes the
+                 performance model's cadence within its 10% overhead
+                 budget; 0 turns correction off.
+    checkpoint_every: mid-solve snapshot cadence in outer rounds (0 =
+                 off); needs ``checkpoint_dir`` and ``guard``.
+    checkpoint_dir: where snapshots go (``train/checkpoint.py``'s atomic
+                 step directories).
+    fallback:    walk the ladder on divergence (default); False raises
+                 ``DivergenceError`` at once.
 
     The remaining fields are the JAX package's other knobs, accepted only
     at their defaults: any other value raises ``ValueError`` naming the
@@ -180,6 +210,34 @@ class SolverOptions:
                              f"{self.probe!r}")
         if not self.tol >= 0.0:
             raise ValueError(f"tol must be >= 0, got {self.tol!r}")
+        self._check_guard()
+
+    def _check_guard(self):
+        """The guard's knobs, under the JAX package's rules."""
+        if self.recompute_every != AUTO and (
+                not isinstance(self.recompute_every, int)
+                or isinstance(self.recompute_every, bool)
+                or self.recompute_every < 0):
+            raise ValueError(f"recompute_every must be an int >= 0 or "
+                             f"{AUTO!r}, got {self.recompute_every!r}")
+        if not isinstance(self.checkpoint_every, int) \
+                or isinstance(self.checkpoint_every, bool) \
+                or self.checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every must be an int >= 0, "
+                             f"got {self.checkpoint_every!r}")
+        if self.guard and not self.slab_free:
+            raise ValueError("guard=True requires slab_free=True: the "
+                             "guarded round protocol reads the kernel "
+                             "through the GramOperator (the "
+                             "materialized-slab oracle has no residual "
+                             "recurrence to guard)")
+        if self.checkpoint_every > 0 and self.checkpoint_dir is None:
+            raise ValueError("checkpoint_every > 0 requires "
+                             "checkpoint_dir=")
+        if self.checkpoint_every > 0 and not self.guard:
+            raise ValueError("checkpoint_every > 0 requires guard=True "
+                             "(snapshots are cut at the guarded "
+                             "executor's segment boundaries)")
 
     def _check_representation(self):
         """The ``stream`` / ``approx`` knobs, under the JAX package's
@@ -255,6 +313,9 @@ class FitResult:
                                    # with (auto knobs already concrete)
     representation: str = "exact"  # "exact" | "nystrom(l=...)"
     plan: Optional[object] = None  # tune.TunedPlan when a knob was "auto"
+    health: Optional[SolveHealth] = None
+                                   # guarded fits: drift, divergence and
+                                   # fallback events, checkpoints, resume
 
     def metric_history(self) -> Optional[np.ndarray]:
         """Every recorded metric value in evaluation order, or None when
@@ -363,20 +424,18 @@ def _metric_fn(problem: str, op, A_s, y, cfg, opts: SolverOptions):
 
 
 def _round_fn(problem: str, A_s, y, cfg_s, s: int, gram_fn, train_op,
-              param=None):
+              param=None, guard: bool = False):
     """The solver's round: classical at s = 1, s-step above; ``param``
-    (an (F,) tensor of C or lambda values) makes it a fleet's."""
+    (an (F,) tensor of C or lambda values) makes it a fleet's, ``guard``
+    the guarded carry's."""
+    kw = dict(gram_fn=gram_fn, op=train_op, guard=guard)
     if problem == "ksvm":
         if s == 1:
-            return make_dcd_round_fn(A_s, y, cfg_s, gram_fn=gram_fn,
-                                     op=train_op, C=param)
-        return make_sstep_dcd_round_fn(A_s, y, cfg_s, s, gram_fn=gram_fn,
-                                       op=train_op, C=param)
+            return make_dcd_round_fn(A_s, y, cfg_s, C=param, **kw)
+        return make_sstep_dcd_round_fn(A_s, y, cfg_s, s, C=param, **kw)
     if s == 1:
-        return make_bdcd_round_fn(A_s, y, cfg_s, gram_fn=gram_fn,
-                                  op=train_op, lam=param)
-    return make_sstep_bdcd_round_fn(A_s, y, cfg_s, s, gram_fn=gram_fn,
-                                    op=train_op, lam=param)
+        return make_bdcd_round_fn(A_s, y, cfg_s, lam=param, **kw)
+    return make_sstep_bdcd_round_fn(A_s, y, cfg_s, s, lam=param, **kw)
 
 
 def _schedule(problem: str, opts: SolverOptions, m: int, b: int,
@@ -401,16 +460,28 @@ def _comm(m: int, n: int, cfg, problem: str, opts: SolverOptions, op,
         landmarks=op.rank if opts.approx is not None else 0)
 
 
+def _guard_cadence(problem: str, m: int, n: int, cfg, opts: SolverOptions,
+                   s: int, b: int, approx) -> int:
+    """``recompute_every="auto"``: the performance model's cadence for a
+    serial fit at (s, b) (``perf_model.choose_recompute_every``)."""
+    return choose_recompute_every(
+        m, n, cfg.kernel.name, b=b if problem == "krr" else 1, s=s,
+        approx=bool(approx),
+        landmarks=min(opts.landmarks, m) if approx else 0)
+
+
 def _fit(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
          opts: SolverOptions, device: torch.device, *, a0=None,
-         schedule=None, landmarks=None, rep=None, stats=None):
+         schedule=None, landmarks=None, rep=None, stats=None,
+         resume_from=None):
     """One serial solve on ``device``; returns ``(FitResult, operator)``.
     A is on ``device``, or on the host for a streamed fit.  "auto" knobs
     resolve first (``tune.autotune.resolve_options`` within the device's
     own budget).  ``rep`` injects a prebuilt
     ``(operator, A_solve)`` (a warm-started ladder builds one for all its
     rungs); ``stats`` receives the captured rounds' timing
-    (``core.loop.RoundGraphs.stats``)."""
+    (``core.loop.RoundGraphs.stats``); ``resume_from`` continues a
+    guarded fit's checkpoint directory."""
     m, n = A.shape
     plan = None
     if opts.needs_autotune:
@@ -418,6 +489,13 @@ def _fit(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
         plan = resolve_options(m, n, cfg, opts, problem=problem, A=A, y=y,
                                device=device)
         opts = plan.options
+    if opts.guard and opts.recompute_every == AUTO:
+        # the backstop behind the autotuner's own resolution
+        opts = dataclasses.replace(opts, recompute_every=_guard_cadence(
+            problem, m, n, cfg, opts, opts.s_eff, opts.b, opts.approx))
+    if resume_from is not None and not opts.guard:
+        raise ValueError("resume_from= requires options.guard=True (the "
+                         "checkpoint holds a guarded-carry snapshot)")
     s = opts.s_eff
     b = opts.b if problem == "krr" else 1
     t0 = time.perf_counter()
@@ -441,32 +519,223 @@ def _fit(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
         # K-SVM trains on diag(y) A (diag(y) Phi); prediction keeps the
         # unscaled op
         train_op = op.scale_rows(y) if problem == "ksvm" else op
-    rf = _round_fn(problem, A_s, y, cfg_s, s, gram_fn, train_op)
     metric_name = "duality_gap" if problem == "ksvm" else "rel_residual"
-    metric_fn = _metric_fn(problem, op, A_s, y, cfg, opts)
-    xs = schedule if s == 1 else pad_rounds(schedule, s)
     want_metric = opts.tol > 0.0 or opts.record
-    # captured CUDA graphs where the operator allows, else eager rounds
-    res = run_rounds(rf, a0, xs,
-                     tol=opts.tol if opts.tol > 0.0 else NO_TOL,
-                     check_every=opts.check_every,
-                     metric_fn=metric_fn if want_metric else None,
-                     capture=op.capturable, stats=stats)
+    health = None
+    if opts.guard:
+        fp = solve_fingerprint(problem, A.shape[0], A.dtype, cfg, opts,
+                               schedule)
+        resume = None
+        if resume_from is not None:
+            r_alpha, r_f, extra = load_solve_state(resume_from,
+                                                   expect_fingerprint=fp)
+            resume = {"alpha": r_alpha, "f": r_f,
+                      "iters_done": int(extra["iters_done"]),
+                      "s_cur": int(extra["s_cur"]),
+                      "method_cur": extra["method_cur"],
+                      "path": resume_from}
+        (alpha, history, converged, rounds_run, iters_run,
+         health) = _run_guarded_serial(
+            problem, op, train_op, A_s, y, a0, schedule, cfg, cfg_s, opts,
+            fingerprint=fp, resume=resume, stats=stats)
+    else:
+        rf = _round_fn(problem, A_s, y, cfg_s, s, gram_fn, train_op)
+        metric_fn = _metric_fn(problem, op, A_s, y, cfg, opts)
+        xs = schedule if s == 1 else pad_rounds(schedule, s)
+        # captured CUDA graphs where the operator allows, else eager rounds
+        res = run_rounds(rf, a0, xs,
+                         tol=opts.tol if opts.tol > 0.0 else NO_TOL,
+                         check_every=opts.check_every,
+                         metric_fn=metric_fn if want_metric else None,
+                         capture=op.capturable, stats=stats)
+        alpha, converged, rounds_run = res.state, res.converged, \
+            res.rounds_run
+        iters_run = min(rounds_run * s, H)
+        history = (res.metric_history().double().cpu().numpy()
+                   if want_metric else None)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    iters_run = min(res.rounds_run * s, H)
-    history = (res.metric_history().double().cpu().numpy()
-               if want_metric else None)
     rep_name = (f"nystrom(l={op.rank})" if opts.approx is not None
                 else "exact")
-    result = FitResult(alpha=res.state, schedule=schedule[:iters_run],
+    result = FitResult(alpha=alpha, schedule=schedule[:iters_run],
                        history=history, metric=metric_name,
-                       converged=res.converged, rounds_run=res.rounds_run,
+                       converged=converged, rounds_run=rounds_run,
                        iters_run=iters_run, wall_time_s=wall,
                        comm=_comm(m, n, cfg, problem, opts, op, iters_run),
-                       options=opts, representation=rep_name, plan=plan)
+                       options=opts, representation=rep_name, plan=plan,
+                       health=health)
     return result, op
+
+
+def _guarded_segment(problem, A_s, y, alpha, f, schedule, cfg_s, metric_fn,
+                     opts: SolverOptions, train_op, s: int, fault,
+                     stats=None):
+    """One guarded segment: the guarded rounds of (problem, s) over the
+    ``(alpha, f)`` carry from ``core.loop.run_rounds(guard=...)``.
+    ``fault`` = (round, target, value) arms the fault lane: the round's
+    update gets ``value`` added to the target leaf, through a per-round
+    hit mask that rides the schedule and a device scalar, so captured
+    rounds replay it with no host branch; None captures no lane."""
+    base = _round_fn(problem, A_s, y, cfg_s, s, None, train_op, guard=True)
+    xs = schedule if s == 1 else pad_rounds(schedule, s)
+    rf = base
+    if fault is not None:
+        fault_round, target, value = fault
+        single = isinstance(xs, torch.Tensor)
+        R = (xs if single else xs[0]).shape[0]
+        hits = torch.arange(R, device=alpha.device) == fault_round
+        bad = torch.tensor(value, dtype=alpha.dtype, device=alpha.device)
+        zero = torch.zeros((), dtype=alpha.dtype, device=alpha.device)
+
+        def rf(carry, xz):
+            a, fr = base(carry, xz[0] if single else xz[:-1])
+            add = torch.where(xz[-1], bad, zero)
+            return (a + add, fr) if target == "alpha" else (a, fr + add)
+
+        xs = ((xs,) if single else tuple(xs)) + (hits,)
+    guard = GuardSpec(
+        health_fn=finite_health,
+        correct_fn=(make_correct_fn(train_op) if opts.recompute_every >= 1
+                    else None),
+        correct_every=opts.recompute_every)
+    want_metric = opts.tol > 0.0 or opts.record
+    return run_rounds(rf, (alpha, f), xs,
+                      tol=opts.tol if opts.tol > 0.0 else NO_TOL,
+                      check_every=opts.check_every,
+                      metric_fn=((lambda c: metric_fn(c[0])) if want_metric
+                                 else None),
+                      guard=guard, capture=train_op.capturable, stats=stats)
+
+
+def _run_guarded_serial(problem, op, train_op, A_s, y, a0, schedule, cfg,
+                        cfg_s, opts: SolverOptions, *, fingerprint,
+                        resume=None, stats=None):
+    """The host half of a guarded solve (the JAX package's
+    ``_run_guarded_serial``): guarded segments bounded by the checkpoint
+    cadence, the drift and metric histories harvested from each, and on
+    divergence the fallback ladder (halve s, classical, f64) from the
+    last good state, with an exact residual at every rung.  Returns
+    ``(alpha, history, converged, rounds_run, iters_run, health)``."""
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    H = schedule.shape[0]
+    want_metric = opts.tol > 0.0 or opts.record
+    base_dtype = a0.dtype
+    s_cur, method_cur = opts.s_eff, opts.method
+    x64 = False
+    pos = rounds_done = 0
+    converged = False
+    alpha, f = a0, None
+    events, drifts, hists = [], [], []
+    checkpoints, resumed_from = 0, None
+    if resume is not None:
+        alpha = resume["alpha"].to(a0.device, base_dtype)
+        if resume["f"] is not None:
+            f = resume["f"].to(a0.device, base_dtype)
+        pos = resume["iters_done"]
+        s_cur, method_cur = resume["s_cur"], resume["method_cur"]
+        resumed_from = resume["path"]
+        events.append(HealthEvent(kind=KIND_RESUME, round_idx=rounds_done,
+                                  iter_idx=pos, action="resume",
+                                  detail=resumed_from))
+    plan = active_plan()
+    mgr = None
+    if opts.checkpoint_every > 0:
+        mgr = CheckpointManager(opts.checkpoint_dir, save_every=1)
+    A_cur, y_cur, op_cur, train_cur = A_s, y, op, train_op
+    if f is None:
+        f = init_residual(train_cur, alpha)
+
+    while pos < H and not converged:
+        seg = (min(opts.checkpoint_every * s_cur, H - pos)
+               if opts.checkpoint_every > 0 else H - pos)
+        fault_round = (plan.carry_fault_round(pos, seg, s_cur)
+                       if plan is not None else -1)
+        fault = ((fault_round, plan.target, plan.value)
+                 if fault_round >= 0 else None)
+        metric_fn = _metric_fn(problem, op_cur, A_cur, y_cur, cfg, opts)
+        res = _guarded_segment(problem, A_cur, y_cur, alpha, f,
+                               schedule[pos:pos + seg], cfg_s, metric_fn,
+                               opts, train_cur, s_cur, fault, stats)
+        dh = res.drift_history()
+        if dh is not None and len(dh):
+            drifts.append(dh.double().cpu().numpy())
+        mh = res.metric_history()
+        if mh is not None and len(mh):
+            hists.append(mh.double().cpu().numpy())
+
+        div = res.diverged_round
+        if div >= 0:
+            # the bad round's update was discarded: the carry is the last
+            # good state, so the good prefix of the segment is consumed
+            alpha, f = res.state
+            pos += min(div * s_cur, seg)
+            rounds_done += div
+            kind = (KIND_NONFINITE if res.diverged_kind == DIVERGED_NONFINITE
+                    else KIND_METRIC)
+            if fault_round >= 0 and div >= fault_round:
+                plan.carry_fired = True      # one-shot: do not fire again
+            if not opts.fallback:
+                raise DivergenceError(
+                    f"guarded solve diverged ({kind}) at round "
+                    f"{rounds_done} (iteration {pos}) and fallback is "
+                    f"disabled", events=tuple(events))
+            try:
+                action, s_cur, method_cur, x64_new = next_fallback(
+                    s_cur, method_cur, x64)
+            except DivergenceError as e:
+                raise DivergenceError(str(e),
+                                      events=tuple(events)) from None
+            events.append(HealthEvent(
+                kind=kind, round_idx=rounds_done, iter_idx=pos,
+                action=action,
+                detail=f"resuming from last good state at iter {pos}"))
+            if x64_new and not x64:
+                x64 = True
+                # the rounds read A only for its shape, except the
+                # Nystrom residual, which contracts Phi itself
+                if opts.approx is not None:
+                    A_cur = A_cur.double()
+                y_cur = y_cur.double()
+                op_cur = op_cur.astype(torch.float64)
+                train_cur = train_cur.astype(torch.float64)
+                alpha = alpha.double()
+            # after any event the recurrence restarts from an exact
+            # residual (the fault may have corrupted f alone)
+            f = train_cur.full_matvec(alpha)
+            continue
+
+        alpha, f = res.state
+        rounds_done += res.rounds_run
+        if res.converged:
+            converged = True
+            pos += min(res.rounds_run * s_cur, seg)
+        else:
+            pos += seg
+        if mgr is not None and not converged and pos < H:
+            # the snapshot copies the carry to the host before returning
+            save_solve_state(mgr, pos, alpha.to(base_dtype),
+                             f.to(base_dtype), s_cur=s_cur,
+                             method_cur=method_cur, fingerprint=fingerprint)
+            checkpoints += 1
+            if plan is not None and plan.should_kill(pos):
+                plan.kill_fired = True
+                mgr.wait()               # the snapshot is durable
+                raise SimulatedKill(
+                    f"simulated preemption at iteration {pos}",
+                    opts.checkpoint_dir)
+    if mgr is not None:
+        mgr.wait()
+    history = (np.concatenate(hists) if hists
+               else (np.zeros(0) if want_metric else None))
+    health = SolveHealth(
+        guarded=True, recompute_every=opts.recompute_every,
+        drift=np.concatenate(drifts) if drifts else np.zeros(0),
+        corrections=sum(len(d) for d in drifts), events=tuple(events),
+        checkpoints=checkpoints, resumed_from=resumed_from)
+    return (alpha.to(base_dtype), history, converged, rounds_done, pos,
+            health)
 
 
 class _Estimator:
@@ -483,12 +752,14 @@ class _Estimator:
         self.device = resolve_device(device)
 
     def fit(self, A, y, warm_start=None, schedule=None,
-            landmarks=None) -> FitResult:
+            landmarks=None, resume_from=None) -> FitResult:
         """Solve the dual.  ``warm_start`` seeds alpha (shape (m,));
         ``schedule`` replays a given coordinate schedule ((H,) for K-SVM,
         (H, b) for K-RR) instead of drawing one from ``options.seed``;
         ``landmarks`` (l, n) replays a Nystrom landmark set instead of
-        drawing one.  A streamed fit validates and chunks A on the host:
+        drawing one; ``resume_from`` continues the mid-solve checkpoint
+        directory of a guarded fit (``options.checkpoint_every``) of the
+        same solve.  A streamed fit validates and chunks A on the host:
         A never goes to the card."""
         if landmarks is not None and self.options.approx is None:
             raise ValueError("landmarks= replays a Nystrom landmark set: "
@@ -497,7 +768,7 @@ class _Estimator:
         y = _check_finite(y, "y", self.device)
         result, op = _fit(self.problem, A, y, self.cfg, self.options,
                           self.device, a0=warm_start, schedule=schedule,
-                          landmarks=landmarks)
+                          landmarks=landmarks, resume_from=resume_from)
         self._adopt(A, y, result.alpha, op, result)
         return result
 

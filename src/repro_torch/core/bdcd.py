@@ -68,15 +68,23 @@ def fleet_inv_lam(lam: torch.Tensor) -> torch.Tensor:
 
 def make_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: KRRConfig,
                        gram_fn: Optional[Callable] = None,
-                       op=None, lam=None) -> Callable:
+                       op=None, lam=None, guard: bool = False) -> Callable:
     """``round_fn(alpha, idx) -> alpha`` for ``loop.run_rounds``: one
     Algorithm-3 exact b x b block solve.  ``op`` injects a prebuilt
     operator over the training representation.  ``lam`` overrides
     ``cfg.lam``: a number replaces it, an (F,) tensor makes the round a
-    fleet's over an (F, m) alpha (slab-free only)."""
+    fleet's over an (F, m) alpha (slab-free only).
+
+    ``guard=True`` is the guarded-carry round, ``round_fn((alpha, f),
+    idx) -> (alpha, f)`` with ``f = K alpha`` kept by ``f += K[:, idx]
+    dalpha`` (``op.apply_at``): ``U^T alpha`` becomes the free gather
+    ``f[idx]``.  Operator path only."""
     if gram_fn is not None and op is not None:
         raise ValueError("pass at most one of gram_fn (materialized "
                          "slab) or op (prebuilt operator)")
+    if guard and gram_fn is not None:
+        raise ValueError("guard=True requires the GramOperator path "
+                         "(gram_fn= is the legacy materialized oracle)")
     m = A.shape[0]
     if op is None and gram_fn is None:
         op = ExactGramOperator(A, cfg.kernel)
@@ -87,6 +95,8 @@ def make_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: KRRConfig,
                              "oracle")
         return _fleet_bdcd_round_fn(y, m, op, fleet_inv_lam(lam))
     inv_lam = 1.0 / (cfg.lam if lam is None else float(lam))
+    if guard:
+        return _guarded_bdcd_round_fn(y, m, op, inv_lam)
 
     def round_fn(alpha, idx):                 # idx: (b,)
         if gram_fn is not None:               # materialized m x b slab
@@ -99,6 +109,21 @@ def make_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: KRRConfig,
         G.diagonal().add_(m)                  # + m I
         rhs = y[idx] - m * alpha[idx] - inv_lam * uTa
         return alpha.index_add(0, idx, solve_small(G, rhs))
+
+    return round_fn
+
+
+def _guarded_bdcd_round_fn(y, m, op, inv_lam):
+    """The guarded round of ``make_bdcd_round_fn(guard=True)``."""
+
+    def round_fn(carry, idx):                 # idx: (b,)
+        alpha, f = carry                      # f = K @ alpha, (m,)
+        G = inv_lam * op.cross_block(idx)
+        G.diagonal().add_(m)                  # + m I
+        rhs = y[idx] - m * alpha[idx] - inv_lam * f[idx]
+        dalpha = solve_small(G, rhs)
+        return (alpha.index_add(0, idx, dalpha),
+                f + op.apply_at(idx, dalpha))
 
     return round_fn
 

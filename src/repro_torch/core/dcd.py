@@ -101,7 +101,7 @@ def _dcd_theta(alpha_i, g, eta, nu):
 
 def make_dcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: SVMConfig,
                       gram_fn: Optional[Callable] = None,
-                      op=None, C=None) -> Callable:
+                      op=None, C=None, guard: bool = False) -> Callable:
     """``round_fn(alpha, i) -> alpha`` for ``loop.run_rounds``: one
     Algorithm-1 coordinate step.
 
@@ -109,10 +109,18 @@ def make_dcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: SVMConfig,
     already row-scaled by ``diag(y)`` (``operator.scale_rows(y)``);
     ``gram_fn(Atil, rows, kernel)`` selects the materialized path.  ``C``
     overrides ``cfg.C``: a number replaces it, an (F,) tensor makes the
-    round a fleet's over an (F, m) alpha (slab-free only)."""
+    round a fleet's over an (F, m) alpha (slab-free only).
+
+    ``guard=True`` is the guarded-carry round, ``round_fn((alpha, f), i)
+    -> (alpha, f)`` with ``f = Ktil alpha`` kept by the recurrence ``f +=
+    Ktil[:, i] theta`` (``op.apply_at``): ``u^T alpha`` becomes the free
+    gather ``f[i]``.  Operator path only."""
     if gram_fn is not None and op is not None:
         raise ValueError("pass at most one of gram_fn (materialized "
                          "slab) or op (prebuilt operator)")
+    if guard and gram_fn is not None:
+        raise ValueError("guard=True requires the GramOperator path "
+                         "(gram_fn= is the legacy materialized oracle)")
     if isinstance(C, torch.Tensor):
         if gram_fn is not None:
             raise ValueError("a fleet round is slab-free (one shared "
@@ -125,6 +133,8 @@ def make_dcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: SVMConfig,
         Atil = y[:, None] * A                   # diag(y) @ A
     elif op is None:
         op = ExactGramOperator(A, cfg.kernel).scale_rows(y)
+    if guard:
+        return _guarded_dcd_round_fn(op, nu, omega)
 
     def round_fn(alpha, i):
         # gather through the (1,) index: indexing with the 0-dim i itself
@@ -141,6 +151,21 @@ def make_dcd_round_fn(A: torch.Tensor, y: torch.Tensor, cfg: SVMConfig,
             g = uTa[0] - 1.0 + omega * a_i
         theta = _dcd_theta(a_i, g, eta, nu)
         return alpha.index_add(0, idx, theta.reshape(1))
+
+    return round_fn
+
+
+def _guarded_dcd_round_fn(op, nu, omega):
+    """The guarded round of ``make_dcd_round_fn(guard=True)``."""
+
+    def round_fn(carry, i):
+        alpha, f = carry                        # f = Ktil @ alpha, (m,)
+        idx = i.reshape(1)
+        a_i = alpha[idx][0]
+        eta = op.cross_block(idx)[0, 0] + omega
+        g = f[idx][0] - 1.0 + omega * a_i       # u^T alpha = f[i], free
+        theta = _dcd_theta(a_i, g, eta, nu).reshape(1)
+        return (alpha.index_add(0, idx, theta), f + op.apply_at(idx, theta))
 
     return round_fn
 

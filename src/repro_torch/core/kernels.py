@@ -152,6 +152,7 @@ class GramOperator:
       ``cross_block(idx)``  -> ``U[idx, :]``   the sampled gram block
       ``diag(idx)``         -> ``diag K`` at idx
       ``round_data(idx, X)``-> (cross_block, matvec) of one s-step round
+      ``apply_at(idx, w)``  -> ``K[:, idx] @ w`` the guarded recurrence
       ``full_matvec(X)``    -> ``K @ X``       one full-width KMV
       ``serve_weights(w)``  -> representation-side precompute for serving
       ``serve_block(Xq, sw)``-> ``K(Xq, train) @ w`` for one query block
@@ -205,6 +206,11 @@ class GramOperator:
     def take(self, idx: torch.Tensor) -> "GramOperator":
         raise NotImplementedError
 
+    def astype(self, dtype: torch.dtype) -> "GramOperator":
+        """The same operator over data cast to ``dtype`` (the guarded
+        fit's f64 rung)."""
+        raise NotImplementedError
+
     def serve_weights(self, w: torch.Tensor) -> torch.Tensor:
         return w
 
@@ -215,6 +221,12 @@ class GramOperator:
     def round_data(self, idx: torch.Tensor, X: torch.Tensor):
         """(cross_block, matvec) for one s-step round."""
         return self.cross_block(idx), self.matvec(idx, X)
+
+    def apply_at(self, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``K[:, idx] @ w``: the guarded rounds' residual recurrence
+        (after a round adds w to ``alpha[idx]``, ``f = K alpha`` advances
+        by this column combination).  (m,) for w: (s*b,)."""
+        raise NotImplementedError
 
     def full_matvec(self, X: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -277,10 +289,19 @@ class ExactGramOperator(GramOperator):
     def take(self, idx):
         return dataclasses.replace(self, A=self.A[idx])
 
+    def astype(self, dtype):
+        return dataclasses.replace(self, A=self.A.to(dtype))
+
     def serve_block(self, Xq, sw):
         # K(A, Xq)^T sw == K(Xq, A) @ sw: one KMV with the queries as the
         # sampled rows, slab-free over the training dimension
         return _ops().kmv(self.A, Xq, sw, self.cfg).to(sw.dtype)
+
+    def apply_at(self, idx, w):
+        # K symmetric: K(A, A[idx]) @ w == K(A[idx], A)^T w — the KMV
+        # kernel with its operands swapped, contracting over the sb
+        # sampled rows into all m outputs
+        return _ops().kmv(self.A[idx], self.A, w, self.cfg).to(w.dtype)
 
     def full_matvec(self, X):
         # K symmetric: K @ X == K(A, A)^T X — one full-width KMV
@@ -346,6 +367,14 @@ class LowRankGramOperator(GramOperator):
     def take(self, idx):
         return dataclasses.replace(self, Phi=self.Phi[idx])
 
+    def astype(self, dtype):
+        fmap = self.fmap
+        if fmap is not None:
+            fmap = dataclasses.replace(
+                fmap, landmarks=fmap.landmarks.to(dtype),
+                transform=fmap.transform.to(dtype))
+        return dataclasses.replace(self, Phi=self.Phi.to(dtype), fmap=fmap)
+
     def serve_weights(self, w):
         return self.Phi.T @ w                     # (l,): the whole model
 
@@ -357,6 +386,9 @@ class LowRankGramOperator(GramOperator):
                 "repro_torch.core.nystrom.fit_nystrom or the facade "
                 "(SolverOptions(approx='nystrom'))")
         return self.fmap(Xq) @ sw                 # O(l) per query
+
+    def apply_at(self, idx, w):
+        return self.Phi @ (self.Phi[idx].T @ w)   # O(m l), no slab
 
     def full_matvec(self, X):
         return self.Phi @ (self.Phi.T @ X)        # O(m l), exact in K~
@@ -439,11 +471,17 @@ class StreamingGramOperator(GramOperator):
     def rows(self, idx):
         return _ops().gather_rows(self.Xc, idx.to(self.compute_device))
 
+    @property
+    def _acc(self) -> torch.dtype:
+        """The pipes' accumulation dtype: f64 for f64 data, else f32."""
+        return (torch.float64 if self.Xc.dtype == torch.float64
+                else torch.float32)
+
     def _stream_kmv(self, B: torch.Tensor, X: torch.Tensor
                     ) -> torch.Tensor:
         """``K(A, B)^T X`` streamed over the chunks."""
         vec = X.ndim == 1
-        Xvc = _chunk(X.reshape(X.shape[0], -1).to(torch.float32),
+        Xvc = _chunk(X.reshape(X.shape[0], -1).to(self._acc),
                      self.chunk_rows)                  # (nc, cr, c)
         out = _ops().kmv_stream(self.Xc, B, Xvc, self.cfg,
                                 m=self.m).to(X.dtype)
@@ -499,10 +537,28 @@ class StreamingGramOperator(GramOperator):
         return dataclasses.replace(self, Xc=_chunk(kept, cr, self._pin),
                                    m=kept.shape[0])
 
+    def astype(self, dtype):
+        """A new chunked host buffer (pinned on the card path) in
+        ``dtype``."""
+        out = torch.empty(self.Xc.shape, dtype=dtype, pin_memory=self._pin)
+        out.copy_(self.Xc)
+        return dataclasses.replace(self, Xc=out)
+
     def serve_block(self, Xq, sw):
         # K(Xq, A) @ sw == K(A, Xq)^T sw: the queries are the sampled
         # rows of one streamed KMV, the same pipe as training
         return self._stream_kmv(Xq, sw)
+
+    def apply_at(self, idx, w):
+        """``K[:, idx] @ w`` in one streamed pass: each chunk, while it
+        sits in a device slot of the pipe, contracts its (cr, sb) kernel
+        tile against w into its own rows of the output."""
+        vec = w.ndim == 1
+        out = _ops().kmv_stream_apply(self.Xc, self.rows(idx),
+                                      w.reshape(w.shape[0], -1)
+                                      .to(self._acc), self.cfg,
+                                      m=self.m).to(w.dtype)
+        return out[:, 0] if vec else out
 
     def full_matvec(self, X):
         """``K @ X`` in one symmetric streamed pass: K is symmetric, so
@@ -510,7 +566,7 @@ class StreamingGramOperator(GramOperator):
         (the JAX operator computes the nc pieces ``K(A, chunk_j)^T X``,
         the same values)."""
         vec = X.ndim == 1
-        Xvc = _chunk(X.reshape(X.shape[0], -1).to(torch.float32),
+        Xvc = _chunk(X.reshape(X.shape[0], -1).to(self._acc),
                      self.chunk_rows)                  # (nc, cr, c)
         out = _ops().kmv_stream_full(self.Xc, Xvc, self.cfg,
                                      m=self.m).to(X.dtype)

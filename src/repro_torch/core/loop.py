@@ -33,20 +33,44 @@ per-member ``done`` mask that freezes converged members; on the card its
 runs replay through the same ``RoundGraphs``, the mask a static device
 buffer the captured checks update.
 
+``run_rounds(guard=GuardSpec(...))`` is the guarded driver (the JAX
+package's ``_run_rounds_guarded``, ``resilience``): the state is the
+guarded carry ``(alpha, f)``; a health check after every round discards
+an unhealthy round's update and freezes on the last good state, stamping
+the first bad round; every ``correct_every`` rounds the residual is
+replaced by an exact recompute and its drift recorded; a checked metric
+that is not finite or exceeds ``metric_blowup`` times the best so far
+stops the run too.  The cadences count from the start of the call, as
+the reference's count from the start of its segment (ROADMAP C10).  On
+the card it runs through ``GuardedRoundGraphs``: runs end at every check
+and correction, the freeze is a device flag and ``torch.where`` (a run
+replays to its end, later rounds keeping the frozen state), a run ending
+in a correction keeps the corrected state only while the flag holds, and
+the host reads one small status tensor a run.
+``_run_rounds_guarded_eager`` is the same steps in the same order with a
+host check a round, the route of an operator that cannot be captured
+and the reference the graphs are held to bit for bit.
+
 ``pad_rounds`` pads a ragged schedule to whole s-step rounds with a
 validity mask, so the final short round makes exactly-zero updates.
-The guarded driver is a later slice of the port.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
+import numpy as np
 import torch
 
 from repro_torch.device import as_tensor
 
 NO_TOL = float("-inf")        # sentinel: record the metric, never stop early
+
+# LoopResult.diverged_kind codes (0 = healthy throughout)
+DIVERGED_NONE = 0
+DIVERGED_NONFINITE = 1        # round_fn produced a non-finite carry leaf
+DIVERGED_METRIC = 2           # metric went non-finite or blew up vs best
 
 # Rounds a graph of the fast path holds.  A capture runs the rounds' Python
 # once, so it costs the host about what the same rounds cost eagerly, and
@@ -59,6 +83,24 @@ NO_TOL = float("-inf")        # sentinel: record the metric, never stop early
 FAST_RUN = 8
 
 Rounds = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+class GuardSpec(NamedTuple):
+    """Guard hooks for ``run_rounds`` (``resilience``).
+
+    health_fn:      state -> 0-dim bool tensor, True = healthy; runs on
+                    the full post-round carry every round, on the device.
+    correct_fn:     state -> (corrected_state, drift): residual
+                    replacement with the observed relative drift.
+    correct_every:  cadence of ``correct_fn`` in rounds (0 = never).
+    metric_blowup:  stop when a checked metric exceeds ``metric_blowup``
+                    times the best so far (inf disables).
+    """
+
+    health_fn: Callable
+    correct_fn: Optional[Callable] = None
+    correct_every: int = 0
+    metric_blowup: float = 1e4
 
 
 class LoopResult(NamedTuple):
@@ -74,6 +116,17 @@ class LoopResult(NamedTuple):
     rounds_run:  number of rounds executed.
     converged:   metric <= tol at some check; a fleet's is an (F,) bool
                  tensor, member by member.
+
+    Guarded runs only (None otherwise):
+
+    drift_hist:     (n_corrections,) relative drift at each residual
+                    replacement (the first ``corrections`` evaluated), or
+                    None without a correction cadence.
+    corrections:    number of drift corrections performed.
+    diverged_round: index of the first unhealthy round, or -1; on a
+                    non-finite divergence ``state`` is the last good
+                    (pre-round) carry.
+    diverged_kind:  DIVERGED_NONE / DIVERGED_NONFINITE / DIVERGED_METRIC.
     """
 
     state: Any
@@ -82,6 +135,10 @@ class LoopResult(NamedTuple):
     checks_run: int
     rounds_run: int
     converged: bool
+    drift_hist: Optional[torch.Tensor] = None
+    corrections: Optional[int] = None
+    diverged_round: Optional[int] = None
+    diverged_kind: Optional[int] = None
 
     def metric_history(self) -> Optional[torch.Tensor]:
         """The evaluated prefix ``metric_hist[:checks_run]``, or None when
@@ -89,6 +146,13 @@ class LoopResult(NamedTuple):
         if self.metric_hist is None:
             return None
         return self.metric_hist[:self.checks_run]
+
+    def drift_history(self) -> Optional[torch.Tensor]:
+        """The evaluated prefix ``drift_hist[:corrections]``, or None
+        when the run was unguarded or had no correction cadence."""
+        if self.drift_hist is None:
+            return None
+        return self.drift_hist[:self.corrections]
 
 
 def pad_rounds(schedule: torch.Tensor, s: int):
@@ -123,21 +187,31 @@ def _counted():
     return ops.CAPTURED
 
 
+def _counters():
+    """``(wrapper, counter, name)`` of every launch counter of the
+    captured wrappers: ``launches``, and ``launches_f64`` (the f64
+    route's share) where a wrapper has one."""
+    return [(fn, attr, fn.__name__ + ("" if attr == "launches"
+                                      else "." + attr))
+            for fn in _counted()
+            for attr in ("launches", "launches_f64") if hasattr(fn, attr)]
+
+
 def _launches():
-    return [fn.launches for fn in _counted()]
+    return [getattr(fn, attr) for fn, attr, _ in _counters()]
 
 
 def _take_launches(before, into: str = "") -> Dict[str, int]:
-    """Take the launches counted since ``before`` back off each wrapper's
-    ``launches`` (adding them to its ``into`` counter, if named); returns
-    them by wrapper name."""
+    """Take the launches counted since ``before`` back off each counter
+    (adding a wrapper's ``launches`` to its ``into`` counter, if named);
+    returns them by counter name (the wrapper's for ``launches``)."""
     taken = {}
-    for fn, b in zip(_counted(), before):
-        d = fn.launches - b
-        fn.launches = b
-        if into:
+    for (fn, attr, name), b in zip(_counters(), before):
+        d = getattr(fn, attr) - b
+        setattr(fn, attr, b)
+        if into and attr == "launches":
             setattr(fn, into, getattr(fn, into) + d)
-        taken[fn.__name__] = d
+        taken[name] = d
     return taken
 
 
@@ -177,39 +251,54 @@ class RoundGraphs:
                  xs: Rounds, run_len: int, *,
                  metric_fn: Optional[Callable] = None,
                  record_state: bool = False, timed: bool = False):
-        self.R = _n_rounds(xs)
-        if not 1 <= run_len <= self.R:
-            raise ValueError(f"run_len must be in [1, {self.R}] for "
-                             f"{self.R} rounds, got {run_len}")
-        self.round_fn, self.metric_fn = round_fn, metric_fn
+        R = _n_rounds(xs)
+        if not 1 <= run_len <= R:
+            raise ValueError(f"run_len must be in [1, {R}] for "
+                             f"{R} rounds, got {run_len}")
+        runs = [(lo, min(run_len, R - lo)) for lo in range(0, R, run_len)]
+        self._setup(round_fn, state0.clone(), xs,
+                    [(lo, n, n) for lo, n in runs], metric_fn, timed)
         self.c = run_len
-        self.n_runs = -(-self.R // run_len)
-        self._xs = (xs,) if isinstance(xs, torch.Tensor) else tuple(xs)
-        self._single = isinstance(xs, torch.Tensor)
-        self.state = state0.clone()
-        self._xbuf = tuple(x.new_empty((run_len,) + tuple(x.shape[1:]))
-                           for x in self._xs)
         self.rec = (state0.new_empty((run_len,) + tuple(state0.shape))
                     if record_state else None)
-        self.on_card = state0.device.type == "cuda"
+        if self.on_card:
+            self._capture(sorted({n for _, n in runs}, reverse=True))
+
+    def _setup(self, round_fn, state, xs, runs, metric_fn, timed):
+        """What every driver of runs shares: ``runs`` is the list of
+        ``(first round, rounds, graph key)``."""
+        self.R = _n_rounds(xs)
+        self.round_fn, self.metric_fn = round_fn, metric_fn
+        self._runs = runs
+        self.n_runs = len(runs)
+        self._xs = (xs,) if isinstance(xs, torch.Tensor) else tuple(xs)
+        self._single = isinstance(xs, torch.Tensor)
+        self.state = state
+        longest = max(n for _, n, _ in runs)
+        self._xbuf = tuple(x.new_empty((longest,) + tuple(x.shape[1:]))
+                           for x in self._xs)
+        self.rec = None
+        first = state if isinstance(state, torch.Tensor) else state[0]
+        self.on_card = first.device.type == "cuda"
         self.capture_s = self.warmup_s = 0.0
         self.pool_bytes = 0
-        self.graph_launches: Dict[int, Dict[str, int]] = {}
+        self.graph_launches: Dict[Any, Dict[str, int]] = {}
         self._events = [] if timed and self.on_card else None
-        lengths = sorted({self.run_len(j) for j in range(self.n_runs)},
-                         reverse=True)
-        self._graphs: Dict[int, Any] = {}
-        if self.on_card:
-            self._capture(lengths)
+        self._graphs: Dict[Any, Any] = {}
 
     def run_len(self, j: int) -> int:
         """Rounds in run j."""
-        return min(self.c, self.R - j * self.c)
+        return self._runs[j][1]
 
     def _x(self, k: int):
         if self._single:
             return self._xbuf[0][k]
         return tuple(b[k] for b in self._xbuf)
+
+    def _x0(self):
+        """Round 0's slice of ``xs``, in the form the round takes."""
+        x0 = tuple(x[0] for x in self._xs)
+        return x0[0] if self._single else x0
 
     def _body(self, n: int):
         """n rounds over the static buffers, then the check's metric."""
@@ -221,50 +310,57 @@ class RoundGraphs:
         self.state.copy_(state)
         return None if self.metric_fn is None else self.metric_fn(self.state)
 
-    def _capture(self, lengths):
-        dev = self.state.device
+    def _warmup(self):
+        """One round (and the check) on scratch copies of the state, so
+        that every kernel is built and every library handle made before a
+        capture."""
+        scratch = self.round_fn(self.state.clone(), self._x0())
+        if self.metric_fn is not None:
+            self.metric_fn(scratch)
+
+    def _capture(self, keys):
+        dev = self._device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             t0 = time.perf_counter()
             before = _launches()
-            x0 = tuple(x[0] for x in self._xs)
-            scratch = self.round_fn(self.state.clone(),
-                                    x0[0] if self._single else x0)
-            if self.metric_fn is not None:
-                self.metric_fn(scratch)
-            del scratch
+            self._warmup()
             _take_launches(before, "warmup_launches")
             side.synchronize()
             self.warmup_s = time.perf_counter() - t0
             pool = torch.cuda.graph_pool_handle()
             reserved = torch.cuda.memory_reserved(dev)
             t0 = time.perf_counter()
-            for n in lengths:
+            for key in keys:
                 g = torch.cuda.CUDAGraph()
                 before = _launches()
                 g.capture_begin(pool=pool)
                 try:
-                    out = self._body(n)
+                    out = self._body(key)
                 finally:
                     g.capture_end()
-                self.graph_launches[n] = _take_launches(before)
-                self._graphs[n] = (g, out)
+                self.graph_launches[key] = _take_launches(before)
+                self._graphs[key] = (g, out)
             self.capture_s = time.perf_counter() - t0
             self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         torch.cuda.current_stream(dev).wait_stream(side)
+
+    @property
+    def _device(self) -> torch.device:
+        return self._xbuf[0].device
 
     def run(self, j: int, refresh: bool = True):
         """Replay run j (execute it, on the CPU).  ``refresh=False`` skips
         the copy of its schedule slice, so the run repeats the previous
         run's coordinates: a wrong driver that checks must catch."""
-        lo, n = j * self.c, self.run_len(j)
+        lo, n, key = self._runs[j]
         if refresh:
             for buf, x in zip(self._xbuf, self._xs):
                 buf[:n].copy_(x[lo:lo + n])
         if not self.on_card:
-            return self._body(n)
-        g, out = self._graphs[n]
+            return self._body(key)
+        g, out = self._graphs[key]
         if self._events is None:
             g.replay()
         else:
@@ -274,8 +370,9 @@ class RoundGraphs:
             g.replay()
             ev[1].record()
             self._events.append(ev)
-        for fn in _counted():
-            fn.launches += self.graph_launches[n][fn.__name__]
+        for fn, attr, name in _counters():
+            setattr(fn, attr,
+                    getattr(fn, attr) + self.graph_launches[key][name])
         return out
 
     def replay_s(self) -> Optional[float]:
@@ -283,7 +380,7 @@ class RoundGraphs:
         else None; synchronises."""
         if self._events is None:
             return None
-        torch.cuda.synchronize(self.state.device)
+        torch.cuda.synchronize(self._device)
         return sum(a.elapsed_time(b) for a, b in self._events) * 1e-3
 
     def stats(self) -> Dict[str, Any]:
@@ -307,12 +404,105 @@ class RoundGraphs:
         self.close()
 
 
+def _guard_runs(R: int, check_every: int, has_metric: bool,
+                correct_every: int) -> List[Tuple[int, int, bool, bool]]:
+    """The runs of a guarded driver, ``(first round, rounds, ends in a
+    correction, ends in a check)``: a run ends at every correction and
+    every check (``check_every`` rounds and the last round, with a metric)
+    and at least every ``FAST_RUN`` rounds without one."""
+    step = check_every if has_metric else FAST_RUN
+    ends = set(range(step, R, step)) | {R}
+    if correct_every >= 1:
+        ends |= set(range(correct_every, R + 1, correct_every))
+    runs, lo = [], 0
+    for e in sorted(ends):
+        corr = correct_every >= 1 and e % correct_every == 0
+        runs.append((lo, e - lo, corr,
+                     has_metric and (e % check_every == 0 or e == R)))
+        lo = e
+    return runs
+
+
+def _metric_verdict(v: float, dtype: torch.dtype, best, tol: float,
+                    blowup: float):
+    """``(bad, converged, best')`` of a checked metric value, compared in
+    the metric's dtype as the reference's guarded check does: bad when
+    not finite or above ``blowup`` times the best value so far."""
+    cast = np.float64 if dtype == torch.float64 else np.float32
+    v = cast(v)
+    finite = bool(np.isfinite(v))
+    blown = bool(np.isfinite(best)) and bool(v > cast(blowup) * best)
+    conv = finite and bool(v <= cast(tol))
+    return (not finite) or blown, conv, (min(best, v) if finite else best)
+
+
+class GuardedRoundGraphs(RoundGraphs):
+    """The guarded rounds' runs replayed as CUDA graphs (module
+    docstring): ``runs`` from ``_guard_runs``; the state is the carry
+    tuple, every leaf a static buffer; ``alive`` (0-dim bool) and ``good``
+    (the run's healthy rounds) are static device buffers too.  A run's
+    graph, keyed by (rounds, ends in a correction, ends in a check),
+    replays each round as ``new = round_fn(state, x)``, ``ok =
+    health_fn(new) & alive``, ``state = where(ok, new, state)``, then the
+    correction (kept where ``alive``) and the check's metric, and returns
+    one status tensor, f64: [alive, good, drift (if it corrects), metric
+    (if it checks)], which ``run`` hands back for the host to read."""
+
+    def __init__(self, round_fn: Callable, state0: tuple, xs: Rounds,
+                 runs, guard: GuardSpec, *,
+                 metric_fn: Optional[Callable] = None, timed: bool = False):
+        self.guard = guard
+        self._setup(round_fn, tuple(t.clone() for t in state0), xs,
+                    [(lo, n, (n, corr, chk)) for lo, n, corr, chk in runs],
+                    metric_fn, timed)
+        dev = state0[0].device
+        self.alive = torch.ones((), dtype=torch.bool, device=dev)
+        self.good = torch.zeros((), dtype=torch.int64, device=dev)
+        if self.on_card:
+            self._capture(sorted({key for _, _, key in self._runs},
+                                 reverse=True))
+
+    def _warmup(self):
+        scratch = self.round_fn(tuple(t.clone() for t in self.state),
+                                self._x0())
+        self.guard.health_fn(scratch)
+        if self.guard.correct_fn is not None:
+            self.guard.correct_fn(scratch)
+        if self.metric_fn is not None:
+            self.metric_fn(scratch)
+
+    def _body(self, key):
+        n, corr, chk = key
+        state = self.state
+        self.good.zero_()
+        for k in range(n):
+            new = self.round_fn(state, self._x(k))
+            ok = self.guard.health_fn(new) & self.alive
+            # the freeze: where picks the old state wherever ok is False,
+            # even where the new one holds a NaN
+            state = tuple(torch.where(ok, a, b) for a, b in zip(new, state))
+            self.alive.copy_(ok)
+            self.good.add_(ok)
+        out = [self.alive.double(), self.good.double()]
+        if corr:
+            fixed, drift = self.guard.correct_fn(state)
+            state = tuple(torch.where(self.alive, a, b)
+                          for a, b in zip(fixed, state))
+            out.append(drift.double())
+        for buf, v in zip(self.state, state):
+            buf.copy_(v)
+        if chk:
+            out.append(self.metric_fn(self.state).double())
+        return torch.stack(out)
+
+
 def run_rounds(round_fn: Callable, state0: Any, xs: Rounds, *,
                tol: float = NO_TOL, check_every: int = 1,
                metric_fn: Optional[Callable] = None,
                record_state: bool = False,
                capture: bool = True,
-               stats: Optional[dict] = None) -> LoopResult:
+               stats: Optional[dict] = None,
+               guard: Optional[GuardSpec] = None) -> LoopResult:
     """Drive ``R = len(xs)`` rounds of ``round_fn`` (module docstring).
 
     ``xs`` is a tensor, or a tuple of tensors, with a shared leading
@@ -324,10 +514,24 @@ def run_rounds(round_fn: Callable, state0: Any, xs: Rounds, *,
     (``GramOperator.capturable``).  A ``stats`` dict receives the
     captured driver's ``RoundGraphs.stats()`` (the replays timed with
     CUDA events on the card).
+
+    ``guard`` switches to the guarded driver (module docstring): the
+    state is the carry tuple, ``metric_fn`` takes the carry, and the
+    result carries the guard's fields.
     """
-    if metric_fn is not None and check_every < 1:
+    if (metric_fn is not None or guard is not None) and check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     R = _n_rounds(xs)
+    if guard is not None:
+        if record_state:
+            raise ValueError("guard= and record_state= are mutually "
+                             "exclusive (guarded runs stack no per-round "
+                             "states)")
+        run = _run_rounds_guarded if capture and R else \
+            _run_rounds_guarded_eager
+        return run(round_fn, tuple(state0), xs, guard, tol=tol,
+                   check_every=check_every, metric_fn=metric_fn,
+                   stats=stats)
     if not capture or R == 0:
         return _run_rounds_eager(round_fn, state0, xs, tol=tol,
                                  check_every=check_every,
@@ -475,6 +679,110 @@ def _run_rounds_eager(round_fn: Callable, state0: Any, xs: Rounds, *,
     if hist is None:                            # empty schedule: no checks
         hist = torch.zeros(0)
     return LoopResult(state, None, hist, nchk, k, converged)
+
+
+def _guard_result(state, hist, nchk, k, conv, dhist, ncorr, div, kind,
+                  has_metric, has_corr) -> LoopResult:
+    return LoopResult(state, None, hist if has_metric else None, nchk, k,
+                      conv, dhist if has_corr else None,
+                      ncorr if has_corr else None, div, kind)
+
+
+def _run_rounds_guarded(round_fn, state0: tuple, xs: Rounds,
+                        guard: GuardSpec, *, tol: float, check_every: int,
+                        metric_fn: Optional[Callable],
+                        stats: Optional[dict] = None) -> LoopResult:
+    """The guarded rounds through ``GuardedRoundGraphs``: one host read
+    of the run's status tensor a run."""
+    R = _n_rounds(xs)
+    has_metric = metric_fn is not None
+    has_corr = guard.correct_fn is not None and guard.correct_every >= 1
+    runs = _guard_runs(R, check_every, has_metric,
+                       guard.correct_every if has_corr else 0)
+    hist = torch.full((-(-R // check_every) if has_metric else 1,),
+                      float("inf"), dtype=torch.float64)
+    dhist = torch.zeros(-(-R // guard.correct_every) if has_corr else 1,
+                        dtype=torch.float64)
+    nchk = ncorr = k = 0
+    conv, div, kind, best = False, -1, DIVERGED_NONE, np.inf
+    mdtype = state0[0].dtype              # the metric's, as the carry's
+    with GuardedRoundGraphs(round_fn, state0, xs, runs, guard,
+                            metric_fn=metric_fn,
+                            timed=stats is not None) as g:
+        for j, (lo, n, corr, chk) in enumerate(runs):
+            out = g.run(j).tolist()               # the run's host read
+            if not out[0]:                        # a round went bad
+                div, kind = lo + int(out[1]), DIVERGED_NONFINITE
+                k = div + 1
+                break
+            k = lo + n
+            if corr:
+                dhist[ncorr] = out[2]
+                ncorr += 1
+            if chk:
+                v = out[-1]
+                hist[nchk] = v
+                nchk += 1
+                bad, conv, best = _metric_verdict(v, mdtype, best, tol,
+                                                  guard.metric_blowup)
+                if bad:
+                    div, kind = k - 1, DIVERGED_METRIC
+                    break
+                if conv:
+                    break
+        if stats is not None:
+            stats.update(g.stats())
+        state = g.state
+    return _guard_result(state, hist.to(mdtype), nchk, k, conv, dhist,
+                         ncorr, div, kind, has_metric, has_corr)
+
+
+def _run_rounds_guarded_eager(round_fn, state0: tuple, xs: Rounds,
+                              guard: GuardSpec, *, tol: float,
+                              check_every: int,
+                              metric_fn: Optional[Callable],
+                              stats: Optional[dict] = None) -> LoopResult:
+    """The guarded rounds as a plain loop of eager launches with a host
+    check a round (the reference's while loop): the route of an operator
+    that cannot be captured, and the reference ``GuardedRoundGraphs`` is
+    held to bit for bit."""
+    R = _n_rounds(xs)
+    has_metric = metric_fn is not None
+    has_corr = guard.correct_fn is not None and guard.correct_every >= 1
+    hist = torch.full((-(-R // check_every) if has_metric else 1,),
+                      float("inf"), dtype=torch.float64)
+    dhist = torch.zeros(-(-R // guard.correct_every) if has_corr else 1,
+                        dtype=torch.float64)
+    nchk = ncorr = k = 0
+    conv, div, kind, best = False, -1, DIVERGED_NONE, np.inf
+    mdtype = None
+    state = state0
+    while k < R:
+        new = round_fn(state, _round(xs, k))
+        k += 1
+        if not bool(guard.health_fn(new)):       # the round's host check
+            div, kind = k - 1, DIVERGED_NONFINITE
+            break
+        state = new
+        if has_corr and k % guard.correct_every == 0:
+            state, drift = guard.correct_fn(state)
+            dhist[ncorr] = float(drift)
+            ncorr += 1
+        if has_metric and (k % check_every == 0 or k == R):
+            v = metric_fn(state)
+            mdtype = v.dtype
+            hist[nchk] = float(v)
+            nchk += 1
+            bad, conv, best = _metric_verdict(float(v), mdtype, best, tol,
+                                              guard.metric_blowup)
+            if bad:
+                div, kind = k - 1, DIVERGED_METRIC
+                break
+            if conv:
+                break
+    hist = hist.to(mdtype or state0[0].dtype)
+    return _guard_result(state, hist, nchk, k, conv, dhist, ncorr, div,
+                         kind, has_metric, has_corr)
 
 
 def as_schedule(schedule, device: Optional[torch.device] = None

@@ -17,11 +17,12 @@ kmeans, the first centre (``kmeans_landmarks(first=)``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .bdcd import KRRConfig
 from .kernels import KernelConfig, LowRankGramOperator
 
 LANDMARK_METHODS = ("uniform", "kmeans")
@@ -148,3 +149,30 @@ def nystrom_kernel_error(A: torch.Tensor, landmarks: torch.Tensor,
     K = _gram(A, A, cfg)
     Phi = nystrom_map(A, landmarks, cfg)
     return float(torch.linalg.norm(K - Phi @ Phi.T) / torch.linalg.norm(K))
+
+
+class NystromKRRSetup(NamedTuple):
+    """What ``nystrom_krr_setup`` produced: run any BDCD variant on (Phi,
+    y) with ``cfg``, and keep ``landmarks`` / ``feature_map``, which the
+    predict path needs to map queries into the same feature space."""
+
+    Phi: torch.Tensor                      # (m, l) training features
+    cfg: KRRConfig                         # linear-kernel KRR config
+    landmarks: torch.Tensor                # (l, n)
+    feature_map: NystromMap
+
+
+def nystrom_krr_setup(gen: Optional[torch.Generator], A: torch.Tensor,
+                      cfg: KRRConfig, l: int, method: str = "uniform",
+                      landmarks: Optional[torch.Tensor] = None
+                      ) -> NystromKRRSetup:
+    """``NystromKRRSetup(Phi, cfg, landmarks, feature_map)``: the BDCD and
+    s-step BDCD solvers run on (Phi, y) with the returned linear-kernel
+    config solve K-RR under the Nystrom kernel; the s-step schedule is
+    untouched.  ``landmarks`` replays a given landmark set instead of
+    drawing one from ``gen``."""
+    fmap = fit_nystrom(gen, A, cfg.kernel, l, method=method,
+                       landmarks=landmarks)
+    lin_cfg = KRRConfig(lam=cfg.lam, kernel=KernelConfig("linear"))
+    return NystromKRRSetup(Phi=fmap(A), cfg=lin_cfg,
+                           landmarks=fmap.landmarks, feature_map=fmap)

@@ -93,15 +93,24 @@ def sstep_bdcd_inner_fleet(Gblk, QTalpha, alpha_at, y_at, flat, m,
 def make_sstep_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor,
                              cfg: KRRConfig, s: int,
                              gram_fn: Optional[Callable] = None,
-                             op=None, lam=None) -> Callable:
+                             op=None, lam=None, guard: bool = False
+                             ) -> Callable:
     """``round_fn(alpha, (idx, valid)) -> alpha`` for ``loop.run_rounds``:
     one Algorithm-4 outer round; idx: (s, b), valid: (s,).  ``lam``
     overrides ``cfg.lam``: a number replaces it, an (F,) tensor makes the
     round a fleet's over an (F, m) alpha (module docstring; slab-free
-    only)."""
+    only).
+
+    ``guard=True`` is the guarded-carry round, ``round_fn((alpha, f), xs)
+    -> (alpha, f)`` with ``f = K alpha`` kept by ``f += K[:, flat]
+    dalpha`` (``op.apply_at``): ``Q^T alpha`` becomes the free gather
+    ``f[flat]``.  Operator path only."""
     if gram_fn is not None and op is not None:
         raise ValueError("pass at most one of gram_fn (materialized "
                          "slab) or op (prebuilt operator)")
+    if guard and gram_fn is not None:
+        raise ValueError("guard=True requires the GramOperator path "
+                         "(gram_fn= is the legacy materialized oracle)")
     m = A.shape[0]
     if op is None and gram_fn is None:
         op = ExactGramOperator(A, cfg.kernel)
@@ -112,6 +121,8 @@ def make_sstep_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor,
                              "oracle")
         return _fleet_round_fn(y, m, s, op, fleet_inv_lam(lam))
     inv_lam = 1.0 / (cfg.lam if lam is None else float(lam))
+    if guard:
+        return _guarded_round_fn(y, m, s, op, inv_lam)
 
     def round_fn(alpha, xs):
         idx, valid = xs                        # idx: (s, b)
@@ -132,6 +143,25 @@ def make_sstep_bdcd_round_fn(A: torch.Tensor, y: torch.Tensor,
         # a fixed order (index_add's atomics would not repeat bit for bit)
         return alpha.index_put((flat,), dalpha.reshape(s * b),
                                accumulate=True)
+
+    return round_fn
+
+
+def _guarded_round_fn(y, m, s, op, inv_lam):
+    """The guarded round of ``make_sstep_bdcd_round_fn(guard=True)``."""
+
+    def round_fn(carry, xs):
+        alpha, f = carry                       # f = K @ alpha, (m,)
+        idx, valid = xs                        # idx: (s, b)
+        b = idx.shape[1]
+        flat = idx.reshape(s * b)
+        dalpha = sstep_bdcd_inner(op.cross_block(flat), f[flat], alpha[idx],
+                                  y[idx], flat, m, inv_lam, s, b, valid)
+        d = dalpha.reshape(s * b)
+        # duplicate coordinates of ``flat`` sum alike in the accumulating
+        # index_put and in the K[:, flat] @ d contraction
+        return (alpha.index_put((flat,), d, accumulate=True),
+                f + op.apply_at(flat, d))
 
     return round_fn
 

@@ -99,17 +99,27 @@ def sstep_dcd_inner_fleet(G0, u_dot_alpha, alpha_at, idx_s, nu, omega, s,
 def make_sstep_dcd_round_fn(A: torch.Tensor, y: torch.Tensor,
                             cfg: SVMConfig, s: int,
                             gram_fn: Optional[Callable] = None,
-                            op=None, C=None) -> Callable:
+                            op=None, C=None, guard: bool = False
+                            ) -> Callable:
     """``round_fn(alpha, (idx_s, valid)) -> alpha`` for
     ``loop.run_rounds``: one Algorithm-2 outer round.  ``op`` injects a
     prebuilt, already ``diag(y)``-scaled training operator.
 
     ``C`` overrides ``cfg.C``: a number replaces it, an (F,) tensor makes
     the round a fleet's, ``round_fn(alpha (F, m), xs) -> alpha (F, m)``
-    (module docstring; slab-free only)."""
+    (module docstring; slab-free only).
+
+    ``guard=True`` is the guarded-carry round, ``round_fn((alpha, f), xs)
+    -> (alpha, f)`` with ``f = Ktil alpha`` kept by the recurrence ``f +=
+    Ktil[:, idx_s] thetas`` (``op.apply_at``: one gram launch and one KMV
+    launch a round, as unguarded): ``U^T alpha`` becomes the free gather
+    ``f[idx_s]``.  Operator path only."""
     if gram_fn is not None and op is not None:
         raise ValueError("pass at most one of gram_fn (materialized "
                          "slab) or op (prebuilt operator)")
+    if guard and gram_fn is not None:
+        raise ValueError("guard=True requires the GramOperator path "
+                         "(gram_fn= is the legacy materialized oracle)")
     if isinstance(C, torch.Tensor):
         return _fleet_round_fn(A, y, cfg, s, gram_fn, op, C)
     nu, omega = _nu_omega(cfg, C)
@@ -118,6 +128,8 @@ def make_sstep_dcd_round_fn(A: torch.Tensor, y: torch.Tensor,
         Atil = y[:, None] * A
     elif op is None:
         op = ExactGramOperator(A, cfg.kernel).scale_rows(y)
+    if guard:
+        return _guarded_round_fn(op, nu, omega, s)
 
     def round_fn(alpha, xs):
         idx_s, valid = xs
@@ -135,6 +147,20 @@ def make_sstep_dcd_round_fn(A: torch.Tensor, y: torch.Tensor,
         # .at[].add does, and on the card in a fixed order (index_add's
         # atomics would not repeat bit for bit)
         return alpha.index_put((idx_s,), thetas, accumulate=True)
+
+    return round_fn
+
+
+def _guarded_round_fn(op, nu, omega, s):
+    """The guarded round of ``make_sstep_dcd_round_fn(guard=True)``."""
+
+    def round_fn(carry, xs):
+        alpha, f = carry                         # f = Ktil @ alpha, (m,)
+        idx_s, valid = xs
+        thetas = sstep_dcd_inner(op.cross_block(idx_s), f[idx_s],
+                                 alpha[idx_s], idx_s, nu, omega, s, valid)
+        return (alpha.index_put((idx_s,), thetas, accumulate=True),
+                f + op.apply_at(idx_s, thetas))
 
     return round_fn
 

@@ -1,5 +1,6 @@
 // Element types the kernels take (f32 and bf16) and their conversions to
-// and from the f32 the kernels compute in.
+// and from the f32 the kernels compute in; f64, the guarded fits' last
+// fallback rung, has kernels of its own (f64_tile.cuh) that compute in f64.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,6 +10,7 @@ namespace rt {
 
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
+constexpr int DTYPE_F64 = 2;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {

@@ -49,6 +49,7 @@
 // bound (tests/test_pallas_gram.py) or the solvers' 1e-5 iterate parity.
 #include <stdint.h>
 
+#include "f64_tile.cuh"      // the f64 route
 #include "kernel_tile.cuh"   // shared with KMV: epilogue, cp.async, ld4
 
 namespace rt {
@@ -413,4 +414,17 @@ extern "C" int gram_launch(const void* A, const void* B, void* out, void* ws,
                                           bm, br, splits, per, p, st);
   return launch_gram_out<float>(A, B, out, w, m, r, n, out_dtype, bm, br,
                                 splits, per, p, st);
+}
+
+// The f64 route (f64_tile.cuh): out (m, r) f64 = K(A, B) for A (m, n), B
+// (r, n) row-major f64.  Returns the first CUDA error, or 0.
+extern "C" int gram_f64_launch(const void* A, const void* B, void* out,
+                               int m, int r, int n, int kind, int degree,
+                               double coef0, double sigma, void* stream) {
+  using namespace rt;
+  const KernelParamsF64 p{kind, degree, coef0, sigma};
+  return static_cast<int>(gram_f64(static_cast<const double*>(A),
+                                   static_cast<const double*>(B),
+                                   static_cast<double*>(out), m, r, n, p,
+                                   static_cast<cudaStream_t>(stream)));
 }

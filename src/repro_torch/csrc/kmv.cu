@@ -25,6 +25,7 @@
 // order, so results repeat from run to run (no atomics).  Rows at or past
 // m are masked in the kernel and contribute exactly zero (K(0, b) != 0
 // for rbf and polynomial).
+#include "f64_tile.cuh"
 #include "kmv_partial.cuh"
 
 // A (m, n), B (r, n): row-major, dtype f32 (0) or bf16 (1), the same for
@@ -60,5 +61,28 @@ extern "C" int kmv_launch(const void* A, const void* B, const void* X,
   if (err == cudaSuccess)
     err = kmv_reduce(wsf, static_cast<float*>(out), splits, (long long)r * c,
                      st);
+  return static_cast<int>(err);
+}
+
+// The f64 route (f64_tile.cuh): A (m, n), B (r, n) and X (m, c) row-major
+// f64, ws (splits * r * c doubles), out (r, c) f64; the plan
+// (kernels/kmv.kmv_f64_plan) splits the m axis into `splits` runs of
+// rows_per_split rows.  Returns the first CUDA error, or 0.
+extern "C" int kmv_f64_launch(const void* A, const void* B, const void* X,
+                              void* ws, void* out, int m, int r, int n,
+                              int c, int splits, int rows_per_split,
+                              int kind, int degree, double coef0,
+                              double sigma, void* stream) {
+  using namespace rt;
+  const KernelParamsF64 p{kind, degree, coef0, sigma};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  double* w = static_cast<double*>(ws);
+  cudaError_t err = kmv_f64_partial(
+      static_cast<const double*>(A), static_cast<const double*>(B),
+      static_cast<const double*>(X), w, m, r, n, c, splits, rows_per_split,
+      0, p, st);
+  if (err == cudaSuccess)
+    err = kmv_f64_reduce(w, static_cast<double*>(out), splits,
+                         (long long)r * c, st);
   return static_cast<int>(err);
 }

@@ -47,12 +47,26 @@
 // with its first off-diagonal pair, so its half-wave of tiles fills out.
 // Every copy waits for the last read of its slot and every launch for
 // the copies of its slots, through events, as above.
+//
+// The streamed apply_at (kmv_stream_apply_launch) is the guarded rounds'
+// residual update K(A, A[idx]) w: the two-slot pipe again, each chunk's
+// rows of the output contracted while the chunk sits in its slot (the
+// resident KMV tile with its operands swapped), so a round streams A once,
+// as the unguarded round's KMV does.  f64 data (the guarded fits' last
+// fallback rung) takes the same pipes with f64_tile.cuh's contraction.
 #include <algorithm>
 #include <cassert>
 #include <cstdint>
 #include <vector>
 
+#include "f64_tile.cuh"
 #include "kmv_partial.cuh"
+
+#define RT_RET(expr)                                    \
+  do {                                                  \
+    const cudaError_t rt_err_ = (expr);                 \
+    if (rt_err_ != cudaSuccess) return rt_err_;         \
+  } while (0)
 
 #define RT_TRY(expr)                                    \
   do {                                                  \
@@ -211,6 +225,56 @@ int stream_sym(const char* src, char* slots, const float* Xv,
 
 }  // namespace rt
 
+namespace rt {
+
+// The two-slot pipe of a streamed pass (the module comment): chunk i + 1 is
+// copied into one slot on the copy stream ps while `consume(slot, i)`
+// queues chunk i's work on the compute stream cs; with `resident`, src is
+// already on the device and consume reads it in place.
+template <typename Consume>
+cudaError_t pipe(const char* src, char* slot0, char* slot1, int nc,
+                 size_t chunk_bytes, bool resident, cudaStream_t cs,
+                 cudaStream_t ps, Consume consume) {
+  if (resident) {
+    for (int i = 0; i < nc; ++i)
+      RT_RET(consume(src + (size_t)i * chunk_bytes, i));
+    return cudaSuccess;
+  }
+  char* slot[2] = {slot0, slot1};
+  Events<5> ev;
+  for (cudaEvent_t& e : ev.e)
+    RT_RET(cudaEventCreateWithFlags(&e, cudaEventDisableTiming));
+  cudaEvent_t ready = ev.e[0];
+  cudaEvent_t filled[2] = {ev.e[1], ev.e[2]};
+  cudaEvent_t freed[2] = {ev.e[3], ev.e[4]};
+  RT_RET(cudaEventRecord(ready, cs));
+  RT_RET(cudaStreamWaitEvent(ps, ready, 0));
+  RT_RET(cudaMemcpyAsync(slot[0], src, chunk_bytes, cudaMemcpyHostToDevice,
+                         ps));
+  RT_RET(cudaEventRecord(filled[0], ps));
+  for (int i = 0; i < nc; ++i) {
+    const int cur = i & 1, nxt = cur ^ 1;
+    if (i + 1 < nc) {              // prefetch chunk i+1 into the other slot
+      if (i >= 1) RT_RET(cudaStreamWaitEvent(ps, freed[nxt], 0));
+      RT_RET(cudaMemcpyAsync(slot[nxt], src + (size_t)(i + 1) * chunk_bytes,
+                             chunk_bytes, cudaMemcpyHostToDevice, ps));
+      RT_RET(cudaEventRecord(filled[nxt], ps));
+    }
+    RT_RET(cudaStreamWaitEvent(cs, filled[cur], 0));   // consume chunk i
+    RT_RET(consume(slot[cur], i));
+    RT_RET(cudaEventRecord(freed[cur], cs));
+  }
+  return cudaSuccess;
+}
+
+inline size_t elt_bytes(int dtype) {
+  return dtype == DTYPE_F64 ? sizeof(double)
+                            : (dtype == DTYPE_BF16 ? sizeof(__nv_bfloat16)
+                                                   : sizeof(float));
+}
+
+}  // namespace rt
+
 // Xc: (nc, cr, n) row-major, f32 (0) or bf16 (1); page-locked host memory,
 // or, with resident != 0, device memory (the compute-only yardstick: no
 // copies, the same contractions).  slot0, slot1: (cr, n) device buffers of
@@ -231,11 +295,6 @@ extern "C" int kmv_stream_launch(const void* Xc, void* slot0, void* slot1,
   const KernelParams p{kind, degree, coef0, sigma};
   cudaStream_t cs = static_cast<cudaStream_t>(compute_stream);
   cudaStream_t ps = static_cast<cudaStream_t>(copy_stream);
-  const size_t elt = dtype == DTYPE_BF16 ? sizeof(__nv_bfloat16)
-                                         : sizeof(float);
-  const size_t chunk_bytes = (size_t)cr * n * elt;
-  const char* src = static_cast<const char*>(Xc);
-  char* slot[2] = {static_cast<char*>(slot0), static_cast<char*>(slot1)};
   float* wsf = static_cast<float*>(ws);
   float* bn = wsf + (size_t)splits * r * c;
 
@@ -254,35 +313,128 @@ extern "C" int kmv_stream_launch(const void* Xc, void* slot0, void* slot1,
   if (kind == KERNEL_RBF)
     RT_TRY(dtype == DTYPE_BF16 ? kmv_bnorms<__nv_bfloat16>(B, bn, r, n, cs)
                                : kmv_bnorms<float>(B, bn, r, n, cs));
-  Events<5> ev;
-  if (resident) {
-    for (int i = 0; i < nc; ++i) RT_TRY(contract(src + i * chunk_bytes, i));
-  } else {
-    for (cudaEvent_t& e : ev.e)
-      RT_TRY(cudaEventCreateWithFlags(&e, cudaEventDisableTiming));
-    cudaEvent_t ready = ev.e[0];
-    cudaEvent_t filled[2] = {ev.e[1], ev.e[2]};
-    cudaEvent_t freed[2] = {ev.e[3], ev.e[4]};
-    RT_TRY(cudaEventRecord(ready, cs));
-    RT_TRY(cudaStreamWaitEvent(ps, ready, 0));
-    RT_TRY(cudaMemcpyAsync(slot[0], src, chunk_bytes, cudaMemcpyHostToDevice,
-                           ps));
-    RT_TRY(cudaEventRecord(filled[0], ps));
-    for (int i = 0; i < nc; ++i) {
-      const int cur = i & 1, nxt = cur ^ 1;
-      if (i + 1 < nc) {              // prefetch chunk i+1 into the other slot
-        if (i >= 1) RT_TRY(cudaStreamWaitEvent(ps, freed[nxt], 0));
-        RT_TRY(cudaMemcpyAsync(slot[nxt], src + (size_t)(i + 1) * chunk_bytes,
-                               chunk_bytes, cudaMemcpyHostToDevice, ps));
-        RT_TRY(cudaEventRecord(filled[nxt], ps));
-      }
-      RT_TRY(cudaStreamWaitEvent(cs, filled[cur], 0));   // consume chunk i
-      RT_TRY(contract(slot[cur], i));
-      RT_TRY(cudaEventRecord(freed[cur], cs));
-    }
-  }
+  RT_TRY(pipe(static_cast<const char*>(Xc), static_cast<char*>(slot0),
+              static_cast<char*>(slot1), nc, (size_t)cr * n * elt_bytes(dtype),
+              resident != 0, cs, ps, contract));
   return static_cast<int>(
       kmv_reduce(wsf, static_cast<float*>(out), splits, (long long)r * c, cs));
+}
+
+// The f64 route of kmv_stream_launch (f64_tile.cuh): Xc (nc, cr, n) f64,
+// B (r, n) f64, Xv (nc * cr, c) f64, ws (splits * r * c doubles), out (r,
+// c) f64; the plan (kernels/kmv.kmv_f64_plan for cr rows) splits each
+// chunk's rows.  Returns the first CUDA error, or 0.
+extern "C" int kmv_stream_f64_launch(const void* Xc, void* slot0,
+                                     void* slot1, const void* B,
+                                     const void* Xv, void* ws, void* out,
+                                     int nc, int cr, int n, int r, int c,
+                                     int m, int splits, int rows_per_split,
+                                     int kind, int degree, double coef0,
+                                     double sigma, void* compute_stream,
+                                     void* copy_stream) {
+  using namespace rt;
+  const KernelParamsF64 p{kind, degree, coef0, sigma};
+  cudaStream_t cs = static_cast<cudaStream_t>(compute_stream);
+  cudaStream_t ps = static_cast<cudaStream_t>(copy_stream);
+  double* w = static_cast<double*>(ws);
+  auto contract = [&](const void* A, int i) {
+    const double* X = static_cast<const double*>(Xv) + (size_t)i * cr * c;
+    return kmv_f64_partial(static_cast<const double*>(A),
+                           static_cast<const double*>(B), X, w,
+                           std::min(cr, m - i * cr), r, n, c, splits,
+                           rows_per_split, i > 0, p, cs);
+  };
+  RT_TRY(pipe(static_cast<const char*>(Xc), static_cast<char*>(slot0),
+              static_cast<char*>(slot1), nc, (size_t)cr * n * sizeof(double),
+              false, cs, ps, contract));
+  return static_cast<int>(
+      kmv_f64_reduce(w, static_cast<double*>(out), splits, (long long)r * c,
+                     cs));
+}
+
+// The streamed apply_at, out = K(A, Bs) W for the A of Xc (nc, cr, n): the
+// guarded rounds' residual update K[:, idx] w, Bs = A[idx] (sb, n) on the
+// device.  K(A_i, Bs) W = K(Bs, A_i)^T W, so while chunk i sits in its slot
+// the resident KMV contraction runs with its operands swapped (kmv_partial
+// over the sb rows of Bs against the chunk's true rows as the output axis,
+// plan kernels/kmv_stream.apply_launch's), and its reduce writes the
+// chunk's rows of out (nc * cr, c); the workspace's slices are as wide as
+// the chunk's true rows, which the reduce reads with the same stride.
+// dtype f32 (0) or bf16 (1) sums in f32 (W (sb, c) f32, ws splits * cr *
+// c + cr floats, out f32).  Returns the first CUDA error, or 0.
+extern "C" int kmv_stream_apply_launch(const void* Xc, void* slot0,
+                                       void* slot1, const void* Bs,
+                                       const void* W, void* ws, void* out,
+                                       int nc, int cr, int n, int sb, int c,
+                                       int m, int regime, int bm, int br,
+                                       int splits, int rows_per_split,
+                                       int dtype, int kind, int degree,
+                                       float coef0, float sigma,
+                                       void* compute_stream,
+                                       void* copy_stream) {
+  using namespace rt;
+  const KernelParams p{kind, degree, coef0, sigma};
+  cudaStream_t cs = static_cast<cudaStream_t>(compute_stream);
+  cudaStream_t ps = static_cast<cudaStream_t>(copy_stream);
+  float* wsf = static_cast<float*>(ws);
+  float* bn = wsf + (size_t)splits * cr * c;
+  const float* Wf = static_cast<const float*>(W);
+  float* o = static_cast<float*>(out);
+  const bool bf16 = dtype == DTYPE_BF16;
+  auto contract = [&](const void* chunk, int i) {
+    const int rows = std::min(cr, m - i * cr);   // the chunk's true rows
+    cudaError_t err = cudaSuccess;
+    if (kind == KERNEL_RBF)
+      err = bf16 ? kmv_bnorms<__nv_bfloat16>(chunk, bn, rows, n, cs)
+                 : kmv_bnorms<float>(chunk, bn, rows, n, cs);
+    if (err == cudaSuccess)
+      err = bf16 ? kmv_partial<__nv_bfloat16>(Bs, chunk, bn, Wf, wsf, sb,
+                                              rows, n, c, regime, bm, br,
+                                              splits, rows_per_split, 0, p,
+                                              cs)
+                 : kmv_partial<float>(Bs, chunk, bn, Wf, wsf, sb, rows, n, c,
+                                      regime, bm, br, splits, rows_per_split,
+                                      0, p, cs);
+    if (err == cudaSuccess)
+      err = kmv_reduce(wsf, o + (size_t)i * cr * c, splits,
+                       (long long)rows * c, cs);
+    return err;
+  };
+  RT_TRY(pipe(static_cast<const char*>(Xc), static_cast<char*>(slot0),
+              static_cast<char*>(slot1), nc, (size_t)cr * n * elt_bytes(dtype),
+              false, cs, ps, contract));
+  return 0;
+}
+
+// The f64 route of kmv_stream_apply_launch (f64_tile.cuh): Xc, Bs, W and
+// out f64, ws splits * cr * c doubles, the plan kernels/kmv.kmv_f64_plan(sb,
+// cr, c).  Returns the first CUDA error, or 0.
+extern "C" int kmv_stream_apply_f64_launch(
+    const void* Xc, void* slot0, void* slot1, const void* Bs, const void* W,
+    void* ws, void* out, int nc, int cr, int n, int sb, int c, int m,
+    int splits, int rows_per_split, int kind, int degree, double coef0,
+    double sigma, void* compute_stream, void* copy_stream) {
+  using namespace rt;
+  const KernelParamsF64 p{kind, degree, coef0, sigma};
+  cudaStream_t cs = static_cast<cudaStream_t>(compute_stream);
+  cudaStream_t ps = static_cast<cudaStream_t>(copy_stream);
+  double* w = static_cast<double*>(ws);
+  double* o = static_cast<double*>(out);
+  auto contract = [&](const void* chunk, int i) {
+    const int rows = std::min(cr, m - i * cr);
+    cudaError_t err = kmv_f64_partial(
+        static_cast<const double*>(Bs), static_cast<const double*>(chunk),
+        static_cast<const double*>(W), w, sb, rows, n, c, splits,
+        rows_per_split, 0, p, cs);
+    if (err == cudaSuccess)
+      err = kmv_f64_reduce(w, o + (size_t)i * cr * c, splits,
+                           (long long)rows * c, cs);
+    return err;
+  };
+  RT_TRY(pipe(static_cast<const char*>(Xc), static_cast<char*>(slot0),
+              static_cast<char*>(slot1), nc, (size_t)cr * n * sizeof(double),
+              false, cs, ps, contract));
+  return 0;
 }
 
 // out = K(A, A) X, (m, c) f32, for the A of Xc (nc, cr, n) row-major, f32
@@ -318,8 +470,8 @@ extern "C" int kmv_stream_sym_launch(const void* Xc, void* slots,
                                  resident != 0, drop, p, cs, ps);
 }
 
-// Xc: page-locked host buffer of rows_total rows of n elements (f32 (0) or
-// bf16 (1)); idx (k,) int64 and out (k, n) on the device.  The kernel reads
+// Xc: page-locked host buffer of rows_total rows of n elements (f32 (0),
+// bf16 (1) or f64 (2)); idx (k,) int64 and out (k, n) on the device.  The kernel reads
 // the host buffer through its mapped device address.  Returns the first
 // CUDA error, or 0 (cudaErrorInvalidValue if Xc is not mapped host memory).
 extern "C" int gather_rows_launch(const void* Xc, const void* idx, void* out,
@@ -331,9 +483,7 @@ extern "C" int gather_rows_launch(const void* Xc, const void* idx, void* out,
   if (attr.type != cudaMemoryTypeHost || attr.devicePointer == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t elt =
-      dtype == DTYPE_BF16 ? sizeof(__nv_bfloat16) : sizeof(float);
-  const size_t row_bytes = (size_t)n * elt;
+  const size_t row_bytes = (size_t)n * elt_bytes(dtype);
   const long long* ix = static_cast<const long long*>(idx);
   const int threads = 256;
   const uintptr_t align =

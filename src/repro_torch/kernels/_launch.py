@@ -9,11 +9,23 @@ from repro_torch.core.kernels import KernelConfig
 
 KERNEL_CODES = {"linear": 0, "polynomial": 1, "rbf": 2}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the f64 route (csrc/f64_tile.cuh): kmv, gram and the streamed KMV take
+# f64 through entry points of their own, which sum in f64
+DTYPE_F64 = 2
 
 
-def check_inputs(name: str, A: torch.Tensor, B: torch.Tensor) -> int:
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """What the KMV and gram kernels, and their plain versions, sum in
+    for inputs of ``dtype``: f64 for f64, f32 for f32 and bf16."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def check_inputs(name: str, A: torch.Tensor, B: torch.Tensor,
+                 f64: bool = False) -> int:
     """Validate the (m, n) / (r, n) operands of a kernel; returns the
-    dtype code.  Raises on anything the kernel does not take."""
+    dtype code (``DTYPE_F64`` for f64, which only a kernel with an f64
+    route takes: ``f64=True``).  Raises on anything the kernel does not
+    take."""
     for arg, t in (("A", A), ("B", B)):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {arg} must be a CUDA tensor, got "
@@ -26,16 +38,17 @@ def check_inputs(name: str, A: torch.Tensor, B: torch.Tensor) -> int:
         if 0 in t.shape:
             raise ValueError(f"{name}: {arg} must not be empty, got shape "
                              f"{tuple(t.shape)}")
-    if A.dtype not in DTYPE_CODES or B.dtype != A.dtype:
+    codes = {**DTYPE_CODES, torch.float64: DTYPE_F64} if f64 else \
+        DTYPE_CODES
+    if A.dtype not in codes or B.dtype != A.dtype:
         raise ValueError(f"{name}: A and B must share a dtype in "
-                         f"{list(DTYPE_CODES)}, got {A.dtype} and "
-                         f"{B.dtype}")
+                         f"{list(codes)}, got {A.dtype} and {B.dtype}")
     if A.shape[1] != B.shape[1]:
         raise ValueError(f"{name}: A {tuple(A.shape)} and B "
                          f"{tuple(B.shape)} differ in feature width")
     if A.device != B.device:
         raise ValueError(f"{name}: A on {A.device} but B on {B.device}")
-    return DTYPE_CODES[A.dtype]
+    return codes[A.dtype]
 
 
 def kernel_args(cfg: KernelConfig):

@@ -29,15 +29,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_F, _D = ctypes.c_float, ctypes.c_double
 # each C entry point: its library (csrc/<library>.cu), symbol and
 # argument types
 SIGNATURES = {
     "kmv": ("kmv", "kmv_launch", [_P] * 5 + [_I] * 12 + [_F, _F, _P]),
+    "kmv_f64": ("kmv", "kmv_f64_launch",
+                [_P] * 5 + [_I] * 8 + [_D, _D, _P]),
     "gram": ("gram", "gram_launch",
              [_P] * 4 + [_I] * 7 + [_F, _F] + [_I] * 4 + [_P]),
+    "gram_f64": ("gram", "gram_f64_launch",
+                 [_P] * 3 + [_I] * 5 + [_D, _D, _P]),
     "kmv_stream": ("kmv_stream", "kmv_stream_launch",
                    [_P] * 7 + [_I] * 15 + [_F, _F, _P, _P]),
+    "kmv_stream_f64": ("kmv_stream", "kmv_stream_f64_launch",
+                       [_P] * 7 + [_I] * 10 + [_D, _D, _P, _P]),
+    "kmv_stream_apply": ("kmv_stream", "kmv_stream_apply_launch",
+                         [_P] * 7 + [_I] * 14 + [_F, _F, _P, _P]),
+    "kmv_stream_apply_f64": ("kmv_stream", "kmv_stream_apply_f64_launch",
+                             [_P] * 7 + [_I] * 10 + [_D, _D, _P, _P]),
     "kmv_stream_sym": ("kmv_stream", "kmv_stream_sym_launch",
                        [_P] * 5 + [_I] * 10 + [_F, _F, _P, _P]),
     "gather_rows": ("kmv_stream", "gather_rows_launch",

@@ -4,7 +4,9 @@ The counterpart of ``repro/kernels/gram.py`` (``gram_pallas``).  The
 kernel is ``csrc/gram.cu``; ``gram_cuda`` launches it and counts the
 launches, ``gram_plain`` is the plain PyTorch version.
 ``kernels.ops.gram`` picks between them by device.  ``gram_splits``
-picks the kernel's output tile and its split of the feature axis.
+picks the kernel's output tile and its split of the feature axis.  f64
+operands take the f64 route (``csrc/f64_tile.cuh``), and the plain
+version keeps f64 for them.
 """
 from __future__ import annotations
 
@@ -12,9 +14,9 @@ import torch
 
 from repro_torch.core.kernels import KernelConfig
 from . import build
-from ._launch import (DTYPE_CODES, check_inputs, kernel_args, raise_on_error,
-                      sm_count)
-from .ref import gram_ref
+from repro_torch.core.kernels import gram_slab
+from ._launch import (DTYPE_CODES, DTYPE_F64, acc_dtype, check_inputs,
+                      kernel_args, raise_on_error, sm_count)
 
 MAX_GRID = 65535         # CUDA's limit on gridDim.y (row tiles) and .z
 BK = 32                  # features a chunk, csrc/gram.cu G_BK
@@ -23,9 +25,15 @@ DOT_MAX = 4              # csrc/gram.cu G_DOT_MAX: m, r <= 4 take the dot kernel
 # 64 threads) takes one split and leaves an SM ~5 warps; at 4 it takes two
 BLOCKS_PER_SM = 4
 
-# The plain PyTorch version is the f32 oracle itself: one ``gram_slab``
-# in f32, cast on output.
-gram_plain = gram_ref
+
+
+def gram_plain(A: torch.Tensor, B: torch.Tensor, cfg: KernelConfig,
+               out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version: one ``gram_slab`` in f32 (f64 for f64
+    operands: the f32 oracle ``ref.gram_ref`` otherwise), cast to
+    ``out_dtype``, by default that dtype."""
+    acc = acc_dtype(A.dtype)
+    return gram_slab(A.to(acc), B.to(acc), cfg).to(out_dtype or acc)
 
 
 def gram_tile(m: int, r: int):
@@ -52,12 +60,39 @@ def gram_splits(m: int, r: int, n: int, sm_count: int):
     return bm, br, -(-chunks // per), per
 
 
+def launch_f64(A: torch.Tensor, B: torch.Tensor,
+               cfg: KernelConfig) -> torch.Tensor:
+    """The f64 route through its C entry point, not counted as a launch:
+    A (m, n), B (r, n) f64 CUDA tensors that ``check_inputs`` passed.
+    Returns (m, r) f64."""
+    m, n = A.shape
+    r = B.shape[0]
+    out = torch.empty((m, r), dtype=torch.float64, device=A.device)
+    kind, degree, coef0, sigma = kernel_args(cfg)
+    with torch.cuda.device(A.device):
+        code = build.launcher("gram_f64")(
+            A.data_ptr(), B.data_ptr(), out.data_ptr(), m, r, n, kind,
+            degree, coef0, sigma, torch.cuda.current_stream().cuda_stream)
+    raise_on_error("gram", code)
+    return out
+
+
 def gram_cuda(A: torch.Tensor, B: torch.Tensor, cfg: KernelConfig,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              out_dtype=None) -> torch.Tensor:
     """Launch the gram kernel on the card: A (m, n), B (r, n) contiguous,
-    f32 or bf16.  Returns (m, r) in ``out_dtype`` (f32 or bf16), summed
-    in f32.  Never synchronises."""
-    in_code = check_inputs("gram", A, B)
+    f32, bf16 or f64.  Returns (m, r) in ``out_dtype`` (f32 or bf16,
+    summed in f32; default f32), or for f64 operands in f64 (the f64
+    route, summed in f64).  Never synchronises."""
+    in_code = check_inputs("gram", A, B, f64=True)
+    if in_code == DTYPE_F64:
+        if out_dtype not in (None, torch.float64):
+            raise ValueError(f"gram: the f64 route writes f64, got "
+                             f"out_dtype={out_dtype}")
+        out = launch_f64(A, B, cfg)
+        gram_cuda.launches += 1
+        gram_cuda.launches_f64 += 1
+        return out
+    out_dtype = out_dtype or torch.float32
     if out_dtype not in DTYPE_CODES:
         raise ValueError(f"gram: out_dtype must be one of "
                          f"{list(DTYPE_CODES)}, got {out_dtype}")
@@ -83,4 +118,5 @@ def gram_cuda(A: torch.Tensor, B: torch.Tensor, cfg: KernelConfig,
 
 
 gram_cuda.launches = 0
+gram_cuda.launches_f64 = 0        # of those, the f64 route's
 gram_cuda.warmup_launches = 0     # core.loop.RoundGraphs' warm-up rounds

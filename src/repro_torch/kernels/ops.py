@@ -21,6 +21,7 @@ from .flash_attention import (FlashAttention, flash_attention,
 from .gram import gram_cuda, gram_plain
 from .kmv import kmv_cuda, kmv_plain
 from .kmv_stream import (gather_rows_cuda, gather_rows_plain,
+                         kmv_stream_apply_cuda, kmv_stream_apply_plain,
                          kmv_stream_cuda, kmv_stream_full_cuda,
                          kmv_stream_full_plain, kmv_stream_plain)
 from .rmsnorm import RMSNorm
@@ -32,16 +33,17 @@ CAPTURED = (kmv_cuda, gram_cuda)
 
 
 def kmv(A: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
-        cfg: KernelConfig,
-        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``K(A, B)^T X`` without the m x r slab: (r,) / (r, c)."""
+        cfg: KernelConfig, out_dtype=None) -> torch.Tensor:
+    """``K(A, B)^T X`` without the m x r slab: (r,) / (r, c), in
+    ``out_dtype`` (default: f32, f64 for f64 operands)."""
     fn = kmv_cuda if _on_card(A, "kmv") else kmv_plain
     return fn(A, B, X, cfg, out_dtype)
 
 
 def gram(A: torch.Tensor, B: torch.Tensor, cfg: KernelConfig,
-         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``K(A, B) = epilogue(A B^T)``: (m, r)."""
+         out_dtype=None) -> torch.Tensor:
+    """``K(A, B) = epilogue(A B^T)``: (m, r), in ``out_dtype`` (default:
+    f32, f64 for f64 operands)."""
     fn = gram_cuda if _on_card(A, "gram") else gram_plain
     return fn(A, B, cfg, out_dtype)
 
@@ -66,7 +68,7 @@ def _stream_on_card(Xc: torch.Tensor, B: torch.Tensor, name: str) -> bool:
 
 
 def kmv_stream(Xc: torch.Tensor, B: torch.Tensor, Xvc: torch.Tensor,
-               cfg: KernelConfig, out_dtype: torch.dtype = torch.float32,
+               cfg: KernelConfig, out_dtype=None,
                m: Optional[int] = None) -> torch.Tensor:
     """``K(A, B)^T X`` over host-resident chunks ``Xc (nc, cr, n)`` with
     the right-hand side chunked alike, ``Xvc (nc, cr, c)``, on B's
@@ -84,10 +86,21 @@ def kmv_stream_full(Xc: torch.Tensor, Xvc: torch.Tensor, cfg: KernelConfig,
     """``K(A, A) X`` for the A of host-resident chunks ``Xc (nc, cr, n)``,
     X chunked alike as ``Xvc (nc, cr, c)``, on Xvc's device: the
     symmetric pipe on the card; rows at or past ``m`` are left out.
-    (m, c) f32."""
+    (m, c) f32 (f64 for f64 data)."""
     on_card = _stream_on_card(Xc, Xvc, "kmv_stream_full")
     fn = kmv_stream_full_cuda if on_card else kmv_stream_full_plain
     return fn(Xc, Xvc, cfg, m=m)
+
+
+def kmv_stream_apply(Xc: torch.Tensor, B: torch.Tensor, W: torch.Tensor,
+                     cfg: KernelConfig,
+                     m: Optional[int] = None) -> torch.Tensor:
+    """``K(A, B) @ W`` for the A of host-resident chunks ``Xc (nc, cr,
+    n)``, B (sb, n) and W (sb, c) on B's device: the guarded rounds'
+    residual update, through the two-slot pipe on the card.  (m, c)."""
+    on_card = _stream_on_card(Xc, B, "kmv_stream_apply")
+    fn = kmv_stream_apply_cuda if on_card else kmv_stream_apply_plain
+    return fn(Xc, B, W, cfg, m=m)
 
 
 def gather_rows(Xc: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,8 @@ and the second call's wall is the measurement, as in the JAX package.
 
 The chosen plan is a ``TunedPlan`` (resolved options, the winner's
 modeled cost, the searched frontier) and lands on ``FitResult.plan``.
+A guarded fit's ``recompute_every="auto"`` resolves for the winner
+(``perf_model.choose_recompute_every``), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ import torch
 from repro_torch.core.perf_model import (STREAM_CHUNK_CANDIDATES,
                                          DeviceBudget, Machine,
                                          choose_chunk_rows,
+                                         choose_recompute_every,
                                          modeled_fit_cost, slab_fits_hbm)
 from repro_torch.device import resolve_device
 
@@ -172,6 +175,16 @@ def resolve_options(m: int, n: int, cfg, opts, *, problem: str = "krr",
     if resolved.stream == AUTO:
         resolved = dataclasses.replace(resolved, stream=_chunk_rows(
             m, n, winner["s"] * winner["b"], cfg.kernel.name, mach, budget))
+    if resolved.guard and resolved.recompute_every == AUTO:
+        # drift correction priced for the winner's (s, b): the cadence
+        # that keeps the guarded overhead within the model's budget
+        resolved = dataclasses.replace(
+            resolved, recompute_every=choose_recompute_every(
+                m, n, cfg.kernel.name,
+                b=winner["b"] if problem == "krr" else 1, s=winner["s"],
+                mach=mach, approx=bool(winner["approx"]),
+                landmarks=(min(opts.landmarks, m) if winner["approx"]
+                           else 0)))
     return TunedPlan(options=resolved,
                      modeled=_price(m, n, cfg, resolved, problem, mach),
                      frontier=tuple(frontier),

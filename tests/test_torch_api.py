@@ -164,8 +164,11 @@ def test_convert_carries_a_jax_fit_across():
         np.asarray(jreg.y_), np.asarray(jreg.alpha_), device="cpu")
     np.testing.assert_allclose(reg.predict(Q).numpy(),
                                np.asarray(jreg.predict(Q)), **TOL)
-    with pytest.raises(ValueError, match="A7"):
-        convert.solver_options({"guard": True})
+    guard = dict(guard=True, recompute_every=4, checkpoint_every=2,
+                 checkpoint_dir="ckpt", fallback=False)
+    opts = convert.solver_options(dataclasses.asdict(JSolverOptions(
+        **guard)) | {"mesh": None, "telemetry": None})
+    assert {k: getattr(opts, k) for k in guard} == guard
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
@@ -179,6 +182,37 @@ def test_unported_options_raise_naming_their_roadmap_item(name):
     with pytest.raises(ValueError, match=item):
         SolverOptions(**{name: other})
     SolverOptions(**{name: default})
+
+
+# a valid value of each guard knob (with what it needs), and a value JAX
+# rejects
+GUARD_KNOBS = {
+    "guard": (dict(guard=True), dict(guard=True, slab_free=False)),
+    "recompute_every": (dict(guard=True, recompute_every=0),
+                        dict(guard=True, recompute_every=-3)),
+    "checkpoint_every": (dict(guard=True, checkpoint_every=4,
+                              checkpoint_dir="ckpt"),
+                         dict(guard=True, checkpoint_every=4)),
+    "checkpoint_dir": (dict(guard=True, checkpoint_dir="ckpt"),
+                       dict(checkpoint_every=2, checkpoint_dir="ckpt")),
+    "fallback": (dict(guard=True, fallback=False),
+                 dict(fallback=False, recompute_every="often")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GUARD_KNOBS))
+def test_guard_options_validate_as_jax(name):
+    """The five guard knobs (once ROADMAP A7's refusals) run: each is
+    accepted at a valid value as JAX accepts it, and rejected with JAX's
+    message where JAX rejects it."""
+    good, bad = GUARD_KNOBS[name]
+    opts, jopts = SolverOptions(**good), JSolverOptions(**good)
+    assert getattr(opts, name) == getattr(jopts, name)
+    with pytest.raises(ValueError) as jerr:
+        JSolverOptions(**bad)
+    with pytest.raises(ValueError) as err:
+        SolverOptions(**bad)
+    assert str(err.value) == str(jerr.value)
 
 
 @pytest.mark.parametrize("bad", [dict(method="newton"), dict(s=0),

@@ -1436,3 +1436,237 @@ def test_probe_measured_time_excludes_capture(cuda_device):
         assert p["measured_s"] < p["wall_s"] - p["capture_s"]
     best = min(res.plan.probed, key=lambda p: p["measured_s"])
     assert (res.options.s, res.options.b) == (best["s"], best["b"])
+
+
+# ---- guarded solves: apply_at, the f64 route, captured guarded rounds ----
+
+# f64 kernels against their f64 plain versions: both sum the same f64
+# products in other orders, (n + m) u ~ 1e-12 relative at these sizes
+# before the epilogue; 1e-9 is three orders above that and five below
+# the f32 bound, which an f32 accumulation cannot meet
+TOL_F64 = 1e-9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
+@pytest.mark.parametrize("sb", [32, 256, 7])
+def test_swapped_apply_at_matches_plain(cuda_device, kernel, sb):
+    """The guarded rounds' apply_at, K(A[idx], A)^T w (the KMV kernel
+    with its operands swapped: a short contraction into all of A's rows)
+    against kmv_plain, repeating bit for bit, through the operator."""
+    A, _, _ = _data(1500, 1, 96, 1, seed=31)
+    cfg = KernelConfig(**kernel)
+    A_d = torch.from_numpy(A).to(cuda_device)
+    idx = torch.randint(0, 1500, (sb,), device=cuda_device)
+    w = torch.randn(sb, device=cuda_device)
+    from repro_torch.core import ExactGramOperator
+    op = ExactGramOperator(A_d, cfg)
+    before = kmv_cuda.launches
+    got = op.apply_at(idx, w)
+    assert kmv_cuda.launches == before + 1
+    _close(got, kmv_plain(A_d[idx], A_d, w, cfg), kernel, 2e-4)
+    assert torch.equal(got, op.apply_at(idx, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
+@pytest.mark.parametrize("shape", [(700, 32, 96, 1), (600, 600, 64, 1),
+                                   (32, 900, 128, 1), (257, 70, 203, 3)])
+def test_kmv_cuda_f64_route_matches_plain_f64(cuda_device, kernel, shape):
+    """f64 operands take the f64 route and sum in f64: against kmv_plain
+    in f64 at TOL_F64 (B = A the full matvec), repeating bit for bit."""
+    m, r, n, c = shape
+    A, B, X = _data(m, r, n, c, seed=32)
+    cfg = KernelConfig(**kernel)
+    A_d = torch.from_numpy(A).to(cuda_device, torch.float64)
+    B_d = A_d if m == r else torch.from_numpy(B).to(cuda_device,
+                                                    torch.float64)
+    X_d = torch.from_numpy(X).to(cuda_device, torch.float64)
+    got = kmv_cuda(A_d, B_d, X_d, cfg)
+    assert got.dtype == torch.float64
+    _close(got, kmv_plain(A_d, B_d, X_d, cfg), kernel, TOL_F64)
+    assert torch.equal(got, kmv_cuda(A_d, B_d, X_d, cfg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
+@pytest.mark.parametrize("shape", [(1, 1, 64), (32, 32, 300),
+                                   (256, 256, 96), (70, 33, 203)])
+def test_gram_cuda_f64_route_matches_plain_f64(cuda_device, kernel, shape):
+    m, r, n = shape
+    A, B, _ = _data(m, r, n, 1, seed=33)
+    cfg = KernelConfig(**kernel)
+    A_d = torch.from_numpy(A).to(cuda_device, torch.float64)
+    B_d = torch.from_numpy(B).to(cuda_device, torch.float64)
+    got = gram_cuda(A_d, B_d, cfg)
+    assert got.dtype == torch.float64
+    _close(got, gram_plain(A_d, B_d, cfg), kernel, TOL_F64)
+    with pytest.raises(ValueError, match="f64 route"):
+        gram_cuda(A_d, B_d, cfg, out_dtype=torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64],
+                         ids=["f32", "bf16", "f64"])
+@pytest.mark.parametrize("sb", [8, 32, 96, 256])
+def test_kmv_stream_apply_matches_plain(cuda_device, kernel, dtype, sb):
+    """The streamed apply_at (each chunk's rows of K(A, B) W while it sits
+    in a slot of the two-slot pipe) against its plain chunk loop, a
+    ragged tail chunk included (at sb = 96 in f64 and 256 in f32 a plan
+    of several m splits, whose slices the tail chunk's reduce must read
+    at the tail's width); the f64 route at TOL_F64."""
+    m, cr, n, c = 1000, 256, 96, 2
+    A, B, _ = _data(m, sb, n, 1, seed=34)
+    cfg = KernelConfig(**kernel)
+    Xc = _chunk(torch.from_numpy(A).to(dtype), cr, pin=True)
+    B_d = torch.from_numpy(B).to(cuda_device, dtype)
+    W = torch.randn(sb, c, device=cuda_device,
+                    dtype=torch.float64 if dtype == torch.float64
+                    else torch.float32)
+    before = kmv_stream_module.kmv_stream_apply_cuda.launches
+    got = ops.kmv_stream_apply(Xc, B_d, W, cfg, m=m)
+    assert kmv_stream_module.kmv_stream_apply_cuda.launches == before + 1
+    assert got.shape == (m, c)
+    want = kmv_stream_module.kmv_stream_apply_plain(Xc, B_d, W, cfg, m=m)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2,
+           torch.float64: TOL_F64}[dtype]
+    _close(got, want, kernel, tol)
+    assert torch.equal(got, ops.kmv_stream_apply(Xc, B_d, W, cfg, m=m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", KERNELS, ids=IDS)
+def test_kmv_stream_f64_route_matches_plain_f64(cuda_device, kernel):
+    """The streamed KMV, its full matvec (as the chunk pieces) and the
+    row gather in f64 against their plain versions."""
+    m, cr, n = 700, 128, 96
+    A, B, X = _data(m, 32, n, 2, seed=35)
+    cfg = KernelConfig(**kernel)
+    Xc = _chunk(torch.from_numpy(A).double(), cr, pin=True)
+    Xvc = _chunk(torch.from_numpy(X).double(), cr).to(cuda_device)
+    B_d = torch.from_numpy(B).to(cuda_device, torch.float64)
+    got = kmv_stream_cuda(Xc, B_d, Xvc, cfg, m=m)
+    assert got.dtype == torch.float64
+    _close(got, kmv_stream_plain(Xc, B_d, Xvc, cfg, m=m), kernel, TOL_F64)
+    full = kmv_stream_full_cuda(Xc, Xvc, cfg, m=m)
+    assert full.dtype == torch.float64
+    _close(full, kmv_stream_full_plain(Xc, Xvc, cfg, m=m), kernel, TOL_F64)
+    idx = torch.randint(0, m, (40,), device=cuda_device)
+    assert torch.equal(gather_rows_cuda(Xc, idx), gather_rows_plain(Xc, idx))
+
+
+def _guarded_card_rounds(dev, fault_round=-1, seed=9):
+    """(round fn, xs, guard, metric, m): a guarded s-step K-RR round on
+    the card through the KMV and gram kernels, with a NaN fault lane."""
+    from repro_torch.core import ExactGramOperator
+    from repro_torch.resilience import finite_health, make_correct_fn
+    rng = np.random.default_rng(seed)
+    m, n, s, b = 300, 40, 4, 8
+    A = torch.tensor(rng.standard_normal((m, n)) / np.sqrt(n),
+                     dtype=torch.float32, device=dev)
+    y = torch.sin(A @ torch.ones(n, device=dev))
+    op = ExactGramOperator(A, KernelConfig("rbf", sigma=0.7))
+    cfg = KRRConfig(lam=0.5, kernel=op.cfg)
+    base = make_sstep_bdcd_round_fn(A, y, cfg, s, op=op, guard=True)
+    gen = torch.Generator().manual_seed(seed)
+    blocks = torch.stack([torch.randperm(m, generator=gen)[:b]
+                          for _ in range(s * 21)]).to(dev)
+    idx, valid = pad_rounds(blocks, s)
+    hits = torch.arange(idx.shape[0], device=dev) == fault_round
+    nan = torch.tensor(float("nan"), device=dev)
+    zero = torch.zeros((), device=dev)
+
+    def rf(carry, xz):
+        a, f = base(carry, xz[:-1])
+        return a, f + torch.where(xz[-1], nan, zero)
+
+    guard = loop.GuardSpec(finite_health, make_correct_fn(op), 3)
+    metric = lambda c: krr_rel_residual(A, y, c[0], cfg)  # noqa: E731
+    return rf, (idx, valid, hits), guard, metric, m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault_round", [-1, 7])
+def test_captured_guarded_rounds_equal_the_eager_loop(cuda_device,
+                                                      fault_round):
+    """The guarded rounds replayed as CUDA graphs (runs ending at every
+    check and correction, the freeze a device flag) equal the eager
+    guarded loop bit for bit: the carry, the histories, the corrections
+    and the first bad round; a clean run's kmv and gram counts are the
+    eager loop's."""
+    rf, xs, guard, metric, m = _guarded_card_rounds(cuda_device,
+                                                    fault_round)
+    state0 = (torch.zeros(m, device=cuda_device),
+              torch.zeros(m, device=cuda_device))
+    kw = dict(tol=NO_TOL, check_every=5, metric_fn=metric)
+    before = (kmv_cuda.launches, gram_cuda.launches)
+    got = loop.run_rounds(rf, state0, xs, guard=guard, **kw)
+    mid = (kmv_cuda.launches, gram_cuda.launches)
+    want = loop._run_rounds_guarded_eager(rf, state0, xs, guard, **kw)
+    after = (kmv_cuda.launches, gram_cuda.launches)
+    torch.cuda.synchronize()
+    for a, b in zip(got.state, want.state):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+    assert torch.equal(got.metric_history(), want.metric_history())
+    assert torch.equal(got.drift_history(), want.drift_history())
+    assert (got.rounds_run, got.checks_run, got.corrections,
+            got.diverged_round, got.diverged_kind) == \
+        (want.rounds_run, want.checks_run, want.corrections,
+         want.diverged_round, want.diverged_kind)
+    assert got.diverged_round == fault_round
+    if fault_round < 0:
+        assert (mid[0] - before[0], mid[1] - before[1]) == \
+            (after[0] - mid[0], after[1] - mid[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("approx", [None, "nystrom"])
+@pytest.mark.parametrize("problem", ["ksvm", "krr"])
+def test_guarded_fit_on_card_matches_fit_on_host(cuda_device, monkeypatch,
+                                                 problem, approx):
+    """A guarded facade fit with corrections, checks and a fault that walks
+    one rung, on the card against the same fit on the host: the same
+    events and corrections, alpha at 1e-5 (exact) or at the Nystrom
+    card-versus-host bound 1e-4 (the factor goes through the gram kernel
+    on the card and its plain version on the host, and K_LL^{-1/2}
+    amplifies their difference, as in
+    test_nystrom_fit_on_card_matches_fit_on_host); and on the card the
+    captured guarded fit equals the same fit through the eager guarded
+    loop bit for bit."""
+    from repro_torch.core.kernels import (ExactGramOperator,
+                                          LowRankGramOperator)
+    from repro_torch.resilience import FaultPlan, inject
+    rng = np.random.default_rng(12)
+    m, n = 400, 32
+    A = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
+    y = (np.sign(A @ rng.standard_normal(n)) if problem == "ksvm"
+         else np.sin(A @ rng.standard_normal(n))).astype(np.float32)
+    kw = dict(method="sstep", s=8, max_iters=512, seed=2, guard=True,
+              recompute_every=5, record=True, check_every=4, approx=approx,
+              landmarks=64)
+    if problem == "krr":
+        kw["b"] = 4
+
+    def fit(dev):
+        est = (KernelSVM(C=1.0, kernel="rbf", device=dev,
+                         options=SolverOptions(**kw)) if problem == "ksvm"
+               else KernelRidge(lam=0.5, kernel="rbf", device=dev,
+                                options=SolverOptions(**kw)))
+        with inject(FaultPlan(nan_at_iter=200, target="f")):
+            return est.fit(A, y)
+
+    host, card = fit("cpu"), fit(cuda_device)
+    tol = 1e-5 if approx is None else 1e-4
+    np.testing.assert_allclose(card.alpha.cpu().numpy(), host.alpha.numpy(),
+                               rtol=tol, atol=tol)
+    assert card.health.events == host.health.events
+    assert [e.action for e in card.health.fallbacks] == ["halve_s:8->4"]
+    assert card.health.corrections == host.health.corrections > 0
+    assert card.health.max_drift < 1e-4
+    op_cls = ExactGramOperator if approx is None else LowRankGramOperator
+    monkeypatch.setattr(op_cls, "capturable", False)
+    eager = fit(cuda_device)
+    assert torch.equal(eager.alpha, card.alpha)
+    np.testing.assert_array_equal(eager.history, card.history)

@@ -23,7 +23,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.gram import (BK, BLOCKS_PER_SM, DOT_MAX, gram_cuda,
                                       gram_plain, gram_splits)
 from repro_torch.kernels.kmv import (NARROW_MAX_R, ROWS_MAX_R, WS_MAX_FLOATS,
-                                     kmv_cuda, kmv_plain, kmv_plan)
+                                     kmv_cuda, kmv_f64_plan, kmv_plain,
+                                     kmv_plan)
 from repro_torch.kernels.ref import kmv_ref
 
 KERNELS = [dict(name="linear"),
@@ -160,12 +161,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("c", [1, 4])
 def test_kmv_plan_covers_m_with_nonempty_splits(m, r, c):
     """The regime follows r (rows up to 8, a tile as wide as r up to 64,
-    wide tiles beyond); the tile covers r; the splits cover m, none
-    empty, a tile regime's in whole BM-row tiles; the grid and the
+    wide tiles beyond, unless the contraction over m is at most 64 rows:
+    then the narrow tile too); the tile covers r; the splits cover m,
+    none empty, a tile regime's in whole BM-row tiles; the grid and the
     workspace stay within their limits."""
     plan = kmv_plan(m, r, c, sm_count=132)
     want = ("rows" if r <= ROWS_MAX_R else
-            "narrow" if r <= NARROW_MAX_R else "wide")
+            "narrow" if r <= NARROW_MAX_R or m <= NARROW_MAX_R
+            else "wide")
     assert plan.regime == want
     assert (plan.splits - 1) * plan.rows_per_split < m \
         <= plan.splits * plan.rows_per_split
@@ -175,7 +178,8 @@ def test_kmv_plan_covers_m_with_nonempty_splits(m, r, c):
         assert plan.rows_per_split % plan.bm == 0
         assert plan.br in ((32, 64) if plan.regime == "narrow"
                            else (64, 128))
-        assert plan.br >= min(r, 64)
+        # as wide as r up to 64, or 32 for a short contraction
+        assert plan.br >= (32 if m <= NARROW_MAX_R < r else min(r, 64))
         assert plan.splits <= 65535
         assert plan.splits == 1 or plan.splits * r * c <= WS_MAX_FLOATS
 
@@ -254,3 +258,17 @@ def test_gram_splits_fill_the_card_at_the_round_shapes(m, r, sms):
     assert sms <= blocks <= (BLOCKS_PER_SM + 1) * sms
     for big in ((19996, 1024), (19996, 256)):
         assert gram_splits(*big, 8192, sm_count=sms)[2] == 1
+
+
+@pytest.mark.parametrize("m,r", [(1, 1), (32, 19996), (256, 19996),
+                                 (19996, 19996), (19996, 32), (33, 5),
+                                 (2048, 2048), (100000, 1)])
+def test_kmv_f64_plan_covers_m_in_whole_tiles(m, r):
+    """The f64 route's plan: 32 x 32 tiles, the m splits whole tiles
+    covering m, none empty, within the grid's y limit."""
+    plan = kmv_f64_plan(m, r, sm_count=132)
+    assert (plan.regime, plan.bm, plan.br) == ("f64", 32, 32)
+    assert plan.rows_per_split % 32 == 0
+    assert (plan.splits - 1) * plan.rows_per_split < m \
+        <= plan.splits * plan.rows_per_split
+    assert 1 <= plan.splits <= 65535

@@ -310,3 +310,43 @@ def test_facade_nystrom_seed_reproducible_and_validated():
                                              coef0=0.0, sigma=1.0)),
             A, y, np.zeros(A.shape[0], np.float32),
             options=dict(approx="nystrom"), device="cpu")
+
+
+@pytest.mark.parametrize("kernel", [dict(name="rbf", sigma=0.8),
+                                    dict(name="polynomial", degree=2,
+                                         coef0=1.0)],
+                         ids=["rbf", "polynomial"])
+def test_nystrom_krr_setup_matches_jax(kernel):
+    """``nystrom_krr_setup`` against JAX's on the JAX setup's landmarks:
+    the linear-kernel config, the landmarks, and Phi, the map of new
+    queries and a BDCD solve on (Phi, y) at this module's Nystrom bound
+    (1e-4 of the largest value: ``K_LL^{-1/2}`` amplifies f32 rounding,
+    test_nystrom_map_and_inv_sqrt_match_jax)."""
+    from repro.core.bdcd import KRRConfig as JKRRConfig
+    from repro.core.bdcd import bdcd_krr as j_bdcd_krr
+    from repro.core.bdcd import block_schedule as j_block_schedule
+    from repro_torch.core import KRRConfig, bdcd_krr
+
+    A = _data(96, 6, seed=4)
+    y = np.random.default_rng(4).standard_normal(96).astype(np.float32)
+    jsetup = jn.nystrom_krr_setup(
+        jax.random.key(5), jnp.asarray(A),
+        JKRRConfig(lam=0.7, kernel=JKernelConfig(**kernel)), 24)
+    setup = tn.nystrom_krr_setup(
+        None, torch.from_numpy(A),
+        KRRConfig(lam=0.7, kernel=KernelConfig(**kernel)), 24,
+        landmarks=torch.from_numpy(np.asarray(jsetup.landmarks)))
+    assert setup.cfg == KRRConfig(lam=0.7, kernel=KernelConfig("linear"))
+    assert isinstance(setup.feature_map, tn.NystromMap)
+    np.testing.assert_array_equal(setup.landmarks.numpy(),
+                                  np.asarray(jsetup.landmarks))
+    _close(setup.Phi, jsetup.Phi, 1e-4)
+    Q = A[:7] + 0.1
+    _close(setup.feature_map(torch.from_numpy(Q)),
+           jsetup.feature_map(jnp.asarray(Q)), 1e-4)
+    sched = j_block_schedule(jax.random.key(6), 64, 96, 4)
+    ja, _ = j_bdcd_krr(jsetup.Phi, jnp.asarray(y), jnp.zeros(96), sched,
+                       jsetup.cfg)
+    a, _ = bdcd_krr(setup.Phi, torch.from_numpy(y), torch.zeros(96),
+                    np.asarray(sched), setup.cfg)
+    _close(a, ja, 1e-4)

@@ -687,6 +687,10 @@ MAIN_PLANS = [  # (m, r, c, same) -> (regime, bm, br, splits, rows_per_split)
     ((19_996, 19_996, 8, True), ("symmetric", 128, 128, 157, 128)),
     ((19_996, 19_996, 16, True), ("symmetric", 128, 128, 157, 128)),
     ((19_996, 19_996, 16, False), ("wide", 128, 128, 40, 512)),
+    # the guarded rounds' apply_at, K(A[idx], A)^T w: K-SVM s = 32 takes
+    # the narrow tile over its 32 sampled rows, K-RR's 256 the wide one
+    ((32, 19_996, 1, False), ("narrow", 32, 32, 1, 32)),
+    ((256, 19_996, 1, False), ("wide", 128, 64, 2, 128)),
 ]
 
 
@@ -699,7 +703,9 @@ def test_kmv_plan_pins_the_main_paths_plans(args, want):
     H100 SXM) stays as it was, and so does a c = 1 full matvec whose
     symmetric workspace would pass WS_MAX_FLOATS (m = 50 000); the
     fleet's full matvec B = A keeps the symmetric plan at c = 4, 8 and
-    16 (its workspace passes WS_MAX_FLOATS, within SYM_WS_MAX_FLOATS)."""
+    16 (its workspace passes WS_MAX_FLOATS, within SYM_WS_MAX_FLOATS);
+    the guarded apply_at of sb = 32 rows takes the narrow tile, not a
+    128-row tile three quarters padding."""
     m, r, c, same = args
     assert tuple(kmv_plan(m, r, c, 132, same)) == want
 
