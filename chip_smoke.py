@@ -178,6 +178,35 @@ Phases (each one fails the run with a non-zero exit):
           for bit; a checkpoint of another schedule is refused
        e. a guarded streamed K-RR fit (stream=2048, 16 rounds, one
           correction) against the resident guarded fit at 1e-5
+ 11. serving and telemetry (repro_torch.serve, repro_torch.obs), on phases
+     3-4's data, phase 9's fleets and phase 5's Nystrom fit, after phase 10:
+       a. a ModelRegistry(predict_batch=1024) of phase 3's K-SVM with the
+          8-C fleet's members (one group, F = 9), phase 4's K-RR with the
+          16-lambda fleet's (F = 17) and the Nystrom K-RR (F = 1); the
+          operator_key time of the full-width A, each group's bytes; phase
+          4's K-RR saved and loaded: it must join its group by content and
+          serve its column bit for bit
+       b. warm-up of every bucket (8 ... 1024) of every group; KMV at every
+          bucket x F (9, 17) against its plain version, repeating bit for
+          bit, equal to the group's served block, with its regime (rows at
+          r = 8, narrow at 16-64, wide from 128), time, plain time, bound
+       c. ServingEngine(slots=256, max_queue=1024): 4096 tickets over the 27
+          models (70% single rows, the rest 2-64), every 64th with a
+          deadline already passed (must expire unserved); each ticket within
+          2e-4 of its model's own BatchedPredictor; one KMV launch a block
+          of an exact group and one gram launch a Nystrom block (its feature
+          map); the serve-cache observable must not grow after warm-up;
+          between the two halves the K-RR model is refit on 1024 new rows
+          (tol 1e-4) and swapped: its tickets before the swap are held to
+          the old weights, after it to the new; p50 / p99 latency, rows/s;
+          a burst of 2 x max_queue must shed the excess at submit
+       d. phase 4's K-RR fit again with telemetry=True: alpha and history
+          bit for bit phase 4's and the uninstrumented refit's, the same kmv
+          and gram counts; its spans, its 16 metric_check intervals (device
+          times of each check's own graph), audit_fit's table, a Chrome
+          trace (validated, written to chiprun_out/phase11_trace.json), the
+          walls with telemetry on and off (not gated); one instrumented
+          engine window's metrics as Prometheus text
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
@@ -273,6 +302,15 @@ GUARD_FAULT_ITER = 1000
 GUARD_F64_ITERS = 64
 GUARD_KILL_ITERS = 1024
 GUARD_STREAM_ROUNDS = 16
+# phase 11: the registry's largest bucket, the engine's admission width
+# and queue bound, its traffic (tickets, the share of single rows, tickets
+# submitted between two steps)
+SERVE_BATCH = 1024
+SERVE_SLOTS = 256
+SERVE_QUEUE = 1024
+SERVE_TICKETS = 4096
+SERVE_SINGLE = 0.7
+SERVE_PER_STEP = 32
 
 # Phase 7 (the LM at Qwen3-1.7B width): B prompts of S tokens prefill, a
 # teacher-forced decode of the first LM_DECODE_PROMPT of them, and an
@@ -782,6 +820,7 @@ def stream_phase(c, args, failures):
                           tol=1e-4, check_every=16, max_iters=args.krr_iters,
                           seed=args.seed))
     r_n = nys.fit(c.Ar, c.yr)
+    c.nys = nys                      # phase 11 serves it
     p_n = nys.predict(c.Arq)
     torch.cuda.synchronize()
     drivers = c.spy.take()
@@ -1220,6 +1259,8 @@ def sweep_phase(c, args, failures):
                      schedule=c.r_s.schedule, device=dev)
     fs_counts = counts()
     drivers = c.spy.take()
+    c.fleets = SimpleNamespace(lams=lams, alpha_k=fk.alpha, Cs=Cs,
+                               alpha_s=fs.alpha)   # phase 11 serves them
     print(f"[sweep] K-SVM fleet, F = {len(Cs)} Cs {Cs.min():g}..{Cs.max():g}"
           f", s=32: {fs.rounds_run} rounds, {fs.wall_time_s:.2f} s against "
           f"{len(Cs)} x the single fit's {c.r_s.wall_time_s:.2f} s = "
@@ -2045,6 +2086,398 @@ def guard_phase(c, args, failures):
         "bound_ms_256x256": g256["bound"],
         "ms_timing": "device time, launches queued behind a spin kernel "
                      "(time_queued)"})
+    return entries
+
+
+def serve_phase(c, args, failures):
+    """Phase 11 (module docstring), on phases 3-4's data, phase 9's fleets
+    and phase 5's Nystrom fit in ``c``: the registry of two exact groups
+    (F = 9 and F = 17) and a Nystrom one, an artifact saved and loaded, KMV
+    at every serving bucket x F against its plain version, the engine's
+    traffic with deadlines, a burst and a refit swap, and the instrumented
+    K-RR fit with its spans, audit and trace.  Returns the kernels-record
+    entries of KMV at the serving buckets."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.api import KernelRidge
+    from repro_torch.core import predict as predict_mod
+    from repro_torch.core.kernels import ExactGramOperator
+    from repro_torch.kernels.gram import gram_cuda
+    from repro_torch.kernels.kmv import kmv_cuda, kmv_plain, kmv_plan
+    from repro_torch.kernels._launch import sm_count
+    from repro_torch.obs.audit import audit_fit
+    from repro_torch.obs.export import save_trace, to_chrome_trace, \
+        validate_chrome_trace
+    from repro_torch.serve import (DONE, EXPIRED, SHED, ModelRegistry,
+                                   ServableModel, ServingEngine, load_model,
+                                   operator_key)
+
+    dev, m, n = c.dev, c.m, c.n
+    rbf = c.kernels["rbf"]
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+
+    # ---- 11a. the registry ----------------------------------------------
+    t0 = time.perf_counter()
+    key_a = operator_key(c.svm.op_)
+    t_key = time.perf_counter() - t0
+    mem0 = torch.cuda.memory_allocated(dev)
+    reg = ModelRegistry(predict_batch=SERVE_BATCH, device=dev)
+    t0 = time.perf_counter()
+    reg.register("ksvm", c.svm)
+    t_reg = time.perf_counter() - t0
+    op_s = reg.models["ksvm"].op
+    for C, alpha in zip(c.fleets.Cs, c.fleets.alpha_s):
+        reg.register(f"ksvm_C{C:g}", ServableModel(
+            "ksvm", dataclasses.replace(c.svm.cfg, C=float(C)),
+            c.svm.result_.options, alpha, c.y, op_s))
+    reg.register("krr", c.krr)
+    op_k = reg.models["krr"].op
+    for lam, alpha in zip(c.fleets.lams, c.fleets.alpha_k):
+        reg.register(f"krr_lam{lam:.3g}", ServableModel(
+            "krr", dataclasses.replace(c.krr.cfg, lam=float(lam)),
+            c.krr.result_.options, alpha, c.yr, op_k))
+    reg.register("nystrom", c.nys)
+    mem_reg = torch.cuda.memory_allocated(dev) - mem0
+    g_s, g_k, g_n = reg.group("ksvm"), reg.group("krr"), reg.group("nystrom")
+    sizes = (g_s.size, g_k.size, g_n.size)
+    print(f"[serve] operator_key of the classification A ({m} x {n} f32, "
+          f"{c.A.numel() * 4 / 1e6:.0f} MB): {t_key:.3f} s; the first "
+          f"registration (one hash) {t_reg:.3f} s; members joining a "
+          f"group's own operator are not hashed again")
+    print(f"[serve] {len(reg.models)} models in {reg.n_groups} groups: "
+          f"K-SVM F = {sizes[0]}, K-RR F = {sizes[1]}, Nystrom F = "
+          f"{sizes[2]}; group bytes {g_s.nbytes / 1e6:.1f} / "
+          f"{g_k.nbytes / 1e6:.1f} / {g_n.nbytes / 1e6:.1f} MB; device "
+          f"memory the registry added {mem_reg / 1e6:.2f} MB (the stacked "
+          f"weights; the operators are the fits' own)")
+    if sizes != (9, 17, 1) or reg.n_groups != 3:
+        failures.append(f"registry groups {sizes}, {reg.n_groups} groups")
+    if reg.models["ksvm_C1"].op is not op_s:
+        failures.append("a fleet member holds its own operator")
+
+    # an artifact saved and loaded: it joins its group by content
+    art = root / "build" / "serve_artifact"
+    shutil.rmtree(art, ignore_errors=True)
+    t0 = time.perf_counter()
+    c.krr.save(str(art))
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = load_model(str(art), device=dev)
+    t_load = time.perf_counter() - t0
+    same_alpha = torch.equal(restored.alpha, c.krr.alpha_)
+    same_key = operator_key(restored.op) == operator_key(op_k)
+    reg.register("krr_restored", restored)
+    joined = reg.group("krr_restored") is g_k
+    Xq = c.Arq[:64].contiguous()
+    both = g_k.serve(Xq)
+    restored_same = torch.equal(both[:, g_k.col["krr"]],
+                                both[:, g_k.col["krr_restored"]])
+    reg.unregister("krr_restored")
+    shutil.rmtree(art, ignore_errors=True)
+    print(f"[serve] artifact of phase 4's K-RR: saved in {t_save:.2f} s, "
+          f"loaded in {t_load:.2f} s; alpha {'equal' if same_alpha else 'DIFFERS'},"
+          f" operator key {'equal' if same_key else 'DIFFERS'}, "
+          f"{'joined' if joined else 'DID NOT JOIN'} the K-RR group, served "
+          f"column {'equal bit for bit' if restored_same else 'DIFFERS'}")
+    if not (same_alpha and same_key and joined and restored_same):
+        failures.append("the saved and loaded K-RR artifact")
+
+    # ---- 11b. warm-up and KMV at every bucket x F -----------------------
+    cache0 = serve_cache = predict_mod.serve_cache_size()
+    t0 = time.perf_counter()
+    n_buckets = reg.warmup()
+    t_warm = time.perf_counter() - t0
+    cache_warm = predict_mod.serve_cache_size()
+    buckets = g_s.predictor.bucket_sizes()
+    print(f"[serve] warm-up: {n_buckets} blocks ({len(buckets)} buckets "
+          f"{buckets} x {reg.n_groups} groups) in {t_warm:.2f} s; serve-cache "
+          f"observable {cache0} -> {cache_warm}")
+    sms = sm_count(0)
+    shapes = {}
+    for group, Q in ((g_s, c.Aq), (g_k, c.Arq)):
+        F = group.size
+        W = group.W
+        for qb in buckets:
+            B = Q[:qb].contiguous()
+            plan = kmv_plan(m, qb, F, sms)
+            got = kmv_cuda(group.op.A, B, W, rbf)
+            want = kmv_plain(group.op.A, B, W, rbf)
+            ratio, err = allclose_ratio(got, want, TOL_KMV_F32)
+            same = torch.equal(got, kmv_cuda(group.op.A, B, W, rbf))
+            served = group.serve(B)
+            via_engine = torch.equal(served, got)
+            iters = 5 if qb >= 512 else 20
+            ms = time_queued(lambda: kmv_cuda(group.op.A, B, W, rbf), iters)
+            plain = time_queued(lambda: kmv_plain(group.op.A, B, W, rbf),
+                                max(1, iters // 5))
+            nbytes = 4 * (m * n + qb * n + m * F + qb * F)
+            flops = 2 * m * qb * n + 2 * m * qb * F + 2 * (m + qb) * n \
+                + 6 * m * qb
+            b_ms, b_by = bound_ms(nbytes, flops)
+            shapes[(F, qb)] = dict(F=F, r=qb, plan=plan, err=err, ms=ms,
+                                   plain=plain, bound=b_ms, by=b_by,
+                                   launches=0)
+            print(f"[serve] kmv rbf ({m}, {qb}, {n}) c={F} [{plan.regime} "
+                  f"{plan.bm} x {plan.br}, {plan.splits} splits]: {ms:.4f} ms"
+                  f" | plain {plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}, "
+                  f"{b_ms / ms:.1%} of it) | max abs err {err:.3e}, "
+                  f"{'repeats bit for bit' if same else 'OTHER BITS'}, the "
+                  f"group's served block {'equal' if via_engine else 'DIFFERS'}")
+            if not ratio <= 1.0:
+                failures.append(f"serving kmv c={F} r={qb}: {err:.3e} "
+                                f"({ratio:.2f}x tolerance)")
+            if not (same and via_engine):
+                failures.append(f"serving kmv c={F} r={qb}: repeat {same}, "
+                                f"served block equal {via_engine}")
+    del got, want, served
+
+    # ---- 11c. the engine's traffic --------------------------------------
+    names_s = [nm for nm in reg.models if nm.startswith("ksvm")]
+    names_k = [nm for nm in reg.models if nm.startswith("krr")]
+    names = names_s + names_k + ["nystrom"]
+    Qs, Qk = c.Aq[:1024].cpu(), c.Arq[:1024].cpu()
+    rng = np.random.default_rng(args.seed + 11)
+    blocks = {}
+    real_block = predict_mod._serve_block
+
+    def counted_block(op, sw, Xq):
+        key = ("exact" if isinstance(op, ExactGramOperator) else "nystrom",
+               tuple(sw.shape[1:]), Xq.shape[0])
+        blocks[key] = blocks.get(key, 0) + 1
+        return real_block(op, sw, Xq)
+
+    def submit(eng, i, expire):
+        name = names[int(rng.integers(len(names)))]
+        rows = 1 if rng.random() < SERVE_SINGLE else int(rng.integers(2, 65))
+        lo = int(rng.integers(0, 1024 - rows + 1))
+        Q = Qs if name.startswith("ksvm") else Qk
+        return eng.submit(name, Q[lo:lo + rows],
+                          deadline_s=-1.0 if expire else None)
+
+    eng = ServingEngine(reg, slots=SERVE_SLOTS, max_queue=SERVE_QUEUE)
+    tickets = {"pre": [], "post": []}
+    for fn in (kmv_cuda, gram_cuda):
+        fn.launches = 0
+    walls, served_rows = [], 0
+    growth = 0
+    old_krr = reg.models["krr"]
+    refit = None
+    with mock.patch.object(predict_mod, "_serve_block", counted_block):
+        for part in ("pre", "post"):
+            cache_at = predict_mod.serve_cache_size()
+            t0 = time.perf_counter()
+            for i in range(SERVE_TICKETS // 2):
+                tickets[part].append(submit(eng, i, i % 64 == 63))
+                if i % SERVE_PER_STEP == SERVE_PER_STEP - 1:
+                    served_rows += eng.step()
+            served_rows += eng.run_until_idle()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            growth += predict_mod.serve_cache_size() - cache_at
+            if part == "pre":
+                kmv_pre = (kmv_cuda.launches, gram_cuda.launches)
+                blocks_pre = dict(blocks)
+                # the refit swap between the two halves: every ticket
+                # admitted before it was served on the old weights
+                t0 = time.perf_counter()
+                refit = reg.refit("krr", c.Arq[1024:], c.yrq[1024:])
+                t_refit = time.perf_counter() - t0
+                c.spy.take()
+                # the refitted group and the one it left (now F = 16)
+                # issue new block shapes: warm them, as a deployment would
+                reg.warmup()
+                for fn in (kmv_cuda, gram_cuda):
+                    fn.launches = 0
+                blocks.clear()
+    kmv_post = (kmv_cuda.launches, gram_cuda.launches)
+    exact_blocks = lambda b: sum(v for k, v in b.items() if k[0] == "exact")
+    nys_blocks = lambda b: sum(v for k, v in b.items() if k[0] == "nystrom")
+    new_krr = reg.models["krr"]
+    all_t = tickets["pre"] + tickets["post"]
+    done = [t for t in all_t if t.status == DONE]
+    expired = [t for t in all_t if t.status == EXPIRED]
+    lat = eng.latency_quantiles((0.5, 0.99))
+    print(f"[serve] engine: {len(all_t)} tickets over {len(names)} models "
+          f"({SERVE_SINGLE:.0%} single rows, the rest 2-64), slots "
+          f"{SERVE_SLOTS}, max_queue {SERVE_QUEUE}: {len(done)} done, "
+          f"{len(expired)} expired, {eng.stats['shed']} shed, "
+          f"{eng.stats['blocks']} blocks in {eng.stats['steps']} steps; "
+          f"{served_rows} rows in {sum(walls):.3f} s = "
+          f"{served_rows / sum(walls):.0f} rows/s; ticket latency p50 "
+          f"{lat['p50'] * 1e3:.3f} ms, p99 {lat['p99'] * 1e3:.3f} ms")
+    print(f"[serve] KMV launches {kmv_pre[0]} + {kmv_post[0]} for "
+          f"{exact_blocks(blocks_pre)} + {exact_blocks(blocks)} exact-group "
+          f"blocks; gram launches {kmv_pre[1]} + {kmv_post[1]} for "
+          f"{nys_blocks(blocks_pre)} + {nys_blocks(blocks)} Nystrom blocks "
+          f"(its feature map); serve-cache growth after warm-up {growth}")
+    print(f"[serve] refit of 'krr' on 1024 new rows (tol "
+          f"{old_krr.options.tol:g}): {refit.iters_run} iters, "
+          f"{refit.rounds_run} rounds, converged={refit.converged}, "
+          f"{t_refit:.2f} s with its hash and warm-up; groups now "
+          f"{[g.size for g in reg.groups()]}")
+    if (kmv_pre[0], kmv_post[0]) != (exact_blocks(blocks_pre),
+                                     exact_blocks(blocks)):
+        failures.append(f"KMV launches {kmv_pre[0]}, {kmv_post[0]} for "
+                        f"{exact_blocks(blocks_pre)}, {exact_blocks(blocks)}"
+                        f" blocks: not one a block")
+    if (kmv_pre[1], kmv_post[1]) != (nys_blocks(blocks_pre),
+                                     nys_blocks(blocks)):
+        failures.append("gram launches are not one a Nystrom block")
+    if growth != 0:
+        failures.append(f"the serve-cache observable grew by {growth}")
+    want_expired = [t for t in all_t if t.deadline is not None]
+    if [t.id for t in expired] != [t.id for t in want_expired] or \
+            any(t.result is not None for t in expired):
+        failures.append(f"{len(expired)} tickets expired, "
+                        f"{len(want_expired)} had passed deadlines")
+    if eng.stats["shed"] or len(done) != len(all_t) - len(want_expired):
+        failures.append(f"traffic shed {eng.stats['shed']} tickets or left "
+                        f"some unserved")
+
+    # every ticket against its own model's BatchedPredictor: per model,
+    # its tickets' rows in one call (the K-RR model's before and after the
+    # swap apart)
+    worst = 0.0
+    for part in ("pre", "post"):
+        by_model = {}
+        for t in tickets[part]:
+            if t.status == DONE:
+                by_model.setdefault(t.name, []).append(t)
+        for name, ts in by_model.items():
+            model = (old_krr if (name == "krr" and part == "pre")
+                     else new_krr if name == "krr" else reg.models[name])
+            pred = predict_mod.BatchedPredictor(model.op, model.serve_w,
+                                                batch=SERVE_BATCH)
+            want = pred(torch.cat([t.X for t in ts]).to(dev)).cpu()
+            got = torch.cat([t.result for t in ts])
+            ratio, err = allclose_ratio(got, want, TOL_KMV_F32)
+            worst = max(worst, err)
+            if not ratio <= 1.0:
+                failures.append(f"engine tickets of {name} ({part} the "
+                                f"swap) vs its predictor: {err:.3e}")
+    moved = float((new_krr.serve_w[:m] - old_krr.serve_w).abs().max())
+    print(f"[serve] every ticket vs its model's own BatchedPredictor: max abs"
+          f" err {worst:.3e} (bound {TOL_KMV_F32}); 'krr' tickets before the "
+          f"swap held to the old weights, after it to the new (the weights "
+          f"moved by up to {moved:.3e})")
+
+    # a burst of twice the queue: the excess is shed at submit
+    burst = [eng.submit("ksvm", Qs[i % 1024]) for i in range(2 * SERVE_QUEUE)]
+    shed = sum(t.status == SHED for t in burst)
+    eng.run_until_idle()
+    served_burst = sum(t.status == DONE for t in burst)
+    print(f"[serve] burst of {len(burst)} single rows: {shed} shed at submit,"
+          f" {served_burst} served")
+    if (shed, served_burst) != (SERVE_QUEUE, SERVE_QUEUE):
+        failures.append(f"the burst shed {shed} and served {served_burst}")
+
+    # ---- 11d. telemetry ---------------------------------------------------
+    opts_k = c.krr.options
+    for fn in (kmv_cuda, gram_cuda):
+        fn.launches = 0
+    r_plain = KernelRidge(lam=1.0, kernel="rbf", device=dev,
+                          options=opts_k).fit(c.Ar, c.yr)
+    counts_plain = (kmv_cuda.launches, gram_cuda.launches)
+    for fn in (kmv_cuda, gram_cuda):
+        fn.launches = 0
+    r_tel = KernelRidge(lam=1.0, kernel="rbf", device=dev,
+                        options=dataclasses.replace(opts_k, telemetry=True)
+                        ).fit(c.Ar, c.yr)
+    counts_tel = (kmv_cuda.launches, gram_cuda.launches)
+    drivers = c.spy.take()
+    tel = r_tel.telemetry
+    want_counts = (c.r_k.rounds_run + len(c.r_k.history), c.r_k.rounds_run)
+    same = [bit_equal(a, b)[0] for a, b in (
+        (r_tel.alpha, c.r_k.alpha), (r_plain.alpha, c.r_k.alpha),
+        (r_tel.history, c.r_k.history))]
+    checks = [s for s in tel.paired_marks() if s.name == "metric_check"]
+    spans = {s.name: s.duration for s in tel.spans}
+    ck = np.array([s.duration for s in checks]) * 1e3
+    print(f"[obs] phase 4's K-RR fit again, telemetry on: alpha "
+          f"{'equal bit for bit' if same[0] else 'DIFFERS'} to phase 4's "
+          f"(off: {'equal' if same[1] else 'DIFFERS'}), history "
+          f"{'equal' if same[2] else 'DIFFERS'}; launches kmv / gram on "
+          f"{counts_tel}, off {counts_plain}, phase 4's fit {want_counts}; "
+          f"drivers {drivers}")
+    print(f"[obs] spans: fit {spans.get('fit', float('nan')) * 1e3:.1f} ms, "
+          f"representation_build "
+          f"{spans.get('representation_build', float('nan')) * 1e3:.3f} ms, "
+          f"solve {spans.get('solve', float('nan')) * 1e3:.1f} ms; "
+          f"{len(checks)} metric_check intervals (device time of each "
+          f"check's graph): mean {ck.mean():.3f} ms, min {ck.min():.3f}, "
+          f"max {ck.max():.3f}, sum {ck.sum():.1f} ms")
+    print(f"[obs] walls: telemetry on {r_tel.wall_time_s:.3f} s, off "
+          f"{r_plain.wall_time_s:.3f} s, phase 4 {c.r_k.wall_time_s:.3f} s "
+          f"(not gated)")
+    print("[obs] audit_fit:\n" + audit_fit(r_tel).render())
+    trace = to_chrome_trace(tel)
+    validate_chrome_trace(trace)
+    out_dir = root / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = save_trace(str(out_dir / "phase11_trace.json"), tel)
+    print(f"[obs] Chrome trace: {len(trace['traceEvents'])} events, valid, "
+          f"written to {path}")
+    if not all(same) or counts_tel != counts_plain or \
+            counts_tel != want_counts:
+        failures.append(f"the instrumented K-RR fit: bit-equal {same}, "
+                        f"counts {counts_tel} / {counts_plain} / "
+                        f"{want_counts}")
+    if len(checks) != len(c.r_k.history) or not (ck > 0).all():
+        failures.append(f"{len(checks)} metric_check intervals for "
+                        f"{len(c.r_k.history)} checks")
+    if drivers != (2, 0):
+        failures.append(f"the telemetry fits took drivers {drivers}")
+
+    # one instrumented engine window
+    from repro_torch.obs import Telemetry
+    stel = Telemetry()
+    weng = ServingEngine(reg, slots=SERVE_SLOTS, max_queue=SERVE_QUEUE,
+                         telemetry=stel)
+    for i in range(256):
+        submit(weng, i, False)
+        if i % SERVE_PER_STEP == SERVE_PER_STEP - 1:
+            weng.step()
+    weng.run_until_idle()
+    text = stel.metrics.to_prometheus_text()
+    print("[obs] an instrumented engine window of 256 tickets, its metrics "
+          "as Prometheus text:")
+    for line in text.splitlines():
+        print(f"[obs]   {line}")
+    if stel.metrics.counter("repro_serve_tickets_total").value(
+            status="done") != 256:
+        failures.append("the instrumented engine window did not serve 256")
+    print(f"[serve] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+    # the kernels record: KMV at the serving buckets, one entry a group
+    for (F, qb), row in shapes.items():
+        row["launches"] = (blocks_pre.get(("exact", (F,), qb), 0)
+                           + blocks.get(("exact", (F,), qb), 0))
+    entries = []
+    for F in sorted({F for F, _ in shapes}):
+        rows = [shapes[(F, qb)] for qb in buckets]
+        top = rows[-1]
+        entries.append({
+            "name": f"kmv_serve_c{F}", "route": "cuda",
+            "source": "src/repro_torch/csrc/kmv.cu",
+            "replaces": "src/repro/kernels/kmv.py:93",
+            "shape": f"rbf (m, r, n, c) = ({m}, {top['r']}, {n}, {F}) "
+                     f"[{top['plan'].regime}], the largest serving bucket",
+            "launches": sum(r["launches"] for r in rows),
+            "launches_note": "KMV launches of this group's served blocks "
+                             "in the engine's traffic, every bucket",
+            "max_abs_err": max(r["err"] for r in rows),
+            "ms": top["ms"], "plain_ms": top["plain"],
+            "bound_ms": top["bound"], "bound_by": top["by"],
+            "library_ms": None,
+            "buckets": [{"r": r["r"], "regime": r["plan"].regime,
+                         "ms": r["ms"], "plain_ms": r["plain"],
+                         "bound_ms": r["bound"], "bound_by": r["by"],
+                         "launches": r["launches"],
+                         "max_abs_err": r["err"]} for r in rows],
+            "ms_timing": "device time, launches queued behind a spin "
+                         "kernel (time_queued)"})
     return entries
 
 
@@ -3491,10 +3924,11 @@ def main(argv=None) -> int:
         return fail(f"{len(failures)} main-path check(s) failed")
 
     # ---- 5. stream and Nystrom --------------------------------------------
-    stream_entries = stream_phase(SimpleNamespace(
+    ns_stream = SimpleNamespace(
         dev=dev, m=m, n=n, q=q, kernels=kernels, A=A, y=y, Aq=Aq,
         B_of=B_of, pick=pick, Xv=Xv, Xm=Xm, r_s=r_s, gap=gap, Ar=Ar, yr=yr,
-        Arq=Arq, r_k=r_k, spy=spy), args, failures)
+        Arq=Arq, r_k=r_k, spy=spy)
+    stream_entries = stream_phase(ns_stream, args, failures)
     if failures:
         for f in failures:
             print(f"[stream] FAIL {f}")
@@ -3651,10 +4085,10 @@ def main(argv=None) -> int:
     # ---- 9. sweeps (on phases 3-4's data, before the LM frees it) ---------
     del rf_s, rf_c, rf_k, op_krr_c, gap_k, shapes, op_svm, op_krr
     torch.cuda.empty_cache()
-    sweep_entries, fleet_counts = sweep_phase(SimpleNamespace(
+    ns_sweep = SimpleNamespace(
         dev=dev, m=m, n=n, kernels=kernels, A=A, y=y, Ar=Ar, yr=yr,
-        B_of=B_of, r_s=r_s, r_c=r_c, r_k=r_k, svm=svm, krr=krr, spy=spy),
-        args, failures)
+        B_of=B_of, r_s=r_s, r_c=r_c, r_k=r_k, svm=svm, krr=krr, spy=spy)
+    sweep_entries, fleet_counts = sweep_phase(ns_sweep, args, failures)
     print(f"[sweep] phase 9 launches (the fleets, counted from 0): kmv "
           f"{fleet_counts[0]}, gram {fleet_counts[1]}")
     if failures:
@@ -3673,9 +4107,19 @@ def main(argv=None) -> int:
             print(f"[guard] FAIL {f}")
         return fail(f"{len(failures)} guard check(s) failed")
 
+    # ---- 11. serving and telemetry (on phases 3-4's data) -----------------
+    serve_entries = serve_phase(SimpleNamespace(
+        dev=dev, m=m, n=n, kernels=kernels, A=A, y=y, Aq=Aq, Ar=Ar, yr=yr,
+        Arq=Arq, yrq=yrq, svm=svm, krr=krr, r_k=r_k, spy=spy,
+        fleets=ns_sweep.fleets, nys=ns_stream.nys), args, failures)
+    if failures:
+        for f in failures:
+            print(f"[serve] FAIL {f}")
+        return fail(f"{len(failures)} serve/telemetry check(s) failed")
+
     # ---- 7. LM prefill and serving ----------------------------------------
     del A, Ar, Aq, Arq, B_of, gram_blocks, Xv, Xm, svm, krr
-    del dcd
+    del dcd, ns_stream, ns_sweep
     torch.cuda.empty_cache()
     lm_entries = lm_phase(dev, args, failures)
     if failures:
@@ -3732,6 +4176,7 @@ def main(argv=None) -> int:
         *stream_entries,
         *sweep_entries,
         *guard_entries,
+        *serve_entries,
         *lm_entries,
         *train_entries,
     ]}

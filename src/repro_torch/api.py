@@ -50,9 +50,20 @@ ladder (halve s, then classical, then f64 arithmetic on the card's f64
 kernel route) from the last good state; ``checkpoint_every`` /
 ``checkpoint_dir`` cut mid-solve snapshots that ``fit(resume_from=)``
 continues.  ``FitResult.health`` records what the guard saw.
+
+``SolverOptions(telemetry=True)`` (or a ``repro_torch.obs.Telemetry``)
+records the fit: host spans around the fit, the representation build and
+the solve (each span over device work ends by draining the fit's
+stream), and marks around each tolerance check and guarded correction
+(on the card the device times of their own captured graphs,
+``core.loop``); the handle lands on ``FitResult.telemetry`` for
+``obs.audit_fit`` and the trace exporter.  Without it the fit runs as it
+would with no telemetry code at all.  ``est.save(directory)`` writes a
+serving artifact (``repro_torch.serve``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional, Union
@@ -76,6 +87,7 @@ from repro_torch.core.perf_model import (choose_recompute_every,
                                          modeled_fit_cost)
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.kernels.ops import make_solver_gram_fn
+from repro_torch.obs.spans import Telemetry
 from repro_torch.resilience import (DivergenceError, HealthEvent,
                                     SimulatedKill, SolveHealth, active_plan,
                                     finite_health, init_residual,
@@ -95,7 +107,6 @@ AUTO = "auto"
 UNPORTED = {
     "layout": ("serial", "A11"),
     "mesh": (None, "A11"),
-    "telemetry": (None, "A10"),
 }
 
 
@@ -152,6 +163,11 @@ class SolverOptions:
                  step directories).
     fallback:    walk the ladder on divergence (default); False raises
                  ``DivergenceError`` at once.
+    telemetry:   a ``repro_torch.obs.Telemetry`` handle, or True for a
+                 fresh one: spans around the fit's phases and marks around
+                 its checks and corrections (module docstring), on
+                 ``FitResult.telemetry``.  None, False or a disabled
+                 handle records nothing and changes nothing.
 
     The remaining fields are the JAX package's other knobs, accepted only
     at their defaults: any other value raises ``ValueError`` naming the
@@ -179,9 +195,19 @@ class SolverOptions:
     checkpoint_dir: Optional[str] = None
     fallback: bool = True
     stream: Union[None, bool, int, str] = None
-    telemetry: Optional[object] = None
+    telemetry: Union[None, bool, Telemetry] = None
 
     def __post_init__(self):
+        # True is a fresh handle, False is off, as in the JAX package
+        if self.telemetry is True:
+            object.__setattr__(self, "telemetry", Telemetry())
+        elif self.telemetry is False:
+            object.__setattr__(self, "telemetry", None)
+        if self.telemetry is not None and \
+                not isinstance(self.telemetry, Telemetry):
+            raise ValueError(f"telemetry must be None, a bool, or a "
+                             f"repro_torch.obs.Telemetry, got "
+                             f"{self.telemetry!r}")
         for name, (default, item) in UNPORTED.items():
             value = getattr(self, name)
             if name == "layout" and value == AUTO:
@@ -316,6 +342,9 @@ class FitResult:
     health: Optional[SolveHealth] = None
                                    # guarded fits: drift, divergence and
                                    # fallback events, checkpoints, resume
+    telemetry: Optional[Telemetry] = None
+                                   # the handle the fit recorded into
+                                   # (SolverOptions(telemetry=))
 
     def metric_history(self) -> Optional[np.ndarray]:
         """Every recorded metric value in evaluation order, or None when
@@ -334,6 +363,27 @@ def _check_positive(value: float, name: str) -> float:
     if not value > 0:
         raise ValueError(f"{name} must be > 0, got {value!r}")
     return value
+
+
+def _active_tel(opts: SolverOptions) -> Optional[Telemetry]:
+    """The enabled telemetry handle of a fit, or None (a disabled handle
+    maps to None, so the fit runs uninstrumented)."""
+    t = opts.telemetry
+    return t if (t is not None and t.enabled) else None
+
+
+@contextlib.contextmanager
+def _tspan(tel: Optional[Telemetry], name: str, phase: str,
+           device: torch.device, **args):
+    """``tel.span(...)`` that drains ``device`` before it closes, so it
+    covers the work queued inside it; nothing when telemetry is off."""
+    if tel is None:
+        yield
+        return
+    with tel.span(name, phase, **args):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def _check_finite(value, name: str, device: torch.device) -> torch.Tensor:
@@ -471,9 +521,26 @@ def _guard_cadence(problem: str, m: int, n: int, cfg, opts: SolverOptions,
 
 
 def _fit(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
-         opts: SolverOptions, device: torch.device, *, a0=None,
-         schedule=None, landmarks=None, rep=None, stats=None,
-         resume_from=None):
+         opts: SolverOptions, device: torch.device, **kw):
+    """``_fit_body`` inside the fit's telemetry, when it has an enabled
+    handle: the handle is activated (the target of the round driver's
+    marks) and the whole call is one phase="fit" span, the window
+    ``obs.audit`` reconciles against the model; its device marks are
+    read before it returns."""
+    tel = _active_tel(opts)
+    if tel is None:
+        return _fit_body(problem, A, y, cfg, opts, device, **kw)
+    with tel.activate(), tel.span("fit", phase="fit", problem=problem,
+                                  m=int(A.shape[0]), n=int(A.shape[1])):
+        out = _fit_body(problem, A, y, cfg, opts, device, **kw)
+    tel.sync()
+    return out
+
+
+def _fit_body(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
+              opts: SolverOptions, device: torch.device, *, a0=None,
+              schedule=None, landmarks=None, rep=None, stats=None,
+              resume_from=None):
     """One serial solve on ``device``; returns ``(FitResult, operator)``.
     A is on ``device``, or on the host for a streamed fit.  "auto" knobs
     resolve first (``tune.autotune.resolve_options`` within the device's
@@ -498,9 +565,14 @@ def _fit(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
                          "checkpoint holds a guarded-carry snapshot)")
     s = opts.s_eff
     b = opts.b if problem == "krr" else 1
+    tel = _active_tel(opts)
     t0 = time.perf_counter()
-    op, A_s = rep if rep is not None else _build_representation(
-        A, cfg, opts, device, landmarks=landmarks)
+    if rep is None:
+        with _tspan(tel, "representation_build", "setup", device,
+                    approx=bool(opts.approx)):
+            rep = _build_representation(A, cfg, opts, device,
+                                        landmarks=landmarks)
+    op, A_s = rep
     cfg_s = _solve_cfg(cfg, opts)
     m = op.n_samples
     schedule = _schedule(problem, opts, m, b, device, schedule)
@@ -537,17 +609,21 @@ def _fit(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
         (alpha, history, converged, rounds_run, iters_run,
          health) = _run_guarded_serial(
             problem, op, train_op, A_s, y, a0, schedule, cfg, cfg_s, opts,
-            fingerprint=fp, resume=resume, stats=stats)
+            fingerprint=fp, resume=resume, stats=stats, tel=tel)
     else:
         rf = _round_fn(problem, A_s, y, cfg_s, s, gram_fn, train_op)
         metric_fn = _metric_fn(problem, op, A_s, y, cfg, opts)
         xs = schedule if s == 1 else pad_rounds(schedule, s)
-        # captured CUDA graphs where the operator allows, else eager rounds
-        res = run_rounds(rf, a0, xs,
-                         tol=opts.tol if opts.tol > 0.0 else NO_TOL,
-                         check_every=opts.check_every,
-                         metric_fn=metric_fn if want_metric else None,
-                         capture=op.capturable, stats=stats)
+        # captured CUDA graphs where the operator allows, else eager
+        # rounds; the fast path has no sync point and carries no mark
+        with _tspan(tel, "solve", "solve", device,
+                    path="tol" if want_metric else "fast", s=s):
+            res = run_rounds(rf, a0, xs,
+                             tol=opts.tol if opts.tol > 0.0 else NO_TOL,
+                             check_every=opts.check_every,
+                             metric_fn=metric_fn if want_metric else None,
+                             capture=op.capturable, stats=stats,
+                             marks=tel is not None)
         alpha, converged, rounds_run = res.state, res.converged, \
             res.rounds_run
         iters_run = min(rounds_run * s, H)
@@ -564,13 +640,13 @@ def _fit(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
                        iters_run=iters_run, wall_time_s=wall,
                        comm=_comm(m, n, cfg, problem, opts, op, iters_run),
                        options=opts, representation=rep_name, plan=plan,
-                       health=health)
+                       health=health, telemetry=tel)
     return result, op
 
 
 def _guarded_segment(problem, A_s, y, alpha, f, schedule, cfg_s, metric_fn,
                      opts: SolverOptions, train_op, s: int, fault,
-                     stats=None):
+                     stats=None, marks: bool = False):
     """One guarded segment: the guarded rounds of (problem, s) over the
     ``(alpha, f)`` carry from ``core.loop.run_rounds(guard=...)``.
     ``fault`` = (round, target, value) arms the fault lane: the round's
@@ -605,12 +681,13 @@ def _guarded_segment(problem, A_s, y, alpha, f, schedule, cfg_s, metric_fn,
                       check_every=opts.check_every,
                       metric_fn=((lambda c: metric_fn(c[0])) if want_metric
                                  else None),
-                      guard=guard, capture=train_op.capturable, stats=stats)
+                      guard=guard, capture=train_op.capturable, stats=stats,
+                      marks=marks)
 
 
 def _run_guarded_serial(problem, op, train_op, A_s, y, a0, schedule, cfg,
                         cfg_s, opts: SolverOptions, *, fingerprint,
-                        resume=None, stats=None):
+                        resume=None, stats=None, tel=None):
     """The host half of a guarded solve (the JAX package's
     ``_run_guarded_serial``): guarded segments bounded by the checkpoint
     cadence, the drift and metric histories harvested from each, and on
@@ -655,12 +732,19 @@ def _run_guarded_serial(problem, op, train_op, A_s, y, a0, schedule, cfg,
         fault = ((fault_round, plan.target, plan.value)
                  if fault_round >= 0 else None)
         metric_fn = _metric_fn(problem, op_cur, A_cur, y_cur, cfg, opts)
-        res = _guarded_segment(problem, A_cur, y_cur, alpha, f,
-                               schedule[pos:pos + seg], cfg_s, metric_fn,
-                               opts, train_cur, s_cur, fault, stats)
+        with _tspan(tel, "guarded_segment", "solve", alpha.device,
+                    iter_start=pos, iters=int(seg), s=s_cur):
+            res = _guarded_segment(problem, A_cur, y_cur, alpha, f,
+                                   schedule[pos:pos + seg], cfg_s,
+                                   metric_fn, opts, train_cur, s_cur, fault,
+                                   stats, marks=tel is not None)
         dh = res.drift_history()
         if dh is not None and len(dh):
             drifts.append(dh.double().cpu().numpy())
+            if tel is not None:
+                tel.metrics.counter(
+                    "repro_guard_corrections_total",
+                    "residual drift corrections applied").inc(len(dh))
         mh = res.metric_history()
         if mh is not None and len(mh):
             hists.append(mh.double().cpu().numpy())
@@ -691,6 +775,12 @@ def _run_guarded_serial(problem, op, train_op, A_s, y, a0, schedule, cfg,
                 kind=kind, round_idx=rounds_done, iter_idx=pos,
                 action=action,
                 detail=f"resuming from last good state at iter {pos}"))
+            if tel is not None:
+                tel.metrics.counter(
+                    "repro_guard_fallbacks_total",
+                    "escalation-ladder steps taken").inc(
+                        action=action, kind=kind)
+                tel.mark("fallback", phase="guard")
             if x64_new and not x64:
                 x64 = True
                 # the rounds read A only for its shape, except the
@@ -844,6 +934,14 @@ class KernelSVM(_Estimator):
     def predict(self, A_test) -> torch.Tensor:
         return torch.sign(self.decision_function(A_test))
 
+    def save(self, directory: str) -> str:
+        """Persist the fitted model as a serving artifact
+        (``repro_torch.serve.artifacts.save_model``): restore it with
+        ``repro_torch.serve.load_model`` / ``ModelRegistry.load`` — no
+        refit, no live estimator needed.  Returns the artifact path."""
+        from repro_torch.serve.artifacts import save_model
+        return save_model(directory, self)
+
 
 class KernelRidge(_Estimator):
     """Kernel ridge regression solved by (s-step) Block Dual Coordinate
@@ -867,3 +965,9 @@ class KernelRidge(_Estimator):
                 self.op_, self.alpha_, batch=self.predict_batch,
                 scale=1.0 / self.cfg.lam)
         return self._predictor(A_test)
+
+    def save(self, directory: str) -> str:
+        """Persist the fitted model as a serving artifact (see
+        ``KernelSVM.save``).  Returns the artifact path."""
+        from repro_torch.serve.artifacts import save_model
+        return save_model(directory, self)

@@ -51,6 +51,19 @@ the host reads one small status tensor a run.
 host check a round, the route of an operator that cannot be captured
 and the reference the graphs are held to bit for bit.
 
+``marks=True`` (a fit with telemetry, ``repro_torch.obs``) marks the
+sync points the reference marks: each tolerance check as a
+``metric_check`` span and each guarded correction as a
+``drift_correction`` span, recorded into the active ``Telemetry``.  The
+captured drivers then capture the check and the correction as graphs of
+their own, replayed after the rounds' graph, and record CUDA events
+between the replays, so a span is the device time of its check or
+correction; the kernels, their order and so the bits are those of the
+unmarked run, and each graph's launches are counted as before.  The
+eager drivers record the marks around the calls themselves.  The fast
+path has no sync point and carries no mark; ``marks=False`` changes
+nothing.
+
 ``pad_rounds`` pads a ragged schedule to whole s-step rounds with a
 validity mask, so the final short round makes exactly-zero updates.
 """
@@ -83,6 +96,11 @@ DIVERGED_METRIC = 2           # metric went non-finite or blew up vs best
 FAST_RUN = 8
 
 Rounds = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+# the keys of a marked driver's check and correction graphs, and the
+# names of their spans
+CHECK = "metric_check"
+CORRECT = "drift_correction"
 
 
 class GuardSpec(NamedTuple):
@@ -244,31 +262,39 @@ class RoundGraphs:
     (device memory the captures reserved) and ``graph_launches`` (each
     graph's launches a replay, by run length and wrapper name).  With
     ``timed``, CUDA events bracket every replay, and ``replay_s()`` sums
-    their device seconds.
+    their device seconds.  With ``marks`` the check is a graph of its own
+    (key ``CHECK``), replayed after the run's rounds between the two
+    events of its ``metric_check`` span (module docstring).
     """
 
     def __init__(self, round_fn: Callable, state0: torch.Tensor,
                  xs: Rounds, run_len: int, *,
                  metric_fn: Optional[Callable] = None,
-                 record_state: bool = False, timed: bool = False):
+                 record_state: bool = False, timed: bool = False,
+                 marks: bool = False):
         R = _n_rounds(xs)
         if not 1 <= run_len <= R:
             raise ValueError(f"run_len must be in [1, {R}] for "
                              f"{R} rounds, got {run_len}")
         runs = [(lo, min(run_len, R - lo)) for lo in range(0, R, run_len)]
         self._setup(round_fn, state0.clone(), xs,
-                    [(lo, n, n) for lo, n in runs], metric_fn, timed)
+                    [(lo, n, n) for lo, n in runs], metric_fn, timed, marks)
         self.c = run_len
         self.rec = (state0.new_empty((run_len,) + tuple(state0.shape))
                     if record_state else None)
         if self.on_card:
-            self._capture(sorted({n for _, n in runs}, reverse=True))
+            self._capture(sorted({n for _, n in runs}, reverse=True)
+                          + ([CHECK] if self.marks else []))
 
-    def _setup(self, round_fn, state, xs, runs, metric_fn, timed):
+    def _setup(self, round_fn, state, xs, runs, metric_fn, timed, marks):
         """What every driver of runs shares: ``runs`` is the list of
-        ``(first round, rounds, graph key)``."""
+        ``(first round, rounds, graph key)``; ``marks`` is kept only
+        where there is a check or a correction to mark."""
         self.R = _n_rounds(xs)
         self.round_fn, self.metric_fn = round_fn, metric_fn
+        # a guarded run's key is (rounds, ends in a correction, a check)
+        self.marks = marks and (metric_fn is not None or any(
+            isinstance(key, tuple) and key[1] for _, _, key in runs))
         self._runs = runs
         self.n_runs = len(runs)
         self._xs = (xs,) if isinstance(xs, torch.Tensor) else tuple(xs)
@@ -301,14 +327,23 @@ class RoundGraphs:
         return x0[0] if self._single else x0
 
     def _body(self, n: int):
-        """n rounds over the static buffers, then the check's metric."""
+        """n rounds over the static buffers, then the check's metric
+        (unless the check is a graph of its own)."""
         state = self.state
         for k in range(n):
             state = self.round_fn(state, self._x(k))
             if self.rec is not None:
                 self.rec[k].copy_(state)
         self.state.copy_(state)
-        return None if self.metric_fn is None else self.metric_fn(self.state)
+        if self.metric_fn is None or self.marks:
+            return None
+        return self.metric_fn(self.state)
+
+    def _graph_fn(self, key):
+        """What the graph of ``key`` runs: a run's body, or the check."""
+        if key == CHECK:
+            return self.metric_fn(self.state)
+        return self._body(key)
 
     def _warmup(self):
         """One round (and the check) on scratch copies of the state, so
@@ -337,7 +372,7 @@ class RoundGraphs:
                 before = _launches()
                 g.capture_begin(pool=pool)
                 try:
-                    out = self._body(key)
+                    out = self._graph_fn(key)
                 finally:
                     g.capture_end()
                 self.graph_launches[key] = _take_launches(before)
@@ -358,8 +393,28 @@ class RoundGraphs:
         if refresh:
             for buf, x in zip(self._xbuf, self._xs):
                 buf[:n].copy_(x[lo:lo + n])
+        if self.marks:
+            return self._run_marked(key)
+        return self._replay(key)
+
+    def _marked(self, name: str, key):
+        """Replay the graph of ``key`` inside a ``name`` span."""
+        from repro_torch.obs.spans import span_begin, span_end
+        span_begin(name, device=self._device)
+        out = self._replay(key)
+        span_end(name, device=self._device)
+        return out
+
+    def _run_marked(self, key):
+        """A run of a marked driver: its rounds, then its check."""
+        self._replay(key)
+        return self._marked(CHECK, CHECK)
+
+    def _replay(self, key):
+        """Replay the graph of ``key`` (execute it, on the CPU), counting
+        its launches."""
         if not self.on_card:
-            return self._body(key)
+            return self._graph_fn(key)
         g, out = self._graphs[key]
         if self._events is None:
             g.replay()
@@ -446,21 +501,64 @@ class GuardedRoundGraphs(RoundGraphs):
     health_fn(new) & alive``, ``state = where(ok, new, state)``, then the
     correction (kept where ``alive``) and the check's metric, and returns
     one status tensor, f64: [alive, good, drift (if it corrects), metric
-    (if it checks)], which ``run`` hands back for the host to read."""
+    (if it checks)], which ``run`` hands back for the host to read.
+
+    With ``marks`` a run replays the graph of its rounds alone (key ``(n,
+    False, False)``), then the correction's graph (``CORRECT``) and the
+    check's (``CHECK``) where it ends in them, each inside its span; the
+    status tensor is the three outputs concatenated."""
 
     def __init__(self, round_fn: Callable, state0: tuple, xs: Rounds,
                  runs, guard: GuardSpec, *,
-                 metric_fn: Optional[Callable] = None, timed: bool = False):
+                 metric_fn: Optional[Callable] = None, timed: bool = False,
+                 marks: bool = False):
         self.guard = guard
         self._setup(round_fn, tuple(t.clone() for t in state0), xs,
                     [(lo, n, (n, corr, chk)) for lo, n, corr, chk in runs],
-                    metric_fn, timed)
+                    metric_fn, timed, marks)
         dev = state0[0].device
         self.alive = torch.ones((), dtype=torch.bool, device=dev)
         self.good = torch.zeros((), dtype=torch.int64, device=dev)
         if self.on_card:
-            self._capture(sorted({key for _, _, key in self._runs},
-                                 reverse=True))
+            keys = {key for _, _, key in self._runs}
+            extra = []
+            if self.marks:
+                extra = ([CORRECT] * any(k[1] for k in keys)
+                         + [CHECK] * any(k[2] for k in keys))
+                keys = {(k[0], False, False) for k in keys}
+            self._capture(sorted(keys, reverse=True) + extra)
+
+    def _graph_fn(self, key):
+        """A run's body, or (marked) the correction or the check alone,
+        each returning its part of the status tensor."""
+        if key == CHECK:
+            return self.metric_fn(self.state).double().reshape(1)
+        if key == CORRECT:
+            fixed, drift = self.guard.correct_fn(self.state)
+            kept = tuple(torch.where(self.alive, a, b)
+                         for a, b in zip(fixed, self.state))
+            for buf, v in zip(self.state, kept):
+                buf.copy_(v)
+            return drift.double().reshape(1)
+        return self._body(key)
+
+    def unmark_tail(self, j: int) -> None:
+        """Take back the marks of run j's correction and check, after the
+        host read that a round of the run went bad (the device kept
+        neither)."""
+        if self.marks:
+            from repro_torch.obs.spans import retract_marks
+            _, _, (_, corr, chk) = self._runs[j]
+            retract_marks(2 * (corr + chk))
+
+    def _run_marked(self, key):
+        n, corr, chk = key
+        parts = [self._replay((n, False, False))]
+        if corr:
+            parts.append(self._marked(CORRECT, CORRECT))
+        if chk:
+            parts.append(self._marked(CHECK, CHECK))
+        return torch.cat(parts)
 
     def _warmup(self):
         scratch = self.round_fn(tuple(t.clone() for t in self.state),
@@ -502,7 +600,8 @@ def run_rounds(round_fn: Callable, state0: Any, xs: Rounds, *,
                record_state: bool = False,
                capture: bool = True,
                stats: Optional[dict] = None,
-               guard: Optional[GuardSpec] = None) -> LoopResult:
+               guard: Optional[GuardSpec] = None,
+               marks: bool = False) -> LoopResult:
     """Drive ``R = len(xs)`` rounds of ``round_fn`` (module docstring).
 
     ``xs`` is a tensor, or a tuple of tensors, with a shared leading
@@ -517,7 +616,8 @@ def run_rounds(round_fn: Callable, state0: Any, xs: Rounds, *,
 
     ``guard`` switches to the guarded driver (module docstring): the
     state is the carry tuple, ``metric_fn`` takes the carry, and the
-    result carries the guard's fields.
+    result carries the guard's fields.  ``marks`` marks the checks and
+    corrections into the active telemetry (module docstring).
     """
     if (metric_fn is not None or guard is not None) and check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
@@ -531,12 +631,12 @@ def run_rounds(round_fn: Callable, state0: Any, xs: Rounds, *,
             _run_rounds_guarded_eager
         return run(round_fn, tuple(state0), xs, guard, tol=tol,
                    check_every=check_every, metric_fn=metric_fn,
-                   stats=stats)
+                   stats=stats, marks=marks)
     if not capture or R == 0:
         return _run_rounds_eager(round_fn, state0, xs, tol=tol,
                                  check_every=check_every,
                                  metric_fn=metric_fn,
-                                 record_state=record_state)
+                                 record_state=record_state, marks=marks)
     timed = stats is not None
     if metric_fn is None:
         with RoundGraphs(round_fn, state0, xs, min(FAST_RUN, R),
@@ -556,7 +656,7 @@ def run_rounds(round_fn: Callable, state0: Any, xs: Rounds, *,
     hist = None
     nchk, k, converged = 0, 0, False
     with RoundGraphs(round_fn, state0, xs, min(check_every, R),
-                     metric_fn=metric_fn, timed=timed) as g:
+                     metric_fn=metric_fn, timed=timed, marks=marks) as g:
         for j in range(g.n_runs):
             v = g.run(j)
             k += g.run_len(j)
@@ -641,15 +741,33 @@ def run_rounds_fleet(round_fn: Callable, state0: torch.Tensor, xs: Rounds,
         return LoopResult(g.state, None, hist, nchk, k, done.cpu())
 
 
+def _marked_fn(fn: Callable, name: str) -> Callable:
+    """``fn(state)`` inside a ``name`` span of the active telemetry: CUDA
+    events on the state's device, host times on the CPU."""
+    from repro_torch.obs.spans import span_begin, span_end
+
+    def marked(state):
+        dev = (state if isinstance(state, torch.Tensor) else state[0]).device
+        span_begin(name, device=dev)
+        out = fn(state)
+        span_end(name, device=dev)
+        return out
+
+    return marked
+
+
 def _run_rounds_eager(round_fn: Callable, state0: Any, xs: Rounds, *,
                       tol: float = NO_TOL, check_every: int = 1,
                       metric_fn: Optional[Callable] = None,
-                      record_state: bool = False) -> LoopResult:
+                      record_state: bool = False,
+                      marks: bool = False) -> LoopResult:
     """``run_rounds`` as a plain loop of eager launches, round by round:
     the route of an operator that cannot be captured, and the reference
     the captured driver is held to bit for bit."""
     R = _n_rounds(xs)
     state = state0
+    if marks and metric_fn is not None:
+        metric_fn = _marked_fn(metric_fn, CHECK)
 
     if metric_fn is None:
         hist = []
@@ -691,7 +809,8 @@ def _guard_result(state, hist, nchk, k, conv, dhist, ncorr, div, kind,
 def _run_rounds_guarded(round_fn, state0: tuple, xs: Rounds,
                         guard: GuardSpec, *, tol: float, check_every: int,
                         metric_fn: Optional[Callable],
-                        stats: Optional[dict] = None) -> LoopResult:
+                        stats: Optional[dict] = None,
+                        marks: bool = False) -> LoopResult:
     """The guarded rounds through ``GuardedRoundGraphs``: one host read
     of the run's status tensor a run."""
     R = _n_rounds(xs)
@@ -708,10 +827,11 @@ def _run_rounds_guarded(round_fn, state0: tuple, xs: Rounds,
     mdtype = state0[0].dtype              # the metric's, as the carry's
     with GuardedRoundGraphs(round_fn, state0, xs, runs, guard,
                             metric_fn=metric_fn,
-                            timed=stats is not None) as g:
+                            timed=stats is not None, marks=marks) as g:
         for j, (lo, n, corr, chk) in enumerate(runs):
             out = g.run(j).tolist()               # the run's host read
             if not out[0]:                        # a round went bad
+                g.unmark_tail(j)
                 div, kind = lo + int(out[1]), DIVERGED_NONFINITE
                 k = div + 1
                 break
@@ -741,12 +861,19 @@ def _run_rounds_guarded_eager(round_fn, state0: tuple, xs: Rounds,
                               guard: GuardSpec, *, tol: float,
                               check_every: int,
                               metric_fn: Optional[Callable],
-                              stats: Optional[dict] = None) -> LoopResult:
+                              stats: Optional[dict] = None,
+                              marks: bool = False) -> LoopResult:
     """The guarded rounds as a plain loop of eager launches with a host
     check a round (the reference's while loop): the route of an operator
     that cannot be captured, and the reference ``GuardedRoundGraphs`` is
     held to bit for bit."""
     R = _n_rounds(xs)
+    if marks:
+        if metric_fn is not None:
+            metric_fn = _marked_fn(metric_fn, CHECK)
+        if guard.correct_fn is not None:
+            guard = guard._replace(
+                correct_fn=_marked_fn(guard.correct_fn, CORRECT))
     has_metric = metric_fn is not None
     has_corr = guard.correct_fn is not None and guard.correct_every >= 1
     hist = torch.full((-(-R // check_every) if has_metric else 1,),

@@ -14,9 +14,19 @@ stacked models (m, F), served by one block call per bucket.  With
 ``stream=k`` the queries may be a host tensor larger than device memory:
 k rows move to the device at a time, and each chunk's scores return to
 the host before the next chunk starts.
+
+``serve_cache_size`` stands for the reference's count of compiled
+``_serve_block`` entries, which the serving engine's tests hold flat
+after ``warmup``.  There is no jit cache here; what would grow in its
+place is the set of distinct block calls serving has reached (a distinct
+signature is a distinct KMV plan on the card) and the kernel entry
+points bound (``kernels/build.py``: a bind builds its library when it is
+missing).  ``warmup`` touches every bucket, so growth after it means a
+block shape outside the buckets or a kernel built on the serving path.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -24,12 +34,46 @@ import torch
 from repro_torch.device import as_tensor
 from .kernels import GramOperator
 
+# the signatures of every serve block issued (``serve_cache_size``)
+_SERVE_BLOCKS = set()
 
-def validate_queries(op: GramOperator, X, name: str = "A_test"
-                     ) -> torch.Tensor:
-    """Eager serve-side input validation: a 2-D block of the operator's
-    feature width and dtype (serving never casts), returned as a tensor
-    on the operator's device.  The offending argument is named."""
+
+def _signature(x):
+    """What a block call's compiled form would depend on: tensor shapes,
+    dtypes and devices, and the operator's static fields."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), str(x.dtype), str(x.device))
+    if dataclasses.is_dataclass(x):
+        return (type(x).__name__,) + tuple(
+            _signature(getattr(x, f.name)) for f in dataclasses.fields(x))
+    return x
+
+
+def _serve_block(op: GramOperator, sw: torch.Tensor,
+                 Xq: torch.Tensor) -> torch.Tensor:
+    """One query block through the operator's serving reduction (one KMV
+    for an exact operator, whatever the number of stacked models),
+    recording the block's signature."""
+    _SERVE_BLOCKS.add((_signature(op), _signature(sw), _signature(Xq)))
+    return op.serve_block(Xq, sw)
+
+
+def serve_cache_size() -> int:
+    """The serving path's stand-in for the reference's jit-cache size
+    (module docstring): distinct serve-block signatures reached plus
+    kernel entry points bound.  Zero growth after ``warmup`` means
+    admission reached no new block shape and built no kernel."""
+    from repro_torch.kernels import build
+    return len(_SERVE_BLOCKS) + len(build._LAUNCHERS)
+
+
+def check_queries(op: GramOperator, X, name: str = "A_test"
+                  ) -> torch.Tensor:
+    """Serve-side input validation where the block lies: a 2-D block of
+    the operator's feature width and dtype (serving never casts), as a
+    tensor on the device it came on — a host block stays on the host, so
+    the serving engine validates each request without a device copy.
+    The offending argument is named."""
     X = as_tensor(X)
     if X.ndim != 2:
         raise ValueError(f"{name} must be 2-D (queries x features), got "
@@ -49,7 +93,14 @@ def validate_queries(op: GramOperator, X, name: str = "A_test"
             f"{name} has dtype {X.dtype} but the fitted operator is "
             f"{op.dtype} — cast the queries explicitly (serving never "
             f"silently converts)")
-    return X.to(op.device)
+    return X
+
+
+def validate_queries(op: GramOperator, X, name: str = "A_test"
+                     ) -> torch.Tensor:
+    """Eager serve-side input validation (``check_queries``), the block
+    returned on the operator's device."""
+    return check_queries(op, X, name).to(op.device)
 
 
 def compact_support(op: GramOperator, w: torch.Tensor, tol: float = 0.0):
@@ -105,6 +156,29 @@ class BatchedPredictor:
             return self.batch
         return min(self.batch, max(8, 1 << (q - 1).bit_length()))
 
+    def bucket_sizes(self):
+        """Every block shape this predictor can issue: 8, 16, ...,
+        ``batch``.  ``warmup`` issues each once, so steady traffic
+        reaches no new one (``serve_cache_size``)."""
+        sizes, b = [], 8
+        while b < self.batch:
+            sizes.append(b)
+            b <<= 1
+        sizes.append(self.batch)
+        return sizes
+
+    def warmup(self) -> int:
+        """Serve one zero block of every bucket (building every kernel the
+        blocks launch); returns the bucket count.  Synchronises."""
+        fd = self.op.feature_dim
+        for qb in self.bucket_sizes():
+            _serve_block(self.op, self.sw,
+                         torch.zeros((qb, fd), dtype=self.op.dtype,
+                                     device=self.sw.device))
+        if self.sw.device.type == "cuda":
+            torch.cuda.synchronize(self.sw.device)
+        return len(self.bucket_sizes())
+
     def __call__(self, A_test) -> torch.Tensor:
         A_test = as_tensor(A_test)
         q = A_test.shape[0]
@@ -135,7 +209,7 @@ class BatchedPredictor:
             if Xq.shape[0] != qb:        # pad to the bucket, slice below
                 Xq = torch.cat([Xq, Xq.new_zeros((qb - Xq.shape[0],
                                                   Xq.shape[1]))])
-            out.append(self.op.serve_block(Xq.contiguous(), self.sw))
+            out.append(_serve_block(self.op, self.sw, Xq.contiguous()))
             lo += qb
         return (torch.cat(out) if len(out) > 1 else out[0])[:q]
 

@@ -124,6 +124,14 @@ def _op_from(template, meta: dict, leaves: dict, device: torch.device):
                                fmap=fmap)
 
 
+def options_meta(opts) -> dict:
+    """Resolved ``SolverOptions`` as a JSON-native dict, without what does
+    not persist: a mesh and a telemetry handle (whose CUDA events cannot
+    even be copied) are stored as None."""
+    return dataclasses.asdict(dataclasses.replace(opts, mesh=None,
+                                                  telemetry=None))
+
+
 def schedule_digest(schedule) -> str:
     """sha256 (16 hex digits) of a schedule's int64 indices and shape."""
     s = torch.as_tensor(schedule).detach().to("cpu", torch.int64)
@@ -224,8 +232,7 @@ def save_fit(directory: str, result, op=None, step: int = 0) -> str:
         "wall_time_s": float(result.wall_time_s),
         "comm": {k: (float(v) if isinstance(v, float) else v)
                  for k, v in result.comm.items()},
-        "options": {**dataclasses.asdict(result.options), "mesh": None,
-                    "telemetry": None},
+        "options": options_meta(result.options),
         "representation": result.representation,
         "has_history": result.history is not None,
         "has_op": op is not None,

@@ -204,9 +204,12 @@ def _price(m, n, cfg, opts, problem, mach):
 def _probe(A, y, cfg, opts, problem, candidates, mach, budget, device):
     """Measured refinement (module docstring): ``opts.probe`` outer rounds
     of each top candidate through the real facade solver (budget
-    stopping, no metric)."""
-    from repro_torch.api import AUTO, _fit
+    stopping, no metric).  Probe fits run with ``telemetry=None``: their
+    spans belong to the tuner, not to the fit being tuned; the tuned
+    fit's handle, when it has one, counts each probe instead."""
+    from repro_torch.api import AUTO, _active_tel, _fit
 
+    tel = _active_tel(opts)
     rows = []
     for cand in candidates:
         s_eff = cand["s"] if opts.method == "sstep" else 1
@@ -218,7 +221,8 @@ def _probe(A, y, cfg, opts, problem, candidates, mach, budget, device):
         probe_opts = dataclasses.replace(
             opts, s=cand["s"], b=cand["b"], layout=cand["layout"],
             approx=cand["approx"], tol=0.0, record=False, probe=0,
-            stream=stream, max_iters=max(opts.probe * s_eff, 1))
+            stream=stream, max_iters=max(opts.probe * s_eff, 1),
+            telemetry=None)
         stats = {}
         t0 = time.perf_counter()
         _fit(problem, A, y, cfg, probe_opts, device, stats=stats)
@@ -234,4 +238,9 @@ def _probe(A, y, cfg, opts, problem, candidates, mach, budget, device):
                 torch.cuda.synchronize(device)
             row["measured_s"] = time.perf_counter() - t0
         rows.append(row)
+        if tel is not None:
+            tel.metrics.counter(
+                "repro_autotune_probes_total",
+                "measured autotune probes run").inc(
+                    layout=cand["layout"])
     return rows

@@ -1670,3 +1670,151 @@ def test_guarded_fit_on_card_matches_fit_on_host(cuda_device, monkeypatch,
     eager = fit(cuda_device)
     assert torch.equal(eager.alpha, card.alpha)
     np.testing.assert_array_equal(eager.history, card.history)
+
+
+# ---------------------------------------------------------------------------
+# serving and telemetry (repro_torch.serve, repro_torch.obs)
+# ---------------------------------------------------------------------------
+
+SERVE_BUCKETS = [8, 16, 32, 64, 128, 256, 512, 1024]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [9, 17])
+@pytest.mark.parametrize("qb", SERVE_BUCKETS)
+def test_kmv_at_every_serving_bucket(cuda_device, qb, F):
+    """A registry group's served block: KMV with the bucket's queries as
+    the sampled rows and the group's F stacked weight columns, against
+    its plain version at the KMV bound, repeating bit for bit, and the
+    block served through ``BatchedPredictor`` one launch of the same
+    bits."""
+    from repro_torch.core.kernels import ExactGramOperator
+    A, B, X = _data(3000, qb, 256, F, seed=qb + F)
+    A, B, X = (torch.tensor(t, device=cuda_device) for t in (A, B, X))
+    rbf = KernelConfig("rbf", sigma=1.0)
+    got = kmv_cuda(A, B, X, rbf)
+    _close(got, kmv_plain(A, B, X, rbf), {"name": "rbf"}, 2e-4)
+    assert torch.equal(got, kmv_cuda(A, B, X, rbf))
+    pred = BatchedPredictor(ExactGramOperator(A, rbf), X, batch=1024)
+    before = kmv_cuda.launches
+    served = pred(B)
+    assert kmv_cuda.launches - before == 1
+    assert torch.equal(served, got)
+
+
+def _served_fits(dev, m=600, n=48):
+    rng = np.random.default_rng(21)
+    A = (rng.standard_normal((m + 256, n)) / np.sqrt(n)).astype(np.float32)
+    w = rng.standard_normal(n)
+    yc = np.sign(A @ w).astype(np.float32)
+    yr = np.sin(A @ w).astype(np.float32)
+    kw = dict(method="sstep", s=8, max_iters=512, tol=1e-4, check_every=4,
+              seed=1)
+    svm = KernelSVM(C=1.0, kernel="rbf", device=dev,
+                    options=SolverOptions(**kw))
+    svm.fit(A[:m], yc[:m])
+    krr = KernelRidge(lam=0.5, kernel="rbf", device=dev,
+                      options=SolverOptions(b=4, **kw))
+    krr.fit(A[:m], yr[:m])
+    return svm, krr, A[m:]
+
+
+@pytest.mark.gpu
+def test_engine_window_on_card_equals_the_estimators(cuda_device):
+    """Mixed traffic through the engine on the card: every ticket within
+    the KMV bound of its estimator's own prediction on the card, one KMV
+    launch a block for the group's two models, no new block shape after
+    warm-up (the serve-cache observable flat)."""
+    from repro_torch.core.predict import serve_cache_size
+    from repro_torch.serve import DONE, ModelRegistry, ServingEngine
+    svm, krr, Q = _served_fits(cuda_device)
+    reg = ModelRegistry(predict_batch=64, device=cuda_device)
+    reg.register("svm", svm)
+    reg.register("krr", krr)
+    eng = ServingEngine(reg, slots=32)
+    # both fits hold the same A and kernel: one group of F = 2 models
+    assert reg.n_groups == 1 and reg.group("svm").size == 2
+    assert eng.warmup() == 4
+    flat = serve_cache_size()
+    rng = np.random.default_rng(3)
+    tickets, before = [], kmv_cuda.launches
+    for i in range(96):
+        rows = 1 if rng.random() < 0.7 else int(rng.integers(2, 17))
+        lo = int(rng.integers(0, 256 - rows))
+        tickets.append(eng.submit(("svm", "krr")[i % 2], Q[lo:lo + rows]))
+        if i % 8 == 7:
+            eng.step()
+    eng.run_until_idle()
+    assert kmv_cuda.launches - before == eng.stats["blocks"]
+    assert serve_cache_size() == flat
+    for t in tickets:
+        assert t.status == DONE and t.result.device.type == "cpu"
+        est = svm if t.name == "svm" else krr
+        want = (est.decision_function(t.X) if t.name == "svm"
+                else est.predict(t.X))
+        _close(t.result, want, {"name": "rbf"}, 2e-4)
+
+
+@pytest.mark.gpu
+def test_serve_cache_observable_is_flat_after_warmup(cuda_device):
+    """Warm-up issues every bucket once; any later query count reaches no
+    new block shape and builds no kernel."""
+    from repro_torch.core.kernels import ExactGramOperator
+    from repro_torch.core.predict import serve_cache_size
+    A, _, X = _data(777, 1, 64, 5, seed=5)
+    op = ExactGramOperator(torch.tensor(A, device=cuda_device),
+                           KernelConfig("rbf"))
+    pred = BatchedPredictor(op, torch.tensor(X, device=cuda_device),
+                            batch=128)
+    assert pred.warmup() == 5
+    flat = serve_cache_size()
+    rng = np.random.default_rng(0)
+    for q in (1, 7, 8, 9, 100, 128, 129, 300):
+        Xq = torch.tensor(rng.standard_normal((q, 64)).astype(np.float32),
+                          device=cuda_device)
+        assert tuple(pred(Xq).shape) == (q, 5)
+    assert serve_cache_size() == flat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("guard", [False, True])
+def test_instrumented_captured_fit_is_bit_equal(cuda_device, guard,
+                                               tmp_path):
+    """A captured fit with telemetry on: alpha, history and kmv / gram
+    counts equal to the uninstrumented fit's; one metric_check interval a
+    check (and one drift_correction a correction), device times inside the
+    solve's host span, each check's interval positive; the instrumented
+    estimator saves (its handle, holding CUDA events, is not copied)."""
+    from repro_torch.obs import Telemetry
+    rng = np.random.default_rng(4)
+    m, n = 900, 64
+    A = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
+    y = np.sin(A @ rng.standard_normal(n)).astype(np.float32)
+    kw = dict(method="sstep", s=8, b=8, tol=1e-9, check_every=4,
+              max_iters=512, seed=2)
+    if guard:
+        kw.update(guard=True, recompute_every=3)
+    out = []
+    for tel in (None, Telemetry()):
+        before = (kmv_cuda.launches, gram_cuda.launches)
+        est = KernelRidge(lam=0.5, kernel="rbf", device=cuda_device,
+                          options=SolverOptions(telemetry=tel, **kw))
+        res = est.fit(A, y)
+        out.append((res, (kmv_cuda.launches - before[0],
+                          gram_cuda.launches - before[1])))
+    (plain, n0), (marked, n1) = out
+    assert torch.equal(plain.alpha, marked.alpha)
+    np.testing.assert_array_equal(plain.history, marked.history)
+    assert n0 == n1
+    tel = marked.telemetry
+    pairs = tel.paired_marks()
+    checks = [s for s in pairs if s.name == "metric_check"]
+    assert len(checks) == len(marked.history) > 0
+    assert all(s.duration > 0 for s in checks)
+    if guard:
+        assert len([s for s in pairs if s.name == "drift_correction"]) == \
+            marked.health.corrections > 0
+    solve = [s for s in tel.spans if s.phase == "solve"]
+    t0, t1 = min(s.t0 for s in solve), max(s.t1 for s in solve)
+    assert all(t0 <= s.t0 <= s.t1 <= t1 for s in pairs)
+    est.save(str(tmp_path / "model"))
