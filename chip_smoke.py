@@ -208,6 +208,39 @@ Phases (each one fails the run with a non-zero exit):
           walls with telemetry on and off (not gated); one instrumented
           engine window's metrics as Prometheus text
 
+ 12. the distributed layouts (core.distributed, launch.mesh), on phases
+     3-4's data after phase 11: the ranks are processes spawned on the one
+     card (torch.multiprocessing), each drawing the data as main() does
+     and calling the same facade fits, SPMD:
+       a. NCCL at world 1 on the (1, 1) mesh: the 1d K-SVM (s = 32) and
+          K-RR (s = 8, b = 32, tolerance path) fits against phases 3-4's
+          at 1e-5
+       b. 1d at P = 4, four processes sharing the card over gloo (CUDA
+          tensors), n / 4 = 2048 features a rank: the same two fits and
+          classical DCD (s = 1) on phases 3-4's schedules: alpha and the
+          residual history against the serial fits at 1e-5, every rank's
+          bit for bit the others'; each rank's launches exact (a gram a
+          round, rank 0's checks a kmv each)
+       c. 2d at 2 x 2 (m / 2 rows, n / 2 features a rank): the same, two
+          gram launches a round
+       d. a guarded linear 1d K-RR fit with rank 0's shard NaN-poisoned
+          (resilience.poisoned_1d_factory) for the chunk holding iteration
+          DIST_GUARD_FAULT_ITER: the ladder halves s and the fit ends
+          within 1e-5 of the clean fit
+       e. the 16-lambda K-RR fleet on the 1d layout against phase 9's
+          serial fleet at 1e-5, one reduction a round for all members
+       f. every fit's collectives by axis and kind with their words: the
+          counts must be rounds x round_collectives + setup_collectives
+          (once a fit; + the 2d alpha assembly a chunk) + rank 0's checks
+          (perf_model), beside the modeled words at the fit's P
+       g. walls and a 1d K-RR round split into its partial gram, its
+          reduction and its local phase (processes time-sliced on one
+          card: not a scaling measurement); then every shape at which
+          the ranks launched gram or kmv (the wrappers' by_shape counts,
+          one kernels-record entry each with its own launches), checked
+          against its plain version and timed alone on the card, beside
+          torch.mm and its bound
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
 device, or without the port's sources beside this file, it exits
@@ -311,6 +344,17 @@ SERVE_QUEUE = 1024
 SERVE_TICKETS = 4096
 SERVE_SINGLE = 0.7
 SERVE_PER_STEP = 32
+# phase 12: the ranks that share the card over gloo, their spawn's time
+# limit, and the guarded 1d fit (linear K-RR at s = 8, b = 32): its budget
+# H, the iteration whose chunk a poisoned rank corrupts, and rounds of the
+# 1d K-RR round that are split into kernel, reduction and local phase
+DIST_WORLD = 4
+DIST_TIMEOUT_S = 420
+DIST_GUARD_ITERS = 512
+DIST_GUARD_FAULT_ITER = 200
+DIST_SPLIT_ROUNDS = 8
+# (ranks, backend) of phase 12's two spawns
+DIST_RUNS = ((1, "nccl"), (DIST_WORLD, "gloo"))
 
 # Phase 7 (the LM at Qwen3-1.7B width): B prompts of S tokens prefill, a
 # teacher-forced decode of the first LM_DECODE_PROMPT of them, and an
@@ -2481,6 +2525,484 @@ def serve_phase(c, args, failures):
     return entries
 
 
+def dist_rank(rank, world, backend, outdir, seed, svm_iters, krr_iters):
+    """One rank of phase 12, spawned by ``spawn_ranks``
+    (``torch.multiprocessing``): it draws phases 3-4's data as ``main``
+    does, runs the layouts' fits on the card through the port's facade
+    (every rank the same calls, SPMD), counts each fit's collectives
+    (``launch.mesh.COLLECTIVES``) and kernel launches, and writes what it
+    saw to ``outdir/rank{rank}.pt`` for the parent to check."""
+    import os
+    # every rank of the run is on this host: the backends connect over
+    # loopback
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
+    from repro_torch.core import (KernelConfig, apply_epilogue, pad_rounds,
+                                  sstep_bdcd_inner)
+    from repro_torch.core.distributed import (_dots, _reduced_row_sqnorms,
+                                              shard_dataset_1d)
+    from repro_torch.data.synthetic import (classification_dataset,
+                                            regression_dataset)
+    from repro_torch.kernels.gram import gram_cuda
+    from repro_torch.kernels.kmv import kmv_cuda
+    from repro_torch.launch.mesh import COLLECTIVES, make_mesh
+    from repro_torch.resilience import FaultPlan, inject
+    from repro_torch.tune import solve_fleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores (gloo sums on them)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    out = Path(outdir)
+    plan = torch.load(out / "plan.pt", weights_only=False)
+    dev = torch.device(plan["device"])
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    dist.init_process_group(backend, store=dist.FileStore(
+        str(out / "store"), world), rank=rank, world_size=world)
+    # phases 3-4's data, drawn in main()'s order from the same generator
+    m, n, q = plan["m"], plan["n"], plan["q"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A_all, y_all = classification_dataset(gen, m + q, n, device=dev)
+    A, y = A_all[:m].contiguous(), y_all[:m].contiguous()
+    del A_all, y_all
+    torch.randperm(m, generator=gen, device=dev)       # phase 2's draws
+    torch.randn(m, generator=gen, device=dev)
+    torch.randn((m, 4), generator=gen, device=dev)
+    R_all, t_all = regression_dataset(gen, m + q, n, device=dev)
+    Ar, yr = R_all[:m].contiguous(), t_all[:m].contiguous()
+    del R_all, t_all
+    res = {"sums": [float(t.double().sum()) for t in (A, y, Ar, yr)],
+           "fits": {}, "split": []}
+
+    def run(name, est, A_, y_, fleet=None, **kw):
+        COLLECTIVES.reset()
+        kmv_cuda.launches = gram_cuda.launches = 0
+        kmv_cuda.by_shape.clear()
+        gram_cuda.by_shape.clear()
+        sync()
+        t0 = time.perf_counter()
+        r = (est.fit(A_, y_, **kw) if fleet is None
+             else solve_fleet(A_, y_, **fleet, **kw))
+        sync()
+        rec = dict(alpha=r.alpha.cpu(), rounds=r.rounds_run,
+                   iters=r.iters_run, wall=time.perf_counter() - t0,
+                   history=(None if r.history is None
+                            else np.asarray(r.history)),
+                   calls=dict(COLLECTIVES.calls),
+                   words=dict(COLLECTIVES.words),
+                   kmv=kmv_cuda.launches, gram=gram_cuda.launches,
+                   kmv_shapes=dict(kmv_cuda.by_shape),
+                   gram_shapes=dict(gram_cuda.by_shape),
+                   comm_words=r.comm["words"], P=r.comm["P"],
+                   layout=r.options.layout)
+        health = getattr(r, "health", None)
+        if health is not None:
+            rec["events"] = [(e.action, e.iter_idx)
+                             for e in health.fallbacks]
+        res["fits"][name] = rec
+        return rec
+
+    meshes = {"1d": make_mesh(1, world)}
+    if world > 1:
+        meshes["2d"] = make_mesh(2, world // 2)
+    for lay, mesh in meshes.items():
+        common = dict(seed=seed, layout=lay, mesh=mesh)
+        run(f"{lay} K-SVM s=32", KernelSVM(
+            C=1.0, kernel="rbf", device=dev, options=SolverOptions(
+                method="sstep", s=32, max_iters=svm_iters, **common)),
+            A, y, schedule=plan["svm_sched"].to(dev))
+        if world > 1:
+            run(f"{lay} K-SVM classical", KernelSVM(
+                C=1.0, kernel="rbf", device=dev, options=SolverOptions(
+                    method="classical", max_iters=svm_iters, **common)),
+                A, y, schedule=plan["dcd_sched"].to(dev))
+        run(f"{lay} K-RR s=8 b=32", KernelRidge(
+            lam=1.0, kernel="rbf", device=dev, options=SolverOptions(
+                method="sstep", s=8, b=32, tol=1e-4, check_every=16,
+                max_iters=krr_iters, **common)),
+            Ar, yr, schedule=plan["krr_sched"].to(dev))
+    if world > 1:
+        # d. the guarded 1d fit, one rank poisoned (linear kernel, as the
+        #    reference's poisoned factory requires)
+        gkw = dict(method="sstep", s=8, b=32, max_iters=DIST_GUARD_ITERS,
+                   check_every=4, seed=seed, layout="1d", mesh=meshes["1d"])
+        run("1d linear K-RR, clean", KernelRidge(
+            lam=1.0, kernel="linear", device=dev,
+            options=SolverOptions(**gkw)), Ar, yr)
+        with inject(FaultPlan(nan_at_iter=DIST_GUARD_FAULT_ITER)) as fp:
+            rec = run("1d guarded linear K-RR, rank 0 poisoned",
+                      KernelRidge(lam=1.0, kernel="linear", device=dev,
+                                  options=SolverOptions(guard=True, **gkw)),
+                      Ar, yr)
+        rec["fired"] = fp.carry_fired
+        # e. the 16-lambda K-RR fleet on the 1d layout
+        run("1d K-RR fleet F=16", None, Ar, yr, fleet=dict(
+            lams=plan["lams"], kernel="rbf", device=dev,
+            options=SolverOptions(method="sstep", s=8, b=32, tol=1e-4,
+                                  check_every=16, max_iters=krr_iters,
+                                  seed=seed, layout="1d",
+                                  mesh=meshes["1d"])),
+            schedule=plan["krr_sched"].to(dev))
+        # g. a 1d K-RR round split into its partial kernel (CUDA events),
+        #    its reduction (wall, gloo synchronises) and its local phase
+        #    (events), with the wall of each part
+        mesh, rbf = meshes["1d"], KernelConfig("rbf")
+        A_loc = shard_dataset_1d(mesh, Ar)
+        rs = _reduced_row_sqnorms(mesh, A_loc, rbf, "model")
+        idx_k, valid_k = pad_rounds(plan["krr_sched"].to(dev), 8)
+        alpha = res["fits"]["1d K-RR s=8 b=32"]["alpha"].to(dev)
+        ev = [torch.cuda.Event(enable_timing=True) if on_card else None
+              for _ in range(4)]
+
+        def record(i):
+            if on_card:
+                ev[i].record()
+
+        for k in range(DIST_SPLIT_ROUNDS):
+            idx = idx_k[k]
+            flat = idx.reshape(-1)
+            sync()
+            w0 = time.perf_counter()
+            record(0)
+            part = _dots(A_loc, A_loc[flat])
+            record(1)
+            sync()
+            w1 = time.perf_counter()
+            dots = mesh.all_reduce(part, "model")
+            sync()
+            w2 = time.perf_counter()
+            record(2)
+            cs = rs[flat]
+            U = apply_epilogue(dots, rbf, rs, cs)
+            G = apply_epilogue(dots[flat], rbf, cs, cs)
+            sstep_bdcd_inner(G, U.T @ alpha, alpha[idx], yr[idx], flat, m,
+                             1.0, 8, 32, valid_k[k])
+            record(3)
+            sync()
+            w3 = time.perf_counter()
+            res["split"].append(dict(
+                kernel_ms=(ev[0].elapsed_time(ev[1]) if on_card
+                           else float("nan")),
+                kernel_wall_ms=(w1 - w0) * 1e3,
+                reduce_wall_ms=(w2 - w1) * 1e3,
+                local_ms=(ev[2].elapsed_time(ev[3]) if on_card
+                          else float("nan")),
+                local_wall_ms=(w3 - w2) * 1e3))
+    torch.save(res, out / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, backend: str, d: Path, args, failures) -> bool:
+    """Run ``dist_rank`` on ``world`` spawned processes and wait for them
+    (``DIST_TIMEOUT_S``); a rank that raises, dies or runs past the limit
+    is a failure, and every process is ended before this returns."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(
+        dist_rank, args=(world, backend, str(d), args.seed, args.svm_iters,
+                         args.krr_iters),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                failures.append(f"phase 12 {backend} world {world}: the "
+                                f"ranks ran past {DIST_TIMEOUT_S} s")
+                return False
+    except Exception as e:          # a rank raised or died: recorded
+        failures.append(f"phase 12 {backend} world {world}: {e}")
+        return False
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return True
+
+
+def _guard_schedule(H: int, s: int, check_every: int, fault_iter: int):
+    """(rounds run, chunks) of the guarded 1d fit: chunks of check_every
+    rounds, the chunk holding ``fault_iter`` run twice (at s, discarded,
+    then at s / 2, where s stays)."""
+    pos, rounds, chunks, fired = 0, 0, 0, False
+    while pos < H:
+        seg = min(check_every * s, H - pos)
+        rounds += -(-seg // s)
+        chunks += 1
+        if not fired and pos <= fault_iter < pos + seg:
+            fired, s = True, s // 2
+            continue
+        pos += seg
+    return rounds, chunks
+
+
+def _dist_kernel_entry(c, kname: str, key: tuple, launches: int):
+    """The kernels-record entry of one shape phase 12's ranks launched
+    ``kname`` at: ``key`` is the wrapper's ``by_shape`` key, (m, r, n,
+    config) for gram and (m, r, n, c, config) for kmv.  The operands are
+    cut from phase 3's A as a rank cuts them: its first m rows and n
+    columns, and B the sampled rows of the whole A over the same columns
+    (a 2d rank gathers them from every data rank); B is A itself where
+    the ranks passed one tensor twice (gram's sampled cross block, kmv's
+    full matvec on rank 0's checks).  Returns (entry with ``ratio``, a
+    label)."""
+    import torch
+
+    from repro_torch.core import KernelConfig
+    from repro_torch.kernels.gram import gram_cuda, gram_plain
+    from repro_torch.kernels.kmv import kmv_cuda, kmv_plain
+    gram = kname == "gram"
+    (m, r, n), cname = key[:3], key[-1]
+    cfg = KernelConfig(cname)
+    same = m == r
+    B = c.A[c.pick[:r], :n].contiguous()
+    A = B if gram and same else c.A[:m, :n].contiguous()
+    if same:
+        B = A
+    # the work a call needs: one read of each operand, one write of the
+    # output; a symmetric full matvec reads A once and needs the m (m+1)/2
+    # distinct kernel entries
+    ops_bytes = 4 * (m * n + (0 if same else r * n))
+    if gram:
+        fn = lambda: gram_cuda(A, B, cfg)             # noqa: E731
+        plain = lambda: gram_plain(A, B, cfg)         # noqa: E731
+        library = lambda: torch.mm(A, B.T)            # noqa: E731
+        tol, work = TOL_GRAM_F32, 2 * m * r * n
+        nbytes = ops_bytes + 4 * m * r
+        name = f"gram_rank_partial_{cname}_{m}x{r}x{n}"
+    else:
+        cols = key[3]
+        X = torch.randn((m, cols), device=A.device)
+        fn = lambda: kmv_cuda(A, B, X, cfg)           # noqa: E731
+        plain = lambda: kmv_plain(A, B, X, cfg)       # noqa: E731
+        # a linear KMV is B (A^T X): 2 (m + r) n c operations
+        library = ((lambda: torch.mm(B, torch.mm(A.T, X)))
+                   if cname == "linear" else None)
+        tol = TOL_KMV_F32
+        pairs = m * (m + 1) // 2 if same else m * r
+        work = (2 * (m + r) * n * cols if cname == "linear" else
+                2 * pairs * n + 2 * m * r * cols + 2 * (m + r) * n
+                + 6 * pairs)
+        nbytes = ops_bytes + 4 * (m + r) * cols
+        name = (f"kmv_rank0_check_{cname}_{m}x{r}x{n}x{cols}" if same
+                else f"kmv_rank_partial_{cname}_{m}x{r}x{n}x{cols}")
+    ratio, err = allclose_ratio(fn(), plain(), tol)
+    iters = 20 if work < 1e11 else 2
+    b_ms, b_by = bound_ms(nbytes, work)
+    entry = {"name": name, "route": "cuda",
+             "source": f"src/repro_torch/csrc/{kname}.cu",
+             "replaces": ("src/repro/kernels/gram.py:82" if gram
+                          else "src/repro/kernels/kmv.py:93"),
+             "shape": f"{cname} {key[:-1]}", "launches": launches,
+             "max_abs_err": err, "ms": time_queued(fn, iters),
+             "plain_ms": time_queued(plain, iters), "bound_ms": b_ms,
+             "bound_by": b_by,
+             "library_ms": (None if library is None
+                            else time_queued(library, iters)),
+             "ratio": ratio}
+    return entry, f"{kname} {cname} {key[:-1]}"
+
+
+def dist_phase(c, args, failures):
+    """Phase 12 (module docstring): the 1d and 2d layouts on the card,
+    their ranks spawned processes (NCCL at world 1, gloo among
+    ``DIST_WORLD`` processes sharing the card), held against phases 3-4's
+    serial fits and phase 9's fleet; the collective audit; times; and
+    every shape the ranks launched gram and kmv at, checked and timed
+    here, alone on the card (``_dist_kernel_entry``).  Returns the
+    kernels-record entries."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.perf_model import (round_collectives,
+                                             setup_collectives)
+
+    t_phase = time.perf_counter()
+    m, n, dev = c.m, c.n, c.dev
+    sums = [float(t.double().sum()) for t in (c.A, c.y, c.Ar, c.yr)]
+    plan = {"svm_sched": c.r_s.schedule.cpu(),
+            "dcd_sched": c.r_c.schedule.cpu(),
+            "krr_sched": c.r_k.schedule.cpu(), "lams": c.fleets.lams,
+            "m": m, "n": n, "q": c.q, "device": str(dev)}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for world, backend in DIST_RUNS:
+            d = Path(tmp) / f"{backend}{world}"
+            d.mkdir()
+            torch.save(plan, d / "plan.pt")
+            t0 = time.perf_counter()
+            if not spawn_ranks(world, backend, d, args, failures):
+                return []
+            runs[world] = [torch.load(d / f"rank{r}.pt", weights_only=False)
+                           for r in range(world)]
+            print(f"[dist] {backend}, {world} rank(s) on the one card: "
+                  f"spawned, ran and joined in "
+                  f"{time.perf_counter() - t0:.1f} s (the walls below: "
+                  f"processes time-sliced on one card, not a scaling "
+                  f"measurement)")
+    serial = {"K-SVM s=32": (c.r_s.alpha, None),
+              "K-SVM classical": (c.r_c.alpha, None),
+              "K-RR s=8 b=32": (c.r_k.alpha, c.r_k.history)}
+    for (world, backend), ranks in zip(DIST_RUNS, runs.values()):
+        tag = f"{backend}, world {world}"
+        for r, res in enumerate(ranks):
+            if res["sums"] != sums:
+                failures.append(f"{tag} rank {r} drew other data than "
+                                f"phases 3-4: {res['sums']} vs {sums}")
+        for name, rec in ranks[0]["fits"].items():
+            # every rank holds the same alpha and history, bit for bit
+            for r, res in enumerate(ranks[1:], 1):
+                other = res["fits"][name]
+                if not (torch.equal(other["alpha"], rec["alpha"])
+                        and (rec["history"] is None or np.array_equal(
+                            other["history"], rec["history"]))):
+                    failures.append(f"{tag} {name}: rank {r}'s alpha or "
+                                    f"history differs from rank 0's")
+            layout = rec["layout"]
+            kernel = "linear" if "linear" in name else "rbf"
+            checks = 0 if rec["history"] is None else len(rec["history"])
+            rounds = rec["rounds"]
+            chunks = max(checks, 1)
+            if "poisoned" in name:
+                rounds, chunks = _guard_schedule(
+                    DIST_GUARD_ITERS, 8, 4, DIST_GUARD_FAULT_ITER)
+                checks = chunks
+            # the row norms once a fit, the 2d alpha assembly a chunk
+            want = {"round": rounds * round_collectives(layout, kernel),
+                    "setup": (setup_collectives(layout, kernel)
+                              + chunks * (layout == "2d")),
+                    "check": checks}
+            got = {kd: sum(v for (_, k), v in rec["calls"].items()
+                           if k == kd) for kd in want}
+            by_axis = ", ".join(
+                f"{ax}/{kd} {rec['calls'][(ax, kd)]} calls "
+                f"{rec['words'][(ax, kd)]:.4e} words"
+                for ax, kd in sorted(rec["calls"]))
+            print(f"[dist] {tag} {name}: {rec['rounds']} rounds, "
+                  f"{checks} checks, wall {rec['wall']:.2f} s; "
+                  f"collectives {by_axis}; modeled words at P = "
+                  f"{rec['P']}: {rec['comm_words']:.4e}")
+            if got != want:
+                failures.append(f"{tag} {name}: collectives {got}, not "
+                                f"{want}")
+            # kernel launches: a gram a round (two in 2d), a kmv a round on
+            # the linear 1d layout, and rank 0's checks' full matvecs
+            for r, res in enumerate(ranks):
+                f = res["fits"][name]
+                g_want = rounds * (2 if layout == "2d" else 1)
+                k_want = ((rounds if kernel == "linear" else 0)
+                          + (checks if r == 0 and "guarded" not in name
+                             else 0))
+                if (f["gram"], f["kmv"]) != (g_want, k_want):
+                    failures.append(f"{tag} {name} rank {r}: launches gram "
+                                    f"{f['gram']}, kmv {f['kmv']}, not "
+                                    f"{g_want}, {k_want}")
+            print(f"[dist] {tag} {name}: launches a rank (gram, kmv): "
+                  + ", ".join(f"({res['fits'][name]['gram']}, "
+                              f"{res['fits'][name]['kmv']})"
+                              for res in ranks))
+            base = name.split(" ", 1)[1]
+            if base in serial:
+                want_a, want_h = serial[base]
+                ratio, err = allclose_ratio(rec["alpha"].to(dev), want_a,
+                                            TOL_ITERATE)
+                line = (f"[dist] {tag} {name} vs the serial fit: alpha max "
+                        f"abs err {err:.3e} ({ratio:.2f}x {TOL_ITERATE})")
+                if not ratio <= 1.0:
+                    failures.append(f"{tag} {name}: alpha vs serial "
+                                    f"{err:.3e}")
+                if want_h is not None:
+                    hr, he = allclose_ratio(
+                        torch.as_tensor(rec["history"]),
+                        torch.as_tensor(np.asarray(want_h)), TOL_ITERATE)
+                    line += f"; residual history {he:.3e} ({hr:.2f}x)"
+                    if not (hr <= 1.0 and len(rec["history"])
+                            == len(want_h)):
+                        failures.append(f"{tag} {name}: history vs serial "
+                                        f"{he:.3e}")
+                print(line)
+    fits = runs[DIST_WORLD][0]["fits"]
+    clean = fits["1d linear K-RR, clean"]
+    bad = fits["1d guarded linear K-RR, rank 0 poisoned"]
+    err = float((bad["alpha"] - clean["alpha"]).abs().max())
+    print(f"[dist] guarded 1d, rank 0's shard NaN-poisoned at iteration "
+          f"{DIST_GUARD_FAULT_ITER}: fired {bad['fired']}, events "
+          f"{bad['events']}, vs the clean fit max abs err {err:.3e} "
+          f"(bound {TOL_ITERATE})")
+    if not (bad["fired"] and [a for a, _ in bad["events"]]
+            == ["halve_s:8->4"] and err <= TOL_ITERATE):
+        failures.append(f"the poisoned 1d fit did not recover: "
+                        f"{bad['events']}, {err:.3e}")
+    fl = fits["1d K-RR fleet F=16"]
+    errs = [allclose_ratio(fl["alpha"][i].to(dev), c.fleets.alpha_k[i],
+                           TOL_ITERATE) for i in range(len(c.fleets.lams))]
+    worst = max(r for r, _ in errs)
+    print(f"[dist] 1d fleet F = {len(errs)}: members vs phase 9's serial "
+          f"fleet max abs err {max(e for _, e in errs):.3e} ({worst:.2f}x "
+          f"{TOL_ITERATE}); {fl['calls'].get(('model', 'round'), 0)} "
+          f"reductions for {fl['rounds']} rounds of all members")
+    if not worst <= 1.0:
+        failures.append(f"the 1d fleet vs the serial fleet {worst:.2f}x")
+    split = [s for res in runs[DIST_WORLD] for s in res["split"]]
+    mean = {k: float(np.mean([s[k] for s in split])) for k in split[0]}
+    print(f"[dist] a 1d K-RR round (s=8, b=32, rbf) at P = {DIST_WORLD}, "
+          f"four processes time-sliced on one card (not a scaling "
+          f"measurement), mean over {DIST_SPLIT_ROUNDS} rounds x "
+          f"{DIST_WORLD} ranks: partial gram {mean['kernel_ms']:.3f} ms "
+          f"device ({mean['kernel_wall_ms']:.3f} ms wall), reduction of "
+          f"{m} x 256 f32 {mean['reduce_wall_ms']:.3f} ms wall, local "
+          f"phase {mean['local_ms']:.3f} ms device "
+          f"({mean['local_wall_ms']:.3f} ms wall)")
+
+    # every shape (and kernel config) at which the ranks launched gram and
+    # kmv in this phase's fits, with its launches, summed over the ranks
+    # of both runs: each is checked against its plain version and timed
+    # here, the parent process alone on the card
+    tally = {"gram": {}, "kmv": {}}
+    for (world, backend), ranks in zip(DIST_RUNS, runs.values()):
+        for res in ranks:
+            for fit, rec in res["fits"].items():
+                for kname in tally:
+                    for key, k in rec[f"{kname}_shapes"].items():
+                        t = tally[kname].setdefault(key, [0, set()])
+                        t[0] += k
+                        t[1].add(f"{backend} world {world}: {fit}")
+    timing = ("device time, launches queued behind a spin kernel "
+              "(time_queued), the parent process alone on the card")
+    entries = []
+    for kname, shapes in tally.items():
+        for key, (launches, fits) in sorted(shapes.items()):
+            entry, label = _dist_kernel_entry(c, kname, key, launches)
+            print(f"[dist] {label}: {launches} launches "
+                  f"({'; '.join(sorted(fits))}); {entry['ms']:.4f} ms | "
+                  f"plain {entry['plain_ms']:.4f} ms | bound "
+                  f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}, "
+                  f"{entry['bound_ms'] / entry['ms']:.1%} of it) | library "
+                  + ("-" if entry["library_ms"] is None
+                     else f"{entry['library_ms']:.4f} ms")
+                  + f" | vs plain max abs err {entry['max_abs_err']:.3e} "
+                  f"({entry['ratio']:.2f}x tolerance)")
+            if not entry.pop("ratio") <= 1.0:
+                failures.append(f"{label}: the kernel disagrees with its "
+                                f"plain version, {entry['max_abs_err']:.3e}")
+            entry.update(ms_timing=timing, fits=sorted(fits))
+            entries.append(entry)
+    print(f"[dist] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def device_profile(run, calls: int):
     """Device-busy ms per call (the sum of the kernel durations that
     torch.profiler records), kernel launches per call, and the five
@@ -4117,6 +4639,15 @@ def main(argv=None) -> int:
             print(f"[serve] FAIL {f}")
         return fail(f"{len(failures)} serve/telemetry check(s) failed")
 
+    # ---- 12. the distributed layouts (on phases 3-4's data) ---------------
+    dist_entries = dist_phase(SimpleNamespace(
+        dev=dev, m=m, n=n, q=q, A=A, y=y, Ar=Ar, yr=yr, pick=pick, r_s=r_s,
+        r_c=r_c, r_k=r_k, fleets=ns_sweep.fleets), args, failures)
+    if failures:
+        for f in failures:
+            print(f"[dist] FAIL {f}")
+        return fail(f"{len(failures)} distributed-layout check(s) failed")
+
     # ---- 7. LM prefill and serving ----------------------------------------
     del A, Ar, Aq, Arq, B_of, gram_blocks, Xv, Xm, svm, krr
     del dcd, ns_stream, ns_sweep
@@ -4177,6 +4708,7 @@ def main(argv=None) -> int:
         *sweep_entries,
         *guard_entries,
         *serve_entries,
+        *dist_entries,
         *lm_entries,
         *train_entries,
     ]}

@@ -1,5 +1,4 @@
-"""Estimator facade — the counterpart of ``repro/api.py`` for the serial,
-exact-kernel solve:
+"""Estimator facade — the counterpart of ``repro/api.py``:
 
     from repro_torch.api import KernelSVM, SolverOptions
 
@@ -51,6 +50,15 @@ kernel route) from the last good state; ``checkpoint_every`` /
 ``checkpoint_dir`` cut mid-solve snapshots that ``fit(resume_from=)``
 continues.  ``FitResult.health`` records what the guard saw.
 
+``SolverOptions(layout="1d" | "2d")`` runs the paper's distributed
+layouts (``core.distributed``) SPMD, one process a rank, every rank
+calling the same ``fit`` on the same data over ``options.mesh`` (by
+default the initialised default process group, ``launch.mesh``): the
+whole schedule in one solver call, or on the tolerance path chunks of
+``check_every`` rounds, each followed by rank 0's metric sent to every
+rank; a guarded distributed fit checks and falls back at those chunk
+boundaries.  The rounds run eagerly (a reduction cannot be captured).
+
 ``SolverOptions(telemetry=True)`` (or a ``repro_torch.obs.Telemetry``)
 records the fit: host spans around the fit, the representation build and
 the solve (each span over device work ends by draining the fit's
@@ -83,10 +91,12 @@ from repro_torch.core import (DIVERGED_NONFINITE, LANDMARK_METHODS, NO_TOL,
                               make_sstep_bdcd_round_fn,
                               make_sstep_dcd_round_fn, pad_rounds,
                               run_rounds, validate_queries)
+from repro_torch.core import distributed
 from repro_torch.core.perf_model import (choose_recompute_every,
                                          modeled_fit_cost)
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.kernels.ops import make_solver_gram_fn
+from repro_torch.launch.mesh import make_mesh, world_size
 from repro_torch.obs.spans import Telemetry
 from repro_torch.resilience import (DivergenceError, HealthEvent,
                                     SimulatedKill, SolveHealth, active_plan,
@@ -98,16 +108,9 @@ from repro_torch.resilience.health import (KIND_METRIC, KIND_NONFINITE,
                                            KIND_RESUME)
 
 METHODS = ("classical", "sstep")
+LAYOUTS = ("serial", "1d", "2d")
 APPROX = (None, "nystrom")
 AUTO = "auto"
-
-# Knobs of the JAX SolverOptions that this slice of the port does not
-# run yet: their JAX defaults, and the ROADMAP item that ports each
-# (``layout="auto"`` runs: it resolves to "serial").
-UNPORTED = {
-    "layout": ("serial", "A11"),
-    "mesh": (None, "A11"),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,8 +124,16 @@ class SolverOptions:
                  solve; the plan lands on ``FitResult.plan``.
     b:           block size (K-RR only; K-SVM is scalar-coordinate), or
                  "auto" (tuned with s).
-    layout:      "serial", or "auto" (resolves to "serial": the 1d and 2d
-                 layouts are ROADMAP A11).
+    layout:      "serial"; "1d" (the paper's 1D-column layout: A's features
+                 sharded over the mesh's ``model`` axis, one all-reduce a
+                 round); "2d" (samples over ``data`` too, three smaller
+                 collectives a round); or "auto" (the autotuner picks among
+                 the layouts the world size allows).  The distributed
+                 layouts run SPMD: every rank calls the same fit on the same
+                 data (``launch.mesh``).
+    mesh:        a ``launch.mesh.Mesh`` for the 1d / 2d layouts, or None:
+                 (1, world) for 1d and (world, 1) for 2d over the
+                 initialised default process group, (1, 1) without one.
     slab_free:   read the kernel through the operator (default); False
                  forces the materialized-slab parity-oracle path.
     tol:         stop once the convergence metric (duality gap for K-SVM,
@@ -168,10 +179,6 @@ class SolverOptions:
                  its checks and corrections (module docstring), on
                  ``FitResult.telemetry``.  None, False or a disabled
                  handle records nothing and changes nothing.
-
-    The remaining fields are the JAX package's other knobs, accepted only
-    at their defaults: any other value raises ``ValueError`` naming the
-    ROADMAP item that ports it (``UNPORTED``).
     """
 
     method: str = "sstep"
@@ -208,18 +215,13 @@ class SolverOptions:
             raise ValueError(f"telemetry must be None, a bool, or a "
                              f"repro_torch.obs.Telemetry, got "
                              f"{self.telemetry!r}")
-        for name, (default, item) in UNPORTED.items():
-            value = getattr(self, name)
-            if name == "layout" and value == AUTO:
-                continue
-            if value is not default and value != default:
-                raise ValueError(
-                    f"{name}={value!r} is not ported to repro_torch yet "
-                    f"(ROADMAP {item}); only {name}={default!r} runs")
         self._check_representation()
         if self.method not in METHODS:
             raise ValueError(
                 f"method must be one of {METHODS}, got {self.method!r}")
+        if self.layout not in LAYOUTS + (AUTO,):
+            raise ValueError(f"layout must be one of "
+                             f"{LAYOUTS + (AUTO,)}, got {self.layout!r}")
         for name in ("s", "b"):
             v = getattr(self, name)
             if v != AUTO and (not isinstance(v, int) or isinstance(v, bool)
@@ -236,6 +238,10 @@ class SolverOptions:
                              f"{self.probe!r}")
         if not self.tol >= 0.0:
             raise ValueError(f"tol must be >= 0, got {self.tol!r}")
+        if not self.slab_free and self.layout == "2d":
+            raise ValueError("the 2d layout is slab-free by construction; "
+                             "slab_free=False is only meaningful for the "
+                             "serial and 1d layouts")
         self._check_guard()
 
     def _check_guard(self):
@@ -282,6 +288,11 @@ class SolverOptions:
                 raise ValueError("stream= requires slab_free=True: the "
                                  "streamed representation only exists "
                                  "behind the GramOperator interface")
+            if self.layout not in ("serial", AUTO):
+                raise ValueError(f"stream= requires the serial layout "
+                                 f"(the distributed layouts shard the "
+                                 f"data instead of streaming it), got "
+                                 f"layout={self.layout!r}")
             if self.approx not in (None, AUTO):
                 raise ValueError("stream= requires the exact "
                                  "representation (a low-rank factor is "
@@ -501,13 +512,79 @@ def _schedule(problem: str, opts: SolverOptions, m: int, b: int,
 
 
 def _comm(m: int, n: int, cfg, problem: str, opts: SolverOptions, op,
-          iters: int) -> dict:
-    """``FitResult.comm``: the Hockney model of the run, serial (P = 1),
-    as the JAX facade prices it."""
+          iters: int, P: int = 1) -> dict:
+    """``FitResult.comm``: the Hockney model of the run at the layout's P
+    ranks (1 for the serial layout), as the JAX facade prices it."""
     return modeled_fit_cost(
         m, n, cfg.kernel.name, b=opts.b if problem == "krr" else 1,
-        s=opts.s_eff, iters=iters, P=1, approx=opts.approx,
+        s=opts.s_eff, iters=iters, P=P, approx=opts.approx,
         landmarks=op.rank if opts.approx is not None else 0)
+
+
+def _resolve_mesh(opts: SolverOptions):
+    """The 1d / 2d layouts' mesh: the user's (validated for the layout's
+    axis names), or (1, world) for 1d and (world, 1) for 2d over the
+    initialised default process group ((1, 1) without one)."""
+    if opts.mesh is None:
+        w = world_size()
+        return make_mesh(*((1, w) if opts.layout == "1d" else (w, 1)))
+    need = ("model",) if opts.layout == "1d" else ("data", "model")
+    names = tuple(getattr(opts.mesh, "axis_names", ()))
+    missing = [ax for ax in need if ax not in names]
+    if missing:
+        raise ValueError(f"mesh lacks axes {missing} required by the "
+                         f"{opts.layout!r} layout (has {names})")
+    return opts.mesh
+
+
+def _from_rank0(mesh, fn, width: int, device) -> np.ndarray:
+    """``fn()`` as rank 0 computes it, ``width`` float64 values, on every
+    rank (one ``check`` collective, ``Mesh.root_value``): a metric or a
+    guard's verdict read on the full data, so every rank takes the same
+    branch.  The JAX package's one controller needs no such step
+    (ROADMAP C16)."""
+    t = torch.zeros(width, dtype=torch.float64, device=device)
+    if mesh.rank == 0:
+        t = torch.as_tensor(fn(), dtype=torch.float64,
+                            device=device).reshape(width)
+    return mesh.root_value(t).cpu().numpy()
+
+
+def _dist_chunks(solve, alpha, schedule, s: int, opts: SolverOptions, mesh,
+                 metric_fn, tel=None):
+    """The 1d / 2d tolerance loop, shared by the fit and the 1d fleet:
+    chunks of ``check_every`` rounds (whole multiples of s, so the rounds
+    are those of the unchunked run), each ``solve(alpha, sched_c)`` in a
+    ``dist_chunk`` span and followed by rank 0's metric (``_from_rank0``).
+    A fleet's alpha is (F, m) and its metric (F,): members that met the
+    tolerance keep their alpha while the others run on.  Returns
+    ``(alpha, history, done, rounds_run, iters_run)``, ``done`` (F,) bool
+    ((1,) for a fit)."""
+    H = schedule.shape[0]
+    chunk = opts.check_every * s
+    fleet = alpha.ndim == 2
+    done = np.zeros(alpha.shape[0] if fleet else 1, bool)
+    pos = rounds_run = 0
+    hist = []
+    while pos < H:
+        sched_c = schedule[pos:pos + chunk]
+        iters = int(sched_c.shape[0])
+        with _tspan(tel, "dist_chunk", "solve", alpha.device, iter_start=pos,
+                    iters=iters, s=s, layout=opts.layout):
+            new = solve(alpha, sched_c)
+            alpha = (torch.where(torch.as_tensor(done, device=new.device)[
+                :, None], alpha, new) if fleet else new)
+            pos += iters
+            rounds_run += -(-iters // s)
+            # the metric read is the chunk's sync point
+            vals = _from_rank0(mesh, lambda: metric_fn(alpha), done.size,
+                               alpha.device)
+        hist.append(vals if fleet else vals[0])
+        if opts.tol > 0.0:
+            done |= vals <= opts.tol
+            if done.all():
+                break
+    return alpha, np.asarray(hist), done, rounds_run, pos
 
 
 def _guard_cadence(problem: str, m: int, n: int, cfg, opts: SolverOptions,
@@ -557,9 +634,12 @@ def _fit_body(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
                                device=device)
         opts = plan.options
     if opts.guard and opts.recompute_every == AUTO:
-        # the backstop behind the autotuner's own resolution
+        # the backstop behind the autotuner's own resolution; the
+        # distributed rounds recompute from alpha every round, so they
+        # have no drifting residual to correct
         opts = dataclasses.replace(opts, recompute_every=_guard_cadence(
-            problem, m, n, cfg, opts, opts.s_eff, opts.b, opts.approx))
+            problem, m, n, cfg, opts, opts.s_eff, opts.b, opts.approx)
+            if opts.layout == "serial" else 0)
     if resume_from is not None and not opts.guard:
         raise ValueError("resume_from= requires options.guard=True (the "
                          "checkpoint holds a guarded-carry snapshot)")
@@ -585,19 +665,13 @@ def _fit_body(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
             raise ValueError(f"warm_start must have shape ({m},), got "
                              f"{tuple(a0.shape)}")
 
-    gram_fn = None if opts.slab_free else make_solver_gram_fn()
-    train_op = None
-    if opts.slab_free:
-        # K-SVM trains on diag(y) A (diag(y) Phi); prediction keeps the
-        # unscaled op
-        train_op = op.scale_rows(y) if problem == "ksvm" else op
     metric_name = "duality_gap" if problem == "ksvm" else "rel_residual"
     want_metric = opts.tol > 0.0 or opts.record
     health = None
+    fp = resume = None
     if opts.guard:
         fp = solve_fingerprint(problem, A.shape[0], A.dtype, cfg, opts,
                                schedule)
-        resume = None
         if resume_from is not None:
             r_alpha, r_f, extra = load_solve_state(resume_from,
                                                    expect_fingerprint=fp)
@@ -606,11 +680,36 @@ def _fit_body(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
                       "s_cur": int(extra["s_cur"]),
                       "method_cur": extra["method_cur"],
                       "path": resume_from}
+    P = 1
+    if opts.layout != "serial":
+        # every rank builds its own block from the solve matrix: for a
+        # Nystrom fit A_s is Phi, so the 1d layout shards Phi's l columns
+        # and its linear rounds reduce only the contracted (sb, sb+1) words
+        mesh = _resolve_mesh(opts)
+        P = mesh.shape["model"] if opts.layout == "1d" else mesh.size
+        metric_fn = _metric_fn(problem, op, A_s, y, cfg, opts)
+        if opts.guard:
+            (alpha, history, converged, rounds_run, iters_run,
+             health) = _run_guarded_dist(
+                problem, op, A_s, y, a0, schedule, cfg, cfg_s, opts, mesh,
+                fingerprint=fp, resume=resume, tel=tel)
+        else:
+            (alpha, history, converged, rounds_run,
+             iters_run) = _run_dist(problem, A_s, y, a0, schedule, cfg_s,
+                                    opts, mesh, metric_fn, tel)
+    elif opts.guard:
+        train_op = op.scale_rows(y) if problem == "ksvm" else op
         (alpha, history, converged, rounds_run, iters_run,
          health) = _run_guarded_serial(
             problem, op, train_op, A_s, y, a0, schedule, cfg, cfg_s, opts,
             fingerprint=fp, resume=resume, stats=stats, tel=tel)
     else:
+        gram_fn = None if opts.slab_free else make_solver_gram_fn()
+        train_op = None
+        if opts.slab_free:
+            # K-SVM trains on diag(y) A (diag(y) Phi); prediction keeps the
+            # unscaled op
+            train_op = op.scale_rows(y) if problem == "ksvm" else op
         rf = _round_fn(problem, A_s, y, cfg_s, s, gram_fn, train_op)
         metric_fn = _metric_fn(problem, op, A_s, y, cfg, opts)
         xs = schedule if s == 1 else pad_rounds(schedule, s)
@@ -638,10 +737,32 @@ def _fit_body(problem: str, A: torch.Tensor, y: torch.Tensor, cfg,
                        history=history, metric=metric_name,
                        converged=converged, rounds_run=rounds_run,
                        iters_run=iters_run, wall_time_s=wall,
-                       comm=_comm(m, n, cfg, problem, opts, op, iters_run),
+                       comm=_comm(m, n, cfg, problem, opts, op, iters_run,
+                                  P),
                        options=opts, representation=rep_name, plan=plan,
                        health=health, telemetry=tel)
     return result, op
+
+
+def _run_dist(problem, A_s, y, a0, schedule, cfg_s, opts: SolverOptions,
+              mesh, metric_fn, tel):
+    """The 1d / 2d fit (the JAX facade's distributed branch) on one
+    ``distributed.LayoutSolver``: one run over the whole schedule on the
+    fast path, ``_dist_chunks`` on the tolerance path.  Returns ``(alpha,
+    history, converged, rounds_run, iters_run)``."""
+    s = opts.s_eff
+    H = schedule.shape[0]
+    solver = distributed.LayoutSolver(mesh, opts.layout, A_s, y, cfg_s,
+                                      slab_free=opts.slab_free)
+    if not (opts.tol > 0.0 or opts.record):
+        with _tspan(tel, "solve", "solve", a0.device, path="dist_fast", s=s,
+                    layout=opts.layout):
+            alpha = solver.solve(a0, schedule, s)
+        return alpha, None, False, -(-H // s), H
+    alpha, hist, done, rounds_run, iters_run = _dist_chunks(
+        lambda a, sched: solver.solve(a, sched, s), a0, schedule, s, opts,
+        mesh, metric_fn, tel)
+    return alpha, hist, bool(done[0]), rounds_run, iters_run
 
 
 def _guarded_segment(problem, A_s, y, alpha, f, schedule, cfg_s, metric_fn,
@@ -824,6 +945,156 @@ def _run_guarded_serial(problem, op, train_op, A_s, y, a0, schedule, cfg,
         drift=np.concatenate(drifts) if drifts else np.zeros(0),
         corrections=sum(len(d) for d in drifts), events=tuple(events),
         checkpoints=checkpoints, resumed_from=resumed_from)
+    return (alpha.to(base_dtype), history, converged, rounds_done, pos,
+            health)
+
+
+def _run_guarded_dist(problem, op, A_s, y, a0, schedule, cfg, cfg_s,
+                      opts: SolverOptions, mesh, *, fingerprint,
+                      resume=None, tel=None):
+    """The guarded 1d / 2d fit (the JAX package's ``_run_guarded_dist``).
+    The distributed rounds recompute their quantities from alpha every
+    round, so there is no drifting residual to correct; the guard runs at
+    chunk boundaries instead: rank 0 judges the chunk's alpha (finite,
+    metric not blown up) and every rank takes its verdict
+    (``_from_rank0``); an unhealthy chunk is re-run from its start state
+    one rung down the fallback ladder (halve s, classical, f64).  One
+    ``distributed.LayoutSolver`` serves every chunk (another for the f64
+    rung).  Rank 0
+    writes the checkpoints (every rank holds the same alpha); a simulated
+    kill waits for the snapshot and for every rank before it raises.
+    Returns ``(alpha, history, converged, rounds_run, iters_run,
+    health)``."""
+    from repro_torch.resilience.faults import poisoned_1d_factory
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    H = schedule.shape[0]
+    want_metric = opts.tol > 0.0 or opts.record
+    base_dtype = a0.dtype
+    blowup = 1e4
+    s_cur, method_cur = opts.s_eff, opts.method
+    x64 = False
+    pos = rounds_done = 0
+    converged = False
+    alpha = a0
+    events, hist = [], []
+    checkpoints, resumed_from = 0, None
+    best = float("inf")
+    if resume is not None:
+        alpha = resume["alpha"].to(a0.device, base_dtype)
+        pos = resume["iters_done"]
+        s_cur, method_cur = resume["s_cur"], resume["method_cur"]
+        resumed_from = resume["path"]
+        events.append(HealthEvent(kind=KIND_RESUME, round_idx=rounds_done,
+                                  iter_idx=pos, action="resume",
+                                  detail=resumed_from))
+    plan = active_plan()
+    mgr = None
+    if opts.checkpoint_every > 0 and mesh.rank == 0:
+        mgr = CheckpointManager(opts.checkpoint_dir, save_every=1)
+    op_cur, A_cur, y_cur = op, A_s, y
+    solver = distributed.LayoutSolver(mesh, opts.layout, A_s, y, cfg_s,
+                                      slab_free=opts.slab_free)
+
+    while pos < H and not converged:
+        chunk = opts.check_every * s_cur
+        if opts.checkpoint_every > 0:
+            chunk = min(chunk, opts.checkpoint_every * s_cur)
+        seg = min(chunk, H - pos)
+        # the 1d fault harness: a poisoned operator scales one rank's
+        # contribution to every reduction of the chunk holding the target
+        # iteration (consumed once, as the serial fault lane)
+        op_factory = None
+        if (plan is not None and opts.layout == "1d"
+                and plan.carry_fault_round(pos, seg, s_cur) >= 0):
+            op_factory = poisoned_1d_factory(mesh, scale=plan.value)
+        metric_fn = (_metric_fn(problem, op_cur, A_cur, y_cur, cfg,
+                                opts) if want_metric else None)
+
+        def verdict():
+            ok = bool(torch.isfinite(alpha_new).all())
+            return [float(ok), float(metric_fn(alpha_new))
+                    if ok and metric_fn is not None else float("nan")]
+
+        with _tspan(tel, "guarded_chunk", "solve", alpha.device,
+                    iter_start=pos, iters=int(seg), s=s_cur,
+                    layout=opts.layout):
+            alpha_new = solver.solve(alpha, schedule[pos:pos + seg], s_cur,
+                                     op_factory=op_factory)
+            # the verdict is the chunk's sync point
+            ok, val = _from_rank0(mesh, verdict, 2, alpha.device)
+        healthy = ok == 1.0
+        kind = KIND_NONFINITE
+        if healthy and want_metric and not (
+                np.isfinite(val) and (not np.isfinite(best)
+                                      or val <= blowup * best)):
+            healthy, kind = False, KIND_METRIC
+
+        if not healthy:
+            # last good state = the chunk-start alpha: chunks are the
+            # guard's granularity here
+            if op_factory is not None:
+                plan.carry_fired = True
+            if not opts.fallback:
+                raise DivergenceError(
+                    f"guarded {opts.layout} solve diverged ({kind}) in the "
+                    f"chunk at iteration {pos} and fallback is disabled",
+                    events=tuple(events))
+            try:
+                action, s_cur, method_cur, x64_new = next_fallback(
+                    s_cur, method_cur, x64)
+            except DivergenceError as e:
+                raise DivergenceError(str(e),
+                                      events=tuple(events)) from None
+            events.append(HealthEvent(
+                kind=kind, round_idx=rounds_done, iter_idx=pos,
+                action=action,
+                detail=f"re-running chunk from iteration {pos}"))
+            if tel is not None:
+                tel.metrics.counter(
+                    "repro_guard_fallbacks_total",
+                    "escalation-ladder steps taken").inc(
+                        action=action, kind=kind)
+                tel.mark("fallback", phase="guard")
+            if x64_new and not x64:
+                x64 = True
+                A_cur, y_cur = A_cur.double(), y_cur.double()
+                solver = distributed.LayoutSolver(
+                    mesh, opts.layout, A_cur, y_cur, cfg_s,
+                    slab_free=opts.slab_free)
+                op_cur = op_cur.astype(torch.float64)
+                alpha = alpha.double()
+            continue
+
+        alpha = alpha_new
+        pos += seg
+        rounds_done += -(-seg // s_cur)
+        if want_metric:
+            hist.append(val)
+            best = min(best, val)
+            if opts.tol > 0.0 and val <= opts.tol:
+                converged = True
+        if opts.checkpoint_every > 0 and not converged and pos < H:
+            if mgr is not None:
+                save_solve_state(mgr, pos, alpha.to(base_dtype), None,
+                                 s_cur=s_cur, method_cur=method_cur,
+                                 fingerprint=fingerprint)
+            checkpoints += 1
+            if plan is not None and plan.should_kill(pos):
+                plan.kill_fired = True
+                if mgr is not None:
+                    mgr.wait()               # the snapshot is durable
+                _from_rank0(mesh, lambda: 0.0, 1, alpha.device)  # all ranks
+                raise SimulatedKill(
+                    f"simulated preemption at iteration {pos}",
+                    opts.checkpoint_dir)
+    if mgr is not None:
+        mgr.wait()
+    history = np.asarray(hist) if want_metric else None
+    health = SolveHealth(
+        guarded=True, recompute_every=0, drift=np.zeros(0), corrections=0,
+        events=tuple(events), checkpoints=checkpoints,
+        resumed_from=resumed_from)
     return (alpha.to(base_dtype), history, converged, rounds_done, pos,
             health)
 

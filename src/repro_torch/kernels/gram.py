@@ -2,7 +2,7 @@
 
 The counterpart of ``repro/kernels/gram.py`` (``gram_pallas``).  The
 kernel is ``csrc/gram.cu``; ``gram_cuda`` launches it and counts the
-launches, ``gram_plain`` is the plain PyTorch version.
+launches (also by shape), ``gram_plain`` is the plain PyTorch version.
 ``kernels.ops.gram`` picks between them by device.  ``gram_splits``
 picks the kernel's output tile and its split of the feature axis.  f64
 operands take the f64 route (``csrc/f64_tile.cuh``), and the plain
@@ -89,7 +89,7 @@ def gram_cuda(A: torch.Tensor, B: torch.Tensor, cfg: KernelConfig,
             raise ValueError(f"gram: the f64 route writes f64, got "
                              f"out_dtype={out_dtype}")
         out = launch_f64(A, B, cfg)
-        gram_cuda.launches += 1
+        _count((A.shape[0], B.shape[0], A.shape[1], cfg.name))
         gram_cuda.launches_f64 += 1
         return out
     out_dtype = out_dtype or torch.float32
@@ -113,10 +113,17 @@ def gram_cuda(A: torch.Tensor, B: torch.Tensor, cfg: KernelConfig,
             DTYPE_CODES[out_dtype], *kernel_args(cfg), bm, br, splits, per,
             torch.cuda.current_stream().cuda_stream)
     raise_on_error("gram", code)
-    gram_cuda.launches += 1
+    _count((m, r, n, cfg.name))
     return out
 
 
+def _count(shape: tuple) -> None:
+    """One launch of ``gram_cuda`` at ``shape`` = (m, r, n, kernel)."""
+    gram_cuda.launches += 1
+    gram_cuda.by_shape[shape] = gram_cuda.by_shape.get(shape, 0) + 1
+
+
 gram_cuda.launches = 0
+gram_cuda.by_shape = {}           # launches by (m, r, n, kernel)
 gram_cuda.launches_f64 = 0        # of those, the f64 route's
 gram_cuda.warmup_launches = 0     # core.loop.RoundGraphs' warm-up rounds

@@ -202,10 +202,13 @@ def kmv_cuda(A: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
         plan = kmv_plan(m, B.shape[0], Xc.shape[1], sms, same)
         out = launch(A, B, Xc, cfg, plan, dtype_code)
     kmv_cuda.launches += 1
+    shape = (m, B.shape[0], A.shape[1], Xc.shape[1], cfg.name)
+    kmv_cuda.by_shape[shape] = kmv_cuda.by_shape.get(shape, 0) + 1
     out = out.to(out_dtype or acc)
     return out[:, 0] if vec else out
 
 
 kmv_cuda.launches = 0
+kmv_cuda.by_shape = {}            # launches by (m, r, n, c, kernel)
 kmv_cuda.launches_f64 = 0         # of those, the f64 route's
 kmv_cuda.warmup_launches = 0      # core.loop.RoundGraphs' warm-up rounds

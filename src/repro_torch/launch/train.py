@@ -13,7 +13,7 @@ end), microbatched gradient accumulation, async checkpoints with
 preemption-safe resume (``--ckpt-dir``), loss logging.  ``--reduced``
 takes the config's smoke-test widths without remat, as the JAX driver
 does.  The deferred gradient sync (``--defer-s``) and a device mesh
-(``--mesh``) exist only across devices and raise (ROADMAP A11).
+(``--mesh``) exist only across devices and raise (ROADMAP A11b).
 """
 from __future__ import annotations
 
@@ -44,9 +44,9 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--defer-s", type=int, default=0,
                     help=">0: the s-step deferred-allreduce trainer "
-                         "(not ported: ROADMAP A11)")
+                         "(not ported: ROADMAP A11b)")
     ap.add_argument("--mesh", default="1x1",
-                    help="data x model mesh (only 1x1 runs: ROADMAP A11)")
+                    help="data x model mesh (only 1x1 runs: ROADMAP A11b)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
@@ -60,10 +60,10 @@ def main(argv=None):
     if args.defer_s > 0:
         raise NotImplementedError("--defer-s: the s-step deferred-allreduce "
                                   "trainer exists only across devices and "
-                                  "is not ported yet (ROADMAP A11)")
+                                  "is not ported yet (ROADMAP A11b)")
     if args.mesh != "1x1":
         raise NotImplementedError(f"--mesh {args.mesh}: device meshes are "
-                                  f"not ported yet (ROADMAP A11)")
+                                  f"not ported yet (ROADMAP A11b)")
     dev = resolve_device(args.device)
     cfg = dataclasses.replace(get_config(args.arch, reduced=args.reduced),
                               attn_impl=args.attn_impl)

@@ -34,7 +34,7 @@ def check_supported(cfg: ModelConfig, rules=None) -> None:
     GQA decoders with rmsnorm and plain RoPE), naming its ROADMAP item."""
     if rules is not None:
         raise NotImplementedError("sharded models (MeshRules) are not "
-                                  "ported yet (ROADMAP A11); pass "
+                                  "ported yet (ROADMAP A11b); pass "
                                   "rules=None")
     unported = [
         (cfg.attn_type == "mla", "MLA attention", "A13.3"),

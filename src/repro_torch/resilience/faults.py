@@ -12,10 +12,12 @@ counterpart of ``repro/resilience/faults.py``).
     ``SimulatedKill`` at the first checkpoint boundary at or after that
     iteration, once the snapshot is durable; a test then re-fits with
     ``resume_from=``.
+  * ``poisoned_1d_factory``: the 1d layouts' operator factory that scales
+    one rank's shard before the round all-reduce; a guarded 1d fit arms
+    it, instead of the lane, for the chunk holding ``nan_at_iter``.
 
 ``inject`` arms a plan; nothing consults this module unless a plan is
-armed.  The 1d layouts' ``poisoned_1d_factory`` belongs to ROADMAP
-A11.
+armed.
 """
 from __future__ import annotations
 
@@ -96,10 +98,28 @@ def active_plan() -> Optional[FaultPlan]:
     return _ACTIVE
 
 
-def poisoned_1d_factory(axis_name: str = "model", rank: int = 0,
+def poisoned_1d_factory(mesh, axis_name: str = "model", rank: int = 0,
                         scale: float = float("nan")):
-    """The 1d solvers' poisoned-shard operator factory: the port has no
-    1d layout yet."""
-    raise NotImplementedError(
-        "poisoned_1d_factory corrupts one rank's shard of the 1d layout, "
-        "which is not ported to repro_torch yet (ROADMAP A11)")
+    """``op_factory(A_loc, kcfg)`` for the 1d solvers on ``mesh`` that
+    corrupts ONE rank's shard before the round all-reduce: the block of
+    the rank at ``rank`` along ``axis_name`` is scaled by ``scale`` (NaN
+    poisons the collective; a large finite scale perturbs it).  Linear
+    kernels only: the RBF operator needs the reduced row norms, which
+    this factory deliberately does not recompute from poisoned data.
+    The JAX factory reads the rank inside ``shard_map``; here the mesh
+    the solver runs on is given."""
+    import torch
+
+    from repro_torch.core.distributed import AllreduceGramOperator
+
+    def factory(A_loc, kcfg):
+        if kcfg.name != "linear":
+            raise ValueError("poisoned_1d_factory supports linear "
+                             f"kernels only, got {kcfg.name!r}")
+        fac = scale if mesh.index(axis_name) == rank else 1.0
+        return AllreduceGramOperator(
+            mesh, axis_name, A_loc * torch.tensor(fac, dtype=A_loc.dtype,
+                                                  device=A_loc.device),
+            kcfg, None)
+
+    return factory

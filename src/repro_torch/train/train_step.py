@@ -8,7 +8,7 @@ them), scales the sum by ``1 / microbatches`` and applies AdamW in
 place.  The JAX package's other trainer, the s-step deferred gradient
 sync (``make_defer_train_step``, with optional int8 compression), and
 sharded params (``rules``) exist only across devices (``shard_map`` over
-(pod, data)); they raise naming ROADMAP A11.
+(pod, data)); they raise naming ROADMAP A11b.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import leaves, unflatten
 
 UNPORTED_DIST = ("{} exists only across devices and is not ported yet "
-                 "(ROADMAP A11)")
+                 "(ROADMAP A11b)")
 
 
 @dataclasses.dataclass(frozen=True)

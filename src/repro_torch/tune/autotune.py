@@ -22,9 +22,14 @@ is a ``perf_model.DeviceBudget``: by default the free memory of the card
 at tune time, a share of it for a streamed working set of three chunk
 slots, the measured host link, and chunks no smaller than fill the card,
 where the JAX package assumes 16 GiB, a 16 MiB VMEM and 800 GB/s and
-takes any chunk (ROADMAP C8).  Only the serial layout runs
-here (``layout="auto"`` resolves to it; the 1d and 2d layouts are ROADMAP
-A11).  On the card a probe fit's rounds replay as CUDA graphs, so its
+takes any chunk (ROADMAP C8).  ``layout="auto"`` searches the serial
+layout alone at a world size of 1, and the serial, 1d and 2d layouts
+(2d where the world size divides m) over the ranks of ``options.mesh``
+or of the initialised default group, each priced at its P, as the JAX
+package searches its devices.  Every rank of such a run tunes alike:
+rank 0's budget and probe times are sent to every rank, so all of them
+resolve the same plan and call the same (collective) probe fits.  On
+the card a probe fit's rounds replay as CUDA graphs, so its
 ``measured_s`` is the device time of the replays, from CUDA events
 around them: the warm-up round and the captures, which a fit of a few
 rounds would otherwise be ranked by, are excluded, and each probe row
@@ -51,11 +56,12 @@ from repro_torch.core.perf_model import (STREAM_CHUNK_CANDIDATES,
                                          choose_recompute_every,
                                          modeled_fit_cost, slab_fits_hbm)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_mesh, world_size
 
 S_CANDIDATES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 B_CANDIDATES = (1, 2, 4, 8, 16, 32, 64)
 PROBE_TOP_K = 3
-LAYOUTS = ("serial",)
+LAYOUTS = ("serial", "1d", "2d")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,22 +99,65 @@ def _chunk_rows(m: int, n: int, sb: int, kernel: str, mach,
                              candidates=cands or STREAM_CHUNK_CANDIDATES[-1:])
 
 
+def _ranks(opts) -> int:
+    """The ranks a distributed layout would run over: the user's mesh, or
+    the initialised default group."""
+    return opts.mesh.size if opts.mesh is not None else world_size()
+
+
+def _layout_P(layout: str, ndev: int) -> int:
+    return 1 if layout == "serial" else max(ndev, 1)
+
+
+def _tuning_mesh(opts, ndev: int):
+    """The mesh over which ranks agree on the plan (None at one rank)."""
+    if ndev == 1:
+        return None
+    return opts.mesh if opts.mesh is not None else make_mesh(ndev, 1)
+
+
+def _agreed_budget(mesh, budget: DeviceBudget) -> DeviceBudget:
+    """Rank 0's budget on every rank (one collective): each rank measures
+    its own free memory and link, and ranks that tuned apart could pick
+    different plans and then call different collectives."""
+    t = torch.tensor([budget.hbm_bytes, budget.stream_bytes,
+                      budget.dma_bps, budget.slots, budget.min_chunk_rows],
+                     dtype=torch.float64)
+    v = mesh.root_value(t.to(_device_of(mesh)), "setup").tolist()
+    return DeviceBudget(int(v[0]), int(v[1]), v[2], slots=int(v[3]),
+                        min_chunk_rows=int(v[4]))
+
+
+def _device_of(mesh) -> torch.device:
+    """Where the tuning mesh's reductions run: the card for NCCL."""
+    import torch.distributed as dist
+    return (torch.device("cuda") if dist.get_backend() == "nccl"
+            else torch.device("cpu"))
+
+
 def resolve_options(m: int, n: int, cfg, opts, *, problem: str = "krr",
                     A=None, y=None, mach: Machine = None,
                     budget: Optional[DeviceBudget] = None,
-                    device=None) -> TunedPlan:
+                    device=None, layouts=None) -> TunedPlan:
     """Resolve every ``"auto"`` knob of ``opts`` for an (m, n) problem
     (module docstring).  ``budget`` defaults to
     ``DeviceBudget.of_device(device)`` (``device`` defaults to the card);
-    ``A``/``y`` enable the measured probe when ``opts.probe > 0``."""
+    ``A``/``y`` enable the measured probe when ``opts.probe > 0``;
+    ``layouts`` restricts the layout search (the fleet passes the layouts
+    it runs)."""
     from repro_torch.api import AUTO
 
+    ndev = _ranks(opts)
     if not opts.needs_autotune:
         return TunedPlan(options=opts,
-                         modeled=_price(m, n, cfg, opts, problem, mach),
+                         modeled=_price(m, n, cfg, opts, problem, mach,
+                                        ndev),
                          frontier=())
+    mesh = _tuning_mesh(opts, ndev)
     if budget is None:
         budget = DeviceBudget.of_device(resolve_device(device))
+        if mesh is not None:
+            budget = _agreed_budget(mesh, budget)
 
     if opts.method != "sstep":
         s_cands = (1,)
@@ -123,7 +172,13 @@ def resolve_options(m: int, n: int, cfg, opts, *, problem: str = "krr",
     else:
         b_cands = (opts.b,)
     if opts.layout == AUTO:
-        lay_cands = LAYOUTS
+        lay_cands = ("serial",) if ndev == 1 else LAYOUTS
+        if layouts is not None:
+            lay_cands = tuple(lay for lay in lay_cands if lay in layouts)
+        # the 2d layout shards samples: m must divide by the data axis
+        # (the auto mesh puts every rank on it)
+        lay_cands = tuple(lay for lay in lay_cands
+                          if lay != "2d" or m % ndev == 0)
     else:
         lay_cands = (opts.layout,)
     if opts.approx == AUTO:
@@ -148,8 +203,8 @@ def resolve_options(m: int, n: int, cfg, opts, *, problem: str = "krr",
                                 or slab_fits_hbm(m, s * b, budget.hbm_bytes))
                     cost = modeled_fit_cost(
                         m, n, cfg.kernel.name, b=b, s=s,
-                        iters=opts.max_iters, P=1, mach=mach, approx=ap,
-                        landmarks=lm)
+                        iters=opts.max_iters, P=_layout_P(lay, ndev),
+                        mach=mach, approx=ap, landmarks=lm)
                     frontier.append({"s": s, "b": b, "layout": lay,
                                      "approx": ap, "time": cost["time"],
                                      "feasible": feasible})
@@ -165,6 +220,13 @@ def resolve_options(m: int, n: int, cfg, opts, *, problem: str = "krr",
     if opts.probe > 0 and A is not None and y is not None:
         probed = _probe(A, y, cfg, opts, problem, feas[:PROBE_TOP_K],
                         mach, budget, resolve_device(device))
+        if mesh is not None:
+            # rank 0's times: every rank picks the same winner
+            t = torch.tensor([p["measured_s"] for p in probed],
+                             dtype=torch.float64)
+            for p, v in zip(probed, mesh.root_value(
+                    t.to(_device_of(mesh)), "setup").tolist()):
+                p["measured_s"] = v
         winner = min(probed, key=lambda p: p["measured_s"])
     else:
         winner = feas[0]
@@ -177,27 +239,31 @@ def resolve_options(m: int, n: int, cfg, opts, *, problem: str = "krr",
             m, n, winner["s"] * winner["b"], cfg.kernel.name, mach, budget))
     if resolved.guard and resolved.recompute_every == AUTO:
         # drift correction priced for the winner's (s, b): the cadence
-        # that keeps the guarded overhead within the model's budget
+        # that keeps the guarded overhead within the model's budget; the
+        # distributed layouts recompute from alpha every round, so their
+        # correction is off
         resolved = dataclasses.replace(
             resolved, recompute_every=choose_recompute_every(
                 m, n, cfg.kernel.name,
                 b=winner["b"] if problem == "krr" else 1, s=winner["s"],
                 mach=mach, approx=bool(winner["approx"]),
                 landmarks=(min(opts.landmarks, m) if winner["approx"]
-                           else 0)))
+                           else 0)) if winner["layout"] == "serial" else 0)
     return TunedPlan(options=resolved,
-                     modeled=_price(m, n, cfg, resolved, problem, mach),
+                     modeled=_price(m, n, cfg, resolved, problem, mach,
+                                    ndev),
                      frontier=tuple(frontier),
                      probed=None if probed is None else tuple(probed),
                      budget=budget)
 
 
-def _price(m, n, cfg, opts, problem, mach):
+def _price(m, n, cfg, opts, problem, mach, ndev):
     s = opts.s_eff if opts.s != "auto" or opts.method != "sstep" else 1
     b = opts.b if (problem == "krr" and isinstance(opts.b, int)) else 1
     lm = min(opts.landmarks, m) if opts.approx else 0
     return modeled_fit_cost(m, n, cfg.kernel.name, b=b, s=s,
-                            iters=opts.max_iters, P=1, mach=mach,
+                            iters=opts.max_iters,
+                            P=_layout_P(opts.layout, ndev), mach=mach,
                             approx=opts.approx, landmarks=lm)
 
 

@@ -19,8 +19,16 @@ member checks its own metric, from one full matvec of F columns a check,
 converged members are frozen in place, and the loop exits when the whole
 fleet is done.  On the card the rounds and checks replay as CUDA graphs
 (a streamed operator's stay eager, as a single streamed fit's do); a
-capture that fails raises.  Only the serial layout runs here (the 1d
-fleet is ROADMAP A11).
+capture that fails raises.
+
+``layout="1d"`` runs the fleet in the paper's 1D-column layout
+(``core.distributed``), SPMD like a 1d fit: the F members share each
+round's one all-reduce (the linear round reduces (sb, sb+F) words, the
+nonlinear one the pre-epilogue block, contracted against all F alphas
+after it).  The rounds run eagerly in chunks of ``check_every`` rounds;
+rank 0 evaluates the members' metrics after each chunk and sends them to
+every rank, and converged members are frozen between chunks, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -34,11 +42,12 @@ import torch
 from repro_torch.core import (KernelConfig, KRRConfig, NO_TOL, SVMConfig,
                               krr_rel_residual_fleet, ksvm_gap_fleet,
                               pad_rounds, run_rounds_fleet)
+from repro_torch.core.distributed import LayoutSolver
 from repro_torch.core.objectives import _kmv
 from repro_torch.core.perf_model import fleet_fit_cost
 from repro_torch.device import as_tensor, resolve_device
 
-FLEET_LAYOUTS = ("serial",)
+FLEET_LAYOUTS = ("serial", "1d")
 
 
 @dataclasses.dataclass
@@ -105,10 +114,12 @@ def solve_fleet(A, y, *, lams=None, Cs=None, kernel=None, loss: str = "l1",
     slab-free.  ``warm_start`` seeds the whole fleet: (F, m) per member,
     or (m,) broadcast.  ``schedule`` replays a coordinate schedule and
     ``landmarks`` a Nystrom landmark set, as ``fit`` does.  Runs on
-    ``device`` (default: the card)."""
+    ``device`` (default: the card); ``options.layout="1d"`` runs the 1d
+    fleet (module docstring) on every rank of ``options.mesh``."""
     from repro_torch.api import (SolverOptions, _as_kernel,
                                  _build_representation, _check_finite,
-                                 _round_fn, _schedule, _solve_cfg)
+                                 _resolve_mesh, _round_fn, _schedule,
+                                 _solve_cfg)
 
     if (lams is None) == (Cs is None):
         raise ValueError("pass exactly one of lams= (K-RR fleet) or "
@@ -140,11 +151,11 @@ def solve_fleet(A, y, *, lams=None, Cs=None, kernel=None, loss: str = "l1",
     if opts.needs_autotune:
         from .autotune import resolve_options
         opts = resolve_options(m, n, cfg, opts, problem=problem, A=A, y=y,
-                               device=device).options
+                               device=device, layouts=FLEET_LAYOUTS).options
     if opts.layout not in FLEET_LAYOUTS:
         raise ValueError(f"fleet layout must be one of {FLEET_LAYOUTS}, "
-                         f"got {opts.layout!r} (the 1d fleet is ROADMAP "
-                         f"A11)")
+                         f"got {opts.layout!r} (2d fleets: shard the "
+                         f"members, not the samples — open item)")
 
     s = opts.s_eff
     b = opts.b if problem == "krr" else 1
@@ -155,7 +166,6 @@ def solve_fleet(A, y, *, lams=None, Cs=None, kernel=None, loss: str = "l1",
     rep_op, A_s = _build_representation(A, cfg, opts, device,
                                         landmarks=landmarks)
     cfg_s = _solve_cfg(cfg, opts)
-    train_op = rep_op.scale_rows(y) if problem == "ksvm" else rep_op
     params = torch.tensor(values, dtype=A.dtype, device=device)
     if warm_start is None:
         a0 = torch.zeros((F, m), dtype=A.dtype, device=device)
@@ -166,33 +176,64 @@ def solve_fleet(A, y, *, lams=None, Cs=None, kernel=None, loss: str = "l1",
                              f"({F}, {m}), got {tuple(a0.shape)}")
         a0 = a0.expand(F, m).clone()
 
-    rf = _round_fn(problem, A_s, y, cfg_s, s, None, train_op, params)
-    xs = schedule if s == 1 else pad_rounds(schedule, s)
     want_metric = opts.tol > 0.0 or opts.record
     metric_fn = (fleet_metric(problem, rep_op, A_s, y, cfg, opts, values)
                  if want_metric else None)
-    res = run_rounds_fleet(rf, a0, xs,
-                           tol=opts.tol if opts.tol > 0.0 else NO_TOL,
-                           check_every=opts.check_every,
-                           metric_fn=metric_fn, capture=rep_op.capturable)
+    P = 1
+    if opts.layout == "serial":
+        train_op = rep_op.scale_rows(y) if problem == "ksvm" else rep_op
+        rf = _round_fn(problem, A_s, y, cfg_s, s, None, train_op, params)
+        xs = schedule if s == 1 else pad_rounds(schedule, s)
+        res = run_rounds_fleet(rf, a0, xs,
+                               tol=opts.tol if opts.tol > 0.0 else NO_TOL,
+                               check_every=opts.check_every,
+                               metric_fn=metric_fn,
+                               capture=rep_op.capturable)
+        alpha, rounds_run, converged = res.state, res.rounds_run, \
+            res.converged.numpy()
+        history = res.metric_history().numpy() if want_metric else None
+    else:
+        mesh = _resolve_mesh(opts)
+        P = mesh.shape["model"]
+        alpha, rounds_run, history, converged = _fleet_1d(
+            mesh, problem, A_s, y, a0, params, schedule, cfg_s, s, opts,
+            metric_fn)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
 
-    rounds_run = res.rounds_run
     iters_run = min(rounds_run * s, H)
-    history = (res.metric_history().numpy() if want_metric else None)
     lm = rep_op.rank if opts.approx is not None else 0
     comm = fleet_fit_cost(m, n, cfg.kernel.name, F, b=b, s=s,
-                          iters=iters_run, P=1, approx=opts.approx,
+                          iters=iters_run, P=P, approx=opts.approx,
                           landmarks=lm)
     return FleetResult(
-        alpha=res.state, values=values,
+        alpha=alpha, values=values,
         param="lam" if problem == "krr" else "C", problem=problem,
         history=history,
         metric="rel_residual" if problem == "krr" else "duality_gap",
-        converged=res.converged.numpy(),
+        converged=converged,
         rounds_run=rounds_run, iters_run=iters_run, wall_time_s=wall,
         comm=comm, options=opts,
         representation=f"nystrom(l={lm})" if opts.approx is not None
         else "exact", op=rep_op, schedule=schedule[:iters_run])
+
+
+def _fleet_1d(mesh, problem, A_s, y, a0, params, schedule, cfg_s, s, opts,
+              metric_fn):
+    """The 1d fleet's rounds on one ``core.distributed.LayoutSolver`` (the
+    F members share each round's one reduction): one run on the fast
+    path; on the tolerance path the fit's chunk loop
+    (``api._dist_chunks``), which freezes converged members between
+    chunks.  Returns ``(alpha, rounds_run, history, converged)``."""
+    from repro_torch.api import _dist_chunks
+    H = schedule.shape[0]
+    kw = {"C" if problem == "ksvm" else "lam": params}
+    solver = LayoutSolver(mesh, "1d", A_s, y, cfg_s)
+    if metric_fn is None:
+        return (solver.run(a0, schedule, s, **kw), -(-H // s), None,
+                np.zeros(a0.shape[0], bool))
+    alpha, hist, done, rounds_run, _ = _dist_chunks(
+        lambda a, sched: solver.run(a, sched, s, **kw), a0, schedule, s,
+        opts, mesh, metric_fn)
+    return alpha, rounds_run, hist, done

@@ -21,9 +21,10 @@ from repro.api import SolverOptions as JSolverOptions
 from repro.core import block_schedule as j_block_schedule
 from repro.core import coordinate_schedule as j_coordinate_schedule
 from repro_torch import convert
-from repro_torch.api import KernelRidge, KernelSVM, SolverOptions, UNPORTED
+from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
 from repro_torch.data import synthetic
 from repro_torch.launch import solve
+from repro_torch.launch.mesh import make_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -171,17 +172,25 @@ def test_convert_carries_a_jax_fit_across():
     assert {k: getattr(opts, k) for k in guard} == guard
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
+# the knobs that raised before the distributed layouts were ported: each
+# now takes what the JAX package takes and refuses what it refuses
+PORTED_LAYOUT_KNOBS = {
+    "layout": (("serial", "1d", "2d", "auto"), dict(layout="3d"),
+               "layout must be one of"),
+    "mesh": ((None, make_mesh()), dict(layout="2d", slab_free=False),
+             "2d layout is slab-free"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_LAYOUT_KNOBS))
 def test_unported_options_raise_naming_their_roadmap_item(name):
-    default, item = UNPORTED[name]
-    other = {"layout": "1d", "mesh": object(), "approx": "nystrom",
-             "landmarks": 8, "landmark_method": "kmeans", "probe": 2,
-             "guard": True, "recompute_every": 4, "checkpoint_every": 2,
-             "checkpoint_dir": "ckpt", "fallback": False, "stream": 64,
-             "telemetry": True}[name]
-    with pytest.raises(ValueError, match=item):
-        SolverOptions(**{name: other})
-    SolverOptions(**{name: default})
+    accepted, bad, message = PORTED_LAYOUT_KNOBS[name]
+    for value in accepted:
+        assert getattr(SolverOptions(**{name: value}), name) is value
+    with pytest.raises(ValueError, match=message):
+        SolverOptions(**bad)
+    with pytest.raises(ValueError, match=message):
+        JSolverOptions(**bad)
 
 
 # a valid value of each guard knob (with what it needs), and a value JAX

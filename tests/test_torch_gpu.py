@@ -1818,3 +1818,76 @@ def test_instrumented_captured_fit_is_bit_equal(cuda_device, guard,
     t0, t1 = min(s.t0 for s in solve), max(s.t1 for s in solve)
     assert all(t0 <= s.t0 <= s.t1 <= t1 for s in pairs)
     est.save(str(tmp_path / "model"))
+
+
+# one rank of the two-process test below: gloo on CUDA tensors, the fits
+# of the serial test at a small width, alpha written to DIR/rank{r}.pt
+_DIST_RANK = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.api import KernelRidge, SolverOptions
+from repro_torch.launch.mesh import make_mesh
+
+world, rank, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", store=dist.FileStore(d + "/store", world),
+                        rank=rank, world_size=world)
+data = np.load(d + "/data.npz")
+out = {}
+for layout, shape in (("1d", (1, world)), ("2d", (world, 1))):
+    opts = SolverOptions(method="sstep", s=4, b=8, tol=1e-6, check_every=4,
+                         max_iters=256, layout=layout,
+                         mesh=make_mesh(*shape))
+    r = KernelRidge(lam=1.0, kernel="rbf", device="cuda", options=opts).fit(
+        data["A"], data["y"], schedule=data["sched"])
+    out[layout] = (r.alpha.cpu(), np.asarray(r.history))
+torch.save(out, f"{d}/rank{rank}.pt")
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+def test_distributed_layouts_on_card_match_serial(cuda_device, tmp_path):
+    """Two processes share the card over gloo (CUDA tensors): the 1d and
+    2d K-RR fits at a small width, each rank's alpha and residual history
+    within 1e-5 of the serial fit on the card and bit for bit the other
+    rank's."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    rng = np.random.default_rng(0)
+    A = (rng.standard_normal((512, 256)) / 16.0).astype(np.float32)
+    y = np.sin(A @ rng.standard_normal(256)).astype(np.float32)
+    sched = rng.integers(0, 512, (256, 8))
+    np.savez(tmp_path / "data.npz", A=A, y=y, sched=sched)
+    (tmp_path / "rank.py").write_text(_DIST_RANK)
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, str(tmp_path / "rank.py"), "2", str(r),
+         str(tmp_path)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), logs
+    ser = KernelRidge(lam=1.0, kernel="rbf", device=cuda_device,
+                      options=SolverOptions(method="sstep", s=4, b=8,
+                                            tol=1e-6, check_every=4,
+                                            max_iters=256)).fit(
+        A, y, schedule=sched)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    for layout in ("1d", "2d"):
+        alpha, hist = ranks[0][layout]
+        assert torch.equal(alpha, ranks[1][layout][0])
+        np.testing.assert_allclose(alpha.numpy(), ser.alpha.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(hist, ser.history, rtol=1e-5)

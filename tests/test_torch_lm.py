@@ -234,7 +234,7 @@ def test_unported_options_raise_naming_their_item(change, item):
                               **change)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
         check_supported(get_config("qwen3_1p7b", reduced=True),
                         rules=object())
 

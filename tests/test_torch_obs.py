@@ -438,8 +438,19 @@ class TestTelemetryOption:
             SolverOptions(telemetry=JTelemetry())
 
     def test_only_the_distributed_knobs_stay_unported(self):
-        from repro_torch.api import UNPORTED
-        assert sorted(UNPORTED) == ["layout", "mesh"]
+        """No knob stays unported since the distributed layouts run: the
+        port's options have every field of the JAX package's, and
+        ``layout`` and ``mesh`` take the values the JAX package's take."""
+        import dataclasses
+
+        from repro_torch import api
+        from repro_torch.launch.mesh import make_mesh
+        assert not hasattr(api, "UNPORTED")
+        assert ({f.name for f in dataclasses.fields(SolverOptions)}
+                == {f.name for f in dataclasses.fields(JSolverOptions)})
+        for layout in ("serial", "1d", "2d", "auto"):
+            assert SolverOptions(layout=layout,
+                                 mesh=make_mesh()).layout == layout
 
     def test_probe_fits_are_counted_not_recorded(self, monkeypatch):
         """The autotuner's probe fits run without the tuned fit's

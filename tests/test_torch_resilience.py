@@ -36,6 +36,8 @@ from repro_torch.core import (ExactGramOperator, KernelConfig, KRRConfig,
                               make_dcd_round_fn, make_sstep_bdcd_round_fn,
                               make_sstep_dcd_round_fn, pad_rounds)
 from repro_torch.core import loop
+from repro_torch.core.distributed import AllreduceGramOperator
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.core.nystrom import NystromMap
 from repro_torch.core.perf_model import DeviceBudget
 from repro_torch.kernels import ops
@@ -315,8 +317,26 @@ def test_finite_health_sees_every_leaf(leaf, value):
 
 
 def test_poisoned_1d_factory_names_a11():
-    with pytest.raises(NotImplementedError, match="A11"):
-        poisoned_1d_factory()
+    """The poisoned factory scales its rank's shard (every contribution of
+    that rank to the round's reduction) and leaves other ranks' alone;
+    nonlinear kernels are refused, as in the JAX package."""
+    mesh = make_mesh()
+    rng = np.random.default_rng(0)
+    A = torch.tensor(rng.standard_normal((12, 5)), dtype=torch.float32)
+    x = torch.tensor(rng.standard_normal(12), dtype=torch.float32)
+    idx = torch.tensor([3, 7, 7])
+    lin = KernelConfig("linear")
+    G, v = AllreduceGramOperator(mesh, "model", A, lin).round_data(idx, x)
+    Gp, vp = poisoned_1d_factory(mesh, scale=3.0)(A, lin).round_data(idx, x)
+    np.testing.assert_allclose(Gp.numpy(), 9.0 * G.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(vp.numpy(), 9.0 * v.numpy(), rtol=1e-6)
+    Go, _ = poisoned_1d_factory(mesh, rank=1, scale=3.0)(A, lin).round_data(
+        idx, x)
+    assert torch.equal(Go, G)
+    Gn, _ = poisoned_1d_factory(mesh)(A, lin).round_data(idx, x)
+    assert bool(torch.isnan(Gn).all())
+    with pytest.raises(ValueError, match="linear"):
+        poisoned_1d_factory(mesh)(A, KernelConfig("rbf"))
 
 
 # ------------------------------------------------------ the loop driver

@@ -239,8 +239,14 @@ def test_fleet_warm_start_and_validation():
     with pytest.raises(ValueError, match="slab-free"):
         solve_fleet(A, y, lams=LAMS, options=SolverOptions(slab_free=False),
                     device="cpu")
-    with pytest.raises(ValueError, match="A11"):
-        solve_fleet(A, y, lams=LAMS, options=SolverOptions(layout="1d"),
+    # the 1d fleet runs (here on the (1, 1) mesh) and solves the serial
+    # fleet's problems; 2d fleets stay refused, as in the JAX package
+    d1 = solve_fleet(A, y, lams=LAMS, options=dataclasses.replace(
+        opts, layout="1d"), warm_start=w0, device="cpu")
+    np.testing.assert_allclose(d1.alpha.numpy(), a.alpha.numpy(), **TOL)
+    assert d1.options.layout == "1d" and d1.comm["P"] == 1
+    with pytest.raises(ValueError, match="2d fleets"):
+        solve_fleet(A, y, lams=LAMS, options=SolverOptions(layout="2d"),
                     device="cpu")
     with pytest.raises(ValueError, match="warm_start"):
         solve_fleet(A, y, lams=LAMS, warm_start=np.zeros(3), device="cpu")
