@@ -240,6 +240,32 @@ Phases (each one fails the run with a non-zero exit):
           one kernels-record entry each with its own launches), checked
           against its plain version and timed alone on the card, beside
           torch.mm and its bound
+ 13. the LM's cross-device training (train_step, models/sharding), in
+     phase 12's spawns after their fits: Qwen3-1.7B at full width, depth
+     cut to LMD_LAYERS layers, bf16 flash with remat, 16 x 1024 tokens a
+     step in 4 microbatches, 2 steps a case; the reference is the
+     unsharded trainer, trained first in this process alone on the card:
+       a. NCCL at world 1 (1 x 1): the s-step deferred step at s = 4 and
+          the FSDP + TP step
+       b. gloo at world 4 sharing the card: deferred at 2 x 2 with s = 1,
+          s = 4 and s = 4 with int8 error feedback; FSDP + TP at 4 x 1
+          and 2 x 2
+       c. every case's loss (TOL_LMD_LOSS), AdamW's first moment after
+          step 1 and first and second moments after the last step per
+          leaf (TOL_GRAD_BF16), and params after 2 steps (AdamW's largest
+          move apart, lmd_param_bound: a layout or gather check only, as
+          it holds whatever the gradients) against the reference, each
+          rank's chunks against the same chunks of the reference; the chunks
+          two ranks both hold bit for bit after each step; collectives
+          by axis and kind exactly train_step.step_collectives, the s = 1
+          step 4x the "grad" syncs of s = 4; rmsnorm and flash launches
+          a step exact; step walls and sync times (CUDA events around
+          each sync, read after the step); device-memory peaks a rank
+          beside the replicated trainer's
+       d. rmsnorm and the tensor-core flash forward, dq and dkv at every
+          shape the ranks launched them at (by_shape), checked against
+          their plain versions (flash within its derived bounds) and
+          timed alone on the card beside F.rms_norm and SDPA
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
@@ -251,6 +277,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -345,16 +372,43 @@ SERVE_TICKETS = 4096
 SERVE_SINGLE = 0.7
 SERVE_PER_STEP = 32
 # phase 12: the ranks that share the card over gloo, their spawn's time
-# limit, and the guarded 1d fit (linear K-RR at s = 8, b = 32): its budget
-# H, the iteration whose chunk a poisoned rank corrupts, and rounds of the
-# 1d K-RR round that are split into kernel, reduction and local phase
+# limit (phase 13 runs in the same spawns), and the guarded 1d fit (linear
+# K-RR at s = 8, b = 32): its budget H, the iteration whose chunk a
+# poisoned rank corrupts, and rounds of the 1d K-RR round that are split
+# into kernel, reduction and local phase
 DIST_WORLD = 4
-DIST_TIMEOUT_S = 420
+DIST_TIMEOUT_S = 720
 DIST_GUARD_ITERS = 512
 DIST_GUARD_FAULT_ITER = 200
 DIST_SPLIT_ROUNDS = 8
 # (ranks, backend) of phase 12's two spawns
 DIST_RUNS = ((1, "nccl"), (DIST_WORLD, "gloo"))
+# Phase 13 (the LM's cross-device training): Qwen3-1.7B at full width with
+# its depth cut to LMD_LAYERS layers (four ranks' replicated state, 0.72 B
+# parameters with their AdamW moments, gradient, accumulator and residual,
+# shares the one card); LMD_BATCH sequences of LMD_SEQ tokens a step in
+# LMD_MICRO microbatches, LMD_STEPS steps a case, phase 8's lr without
+# warmup.  The cases by world size: (label, (data, model), defer_s (0: the
+# FSDP + TP step), int8).
+LMD_LAYERS = 2
+LMD_SEQ, LMD_BATCH, LMD_MICRO, LMD_STEPS = 1024, 16, 4, 2
+LMD_ACFG = dict(warmup_steps=0, total_steps=100)
+# Phase 13's loss against the unsharded trainer, relative.  Both runs
+# take the same bf16 kernels on the same weights and tokens; the ranks
+# sum partial products and gradients in another order.  The worst of the
+# readings on the H100 (NVIDIA H100 80GB HBM3, 700.00 W) was 1.81e-5, at
+# step 2 with int8 error feedback (5.0e-6 without): the limit leaves 5x.
+TOL_LMD_LOSS = 1e-4
+# the H100's L2: phase 13's kernel entries time each shape over enough
+# copies of its inputs to pass twice this, so every launch reads HBM
+L2_BYTES = 50 * 2 ** 20
+LMD_CASES = {1: (("defer s=4", (1, 1), 4, False),
+                 ("sharded", (1, 1), 0, False)),
+             DIST_WORLD: (("defer s=1", (2, 2), 1, False),
+                          ("defer s=4", (2, 2), 4, False),
+                          ("defer s=4 int8", (2, 2), 4, True),
+                          ("sharded", (4, 1), 0, False),
+                          ("sharded", (2, 2), 0, False))}
 
 # Phase 7 (the LM at Qwen3-1.7B width): B prompts of S tokens prefill, a
 # teacher-forced decode of the first LM_DECODE_PROMPT of them, and an
@@ -2526,12 +2580,13 @@ def serve_phase(c, args, failures):
 
 
 def dist_rank(rank, world, backend, outdir, seed, svm_iters, krr_iters):
-    """One rank of phase 12, spawned by ``spawn_ranks``
+    """One rank of phases 12 and 13, spawned by ``spawn_ranks``
     (``torch.multiprocessing``): it draws phases 3-4's data as ``main``
     does, runs the layouts' fits on the card through the port's facade
     (every rank the same calls, SPMD), counts each fit's collectives
-    (``launch.mesh.COLLECTIVES``) and kernel launches, and writes what it
-    saw to ``outdir/rank{rank}.pt`` for the parent to check."""
+    (``launch.mesh.COLLECTIVES``) and kernel launches, then runs phase
+    13's LM training cases (``lmd_rank``), and writes what it saw to
+    ``outdir/rank{rank}.pt`` for the parent to check."""
     import os
     # every rank of the run is on this host: the backends connect over
     # loopback
@@ -2699,6 +2754,11 @@ def dist_rank(rank, world, backend, outdir, seed, svm_iters, krr_iters):
                 local_ms=(ev[2].elapsed_time(ev[3]) if on_card
                           else float("nan")),
                 local_wall_ms=(w3 - w2) * 1e3))
+        del A_loc, rs, alpha
+    # phase 13 on the same ranks, the solvers' data freed
+    del A, y, Ar, yr
+    torch.cuda.empty_cache()
+    res["lm"] = lmd_rank(world, dev, seed, plan["lmd_ref"])
     torch.save(res, out / f"rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -2838,6 +2898,12 @@ def dist_phase(c, args, failures):
             "m": m, "n": n, "q": c.q, "device": str(dev)}
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
+        # phase 13's reference, before the ranks take the card
+        t0 = time.perf_counter()
+        plan["lmd_ref"] = str(Path(tmp) / "lmd_ref.pt")
+        lm_ref = lmd_reference(dev, args, Path(plan["lmd_ref"]))
+        print(f"[dist-lm] the unsharded reference trained and saved in "
+              f"{time.perf_counter() - t0:.1f} s")
         for world, backend in DIST_RUNS:
             d = Path(tmp) / f"{backend}{world}"
             d.mkdir()
@@ -2999,7 +3065,545 @@ def dist_phase(c, args, failures):
                                 f"plain version, {entry['max_abs_err']:.3e}")
             entry.update(ms_timing=timing, fits=sorted(fits))
             entries.append(entry)
-    print(f"[dist] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+    # phase 13: the LM's cross-device training, from the same spawns
+    t0 = time.perf_counter()
+    tally = lmd_check(lm_ref, {w: [res["lm"] for res in ranks]
+                               for w, ranks in runs.items()}, failures)
+    entries += lmd_kernel_entries(tally, dev, args.seed, failures)
+    print(f"[dist-lm] phase 13's checks and kernel entries took "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[dist] phases 12 and 13 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+# ---- phase 13: the LM's cross-device training ----------------------------
+
+def lmd_config():
+    """Phase 13's model: Qwen3-1.7B at full width, LMD_LAYERS layers, bf16
+    flash, remat."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3_1p7b"), n_layers=LMD_LAYERS,
+                               attn_impl="flash", remat="full")
+
+
+def lmd_acfg():
+    from repro_torch.optim import AdamWConfig
+    return AdamWConfig(lr=LM_TRAIN_LR, **LMD_ACFG)
+
+
+def lmd_param_bound(acfg) -> float:
+    """The most LMD_STEPS AdamW steps from one start can move a weight
+    apart in two runs, whatever their gradients: step t moves it by lr_t
+    |m_hat / sqrt(v_hat)| (+ decay), and by Cauchy-Schwarz over the
+    gradients' weights in m and v, |m_hat| / sqrt(v_hat) <= sqrt(sum_i
+    c_i^2 / w_i) sqrt(1 - b2^t) / (1 - b1^t) with c_i = (1 - b1) b1^(t-i),
+    w_i = (1 - b2) b2^(t-i) (1.0 at t = 1 and 1.0004 at t = 2); the decay
+    adds lr_t wd times the gap so far.  (Each run's f32 rounding of the
+    weight adds at most 2^-24 |w| a step: ``_lmd_compare`` adds that.)"""
+    from repro_torch.optim import schedule
+    b1, b2, gap = acfg.b1, acfg.b2, 0.0
+    for t in range(1, LMD_STEPS + 1):
+        r = (math.sqrt(sum(((1 - b1) * b1 ** (t - i)) ** 2
+                           / ((1 - b2) * b2 ** (t - i))
+                           for i in range(1, t + 1)))
+             * math.sqrt(1 - b2 ** t) / (1 - b1 ** t))
+        lr = schedule(acfg, t)
+        gap += 2 * lr * r + lr * acfg.weight_decay * gap
+    return gap
+
+
+def lmd_pipe(cfg, seed):
+    from repro_torch.data.tokens import TokenPipeline
+    return TokenPipeline(vocab_size=cfg.vocab_size, seq_len=LMD_SEQ,
+                         global_batch=LMD_BATCH, seed=seed)
+
+
+def lmd_reference(dev, args, path: Path) -> dict:
+    """Phase 13's reference, in this process alone on the card: the port's
+    unsharded single-process trainer on the ranks' params (the same seed)
+    and batches; its losses, device-memory peak and step walls, and its
+    first moment after step 1, and params and both moments after
+    LMD_STEPS steps (host copies, saved to ``path`` for the ranks)."""
+    import torch
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.tree import leaves
+    cfg, acfg = lmd_config(), lmd_acfg()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    params, opt = init_train_state(gen, cfg, acfg, device=dev)
+    step = make_train_step(cfg, acfg, TrainConfig(microbatches=LMD_MICRO))
+    pipe = lmd_pipe(cfg, args.seed)
+    ref, host = {"loss": [], "wall": []}, {}
+    for k in range(LMD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, pipe.batch(k))
+        torch.cuda.synchronize()
+        ref["wall"].append(time.perf_counter() - t0)
+        ref["loss"].append(float(m["loss"]))
+        if k == 0:      # copies: the next step updates m in place
+            host["m1"] = [t.to("cpu", copy=True) for t in leaves(opt["m"])]
+    host["p2"] = [t.to("cpu", copy=True) for t in leaves(params)]
+    host["m2"] = [t.to("cpu", copy=True) for t in leaves(opt["m"])]
+    host["v2"] = [t.to("cpu", copy=True) for t in leaves(opt["v"])]
+    ref["peak"] = torch.cuda.max_memory_allocated() - base
+    n = sum(t.numel() for t in leaves(params))
+    ref["n_params"] = n
+    del params, opt, step
+    torch.cuda.empty_cache()
+    torch.save(host, path)
+    return ref
+
+
+def _lmd_checksum(t) -> tuple:
+    """Two int64 sums of a tensor's 32-bit words (the second of their
+    squares, wrapping): equal bits give equal sums, and a rank whose copy
+    differs in any bit differs in the first."""
+    import torch
+    w = t.detach().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    return int(w.sum()), int((w * w).sum())
+
+
+def _lmd_compare(mesh, tree, specs, ref, dev, what: str) -> list:
+    """Per leaf, this rank's chunks held against the same chunks of the
+    reference's full leaf (every rank reads the reference; nothing is
+    gathered), reduced over the mesh in one call: the relative Frobenius
+    error of the whole leaf (``what`` "m" or "v": the squared norms of the
+    difference and of the reference summed over the chunks, a chunk
+    counted once, by the ranks at coordinate 0 of the axes it is
+    replicated over), or the largest absolute difference less both runs'
+    f32 rounding of the weights over LMD_STEPS steps, 2 LMD_STEPS 2^-24
+    max |w| ("p")."""
+    import torch
+    from repro_torch.launch.mesh import MESH_AXIS
+    from repro_torch.models.sharding import replicated_axes, shard_leaf
+    from repro_torch.tree import leaves
+    rows = []
+    for t, spec, full in zip(leaves(tree), specs, ref):
+        want = shard_leaf(mesh, full, spec).to(dev).double()
+        got = t.detach().double()
+        if what == "p":
+            rows.append(torch.stack([(got - want).abs().max(),
+                                     want.abs().max()]))
+        elif all(mesh.index(a) == 0 for a in replicated_axes(mesh, spec)):
+            rows.append(torch.stack([(got - want).square().sum(),
+                                     want.square().sum()]))
+        else:
+            rows.append(torch.zeros(2, dtype=torch.float64, device=dev))
+        del want, got
+    red = mesh.all_reduce(torch.stack(rows), MESH_AXIS, "metric",
+                          op="max" if what == "p" else "sum").cpu()
+    if what == "p":
+        return [float(d - 2 * LMD_STEPS * 2.0 ** -24 * w) for d, w in red]
+    return [float((d / w).sqrt()) for d, w in red]
+
+
+def lmd_rank(world: int, dev, seed: int, ref_path: str) -> list:
+    """Phase 13 on one rank of a phase 12 spawn (after its fits): the
+    cases of ``LMD_CASES[world]``, each from the reference's params, for
+    LMD_STEPS steps on the reference's batches.  Per step: wall, loss,
+    grad norm, sync seconds, collectives by (axis, kind), kernel launches
+    and the checksums of this rank's leaves; per case: the first moment
+    after step 1, and the params and both moments at the end, against
+    the reference (``_lmd_compare``), the device-memory peak of the steps, and the shapes the kernels
+    were launched at."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
+                                                     flash_fwd_cuda)
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.launch.mesh import COLLECTIVES, make_mesh
+    from repro_torch.models.lm import param_specs
+    from repro_torch.models.sharding import MeshRules, leaf_specs, split_axes
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_defer_train_step, make_train_step)
+    from repro_torch.train.train_step import defer_rules, step_collectives
+    from repro_torch.tree import leaves
+    cfg, acfg = lmd_config(), lmd_acfg()
+    pipe = lmd_pipe(cfg, seed)
+    ref = torch.load(ref_path, mmap=True, weights_only=False)
+
+    def launches():
+        return {"rmsnorm": rmsnorm_cuda.launches,
+                "flash_fwd_wgmma": flash_fwd_cuda.launches_wgmma,
+                "flash_fwd": flash_fwd_cuda.launches,
+                "flash_bwd_dq_wgmma": flash_bwd_cuda.launches_dq_wgmma,
+                "flash_bwd_dkv_wgmma": flash_bwd_cuda.launches_dkv_wgmma,
+                "flash_bwd_dq": flash_bwd_cuda.launches_dq,
+                "flash_bwd_dkv": flash_bwd_cuda.launches_dkv}
+
+    out = []
+    t_all = time.perf_counter()
+    for label, shape, s, int8 in LMD_CASES[world]:
+        mesh = make_mesh(*shape)
+        rules = MeshRules(mesh)
+        defer = s > 0
+        tcfg = TrainConfig(microbatches=LMD_MICRO, defer_s=max(s, 1),
+                           compress_int8=int8)
+        srules = defer_rules(rules) if defer else rules
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(seed + 2)
+        params, opt = init_train_state(gen, cfg, acfg, device=dev,
+                                       rules=srules)
+        step = (make_defer_train_step(cfg, acfg, tcfg, rules) if defer
+                else make_train_step(cfg, acfg, tcfg, rules))
+        specs = leaf_specs(param_specs(srules, cfg), params)
+        for fn in (rmsnorm_cuda, flash_fwd_cuda, flash_bwd_cuda):
+            fn.by_shape.clear()
+        rec = {"label": f"{shape[0]}x{shape[1]} {label}", "mesh": shape,
+               "defer_s": s, "int8": int8,
+               "want": step_collectives(cfg, tcfg, rules, defer),
+               "coords": (mesh.index("data"), mesh.index("model")),
+               "split": [[a for _, a in split_axes(mesh, sp)]
+                         for sp in specs],
+               "local_params": sum(t.numel() for t in leaves(params)),
+               "steps": [], "peak": 0}
+        for k in range(LMD_STEPS):
+            COLLECTIVES.reset()
+            before = launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, pipe.batch(k))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rec["peak"] = max(rec["peak"],
+                              torch.cuda.max_memory_allocated() - base)
+            rec["steps"].append({
+                "wall": wall, "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]), "sync_s": m["sync_s"],
+                "calls": dict(COLLECTIVES.calls),
+                "words": dict(COLLECTIVES.words),
+                "launches": {n: c - before[n]
+                             for n, c in launches().items()},
+                "sums": [_lmd_checksum(t) for t in leaves(params)]})
+            if k == 0:
+                rec["m1"] = _lmd_compare(mesh, opt["m"], specs, ref["m1"],
+                                         dev, "m")
+                torch.cuda.reset_peak_memory_stats()
+        rec["p2"] = _lmd_compare(mesh, params, specs, ref["p2"], dev, "p")
+        rec["m2"] = _lmd_compare(mesh, opt["m"], specs, ref["m2"], dev, "m")
+        rec["v2"] = _lmd_compare(mesh, opt["v"], specs, ref["v2"], dev, "m")
+        rec["shapes"] = {"rmsnorm": dict(rmsnorm_cuda.by_shape),
+                         "flash_fwd": dict(flash_fwd_cuda.by_shape),
+                         "flash_bwd": dict(flash_bwd_cuda.by_shape)}
+        del params, opt, step
+        out.append(rec)
+    torch.cuda.empty_cache()
+    out.append({"seconds": time.perf_counter() - t_all})
+    return out
+
+
+def lmd_check(ref: dict, runs: dict, failures: list) -> dict:
+    """Phase 13's checks of the ranks' records (``runs``: world -> the
+    ranks' ``lmd_rank`` lists) against the reference: every case's loss,
+    first moment after step 1, final moments and final params (the
+    params bound holds whatever the gradients: it catches a layout or
+    gather fault, the moments a gradient fault), replicated chunks bit for
+    bit, collectives and kernel launches per step exact, s = 1 syncing
+    four times as often as s = 4; prints walls, sync walls and peaks.
+    Returns the kernel launch tally by (kernel, shape) with the cases
+    that launched it."""
+    cfg, acfg = lmd_config(), lmd_acfg()
+    gib = 2.0 ** 30
+    p_bound = lmd_param_bound(acfg)
+    L, nm = cfg.n_layers, LMD_MICRO
+    want_launch = {"rmsnorm": nm * (2 * lm_norms(cfg) - 1),
+                   "flash_fwd_wgmma": nm * 2 * L, "flash_fwd": 0,
+                   "flash_bwd_dq_wgmma": nm * L,
+                   "flash_bwd_dkv_wgmma": nm * L, "flash_bwd_dq": 0,
+                   "flash_bwd_dkv": 0}
+    print(f"[dist-lm] reference: the unsharded trainer, one process alone "
+          f"on the card, {cfg.name} at full width and {L} layers "
+          f"({ref['n_params'] / 1e9:.3f} B params), {LMD_BATCH} x {LMD_SEQ} "
+          f"tokens in {nm} microbatches: losses "
+          f"{[round(x, 5) for x in ref['loss']]}, step walls "
+          f"{[round(w, 3) for w in ref['wall']]} s, device-memory peak "
+          f"{ref['peak'] / gib:.2f} GiB (the replicated figure)")
+    tally, grads = {}, {}
+    axes = {"data": 0, "model": 1}
+    for world, backend in DIST_RUNS:
+        ranks = runs[world]
+        tag = f"{backend}, world {world}"
+        print(f"[dist-lm] {tag}: phase 13 in the ranks "
+              f"{max(r[-1]['seconds'] for r in ranks):.1f} s")
+        for i, rec0 in enumerate(ranks[0][:-1]):
+            recs = [r[i] for r in ranks]
+            name = f"{tag} {rec0['label']}"
+            for k in range(LMD_STEPS):
+                losses = {rec["steps"][k]["loss"] for rec in recs}
+                if len(losses) != 1:
+                    failures.append(f"{name} step {k + 1}: the ranks' "
+                                    f"losses differ {losses}")
+                loss, want = rec0["steps"][k]["loss"], ref["loss"][k]
+                rel = abs(loss - want) / abs(want)
+                print(f"[dist-lm] {name} step {k + 1}: loss {loss:.5f} vs "
+                      f"the reference {want:.5f}, relative {rel:.3e} (bound"
+                      f" {TOL_LMD_LOSS}); grad_norm "
+                      f"{rec0['steps'][k]['grad_norm']:.4f}; wall "
+                      + ", ".join(f"{rec['steps'][k]['wall']:.2f}"
+                                  for rec in recs)
+                      + " s, sync "
+                      + ", ".join(f"{rec['steps'][k]['sync_s']:.2f}"
+                                  for rec in recs) + " s a rank")
+                if not rel <= TOL_LMD_LOSS:
+                    failures.append(f"{name} step {k + 1}: loss {loss} vs "
+                                    f"{want}")
+                # chunks that two ranks both hold must match bit for bit
+                for j, split in enumerate(rec0["split"]):
+                    seen = {}
+                    for rec in recs:
+                        key = tuple(rec["coords"][axes[a]] for a in split)
+                        seen.setdefault(key, set()).add(
+                            rec["steps"][k]["sums"][j])
+                    if any(len(v) > 1 for v in seen.values()):
+                        failures.append(f"{name} step {k + 1}: leaf {j}'s "
+                                        f"replicated chunks differ")
+                for r, rec in enumerate(recs):
+                    st = rec["steps"][k]
+                    if st["calls"] != rec["want"]:
+                        failures.append(f"{name} rank {r} step {k + 1}: "
+                                        f"collectives {st['calls']}, not "
+                                        f"{rec['want']}")
+                    if st["launches"] != want_launch:
+                        failures.append(f"{name} rank {r} step {k + 1}: "
+                                        f"launches {st['launches']}, not "
+                                        f"{want_launch}")
+            worst = {k: max(rec0[k]) for k in ("m1", "m2", "v2", "p2")}
+            p_worst = worst.pop("p2")
+            print(f"[dist-lm] {name}: vs the reference, worst leaf "
+                  f"relative Frobenius of the first moment after step 1 "
+                  f"{worst['m1']:.3e}, of the first and second moments "
+                  f"after step {LMD_STEPS} {worst['m2']:.3e}, "
+                  f"{worst['v2']:.3e} (bound {TOL_GRAD_BF16}); params after "
+                  f"{LMD_STEPS} steps max abs diff, less the f32 rounding "
+                  f"of the weights, {p_worst:.3e} (bound {p_bound:.3e}, "
+                  f"AdamW's largest move apart)")
+            for k, w in worst.items():
+                if not w <= TOL_GRAD_BF16:
+                    failures.append(f"{name}: AdamW state {k} {w}")
+            if not p_worst <= p_bound:
+                failures.append(f"{name}: params {p_worst} > {p_bound}")
+            calls = rec0["steps"][0]["calls"]
+            print(f"[dist-lm] {name}: collectives a step (rank 0) "
+                  + ", ".join(f"{ax}/{kd} {n} ({rec0['steps'][0]['words'][(ax, kd)]:.4e} words)"
+                              for (ax, kd), n in sorted(calls.items()))
+                  + f"; local params {rec0['local_params'] / 1e6:.1f} M; "
+                  f"device-memory peak a rank "
+                  + ", ".join(f"{rec['peak'] / gib:.2f}" for rec in recs)
+                  + f" GiB (the replicated trainer's {ref['peak'] / gib:.2f}"
+                  f" GiB)")
+            if rec0["defer_s"]:
+                grads[(world, rec0["label"])] = calls.get(("data", "grad"),
+                                                          0)
+            for rec in recs:
+                for kname, shapes in rec["shapes"].items():
+                    for key, n in shapes.items():
+                        t = tally.setdefault((kname, key), [0, set()])
+                        t[0] += n
+                        t[1].add(name)
+    g1 = grads.get((DIST_WORLD, "2x2 defer s=1"))
+    g4 = grads.get((DIST_WORLD, "2x2 defer s=4"))
+    print(f"[dist-lm] grad syncs a step at 2x2: s=1 {g1}, s=4 {g4}")
+    if g1 is None or g4 is None or g1 != 4 * g4:
+        failures.append(f"s=1 grad syncs {g1} are not 4x s=4's {g4}")
+    return tally
+
+
+def _lmd_rmsnorm_entry(key, launches, cases, gen, dev):
+    """The kernels-record entry of the rmsnorm kernel at one shape the
+    ranks launched it at: checked against its plain version and timed
+    alone on the card beside F.rms_norm."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+    rows, D, dt = key
+    dtype = getattr(torch, dt)
+    x = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
+    scale = torch.randn((D,), generator=gen, device=dev)
+    ratio, err = allclose_ratio(rmsnorm_cuda(x, scale).float(),
+                                rmsnorm_plain(x, scale).float(),
+                                TOL_BF16 if dtype == torch.bfloat16
+                                else TOL_RMSNORM_F32)
+    s16 = scale.to(dtype)
+    nbytes = 2 * x.numel() * x.element_size() + D * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * x.numel(), BF16_FLOP_PER_S)
+    # copies of x, cycled, that pass twice the L2 (the bound counts HBM)
+    xs = [x] + [x.clone() for _ in
+                range(2 * L2_BYTES // (x.numel() * x.element_size()))]
+    nxt = itertools.cycle(xs).__next__
+    entry = {"name": f"rmsnorm_rank_{rows}x{D}", "route": "cuda",
+             "source": "src/repro_torch/csrc/rmsnorm.cu",
+             "replaces": "src/repro/kernels/rmsnorm.py:34",
+             "shape": f"x ({rows}, {D}) {dt}, scale ({D},) f32",
+             "launches": launches, "max_abs_err": err,
+             "ms": time_queued(lambda: rmsnorm_cuda(nxt(), scale), 50),
+             "plain_ms": time_queued(lambda: rmsnorm_plain(nxt(), scale),
+                                     20),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": time_queued(
+                 lambda: F.rms_norm(nxt(), (D,), s16, 1e-6), 50),
+             "ms_timing": "device time, launches queued behind a spin "
+                          "kernel (time_queued) over copies of x past "
+                          "twice the L2, this process alone on the card",
+             "cases": sorted(cases)}
+    return entry, ratio
+
+
+def _lmd_flash_entries(key, launches_fwd, launches_bwd, cases, gen, dev):
+    """The kernels-record entries of the tensor-core flash forward, dq and
+    dkv at one (BH, S, hd) the ranks launched them at: each checked
+    against the plain version within its derived bf16 bound and timed
+    alone on the card, beside scaled_dot_product_attention (its forward,
+    and its backward as forward + backward less forward)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
+                                                     flash_bwd_plain,
+                                                     flash_delta,
+                                                     flash_fwd_cuda,
+                                                     flash_fwd_plain)
+    from repro_torch.kernels.ref import (flash_dkv_bf16_tolerance,
+                                         flash_dq_bf16_tolerance,
+                                         flash_fwd_bf16_tolerance)
+    route, BH, S, T, hd, hdv, dt, causal = key
+    dtype = getattr(torch, dt)
+    q, k, v, do = (torch.randn((BH, S, hd), generator=gen, device=dev)
+                   .to(dtype) for _ in range(4))
+    o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+    o_p, lse_p = flash_fwd_plain(q, k, v, causal=causal)
+    ratios = {"fwd": max(
+        flash_err(o, o_p, "o", dtype,
+                  flash_fwd_bf16_tolerance(q, k, v, o_p, causal))[1],
+        flash_err(lse, lse_p, "lse", dtype)[1])}
+    err_fwd = float((o.float() - o_p.float()).abs().max())
+    delta = flash_delta(o, do)
+    got = flash_bwd_cuda(q, k, v, do, lse, delta, causal=causal)
+    want = flash_bwd_plain(q, k, v, do, lse, delta, causal=causal)
+    args_b = (q, k, v, do, lse, delta)
+    t_dq = flash_dq_bf16_tolerance(*args_b, want[0], causal)
+    t_dk, t_dv = flash_dkv_bf16_tolerance(*args_b, want[1], want[2], causal)
+    e = [(g.double() - w.double()).abs() for g, w in zip(got, want)]
+    ratios["dq"] = float((e[0] / t_dq.double()).max())
+    ratios["dkv"] = max(float((e[1] / t_dk.double()).max()),
+                        float((e[2] / t_dv.double()).max()))
+    errs = {"dq": float(e[0].max()),
+            "dkv": max(float(e[1].max()), float(e[2].max()))}
+    del t_dq, t_dk, t_dv, e, got, want
+    # times: the forward through its wrapper, dq and dkv through their C
+    # entry points, the plain versions, SDPA on (B, H, S, hd) views
+    scale = hd ** -0.5
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stream = torch.cuda.current_stream().cuda_stream
+    base = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    launch_dq = build.launcher("flash_bwd_dq_wgmma")
+    launch_dkv = build.launcher("flash_bwd_dkv_wgmma")
+    ms = {"fwd": time_queued(lambda: flash_fwd_cuda(q, k, v, causal), 20),
+          "dq": time_queued(lambda: launch_dq(*base, dq.data_ptr(), BH, S,
+                                              T, hd, int(causal), scale,
+                                              stream), 20),
+          "dkv": time_queued(lambda: launch_dkv(*base, dk.data_ptr(),
+                                                dv.data_ptr(), BH, S, T, hd,
+                                                int(causal), scale, stream),
+                             20)}
+    plain_fwd = time_cuda(lambda: flash_fwd_plain(q, k, v, causal), 3)
+    plain_bwd = time_cuda(lambda: flash_bwd_plain(q, k, v, do, lse, delta,
+                                                  causal), 3)
+    q4, k4, v4 = (t.detach().reshape(1, BH, S, hd).clone().requires_grad_()
+                  for t in (q, k, v))
+    do4 = do.reshape(1, BH, S, hd)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+    lib_fwd = time_queued(sdpa, 20)
+    lib_bwd = time_queued(lambda: sdpa().backward(do4), 20) - lib_fwd
+    pairs = S * (S + 1) // 2 if causal else S * T
+    product = 2 * BH * pairs * hd
+    in_bytes = 4 * BH * S * hd * 2 + 2 * BH * S * 4
+    bounds = {"fwd": bound_ms(4 * BH * S * hd * 2 + BH * S * 4,
+                              2 * product, BF16_FLOP_PER_S),
+              "dq": bound_ms(in_bytes + BH * S * hd * 2, 3 * product,
+                             BF16_FLOP_PER_S),
+              "dkv": bound_ms(in_bytes + 2 * BH * S * hd * 2, 4 * product,
+                              BF16_FLOP_PER_S)}
+    shape = f"(BH, S, T, hd) = ({BH}, {S}, {T}, {hd}) {dt} causal"
+    common = {"route": "cuda", "shape": shape, "cases": sorted(cases),
+              "ms_timing": "device time, launches queued behind a spin "
+                           "kernel (time_queued; the plain versions back "
+                           "to back, time_cuda), this process alone on "
+                           "the card"}
+    entries = [
+        dict(common, name=f"flash_fwd_wgmma_rank_bh{BH}",
+             source="src/repro_torch/csrc/flash_fwd_wgmma.cu",
+             replaces="src/repro/kernels/flash_attention.py:95",
+             launches=launches_fwd, max_abs_err=err_fwd, ms=ms["fwd"],
+             plain_ms=plain_fwd, bound_ms=bounds["fwd"][0],
+             bound_by=bounds["fwd"][1], library_ms=lib_fwd),
+        dict(common, name=f"flash_bwd_dq_wgmma_rank_bh{BH}",
+             source="src/repro_torch/csrc/flash_bwd_dq_wgmma.cu",
+             replaces="src/repro/kernels/flash_attention.py:220",
+             launches=launches_bwd, max_abs_err=errs["dq"], ms=ms["dq"],
+             plain_ms=plain_bwd, bound_ms=bounds["dq"][0],
+             bound_by=bounds["dq"][1], library_ms=lib_bwd),
+        dict(common, name=f"flash_bwd_dkv_wgmma_rank_bh{BH}",
+             source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
+             replaces="src/repro/kernels/flash_attention.py:240",
+             launches=launches_bwd, max_abs_err=errs["dkv"], ms=ms["dkv"],
+             plain_ms=plain_bwd, bound_ms=bounds["dkv"][0],
+             bound_by=bounds["dkv"][1], library_ms=lib_bwd)]
+    return entries, ratios
+
+
+def lmd_kernel_entries(tally: dict, dev, seed: int, failures: list):
+    """The kernels-record entries of every shape phase 13's ranks launched
+    rmsnorm and the flash kernels at (``lmd_check``'s tally), each checked
+    and timed here."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    entries = []
+    for (kname, key), (n, cases) in sorted(tally.items(),
+                                           key=lambda t: str(t[0])):
+        if kname == "rmsnorm":
+            entry, ratio = _lmd_rmsnorm_entry(key, n, cases, gen, dev)
+            print(f"[dist-lm] rmsnorm {key}: {n} launches; "
+                  f"{entry['ms']:.4f} ms | plain {entry['plain_ms']:.4f} ms"
+                  f" | F.rms_norm {entry['library_ms']:.4f} ms | bound "
+                  f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}) | vs "
+                  f"plain max abs err {entry['max_abs_err']:.3e} "
+                  f"({ratio:.2f}x tolerance)")
+            if not ratio <= 1.0:
+                failures.append(f"rmsnorm {key} disagrees with its plain "
+                                f"version")
+            entries.append(entry)
+        elif kname == "flash_fwd":
+            if key[0] != "wgmma":
+                failures.append(f"phase 13 launched the FP32-FMA flash "
+                                f"forward at {key}")
+                continue
+            n_bwd = tally.get(("flash_bwd", key), (0,))[0]
+            new, ratios = _lmd_flash_entries(key, n, n_bwd, cases, gen, dev)
+            for e in new:
+                print(f"[dist-lm] {e['name']} {e['shape']}: "
+                      f"{e['launches']} launches; {e['ms']:.4f} ms | plain "
+                      f"{e['plain_ms']:.4f} ms | SDPA "
+                      f"{e['library_ms']:.4f} ms | bound "
+                      f"{e['bound_ms']:.4f} ms ({e['bound_by']}) | vs plain"
+                      f" max abs err {e['max_abs_err']:.3e}")
+            print(f"[dist-lm] flash at {key[1:4]}: error / derived bound "
+                  + ", ".join(f"{w} {r:.3f}" for w, r in ratios.items()))
+            if not max(ratios.values()) <= 1.0:
+                failures.append(f"flash at {key}: {ratios}")
+            entries.extend(new)
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -4090,6 +4694,7 @@ def main(argv=None) -> int:
     ap.add_argument("--svm-iters", type=int, default=4096)
     ap.add_argument("--krr-iters", type=int, default=2048)
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -4671,6 +5276,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
+    print(f"[smoke] every phase passed in "
+          f"{time.perf_counter() - t_main:.1f} s")
     print(smi[0])                            # the card's name, power limit
     record = {"kernels": [
         {"name": "kmv", "route": "cuda", "source":

@@ -11,7 +11,8 @@ Nystrom representations too (``nystrom_map`` carries a fitted JAX
 ``lm_params``, ``decode_state`` and ``adamw_state`` carry an LM's
 params, decode state and AdamW state (numpy pytrees of the JAX
 ``init_params`` / ``init_decode_state`` / ``adamw_init``) across,
-unstacking the per-period layer axis into the port's list of layers.
+unstacking the per-period layer axis into the port's list of layers;
+``lm_shards`` gives a rank of a mesh its shards of those params.
 """
 from __future__ import annotations
 
@@ -148,6 +149,16 @@ def lm_params(params: Mapping, cfg, device=None) -> dict:
            if k != "blocks"}
     out["blocks"] = map_tree(tensor, _layers(params["blocks"], cfg))
     return out
+
+
+def lm_shards(params: Mapping, cfg, rules, device=None) -> dict:
+    """This rank's shards under ``rules`` (``models.sharding.MeshRules``)
+    of a JAX ``init_params`` pytree given as numpy arrays: ``lm_params``,
+    then each leaf cut by its spec (``models.sharding.shard_tree``)."""
+    from repro_torch.models.lm import param_specs
+    from repro_torch.models.sharding import shard_tree
+    return shard_tree(rules, lm_params(params, cfg, device),
+                      param_specs(rules, cfg))
 
 
 def decode_state(state: Mapping, cfg, device=None) -> dict:

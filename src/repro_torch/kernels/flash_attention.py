@@ -23,10 +23,11 @@ The causal mask is ``col <= row``; tiles above the diagonal are skipped.
 ``flash_fwd_cuda`` and ``flash_bwd_cuda`` launch the kernels and count
 each launch by kernel (``launches`` / ``launches_wgmma`` for the
 forward, ``launches_dq`` / ``launches_dq_wgmma`` and ``launches_dkv`` /
-``launches_dkv_wgmma`` for the backward); ``flash_fwd_plain`` and
-``flash_bwd_plain`` are the plain PyTorch versions (the oracle with its
-log-sum-exp; ``round_p`` rounds p, and in the backward's dk and dv ds,
-to bf16 where the tensor-core kernels do, ``round_dq`` ds in dq).
+``launches_dkv_wgmma`` for the backward) and by shape (``by_shape``);
+``flash_fwd_plain`` and ``flash_bwd_plain`` are the plain PyTorch
+versions (the oracle with its log-sum-exp; ``round_p`` rounds p, and in
+the backward's dk and dv ds, to bf16 where the tensor-core kernels do,
+``round_dq`` ds in dq).
 ``FlashAttention`` (the counterpart of the JAX ``custom_vjp``) runs the
 forward and, in its backward, ``delta = sum(do * o, -1)`` in f32 and then
 ``kernels.ops.flash_bwd``; each picks the kernel for a CUDA tensor and
@@ -168,11 +169,20 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 *ptrs, BH, S, T, hd, hdv, DTYPE_CODES[q.dtype],
                 int(bool(causal)), float(scale), stream))
             flash_fwd_cuda.launches += 1
+    key = _shape_key(q, S, T, hd, hdv, causal)
+    flash_fwd_cuda.by_shape[key] = flash_fwd_cuda.by_shape.get(key, 0) + 1
     return o, lse
+
+
+def _shape_key(q, S, T, hd, hdv, causal) -> tuple:
+    """(route, BH, S, T, hd, hdv, dtype, causal) of a launch."""
+    return (flash_route(q.dtype, hd, hdv), q.shape[0], S, T, hd, hdv,
+            str(q.dtype).replace("torch.", ""), bool(causal))
 
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.launches_wgmma = 0
+flash_fwd_cuda.by_shape = {}        # launches by _shape_key
 
 
 def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -257,9 +267,12 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             flash_bwd_cuda.launches_dq += 1
             raise_on_error("flash_bwd_dkv", launch(*args, 1, stream))
             flash_bwd_cuda.launches_dkv += 1
+    key = _shape_key(q, S, T, hd, hdv, causal)
+    flash_bwd_cuda.by_shape[key] = flash_bwd_cuda.by_shape.get(key, 0) + 1
     return dq, dk, dv
 
 
+flash_bwd_cuda.by_shape = {}        # dq + dkv launch pairs by _shape_key
 flash_bwd_cuda.launches_dq = 0
 flash_bwd_cuda.launches_dq_wgmma = 0
 flash_bwd_cuda.launches_dkv = 0

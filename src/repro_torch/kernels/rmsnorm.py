@@ -4,7 +4,8 @@ The counterpart of ``repro/kernels/rmsnorm.py`` (``rmsnorm_pallas``).  The
 kernel is ``csrc/rmsnorm.cu`` (the model's widths D = 128 and 2048
 compiled in, a row read once into registers; f32 statistics, the result
 in x's dtype; bound by reading x and writing y once);
-``rmsnorm_cuda`` launches it and counts the launches, ``rmsnorm_plain``
+``rmsnorm_cuda`` launches it and counts the launches (also by shape),
+``rmsnorm_plain``
 is the plain PyTorch version.  ``RMSNorm`` is the differentiable
 operator: its forward picks between them by device, its backward is
 plain PyTorch in f32 (``dx`` and ``dscale`` by the analytic formula from
@@ -60,10 +61,13 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     raise_on_error("rmsnorm", code)
     rmsnorm_cuda.launches += 1
+    key = (rows, D, str(x.dtype).replace("torch.", ""))
+    rmsnorm_cuda.by_shape[key] = rmsnorm_cuda.by_shape.get(key, 0) + 1
     return out
 
 
 rmsnorm_cuda.launches = 0
+rmsnorm_cuda.by_shape = {}          # launches by (rows, D, dtype)
 
 
 class RMSNorm(torch.autograd.Function):

@@ -26,13 +26,22 @@ initialised group is ``(1, 1)`` and its reductions are the identity, as
 
 Every collective of the layouts goes through ``Mesh.all_reduce`` (the
 one broadcast, ``root_value``, is an all-reduce in which only rank 0
-contributes).  It counts calls and the words they carry in
-``COLLECTIVES``, by axis and kind: ``"round"`` (the rounds'
-reductions), ``"setup"`` (once per solve call: the RBF row norms, the
-2d layout's alpha assembly) and ``"check"`` (the metric and guard
-values sent from rank 0).  There is one route per backend and no
-fallback from one backend to another: gloo reduces CUDA tensors itself
-(through host memory), NCCL on the card.
+contributes).  The LM trainers (``train.train_step``) also gather and
+reduce-scatter along an axis (``Mesh.all_gather``,
+``Mesh.reduce_scatter``).  Each call is counted, with the words it
+carries (the full tensor's elements), in ``COLLECTIVES`` by axis and
+kind: the solvers' ``"round"`` (the rounds' reductions), ``"setup"``
+(once per solve call: the RBF row norms, the 2d layout's alpha assembly)
+and ``"check"`` (the metric and guard values sent from rank 0); the
+trainers' ``"grad"`` (a gradient sync over ``data``: the deferred
+step's bucket, the sharded step's replicated leaves), ``"param"`` (an
+FSDP gather of a leaf at use and the reduce-scatter of its gradient, or
+a gather over ``model`` where the tensor-parallel route does not split
+the leaf), ``"tp"`` (the tensor-parallel reductions over ``model``) and
+``"metric"`` (the clipping norm).  Every backend gathers and
+reduce-scatters with its own call (``all_gather_into_tensor``,
+``reduce_scatter_tensor`` on flat buffers); gloo takes CUDA tensors in
+both and moves them through host memory.
 
 The JAX module's production mesh and its TPU hardware table have no
 counterpart here.
@@ -45,14 +54,15 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
-KINDS = ("round", "setup", "check")
+KINDS = ("round", "setup", "check", "grad", "param", "tp", "metric")
+OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 # the axis name under which a reduction over every rank of the mesh is
 # counted (``root_value``)
 MESH_AXIS = "mesh"
 
 
 class CollectiveCounter:
-    """Calls and words of ``Mesh.all_reduce`` by ``(axis, kind)``."""
+    """Calls and words of the mesh's collectives by ``(axis, kind)``."""
 
     def __init__(self):
         self.calls: Dict[Tuple[str, str], int] = {}
@@ -102,19 +112,58 @@ class Mesh:
         """This rank's coordinate along ``axis`` (``lax.axis_index``)."""
         return self.coords[axis]
 
-    def all_reduce(self, t: torch.Tensor, axis: str,
-                   kind: str = "round") -> torch.Tensor:
-        """The sum of ``t`` over the ranks along ``axis`` (``MESH_AXIS``:
-        over every rank), on every one of them: a new tensor, ``t`` is
-        left as it was.  Counted in ``COLLECTIVES``."""
+    def _count(self, axis: str, kind: str, words: int) -> None:
         if kind not in KINDS:
             raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
-        COLLECTIVES.add(axis, kind, t.numel())
+        COLLECTIVES.add(axis, kind, words)
+
+    def _group(self, axis: str):
+        return self.world if axis == MESH_AXIS else self.groups[axis]
+
+    def all_reduce(self, t: torch.Tensor, axis: str, kind: str = "round",
+                   op: str = "sum", inplace: bool = False) -> torch.Tensor:
+        """The sum (``op="max"``: the maximum) of ``t`` over the ranks
+        along ``axis`` (``MESH_AXIS``: over every rank), on every one of
+        them: a new tensor, ``t`` left as it was, or with ``inplace`` ``t``
+        itself (contiguous) reduced.  Counted in ``COLLECTIVES``."""
+        self._count(axis, kind, t.numel())
         if self.groups is None:
             return t
-        group = self.world if axis == MESH_AXIS else self.groups[axis]
-        out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        out = t if inplace else t.clone(
+            memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=OPS[op], group=self._group(axis))
+        return out
+
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int,
+                   kind: str = "param") -> torch.Tensor:
+        """The chunks ``t`` of every rank along ``axis``, concatenated
+        along ``dim`` in their coordinate order: a new tensor on every
+        rank.  Counted in ``COLLECTIVES`` with the gathered tensor's
+        elements."""
+        n = self.shape[axis]
+        self._count(axis, kind, t.numel() * n)
+        if self.groups is None:
+            return t
+        t = t.contiguous()
+        buf = t.new_empty((n, *t.shape))
+        dist.all_gather_into_tensor(buf.view(-1), t.view(-1),
+                                    group=self._group(axis))
+        return buf.movedim(0, dim).flatten(dim, dim + 1)
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int,
+                       kind: str = "param") -> torch.Tensor:
+        """This rank's chunk along ``dim`` (its coordinate along ``axis``)
+        of the sum of ``t`` over the ranks along ``axis``: a new
+        contiguous tensor.  Counted in ``COLLECTIVES`` with the elements
+        of ``t``."""
+        n = self.shape[axis]
+        self._count(axis, kind, t.numel())
+        if self.groups is None:
+            return t
+        chunks = t.unflatten(dim, (n, -1)).movedim(dim, 0).contiguous()
+        out = chunks.new_empty(chunks.shape[1:])
+        dist.reduce_scatter_tensor(out.view(-1), chunks.view(-1),
+                                   group=self._group(axis))
         return out
 
     def root_value(self, t: torch.Tensor,

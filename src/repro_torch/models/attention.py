@@ -7,9 +7,14 @@ Softmax and logit math in f32; products in the config's compute dtype.
 With ``attn_impl="flash"`` causal full-sequence attention (training and
 prefill) goes through ``kernels.ops.sdpa_flash``, differentiable: the
 flash forward kernel, and in the backward the dq and dkv kernels;
-``"naive"`` is plain PyTorch, as in the JAX package.  MLA (DeepSeek),
-M-RoPE (Qwen2-VL) and cross-attention (Whisper) are not ported yet and
-raise.
+``"naive"`` is plain PyTorch, as in the JAX package.  With ``tp`` (a
+``models.sharding.Sharded``) the full-sequence forward runs
+tensor-parallel over ``model``: the projections are this rank's heads
+(column-parallel ``wq``, ``wk``, ``wv``), attention runs on them, and
+the row-parallel ``wo`` product is summed over the ranks (``tp.reduce``);
+the input passes through ``tp.copy``, whose backward sums its gradient.
+MLA (DeepSeek), M-RoPE (Qwen2-VL) and cross-attention (Whisper) are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -65,12 +70,16 @@ def _project(x, w, dtype):
 
 
 def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, rope_cache=None) -> torch.Tensor:
+                positions: torch.Tensor, rope_cache=None,
+                tp=None) -> torch.Tensor:
     """Full-sequence self-attention (training and prefill): x (B, S, D) ->
-    (B, S, D), causal unless ``cfg.causal`` is False."""
+    (B, S, D), causal unless ``cfg.causal`` is False; over this rank's
+    heads with ``tp`` (module docstring)."""
     if cfg.mrope:
         raise NotImplementedError(UNPORTED_MROPE)
     dtype = x.dtype
+    if tp is not None:
+        x = tp.copy(x)
     q = _project(x, p["wq"], dtype)
     k = _project(x, p["wk"], dtype)
     v = _project(x, p["wv"], dtype)
@@ -90,7 +99,8 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
             mask = torch.ones((S, T), dtype=torch.bool,
                               device=x.device).tril()
         out = _sdpa(q, k, v, mask, dtype)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+    return out if tp is None else tp.reduce(out)
 
 
 def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -143,9 +153,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return init_gqa(gen, cfg)
 
 
-def attention_forward(p, cfg, x, positions, rope_cache=None):
+def attention_forward(p, cfg, x, positions, rope_cache=None, tp=None):
     _gqa_only(cfg)
-    return gqa_forward(p, cfg, x, positions, rope_cache=rope_cache)
+    return gqa_forward(p, cfg, x, positions, rope_cache=rope_cache, tp=tp)
 
 
 def attention_decode(p, cfg, x, cache, pos):

@@ -66,10 +66,17 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
             "wo": dense_init(gen, d_ff, d_model)}
 
 
-def mlp(p: dict, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, dtype: torch.dtype,
+        tp=None) -> torch.Tensor:
+    """The gated MLP; with ``tp`` (a ``models.sharding.Sharded``) over this
+    rank's d_ff columns: ``x`` through ``tp.copy``, the row-parallel
+    ``wo`` product summed over ``model`` (``tp.reduce``)."""
+    if tp is not None:
+        x = tp.copy(x)
     gate = x @ p["wi_gate"].to(dtype)
     up = x @ p["wi_up"].to(dtype)
-    return (F.silu(gate) * up) @ p["wo"].to(dtype)
+    out = (F.silu(gate) * up) @ p["wo"].to(dtype)
+    return out if tp is None else tp.reduce(out)
 
 
 # ------------------------------------------------------------- rotary -----

@@ -13,9 +13,20 @@ counterpart of ``jax.checkpoint`` on the scan body): only the layer
 inputs are kept, and the backward recomputes each layer.  Families the
 port does not run yet raise ``NotImplementedError`` naming the ROADMAP
 item that ports them.
+
+With ``rules`` (``models.sharding.MeshRules``) ``forward`` and
+``loss_fn`` take this rank's shards of the params (``param_spec`` of
+each leaf's full shape, ``abstract_params``) and this rank's rows of
+the batch: each layer gathers its leaves at use and runs its attention
+and MLP tensor-parallel where the specs split them
+(``models.sharding.Sharded``).  Under remat a layer's gathers and its
+forward reductions run again in the backward's recompute (early stop
+is off, so the whole layer is recomputed on every rank alike).  Sharded
+decode is not ported yet (ROADMAP A11c).
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
@@ -27,15 +38,12 @@ from .attention import (attention_decode, attention_forward,
 from .config import DENSE, MAMBA1, MAMBA2, MOE, ModelConfig
 from .layers import (apply_norm, embed, init_embedding, init_mlp,
                      init_norm, make_rope_cache, mlp, unembed)
+from .sharding import Sharded, tree_pspecs
 
 
-def check_supported(cfg: ModelConfig, rules=None) -> None:
+def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config outside this slice (dense
     GQA decoders with rmsnorm and plain RoPE), naming its ROADMAP item."""
-    if rules is not None:
-        raise NotImplementedError("sharded models (MeshRules) are not "
-                                  "ported yet (ROADMAP A11b); pass "
-                                  "rules=None")
     unported = [
         (cfg.attn_type == "mla", "MLA attention", "A13.3"),
         (MOE in cfg.pattern or cfg.n_experts > 0, "MoE blocks", "A13.4"),
@@ -90,19 +98,63 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     return params
 
 
-def _head(params: dict, cfg: ModelConfig) -> dict:
-    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The params tree of ``cfg`` at full size as meta tensors (shapes and
+    dtypes, no memory): what ``init_params`` would allocate."""
+    check_supported(cfg)
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def t(*shape):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    def block(kind):
+        attn = {"wq": t(d, h, hd), "wk": t(d, kv, hd), "wv": t(d, kv, hd),
+                "wo": t(h, hd, d)}
+        if cfg.qk_norm:
+            attn["q_norm"] = {"scale": t(hd)}
+            attn["k_norm"] = {"scale": t(hd)}
+        p = {"norm1": {"scale": t(d)}, "attn": attn}
+        if kind == DENSE:
+            p["norm2"] = {"scale": t(d)}
+            p["mlp"] = {"wi_gate": t(d, cfg.d_ff), "wi_up": t(d, cfg.d_ff),
+                        "wo": t(cfg.d_ff, d)}
+        return p
+
+    params = {"embed": {"table": t(cfg.vocab_size, d)},
+              "final_norm": {"scale": t(d)}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"table": t(cfg.vocab_size, d)}
+    params["blocks"] = [block(kind) for kind in layer_kinds(cfg)]
+    return params
+
+
+@functools.lru_cache(maxsize=16)
+def param_specs(rules, cfg: ModelConfig) -> dict:
+    """The spec of every params leaf of ``cfg`` under ``rules``."""
+    return tree_pspecs(rules, abstract_params(cfg))
+
+
+def _head_key(cfg: ModelConfig) -> str:
+    return "embed" if cfg.tie_embeddings else "lm_head"
 
 
 # ------------------------------------------------------------- forward ----
 
 def _block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor, rope_cache) -> torch.Tensor:
+                   positions: torch.Tensor, rope_cache,
+                   sh: Optional[Sharded] = None,
+                   spec: Optional[dict] = None) -> torch.Tensor:
+    tp_attn = tp_mlp = None
+    if sh is not None:
+        p = sh.block(p, spec)
+        tp_attn = sh if "attn" in sh.tp_parts else None
+        tp_mlp = sh if "mlp" in sh.tp_parts else None
     x = x + attention_forward(p["attn"], cfg,
                               apply_norm(cfg.norm, p["norm1"], x),
-                              positions, rope_cache=rope_cache)
+                              positions, rope_cache=rope_cache, tp=tp_attn)
     if kind == DENSE:
-        x = x + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], x), x.dtype)
+        x = x + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], x), x.dtype,
+                    tp=tp_mlp)
     return x
 
 
@@ -131,22 +183,44 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """Training / prefill forward: tokens (B, S) -> f32 logits (B, S, V).
     Layers run under activation checkpointing when ``cfg.remat ==
     "full"`` and the forward is being differentiated; the final norm and
-    the head stay outside, as in the JAX package."""
-    check_supported(cfg, rules)
+    the head stay outside, as in the JAX package.  With ``rules`` the
+    params are this rank's shards (module docstring); the embedding and
+    head tables are gathered at use (not vocab-parallel), the head and
+    the layers' weight matrices in the compute dtype."""
+    check_supported(cfg)
     dtype = cfg.activation_dtype
     B, S = tokens.shape
-    x = embed(params["embed"], tokens, dtype)
+    sh = specs = None
+    if rules is not None:
+        specs = param_specs(rules, cfg)
+        sh = Sharded(rules, specs, dtype)
+    if sh is None:
+        x = embed(params["embed"], tokens, dtype)
+    else:
+        x = embed({"table": sh.use(params["embed"]["table"],
+                                   specs["embed"]["table"])}, tokens, dtype)
     if positions is None:
         positions = _default_positions(B, S, tokens.device)
     rope_cache = make_rope_cache(positions, cfg.head_dim, cfg.rope_theta)
-    for kind, p in zip(layer_kinds(cfg), params["blocks"]):
+    for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["blocks"])):
+        spec = None if specs is None else specs["blocks"][i]
         if cfg.remat == "full" and _differentiated(p, x):
             x = checkpoint(_block_forward, kind, p, cfg, x, positions,
-                           rope_cache, use_reentrant=False)
+                           rope_cache, sh, spec, use_reentrant=False,
+                           early_stop=sh is None)
         else:
-            x = _block_forward(kind, p, cfg, x, positions, rope_cache)
-    x = apply_norm(cfg.norm, params["final_norm"], x)
-    return unembed(_head(params, cfg), x, dtype)
+            x = _block_forward(kind, p, cfg, x, positions, rope_cache, sh,
+                               spec)
+    if sh is None:
+        final, head = params["final_norm"], params[_head_key(cfg)]
+    else:
+        key = _head_key(cfg)
+        final = {"scale": sh.use(params["final_norm"]["scale"],
+                                 specs["final_norm"]["scale"])}
+        head = {"table": sh.use(params[key]["table"], specs[key]["table"],
+                                cast=True)}
+    x = apply_norm(cfg.norm, final, x)
+    return unembed(head, x, dtype)
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
@@ -155,7 +229,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
     over f32 logits; ``batch`` holds ``tokens`` and ``labels`` (B, S)
     (and optionally ``positions``).  ``cfg.ce_impl``: "gather" takes the
     gold logit by index, "onehot" contracts with a one-hot (the JAX
-    package's V-sharding-friendly form; the same value)."""
+    package's V-sharding-friendly form; the same value).  With ``rules``
+    the mean is over this rank's rows (``forward``)."""
     logits = forward(params, cfg, batch["tokens"],
                      positions=batch.get("positions"), rules=rules)
     labels = batch["labels"].long()
@@ -186,8 +261,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
 def decode_step(params: dict, cfg: ModelConfig, state: dict,
                 tokens: torch.Tensor, rules=None):
     """One new token per sequence.  tokens: (B, 1) -> (logits (B, V), new
-    state).  The input state is not written."""
-    check_supported(cfg, rules)
+    state).  The input state is not written.  Sharded decode (``rules``)
+    is not ported yet (ROADMAP A11c)."""
+    if rules is not None:
+        raise NotImplementedError("sharded decode (rules) is not ported "
+                                  "yet (ROADMAP A11c); pass rules=None")
+    check_supported(cfg)
     dtype = cfg.activation_dtype
     pos = state["pos"]
     h = embed(params["embed"], tokens, dtype)
@@ -201,5 +280,5 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
             h = h + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], h), dtype)
         caches.append(c)
     h = apply_norm(cfg.norm, params["final_norm"], h)
-    logits = unembed(_head(params, cfg), h, dtype)[:, 0]
+    logits = unembed(params[_head_key(cfg)], h, dtype)[:, 0]
     return logits, dict(state, caches=caches, pos=pos + 1)

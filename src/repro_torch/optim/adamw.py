@@ -78,13 +78,16 @@ def decayed(path, p: torch.Tensor) -> bool:
     return (bool(path) and path[0] == "blocks") or p.ndim >= 2
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state):
+def adamw_update(cfg: AdamWConfig, params, grads, state, gnorm=None):
     """One AdamW step.  Returns ``(params, state, {"lr", "grad_norm"})``;
     params, ``state["m"]`` and ``state["v"]`` are updated in place,
-    ``grads`` are read only."""
+    ``grads`` are read only.  ``gnorm``: the clipping norm, where the
+    caller computed it (sharded grads: ``train.train_step``); by default
+    ``global_norm(grads)``."""
     step = int(state["step"]) + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     f = np.float32
     bc1 = float(f(1.0) - f(cfg.b1) ** f(step))

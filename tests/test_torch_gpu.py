@@ -1891,3 +1891,118 @@ def test_distributed_layouts_on_card_match_serial(cuda_device, tmp_path):
         np.testing.assert_allclose(alpha.numpy(), ser.alpha.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(hist, ser.history, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["defer s=2", "defer s=2 int8",
+                                   "sharded"])
+def test_cross_device_steps_on_one_nccl_rank_match_plain(cuda_device,
+                                                         tmp_path, which):
+    """The deferred and the FSDP + TP steps on a (1, 1) mesh over NCCL at
+    world 1 (every collective an NCCL call of one rank): reduced Qwen3 in
+    f32 through the kernels, 2 steps of 4 microbatches, against the plain
+    single-device step on the same params and batches.  The loss at 1e-5
+    and the first moment after step 1 per leaf within 1e-5 relative
+    (Frobenius): without int8 the steps differ in summation order only.
+    int8 moves each entry by at most half a step of its 256-entry block
+    (max / 254, error feedback telescoping the rounds to the last one);
+    over a leaf that is at most sqrt(256) / 254 of its Frobenius norm (the
+    norm holds every block's largest entry), the bound with int8.  The
+    collectives of each step equal ``step_collectives``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import COLLECTIVES, make_mesh
+    from repro_torch.models.sharding import MeshRules
+    from repro_torch.train.train_step import (defer_rules,
+                                              make_defer_train_step,
+                                              step_collectives)
+    from repro_torch.train import init_train_state
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config("qwen3_1p7b", reduced=True),
+                              dtype="float32", attn_impl="flash")
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=64,
+                         global_batch=8, seed=1)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        rules = MeshRules(make_mesh(1, 1))
+        defer = which.startswith("defer")
+        tcfg = TrainConfig(microbatches=4, defer_s=2 if defer else 1,
+                           compress_int8="int8" in which)
+        runs = []
+        for r in (None, defer_rules(rules) if defer else rules):
+            gen = torch.Generator(device=cuda_device).manual_seed(3)
+            p, o = init_train_state(gen, cfg, acfg, device=cuda_device,
+                                    rules=r)
+            step = (make_train_step(cfg, acfg, TrainConfig(microbatches=4))
+                    if r is None else
+                    make_defer_train_step(cfg, acfg, tcfg, rules) if defer
+                    else make_train_step(cfg, acfg, tcfg, rules))
+            out = {"loss": [], "calls": []}
+            for k in range(2):
+                COLLECTIVES.reset()
+                p, o, m = step(p, o, pipe.batch(k))
+                out["calls"].append(dict(COLLECTIVES.calls))
+                out["loss"].append(float(m["loss"]))
+                if k == 0:
+                    out["m1"] = [t.clone() for t in leaves(o["m"])]
+            runs.append(out)
+        plain, got = runs
+        np.testing.assert_allclose(got["loss"], plain["loss"], rtol=1e-5)
+        tol = 1e-5 + (16 / 254 if tcfg.compress_int8 else 0.0)
+        for a, b in zip(got["m1"], plain["m1"]):
+            assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= tol
+        want = step_collectives(cfg, tcfg, rules, defer)
+        assert got["calls"] == [want, want]
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_lm_kernels_at_tensor_parallel_head_counts(cuda_device):
+    """What a rank of a (data, 2) mesh launches: the tensor-core flash
+    forward and backward over its 8 of Qwen3's 16 heads, taken as strided
+    views of the full heads (the autograd Function copies them to TMA-
+    ready operands), equal to the same heads made contiguous, bit for bit,
+    and within their derived bounds of the plain versions; the q-norm
+    rmsnorm over those heads' rows within bf16's 2e-2 of its plain
+    version."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    B, S, H, hd = 2, 256, 16, 128
+    q, k, v, do = (torch.randn((B, S, H, hd), generator=gen,
+                               device=cuda_device).to(bf16)
+                   for _ in range(4))
+    local = slice(H // 2, H)
+
+    def run(q_, k_, v_):
+        leaves_ = [t.detach().requires_grad_() for t in (q_, k_, v_)]
+        out = ops.sdpa_flash(*leaves_, causal=True)
+        out.backward(do[:, :, local])
+        return [out.detach()] + [t.grad for t in leaves_]
+
+    views = run(q[:, :, local], k[:, :, local], v[:, :, local])
+    dense = run(*(t[:, :, local].contiguous() for t in (q, k, v)))
+    for a, b in zip(views, dense):
+        assert torch.equal(a, b)
+    # the kernels at the rank's (B * H / 2, S, hd) against the plain ones
+    q3, k3, v3, do3 = (t[:, :, local].permute(0, 2, 1, 3).reshape(
+        B * H // 2, S, hd).contiguous() for t in (q, k, v, do))
+    o, lse = flash_fwd_cuda(q3, k3, v3, causal=True)
+    o_p, _ = flash_fwd_plain(q3, k3, v3, causal=True)
+    tol = flash_fwd_bf16_tolerance(q3, k3, v3, o_p, True)
+    assert bool(((o.float() - o_p.float()).abs() <= tol).all())
+    delta = flash_delta(o, do3)
+    got = flash_bwd_cuda(q3, k3, v3, do3, lse, delta, causal=True)
+    want = flash_bwd_plain(q3, k3, v3, do3, lse, delta, causal=True)
+    args = (q3, k3, v3, do3, lse, delta)
+    t_dq = flash_dq_bf16_tolerance(*args, want[0], True)
+    t_dk, t_dv = flash_dkv_bf16_tolerance(*args, want[1], want[2], True)
+    for g, w, t in zip(got, want, (t_dq, t_dk, t_dv)):
+        assert bool(((g.float() - w.float()).abs() <= t).all())
+    rows = q[:, :, local].reshape(-1, hd).contiguous()
+    scale = torch.randn((hd,), generator=gen, device=cuda_device)
+    y, y_p = rmsnorm_cuda(rows, scale), rmsnorm_plain(rows, scale)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_p.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)

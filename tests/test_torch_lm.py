@@ -234,9 +234,9 @@ def test_unported_options_raise_naming_their_item(change, item):
                               **change)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-        check_supported(get_config("qwen3_1p7b", reduced=True),
-                        rules=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
+        decode_step({}, get_config("qwen3_1p7b", reduced=True), {},
+                    torch.zeros((1, 1), dtype=torch.long), rules=object())
 
 
 def test_layers_match_jax():

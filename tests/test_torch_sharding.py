@@ -1,0 +1,225 @@
+"""The port's sharding rules (``models/sharding.py``) against the JAX
+package's, without processes: ``param_spec`` called with JAX's paths and
+shapes equals JAX's on every leaf of all ten configs on ``AbstractMesh``
+(1, 1), (2, 2), (4, 2) and (16, 16); the port's ``tree_pspecs`` on its
+own per-layer leaves (``abstract_params``) equals JAX's ``param_spec`` on
+the stacked leaf's per-layer shape, and JAX's own spec of the stacked
+leaf wherever the stacking does not change the rule.  It changes one
+rule (ROADMAP C18): the plain-MLP ``wo`` rule tests ``len(shape) == 2``;
+JAX's stacked leaf is 3-D, falls through to the table's ``(T, None, F)``
+and so shards the stacked layer axis over ``model``, where the port's
+2-D leaf takes ``(T, F)``, what the rule meant.
+
+Also: the tensor-parallel route's choice of block parts, the collective
+model of a step on the identity mesh, that a step carries no state into
+the next, and the raise of sharded decode (ROADMAP A11c)."""
+import dataclasses
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh
+
+from repro.configs import ARCHS
+from repro.configs import get_config as jax_config
+from repro.models import abstract_params as jax_abstract
+from repro.models.sharding import MeshRules as JRules
+from repro.models.sharding import param_spec as jax_spec
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models.lm import abstract_params, param_specs
+from repro_torch.models.sharding import (MeshRules, Sharded, leaf_specs,
+                                         param_spec, tree_pspecs)
+from repro_torch.tree import leaves_with_paths
+
+MESHES = [(1, 1), (2, 2), (4, 2), (16, 16)]
+# the configs the port's LM runs (dense GQA; the rest raise naming A13)
+PORTED = ("llama3_405b", "granite_20b", "yi_6b", "qwen3_1p7b")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_leaves(arch):
+    """``[(path, shape)]`` of JAX's abstract params, the path built as
+    JAX's ``tree_pspecs`` builds it."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        jax_abstract(jax_config(arch)))
+    return [("/".join(str(getattr(k, "key", k)) for k in path),
+             tuple(leaf.shape)) for path, leaf in flat]
+
+
+def _rules(mesh):
+    return (JRules(AbstractMesh(mesh, ("data", "model"))),
+            MeshRules(Mesh(mesh)))
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_spec_equals_jax_on_every_leaf(arch, mesh):
+    jr, tr = _rules(mesh)
+    for path, shape in _jax_leaves(arch):
+        want = tuple(jax_spec(jr, path, shape))
+        assert param_spec(tr, path, shape) == want, (path, shape)
+        # and on the per-layer shape a port leaf would have
+        if path.startswith("blocks/") and len(shape) > 1:
+            assert (param_spec(tr, path, shape[1:])
+                    == tuple(jax_spec(jr, path, shape[1:]))), path
+
+
+def _port_to_jax_path(path):
+    """The JAX path of a port leaf: ``blocks/<layer>/...`` is the stacked
+    leaf ``blocks/[0]/...`` (one pattern position: dense models)."""
+    if path[0] == "blocks":
+        return "/".join(["blocks", "[0]", *map(str, path[2:])])
+    return "/".join(map(str, path))
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+@pytest.mark.parametrize("arch", PORTED)
+def test_tree_pspecs_on_the_ports_leaves(arch, mesh):
+    jr, tr = _rules(mesh)
+    jleaves = dict(_jax_leaves(arch))
+    cfg = get_config(arch)
+    got = tree_pspecs(tr, abstract_params(cfg))
+    full = abstract_params(cfg)
+    for spec, (path, t) in zip(leaf_specs(got, full),
+                               leaves_with_paths(full)):
+        jpath = _port_to_jax_path(path)
+        jshape = jleaves[jpath]
+        stacked = path[0] == "blocks"
+        shape = jshape[1:] if stacked else jshape
+        assert tuple(t.shape) == shape, path
+        assert spec == tuple(jax_spec(jr, jpath, shape)), path
+        jstacked = tuple(jax_spec(jr, jpath, jshape))
+        if stacked and path[-2:] == ("mlp", "wo"):
+            # JAX's stacked (L, f, d) leaf falls through to (T, None, F):
+            # the layer axis goes to model, f is not split; where L does
+            # not divide model, the attention wo's head fallback takes it
+            # to (None, T, F)
+            axes = (("model", None, "data") if jshape[0] % mesh[1] == 0
+                    else (None, "model", "data"))
+            assert jstacked == tuple(JRules.fit(jr, jshape, axes)), path
+            assert spec == tuple(JRules.fit(jr, shape, ("model", "data")))
+        elif stacked:
+            assert jstacked[0] is None and spec == jstacked[1:], path
+        else:
+            assert spec == jstacked, path
+    assert param_specs(tr, cfg) == got
+
+
+def test_leaf_specs_follow_paths_not_order():
+    """A tree ordered otherwise (``convert.lm_params`` keeps JAX's sorted
+    keys) gets each leaf's own spec."""
+    cfg = get_config("qwen3_1p7b", reduced=True)
+    full = abstract_params(cfg)
+    specs = tree_pspecs(MeshRules(Mesh((2, 2))), full)
+    flipped = {k: full[k] for k in reversed(list(full))}
+    flipped["blocks"] = [{k: b[k] for k in sorted(b)} for b in
+                         full["blocks"]]
+    for s, (path, t) in zip(leaf_specs(specs, flipped),
+                            leaves_with_paths(flipped)):
+        assert isinstance(s, tuple) and len(s) == t.ndim
+        assert s == param_spec(MeshRules(Mesh((2, 2))),
+                               "/".join(map(str, path)), tuple(t.shape))
+
+
+@pytest.mark.parametrize("heads,kv,mesh,parts", [
+    (4, 2, (2, 2), {"attn", "mlp"}),
+    (4, 2, (4, 1), set()),               # no model axis to split over
+    (4, 2, (1, 4), {"mlp"}),              # kv 2 does not divide 4
+    (3, 1, (1, 2), {"mlp"}),              # the d_model-contraction fallback
+])
+def test_tensor_parallel_parts(heads, kv, mesh, parts):
+    """The attention block runs tensor-parallel only where wq, wk, wv and
+    wo all split their heads over ``model``; elsewhere it gathers them
+    (replicated compute, ROADMAP C21)."""
+    cfg = dataclasses.replace(get_config("qwen3_1p7b", reduced=True),
+                              n_heads=heads, n_kv_heads=kv)
+    rules = MeshRules(Mesh(mesh))
+    assert Sharded(rules, param_specs(rules, cfg)).tp_parts == parts
+
+
+def test_abstract_params_match_init_params():
+    from repro_torch.models import init_params
+    cfg = get_config("qwen3_1p7b", reduced=True)
+    real = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    for (p, a), (q, b) in zip(leaves_with_paths(abstract_params(cfg)),
+                              leaves_with_paths(real)):
+        assert p == q and a.shape == b.shape and a.dtype == b.dtype
+
+
+def test_identity_mesh_step_collectives():
+    """On one rank a step makes only its per-step reductions: the sharded
+    step one bucket, the deferred step nm / s syncs, and the norm."""
+    from repro_torch.train.train_step import TrainConfig, step_collectives
+    cfg = get_config("qwen3_1p7b", reduced=True)
+    rules = MeshRules(Mesh((1, 1)))
+    assert step_collectives(cfg, TrainConfig(microbatches=4), rules,
+                            False) == {("data", "grad"): 1,
+                                       ("mesh", "metric"): 1}
+    assert step_collectives(cfg, TrainConfig(microbatches=4, defer_s=2,
+                                             compress_int8=True),
+                            rules, True) == {("data", "grad"): 2,
+                                             ("mesh", "metric"): 1}
+
+
+@pytest.mark.parametrize("kind", ["defer-int8", "defer", "sharded"])
+def test_steps_carry_no_state_from_step_to_step(kind):
+    """A step's result depends on its params, AdamW state and batch only:
+    the second step of a stepper that took the first equals, bit for bit,
+    a fresh stepper's step from copies of the same state, so no int8
+    residual, accumulator, bucket or stale ``.grad`` outlives a step (the
+    residual starts at zero every step, ROADMAP C19)."""
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import (TrainConfig,
+                                              make_defer_train_step,
+                                              make_train_step)
+    from repro_torch.tree import leaves, map_tree
+    cfg = dataclasses.replace(get_config("qwen3_1p7b", reduced=True),
+                              dtype="float32")
+    rules = MeshRules(Mesh((1, 1)))
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+
+    def stepper():
+        if kind == "sharded":
+            return make_train_step(cfg, acfg, TrainConfig(microbatches=2),
+                                   rules)
+        return make_defer_train_step(cfg, acfg, TrainConfig(
+            microbatches=2, defer_s=1, compress_int8=kind == "defer-int8"),
+            rules)
+
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 9)))
+        batches.append({"tokens": tok[:, :-1], "labels": tok[:, 1:]})
+    params = init_params(torch.Generator().manual_seed(0), cfg,
+                         device="cpu")
+    step = stepper()
+    params, opt, _ = step(params, adamw_init(params), batches[0])
+    fresh = map_tree(torch.clone, (params, opt))
+    a = step(params, opt, batches[1])
+    b = stepper()(*fresh, batches[1])
+    assert all(torch.equal(x, y)
+               for x, y in zip(leaves(a[:2]), leaves(b[:2])))
+    assert float(a[2]["loss"]) == float(b[2]["loss"])
+
+
+def test_sharded_decode_raises_naming_a11c():
+    from repro_torch.models import decode_step
+    cfg = get_config("qwen3_1p7b", reduced=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
+        decode_step({}, cfg, {}, torch.zeros((1, 1), dtype=torch.long),
+                    rules=MeshRules(Mesh((1, 1))))
+
+
+def test_mesh_rules_fit_drops_what_does_not_divide():
+    rules = MeshRules(Mesh((4, 2)))
+    assert rules.fit((6, 8), ("model", "data")) == ("model", "data")
+    assert rules.fit((6, 6), ("data", "model")) == (None, "model")
+    assert rules.fit((3, 5, 8), ("data",)) == (None, None, "data")
+    assert rules.axis_size(("data", "model")) == 8
+    assert rules.axis_size("pod") == 0 and rules.batch_axes == ("data",)
+    np.testing.assert_equal(rules.fit((8,), ("pod",)), (None,))

@@ -42,6 +42,7 @@ from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.launch import train as train_cli
+from repro_torch.models import decode_step
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                global_norm, schedule)
 from repro_torch.train import (CheckpointManager, TrainConfig,
@@ -233,20 +234,26 @@ def test_three_train_steps_match_jax(nm, impl, remat):
 
 
 def test_unported_distributed_trainers_raise_naming_a11():
+    """The distributed trainers are ported (A11b): what is left is sharded
+    decode (A11c), and the deferred step's knobs and a mesh are refused
+    where they cannot run, as in the JAX package."""
     _, cfg = _cfgs()
     acfg = AdamWConfig()
-    with pytest.raises(NotImplementedError, match="A11b"):
-        make_train_step(cfg, acfg, TrainConfig(), rules=object())
-    with pytest.raises(NotImplementedError, match="A11b"):
+    with pytest.raises(NotImplementedError, match="A11c"):
+        decode_step({}, cfg, {}, torch.zeros((1, 1), dtype=torch.long),
+                    rules=object())
+    with pytest.raises(ValueError, match="make_defer_train_step"):
         make_train_step(cfg, acfg, TrainConfig(compress_int8=True))
-    with pytest.raises(NotImplementedError, match="A11b"):
+    with pytest.raises(ValueError, match="make_defer_train_step"):
         make_train_step(cfg, acfg, TrainConfig(defer_s=2))
-    with pytest.raises(NotImplementedError, match="A11b"):
-        make_defer_train_step(cfg, acfg, TrainConfig(defer_s=2))
-    for flags in (["--defer-s", "2"], ["--mesh", "2x1"]):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            train_cli.main(["--reduced", "--device", "cpu", "--steps", "1",
-                            *flags])
+    with pytest.raises(ValueError, match="needs a mesh"):
+        make_defer_train_step(cfg, acfg, TrainConfig(defer_s=2), None)
+    with pytest.raises(ValueError, match="multi-rank mesh"):
+        train_cli.main(["--reduced", "--device", "cpu", "--steps", "1",
+                        "--defer-s", "2"])
+    with pytest.raises(ValueError, match="initialised default process"):
+        train_cli.main(["--reduced", "--device", "cpu", "--steps", "1",
+                        "--mesh", "2x1"])
 
 
 def test_microbatches_must_divide_the_batch():
