@@ -266,6 +266,31 @@ Phases (each one fails the run with a non-zero exit):
           shape the ranks launched them at (by_shape), checked against
           their plain versions (flash within its derived bounds) and
           timed alone on the card beside F.rms_norm and SDPA
+ 14. the MoE family (models/moe.py, MLA in models/attention.py), after
+     phase 8: DeepSeek-V2-Lite at its published widths (27 layers,
+     d_model 2048, 16 heads, MLA kv_lora_rank 512 + rope 64, 64 routed
+     experts top-6 + 2 shared x 1408, vocab 102 400), bf16 over f32
+     params (64.8 GB), moe_impl="capacity", random weights from --seed:
+       a. full depth: a 4 x 1024 prefill (finite logits, exactly 82
+          rmsnorm launches: norm1, MLA's kv_norm and norm2 a layer and
+          final_norm; time, tokens/s, idle share), 32 decode steps on the
+          compressed cache of 1056 positions (ms a step, idle share),
+          ServingEngine(n_slots=4) answering 8 requests in bf16 (timed)
+          and in f32, each f32 request held against it decoded alone by
+          greedy_generate; the serving peak within MOE_PEAK_BYTES
+       b. the depth cut to 2 layers (full width): the forward with the
+          rmsnorm kernel against every kernel swapped for its plain
+          version (f32 1e-4, bf16 TOL_LM_BF16 relative), 64 teacher-forced
+          decode steps against the prefill (dense dispatch, as the JAX
+          package's own test pins it) and capacity at factor E / k (no
+          drops) against dense, each within TOL_LM_BF16
+       c. the same depth: loss_and_grads (every gradient finite, both
+          routers and every expert routed a token reached), then 2 AdamW
+          steps of 4 x 1024 tokens in 2 microbatches with remat (finite
+          losses, exact rmsnorm launches, step ms, tokens/s, peak)
+       d. the rmsnorm kernel at every shape the phase launched it at
+          (D = 512 among them: MLA's kv_norm), against its plain version,
+          timed alone beside F.rms_norm and its bound
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
@@ -483,6 +508,28 @@ TOL_GRAD_F32 = 1e-5
 TOL_GRAD_BF16 = 5e-2
 
 
+# Phase 14 (the MoE family): DeepSeek-V2-Lite at full width and depth, bf16
+# over f32 params (64.8 GB), moe_impl "capacity" as its config says.
+# Prefill MOE_BATCH x MOE_SEQ; MOE_DECODE_STEPS decode steps on a cache of
+# MOE_SEQ + MOE_DECODE_STEPS positions; an engine (MOE_SLOTS slots) answers
+# MOE_REQUESTS requests of MOE_NEW_TOKENS new tokens, in bf16 (timed) and
+# in f32 (held against each request decoded alone: f32 sums the same
+# products in another order, so no routing decision moves); the peak
+# device memory of serving must stay within MOE_PEAK_BYTES (else the depth
+# is cut, never the width).  Parity and training at full width with the
+# depth cut to MOE_SHORT_LAYERS: the forward with the kernels against
+# every kernel swapped for its plain version on MOE_PARITY_BATCH x
+# MOE_PARITY_SEQ tokens, decode against prefill (dense dispatch, as the
+# JAX package's own test pins it), capacity at E / k against dense; then
+# MOE_TRAIN_STEPS AdamW steps of MOE_BATCH x MOE_SEQ tokens in
+# MOE_MICROBATCHES microbatches with remat (phase 8's lr, no warmup).
+MOE_BATCH, MOE_SEQ, MOE_DECODE_STEPS = 4, 1024, 32
+MOE_SLOTS, MOE_REQUESTS, MOE_NEW_TOKENS, MOE_ENGINE_SEQ = 4, 8, 8, 64
+MOE_PEAK_BYTES = 76e9
+MOE_SHORT_LAYERS = 2
+MOE_PARITY_BATCH, MOE_PARITY_SEQ = 2, 128
+MOE_TRAIN_STEPS, MOE_MICROBATCHES = 2, 2
+
 # The libraries of the tensor-core flash kernels, whose SASS must hold
 # HGMMA (wgmma) and UTMALDG (TMA loads), and a kernel each names.
 WGMMA_LIBS = {"flash_fwd_wgmma": "flash_fwd_wgmma_kernel",
@@ -492,8 +539,10 @@ WGMMA_LIBS = {"flash_fwd_wgmma": "flash_fwd_wgmma_kernel",
 
 def lm_norms(cfg) -> int:
     """RMSNorm launches in one forward or decode step: norm1 and norm2 of
-    every layer, q_norm and k_norm with qk-norm, and final_norm."""
-    return (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
+    every layer, q_norm and k_norm with qk-norm, MLA's kv_norm, and
+    final_norm."""
+    per_layer = 2 + (2 if cfg.qk_norm else 0) + (cfg.attn_type == "mla")
+    return per_layer * cfg.n_layers + 1
 
 
 def fail(msg: str) -> int:
@@ -3416,10 +3465,10 @@ def lmd_check(ref: dict, runs: dict, failures: list) -> dict:
     return tally
 
 
-def _lmd_rmsnorm_entry(key, launches, cases, gen, dev):
-    """The kernels-record entry of the rmsnorm kernel at one shape the
-    ranks launched it at: checked against its plain version and timed
-    alone on the card beside F.rms_norm."""
+def _lmd_rmsnorm_entry(key, launches, cases, gen, dev, name=None):
+    """The kernels-record entry (``name``, by default phase 13's) of the
+    rmsnorm kernel at one shape a phase launched it at: checked against
+    its plain version and timed alone on the card beside F.rms_norm."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
@@ -3438,7 +3487,7 @@ def _lmd_rmsnorm_entry(key, launches, cases, gen, dev):
     xs = [x] + [x.clone() for _ in
                 range(2 * L2_BYTES // (x.numel() * x.element_size()))]
     nxt = itertools.cycle(xs).__next__
-    entry = {"name": f"rmsnorm_rank_{rows}x{D}", "route": "cuda",
+    entry = {"name": name or f"rmsnorm_rank_{rows}x{D}", "route": "cuda",
              "source": "src/repro_torch/csrc/rmsnorm.cu",
              "replaces": "src/repro/kernels/rmsnorm.py:34",
              "shape": f"x ({rows}, {D}) {dt}, scale ({D},) f32",
@@ -3607,18 +3656,20 @@ def lmd_kernel_entries(tally: dict, dev, seed: int, failures: list):
     return entries
 
 
-def device_profile(run, calls: int):
+def device_profile(run, calls: int, cpu: bool = True):
     """Device-busy ms per call (the sum of the kernel durations that
     torch.profiler records), kernel launches per call, and the five
     kernels with the most device time, as (name, ms per call, launches
     per call), over ``calls`` calls of ``run``; (None, 0, []) where the
-    profiler records no device time."""
+    profiler records no device time.  ``cpu=False`` records the device
+    activity alone (no host op events to sort through afterwards: the
+    cheap way over thousands of launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if cpu else [])) as prof:
         for _ in range(calls):
             run()
         torch.cuda.synchronize()
@@ -4688,6 +4739,390 @@ def train_phase(dev, args, failures):
     return entries, train_counts
 
 
+def moe_phase(dev, args, failures):
+    """Phase 14 (module docstring): the MoE family on the card,
+    DeepSeek-V2-Lite at full width.  Returns the rmsnorm entries of the
+    kernels record, one for each shape the phase launched it at."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import rmsnorm as rmsnorm_module
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.models import (decode_step, forward, init_decode_state,
+                                    init_params)
+    from repro_torch.models import lm as lm_module
+    from repro_torch.models import moe as moe_module
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import (Request, ServingEngine, TrainConfig,
+                                   greedy_generate, loss_and_grads,
+                                   make_train_step)
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        print(f"[moe] {what} took {laps[-1] - laps[-2]:.1f} s")
+
+    cfg = get_config("deepseek_v2_lite_16b")
+    B, S, D, V = MOE_BATCH, MOE_SEQ, cfg.d_model, cfg.vocab_size
+    norms = lm_norms(cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 14)
+    gb = 1e9
+    torch.cuda.empty_cache()
+    rmsnorm_cuda.by_shape = {}
+
+    # ---- a. serving at full width and full depth -------------------------
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in leaves(params))
+    # param_count leaves out the norms' scale vectors (kv_norm's too)
+    n_norm = cfg.n_layers * (2 * D + cfg.kv_lora_rank) + D
+    p_bytes = torch.cuda.memory_allocated()
+    print(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {D}, "
+          f"{cfg.n_heads} heads, MLA r {cfg.kv_lora_rank} + rope "
+          f"{cfg.qk_rope_head_dim}, {cfg.n_experts} experts top-{cfg.top_k}"
+          f" + {cfg.n_shared_experts} shared x {cfg.moe_ff}, vocab {V}, "
+          f"moe_impl {cfg.moe_impl}: {n_par} f32 params "
+          f"({n_par * 4 / gb:.2f} GB: param_count {cfg.param_count()} + "
+          f"{n_norm} norm scales) drawn in {time.perf_counter() - t0:.1f} s;"
+          f" {p_bytes / gb:.2f} GB allocated")
+    if n_par != cfg.param_count() + n_norm:
+        failures.append(f"{n_par} params, not param_count "
+                        f"{cfg.param_count()} + {n_norm} norm scales")
+    tokens = torch.randint(0, V, (B, S), generator=gen, device=dev)
+    forward(params, cfg, tokens)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm_cuda.launches = 0
+    t0 = time.perf_counter()
+    logits = forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    n_prefill = rmsnorm_cuda.launches
+    ok = bool(torch.isfinite(logits).all()) and logits.shape == (B, S, V)
+    del logits
+    t0 = time.perf_counter()
+    busy, n_k, top = device_profile(lambda: forward(params, cfg, tokens), 1)
+    print(f"[moe-prefill] the profiled forward took "
+          f"{time.perf_counter() - t0:.1f} s")
+    idle = ("not measured" if busy is None
+            else f"{1 - busy / (t_prefill * 1e3):.1%}")
+    print(f"[moe-prefill] forward B={B} S={S} bf16: {t_prefill * 1e3:.1f} "
+          f"ms, {B * S / t_prefill:.0f} tokens/s; device busy "
+          f"{'not measured' if busy is None else f'{busy:.2f} ms'}, idle "
+          f"share {idle}, {n_k:g} kernel launches; logits finite and "
+          f"shaped: {ok}; rmsnorm launches {n_prefill} (expected {norms}: "
+          f"norm1, kv_norm, norm2 a layer and final_norm)")
+    for name, ms, n in top:
+        print(f"[moe-profile]   {ms:8.3f} ms  x{n:g}  {name}")
+    if not ok:
+        failures.append("MoE prefill logits not finite or misshapen")
+    if n_prefill != norms:
+        failures.append(f"MoE prefill launched rmsnorm {n_prefill} times, "
+                        f"not {norms}")
+    lap("14a init and prefill")
+
+    state = init_decode_state(cfg, B, S + MOE_DECODE_STEPS, device=dev)
+    cache_b = sum(t.numel() * t.element_size() for pair in state["caches"]
+                  for t in pair)
+    gqa_b = (2 * cfg.n_layers * B * (S + MOE_DECODE_STEPS) * cfg.n_kv_heads
+             * cfg.head_dim * 2)
+    step_at = iter(range(S))
+
+    def one_step():
+        nonlocal state
+        t = next(step_at)
+        lg, state = decode_step(params, cfg, state, tokens[:, t:t + 1])
+        return lg
+
+    one_step()                                      # warm-up
+    torch.cuda.synchronize()
+    rmsnorm_cuda.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(MOE_DECODE_STEPS):
+        lg = one_step()
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / MOE_DECODE_STEPS
+    n_decode = rmsnorm_cuda.launches
+    ok = bool(torch.isfinite(lg).all()) and lg.shape == (B, V)
+    t0 = time.perf_counter()
+    busy, n_k, _ = device_profile(one_step, MOE_DECODE_STEPS, cpu=False)
+    t_prof = time.perf_counter() - t0
+    idle = ("not measured" if busy is None
+            else f"{1 - busy / (t_dec * 1e3):.1%}")
+    print(f"[moe-decode] {MOE_DECODE_STEPS} decode steps (B={B}, MLA cache "
+          f"of {S + MOE_DECODE_STEPS} positions: {cache_b / 1e6:.1f} MB over"
+          f" all layers, a GQA cache {gqa_b / cache_b:.1f}x that): "
+          f"{t_dec * 1e3:.2f} ms a step; over {MOE_DECODE_STEPS} more, "
+          f"profiled (device activity only, {t_prof:.1f} s), device busy "
+          f"{'not measured' if busy is None else f'{busy:.2f} ms'} a step, "
+          f"idle share {idle}, {n_k:g} launches a step; logits finite: "
+          f"{ok}; rmsnorm launches {n_decode} (expected "
+          f"{MOE_DECODE_STEPS * norms})")
+    if not ok:
+        failures.append("MoE decode logits not finite or misshapen")
+    if n_decode != MOE_DECODE_STEPS * norms:
+        failures.append(f"MoE decode launched rmsnorm {n_decode} times")
+    del state, lg
+    lap("14a decode")
+
+    lens = torch.randint(8, 17, (MOE_REQUESTS,), generator=gen,
+                         device=dev).tolist()
+    prompts = [torch.randint(0, V, (n,), generator=gen, device=dev).tolist()
+               for n in lens]
+
+    def serve(c):
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=MOE_NEW_TOKENS)
+                for i, pr in enumerate(prompts)]
+        eng = ServingEngine(params, c, n_slots=MOE_SLOTS,
+                            max_seq=MOE_ENGINE_SEQ)
+        arrivals = {0: reqs[:4], 6: reqs[4:6], 12: reqs[6:]}
+        steps = 0
+        torch.cuda.synchronize()
+        rmsnorm_cuda.launches = 0
+        t0 = time.perf_counter()
+        while steps < 1000:
+            for r in arrivals.get(steps, []):
+                eng.submit(r)
+            if steps > max(arrivals) and not eng.pending and \
+                    all(s is None for s in eng.slots):
+                break
+            eng.step()
+            steps += 1
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        n_gen = sum(len(r.generated) for r in reqs)
+        done = all(r.done and len(r.generated) == MOE_NEW_TOKENS
+                   and all(0 <= x < V for x in r.generated) for r in reqs)
+        launches = rmsnorm_cuda.launches
+        print(f"[moe-serve] ServingEngine({c.dtype}, n_slots={MOE_SLOTS}, "
+              f"max_seq={MOE_ENGINE_SEQ}): {MOE_REQUESTS} requests, prompts "
+              f"{lens} tokens, {MOE_NEW_TOKENS} new each; {steps} steps in "
+              f"{t:.2f} s, {t / steps * 1e3:.2f} ms a step, "
+              f"{n_gen / t:.1f} generated tokens/s; all finished: {done}; "
+              f"rmsnorm launches {launches} (expected {steps * norms})")
+        if not done:
+            failures.append(f"the {c.dtype} engine did not answer every "
+                            f"request")
+        if launches != steps * norms:
+            failures.append(f"the {c.dtype} engine launched rmsnorm "
+                            f"{launches} times in {steps} steps")
+        return reqs
+
+    serve(cfg)
+    lap("14a bf16 engine")
+    # f32: each request through the engine against it decoded alone
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    agree = checked = 0
+    for r in serve(cfg32):
+        alone, _ = greedy_generate(params, cfg32, init_decode_state(
+            cfg32, 1, MOE_ENGINE_SEQ, device=dev), torch.tensor(
+            [r.prompt], device=dev), MOE_NEW_TOKENS)
+        alone = alone[0].tolist()
+        checked += len(alone)
+        for t, (a, b) in enumerate(zip(r.generated, alone)):
+            if a == b:
+                agree += 1
+                continue
+            # the isolated run's top-1 / top-2 margin where they part
+            st = init_decode_state(cfg32, 1, MOE_ENGINE_SEQ, device=dev)
+            for x in r.prompt + alone[:t]:
+                lg, st = decode_step(params, cfg32, st,
+                                     torch.tensor([[x]], device=dev))
+            top2 = lg[0].topk(2).values
+            margin = float(top2[0] - top2[1]) / max(1.0,
+                                                    abs(float(top2[0])))
+            if margin > TOL_LM_F32:
+                failures.append(f"f32 request {r.rid}: token {t} differs "
+                                f"from the isolated run ({a} vs {b}) at a "
+                                f"margin {margin:.3e}")
+            break
+    peak = torch.cuda.max_memory_allocated()
+    lap("14a f32 engine and each request alone")
+    print(f"[moe-serve] f32 engine against each request decoded alone by "
+          f"greedy_generate: {agree} of {checked} tokens agree up to each "
+          f"request's first difference (allowed only at an isolated top-1 /"
+          f" top-2 margin within {TOL_LM_F32} of max(1, |top-1|))")
+    print(f"[moe] serving device memory peak {peak / gb:.2f} GB "
+          f"({peak / 2 ** 30:.2f} GiB; the params {p_bytes / gb:.2f} GB); "
+          f"limit {MOE_PEAK_BYTES / gb:.0f} GB at full depth")
+    if peak > MOE_PEAK_BYTES:
+        failures.append(f"serving peak {peak / gb:.2f} GB over "
+                        f"{MOE_PEAK_BYTES / gb:.0f} GB")
+    if failures:
+        return []
+
+    # ---- b. parity at full width, depth cut to MOE_SHORT_LAYERS -----------
+    del params["blocks"][MOE_SHORT_LAYERS:]
+    torch.cuda.empty_cache()
+    short = dataclasses.replace(cfg, n_layers=MOE_SHORT_LAYERS)
+
+    def plain(c, toks):
+        with mock.patch.object(rmsnorm_module, "on_card",
+                               lambda t, name: False):
+            return forward(params, c, toks)
+
+    reads = {}
+    for dt in ("float32", "bfloat16"):
+        c = dataclasses.replace(short, dtype=dt)
+        rmsnorm_cuda.launches = 0
+        got = forward(params, c, tokens)
+        torch.cuda.synchronize()
+        n = rmsnorm_cuda.launches
+        want = plain(c, tokens)
+        if rmsnorm_cuda.launches != n or n != lm_norms(c):
+            failures.append(f"{dt} parity forward: rmsnorm launches {n}, "
+                            f"the plain run {rmsnorm_cuda.launches - n}")
+        reads[dt] = (allclose_ratio(got, want, 1e-4), rel_fro(got, want))
+        del got, want
+    (r32, e32), f_32 = reads["float32"]
+    _, f_bf = reads["bfloat16"]
+    print(f"[moe-parity] depth {MOE_SHORT_LAYERS}, {B} x {S} tokens, the "
+          f"forward with the rmsnorm kernel against every kernel swapped for"
+          f" its plain version: f32 max abs err {e32:.3e} ({r32:.3f}x the "
+          f"1e-4 bound), rel Frobenius {f_32:.3e}; bf16 rel Frobenius "
+          f"{f_bf:.3e} (bound {TOL_LM_BF16})")
+    if not r32 <= 1.0:
+        failures.append(f"f32 kernel vs plain forward {e32:.3e}")
+    if not f_bf <= TOL_LM_BF16:
+        failures.append(f"bf16 kernel vs plain forward {f_bf:.3e}")
+
+    dense = dataclasses.replace(short, moe_impl="dense")
+    prompt = tokens[:, :LM_DECODE_PROMPT].contiguous()
+    ref = forward(params, dense, prompt)
+    state = init_decode_state(dense, B, LM_DECODE_PROMPT, device=dev)
+    outs = []
+    rmsnorm_cuda.launches = 0
+    for t in range(LM_DECODE_PROMPT):
+        lg, state = decode_step(params, dense, state, prompt[:, t:t + 1])
+        outs.append(lg)
+    n = rmsnorm_cuda.launches
+    e_dec = rel_fro(torch.stack(outs, 1), ref)
+    no_drop = dataclasses.replace(short, capacity_factor=cfg.n_experts
+                                  / cfg.top_k)
+    cap = moe_module.capacity(no_drop, LM_DECODE_PROMPT)
+    e_cap = rel_fro(forward(params, no_drop, prompt), ref)
+    print(f"[moe-parity] {LM_DECODE_PROMPT} teacher-forced decode steps "
+          f"(dense dispatch) against the prefill: rel Frobenius {e_dec:.3e} "
+          f"(bound {TOL_LM_BF16}), rmsnorm launches {n} (expected "
+          f"{LM_DECODE_PROMPT * lm_norms(dense)}); capacity at factor "
+          f"E / k (capacity {cap} of {LM_DECODE_PROMPT}: nothing drops) "
+          f"against dense: {e_cap:.3e} (bound {TOL_LM_BF16})")
+    if not e_dec <= TOL_LM_BF16:
+        failures.append(f"MoE decode vs prefill {e_dec:.3e}")
+    if n != LM_DECODE_PROMPT * lm_norms(dense):
+        failures.append(f"MoE parity decode launched rmsnorm {n} times")
+    if not (e_cap <= TOL_LM_BF16 and cap == LM_DECODE_PROMPT):
+        failures.append(f"capacity (no drops) vs dense {e_cap:.3e}")
+    del state, outs, ref, lg
+    lap("14b parity")
+
+    # ---- c. training at full width, depth cut to MOE_SHORT_LAYERS ---------
+    pipe = TokenPipeline(vocab_size=V, seq_len=S, global_batch=B,
+                         seed=args.seed)
+    routed = {}
+    apply = lm_module.moe_apply
+
+    def recording(p, c, x):
+        with torch.no_grad():
+            _, _, top_idx = moe_module._route(p, c, x)
+        routed.setdefault(p["router"].data_ptr(), set()).update(
+            top_idx.unique().tolist())
+        return apply(p, c, x)
+
+    with mock.patch.object(lm_module, "moe_apply", recording):
+        loss, grads = loss_and_grads(params, short, {
+            k: v.to(dev) for k, v in pipe.batch(10 ** 6).items()},
+            MOE_MICROBATCHES)
+    by_path = {"/".join(map(str, p)): g for (p, _), g in
+               zip(leaves_with_paths(params), grads)}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    n_exp = 0
+    for i, blk in enumerate(params["blocks"]):
+        moe = f"blocks/{i}/moe/"
+        if not bool(by_path[moe + "router"].abs().max() > 0):
+            failures.append(f"no gradient reached layer {i}'s router")
+        for e in sorted(routed.get(blk["moe"]["router"].data_ptr(), ())):
+            n_exp += 1
+            if not all(bool(by_path[moe + w][e].abs().max() > 0)
+                       for w in ("wi_gate", "wi_up", "wo")):
+                failures.append(f"no gradient reached layer {i}'s expert {e}"
+                                f", routed a token")
+    print(f"[moe-train] loss_and_grads on {B} x {S} tokens: loss "
+          f"{float(loss):.5f}, every gradient finite: {finite}; gradients "
+          f"reach both routers and all {n_exp} (layer, expert) pairs routed "
+          f"a token (of {MOE_SHORT_LAYERS * cfg.n_experts})")
+    if not (finite and math.isfinite(float(loss))):
+        failures.append("MoE gradients or loss not finite")
+    del grads, by_path
+
+    acfg = AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=0,
+                       total_steps=MOE_TRAIN_STEPS)
+    step_fn = make_train_step(short, acfg,
+                              TrainConfig(microbatches=MOE_MICROBATCHES))
+    opt = adamw_init(params)
+    n_train = sum(t.numel() for t in leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm_cuda.launches = 0
+    times, losses = [], []
+    for s in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, pipe.batch(s))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    n = rmsnorm_cuda.launches
+    want_n = MOE_TRAIN_STEPS * MOE_MICROBATCHES * (2 * lm_norms(short) - 1)
+    peak = torch.cuda.max_memory_allocated()
+    t_med = statistics.median(times)
+    print(f"[moe-train] {MOE_TRAIN_STEPS} AdamW steps (lr {LM_TRAIN_LR}) of "
+          f"{B} x {S} tokens in {MOE_MICROBATCHES} microbatches, bf16 remat,"
+          f" depth {MOE_SHORT_LAYERS} ({n_train} params, "
+          f"{4 * n_train * 4 / gb:.1f} GB with gradient and moments): "
+          f"losses {[round(x, 5) for x in losses]}; step walls "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms, "
+          f"{B * S / t_med:.0f} training tokens/s at the median; device "
+          f"memory peak {peak / gb:.2f} GB; rmsnorm launches {n} (expected "
+          f"{want_n}: a microbatch's forward and its remat recompute, "
+          f"final_norm once)")
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"MoE training losses {losses}")
+    if n != want_n:
+        failures.append(f"MoE training launched rmsnorm {n} times")
+    del params, opt, step_fn, tokens
+    torch.cuda.empty_cache()
+    lap("14c training")
+
+    # ---- d. the kernel at every shape the phase launched it at ------------
+    gen_k = torch.Generator(device=dev).manual_seed(args.seed + 15)
+    entries = []
+    for key, n in sorted(rmsnorm_cuda.by_shape.items()):
+        rows, d, dt = key
+        entry, ratio = _lmd_rmsnorm_entry(key, n, ["phase 14"], gen_k, dev,
+                                          name=f"rmsnorm_moe_{rows}x{d}_{dt}")
+        print(f"[moe-time] rmsnorm {key}: {n} launches; {entry['ms']:.4f} ms"
+              f" | plain {entry['plain_ms']:.4f} ms | F.rms_norm "
+              f"{entry['library_ms']:.4f} ms | bound {entry['bound_ms']:.4f} "
+              f"ms ({entry['bound_by']}) | vs plain max abs err "
+              f"{entry['max_abs_err']:.3e} ({ratio:.2f}x tolerance)")
+        if not ratio <= 1.0:
+            failures.append(f"rmsnorm {key} disagrees with its plain "
+                            f"version")
+        entries.append(entry)
+    lap("14d kernel entries")
+    if not any(key[1] == cfg.kv_lora_rank for key in rmsnorm_cuda.by_shape):
+        failures.append("phase 14 launched no rmsnorm at D = kv_lora_rank")
+    torch.cuda.empty_cache()
+    print(f"[moe] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5272,6 +5707,15 @@ def main(argv=None) -> int:
     train_entries, train_counts = train
     for entry in lm_entries:
         entry["train_launches"] = train_counts[entry["name"]]
+    del train
+    torch.cuda.empty_cache()
+
+    # ---- 14. the MoE family -----------------------------------------------
+    moe_entries = moe_phase(dev, args, failures)
+    if failures:
+        for f in failures:
+            print(f"[moe] FAIL {f}")
+        return fail(f"{len(failures)} MoE check(s) failed")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5318,6 +5762,7 @@ def main(argv=None) -> int:
         *dist_entries,
         *lm_entries,
         *train_entries,
+        *moe_entries,
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -137,7 +137,8 @@ def lm_params(params: Mapping, cfg, device=None) -> dict:
     """The port's LM params (``models.lm``) from a JAX ``init_params``
     pytree given as numpy arrays (``jax.tree.map(np.asarray, params)``):
     f32 tensors on ``device`` with ``blocks`` unstacked into one dict per
-    layer."""
+    layer (a MoE layer's experts keep their leading E axis: (n_periods,
+    E, d, f) -> (E, d, f))."""
     from repro_torch.models import check_supported
     check_supported(cfg)
     dev = resolve_device(device)
@@ -163,8 +164,9 @@ def lm_shards(params: Mapping, cfg, rules, device=None) -> dict:
 
 def decode_state(state: Mapping, cfg, device=None) -> dict:
     """The port's decode state from a JAX ``init_decode_state`` /
-    ``decode_step`` state given as numpy arrays: one (k, v) pair per layer
-    in the compute dtype and ``pos`` as int64."""
+    ``decode_step`` state given as numpy arrays: one cache pair per layer
+    in the compute dtype (GQA's (k, v), MLA's (c, k_rope)) and ``pos`` as
+    int64."""
     from repro_torch.models import check_supported
     check_supported(cfg)
     dev = resolve_device(device)

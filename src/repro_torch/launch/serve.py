@@ -5,13 +5,18 @@ runs on the CUDA card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
         --reduced --device cpu --attn-impl naive
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b
 
 Random weights from ``--seed`` (no checkpoint is in the repository).  The
 prompts go once through ``forward`` (the prefill, timed; with
 ``--attn-impl flash`` through the flash kernel) and then token by token
-through the decode step, which generates ``--new-tokens`` more.  Only
-dense GQA configs run (qwen3-1.7b, yi-6b, granite-20b, llama3-405b);
-the others raise naming their ROADMAP item.
+through the decode step, which generates ``--new-tokens`` more.  Dense
+GQA configs (qwen3-1.7b, yi-6b, granite-20b, llama3-405b) and the MoE
+family run: deepseek-v2-lite-16b (MLA, whose attention ignores
+``--attn-impl``; 64.8 GB of f32 params, one 80 GB card) and
+arctic-480b (``--reduced`` only on one card); the others raise naming
+their ROADMAP item.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""GQA attention (covers MHA and MQA) with qk-norm (Qwen3) and RoPE: causal
+"""Attention blocks: GQA (covers MHA and MQA) with qk-norm (Qwen3) and
+RoPE, and MLA (DeepSeek-V2's compressed-KV attention); causal
 full-sequence attention (training and prefill) and single-token decode
-against a KV cache (the counterpart of the GQA part of
+against a cache (the counterpart of the GQA and MLA parts of
 ``repro/models/attention.py``).
 
 Softmax and logit math in f32; products in the config's compute dtype.
@@ -13,8 +14,16 @@ tensor-parallel over ``model``: the projections are this rank's heads
 (column-parallel ``wq``, ``wk``, ``wv``), attention runs on them, and
 the row-parallel ``wo`` product is summed over the ranks (``tp.reduce``);
 the input passes through ``tp.copy``, whose backward sums its gradient.
-MLA (DeepSeek), M-RoPE (Qwen2-VL) and cross-attention (Whisper) are not
-ported yet and raise.
+
+MLA caches, for each position, the rank-r latent ``c`` (after its
+``kv_norm``, an RMSNorm over r) and one rotated rope key of width rd
+shared by every head: (B, S, r) and (B, S, rd) where GQA caches (B, S,
+kv, hd) twice.  Keys and values are expanded from the latent through
+``w_uk`` / ``w_uv`` at every use (the whole cache at every decode step,
+as in the JAX package); queries and keys are [nope | rope] of width hd
++ rd, so the softmax scale is (hd + rd)^-0.5.  MLA runs plain attention
+whatever ``attn_impl`` says, as the JAX package does.  M-RoPE (Qwen2-VL)
+and cross-attention (Whisper) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -28,7 +37,6 @@ from .layers import apply_rope, dense_init, init_norm, rmsnorm
 
 NEG_INF = -2.0e38
 
-UNPORTED_MLA = "MLA attention is not ported yet (ROADMAP A13.3)"
 UNPORTED_MROPE = "M-RoPE is not ported yet (ROADMAP A13.8)"
 
 
@@ -141,29 +149,109 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+# =====================================================================
+# MLA (DeepSeek-V2): a compressed cache of width kv_lora_rank + rope dim
+# =====================================================================
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    hd, rd, vd = cfg.head_dim, cfg.qk_rope_head_dim, cfg.v_head
+    r = cfg.kv_lora_rank
+    return {"wq": dense_init(gen, d, (h, hd + rd)),    # q: nope + rope
+            "w_dkv": dense_init(gen, d, r),            # down-proj (cached)
+            "w_kr": dense_init(gen, d, rd),            # shared rope key
+            "w_uk": dense_init(gen, r, (h, hd)),       # up-proj k_nope
+            "w_uv": dense_init(gen, r, (h, vd)),       # up-proj v
+            "wo": dense_init(gen, h * vd, d).reshape(h, vd, d),
+            "kv_norm": init_norm(r, gen.device)}
+
+
+def _mla_latent(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """The cached pair of x (B, T, D): the normed latent c (B, T, r) and
+    the rope key rotated at ``positions`` (B, T), (B, T, rd)."""
+    c = rmsnorm(p["kv_norm"], x @ p["w_dkv"].to(x.dtype))
+    k_rope = x @ p["w_kr"].to(x.dtype)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return c, k_rope
+
+
+def _mla_qkv(p: dict, cfg: ModelConfig, x, c, k_rope, positions, dtype):
+    """q (B, S, H, hd + rd) from x at ``positions``; k (B, T, H, hd + rd)
+    and v (B, T, H, vd) expanded from the latent c and the rope key."""
+    hd, rd = cfg.head_dim, cfg.qk_rope_head_dim
+    q = _project(x, p["wq"], dtype)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_nope = torch.einsum("btr,rhk->bthk", c, p["w_uk"].to(dtype))
+    v = torch.einsum("btr,rhk->bthk", c, p["w_uv"].to(dtype))
+    q_full = torch.cat([q_nope, q_rope], -1)
+    k_rope_b = k_rope[:, :, None, :].expand(*k_nope.shape[:3], rd)
+    return q_full, torch.cat([k_nope, k_rope_b], -1), v
+
+
+def mla_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal MLA: x (B, S, D) -> (B, S, D)."""
+    dtype = x.dtype
+    c, k_rope = _mla_latent(p, cfg, x, positions)
+    q, k, v = _mla_qkv(p, cfg, x, c, k_rope, positions, dtype)
+    S = x.shape[1]
+    mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
+    out = _sdpa(q, k, v, mask, dtype)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+               cache: Tuple[torch.Tensor, torch.Tensor], pos: torch.Tensor):
+    """One-token MLA decode.  x: (B, 1, D); cache: (c, k_rope), (B, S_max,
+    r) and (B, S_max, rd); pos: (B,).  Returns (out, new cache), new
+    tensors, written at ``pos`` as ``gqa_decode`` writes."""
+    dtype = x.dtype
+    cc, ckr = cache
+    c_new, kr_new = _mla_latent(p, cfg, x, pos[:, None])
+    slots = torch.arange(cc.shape[1], device=cc.device)
+    at = (slots[None] == pos[:, None])[..., None]            # (B, S, 1)
+    cc = torch.where(at, c_new.to(cc.dtype), cc)
+    ckr = torch.where(at, kr_new.to(ckr.dtype), ckr)
+    q, k, v = _mla_qkv(p, cfg, x, cc.to(dtype), ckr.to(dtype), pos[:, None],
+                       dtype)
+    valid = slots[None] <= pos[:, None]
+    out = _sdpa(q, k, v, valid[:, None, :], dtype)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype)), (cc, ckr)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, seq: int,
+                   dtype: torch.dtype, device):
+    return (torch.zeros((batch, seq, cfg.kv_lora_rank), dtype=dtype,
+                        device=device),
+            torch.zeros((batch, seq, cfg.qk_rope_head_dim), dtype=dtype,
+                        device=device))
+
+
 # dispatchers ---------------------------------------------------------
 
-def _gqa_only(cfg: ModelConfig) -> None:
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(UNPORTED_MLA)
-
-
 def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    _gqa_only(cfg)
+    if cfg.attn_type == "mla":
+        return init_mla(gen, cfg)
     return init_gqa(gen, cfg)
 
 
 def attention_forward(p, cfg, x, positions, rope_cache=None, tp=None):
-    _gqa_only(cfg)
+    if cfg.attn_type == "mla":
+        return mla_forward(p, cfg, x, positions)
     return gqa_forward(p, cfg, x, positions, rope_cache=rope_cache, tp=tp)
 
 
 def attention_decode(p, cfg, x, cache, pos):
-    _gqa_only(cfg)
+    if cfg.attn_type == "mla":
+        return mla_decode(p, cfg, x, cache, pos)
     return gqa_decode(p, cfg, x, cache, pos)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype: torch.dtype,
                device):
-    _gqa_only(cfg)
+    if cfg.attn_type == "mla":
+        return init_mla_cache(cfg, batch, seq, dtype, device)
     return init_gqa_cache(cfg, batch, seq, dtype, device)

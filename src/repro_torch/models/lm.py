@@ -1,6 +1,6 @@
-"""Model assembly for dense GQA decoders: init, the training / prefill
-forward, the loss and the single-token decode step (the counterpart of
-``repro/models/lm.py``).
+"""Model assembly for decoders of dense or MoE blocks over GQA or MLA
+attention: init, the training / prefill forward, the loss and the
+single-token decode step (the counterpart of ``repro/models/lm.py``).
 
 The JAX package stacks each pattern position's params over the
 ``n_periods`` repeats and walks them with ``lax.scan``; here
@@ -22,7 +22,9 @@ and MLP tensor-parallel where the specs split them
 (``models.sharding.Sharded``).  Under remat a layer's gathers and its
 forward reductions run again in the backward's recompute (early stop
 is off, so the whole layer is recomputed on every rank alike).  Sharded
-decode is not ported yet (ROADMAP A11c).
+decode is not ported yet (ROADMAP A11c), nor is a sharded MLA or MoE
+model (ROADMAP A11d: ``Sharded`` has no tensor-parallel or
+expert-parallel form for them), so ``rules`` on such a config raises.
 """
 from __future__ import annotations
 
@@ -38,15 +40,15 @@ from .attention import (attention_decode, attention_forward,
 from .config import DENSE, MAMBA1, MAMBA2, MOE, ModelConfig
 from .layers import (apply_norm, embed, init_embedding, init_mlp,
                      init_norm, make_rope_cache, mlp, unembed)
+from .moe import init_moe, moe_apply
 from .sharding import Sharded, tree_pspecs
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside this slice (dense
-    GQA decoders with rmsnorm and plain RoPE), naming its ROADMAP item."""
+    """Raise ``NotImplementedError`` for a config outside the port (it runs
+    decoders of dense and MoE blocks over GQA or MLA attention, with
+    rmsnorm and plain RoPE), naming its ROADMAP item."""
     unported = [
-        (cfg.attn_type == "mla", "MLA attention", "A13.3"),
-        (MOE in cfg.pattern or cfg.n_experts > 0, "MoE blocks", "A13.4"),
         (MAMBA1 in cfg.pattern or MAMBA2 in cfg.pattern, "Mamba blocks",
          "A13.5"),
         (cfg.shared_attn_every > 0, "the shared attention block", "A13.6"),
@@ -59,9 +61,19 @@ def check_supported(cfg: ModelConfig) -> None:
         if hit:
             raise NotImplementedError(f"{cfg.name}: {what} are not ported "
                                       f"yet (ROADMAP {item})")
-    if cfg.attn_type != "gqa" or not cfg.n_heads:
+    if cfg.attn_type not in ("gqa", "mla") or not cfg.n_heads:
         raise NotImplementedError(f"{cfg.name}: attn_type "
                                   f"{cfg.attn_type!r} is not ported")
+
+
+def check_rules(cfg: ModelConfig, rules) -> None:
+    """Raise ``NotImplementedError`` where ``rules`` would shard an MLA or
+    MoE model: ``Sharded`` splits only GQA heads and the dense MLP, and a
+    silently replicated compute is not a sharded one (ROADMAP A11d)."""
+    if rules is not None and (cfg.attn_type == "mla" or MOE in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: sharded MLA / MoE models (rules) are not ported "
+            f"yet (ROADMAP A11d); pass rules=None")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -74,10 +86,12 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     dev = gen.device
     p = {"norm1": init_norm(cfg.d_model, dev),
-         "attn": init_attention(gen, cfg)}
+         "attn": init_attention(gen, cfg),
+         "norm2": init_norm(cfg.d_model, dev)}
     if kind == DENSE:
-        p["norm2"] = init_norm(cfg.d_model, dev)
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff)
+    else:
+        p["moe"] = init_moe(gen, cfg)
     return p
 
 
@@ -107,17 +121,40 @@ def abstract_params(cfg: ModelConfig) -> dict:
     def t(*shape):
         return torch.empty(shape, dtype=torch.float32, device="meta")
 
-    def block(kind):
+    def mlp_leaves(f):
+        return {"wi_gate": t(d, f), "wi_up": t(d, f), "wo": t(f, d)}
+
+    def attention():
+        if cfg.attn_type == "mla":
+            rd, vd, r = cfg.qk_rope_head_dim, cfg.v_head, cfg.kv_lora_rank
+            return {"wq": t(d, h, hd + rd), "w_dkv": t(d, r),
+                    "w_kr": t(d, rd), "w_uk": t(r, h, hd),
+                    "w_uv": t(r, h, vd), "wo": t(h, vd, d),
+                    "kv_norm": {"scale": t(r)}}
         attn = {"wq": t(d, h, hd), "wk": t(d, kv, hd), "wv": t(d, kv, hd),
                 "wo": t(h, hd, d)}
         if cfg.qk_norm:
             attn["q_norm"] = {"scale": t(hd)}
             attn["k_norm"] = {"scale": t(hd)}
-        p = {"norm1": {"scale": t(d)}, "attn": attn}
+        return attn
+
+    def moe():
+        e, f = cfg.n_experts, cfg.moe_ff
+        p = {"router": t(d, e), "wi_gate": t(e, d, f), "wi_up": t(e, d, f),
+             "wo": t(e, f, d)}
+        if cfg.n_shared_experts:
+            p["shared"] = mlp_leaves(f * cfg.n_shared_experts)
+        if cfg.dense_residual_ff:
+            p["dense_residual"] = mlp_leaves(cfg.dense_residual_ff)
+        return p
+
+    def block(kind):
+        p = {"norm1": {"scale": t(d)}, "attn": attention(),
+             "norm2": {"scale": t(d)}}
         if kind == DENSE:
-            p["norm2"] = {"scale": t(d)}
-            p["mlp"] = {"wi_gate": t(d, cfg.d_ff), "wi_up": t(d, cfg.d_ff),
-                        "wo": t(cfg.d_ff, d)}
+            p["mlp"] = mlp_leaves(cfg.d_ff)
+        else:
+            p["moe"] = moe()
         return p
 
     params = {"embed": {"table": t(cfg.vocab_size, d)},
@@ -131,6 +168,7 @@ def abstract_params(cfg: ModelConfig) -> dict:
 @functools.lru_cache(maxsize=16)
 def param_specs(rules, cfg: ModelConfig) -> dict:
     """The spec of every params leaf of ``cfg`` under ``rules``."""
+    check_rules(cfg, rules)
     return tree_pspecs(rules, abstract_params(cfg))
 
 
@@ -152,10 +190,10 @@ def _block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
     x = x + attention_forward(p["attn"], cfg,
                               apply_norm(cfg.norm, p["norm1"], x),
                               positions, rope_cache=rope_cache, tp=tp_attn)
+    h = apply_norm(cfg.norm, p["norm2"], x)
     if kind == DENSE:
-        x = x + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], x), x.dtype,
-                    tp=tp_mlp)
-    return x
+        return x + mlp(p["mlp"], h, x.dtype, tp=tp_mlp)
+    return x + moe_apply(p["moe"], cfg, h)
 
 
 def _differentiated(p: dict, x: torch.Tensor) -> bool:
@@ -186,8 +224,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     the head stay outside, as in the JAX package.  With ``rules`` the
     params are this rank's shards (module docstring); the embedding and
     head tables are gathered at use (not vocab-parallel), the head and
-    the layers' weight matrices in the compute dtype."""
+    the layers' weight matrices in the compute dtype (GQA configs with
+    dense blocks only: ROADMAP A11d)."""
     check_supported(cfg)
+    check_rules(cfg, rules)
     dtype = cfg.activation_dtype
     B, S = tokens.shape
     sh = specs = None
@@ -201,7 +241,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                    specs["embed"]["table"])}, tokens, dtype)
     if positions is None:
         positions = _default_positions(B, S, tokens.device)
-    rope_cache = make_rope_cache(positions, cfg.head_dim, cfg.rope_theta)
+    rope_cache = None
+    if cfg.attn_type == "gqa":      # MLA rotates its rope part on the fly
+        rope_cache = make_rope_cache(positions, cfg.head_dim,
+                                     cfg.rope_theta)
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["blocks"])):
         spec = None if specs is None else specs["blocks"][i]
         if cfg.remat == "full" and _differentiated(p, x):
@@ -248,8 +291,10 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device=None) -> dict:
-    """Decode state: one zeroed (k, v) cache pair per layer, each (batch,
-    max_seq, kv, hd) in the compute dtype, and ``pos`` (batch,) int64."""
+    """Decode state: one zeroed cache pair per layer in the compute dtype
+    (GQA: (k, v), each (batch, max_seq, kv, hd); MLA: (c, k_rope),
+    (batch, max_seq, kv_lora_rank) and (batch, max_seq,
+    qk_rope_head_dim)), and ``pos`` (batch,) int64."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = cfg.activation_dtype
@@ -262,7 +307,8 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
                 tokens: torch.Tensor, rules=None):
     """One new token per sequence.  tokens: (B, 1) -> (logits (B, V), new
     state).  The input state is not written.  Sharded decode (``rules``)
-    is not ported yet (ROADMAP A11c)."""
+    is not ported yet (ROADMAP A11c; for MLA / MoE configs A11d)."""
+    check_rules(cfg, rules)
     if rules is not None:
         raise NotImplementedError("sharded decode (rules) is not ported "
                                   "yet (ROADMAP A11c); pass rules=None")
@@ -276,8 +322,11 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
         a, c = attention_decode(p["attn"], cfg,
                                 apply_norm(cfg.norm, p["norm1"], h), c, pos)
         h = h + a
+        hn = apply_norm(cfg.norm, p["norm2"], h)
         if kind == DENSE:
-            h = h + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], h), dtype)
+            h = h + mlp(p["mlp"], hn, dtype)
+        else:
+            h = h + moe_apply(p["moe"], cfg, hn)
         caches.append(c)
     h = apply_norm(cfg.norm, params["final_norm"], h)
     logits = unembed(params[_head_key(cfg)], h, dtype)[:, 0]

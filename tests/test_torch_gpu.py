@@ -1030,6 +1030,64 @@ def test_reduced_lm_forward_on_card_matches_host(cuda_device, arch, impl):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4096, 512), (4, 512), (4, 1024, 512),
+                                   (4, 1, 512), (37, 512)])
+def test_rmsnorm_cuda_at_the_mla_latent_width(cuda_device, dtype, shape):
+    """D = 512, DeepSeek-V2-Lite's kv_lora_rank (MLA's kv_norm), on the
+    generic vector kernel: the prefill's (4096, 512), the decode step's
+    (4, 512) and ragged row counts, against the plain version."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    scale = torch.from_numpy(rng.standard_normal(512).astype(np.float32))
+    x_d, s_d = x.to(cuda_device, dtype), scale.to(cuda_device)
+    before = rmsnorm_cuda.launches
+    got = rmsnorm_cuda(x_d, s_d)
+    want = rmsnorm_plain(x_d, s_d)
+    torch.cuda.synchronize()
+    assert rmsnorm_cuda.launches == before + 1
+    assert got.shape == x_d.shape and got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["dense", "capacity"])
+def test_reduced_deepseek_forward_on_card_matches_host(cuda_device, impl):
+    """Reduced DeepSeek-V2-Lite (MLA + MoE), f32: the forward through the
+    kernels (card) against the plain versions (host), same weights, 1e-4;
+    three norms a layer (norm1, MLA's kv_norm, norm2) and final_norm, one
+    rmsnorm launch each; then teacher-forced decode on the card against
+    the host, dense dispatch."""
+    cfg, params = _reduced_lm("deepseek_v2_lite_16b", "naive")
+    cfg = dataclasses.replace(cfg, moe_impl=impl)
+    toks = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (2, 64)))
+    host = forward(params, cfg, toks)
+    params_d = _to(params, cuda_device)
+    r0 = rmsnorm_cuda.launches
+    card = forward(params_d, cfg, toks.to(cuda_device))
+    torch.cuda.synchronize()
+    assert rmsnorm_cuda.launches - r0 == 3 * cfg.n_layers + 1
+    np.testing.assert_allclose(card.cpu().numpy(), host.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    cfg = dataclasses.replace(cfg, moe_impl="dense")
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", params_d)):
+        st = init_decode_state(cfg, 2, 8, device=dev)
+        logits = []
+        for t in range(8):
+            lg, st = decode_step(p, cfg, st, toks[:, t:t + 1].to(dev))
+            logits.append(lg.cpu())
+        outs[dev] = torch.stack(logits, 1)
+    np.testing.assert_allclose(outs["cuda"].numpy(), outs["cpu"].numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 def test_reduced_decode_and_engine_on_card_match_host(cuda_device):
     """Teacher-forced decode logits (1e-4) and the engine's greedy tokens
     (equal) on the card against the host, f32, reduced Qwen3."""

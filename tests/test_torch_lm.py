@@ -7,7 +7,8 @@ another order, ~1e-6 measured at these widths); bf16 logits 5e-2, the
 JAX model tests' own bound (tests/test_flash_attention.py,
 tests/test_models_smoke.py); greedy tokens and serving tokens equal in
 f32.  Families the port does not run yet must raise, naming their
-ROADMAP item.
+ROADMAP item (the MoE family, DeepSeek-V2-Lite and Arctic, runs:
+tests/test_torch_moe.py; sharded, it raises naming A11d).
 """
 import dataclasses
 
@@ -215,7 +216,6 @@ def test_serving_engine_matches_isolated_greedy():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek_v2_lite_16b", "A13.3"), ("arctic_480b", "A13.4"),
     ("falcon_mamba_7b", "A13.5"), ("zamba2_1p2b", "A13.5"),
     ("whisper_tiny", "A13.7"), ("qwen2_vl_72b", "A13.8")])
 def test_unported_families_raise_naming_their_item(arch, item):
@@ -237,6 +237,28 @@ def test_unported_options_raise_naming_their_item(change, item):
     with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
         decode_step({}, get_config("qwen3_1p7b", reduced=True), {},
                     torch.zeros((1, 1), dtype=torch.long), rules=object())
+
+
+@pytest.mark.parametrize("call", ["forward", "loss_fn", "decode_step",
+                                  "param_specs"])
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "arctic_480b"])
+def test_sharded_moe_and_mla_raise_naming_a11d(arch, call):
+    """MLA and MoE configs run unsharded; ``rules`` on them raises naming
+    ROADMAP A11d (``models.sharding.Sharded`` has no tensor- or
+    expert-parallel form for them) instead of computing replicated."""
+    from repro_torch.models import lm
+    cfg = get_config(arch, reduced=True)
+    check_supported(cfg)
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    calls = {"forward": lambda: lm.forward({}, cfg, toks, rules=object()),
+             "loss_fn": lambda: lm.loss_fn({}, cfg, {"tokens": toks,
+                                                     "labels": toks},
+                                           rules=object()),
+             "decode_step": lambda: lm.decode_step({}, cfg, {}, toks[:, :1],
+                                                   rules=object()),
+             "param_specs": lambda: lm.param_specs(object(), cfg)}
+    with pytest.raises(NotImplementedError, match="ROADMAP A11d"):
+        calls[call]()
 
 
 def test_layers_match_jax():
