@@ -88,8 +88,10 @@ Phases (each one fails the run with a non-zero exit):
           attention must fail the f32 bound); time, tokens/s, memory peak
        c. 64 teacher-forced decode steps against the prefill logits
        d. ServingEngine(n_slots=4, max_seq=256) answers 8 requests (16-64
-          prompt tokens, 32 new each, some arriving mid-flight), each
+          prompt tokens, 16 new each, some arriving mid-flight), each
           held against the same request decoded alone by greedy_generate
+          (where the tokens part, the isolated run's top-1 / top-2
+          margin must be small)
        e. kernel times against bounds, plain versions, F.rms_norm and
           scaled_dot_product_attention (rmsnorm and F.rms_norm queued and
           eager, and the rmsnorm kernels' device time in one profiled
@@ -217,8 +219,10 @@ Phases (each one fails the run with a non-zero exit):
           at 1e-5
        b. 1d at P = 4, four processes sharing the card over gloo (CUDA
           tensors), n / 4 = 2048 features a rank: the same two fits and
-          classical DCD (s = 1) on phases 3-4's schedules: alpha and the
-          residual history against the serial fits at 1e-5, every rank's
+          classical DCD (s = 1) on phases 3-4's schedules (classical DCD
+          on its first DIST_CLASSICAL_ITERS coordinates, beside a serial
+          classical fit of that cut): alpha and the residual history
+          against the serial fits at 1e-5, every rank's
           bit for bit the others'; each rank's launches exact (a gram a
           round, rank 0's checks a kmv each)
        c. 2d at 2 x 2 (m / 2 rows, n / 2 features a rank): the same, two
@@ -242,14 +246,16 @@ Phases (each one fails the run with a non-zero exit):
           torch.mm and its bound
  13. the LM's cross-device training (train_step, models/sharding), in
      phase 12's spawns after their fits: Qwen3-1.7B at full width, depth
-     cut to LMD_LAYERS layers, bf16 flash with remat, 16 x 1024 tokens a
-     step in 4 microbatches, 2 steps a case; the reference is the
-     unsharded trainer, trained first in this process alone on the card:
-       a. NCCL at world 1 (1 x 1): the s-step deferred step at s = 4 and
+     cut to LMD_LAYERS layers, bf16 flash with remat, 8 x 1024 tokens a
+     step in 2 microbatches (a depth and batch cut: 2 layers and 16 x
+     1024 tokens in 4 before phase 15 needed the time), 2 steps a case;
+     the reference is the unsharded trainer, trained first in this
+     process alone on the card:
+       a. NCCL at world 1 (1 x 1): the s-step deferred step at s = 2 and
           the FSDP + TP step
        b. gloo at world 4 sharing the card: deferred at 2 x 2 with s = 1,
-          s = 4 and s = 4 with int8 error feedback; FSDP + TP at 4 x 1
-          and 2 x 2
+          s = 2 and s = 2 with int8 error feedback; FSDP at 4 x 1 (FSDP +
+          TP at 2 x 2 runs in phase 15's MoE training)
        c. every case's loss (TOL_LMD_LOSS), AdamW's first moment after
           step 1 and first and second moments after the last step per
           leaf (TOL_GRAD_BF16), and params after 2 steps (AdamW's largest
@@ -258,7 +264,7 @@ Phases (each one fails the run with a non-zero exit):
           rank's chunks against the same chunks of the reference; the chunks
           two ranks both hold bit for bit after each step; collectives
           by axis and kind exactly train_step.step_collectives, the s = 1
-          step 4x the "grad" syncs of s = 4; rmsnorm and flash launches
+          step 2x the "grad" syncs of s = 2; rmsnorm and flash launches
           a step exact; step walls and sync times (CUDA events around
           each sync, read after the step); device-memory peaks a rank
           beside the replicated trainer's
@@ -291,6 +297,33 @@ Phases (each one fails the run with a non-zero exit):
        d. the rmsnorm kernel at every shape the phase launched it at
           (D = 512 among them: MLA's kv_norm), against its plain version,
           timed alone beside F.rms_norm and its bound
+ 15. sharded decode and sharded MLA / MoE (models/sharding.cache_spec,
+     the split-S attention, expert parallelism), in phase 12's spawns
+     after phase 13; the references are the unsharded runs, made first in
+     this process alone on the card:
+       a. Qwen3-1.7B at full width and LMD_LAYERS layers decoding 4 rows
+          from a random 1056-position cache (rows placed so that one
+          stays in the first chunk of a split S, two cross a chunk
+          boundary, one runs past the end), 32 steps: NCCL at 1 x 1 (bit
+          for bit); gloo at 2 x 2 in f32 (TOL_LM_F32), at 4 x 1 and with
+          B = 1 at 2 x 2 (S split over data) in bf16 (TOL_LM_BF16); every
+          rank's cache chunks against the same chunks of the unsharded
+          run; an f32 ServingEngine(rules=) at 1 x 1 and 2 x 2 answering
+          8 requests with the unsharded engine's tokens
+       b. DeepSeek-V2-Lite at full width and MOE_SHORT_LAYERS layers: in
+          bf16 at 2 x 2, in f32 at 1 x 4 (16 experts and 4 heads a rank):
+          the sharded forward and decode on the split latent cache (32
+          steps; 8 at 2 x 2, where each step gathers the model over
+          data), held before each row's first routing difference (C22),
+          bf16 within twice the bf16 noise, f32 at TOL_LM_F32; training
+          steps of 4 x 1024 tokens in 2 microbatches with remat (2; 1 at
+          2 x 2; loss TOL_MOE15_LOSS, grad norm TOL_MOE15_GNORM; in f32
+          AdamW's moments and the params entry by entry), replicated
+          chunks bit for bit
+       c. every case's collectives exactly decode_collectives /
+          step_collectives, the decode steps' rmsnorm launches, and the
+          rmsnorm kernel at every shape the ranks launched it at, against
+          its plain version, timed alone beside F.rms_norm and its bound
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
@@ -301,6 +334,7 @@ versions and the kernels are compared in full f32.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -397,26 +431,36 @@ SERVE_TICKETS = 4096
 SERVE_SINGLE = 0.7
 SERVE_PER_STEP = 32
 # phase 12: the ranks that share the card over gloo, their spawn's time
-# limit (phase 13 runs in the same spawns), and the guarded 1d fit (linear
-# K-RR at s = 8, b = 32): its budget H, the iteration whose chunk a
+# limit (phases 13 and 15 run in the same spawns), and the guarded 1d fit
+# (linear K-RR at s = 8, b = 32): its budget H, the iteration whose chunk a
 # poisoned rank corrupts, and rounds of the 1d K-RR round that are split
 # into kernel, reduction and local phase
 DIST_WORLD = 4
-DIST_TIMEOUT_S = 720
+DIST_TIMEOUT_S = 900
+# the gloo ranks' classical DCD fits replay the first DIST_CLASSICAL_ITERS
+# coordinates of phase 3's schedule (a depth cut: at all 4096 its
+# latency-bound all-reduces over gloo took 59-63 s a layout on the H100
+# host, at 1024 11.5-11.8 s on a slower one), held against a serial
+# classical fit of the same cut
+DIST_CLASSICAL_ITERS = 256
 DIST_GUARD_ITERS = 512
 DIST_GUARD_FAULT_ITER = 200
 DIST_SPLIT_ROUNDS = 8
 # (ranks, backend) of phase 12's two spawns
 DIST_RUNS = ((1, "nccl"), (DIST_WORLD, "gloo"))
 # Phase 13 (the LM's cross-device training): Qwen3-1.7B at full width with
-# its depth cut to LMD_LAYERS layers (four ranks' replicated state, 0.72 B
+# its depth cut to LMD_LAYERS layers (four ranks' replicated state, 0.67 B
 # parameters with their AdamW moments, gradient, accumulator and residual,
-# shares the one card); LMD_BATCH sequences of LMD_SEQ tokens a step in
-# LMD_MICRO microbatches, LMD_STEPS steps a case, phase 8's lr without
-# warmup.  The cases by world size: (label, (data, model), defer_s (0: the
-# FSDP + TP step), int8).
-LMD_LAYERS = 2
-LMD_SEQ, LMD_BATCH, LMD_MICRO, LMD_STEPS = 1024, 16, 4, 2
+# shares the one card; 2 layers before phase 15 needed the time);
+# LMD_BATCH sequences of LMD_SEQ tokens a step in LMD_MICRO microbatches
+# (16 in 4 before, the same cut: each microbatch gathers the tables over
+# gloo; a microbatch keeps its rows a rank, and so its memory), LMD_STEPS
+# steps a case, phase 8's lr without warmup.  The cases by world size:
+# (label, (data, model), defer_s (0: the FSDP + TP step), int8).  The
+# FSDP + TP step at 2 x 2 is left to phase 15's MoE training (its 24 s
+# here went to the run's time limit).
+LMD_LAYERS = 1
+LMD_SEQ, LMD_BATCH, LMD_MICRO, LMD_STEPS = 1024, 8, 2, 2
 LMD_ACFG = dict(warmup_steps=0, total_steps=100)
 # Phase 13's loss against the unsharded trainer, relative.  Both runs
 # take the same bf16 kernels on the same weights and tokens; the ranks
@@ -427,21 +471,86 @@ TOL_LMD_LOSS = 1e-4
 # the H100's L2: phase 13's kernel entries time each shape over enough
 # copies of its inputs to pass twice this, so every launch reads HBM
 L2_BYTES = 50 * 2 ** 20
-LMD_CASES = {1: (("defer s=4", (1, 1), 4, False),
+LMD_CASES = {1: (("defer s=2", (1, 1), 2, False),
                  ("sharded", (1, 1), 0, False)),
              DIST_WORLD: (("defer s=1", (2, 2), 1, False),
-                          ("defer s=4", (2, 2), 4, False),
-                          ("defer s=4 int8", (2, 2), 4, True),
-                          ("sharded", (4, 1), 0, False),
-                          ("sharded", (2, 2), 0, False))}
+                          ("defer s=2", (2, 2), 2, False),
+                          ("defer s=2 int8", (2, 2), 2, True),
+                          ("sharded", (4, 1), 0, False))}
+# Phase 15 (sharded decode, sharded MLA / MoE), in phase 12's spawns after
+# phase 13.  Qwen3-1.7B at full width and LMD_LAYERS layers decodes
+# SDD_SLOTS rows over a cache of SDD_MAX_SEQ positions whose every slot is
+# drawn at random, the rows starting at SDD_POS: one stays in the first
+# chunk of a split S (the other chunks empty for it), two cross a chunk
+# boundary of a 2-way and a 4-way split, one runs past the end (writes
+# nothing); SDD_STEPS steps a case; an f32 engine of SDD_SLOTS slots
+# answers SDD_REQUESTS requests at the meshes of SDD_ENGINE_MESHES.
+# DeepSeek-V2-Lite at full width and MOE_SHORT_LAYERS layers: a forward of
+# MOE15_FWD tokens (MOE15_FWD_IMPL dispatch: at 16 tokens a row the
+# capacity dispatch keeps one token an expert), the decode steps on its
+# split latent cache, MOE15_STEPS training steps of MOE15_BATCH x
+# MOE15_SEQ tokens in MOE15_MICRO microbatches with remat; in f32 (routes
+# decided alike, C22) at 1 x 4, where the experts, MLA's heads and its
+# latent cache are split 4 ways.  The cases by world size: (model, (data,
+# model), B, dtype).  A MoE case must hold (compare before a routing
+# difference) a quarter of its rows' first SDD_HELD_STEPS decode steps, so
+# that its comparison is not empty; past them bf16 routes drift apart
+# (C22), f32 ones do not.
+SDD_SLOTS, SDD_MAX_SEQ = 4, 1056
+SDD_HELD_STEPS = 4
+SDD_POS = (5, 526, 790, 1054)
+SDD_STEPS = 32
+# The MoE case whose params are split over data decodes only the first
+# SDD_STEPS_FSDP steps (a depth cut): each of its steps gathers the whole
+# model over gloo, 1.35 s a step on the H100 host.  Its rows cross their
+# chunk boundaries and run past the cache within the first three steps.
+SDD_STEPS_FSDP = 8
+# and takes MOE15_STEPS_FSDP training steps (its FSDP gathers took 23 s a
+# step there).  The MoE cases: bf16 at 2 x 2, f32 at 1 x 4 (a bf16 case
+# at 1 x 4 went to the run's time limit: the f32 one holds that layout
+# tighter, C22).
+MOE15_STEPS_FSDP = 1
+SDD_REQUESTS, SDD_PROMPT, SDD_NEW, SDD_ENGINE_SEQ = 8, 3, 3, 64
+SDD_ENGINE_MESHES = ((1, 1), (2, 2))
+SDD_CASES = {1: (("gqa", (1, 1), SDD_SLOTS, "bfloat16"),),
+             DIST_WORLD: (("gqa", (2, 2), SDD_SLOTS, "float32"),
+                          ("gqa", (4, 1), SDD_SLOTS, "bfloat16"),
+                          ("gqa", (2, 2), 1, "bfloat16"),
+                          ("moe", (2, 2), SDD_SLOTS, "bfloat16"),
+                          ("moe", (1, 4), SDD_SLOTS, "float32"))}
+MOE15_FWD, MOE15_FWD_IMPL = (8, 16), "dense"
+MOE15_SEQ, MOE15_BATCH, MOE15_MICRO, MOE15_STEPS = 1024, 4, 2, 2
+# phase 15's MoE training loss and grad norm against the unsharded run,
+# relative: a bf16 routing flip (C22) moves a token by a whole expert
+# output.  Measured on the H100 (NVIDIA H100 80GB HBM3, 700.00 W): loss
+# 1.25e-4 and 1.36e-4, grad norm 8.7e-5 and 1.55e-3 (phase 15 alone).
+TOL_MOE15_LOSS, TOL_MOE15_GNORM = 1e-3, 1e-2
+# The f32 MoE training is held leaf by leaf and entry by entry against
+# the unsharded f32 run (a leaf of more than MOE15_TREE_ENTRIES entries at
+# every k-th row of dim 0, _tree_sample: whole, the reference's trees took
+# 19 GB of disk): AdamW's first moment after steps 1 and 2 (linear
+# in the gradients: a model-replicated leaf whose partial gradients are
+# not summed over model is off by a whole share), each entry within
+# TOL_GRAD_F32 of its leaf's largest |entry|; the params after step 1,
+# each entry within what its own gradient difference allows (AdamW's
+# first update is lr g / (|g| + eps), which moves at most 2 lr |dg| / eps
+# for a change dg of g in m and in v, dg = dm / (1 - b1)) past one ulp of
+# f32 rounding between the runs (_sdd_step1_params).
+# Not the params at TOL_GRAD_F32 of the leaf: an entry whose gradient
+# sums to near eps turns a rounding-sized dg into a part of lr (the
+# params after step 2 read 1.30x that bound on the H100, NVIDIA H100
+# 80GB HBM3 at 700.00 W).
+MOE15_TREE_ENTRIES = 2 ** 23
 
 # Phase 7 (the LM at Qwen3-1.7B width): B prompts of S tokens prefill, a
 # teacher-forced decode of the first LM_DECODE_PROMPT of them, and an
 # engine answering LM_REQUESTS requests of LM_NEW_TOKENS new tokens.
 LM_BATCH, LM_SEQ = 4, 2048
 LM_DECODE_PROMPT = 64
-LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_SEQ = 8, 32, 256
-LM_PROFILE_STEPS = 8            # decode steps timed and profiled
+LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_SEQ = 8, 16, 256
+# decode steps timed and profiled (8 until the run's time limit: the
+# profiler took ~2 s a step)
+LM_PROFILE_STEPS = 2
 TOL_RMSNORM_F32 = 1e-5          # tests/test_pallas_rmsnorm.py
 TOL_FLASH_F32_R, TOL_FLASH_F32_A = 2e-4, 2e-5   # tests/test_flash_attention.py
 # bf16 flash through the FP32-FMA kernels (head dims other than 64 and
@@ -2729,8 +2838,10 @@ def dist_rank(rank, world, backend, outdir, seed, svm_iters, krr_iters):
         if world > 1:
             run(f"{lay} K-SVM classical", KernelSVM(
                 C=1.0, kernel="rbf", device=dev, options=SolverOptions(
-                    method="classical", max_iters=svm_iters, **common)),
-                A, y, schedule=plan["dcd_sched"].to(dev))
+                    method="classical", max_iters=DIST_CLASSICAL_ITERS,
+                    **common)),
+                A, y, schedule=plan["dcd_sched"][:DIST_CLASSICAL_ITERS]
+                .to(dev))
         run(f"{lay} K-RR s=8 b=32", KernelRidge(
             lam=1.0, kernel="rbf", device=dev, options=SolverOptions(
                 method="sstep", s=8, b=32, tol=1e-4, check_every=16,
@@ -2808,6 +2919,9 @@ def dist_rank(rank, world, backend, outdir, seed, svm_iters, krr_iters):
     del A, y, Ar, yr
     torch.cuda.empty_cache()
     res["lm"] = lmd_rank(world, dev, seed, plan["lmd_ref"])
+    # phase 15 on the same ranks
+    torch.cuda.empty_cache()
+    res["sdd"] = sdd_rank(world, dev, seed, plan["sdd_ref"])
     torch.save(res, out / f"rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -2953,6 +3067,12 @@ def dist_phase(c, args, failures):
         lm_ref = lmd_reference(dev, args, Path(plan["lmd_ref"]))
         print(f"[dist-lm] the unsharded reference trained and saved in "
               f"{time.perf_counter() - t0:.1f} s")
+        # phase 15's references, also before the ranks take the card
+        t0 = time.perf_counter()
+        plan["sdd_ref"] = str(Path(tmp) / "sdd_ref.pt")
+        sdd_ref = sdd_reference(dev, args, Path(plan["sdd_ref"]))
+        print(f"[sdd] the unsharded references run and saved in "
+              f"{time.perf_counter() - t0:.1f} s")
         for world, backend in DIST_RUNS:
             d = Path(tmp) / f"{backend}{world}"
             d.mkdir()
@@ -2967,8 +3087,13 @@ def dist_phase(c, args, failures):
                   f"{time.perf_counter() - t0:.1f} s (the walls below: "
                   f"processes time-sliced on one card, not a scaling "
                   f"measurement)")
+    from repro_torch.api import KernelSVM, SolverOptions
+    cut = KernelSVM(C=1.0, kernel="rbf", device=dev, options=SolverOptions(
+        method="classical", max_iters=DIST_CLASSICAL_ITERS,
+        seed=args.seed)).fit(c.A, c.y, schedule=c.r_c.schedule[
+            :DIST_CLASSICAL_ITERS])
     serial = {"K-SVM s=32": (c.r_s.alpha, None),
-              "K-SVM classical": (c.r_c.alpha, None),
+              "K-SVM classical": (cut.alpha, None),
               "K-RR s=8 b=32": (c.r_k.alpha, c.r_k.history)}
     for (world, backend), ranks in zip(DIST_RUNS, runs.values()):
         tag = f"{backend}, world {world}"
@@ -3122,7 +3247,14 @@ def dist_phase(c, args, failures):
     entries += lmd_kernel_entries(tally, dev, args.seed, failures)
     print(f"[dist-lm] phase 13's checks and kernel entries took "
           f"{time.perf_counter() - t0:.1f} s")
-    print(f"[dist] phases 12 and 13 took "
+    # phase 15: sharded decode and sharded MLA / MoE, from the same spawns
+    t0 = time.perf_counter()
+    tally = sdd_check(sdd_ref, {w: [res["sdd"] for res in ranks]
+                                for w, ranks in runs.items()}, failures)
+    entries += sdd_kernel_entries(tally, dev, args.seed, failures)
+    print(f"[sdd] phase 15's checks and kernel entries took "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[dist] phases 12, 13 and 15 took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return entries
 
@@ -3356,7 +3488,7 @@ def lmd_check(ref: dict, runs: dict, failures: list) -> dict:
     params bound holds whatever the gradients: it catches a layout or
     gather fault, the moments a gradient fault), replicated chunks bit for
     bit, collectives and kernel launches per step exact, s = 1 syncing
-    four times as often as s = 4; prints walls, sync walls and peaks.
+    twice as often as s = 2; prints walls, sync walls and peaks.
     Returns the kernel launch tally by (kernel, shape) with the cases
     that launched it."""
     cfg, acfg = lmd_config(), lmd_acfg()
@@ -3458,10 +3590,10 @@ def lmd_check(ref: dict, runs: dict, failures: list) -> dict:
                         t[0] += n
                         t[1].add(name)
     g1 = grads.get((DIST_WORLD, "2x2 defer s=1"))
-    g4 = grads.get((DIST_WORLD, "2x2 defer s=4"))
-    print(f"[dist-lm] grad syncs a step at 2x2: s=1 {g1}, s=4 {g4}")
-    if g1 is None or g4 is None or g1 != 4 * g4:
-        failures.append(f"s=1 grad syncs {g1} are not 4x s=4's {g4}")
+    g2 = grads.get((DIST_WORLD, "2x2 defer s=2"))
+    print(f"[dist-lm] grad syncs a step at 2x2: s=1 {g1}, s=2 {g2}")
+    if g1 is None or g2 is None or g1 != 2 * g2:
+        failures.append(f"s=1 grad syncs {g1} are not 2x s=2's {g2}")
     return tally
 
 
@@ -3655,6 +3787,902 @@ def lmd_kernel_entries(tally: dict, dev, seed: int, failures: list):
     torch.cuda.empty_cache()
     return entries
 
+
+# ---- phase 15: sharded decode and sharded MLA / MoE ----------------------
+
+def _sdd_fsdp_steps() -> int:
+    """The decode steps of a MoE case whose params are split over data."""
+    return min(SDD_STEPS, SDD_STEPS_FSDP)
+
+
+def sdd_configs():
+    """Phase 15's models: Qwen3-1.7B at full width and LMD_LAYERS layers
+    (bf16, flash), DeepSeek-V2-Lite at full width and MOE_SHORT_LAYERS
+    layers (bf16, remat for its training)."""
+    from repro_torch.configs import get_config
+    gqa = dataclasses.replace(get_config("qwen3_1p7b"), n_layers=LMD_LAYERS,
+                              attn_impl="flash")
+    moe = dataclasses.replace(get_config("deepseek_v2_lite_16b"),
+                              n_layers=MOE_SHORT_LAYERS, remat="full")
+    return gqa, moe
+
+
+def _sdd_state(cfg, batch: int, dev, seed: int) -> dict:
+    """A decode state of SDD_MAX_SEQ positions with every slot drawn at
+    random (as if earlier tokens had filled it), in the config's dtype,
+    its rows at SDD_POS (B = 1: the row that crosses the middle)."""
+    import torch
+    from repro_torch.models import init_decode_state
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    state = init_decode_state(cfg, batch, SDD_MAX_SEQ, device=dev)
+    state["caches"] = [tuple(torch.randn(t.shape, generator=gen, device=dev)
+                             .to(torch.bfloat16).to(t.dtype) for t in pair)
+                       for pair in state["caches"]]
+    pos = SDD_POS if batch == len(SDD_POS) else SDD_POS[1:1 + batch]
+    state["pos"] = torch.tensor(pos, dtype=torch.int64, device=dev)
+    return state
+
+
+def _sdd_tokens(vocab: int, shape, seed: int):
+    import torch
+    gen = torch.Generator().manual_seed(seed + 7)
+    return torch.randint(0, vocab, shape, generator=gen)
+
+
+def _sdd_requests(cfg, seed: int) -> list:
+    from repro_torch.train import Request
+    toks = _sdd_tokens(cfg.vocab_size, (SDD_REQUESTS, SDD_PROMPT), seed + 1)
+    return [Request(rid=i, prompt=toks[i].tolist(),
+                    max_new_tokens=SDD_NEW) for i in range(SDD_REQUESTS)]
+
+
+def _sdd_engine(params, cfg, rules, seed: int) -> dict:
+    """The f32 engine (SDD_SLOTS slots) answering phase 15's requests:
+    generated tokens by request, steps, mean step wall, collectives."""
+    import torch
+    from repro_torch.launch.mesh import COLLECTIVES
+    from repro_torch.train import ServingEngine
+    eng = ServingEngine(params, cfg, n_slots=SDD_SLOTS,
+                        max_seq=SDD_ENGINE_SEQ, rules=rules)
+    reqs = _sdd_requests(cfg, seed)
+    for r in reqs:
+        eng.submit(r)
+    COLLECTIVES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = eng.run_until_done()
+    torch.cuda.synchronize()
+    return {"tokens": {r.rid: list(r.generated) for r in reqs},
+            "steps": steps, "ms": (time.perf_counter() - t0) / steps * 1e3,
+            "calls": dict(COLLECTIVES.calls)}
+
+
+def _moe_decisions(p, cfg, x):
+    """(B, S, E) bool on the host: the experts that take each token (the
+    top-k picks; with the capacity dispatch, those each expert keeps)."""
+    import torch
+    from repro_torch.models import moe as moe_module
+    with torch.no_grad():
+        _, top_w, top_idx = moe_module._route(p, cfg, x)
+        routed = moe_module._routed(top_w, top_idx, cfg.n_experts)
+        if cfg.moe_impl != "capacity":
+            return (routed > 0).cpu()
+        pri = torch.where(routed > 0, routed, torch.full_like(
+            routed, float("-inf"))).transpose(1, 2)
+        w, idx = pri.topk(moe_module.capacity(cfg, x.shape[1]), -1)
+        kept = torch.zeros_like(pri, dtype=torch.bool).scatter_(
+            -1, idx, torch.isfinite(w))
+        return kept.transpose(1, 2).cpu()
+
+
+def _recording_routes(seen: list):
+    """``lm.moe_apply`` patched to append each call's routing decisions
+    (``_moe_decisions`` of its input: over all E experts on every rank)
+    to ``seen``."""
+    from repro_torch.models import lm as lm_module
+    apply = lm_module.moe_apply
+
+    def recording(p, c, x, tp=None):
+        seen.append(_moe_decisions(p, c, x))
+        return apply(p, c, x, tp=tp)
+
+    return mock.patch.object(lm_module, "moe_apply", recording)
+
+
+def _first_route_difference(got: list, want: list, limit: int) -> list:
+    """Per row, the first position (dim 1) at which any layer's routing
+    decisions differ, or ``limit``."""
+    first = [limit] * got[0].shape[0]
+    for g, w in zip(got, want):
+        differs = (g != w).any(-1)
+        for b in range(differs.shape[0]):
+            hits = differs[b].nonzero()
+            if len(hits):
+                first[b] = min(first[b], int(hits[0]))
+    return first
+
+
+def _held_steps(got: list, want: list) -> list:
+    """Per row, the decode steps before its first routing difference:
+    ``got`` / ``want`` per step, per layer (B, 1, E)."""
+    steps = len(got)
+    held = [steps] * got[0][0].shape[0]
+    for t in range(steps):
+        for b, f in enumerate(_first_route_difference(got[t], want[t], 1)):
+            if f == 0:
+                held[b] = min(held[b], t)
+    return held
+
+
+def _decode_run(params, cfg, state, toks, dev, steps, routes=False,
+                cache_steps=()):
+    """``steps`` unsharded decode steps: per step the f32 logits (host),
+    walls, routing decisions (``routes``); the caches after the last, and
+    after each step count of ``cache_steps`` (``caches_at``)."""
+    import torch
+    from repro_torch.models import decode_step
+    out = {"logits": [], "walls": [], "routes": [], "caches_at": {}}
+    for t in range(steps):
+        seen = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _recording_routes(seen) if routes else contextlib.nullcontext():
+            lg, state = decode_step(params, cfg, state, toks[t].to(dev))
+        torch.cuda.synchronize()
+        out["walls"].append(time.perf_counter() - t0)
+        out["logits"].append(lg.float().cpu())
+        out["routes"].append(seen)
+        if t + 1 in cache_steps:
+            out["caches_at"][t + 1] = [[c.cpu() for c in pair]
+                                       for pair in state["caches"]]
+    out["caches"] = [[c.cpu() for c in pair] for pair in state["caches"]]
+    return out
+
+
+def _bf16_noise(b16: list, f32: list, held=None) -> float:
+    """The largest |bf16 - f32| of the unsharded run's logits, over each
+    row's ``held`` first entries (all by default): the bf16 rounding the
+    model's logits carry, which a sharded bf16 run carries too."""
+    worst = 0.0
+    for b in range(b16[0].shape[0]):
+        for t in range(len(b16) if held is None else held[b]):
+            worst = max(worst, float((b16[t][b] - f32[t][b]).abs().max()))
+    return worst
+
+
+def _moe15_train(cfg, params, seed: int, keep: bool = False):
+    """MOE15_STEPS unsharded training steps of ``cfg`` from ``params``:
+    losses, grad norms, walls, the device-memory peak; with ``keep`` host
+    copies (``_tree_sample``) of the first moment and the params after
+    step 1 and of the first moment after step 2 (``m1``, ``p1``,
+    ``m2``)."""
+    import torch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw_init(params)
+    step = make_train_step(cfg, lmd_acfg(),
+                           TrainConfig(microbatches=MOE15_MICRO))
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=MOE15_SEQ,
+                         global_batch=MOE15_BATCH, seed=seed)
+    tr, trees = {"loss": [], "grad_norm": [], "wall": []}, {}
+    for k in range(MOE15_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, pipe.batch(k))
+        torch.cuda.synchronize()
+        tr["wall"].append(time.perf_counter() - t0)
+        tr["loss"].append(float(m["loss"]))
+        tr["grad_norm"].append(float(m["grad_norm"]))
+        if keep and k < 2:      # copies: the next step updates in place
+            trees[f"m{k + 1}"] = [_tree_sample(t) for t in leaves(opt["m"])]
+            if k == 0:
+                trees["p1"] = [_tree_sample(t) for t in leaves(params)]
+    tr["peak"] = torch.cuda.max_memory_allocated() - base
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return tr, trees
+
+
+def _tree_sample(t) -> tuple:
+    """A host copy of a leaf for phase 15's f32 entry-by-entry checks:
+    ``(k, n0, rows)``, the whole leaf (k = 1) where it has at most
+    MOE15_TREE_ENTRIES entries, else every k-th of its n0 rows along dim
+    0, k odd and at most n0 / 4 + 1 (a dim 0 split 4 ways keeps sampled
+    rows in every chunk, at other local rows)."""
+    n0 = t.shape[0]
+    k = 1
+    if t.numel() > MOE15_TREE_ENTRIES:
+        k = min(t.numel() // MOE15_TREE_ENTRIES, n0 // 4 + 1) | 1
+    return k, n0, t[::k].to("cpu", copy=True)
+
+
+def _ref_rows(mesh, spec, ref, dev) -> tuple:
+    """This rank's part of a reference leaf kept by ``_tree_sample``, for
+    its chunk of the leaf laid out by ``spec``: (the chunk's local rows
+    that the reference holds, None for all of them; the reference's
+    entries there, on ``dev``)."""
+    import torch
+    from repro_torch.models.sharding import shard_leaf
+    k, n0, rows = ref
+    if k == 1:
+        return None, shard_leaf(mesh, rows, spec).to(dev)
+    ids = shard_leaf(mesh, torch.arange(n0), tuple(spec[:1]))
+    local = (ids % k == 0).nonzero().reshape(-1)
+    want = shard_leaf(mesh, rows, (None,) + tuple(spec[1:]))[ids[local] // k]
+    return local.to(dev), want.to(dev)
+
+
+def _moe15_trees_path(path) -> Path:
+    """Where the f32 MoE training's trees (``_moe15_train(keep=True)``)
+    are saved beside phase 15's reference file."""
+    return Path(path).with_name("sdd_moe_f32_trees.pt")
+
+
+def sdd_reference(dev, args, path: Path) -> dict:
+    """Phase 15's references, in this process alone on the card (before
+    the ranks take it): the GQA model's unsharded decode at B =
+    SDD_SLOTS and 1, in bf16 and f32, and its f32 engine; the MoE
+    model's unsharded forward and decode in bf16 and f32 with their
+    routing decisions, and MOE15_STEPS training steps in bf16 and in f32.
+    The logits, caches and decisions go to ``path``, the f32 training's
+    first moment and params to ``_moe15_trees_path(path)``; the bf16
+    noise (``_bf16_noise``), walls and peaks are returned."""
+    import torch
+    from repro_torch.models import forward, init_params
+    gqa, moe = sdd_configs()
+    host, ref = {}, {}
+    steps = SDD_STEPS
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    params = init_params(gen, gqa, device=dev)
+    for B in sorted({c[2] for cases in SDD_CASES.values() for c in cases
+                     if c[0] == "gqa"}):
+        toks = _sdd_tokens(gqa.vocab_size, (steps, B, 1), args.seed)
+        for dt in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(gqa, dtype=dt)
+            host[("gqa", B, dt)] = _decode_run(
+                params, cfg, _sdd_state(cfg, B, dev, args.seed), toks, dev,
+                steps)
+        b16, f32 = (host[("gqa", B, dt)]["logits"]
+                    for dt in ("bfloat16", "float32"))
+        ref[("gqa", B, "noise")] = _bf16_noise(b16, f32)
+        walls = host[("gqa", B, "bfloat16")]["walls"]
+        ref[("gqa", B, "ms")] = sorted(walls)[len(walls) // 2] * 1e3
+    host["engine"] = _sdd_engine(
+        params, dataclasses.replace(gqa, dtype="float32"), None, args.seed)
+    ref["engine"] = host["engine"]
+    ref["gqa_peak"] = torch.cuda.max_memory_allocated() - base
+    del params
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    params = init_params(gen, moe, device=dev)
+    toks = _sdd_tokens(moe.vocab_size, MOE15_FWD, args.seed).to(dev)
+    dtoks = _sdd_tokens(moe.vocab_size, (steps, SDD_SLOTS, 1), args.seed)
+    for dt in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(moe, dtype=dt, moe_impl=MOE15_FWD_IMPL)
+        seen = []
+        with _recording_routes(seen), torch.no_grad():
+            lg = forward(params, cfg, toks)
+        host[("moe_fwd", dt)] = {"logits": lg.float().cpu(), "routes": seen}
+        cfg = dataclasses.replace(moe, dtype=dt)
+        host[("moe_dec", dt)] = _decode_run(
+            params, cfg, _sdd_state(cfg, SDD_SLOTS, dev, args.seed), dtoks,
+            dev, steps, routes=True, cache_steps=(_sdd_fsdp_steps(),))
+    del lg
+    f16, f32 = host[("moe_fwd", "bfloat16")], host[("moe_fwd", "float32")]
+    first = _first_route_difference(f16["routes"], f32["routes"],
+                                    MOE15_FWD[1])
+    ref["moe_fwd_noise"] = max(
+        [0.0] + [float((f16["logits"][b, :f] - f32["logits"][b, :f]).abs()
+                       .max()) for b, f in enumerate(first) if f])
+    d16, d32 = host[("moe_dec", "bfloat16")], host[("moe_dec", "float32")]
+    ref["moe_dec_noise"] = _bf16_noise(
+        d16["logits"], d32["logits"], _held_steps(d16["routes"],
+                                                  d32["routes"]))
+    walls = d16["walls"]
+    ref["moe_dec_ms"] = sorted(walls)[len(walls) // 2] * 1e3
+    # the training steps from the same params, in each dtype
+    ref[("moe_train", "bfloat16")], _ = _moe15_train(moe, params, args.seed)
+    del params
+    params = init_params(torch.Generator(device=dev).manual_seed(
+        args.seed + 5), moe, device=dev)
+    ref[("moe_train", "float32")], trees = _moe15_train(
+        dataclasses.replace(moe, dtype="float32"), params, args.seed, True)
+    del params
+    torch.save(trees, _moe15_trees_path(path))
+    del trees
+    host["ref"] = ref
+    torch.save(host, path)
+    return ref
+
+
+def _sdd_err(rec, got, want, noise=None, tol=None) -> None:
+    """Hold this rank's logits against the reference's same rows: their
+    largest abs difference, and its ratio to the bound (2 x the bf16
+    ``noise``, or ``allclose_ratio`` at ``tol``); the worst kept."""
+    want = want.to(got.device)
+    if noise is not None:
+        err = float((got.float() - want).abs().max())
+        ratio = err / (2 * noise)
+    else:
+        ratio, err = allclose_ratio(got.float(), want, tol)
+    rec["ratio"] = max(rec.get("ratio", 0.0), ratio)
+    rec["err"] = max(rec.get("err", 0.0), err)
+
+
+def _sdd_cache_ratio(mesh, caches, specs, want, dev, tol,
+                     rows=None) -> float:
+    """The worst ``allclose_ratio`` at ``tol`` of every cache chunk against
+    the reference's same chunk (``rows``: the chunk's batch rows to
+    compare; all by default)."""
+    from repro_torch.models.sharding import shard_leaf
+    worst = 0.0
+    for pair, spair, wpair in zip(caches, specs, want):
+        for t, sp, w in zip(pair, spair, wpair):
+            w = shard_leaf(mesh, w, sp).to(dev)
+            if rows is not None:
+                t, w = t[rows], w[rows]
+            if t.numel():
+                worst = max(worst, allclose_ratio(t.float(), w.float(),
+                                                  tol)[0])
+    return worst
+
+
+def _sdd_sharded_state(cfg, rules, B, dev, seed):
+    from repro_torch.models.lm import decode_state_layout
+    from repro_torch.models.sharding import shard_leaf
+    full = _sdd_state(cfg, B, dev, seed)
+    specs = decode_state_layout(rules, cfg, B, SDD_MAX_SEQ)
+    state = {"caches": [tuple(shard_leaf(rules.mesh, t, s) for t, s in
+                              zip(pair, spair))
+                        for pair, spair in zip(full["caches"],
+                                               specs["caches"])],
+             "pos": full["pos"], "max_seq": SDD_MAX_SEQ}
+    return state, specs
+
+
+def _sdd_gqa_case(rules, shape, B, dt, dev, seed, host) -> dict:
+    import torch
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.launch.mesh import COLLECTIVES
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.models.lm import param_specs
+    from repro_torch.models.sharding import batch_rows, shard_tree, split_axes
+    from repro_torch.train.train_step import decode_collectives
+    gqa = dataclasses.replace(sdd_configs()[0], dtype=dt)
+    mesh = rules.mesh
+    steps = SDD_STEPS
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    params = shard_tree(rules, init_params(gen, gqa, device=dev),
+                        param_specs(rules, gqa))
+    state, specs = _sdd_sharded_state(gqa, rules, B, dev, seed)
+    toks = _sdd_tokens(gqa.vocab_size, (steps, B, 1), seed)
+    rows = batch_rows(rules, B)
+    want = host[("gqa", B, dt)]
+    tol = TOL_LM_F32 if dt == "float32" else TOL_LM_BF16
+    # one rank: the same ops as the unsharded run, so the same bits
+    whole = mesh.size == 1
+    rec = {"want": decode_collectives(gqa, rules, B, SDD_MAX_SEQ),
+           "calls": [], "walls": [], "launches": [], "dtype": dt,
+           "split": split_axes(mesh, specs["caches"][0][0]),
+           "rows": (rows.start, rows.stop), "whole": whole, "equal": whole}
+    for t in range(steps):
+        COLLECTIVES.reset()
+        before = rmsnorm_cuda.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, state = decode_step(params, gqa, state, toks[t].to(dev),
+                                rules=rules)
+        torch.cuda.synchronize()
+        rec["walls"].append(time.perf_counter() - t0)
+        rec["calls"].append(dict(COLLECTIVES.calls))
+        rec["words"] = dict(COLLECTIVES.words)
+        rec["launches"].append(rmsnorm_cuda.launches - before)
+        _sdd_err(rec, lg, want["logits"][t][rows], None, tol)
+        if whole:
+            rec["equal"] &= torch.equal(lg.float().cpu(),
+                                        want["logits"][t][rows])
+    rec["cache_ratio"] = _sdd_cache_ratio(mesh, state["caches"],
+                                          specs["caches"], want["caches"],
+                                          dev, tol)
+    if whole:
+        rec["equal"] &= all(torch.equal(c.cpu(), w) for pair, wpair in
+                            zip(state["caches"], want["caches"])
+                            for c, w in zip(pair, wpair))
+    rec["logits_last"] = lg.float().cpu()
+    if B == SDD_SLOTS and shape in SDD_ENGINE_MESHES:
+        rec["engine"] = _sdd_engine(
+            params, dataclasses.replace(gqa, dtype="float32"), rules, seed)
+    del params, state
+    return rec
+
+
+def _sdd_leaf_max(mesh, tree, specs, ref, dev) -> list:
+    """Per leaf (``tree``'s leaves with their ``specs``), the largest |this
+    rank's chunk - the same chunk of the reference's leaf| and the largest
+    |entry| of that chunk of the reference (the rows ``_tree_sample``
+    kept), each the worst over the mesh (one reduction; nothing
+    gathered)."""
+    import torch
+    from repro_torch.launch.mesh import MESH_AXIS
+    from repro_torch.tree import leaves
+    rows = []
+    for t, spec, full in zip(leaves(tree), specs, ref):
+        local, want = _ref_rows(mesh, spec, full, dev)
+        got = (t.detach() if local is None else t.detach()[local]).double()
+        want = want.double()
+        rows.append(torch.stack([(got - want).abs().max(),
+                                 want.abs().max()]) if got.numel() else
+                    torch.zeros(2, dtype=torch.float64, device=dev))
+        del want, got
+    red = mesh.all_reduce(torch.stack(rows), MESH_AXIS, "metric",
+                          op="max").cpu()
+    return [(float(d), float(w)) for d, w in red]
+
+
+def _sdd_step1_params(mesh, params, m1, specs, ref_p, ref_m, acfg,
+                      dev) -> list:
+    """Per leaf, the worst over its entries and the mesh of (|this rank's
+    params after step 1 - the reference's| - ulp(p)) over 2 lr |dg| /
+    eps + 2^-20 lr: both runs round the weight to f32 (one ulp between
+    them); past that, AdamW's first update moves it by what the entry's
+    gradient difference dg = (m1 - m1_ref) / (1 - b1) allows (the update
+    is m_hat / (sqrt(v_hat) + eps), m_hat = g and sqrt(v_hat) = |g| at
+    step 1, 1 / eps-Lipschitz in each) and by the rounding of the
+    update's seven f32 operations (each within 2^-24 of |update| <= 1 +
+    weight decay |p|).  A weight one rounding apart reads 0.  Over the
+    rows ``_tree_sample`` kept of the reference."""
+    import torch
+    from repro_torch.launch.mesh import MESH_AXIS
+    from repro_torch.tree import leaves
+    rows = []
+    for p, m, spec, fp, fm in zip(leaves(params), leaves(m1), specs, ref_p,
+                                  ref_m):
+        local, wp = _ref_rows(mesh, spec, fp, dev)
+        _, wm = _ref_rows(mesh, spec, fm, dev)
+        got, m = ((p.detach(), m) if local is None else
+                  (p.detach()[local], m[local]))
+        if not got.numel():
+            rows.append(torch.zeros((), dtype=torch.float64, device=dev))
+            continue
+        wp = wp.double()
+        dg = (m.double() - wm.double()).abs() / (1 - acfg.b1)
+        ulp = torch.maximum(*(torch.nextafter(t.abs(), torch.full_like(
+            t, float("inf"))) - t.abs() for t in (got, wp.float())))
+        over = ((got.double() - wp).abs() - ulp.double()).clamp_min(0.0)
+        bound = 2 * acfg.lr * dg / acfg.eps + 2.0 ** -20 * acfg.lr
+        rows.append((over / bound).max())
+        del wp, dg, bound
+    red = mesh.all_reduce(torch.stack(rows), MESH_AXIS, "metric",
+                          op="max").cpu()
+    return [float(r) for r in red]
+
+
+def _sdd_moe_case(rules, dt, dev, seed, ref, host, ref_path) -> dict:
+    import torch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import COLLECTIVES
+    from repro_torch.models import decode_step, forward, init_params
+    from repro_torch.models.lm import param_specs
+    from repro_torch.models.sharding import batch_rows, leaf_specs, shard_tree
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.train_step import (decode_collectives,
+                                              step_collectives)
+    from repro_torch.tree import leaves
+    moe = dataclasses.replace(sdd_configs()[1], dtype=dt)
+    mesh = rules.mesh
+    # bf16 logits within twice the unsharded run's own bf16 noise (C23),
+    # f32 at TOL_LM_F32; each row before its first routing difference
+    f32 = dt == "float32"
+    tol = TOL_LM_F32 if f32 else TOL_LM_BF16
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    params = shard_tree(rules, init_params(gen, moe, device=dev),
+                        param_specs(rules, moe))
+    parts, t_part = {}, time.perf_counter()
+    # a. the forward
+    toks = _sdd_tokens(moe.vocab_size, MOE15_FWD, seed)
+    rows = batch_rows(rules, MOE15_FWD[0])
+    seen = []
+    with _recording_routes(seen), torch.no_grad():
+        lg = forward(params, dataclasses.replace(moe, moe_impl=MOE15_FWD_IMPL),
+                     toks[rows].to(dev), rules=rules)
+    want = host[("moe_fwd", dt)]
+    first = _first_route_difference(seen, [w[rows] for w in want["routes"]],
+                                    MOE15_FWD[1])
+    fwd = {"held": sum(first), "of": len(first) * MOE15_FWD[1]}
+    for b, f in enumerate(first):
+        if f:
+            _sdd_err(fwd, lg[b, :f], want["logits"][rows][b, :f],
+                     None if f32 else ref["moe_fwd_noise"], tol)
+    del lg
+    parts["forward"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    # b. decode on the split latent cache (SDD_STEPS_FSDP steps where the
+    #    params are split over data)
+    steps = SDD_STEPS if mesh.shape["data"] == 1 else _sdd_fsdp_steps()
+    state, specs = _sdd_sharded_state(moe, rules, SDD_SLOTS, dev, seed)
+    dtoks = _sdd_tokens(moe.vocab_size, (steps, SDD_SLOTS, 1), seed)
+    rows = batch_rows(rules, SDD_SLOTS)
+    want = host[("moe_dec", dt)]
+    dec = {"want": decode_collectives(moe, rules, SDD_SLOTS, SDD_MAX_SEQ),
+           "calls": [], "walls": [], "routes": [], "logits": []}
+    for t in range(steps):
+        seen = []
+        COLLECTIVES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _recording_routes(seen):
+            lg, state = decode_step(params, moe, state, dtoks[t].to(dev),
+                                    rules=rules)
+        torch.cuda.synchronize()
+        dec["walls"].append(time.perf_counter() - t0)
+        dec["calls"].append(dict(COLLECTIVES.calls))
+        dec["words"] = dict(COLLECTIVES.words)
+        dec["routes"].append(seen)
+        dec["logits"].append(lg.float())
+    held = _held_steps(dec.pop("routes"), [[w[rows] for w in r]
+                                           for r in want["routes"]])
+    for b, h in enumerate(held):
+        for t in range(h):
+            _sdd_err(dec, dec["logits"][t][b], want["logits"][t][rows][b],
+                     None if f32 else ref["moe_dec_noise"], tol)
+    del dec["logits"]
+    dec.update(held=sum(held), of=len(held) * steps,
+               held_first=sum(min(h, SDD_HELD_STEPS) for h in held),
+               of_first=len(held) * min(steps, SDD_HELD_STEPS))
+    keep = [b for b, h in enumerate(held) if h == steps]
+    wc = want["caches"] if steps == SDD_STEPS else want["caches_at"][steps]
+    dec["cache_ratio"] = max(
+        _sdd_cache_ratio(mesh, state["caches"][:1], specs["caches"][:1],
+                         wc[:1], dev, tol),
+        _sdd_cache_ratio(mesh, state["caches"], specs["caches"], wc, dev,
+                         tol, keep) if keep else 0.0)
+    del state
+    torch.cuda.empty_cache()
+    parts["decode"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    # c. the FSDP + TP / EP trainer; in f32 its first moment after step 1
+    #    and params after step 1, its first moment after step 2, held
+    #    entry by entry
+    trees = (torch.load(_moe15_trees_path(ref_path), mmap=True,
+                        weights_only=False) if f32 else None)
+    flat = leaf_specs(param_specs(rules, moe), params)
+    tcfg = TrainConfig(microbatches=MOE15_MICRO)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw_init(params)
+    step = make_train_step(moe, lmd_acfg(), tcfg, rules)
+    pipe = TokenPipeline(vocab_size=moe.vocab_size, seq_len=MOE15_SEQ,
+                         global_batch=MOE15_BATCH, seed=seed)
+    tr = {"want": step_collectives(moe, tcfg, rules, False), "calls": [],
+          "loss": [], "grad_norm": [], "walls": [], "sums": [], "peak": 0,
+          "coords": (mesh.index("data"), mesh.index("model"))}
+    n_steps = MOE15_STEPS if mesh.shape["data"] == 1 else MOE15_STEPS_FSDP
+    for k in range(n_steps):
+        COLLECTIVES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, pipe.batch(k))
+        torch.cuda.synchronize()
+        tr["walls"].append(time.perf_counter() - t0)
+        tr["calls"].append(dict(COLLECTIVES.calls))
+        tr["words"] = dict(COLLECTIVES.words)
+        tr["loss"].append(float(m["loss"]))
+        tr["grad_norm"].append(float(m["grad_norm"]))
+        tr["peak"] = max(tr["peak"],
+                         torch.cuda.max_memory_allocated() - base)
+        tr["sums"].append([_lmd_checksum(t) for t in leaves(params)])
+        if trees is not None and k < 2:
+            tr[f"m{k + 1}"] = _sdd_leaf_max(mesh, opt["m"], flat,
+                                            trees[f"m{k + 1}"], dev)
+            if k == 0:
+                tr["p1"] = _sdd_step1_params(mesh, params, opt["m"], flat,
+                                             trees["p1"], trees["m1"],
+                                             lmd_acfg(), dev)
+    tr["split"] = [[a for a in sp if a is not None and mesh.shape[a] > 1]
+                   for sp in flat]
+    del params, opt, step, trees
+    torch.cuda.empty_cache()
+    parts["training"] = time.perf_counter() - t_part
+    return {"fwd": fwd, "dec": dec, "train": tr, "parts": parts}
+
+
+def sdd_rank(world: int, dev, seed: int, ref_path: str) -> list:
+    """Phase 15 on one rank of a phase 12 spawn (after phase 13): the
+    cases of ``SDD_CASES[world]`` against the reference, with the shapes
+    rmsnorm was launched at."""
+    import torch
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import MeshRules
+    host = torch.load(ref_path, weights_only=False)
+    ref = host.pop("ref")
+    out = []
+    t_all = time.perf_counter()
+    for kind, shape, B, dt in SDD_CASES[world]:
+        rules = MeshRules(make_mesh(*shape))
+        rmsnorm_cuda.by_shape.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = (_sdd_gqa_case(rules, shape, B, dt, dev, seed, host)
+               if kind == "gqa" else _sdd_moe_case(rules, dt, dev, seed,
+                                                  ref, host, ref_path))
+        rec.update(kind=kind, mesh=shape, B=B, dtype=dt,
+                   label=f"{kind} {shape[0]}x{shape[1]} B={B} {dt}",
+                   seconds=time.perf_counter() - t0,
+                   peak=torch.cuda.max_memory_allocated() - base,
+                   shapes=dict(rmsnorm_cuda.by_shape))
+        out.append(rec)
+        torch.cuda.empty_cache()
+    out.append({"seconds": time.perf_counter() - t_all})
+    return out
+
+
+def sdd_check(ref: dict, runs: dict, failures: list) -> dict:
+    """Phase 15's checks of the ranks' records (``runs``: world -> the
+    ranks' ``sdd_rank`` lists) against the unsharded references: logits
+    and caches at TOL_LM_F32 in f32 and TOL_LM_BF16 in bf16, one rank's
+    bit for bit; the MoE model's before each row's first routing
+    difference (C22), its bf16 logits within twice the bf16 noise of the
+    unsharded run (its own distance from the f32 run, C23); ranks that
+    compute the same rows the same logits bit for bit; collectives
+    exactly ``decode_collectives`` / ``step_collectives``; rmsnorm
+    launches a decode step; the f32 engines' tokens equal to the
+    unsharded engine's; the MoE training's losses and grad norms
+    (TOL_MOE15_LOSS, TOL_MOE15_GNORM), in f32 its first moment after
+    step 1 and its params entry by entry (TOL_GRAD_F32 of each leaf's
+    largest entry), replicated chunks bit for bit.  Prints walls,
+    collectives and peaks.  Returns the rmsnorm launch tally by shape
+    with the cases that launched it."""
+    gqa, moe = sdd_configs()
+    gib = 2.0 ** 30
+    eng = ref["engine"]
+    print(f"[sdd] reference, one process alone on the card: {gqa.name} at "
+          f"full width and {gqa.n_layers} layers, bf16 decode B = "
+          f"{SDD_SLOTS} {ref[('gqa', SDD_SLOTS, 'ms')]:.2f} ms a step, B = 1 "
+          f"{ref[('gqa', 1, 'ms')]:.2f} ms; bf16 noise (max |bf16 - f32| "
+          f"logits) {ref[('gqa', SDD_SLOTS, 'noise')]:.4f}, "
+          f"{ref[('gqa', 1, 'noise')]:.4f}; the f32 engine {eng['steps']} "
+          f"steps at {eng['ms']:.2f} ms; peak {ref['gqa_peak'] / gib:.2f} "
+          f"GiB. {moe.name} at full width and {moe.n_layers} layers: bf16 "
+          f"decode {ref['moe_dec_ms']:.2f} ms a step; bf16 noise forward "
+          f"{ref['moe_fwd_noise']:.4f}, decode {ref['moe_dec_noise']:.4f} "
+          f"(before each row's first bf16 / f32 routing difference); "
+          + "; ".join(
+              f"{dt} training losses "
+              f"{[round(x, 5) for x in t['loss']]}, step walls "
+              f"{[round(x, 3) for x in t['wall']]} s, peak "
+              f"{t['peak'] / gib:.2f} GiB"
+              for dt, t in ((dt, ref[("moe_train", dt)])
+                            for dt in ("bfloat16", "float32"))))
+    tally = {}
+    for world, backend in DIST_RUNS:
+        ranks = runs[world]
+        tag = f"{backend}, world {world}"
+        print(f"[sdd] {tag}: phase 15 in the ranks "
+              f"{max(r[-1]['seconds'] for r in ranks):.1f} s")
+        for i, rec0 in enumerate(ranks[0][:-1]):
+            recs = [r[i] for r in ranks]
+            name = f"{tag} {rec0['label']}"
+            peaks = ", ".join(f"{r['peak'] / gib:.2f}" for r in recs)
+            if rec0["kind"] == "gqa":
+                _sdd_check_gqa(name, recs, ref, failures)
+            else:
+                _sdd_check_moe(name, recs, ref, failures)
+            print(f"[sdd] {name}: {rec0['seconds']:.1f} s in the case; "
+                  f"device-memory peak a rank {peaks} GiB")
+            for rec in recs:
+                for key, n in rec["shapes"].items():
+                    t = tally.setdefault(("rmsnorm", key), [0, set()])
+                    t[0] += n
+                    t[1].add(name)
+    return tally
+
+
+def _calls_line(calls: dict, words: dict) -> str:
+    return ", ".join(f"{ax}/{kd} {n} ({words[(ax, kd)]:.4e} words)"
+                     for (ax, kd), n in sorted(calls.items()))
+
+
+def _median_ms(walls) -> str:
+    return f"{sorted(walls)[len(walls) // 2] * 1e3:.1f}"
+
+
+def _sdd_check_gqa(name, recs, ref, failures) -> None:
+    import torch
+    gqa, _ = sdd_configs()
+    rec0 = recs[0]
+    ratio = max(r["ratio"] for r in recs)
+    cache = max(r["cache_ratio"] for r in recs)
+    bound = "TOL_LM_F32" if rec0["dtype"] == "float32" else "TOL_LM_BF16"
+    print(f"[sdd] {name}: {len(rec0['walls'])} decode steps, the caches' "
+          f"split (dim, axis) {rec0['split']}; logits vs the unsharded run "
+          f"{max(r['err'] for r in recs):.3e} max abs ({ratio:.2f}x "
+          f"{bound}), cache chunks {cache:.2f}x {bound}"
+          + (f", logits and caches bit for bit: {rec0['equal']}"
+             if rec0["whole"] else "") + "; median "
+          f"step {', '.join(_median_ms(r['walls']) for r in recs)} ms a "
+          f"rank (processes time-sliced on one card: not a scaling number);"
+          f" collectives a step "
+          f"{_calls_line(rec0['calls'][0], rec0['words'])}")
+    if not (ratio <= 1.0 and cache <= 1.0):
+        failures.append(f"{name}: logits {ratio:.2f}x, caches {cache:.2f}x "
+                        f"their bounds")
+    if rec0["whole"] and not rec0["equal"]:
+        failures.append(f"{name}: one rank's logits or caches differ from "
+                        f"the unsharded run's")
+    for r, rec in enumerate(recs):
+        if any(c != rec["want"] for c in rec["calls"]):
+            failures.append(f"{name} rank {r}: collectives "
+                            f"{rec['calls'][0]}, not {rec['want']}")
+        if any(n != lm_norms(gqa) for n in rec["launches"]):
+            failures.append(f"{name} rank {r}: rmsnorm launches "
+                            f"{rec['launches']}, not {lm_norms(gqa)} a step")
+    # ranks that compute the same rows hold the same logits, bit for bit
+    by_rows = {}
+    for rec in recs:
+        by_rows.setdefault(rec["rows"], []).append(rec["logits_last"])
+    if not all(torch.equal(x, xs[0]) for xs in by_rows.values()
+               for x in xs):
+        failures.append(f"{name}: ranks that compute the same rows hold "
+                        f"other logits")
+    if "engine" in rec0:
+        want = ref["engine"]["tokens"]
+        same = all(r["engine"]["tokens"] == want for r in recs)
+        if not same:
+            failures.append(f"{name}: the engine's tokens differ from the "
+                            f"unsharded engine's")
+        e = rec0["engine"]
+        print(f"[sdd] {name}: ServingEngine(rules=) f32, {SDD_REQUESTS} "
+              f"requests, {e['steps']} steps at {e['ms']:.1f} ms (the "
+              f"unsharded engine {ref['engine']['steps']} at "
+              f"{ref['engine']['ms']:.2f} ms): tokens equal on every "
+              f"rank: {same}; collectives {sorted(e['calls'].items())}")
+
+
+def _sdd_check_moe(name, recs, ref, failures) -> None:
+    fwd = [r["fwd"] for r in recs]
+    dec = [r["dec"] for r in recs]
+    tr = [r["train"] for r in recs]
+    f_ratio = max(f.get("ratio", 0.0) for f in fwd)
+    f_held, f_of = sum(f["held"] for f in fwd), sum(f["of"] for f in fwd)
+    d_ratio = max(d.get("ratio", 0.0) for d in dec)
+    d_held, d_of = sum(d["held"] for d in dec), sum(d["of"] for d in dec)
+    d_first = sum(d["held_first"] for d in dec)
+    d_of_first = sum(d["of_first"] for d in dec)
+    cache = max(d["cache_ratio"] for d in dec)
+    dt = recs[0]["dtype"]
+    f32 = dt == "float32"
+    fb, db = (("TOL_LM_F32", "TOL_LM_F32") if f32 else
+              (f"2 x the bf16 noise {ref['moe_fwd_noise']:.4f}",
+               f"2 x {ref['moe_dec_noise']:.4f}"))
+    print(f"[sdd] {name}: forward {MOE15_FWD} ({MOE15_FWD_IMPL}) logits "
+          f"{max(f.get('err', 0.0) for f in fwd):.3e} max abs, "
+          f"{f_ratio:.2f}x {fb}, over the {f_held} of {f_of} row positions "
+          f"before each row's first routing difference (C22); decode "
+          f"{len(dec[0]['walls'])} steps on the split latent cache "
+          f"{max(d.get('err', 0.0) for d in dec):.3e}, {d_ratio:.2f}x {db}, "
+          f"over {d_held} of {d_of} row steps ({d_first} of {d_of_first}"
+          f" in the first {SDD_HELD_STEPS}), caches {cache:.2f}x "
+          f"{'TOL_LM_F32' if f32 else 'TOL_LM_BF16'}; median step "
+          + ", ".join(_median_ms(d["walls"]) for d in dec)
+          + f" ms a rank; decode collectives a step "
+          f"{_calls_line(dec[0]['calls'][0], dec[0]['words'])}")
+    if not (f_ratio <= 1.0 and d_ratio <= 1.0 and cache <= 1.0):
+        failures.append(f"{name}: forward {f_ratio:.2f}x, decode "
+                        f"{d_ratio:.2f}x, caches {cache:.2f}x the bound")
+    if not (4 * f_held >= f_of and 4 * d_first >= d_of_first):
+        failures.append(f"{name}: too few positions before a routing "
+                        f"difference: {f_held} / {f_of}, in the first "
+                        f"{SDD_HELD_STEPS} decode steps {d_first} / "
+                        f"{d_of_first}")
+    want = ref[("moe_train", dt)]
+    t0 = tr[0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(t0["loss"], want["loss"]))
+    gn = max(abs(a - b) / abs(b) for a, b in zip(t0["grad_norm"],
+                                                   want["grad_norm"]))
+    print(f"[sdd] {name}: {len(t0['loss'])} {dt} steps of "
+          f"make_train_step(rules=), {MOE15_BATCH} x {MOE15_SEQ} tokens in "
+          f"{MOE15_MICRO} microbatches, remat: losses "
+          f"{[round(x, 5) for x in t0['loss']]} vs "
+          f"{[round(x, 5) for x in want['loss']]} (relative {rel:.3e}, "
+          f"bound {TOL_MOE15_LOSS}), grad norms relative {gn:.3e} (bound "
+          f"{TOL_MOE15_GNORM}); step walls "
+          + ", ".join(f"{w:.2f}" for w in t0["walls"])
+          + f" s (the reference "
+          f"{', '.join(f'{w:.2f}' for w in want['wall'])}); peak a rank "
+          + ", ".join(f"{t['peak'] / 2.0 ** 30:.2f}" for t in tr)
+          + f" GiB; collectives a step "
+          f"{_calls_line(t0['calls'][0], t0['words'])}")
+    print(f"[sdd] {name}: seconds of rank 0 in its forward, decode and "
+          f"training (checks included): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in recs[0]["parts"].items()))
+    if not (rel <= TOL_MOE15_LOSS and gn <= TOL_MOE15_GNORM):
+        failures.append(f"{name}: training vs the reference: loss "
+                        f"{rel:.3e}, grad norm {gn:.3e}")
+    if len({tuple(t["loss"]) for t in tr}) != 1:
+        failures.append(f"{name}: the ranks' losses differ")
+    if f32:
+        for what, label in (("m1", "AdamW's first moment after step 1"),
+                            ("m2", "AdamW's first moment after step 2"),
+                            ("p1", "the params after step 1")):
+            if what == "p1":
+                ratios = t0[what]
+                how = "x what the entry's gradient difference allows"
+            else:
+                ratios = [d / (TOL_GRAD_F32 * w) if w else d / TOL_GRAD_F32
+                          for d, w in t0[what]]
+                how = "x TOL_GRAD_F32 of the leaf's largest entry"
+            j = max(range(len(ratios)), key=ratios.__getitem__)
+            print(f"[sdd] {name}: {label} vs the unsharded f32 run, entry "
+                  f"by entry (leaves of more than {MOE15_TREE_ENTRIES} "
+                  f"entries at every k-th row): worst leaf {j} of "
+                  f"{len(ratios)} "
+                  f"{ratios[j]:.3f}{how}"
+                  + (f" (max abs diff {t0[what][j][0]:.3e} of "
+                     f"{t0[what][j][1]:.3e})" if what != "p1" else "")
+                  + f"; leaves over 0.1x: {sum(r > 0.1 for r in ratios)}")
+            if not ratios[j] <= 1.0:
+                failures.append(f"{name}: {label}: leaf {j} "
+                                f"{ratios[j]:.2f}x its bound")
+    axes = {"data": 0, "model": 1}
+    for k in range(len(t0["sums"])):
+        for j, split in enumerate(t0["split"]):
+            seen = {}
+            for t in tr:
+                key = tuple(t["coords"][axes[a]] for a in split)
+                seen.setdefault(key, set()).add(t["sums"][k][j])
+            if any(len(v) > 1 for v in seen.values()):
+                failures.append(f"{name} step {k + 1}: leaf {j}'s "
+                                f"replicated chunks differ")
+    for r, rec in enumerate(recs):
+        if any(c != rec["dec"]["want"] for c in rec["dec"]["calls"]):
+            failures.append(f"{name} rank {r}: decode collectives "
+                            f"{rec['dec']['calls'][0]}, not "
+                            f"{rec['dec']['want']}")
+        if any(c != rec["train"]["want"] for c in rec["train"]["calls"]):
+            failures.append(f"{name} rank {r}: training collectives "
+                            f"{rec['train']['calls'][0]}, not "
+                            f"{rec['train']['want']}")
+
+
+def sdd_kernel_entries(tally: dict, dev, seed: int, failures: list):
+    """The kernels-record entries of every shape phase 15's ranks launched
+    rmsnorm at, each checked against its plain version and timed here
+    beside F.rms_norm."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    entries = []
+    for (_, key), (n, cases) in sorted(tally.items(),
+                                       key=lambda t: str(t[0])):
+        rows, D, dt = key
+        entry, ratio = _lmd_rmsnorm_entry(key, n, cases, gen, dev,
+                                          f"rmsnorm_sdd_{rows}x{D}_{dt}")
+        print(f"[sdd] rmsnorm {key}: {n} launches; {entry['ms']:.4f} ms | "
+              f"plain {entry['plain_ms']:.4f} ms | F.rms_norm "
+              f"{entry['library_ms']:.4f} ms | bound {entry['bound_ms']:.4f}"
+              f" ms ({entry['bound_by']}) | vs plain max abs err "
+              f"{entry['max_abs_err']:.3e} ({ratio:.2f}x tolerance)")
+        if not ratio <= 1.0:
+            failures.append(f"phase 15: rmsnorm {key} disagrees with its "
+                            f"plain version")
+        entries.append(entry)
+    torch.cuda.empty_cache()
+    return entries
 
 def device_profile(run, calls: int, cpu: bool = True):
     """Device-busy ms per call (the sum of the kernel durations that
@@ -4076,26 +5104,26 @@ def lm_phase(dev, args, failures):
             cfg, 1, LM_MAX_SEQ, device=dev), torch.tensor(
             [r.prompt], device=dev), LM_NEW_TOKENS)
         alone = alone[0].tolist()
-        # the isolated run's logits at each generated position (the same
-        # batch-1 computation, teacher-forced), for its top-1/top-2 margin
-        seq = torch.tensor([r.prompt + alone[:-1]], device=dev)
-        st = init_decode_state(cfg, 1, LM_MAX_SEQ, device=dev)
-        margins = []
-        for t in range(seq.shape[1]):
-            lg, st = decode_step(params, cfg, st, seq[:, t:t + 1])
-            if t >= len(r.prompt) - 1:
-                top2 = lg[0].topk(2).values
-                margins.append(float(top2[0] - top2[1])
-                               / max(1.0, abs(float(top2[0]))))
-        for t, (a, b) in enumerate(zip(r.generated, alone)):
-            if a != b:           # later tokens follow different contexts
-                if margins[t] > TOL_LM_BF16:
-                    failures.append(f"request {r.rid}: token {t} differs "
-                                    f"from the isolated run ({a} vs {b}) "
-                                    f"at a margin {margins[t]:.3e}")
-                break
-            agree += 1
         checked += len(alone)
+        for t, (a, b) in enumerate(zip(r.generated, alone)):
+            if a == b:
+                agree += 1
+                continue
+            # later tokens follow different contexts.  The isolated run's
+            # logits where they part (the same batch-1 computation,
+            # teacher-forced), for its top-1 / top-2 margin
+            st = init_decode_state(cfg, 1, LM_MAX_SEQ, device=dev)
+            for x in r.prompt + alone[:t]:
+                lg, st = decode_step(params, cfg, st,
+                                     torch.tensor([[x]], device=dev))
+            top2 = lg[0].topk(2).values
+            margin = float(top2[0] - top2[1]) / max(1.0,
+                                                    abs(float(top2[0])))
+            if margin > TOL_LM_BF16:
+                failures.append(f"request {r.rid}: token {t} differs "
+                                f"from the isolated run ({a} vs {b}) "
+                                f"at a margin {margin:.3e}")
+            break
     print(f"[lm-serve] agreement with each request decoded alone by "
           f"greedy_generate: {agree} of {checked} tokens agree up to each "
           f"request's first difference (a difference is allowed only where"
@@ -4850,15 +5878,17 @@ def moe_phase(dev, args, failures):
     t_dec = (time.perf_counter() - t0) / MOE_DECODE_STEPS
     n_decode = rmsnorm_cuda.launches
     ok = bool(torch.isfinite(lg).all()) and lg.shape == (B, V)
+    # the profiled window: LM_PROFILE_STEPS steps (32 before phase 15
+    # needed the time: 38 s of profiling on a slow host)
     t0 = time.perf_counter()
-    busy, n_k, _ = device_profile(one_step, MOE_DECODE_STEPS, cpu=False)
+    busy, n_k, _ = device_profile(one_step, LM_PROFILE_STEPS, cpu=False)
     t_prof = time.perf_counter() - t0
     idle = ("not measured" if busy is None
             else f"{1 - busy / (t_dec * 1e3):.1%}")
     print(f"[moe-decode] {MOE_DECODE_STEPS} decode steps (B={B}, MLA cache "
           f"of {S + MOE_DECODE_STEPS} positions: {cache_b / 1e6:.1f} MB over"
           f" all layers, a GQA cache {gqa_b / cache_b:.1f}x that): "
-          f"{t_dec * 1e3:.2f} ms a step; over {MOE_DECODE_STEPS} more, "
+          f"{t_dec * 1e3:.2f} ms a step; over {LM_PROFILE_STEPS} more, "
           f"profiled (device activity only, {t_prof:.1f} s), device busy "
           f"{'not measured' if busy is None else f'{busy:.2f} ms'} a step, "
           f"idle share {idle}, {n_k:g} launches a step; logits finite: "
@@ -5028,12 +6058,12 @@ def moe_phase(dev, args, failures):
     routed = {}
     apply = lm_module.moe_apply
 
-    def recording(p, c, x):
+    def recording(p, c, x, tp=None):
         with torch.no_grad():
             _, _, top_idx = moe_module._route(p, c, x)
         routed.setdefault(p["router"].data_ptr(), set()).update(
             top_idx.unique().tolist())
-        return apply(p, c, x)
+        return apply(p, c, x, tp=tp)
 
     with mock.patch.object(lm_module, "moe_apply", recording):
         loss, grads = loss_and_grads(params, short, {
@@ -5121,6 +6151,13 @@ def moe_phase(dev, args, failures):
     torch.cuda.empty_cache()
     print(f"[moe] phase 14 took {time.perf_counter() - t_phase:.1f} s")
     return entries
+
+
+def mark(t_main: float, phase: str) -> None:
+    """A line when a phase ends: the run's seconds so far (the contract's
+    limit is on the whole run)."""
+    print(f"[smoke] {phase} ended at {time.perf_counter() - t_main:.1f} s",
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -5319,6 +6356,7 @@ def main(argv=None) -> int:
             print(f"[parity] FAIL {f}")
         return fail(f"{len(failures)} kernel parity failures")
     print("[parity] all kernels agree with their plain versions")
+    mark(t_main, "phase 2")
 
     # ---- 3. K-SVM main path -----------------------------------------------
     spy = DriverSpy()
@@ -5484,6 +6522,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"[check] FAIL {f}")
         return fail(f"{len(failures)} main-path check(s) failed")
+    mark(t_main, "phases 3-4")
 
     # ---- 5. stream and Nystrom --------------------------------------------
     ns_stream = SimpleNamespace(
@@ -5495,6 +6534,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"[stream] FAIL {f}")
         return fail(f"{len(failures)} stream/Nystrom check(s) failed")
+    mark(t_main, "phase 5")
 
     # ---- 6. counts, times, bounds -----------------------------------------
 
@@ -5643,6 +6683,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"[check] FAIL {f}")
         return fail(f"{len(failures)} main-path check(s) failed")
+    mark(t_main, "phase 6")
 
     # ---- 9. sweeps (on phases 3-4's data, before the LM frees it) ---------
     del rf_s, rf_c, rf_k, op_krr_c, gap_k, shapes, op_svm, op_krr
@@ -5657,6 +6698,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"[sweep] FAIL {f}")
         return fail(f"{len(failures)} sweep check(s) failed")
+    mark(t_main, "phase 9")
 
     # ---- 10. guarded solves (on phases 3-4's data) ------------------------
     guard_entries = guard_phase(SimpleNamespace(
@@ -5668,6 +6710,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"[guard] FAIL {f}")
         return fail(f"{len(failures)} guard check(s) failed")
+    mark(t_main, "phase 10")
 
     # ---- 11. serving and telemetry (on phases 3-4's data) -----------------
     serve_entries = serve_phase(SimpleNamespace(
@@ -5678,6 +6721,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"[serve] FAIL {f}")
         return fail(f"{len(failures)} serve/telemetry check(s) failed")
+    mark(t_main, "phase 11")
 
     # ---- 12. the distributed layouts (on phases 3-4's data) ---------------
     dist_entries = dist_phase(SimpleNamespace(
@@ -5687,6 +6731,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"[dist] FAIL {f}")
         return fail(f"{len(failures)} distributed-layout check(s) failed")
+    mark(t_main, "phases 12, 13 and 15")
 
     # ---- 7. LM prefill and serving ----------------------------------------
     del A, Ar, Aq, Arq, B_of, gram_blocks, Xv, Xm, svm, krr
@@ -5697,6 +6742,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"[lm] FAIL {f}")
         return fail(f"{len(failures)} LM check(s) failed")
+    mark(t_main, "phase 7")
 
     # ---- 8. LM training ---------------------------------------------------
     train = train_phase(dev, args, failures)
@@ -5704,6 +6750,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"[train] FAIL {f}")
         return fail(f"{len(failures)} LM training check(s) failed")
+    mark(t_main, "phase 8")
     train_entries, train_counts = train
     for entry in lm_entries:
         entry["train_launches"] = train_counts[entry["name"]]

@@ -179,6 +179,21 @@ def decode_state(state: Mapping, cfg, device=None) -> dict:
             "pos": as_tensor(state["pos"], dev).to(torch.int64)}
 
 
+def decode_state_shards(state: Mapping, cfg, rules, device=None) -> dict:
+    """This rank's chunks under ``rules`` (``models.sharding.MeshRules``)
+    of a JAX decode state given as numpy arrays: ``decode_state``, then
+    each cache cut by its ``cache_spec`` (``shard_leaf``); ``pos`` whole
+    and ``max_seq``, as ``init_decode_state(rules=)`` holds them."""
+    from repro_torch.models.lm import decode_state_layout
+    from repro_torch.models.sharding import shard_leaf
+    full = decode_state(state, cfg, device)
+    batch, max_seq = full["caches"][0][0].shape[:2]
+    specs = decode_state_layout(rules, cfg, batch, max_seq)
+    caches = [tuple(shard_leaf(rules.mesh, t, sp) for t, sp in zip(c, cs))
+              for c, cs in zip(full["caches"], specs["caches"])]
+    return {"caches": caches, "pos": full["pos"], "max_seq": max_seq}
+
+
 def adamw_state(opt: Mapping, cfg, device=None) -> dict:
     """The port's AdamW state (``optim.adamw_init``'s form) from a JAX
     ``adamw_init`` / ``adamw_update`` state given as numpy arrays: ``m``

@@ -37,11 +37,16 @@ trainers' ``"grad"`` (a gradient sync over ``data``: the deferred
 step's bucket, the sharded step's replicated leaves), ``"param"`` (an
 FSDP gather of a leaf at use and the reduce-scatter of its gradient, or
 a gather over ``model`` where the tensor-parallel route does not split
-the leaf), ``"tp"`` (the tensor-parallel reductions over ``model``) and
-``"metric"`` (the clipping norm).  Every backend gathers and
-reduce-scatters with its own call (``all_gather_into_tensor``,
-``reduce_scatter_tensor`` on flat buffers); gloo takes CUDA tensors in
-both and moves them through host memory.
+the leaf; in sharded decode also the vocab-parallel tables' sums and
+gathers of rows and logits), ``"tp"`` (the tensor-parallel reductions
+over ``model``) and ``"metric"`` (the clipping norm); sharded decode's
+``"seq"`` (the split-S attention: the gather of its chunks' partial
+softmaxes to merge them, and MLA's gather of the heads' queries over
+``model``) and the serving steps' ``"token"`` (the gather of a step's
+next tokens, or of the logits to sample from, over ``data``).  Every
+backend gathers and reduce-scatters with its own call
+(``all_gather_into_tensor``, ``reduce_scatter_tensor`` on flat buffers);
+gloo takes CUDA tensors in both and moves them through host memory.
 
 The JAX module's production mesh and its TPU hardware table have no
 counterpart here.
@@ -54,7 +59,8 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
-KINDS = ("round", "setup", "check", "grad", "param", "tp", "metric")
+KINDS = ("round", "setup", "check", "grad", "param", "tp", "metric", "seq",
+         "token")
 OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 # the axis name under which a reduction over every rank of the mesh is
 # counted (``root_value``)

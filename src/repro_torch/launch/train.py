@@ -7,9 +7,12 @@ is given.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --batch 4 --seq 2048 --microbatches 2 --steps 6 --lr 3e-5
     # the MoE family: DeepSeek-V2-Lite (MLA + MoE), Arctic (MoE + dense
-    # residual); single device only (a --mesh raises naming ROADMAP A11d)
+    # residual), on one device or a --mesh (MLA's heads split over model,
+    # the experts over model: expert-parallel)
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch arctic-480b --reduced --device cpu --steps 20
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch deepseek-v2-lite-16b --reduced --device cpu --mesh 2x2
     # the s-step deferred sync on a 2 x 2 mesh of CPU ranks (gloo)
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --reduced --device cpu --mesh 2x2 --defer-s 2 --microbatches 4

@@ -19,15 +19,35 @@ MLA caches, for each position, the rank-r latent ``c`` (after its
 ``kv_norm``, an RMSNorm over r) and one rotated rope key of width rd
 shared by every head: (B, S, r) and (B, S, rd) where GQA caches (B, S,
 kv, hd) twice.  Keys and values are expanded from the latent through
-``w_uk`` / ``w_uv`` at every use (the whole cache at every decode step,
-as in the JAX package); queries and keys are [nope | rope] of width hd
-+ rd, so the softmax scale is (hd + rd)^-0.5.  MLA runs plain attention
-whatever ``attn_impl`` says, as the JAX package does.  M-RoPE (Qwen2-VL)
-and cross-attention (Whisper) are not ported yet and raise.
+``w_uk`` / ``w_uv`` at every use (the whole cache, or this rank's chunk
+of it, at every decode step, as in the JAX package); queries and keys
+are [nope | rope] of width hd + rd, so the softmax scale is (hd +
+rd)^-0.5.  MLA runs plain attention whatever ``attn_impl`` says, as the
+JAX package does.  M-RoPE (Qwen2-VL) and cross-attention (Whisper) are
+not ported yet and raise.
+
+Decode attention is one function for GQA and MLA, sharded or not:
+``chunk_attention`` over a chunk of cache slots gives a partial output
+and its log-sum-exp, and where the cache's S is split over an axis
+(``SeqSplit``: its ``cache_spec`` puts S over ``model`` for MLA's latent
+cache and for a GQA cache whose kv heads do not divide ``model``, over
+``data`` for a batch that does not divide ``data``) ``merge_chunks``
+gathers them over the axis and merges them (the maximum, then the
+rescaled sums, in f32, in chunk order); unsplit, the one chunk is the
+whole cache and there is nothing to merge.  ``write_slot`` writes the
+new token only into the chunk that holds ``pos`` (``slot_masks``).
+Sharded decode (``lm.decode_step(rules=)``) runs GQA and MLA over this
+rank's heads where ``tp`` is given (MLA: ``wq``, ``w_uk``, ``w_uv`` split
+on heads, ``wo`` row-parallel, the latent computed whole on every rank);
+where MLA's heads and its latent cache's S are split over the same axis,
+the queries and ``w_uk`` / ``w_uv`` are gathered over it, every head
+attends over the rank's chunk, and the rank keeps its heads' merged
+outputs.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -77,6 +97,77 @@ def _project(x, w, dtype):
     return torch.einsum("bsd,dhk->bshk", x, w.to(dtype))
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """A cache whose S is split over ``axis`` of ``mesh``: this rank holds
+    the slots ``offset`` .. ``offset`` + its chunk's length."""
+    mesh: object
+    axis: str
+    offset: int
+
+
+def slot_masks(length: int, offset: int, pos: torch.Tensor):
+    """``(at, valid)``, each (B, length) bool, for a chunk of a cache
+    holding global slots ``offset`` .. ``offset + length``: the slot each
+    row's ``pos`` writes (none for a ``pos`` outside the chunk, at or
+    past S_max in particular) and the slots at or before ``pos``."""
+    slots = torch.arange(offset, offset + length, device=pos.device)
+    return slots[None] == pos[:, None], slots[None] <= pos[:, None]
+
+
+def write_slot(cache: torch.Tensor, new: torch.Tensor,
+               at: torch.Tensor) -> torch.Tensor:
+    """The chunk (B, T, ...) with ``new`` (B, 1, ...) written where ``at``
+    (B, T) (``slot_masks``): a new tensor."""
+    at = at.reshape(*at.shape, *([1] * (cache.ndim - 2)))
+    return torch.where(at, new.to(cache.dtype), cache)
+
+
+def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    offset: int, pos: torch.Tensor, scale: float):
+    """Decode attention over one chunk of a cache.  q (B, Sq, H, dk); k
+    (B, T, G, dk) and v (B, T, G, dv), the chunk's T slots from global
+    slot ``offset``, with H a multiple of G (head h reads k / v head h //
+    (H / G), ``_repeat_kv``'s order); pos (B,): the slots at or before it
+    are valid.  Returns (o (B, Sq, H, dv) in q's dtype, lse (B, Sq, H)
+    f32): the softmax over the chunk's valid slots (logits in f32, the
+    probabilities in q's dtype, as ``_sdpa``) and its log-sum-exp,
+    ``NEG_INF`` where the chunk holds no valid slot (its softmax is then
+    uniform; ``merge_chunks`` gives it weight zero)."""
+    B, Sq, H, dk = q.shape
+    G = k.shape[2]
+    qg = q.reshape(B, Sq, G, H // G, dk)
+    logits = torch.einsum("bsgnd,btgd->bgnst", qg, k).float() * scale
+    _, valid = slot_masks(k.shape[1], offset, pos)           # (B, T)
+    logits = torch.where(valid[:, None, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.einsum("bgnst,btgd->bsgnd", probs, v).reshape(B, Sq, H, -1)
+    lse = torch.logsumexp(logits, dim=-1)                    # (B, G, n, Sq)
+    lse = torch.where(valid.any(-1)[:, None, None, None], lse,
+                      torch.full_like(lse, NEG_INF))
+    return o, lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
+
+
+def merge_chunks(seq: Optional[SeqSplit], o: torch.Tensor,
+                 lse: torch.Tensor) -> torch.Tensor:
+    """The attention over every chunk along ``seq.axis`` from each rank's
+    ``chunk_attention`` (o, lse): one gather of [o | lse] in f32 over the
+    axis (kind ``"seq"``), then on every rank alike the maximum m of the
+    lse, the weights exp(lse - m) (zero for an empty chunk, whose lse is
+    ``NEG_INF``) and the weighted sum of the outputs over the summed
+    weights, in chunk order; o's dtype out.  ``o`` itself where ``seq``
+    is None (an unsplit cache: one chunk)."""
+    if seq is None:
+        return o
+    packed = torch.cat([o.float(), lse[..., None]], dim=-1)
+    allp = seq.mesh.all_gather(packed[None], seq.axis, 0, "seq")
+    outs, lses = allp[..., :-1], allp[..., -1]
+    w = torch.exp(lses - lses.amax(0))
+    out = (w[..., None] * outs).sum(0) / w.sum(0)[..., None]
+    return out.to(o.dtype)
+
+
 def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, rope_cache=None,
                 tp=None) -> torch.Tensor:
@@ -112,14 +203,20 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-               cache: Tuple[torch.Tensor, torch.Tensor], pos: torch.Tensor):
+               cache: Tuple[torch.Tensor, torch.Tensor], pos: torch.Tensor,
+               tp=None, seq: Optional[SeqSplit] = None):
     """One-token decode.  x: (B, 1, D); cache: (k, v), each (B, S_max, kv,
     hd); pos: (B,) the position each row writes.  Returns (out, new
     cache); the caches are new tensors (the inputs are not written), and
-    a ``pos`` at or past S_max writes nothing, as the JAX one-hot does."""
+    a ``pos`` at or past S_max writes nothing, as the JAX one-hot does.
+    With ``tp`` over this rank's heads (the cache holds its kv heads);
+    with ``seq`` the cache is this rank's chunk of S (module
+    docstring)."""
     if cfg.mrope:
         raise NotImplementedError(UNPORTED_MROPE)
     dtype = x.dtype
+    if tp is not None:
+        x = tp.copy(x)
     q = _project(x, p["wq"], dtype)
     k_new = _project(x, p["wk"], dtype)
     v_new = _project(x, p["wv"], dtype)
@@ -129,17 +226,15 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
 
-    ck, cv = cache
-    slots = torch.arange(ck.shape[1], device=ck.device)
-    at = (slots[None] == pos[:, None])[..., None, None]      # (B, S, 1, 1)
-    ck = torch.where(at, k_new.to(ck.dtype), ck)
-    cv = torch.where(at, v_new.to(cv.dtype), cv)
-
-    k = _repeat_kv(ck.to(dtype), cfg.n_heads // cfg.n_kv_heads)
-    v = _repeat_kv(cv.to(dtype), cfg.n_heads // cfg.n_kv_heads)
-    valid = slots[None] <= pos[:, None]                      # (B, S)
-    out = _sdpa(q, k, v, valid[:, None, :], dtype)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype)), (ck, cv)
+    offset = 0 if seq is None else seq.offset
+    at, _ = slot_masks(cache[0].shape[1], offset, pos)      # (B, S)
+    ck = write_slot(cache[0], k_new, at)
+    cv = write_slot(cache[1], v_new, at)
+    o, lse = chunk_attention(q, ck.to(dtype), cv.to(dtype), offset, pos,
+                             q.shape[-1] ** -0.5)
+    out = merge_chunks(seq, o, lse)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+    return (out if tp is None else tp.reduce(out)), (ck, cv)
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int,
@@ -192,34 +287,53 @@ def _mla_qkv(p: dict, cfg: ModelConfig, x, c, k_rope, positions, dtype):
 
 
 def mla_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal MLA: x (B, S, D) -> (B, S, D)."""
+                positions: torch.Tensor, tp=None) -> torch.Tensor:
+    """Full-sequence causal MLA: x (B, S, D) -> (B, S, D); over this
+    rank's heads with ``tp`` (the latent computed whole)."""
     dtype = x.dtype
+    if tp is not None:
+        x = tp.copy(x)
     c, k_rope = _mla_latent(p, cfg, x, positions)
     q, k, v = _mla_qkv(p, cfg, x, c, k_rope, positions, dtype)
     S = x.shape[1]
     mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
     out = _sdpa(q, k, v, mask, dtype)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+    return out if tp is None else tp.reduce(out)
 
 
 def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-               cache: Tuple[torch.Tensor, torch.Tensor], pos: torch.Tensor):
+               cache: Tuple[torch.Tensor, torch.Tensor], pos: torch.Tensor,
+               tp=None, seq: Optional[SeqSplit] = None):
     """One-token MLA decode.  x: (B, 1, D); cache: (c, k_rope), (B, S_max,
     r) and (B, S_max, rd); pos: (B,).  Returns (out, new cache), new
-    tensors, written at ``pos`` as ``gqa_decode`` writes."""
+    tensors, written at ``pos`` as ``gqa_decode`` writes.  With ``tp``
+    over this rank's heads; with ``seq`` the cache is this rank's chunk
+    of S (module docstring)."""
     dtype = x.dtype
-    cc, ckr = cache
+    if tp is not None:
+        x = tp.copy(x)
     c_new, kr_new = _mla_latent(p, cfg, x, pos[:, None])
-    slots = torch.arange(cc.shape[1], device=cc.device)
-    at = (slots[None] == pos[:, None])[..., None]            # (B, S, 1)
-    cc = torch.where(at, c_new.to(cc.dtype), cc)
-    ckr = torch.where(at, kr_new.to(ckr.dtype), ckr)
+    offset = 0 if seq is None else seq.offset
+    at, _ = slot_masks(cache[0].shape[1], offset, pos)
+    cc = write_slot(cache[0], c_new, at)
+    ckr = write_slot(cache[1], kr_new, at)
+    # heads and slots split over one axis: every head over the rank's chunk
+    every_head = seq is not None and tp is not None and seq.axis == tp.tp
+    if every_head:
+        p = dict(p, **{n: seq.mesh.all_gather(p[n].to(dtype), seq.axis, 1,
+                                              "param")
+                       for n in ("w_uk", "w_uv")})
     q, k, v = _mla_qkv(p, cfg, x, cc.to(dtype), ckr.to(dtype), pos[:, None],
                        dtype)
-    valid = slots[None] <= pos[:, None]
-    out = _sdpa(q, k, v, valid[:, None, :], dtype)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype)), (cc, ckr)
+    if every_head:
+        q = seq.mesh.all_gather(q, seq.axis, 2, "seq")
+    o, lse = chunk_attention(q, k, v, offset, pos, q.shape[-1] ** -0.5)
+    out = merge_chunks(seq, o, lse)
+    if every_head:
+        out = out.chunk(seq.mesh.shape[seq.axis], 2)[tp.index()]
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+    return (out if tp is None else tp.reduce(out)), (cc, ckr)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, seq: int,
@@ -240,14 +354,14 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def attention_forward(p, cfg, x, positions, rope_cache=None, tp=None):
     if cfg.attn_type == "mla":
-        return mla_forward(p, cfg, x, positions)
+        return mla_forward(p, cfg, x, positions, tp=tp)
     return gqa_forward(p, cfg, x, positions, rope_cache=rope_cache, tp=tp)
 
 
-def attention_decode(p, cfg, x, cache, pos):
+def attention_decode(p, cfg, x, cache, pos, tp=None, seq=None):
     if cfg.attn_type == "mla":
-        return mla_decode(p, cfg, x, cache, pos)
-    return gqa_decode(p, cfg, x, cache, pos)
+        return mla_decode(p, cfg, x, cache, pos, tp=tp, seq=seq)
+    return gqa_decode(p, cfg, x, cache, pos, tp=tp, seq=seq)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype: torch.dtype,

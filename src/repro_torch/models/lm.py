@@ -18,13 +18,17 @@ With ``rules`` (``models.sharding.MeshRules``) ``forward`` and
 ``loss_fn`` take this rank's shards of the params (``param_spec`` of
 each leaf's full shape, ``abstract_params``) and this rank's rows of
 the batch: each layer gathers its leaves at use and runs its attention
-and MLP tensor-parallel where the specs split them
-(``models.sharding.Sharded``).  Under remat a layer's gathers and its
-forward reductions run again in the backward's recompute (early stop
-is off, so the whole layer is recomputed on every rank alike).  Sharded
-decode is not ported yet (ROADMAP A11c), nor is a sharded MLA or MoE
-model (ROADMAP A11d: ``Sharded`` has no tensor-parallel or
-expert-parallel form for them), so ``rules`` on such a config raises.
+(GQA or MLA) and MLP tensor-parallel and its experts expert-parallel
+where the specs split them (``models.sharding.Sharded``).  Under remat a
+layer's gathers and its forward reductions run again in the backward's
+recompute (early stop is off, so the whole layer is recomputed on every
+rank alike).  ``decode_step`` with ``rules`` takes this rank's chunks of
+the decode state (``init_decode_state(rules=)``, laid out by
+``models.sharding.cache_spec``) and the global tokens, and computes this
+rank's rows (``sharding.batch_rows``), its caches read through the
+split-S attention where their S is split (``models.attention``); it uses
+the embedding and head tables vocab-parallel (``Sharded.lookup``,
+``Sharded.project``), where ``forward`` gathers them at use.
 """
 from __future__ import annotations
 
@@ -35,13 +39,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from .attention import (attention_decode, attention_forward,
+from .attention import (SeqSplit, attention_decode, attention_forward,
                         init_attention, init_cache)
-from .config import DENSE, MAMBA1, MAMBA2, MOE, ModelConfig
+from .config import DENSE, MAMBA1, MAMBA2, ModelConfig
 from .layers import (apply_norm, embed, init_embedding, init_mlp,
                      init_norm, make_rope_cache, mlp, unembed)
 from .moe import init_moe, moe_apply
-from .sharding import Sharded, tree_pspecs
+from .sharding import (Sharded, batch_rows, chunk_shape,
+                       decode_state_specs, split_axes, tree_pspecs)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -64,16 +69,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.attn_type not in ("gqa", "mla") or not cfg.n_heads:
         raise NotImplementedError(f"{cfg.name}: attn_type "
                                   f"{cfg.attn_type!r} is not ported")
-
-
-def check_rules(cfg: ModelConfig, rules) -> None:
-    """Raise ``NotImplementedError`` where ``rules`` would shard an MLA or
-    MoE model: ``Sharded`` splits only GQA heads and the dense MLP, and a
-    silently replicated compute is not a sharded one (ROADMAP A11d)."""
-    if rules is not None and (cfg.attn_type == "mla" or MOE in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: sharded MLA / MoE models (rules) are not ported "
-            f"yet (ROADMAP A11d); pass rules=None")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -168,7 +163,6 @@ def abstract_params(cfg: ModelConfig) -> dict:
 @functools.lru_cache(maxsize=16)
 def param_specs(rules, cfg: ModelConfig) -> dict:
     """The spec of every params leaf of ``cfg`` under ``rules``."""
-    check_rules(cfg, rules)
     return tree_pspecs(rules, abstract_params(cfg))
 
 
@@ -182,18 +176,24 @@ def _block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, rope_cache,
                    sh: Optional[Sharded] = None,
                    spec: Optional[dict] = None) -> torch.Tensor:
-    tp_attn = tp_mlp = None
+    tp = _tp_of(sh)
     if sh is not None:
         p = sh.block(p, spec)
-        tp_attn = sh if "attn" in sh.tp_parts else None
-        tp_mlp = sh if "mlp" in sh.tp_parts else None
     x = x + attention_forward(p["attn"], cfg,
                               apply_norm(cfg.norm, p["norm1"], x),
-                              positions, rope_cache=rope_cache, tp=tp_attn)
+                              positions, rope_cache=rope_cache,
+                              tp=tp("attn"))
     h = apply_norm(cfg.norm, p["norm2"], x)
     if kind == DENSE:
-        return x + mlp(p["mlp"], h, x.dtype, tp=tp_mlp)
-    return x + moe_apply(p["moe"], cfg, h)
+        return x + mlp(p["mlp"], h, x.dtype, tp=tp("mlp"))
+    return x + moe_apply(p["moe"], cfg, h, tp=tp("moe"))
+
+
+def _tp_of(sh: Optional[Sharded]):
+    """``part -> sh`` where the part runs tensor- or expert-parallel, else
+    None."""
+    return lambda part: sh if sh is not None and part in sh.tp_parts \
+        else None
 
 
 def _differentiated(p: dict, x: torch.Tensor) -> bool:
@@ -224,10 +224,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     the head stay outside, as in the JAX package.  With ``rules`` the
     params are this rank's shards (module docstring); the embedding and
     head tables are gathered at use (not vocab-parallel), the head and
-    the layers' weight matrices in the compute dtype (GQA configs with
-    dense blocks only: ROADMAP A11d)."""
+    the layers' weight matrices in the compute dtype."""
     check_supported(cfg)
-    check_rules(cfg, rules)
     dtype = cfg.activation_dtype
     B, S = tokens.shape
     sh = specs = None
@@ -290,44 +288,110 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
 # ------------------------------------------------------------- decode -----
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
-                      device=None) -> dict:
+                      device=None, rules=None) -> dict:
     """Decode state: one zeroed cache pair per layer in the compute dtype
     (GQA: (k, v), each (batch, max_seq, kv, hd); MLA: (c, k_rope),
     (batch, max_seq, kv_lora_rank) and (batch, max_seq,
-    qk_rope_head_dim)), and ``pos`` (batch,) int64."""
+    qk_rope_head_dim)), and ``pos`` (batch,) int64.  With ``rules`` each
+    cache is this rank's chunk of it (``decode_state_specs``), ``pos``
+    is whole (replicated), and ``max_seq`` is kept in the state (a chunk
+    of S does not tell the full S)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = cfg.activation_dtype
-    return {"caches": [init_cache(cfg, batch, max_seq, dtype, dev)
-                       for _ in layer_kinds(cfg)],
-            "pos": torch.zeros((batch,), dtype=torch.int64, device=dev)}
+    if rules is None:
+        return {"caches": [init_cache(cfg, batch, max_seq, dtype, dev)
+                           for _ in layer_kinds(cfg)],
+                "pos": torch.zeros((batch,), dtype=torch.int64,
+                                   device=dev)}
+    full = abstract_decode_state(cfg, batch, max_seq)
+    specs = decode_state_layout(rules, cfg, batch, max_seq)
+    caches = [tuple(torch.zeros(chunk_shape(rules.mesh, t.shape, sp),
+                                dtype=dtype, device=dev)
+                    for t, sp in zip(c, cs))
+              for c, cs in zip(full["caches"], specs["caches"])]
+    return {"caches": caches,
+            "pos": torch.zeros((batch,), dtype=torch.int64, device=dev),
+            "max_seq": max_seq}
+
+
+def abstract_decode_state(cfg: ModelConfig, batch: int,
+                          max_seq: int) -> dict:
+    """The decode state of ``cfg`` at full size as meta tensors."""
+    return init_decode_state(cfg, batch, max_seq, device="meta")
+
+
+@functools.lru_cache(maxsize=32)
+def decode_state_layout(rules, cfg: ModelConfig, batch: int,
+                        max_seq: int) -> dict:
+    """The spec of every leaf of a decode state of ``batch`` rows and
+    ``max_seq`` positions under ``rules``."""
+    return decode_state_specs(rules, cfg,
+                              abstract_decode_state(cfg, batch, max_seq))
+
+
+def _seq_split(mesh, spec, chunk: torch.Tensor) -> Optional[SeqSplit]:
+    """The split of a cache chunk's S (dim 1) from its spec, or None."""
+    for d, a in split_axes(mesh, spec):
+        if d == 1:
+            return SeqSplit(mesh, a, mesh.index(a) * chunk.shape[1])
+    return None
 
 
 def decode_step(params: dict, cfg: ModelConfig, state: dict,
                 tokens: torch.Tensor, rules=None):
     """One new token per sequence.  tokens: (B, 1) -> (logits (B, V), new
-    state).  The input state is not written.  Sharded decode (``rules``)
-    is not ported yet (ROADMAP A11c; for MLA / MoE configs A11d)."""
-    check_rules(cfg, rules)
-    if rules is not None:
-        raise NotImplementedError("sharded decode (rules) is not ported "
-                                  "yet (ROADMAP A11c); pass rules=None")
+    state).  The input state is not written.  With ``rules`` (module
+    docstring) ``params`` and the caches of ``state`` are this rank's
+    chunks, ``tokens`` the global (B, 1), and the logits (full vocab)
+    those of this rank's ``batch_rows``; ``pos`` stays whole.  The
+    embedding and head tables are used vocab-parallel, not gathered
+    (``Sharded.lookup``, ``Sharded.project``): a step moves the rows and
+    the logits, not the tables."""
     check_supported(cfg)
     dtype = cfg.activation_dtype
-    pos = state["pos"]
-    h = embed(params["embed"], tokens, dtype)
+    B = tokens.shape[0]
+    key = _head_key(cfg)
+    sh = specs = sspecs = None
+    rows = slice(0, B)
+    if rules is not None:
+        specs = param_specs(rules, cfg)
+        sh = Sharded(rules, specs, dtype)
+        sspecs = decode_state_layout(rules, cfg, B, state["max_seq"])
+        rows = batch_rows(rules, B)
+    tp = _tp_of(sh)
+    pos = state["pos"][rows]
+    if sh is None:
+        h = embed(params["embed"], tokens, dtype)
+        final = params["final_norm"]
+    else:
+        h = sh.lookup(params["embed"]["table"], specs["embed"]["table"],
+                      tokens)[rows].to(dtype)
+        final = {"scale": sh.use(params["final_norm"]["scale"],
+                                 specs["final_norm"]["scale"])}
     caches = []
-    for kind, p, c in zip(layer_kinds(cfg), params["blocks"],
-                          state["caches"]):
+    for i, (kind, p, c) in enumerate(zip(layer_kinds(cfg), params["blocks"],
+                                         state["caches"])):
+        seq = None
+        if sh is not None:
+            # a GQA cache splits its kv heads over model exactly where the
+            # attention runs tensor-parallel (both need kv % model == 0)
+            p = sh.block(p, specs["blocks"][i])
+            seq = _seq_split(rules.mesh, sspecs["caches"][i][0], c[0])
         a, c = attention_decode(p["attn"], cfg,
-                                apply_norm(cfg.norm, p["norm1"], h), c, pos)
+                                apply_norm(cfg.norm, p["norm1"], h), c, pos,
+                                tp=tp("attn"), seq=seq)
         h = h + a
         hn = apply_norm(cfg.norm, p["norm2"], h)
         if kind == DENSE:
-            h = h + mlp(p["mlp"], hn, dtype)
+            h = h + mlp(p["mlp"], hn, dtype, tp=tp("mlp"))
         else:
-            h = h + moe_apply(p["moe"], cfg, hn)
+            h = h + moe_apply(p["moe"], cfg, hn, tp=tp("moe"))
         caches.append(c)
-    h = apply_norm(cfg.norm, params["final_norm"], h)
-    logits = unembed(params[_head_key(cfg)], h, dtype)[:, 0]
-    return logits, dict(state, caches=caches, pos=pos + 1)
+    h = apply_norm(cfg.norm, final, h)
+    if sh is None:
+        logits = unembed(params[key], h, dtype)
+    else:
+        logits = sh.project(h, params[key]["table"], specs[key]["table"],
+                            rows, B)
+    return logits[:, 0], dict(state, caches=caches, pos=state["pos"] + 1)

@@ -17,6 +17,18 @@ picked by ``cfg.moe_impl``:
   several experts picked gets every pick.  At decode (S = 1) C is 1 and
   nothing drops.
 
+With ``tp`` (a ``models.sharding.Sharded`` whose ``tp_parts`` hold
+"moe") the experts run expert-parallel over ``model``: this rank's
+chunk of the stacked weights is its expert range [e0, e1).  Routing,
+top-k, the capacity C (from the global E) and each expert's top-C pick
+run over all E experts on every rank alike; the gather, the three
+expert products and the scatter-add run over the rank's experts only,
+and the partial outputs are summed over ``model`` in one reduction.  The
+input reaches the routed part through ``tp.copy`` (the router is behind
+it too, ``Sharded.block``: both gradients are sums of the ranks'
+partials); the shared experts and the dense residual are computed whole
+on every rank from the gathered leaves and added after the reduction.
+
 The router logits are computed in the compute dtype and cast to f32 for
 the softmax; the combine weights and the scatter are in the compute
 dtype, as in the JAX package.  The expert products are batched einsums
@@ -78,17 +90,23 @@ def _residual_branches(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return out
 
 
-def moe_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The dense dispatch: x (B, S, D) -> (B, S, D)."""
+def _expert_range(p: dict, tp) -> tuple:
+    """[e0, e1): the experts whose weights this rank holds."""
+    n = p["wi_gate"].shape[0]
+    e0 = 0 if tp is None else tp.index() * n
+    return e0, e0 + n
+
+
+def _routed_dense(p: dict, cfg: ModelConfig, x: torch.Tensor, e0: int,
+                  e1: int) -> torch.Tensor:
     dtype = x.dtype
     _, top_w, top_idx = _route(p, cfg, x)
-    combine = _routed(top_w, top_idx, cfg.n_experts).to(dtype)
+    combine = _routed(top_w, top_idx, cfg.n_experts)[..., e0:e1].to(dtype)
     gate_h = torch.einsum("bsd,edf->ebsf", x, p["wi_gate"].to(dtype))
     up_h = torch.einsum("bsd,edf->ebsf", x, p["wi_up"].to(dtype))
     h = F.silu(gate_h) * up_h
     expert_out = torch.einsum("ebsf,efd->ebsd", h, p["wo"].to(dtype))
-    out = torch.einsum("ebsd,bse->bsd", expert_out, combine)
-    return _residual_branches(p, cfg, x, out)
+    return torch.einsum("ebsd,bse->bsd", expert_out, combine)
 
 
 def capacity(cfg: ModelConfig, seq: int) -> int:
@@ -99,21 +117,18 @@ def capacity(cfg: ModelConfig, seq: int) -> int:
     return min(max(cap, 1), seq)
 
 
-def moe_forward_capacity(p: dict, cfg: ModelConfig,
-                         x: torch.Tensor) -> torch.Tensor:
-    """The grouped capacity dispatch: x (B, S, D) -> (B, S, D).  Each
-    expert picks its top-C tokens of each row by gate weight; a slot
-    left without a routed token picks an arbitrary one at weight 0."""
+def _routed_capacity(p: dict, cfg: ModelConfig, x: torch.Tensor, e0: int,
+                     e1: int) -> torch.Tensor:
     dtype = x.dtype
     B, S, D = x.shape
-    e, cap = cfg.n_experts, capacity(cfg, S)
+    e, cap = e1 - e0, capacity(cfg, S)
     _, top_w, top_idx = _route(p, cfg, x)
-    routed = _routed(top_w, top_idx, e)
+    routed = _routed(top_w, top_idx, cfg.n_experts)[..., e0:e1]
     priority = torch.where(routed > 0, routed,
                            torch.full_like(routed, float("-inf")))
     pri_w, tok_idx = torch.topk(priority.transpose(1, 2), cap, dim=-1)
     w = torch.where(torch.isfinite(pri_w), pri_w,
-                    torch.zeros_like(pri_w)).to(dtype)        # (B, E, C)
+                    torch.zeros_like(pri_w)).to(dtype)        # (B, e, C)
 
     gidx = tok_idx.reshape(B, e * cap)
     gathered = torch.gather(x, 1, gidx[..., None].expand(B, e * cap, D))
@@ -126,15 +141,40 @@ def moe_forward_capacity(p: dict, cfg: ModelConfig,
     eo = eo * w[..., None]
     rows = torch.arange(B, device=x.device)[:, None].expand(B, e * cap)
     out = torch.zeros((B, S, D), dtype=dtype, device=x.device)
-    out = out.index_put((rows, gidx), eo.reshape(B, e * cap, D),
-                        accumulate=True)
+    return out.index_put((rows, gidx), eo.reshape(B, e * cap, D),
+                         accumulate=True)
+
+
+def _moe(routed_fn, p: dict, cfg: ModelConfig, x: torch.Tensor,
+         tp) -> torch.Tensor:
+    e0, e1 = _expert_range(p, tp)
+    if tp is None:
+        return _residual_branches(p, cfg, x, routed_fn(p, cfg, x, e0, e1))
+    out = tp.reduce(routed_fn(p, cfg, tp.copy(x), e0, e1))
     return _residual_branches(p, cfg, x, out)
 
 
-def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def moe_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                tp=None) -> torch.Tensor:
+    """The dense dispatch: x (B, S, D) -> (B, S, D); over this rank's
+    experts with ``tp`` (module docstring)."""
+    return _moe(_routed_dense, p, cfg, x, tp)
+
+
+def moe_forward_capacity(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                         tp=None) -> torch.Tensor:
+    """The grouped capacity dispatch: x (B, S, D) -> (B, S, D).  Each
+    expert picks its top-C tokens of each row by gate weight; a slot
+    left without a routed token picks an arbitrary one at weight 0.
+    Over this rank's experts with ``tp`` (module docstring)."""
+    return _moe(_routed_capacity, p, cfg, x, tp)
+
+
+def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              tp=None) -> torch.Tensor:
     if cfg.moe_impl == "capacity":
-        return moe_forward_capacity(p, cfg, x)
-    return moe_forward(p, cfg, x)
+        return moe_forward_capacity(p, cfg, x, tp)
+    return moe_forward(p, cfg, x, tp)
 
 
 def aux_load_balance_loss(p: dict, cfg: ModelConfig,

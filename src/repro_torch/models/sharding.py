@@ -21,9 +21,16 @@ a forward uses sharded params, as GSPMD would for these specs:
   shards (``_Gather`` with ``reduce=True``): FSDP;
 * the attention block and the MLP run tensor-parallel over ``model``
   where the specs split their heads / d_ff: column-parallel ``wq``,
-  ``wk``, ``wv``, ``wi_gate``, ``wi_up`` and row-parallel ``wo``, one
-  all-reduce of the block's output (``_ReduceFromTP``) and, in the
-  backward, one of the gradient of its input (``_CopyToTP``);
+  ``wk``, ``wv`` (MLA: ``wq``, ``w_uk``, ``w_uv``), ``wi_gate``,
+  ``wi_up`` and row-parallel ``wo``, one all-reduce of the block's
+  output (``_ReduceFromTP``) and, in the backward, one of the gradient
+  of its input (``_CopyToTP``); the experts of a MoE block run
+  expert-parallel where the specs split their E axis over ``model``
+  (each rank its experts, one all-reduce of the partial output).  A
+  leaf of such a part that every rank along ``model`` uses whole but
+  that feeds only the rank's heads or experts (the q / k norm scales,
+  MLA's ``w_dkv``, ``w_kr`` and ``kv_norm``, the router) sits behind
+  ``_CopyToTP`` too: its gradient is a sum over ``model`` of partials;
 * any other leaf split over ``model`` (the embedding and head tables on
   vocab, a spec that falls back to the d_model contraction, heads that
   do not divide ``model``) is gathered at use and its compute is
@@ -31,7 +38,21 @@ a forward uses sharded params, as GSPMD would for these specs:
   along ``model``, so the backward keeps this rank's chunk
   (``_Gather`` with ``reduce=False``).  The JAX package shards the q
   rows over ``model`` instead where heads do not divide it (ROADMAP
-  C21).
+  C21);
+* sharded decode uses the embedding and head tables vocab-parallel
+  instead (``lookup``, ``project``): the rows and the logits move, the
+  tables stay split.
+
+The decode state is laid out by ``cache_spec`` (the JAX package's
+``launch/specs._cache_pspec``, rule for rule, on the port's per-layer
+caches): ``pos`` replicated; a GQA cache (B, S, kv, hd) with its batch
+over ``data`` where B divides, its kv heads over ``model`` where they
+divide and else S over ``model``, and S over ``data`` where B does not
+divide; MLA's latent ``c`` and rope key ``k_rope`` with S over
+``model``; the Mamba states' channels or heads over ``model``.  A cache
+whose S is split is read by the split-S attention of
+``models.attention`` (each rank its chunk, the partial softmaxes merged
+over the axis).
 
 Every collective goes through ``launch.mesh.Mesh`` and is counted there.
 """
@@ -44,6 +65,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.tree import leaves, leaves_with_paths, unflatten
+
+from .config import ATTN, DENSE, MOE
 
 Spec = Tuple[Optional[str], ...]
 
@@ -153,6 +176,82 @@ def tree_pspecs(rules: Optional[MeshRules], params):
     each leaf's from its path and full shape."""
     return unflatten(params, [param_spec(rules, path_str(p), tuple(t.shape))
                               for p, t in leaves_with_paths(params)])
+
+
+# ---- decode-state rules ---------------------------------------------------
+
+def _one_axis(axes):
+    """A tuple of one axis name as the name (the port's mesh has one
+    batch axis, and ``split_axes`` takes names)."""
+    return axes[0] if isinstance(axes, tuple) and len(axes) == 1 else axes
+
+
+def cache_spec(rules: Optional[MeshRules], cfg, path: str, shape) -> Spec:
+    """The spec of the decode-state leaf at ``path`` of ``shape``: the JAX
+    package's ``_cache_pspec`` with its stacked layer axis dropped (the
+    port keeps one cache per layer; ``caches/<layer>/<j>`` takes its
+    block kind from the layer, ``shared_cache/...`` and ``cross_kv/...``
+    are attention caches).  ``pos`` is replicated."""
+    shape = tuple(shape)
+    if rules is None or path.endswith("pos"):
+        return (None,) * len(shape)
+    bax, tp, F = _one_axis(rules.batch_axes), rules.tp, rules.fsdp
+    b_ok = (len(shape) > 0
+            and shape[0] % max(rules.axis_size(bax), 1) == 0)
+    b = bax if b_ok else None
+    kind = None
+    parts = path.split("/")
+    if parts[0] == "caches" and len(parts) > 1:
+        kind = (list(cfg.pattern) * cfg.n_periods)[int(parts[1])]
+    elif parts[0] in ("shared_cache", "cross_kv"):
+        kind = ATTN
+    if kind in (DENSE, MOE, ATTN):
+        if cfg.attn_type == "mla" and parts[0] == "caches":
+            return rules.fit(shape, [b, tp, None])        # (B, S, r | rd)
+        kv_ok = shape[2] % rules.axis_size(tp) == 0       # (B, S, kv, hd)
+        if b_ok:
+            return rules.fit(shape, [b, None if kv_ok else tp,
+                                     tp if kv_ok else None, None])
+        return rules.fit(shape, [None, F, tp if kv_ok else None, None])
+    # Mamba states
+    if len(shape) == 4:                        # mamba2 h (B, nh, hd, n)
+        return rules.fit(shape, [b, tp, None, None])
+    if parts[-1] == "0" or shape[-1] > cfg.ssm_state:
+        return rules.fit(shape, [b, None, tp])  # conv state (B, K-1, C)
+    return rules.fit(shape, [b, tp, None])      # mamba1 h (B, di, n)
+
+
+def decode_state_specs(rules: Optional[MeshRules], cfg, state):
+    """A tree of specs matching the tensors of a decode ``state`` of full
+    shapes (``lm.abstract_decode_state``), each by ``cache_spec``; other
+    entries (``max_seq``) kept as they are."""
+    return unflatten(state, [
+        cache_spec(rules, cfg, path_str(p), t.shape)
+        if isinstance(t, torch.Tensor) else t
+        for p, t in leaves_with_paths(state)])
+
+
+def batch_rows(rules: Optional[MeshRules], batch: int) -> slice:
+    """The rows of a batch of ``batch`` that this rank computes: its chunk
+    over ``data`` where the batch divides (``decode_token_specs``), else
+    all of them (the compute replicated over ``data``)."""
+    if rules is None:
+        return slice(0, batch)
+    n = rules.axis_size("data")
+    if n <= 1 or batch % n:
+        return slice(0, batch)
+    i = rules.mesh.index("data")
+    return slice(i * (batch // n), (i + 1) * (batch // n))
+
+
+def gather_rows(rules: Optional[MeshRules], t: torch.Tensor,
+                batch: int) -> torch.Tensor:
+    """All ``batch`` rows of ``t`` (dim 0) on every rank, from each rank's
+    ``batch_rows``: one counted gather over ``data`` (kind ``"token"``)
+    where the batch is split, else ``t``."""
+    if batch_rows(rules, batch) == slice(0, batch):
+        return t
+    return rules.mesh.all_gather(t, "data", 0, "token")
 
 
 def split_axes(mesh, spec: Spec):
@@ -278,20 +377,30 @@ class _ReduceFromTP(torch.autograd.Function):
 
 # the TP split dim of each leaf the tensor-parallel route splits, by the
 # block part it belongs to (column-parallel on heads / d_ff, row-parallel
-# on heads / d_ff)
+# on heads / d_ff; the experts of a MoE block on E); an MLA block's
+# attention takes the "mla" row (``part_splits``)
 TP_SPLITS = {"attn": {"wq": 1, "wk": 1, "wv": 1, "wo": 0},
-             "mlp": {"wi_gate": 1, "wi_up": 1, "wo": 0}}
+             "mla": {"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0},
+             "mlp": {"wi_gate": 1, "wi_up": 1, "wo": 0},
+             "moe": {"wi_gate": 0, "wi_up": 0, "wo": 0}}
+
+
+def part_splits(part: str, names) -> dict:
+    """The ``TP_SPLITS`` row of a block part whose leaves are ``names``."""
+    if part == "attn" and "w_uk" in names:
+        return TP_SPLITS["mla"]
+    return TP_SPLITS.get(part, {})
 
 
 class Sharded:
     """How one forward uses params sharded by ``rules``: ``use`` gathers a
     leaf as far as its use needs, ``copy`` and ``reduce`` are the
     tensor-parallel pair (module docstring).  ``tp_parts`` names the
-    block parts that run tensor-parallel: those whose every split leaf
-    has its TP dim on ``model`` (heads and kv heads, or d_ff, divide it).
-    ``dtype``: the compute dtype, in which the weight matrices (not the
-    norm scales, nor the embedding table the forward indexes in f32) are
-    gathered."""
+    block parts that run tensor- or expert-parallel: those whose every
+    split leaf of their ``TP_SPLITS`` row has its TP dim on ``model``
+    (heads and kv heads, d_ff or E divide it).  ``dtype``: the compute
+    dtype, in which the weight matrices (not the norm scales, nor the
+    embedding table the forward indexes in f32) are gathered."""
 
     def __init__(self, rules: MeshRules, specs,
                  dtype: torch.dtype = torch.float32):
@@ -299,14 +408,16 @@ class Sharded:
         self.dtype = dtype
         self.tp = rules.tp if (rules.tp is not None and
                                rules.axis_size(rules.tp) > 1) else None
-        self.tp_parts = set()
-        if self.tp is not None and specs["blocks"]:
-            block = specs["blocks"][0]
-            for part, splits in TP_SPLITS.items():
-                if part in block and all(
-                        block[part][name][d] == self.tp
-                        for name, d in splits.items()):
-                    self.tp_parts.add(part)
+        self.tp_parts, self.splits = set(), {}
+        if self.tp is not None:
+            for block in specs["blocks"]:
+                for part, v in block.items():
+                    splits = part_splits(part, v)
+                    if splits and part not in self.splits and all(
+                            v[name][d] == self.tp
+                            for name, d in splits.items()):
+                        self.tp_parts.add(part)
+                        self.splits[part] = splits
 
     def use(self, t: torch.Tensor, spec: Spec, tp_dim: Optional[int] = None,
             cast: bool = False) -> torch.Tensor:
@@ -322,28 +433,91 @@ class Sharded:
                 t = _Gather.apply(t, self.mesh, a, d, False, dtype)
         return t
 
+    def leaf_use(self, path) -> Tuple[Optional[int], bool, bool]:
+        """``(tp_dim, cast, copy)`` of the block leaf at ``path`` (its keys
+        in the layer's dict): in a tensor-parallel part a leaf of its
+        ``TP_SPLITS`` row stays split at its TP dim; a leaf that feeds
+        only the rank's heads or experts (a norm scale of the part, MLA's
+        ``w_dkv`` / ``w_kr``, the router) is gathered whole, uncast, and
+        put behind ``copy``; a sub-MLP of the part (the shared experts,
+        Arctic's dense residual) is gathered and computed whole on every
+        rank.  Matrices are gathered in the compute dtype."""
+        part, name = path[0], path[1]
+        if part not in self.tp_parts:
+            return None, True, False
+        if len(path) == 2 and name in self.splits[part]:
+            return self.splits[part][name], True, False
+        if len(path) == 2 or path[-1] == "scale":
+            return None, False, True
+        return None, True, False
+
     def block(self, p: dict, spec: dict) -> dict:
-        """A layer's params as its forward uses them: the TP parts' split
-        leaves kept split on ``model``, their replicated leaves (the q / k
-        norm scales) behind ``copy`` so that their gradient sums over the
-        ranks' heads, everything else gathered."""
-        out = {}
-        for part, v in p.items():
-            splits = TP_SPLITS.get(part, {}) if part in self.tp_parts else {}
-            if isinstance(v, dict):
-                out[part] = {}
-                for name, t in v.items():
-                    if isinstance(t, dict):    # q_norm / k_norm
-                        w = self.use(t["scale"], spec[part][name]["scale"])
-                        if part in self.tp_parts:
-                            w = self.copy(w)
-                        out[part][name] = {"scale": w}
-                    else:
-                        out[part][name] = self.use(t, spec[part][name],
-                                                   splits.get(name), True)
-            else:
-                out[part] = self.use(v, spec[part])
-        return out
+        """A layer's params as its forward uses them (``leaf_use``)."""
+        out = []
+        for path, t in leaves_with_paths(p):
+            tp_dim, cast, copy = self.leaf_use(path)
+            w = self.use(t, spec_at(spec, path), tp_dim, cast)
+            out.append(self.copy(w) if copy else w)
+        return unflatten(p, out)
+
+    def table_axes(self, spec: Spec):
+        """The (vocab, d_model) axes a table's spec splits (None where it
+        does not); its d_model only ever over the FSDP axis."""
+        axes = [a if a is not None and self.mesh.shape[a] > 1 else None
+                for a in spec]
+        if axes[1] not in (None, self.rules.fsdp):
+            raise ValueError(f"a table split as {spec}")
+        return axes
+
+    def lookup(self, table: torch.Tensor, spec: Spec,
+               tokens: torch.Tensor) -> torch.Tensor:
+        """The table's rows at ``tokens`` (every rank the same tokens), f32,
+        from this rank's chunk, the table not gathered: the rows outside
+        the chunk's vocab range zeroed and summed over its vocab axis
+        (one non-zero term: exact), their d_model chunks gathered over
+        FSDP (kind ``"param"`` both).  Sharded decode's embedding."""
+        v_ax, d_ax = self.table_axes(spec)
+        if v_ax is None:
+            rows = table[tokens]
+        else:
+            n = table.shape[0]
+            idx = tokens - self.mesh.index(v_ax) * n
+            inside = (idx >= 0) & (idx < n)
+            rows = table[idx.clamp(0, n - 1)] * inside[..., None]
+            rows = self.mesh.all_reduce(rows, v_ax, "param")
+        if d_ax is not None:
+            rows = self.mesh.all_gather(rows, d_ax, rows.ndim - 1, "param")
+        return rows
+
+    def project(self, x: torch.Tensor, table: torch.Tensor, spec: Spec,
+                rows: slice, batch: int) -> torch.Tensor:
+        """``unembed``: f32 logits over the full vocab of this rank's rows
+        ``x`` (``rows`` of a batch of ``batch``), the product in x's dtype,
+        from this rank's chunk of the table, the table not gathered:
+        where its d_model is split over FSDP, the partial products of the
+        rank's d chunk over every row (the rows gathered over that axis
+        where the batch is split there), summed in f32 over the axis
+        (reduce-scattered back to the rows, or all-reduced); then the
+        vocab chunks gathered (kind ``"param"`` all).  Sharded decode's
+        head."""
+        v_ax, d_ax = self.table_axes(spec)
+        w = table.to(x.dtype)
+        if d_ax is None:
+            logits = (x @ w.T).float()
+        else:
+            split = rows != slice(0, batch)
+            if split:
+                x = self.mesh.all_gather(x, d_ax, 0, "param")
+            d = table.shape[1]
+            j = self.mesh.index(d_ax)
+            logits = (x[..., j * d:(j + 1) * d] @ w.T).float()
+            logits = (self.mesh.reduce_scatter(logits, d_ax, 0, "param")
+                      if split else
+                      self.mesh.all_reduce(logits, d_ax, "param"))
+        if v_ax is not None:
+            logits = self.mesh.all_gather(logits, v_ax, logits.ndim - 1,
+                                          "param")
+        return logits
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         return _CopyToTP.apply(x, self.mesh, self.tp)
@@ -351,8 +525,13 @@ class Sharded:
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         return _ReduceFromTP.apply(x, self.mesh, self.tp)
 
+    def index(self) -> int:
+        """This rank's coordinate along the tensor-parallel axis."""
+        return self.mesh.index(self.tp)
 
-__all__ = ["MeshRules", "Sharded", "Spec", "TP_SPLITS", "chunk_shape",
-           "gather_leaf", "gather_tree", "leaf_specs", "param_spec",
-           "path_str", "replicated_axes", "shard_leaf", "shard_tree",
-           "spec_at", "split_axes", "tree_pspecs"]
+
+__all__ = ["MeshRules", "Sharded", "Spec", "TP_SPLITS", "batch_rows",
+           "cache_spec", "chunk_shape", "decode_state_specs", "gather_leaf",
+           "gather_rows", "gather_tree", "leaf_specs", "param_spec",
+           "part_splits", "path_str", "replicated_axes", "shard_leaf",
+           "shard_tree", "spec_at", "split_axes", "tree_pspecs"]

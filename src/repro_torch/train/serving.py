@@ -15,6 +15,15 @@ The KV caches are slot-indexed, so an admission only zeroes its slot.
 The next-token ids come back to the host once per step (as the JAX
 engine's ``device_get``); the tokens fed to the next step go up in one
 copy.
+
+With ``rules`` the engine holds this rank's chunks of a sharded decode
+state (``init_decode_state(rules=)``) and every rank runs the same
+engine: the same admissions, the same global tokens into
+``decode_step(rules=)``.  A slot's caches are zeroed on the data rank
+that holds its row (on every rank where the batch is not split), and
+one gather of the step's next tokens over ``data``
+(``sharding.gather_rows``, kind ``"token"``) gives every rank every
+slot's token, so admission and completion stay the same on every rank.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.models import ModelConfig, decode_step, init_decode_state
+from repro_torch.models.sharding import batch_rows, gather_rows
 
 
 @dataclasses.dataclass
@@ -47,7 +57,7 @@ class ServingEngine:
         self.eos_id = eos_id
         self.device = params["embed"]["table"].device
         self.state = init_decode_state(cfg, n_slots, max_seq,
-                                       device=self.device)
+                                       device=self.device, rules=rules)
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.pending: List[Request] = []
         # per-slot cursor into the prompt (-1 = generating)
@@ -60,10 +70,13 @@ class ServingEngine:
 
     def _reset_slot_state(self, i: int):
         """Zero the caches of slot i and its position (in place: the
-        engine owns its state)."""
-        for ck, cv in self.state["caches"]:
-            ck[i].zero_()
-            cv[i].zero_()
+        engine owns its state); with ``rules`` the caches' row of slot i
+        where this rank holds it."""
+        rows = batch_rows(self.rules, self.n_slots)
+        if rows.start <= i < rows.stop:
+            for pair in self.state["caches"]:
+                for c in pair:
+                    c[i - rows.start].zero_()
         self.state["pos"][i] = 0
 
     def _admit(self):
@@ -85,7 +98,8 @@ class ServingEngine:
         logits, self.state = decode_step(self.params, self.cfg, self.state,
                                          tokens.to(self.device),
                                          rules=self.rules)
-        nxt_host = logits.argmax(-1).tolist()
+        nxt = gather_rows(self.rules, logits.argmax(-1), self.n_slots)
+        nxt_host = nxt.tolist()
         pos_host = self.state["pos"].tolist()
         emitted = {}
         for i, req in enumerate(self.slots):

@@ -41,8 +41,12 @@ AdamW's clipping norm over sharded grads is one reduction over the mesh
 of the ranks' squared partial norms, a leaf replicated over an axis
 counted once (by the rank at coordinate 0 on that axis).
 ``step_collectives`` gives the collectives a step makes, by axis and
-kind, from the config and the mesh; every call is counted in
-``launch.mesh.COLLECTIVES``.
+kind, from the config and the mesh (``decode_collectives`` those of a
+sharded decode step); every call is counted in
+``launch.mesh.COLLECTIVES``.  MLA and MoE configs run through both
+sharded steps: MLA's attention tensor-parallel on heads, the experts
+expert-parallel on E (under ``defer_rules`` too: its params are
+replicated over ``data`` only).
 """
 from __future__ import annotations
 
@@ -55,11 +59,12 @@ import torch
 
 from repro_torch.models import ModelConfig, init_params, loss_fn
 from repro_torch.launch.mesh import MESH_AXIS
-from repro_torch.models.lm import abstract_params, param_specs
-from repro_torch.models.sharding import (TP_SPLITS, MeshRules, Sharded,
+from repro_torch.models.lm import (abstract_params, decode_state_layout,
+                                   param_specs)
+from repro_torch.models.sharding import (MeshRules, Sharded, batch_rows,
                                          chunk_shape, leaf_specs,
                                          replicated_axes, shard_tree,
-                                         split_axes)
+                                         spec_at, split_axes)
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.compression import (BLOCK, block_scale, compress_one,
                                            quantize)
@@ -475,6 +480,49 @@ class _DeferStep:
 # the collectives a step makes
 # =========================================================================
 
+def _use_calls(calls, mesh, fsdp, spec, tp_dim, times, backward) -> None:
+    """Add a leaf's gathers at ``times`` uses and, with ``backward``, the
+    reduce-scatter of each ``data`` gather's gradient."""
+    for d, a in split_axes(mesh, spec):
+        if a == fsdp:
+            _add(calls, a, "param", times + backward)
+        elif d != tp_dim:
+            _add(calls, a, "param", times)
+
+
+def _add(calls, axis, kind, k=1) -> None:
+    if k:
+        calls[(axis, kind)] = calls.get((axis, kind), 0) + k
+
+
+# The leaves of a tensor- or expert-parallel part that every model rank
+# uses whole but that feed only its heads or experts: their gradients are
+# sums of the ranks' partials, one ``tp`` reduction each in the backward
+# (``Sharded.copy``).  Written out here, not read from ``Sharded.leaf_use``,
+# so that a leaf the forward leaves out of ``copy`` changes the count.
+COPIED = {"attn": ("q_norm", "k_norm", "w_dkv", "w_kr", "kv_norm"),
+          "moe": ("router",)}
+
+
+def _layer_calls(calls, cfg, r, sh, times, backward) -> None:
+    """The collectives of every layer's leaves (``Sharded.leaf_use``) and
+    tensor-parallel parts at ``times`` forward passes; with ``backward``
+    the gradients' reduce-scatters, the parts' input copies and the
+    copies of their model-replicated leaves (``COPIED``)."""
+    specs, mesh = sh.specs, r.mesh
+    for block, bspec in zip(abstract_params(cfg)["blocks"], specs["blocks"]):
+        for path, _ in leaves_with_paths(block):
+            tp_dim = sh.leaf_use(path)[0]
+            _use_calls(calls, mesh, r.fsdp, spec_at(bspec, path), tp_dim,
+                       times, backward)
+        for part, sub in block.items():
+            if part in sh.tp_parts:
+                # the output's reduction, and the input's gradient
+                _add(calls, sh.tp, "tp", times + backward)
+                copied = [k for k in sub if k in COPIED.get(part, ())]
+                _add(calls, sh.tp, "tp", backward * len(copied))
+
+
 def step_collectives(cfg: ModelConfig, tcfg: TrainConfig, rules: MeshRules,
                      defer: bool) -> Dict[Tuple[str, str], int]:
     """Calls by ``(axis, kind)`` that one step of the sharded
@@ -482,50 +530,28 @@ def step_collectives(cfg: ModelConfig, tcfg: TrainConfig, rules: MeshRules,
     microbatch: a gather of each leaf split over an axis of more than one
     rank at each use (over ``model`` only where the tensor-parallel route
     does not keep the leaf split), a reduce-scatter of each ``data``
-    gather in the backward, two ``tp`` reductions a tensor-parallel
-    layer's forward (attention and MLP outputs) and, in the backward, one
-    for each part's input and the q / k norm scales; with remat a layer's
-    forward collectives twice.  Per step: the sharded step's one ``grad``
-    bucket, the deferred step's ``microbatches / defer_s`` syncs (each an
-    all-reduce over ``data`` and, with int8 on leaves split over model
-    whose chunks cut their blocks, a max over ``model``); one
-    ``metric`` reduction of the clipping norm."""
+    gather in the backward, one ``tp`` reduction of each tensor- or
+    expert-parallel part's output (attention, MLP, experts) and, in the
+    backward, one for each part's input and each leaf behind ``copy``
+    (the q / k norm scales, MLA's ``w_dkv``, ``w_kr``, ``kv_norm``, the
+    router); with remat a layer's forward collectives twice.  Per step:
+    the sharded step's one ``grad`` bucket, the deferred step's
+    ``microbatches / defer_s`` syncs (each an all-reduce over ``data``
+    and, with int8 on leaves split over model whose chunks cut their
+    blocks, a max over ``model``); one ``metric`` reduction of the
+    clipping norm."""
     r = defer_rules(rules) if defer else rules
     specs = param_specs(r, cfg)
     sh = Sharded(r, specs)
     mesh = rules.mesh
     per_mb: Dict[Tuple[str, str], int] = {}
-
-    def add(calls, axis, kind, k=1):
-        if k:
-            calls[(axis, kind)] = calls.get((axis, kind), 0) + k
-
-    def use(spec, tp_dim=None, times=1):
-        """A leaf's gathers and (backward) reduce-scatters at one use."""
-        for d, a in split_axes(mesh, spec):
-            if a == r.fsdp:
-                add(per_mb, a, "param", times + 1)
-            elif d != tp_dim:
-                add(per_mb, a, "param", times)
-
-    use(specs["embed"]["table"])
-    use(specs["embed" if cfg.tie_embeddings else "lm_head"]["table"])
-    fwd_times = 2 if cfg.remat == "full" else 1
-    for block in specs["blocks"]:
-        for part, v in block.items():
-            splits = TP_SPLITS.get(part, {}) if part in sh.tp_parts else {}
-            for name, spec in v.items():
-                spec = spec["scale"] if isinstance(spec, dict) else spec
-                use(spec, splits.get(name), fwd_times)
-        for part in sh.tp_parts:
-            # the output's reduction, the input's gradient, and the q / k
-            # norm scales' gradients
-            add(per_mb, sh.tp, "tp", fwd_times + 1
-                + (2 if part == "attn" and cfg.qk_norm else 0))
+    for key in ("embed", "embed" if cfg.tie_embeddings else "lm_head"):
+        _use_calls(per_mb, mesh, r.fsdp, specs[key]["table"], None, 1, 1)
+    _layer_calls(per_mb, cfg, r, sh, 2 if cfg.remat == "full" else 1, 1)
     calls = {key: k * tcfg.microbatches for key, k in per_mb.items()}
     if defer:
         syncs = tcfg.microbatches // tcfg.defer_s
-        add(calls, "data", "grad", syncs)
+        _add(calls, "data", "grad", syncs)
         full = abstract_params(cfg)
         flat = leaf_specs(specs, full)
         chunks = unflatten(full, [
@@ -534,13 +560,53 @@ def step_collectives(cfg: ModelConfig, tcfg: TrainConfig, rules: MeshRules,
         if tcfg.compress_int8 and any(
                 g["model"] for g in
                 _DeferStep.int8_groups(mesh, chunks, flat).values()):
-            add(calls, "model", "grad", syncs)
+            _add(calls, "model", "grad", syncs)
     else:
-        add(calls, "data", "grad")
-    add(calls, MESH_AXIS, "metric")
+        _add(calls, "data", "grad")
+    _add(calls, MESH_AXIS, "metric")
     return calls
 
 
-__all__ = ["TrainConfig", "defer_rules", "init_train_state",
+def decode_collectives(cfg: ModelConfig, rules: MeshRules, batch: int,
+                       max_seq: int) -> Dict[Tuple[str, str], int]:
+    """Calls by ``(axis, kind)`` that one sharded ``decode_step`` of
+    ``batch`` rows over a cache of ``max_seq`` positions makes on every
+    rank: the vocab-parallel use of the two tables (``Sharded.lookup``,
+    ``Sharded.project``), the gathers at use of every layer's leaves,
+    one ``tp`` reduction of each tensor- or expert-parallel part's
+    output, and for each layer whose cache has its S split one ``seq``
+    merge (for MLA whose heads are split over the same axis also the
+    queries' ``seq`` gather and two ``param`` gathers, ``w_uk`` and
+    ``w_uv``).  The serving steps add their
+    ``"token"`` gather (``sharding.gather_rows``)."""
+    specs = param_specs(rules, cfg)
+    sh = Sharded(rules, specs)
+    mesh = rules.mesh
+    calls: Dict[Tuple[str, str], int] = {}
+    split_rows = batch_rows(rules, batch) != slice(0, batch)
+    for head in (False, True):
+        key = ("embed" if cfg.tie_embeddings or not head else "lm_head")
+        v_ax, d_ax = sh.table_axes(specs[key]["table"])
+        if v_ax is not None:      # the rows' sum / the logits' gather
+            _add(calls, v_ax, "param")
+        if d_ax is not None:      # the rows' d gather / the partial logits'
+            # reduction, after the rows' gather where the batch is split
+            _add(calls, d_ax, "param", 1 + (head and split_rows))
+    _use_calls(calls, mesh, rules.fsdp, specs["final_norm"]["scale"], None,
+               1, 0)
+    _layer_calls(calls, cfg, rules, sh, 1, 0)
+    sspecs = decode_state_layout(rules, cfg, batch, max_seq)
+    for cspec in sspecs["caches"]:
+        split = [a for d, a in split_axes(mesh, cspec[0]) if d == 1]
+        if split:
+            every_head = (cfg.attn_type == "mla" and "attn" in sh.tp_parts
+                          and split[0] == sh.tp)
+            _add(calls, split[0], "seq", 1 + every_head)
+            _add(calls, split[0], "param", 2 * every_head)
+    return calls
+
+
+__all__ = ["TrainConfig", "decode_collectives", "defer_rules",
+           "init_train_state",
            "loss_and_grads", "make_defer_train_step", "make_train_step",
            "step_collectives"]

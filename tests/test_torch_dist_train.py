@@ -62,14 +62,13 @@ restored onto the (4, 1) FSDP + TP step, which takes step 2.
 import hashlib
 import os
 import pickle
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from torch_procs import Procs
 
 ARCH = "qwen3_1p7b"
 SEQ, BATCH, NM, STEPS, LR, SEED = 16, 16, 4, 2, 1e-3, 0
@@ -335,44 +334,6 @@ def _jax_main(d: Path, group: str) -> None:
 # the pytest side
 # =========================================================================
 
-class _Procs:
-    """Processes started at once; ``wait()`` joins them under
-    ``TIMEOUT_S`` and fails the tests on a non-zero exit."""
-
-    def __init__(self, name, argvs, env, d: Path):
-        self.name, self.d, self.t0 = name, d, time.monotonic()
-        self.procs, self.logs = [], []
-        for i, argv in enumerate(argvs):
-            log = d / f"{name}-log{i}.txt"
-            self.logs.append(log)
-            with open(log, "w") as f:
-                self.procs.append(subprocess.Popen(
-                    [sys.executable, __file__, *argv], env=env, stdout=f,
-                    stderr=subprocess.STDOUT))
-        self.done = False
-
-    def wait(self):
-        if not self.done:
-            for p in self.procs:
-                left = max(1.0, TIMEOUT_S - (time.monotonic() - self.t0))
-                try:
-                    p.wait(timeout=left)
-                except subprocess.TimeoutExpired:
-                    self.kill()
-                    pytest.fail(f"{self.name}: a process ran past "
-                                f"{TIMEOUT_S} s (a hung collective?)")
-            bad = [(i, p.returncode, log.read_text()[-3000:])
-                   for i, (p, log) in enumerate(zip(self.procs, self.logs))
-                   if p.returncode]
-            assert not bad, f"{self.name} failed: {bad}"
-            self.done = True
-
-    def kill(self):
-        for p in self.procs:
-            p.kill()
-            p.wait()
-
-
 def _inputs() -> dict:
     """The JAX initial params (numpy, stacked as JAX holds them) of each
     config and the two global batches every process reads."""
@@ -410,14 +371,15 @@ def runs(tmp_path_factory):
                                                             ""))
     jenv = dict(env, JAX_PLATFORMS="cpu",
                 XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    procs = {"jax": _Procs("jax", [["jax", str(d), g] for g in JAX_GROUPS],
-                           jenv, d)}
+    procs = {"jax": Procs("jax", __file__,
+                          [["jax", str(d), g] for g in JAX_GROUPS], jenv, d,
+                          TIMEOUT_S)}
     for world in sorted({c["world"] for c in CASES}):
         wd = d / f"world{world}"
         wd.mkdir()
-        procs[world] = _Procs(f"world {world}",
-                              [[str(world), str(r), str(wd)]
-                               for r in range(world)], env, d)
+        procs[world] = Procs(f"world {world}", __file__,
+                             [[str(world), str(r), str(wd)]
+                              for r in range(world)], env, d, TIMEOUT_S)
     yield _Runs(d, procs, inp)
     for p in procs.values():            # nothing outlives the module
         p.kill()

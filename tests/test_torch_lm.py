@@ -8,7 +8,8 @@ JAX model tests' own bound (tests/test_flash_attention.py,
 tests/test_models_smoke.py); greedy tokens and serving tokens equal in
 f32.  Families the port does not run yet must raise, naming their
 ROADMAP item (the MoE family, DeepSeek-V2-Lite and Arctic, runs:
-tests/test_torch_moe.py; sharded, it raises naming A11d).
+tests/test_torch_moe*.py; sharded: tests/test_torch_dist_moe.py, and
+sharded decode tests/test_torch_dist_decode.py).
 """
 import dataclasses
 
@@ -234,31 +235,6 @@ def test_unported_options_raise_naming_their_item(change, item):
                               **change)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
-        decode_step({}, get_config("qwen3_1p7b", reduced=True), {},
-                    torch.zeros((1, 1), dtype=torch.long), rules=object())
-
-
-@pytest.mark.parametrize("call", ["forward", "loss_fn", "decode_step",
-                                  "param_specs"])
-@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "arctic_480b"])
-def test_sharded_moe_and_mla_raise_naming_a11d(arch, call):
-    """MLA and MoE configs run unsharded; ``rules`` on them raises naming
-    ROADMAP A11d (``models.sharding.Sharded`` has no tensor- or
-    expert-parallel form for them) instead of computing replicated."""
-    from repro_torch.models import lm
-    cfg = get_config(arch, reduced=True)
-    check_supported(cfg)
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    calls = {"forward": lambda: lm.forward({}, cfg, toks, rules=object()),
-             "loss_fn": lambda: lm.loss_fn({}, cfg, {"tokens": toks,
-                                                     "labels": toks},
-                                           rules=object()),
-             "decode_step": lambda: lm.decode_step({}, cfg, {}, toks[:, :1],
-                                                   rules=object()),
-             "param_specs": lambda: lm.param_specs(object(), cfg)}
-    with pytest.raises(NotImplementedError, match="ROADMAP A11d"):
-        calls[call]()
 
 
 def test_layers_match_jax():

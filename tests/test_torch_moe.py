@@ -25,6 +25,10 @@ itself (JAX's recomputed inside its traced forward, the port's from its
 MoE inputs), and each top-k difference must sit at a near-tie of the
 port's gates.  The MoE and MLA modules alone, on the same bf16 inputs,
 are held elementwise everywhere.
+
+The decode and serving parity is in tests/test_torch_moe_decode.py, the
+gradients and training in tests/test_torch_moe_train.py, the CLIs in
+tests/test_torch_moe_cli.py.
 """
 import dataclasses
 from unittest import mock
@@ -37,32 +41,17 @@ import torch
 
 import repro.models.lm as j_lm
 from repro.configs import get_config as j_get_config
-from repro.data.tokens import TokenPipeline as JTokenPipeline
 from repro.models import attention as j_attn
-from repro.models import decode_step as j_decode_step
 from repro.models import forward as j_forward
-from repro.models import init_decode_state as j_init_decode_state
 from repro.models import init_params as j_init_params
-from repro.models import loss_fn as j_loss_fn
 from repro.models import moe as j_moe
-from repro.train import greedy_generate as j_greedy_generate
-from repro.train.serving import Request as JRequest
-from repro.train.serving import ServingEngine as JServingEngine
 import repro_torch.models.lm as t_lm
 from repro_torch import convert
 from repro_torch.configs import get_config
-from repro_torch.launch import serve as serve_cli
-from repro_torch.launch import train as train_cli
-from repro_torch.models import (decode_step, forward, init_decode_state,
-                                init_params)
+from repro_torch.models import forward
 from repro_torch.models import attention as t_attn
 from repro_torch.models import moe as t_moe
-from repro_torch.models.lm import abstract_params
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
-from repro_torch.optim.adamw import decayed
-from repro_torch.train import (Request, ServingEngine, greedy_generate,
-                               loss_and_grads)
-from repro_torch.tree import leaves, leaves_with_paths, map_tree
+from repro_torch.tree import map_tree
 
 ARCHS = ["deepseek_v2_lite_16b", "arctic_480b"]
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -300,9 +289,9 @@ def test_forward_bf16_matches_jax_up_to_routing(arch, impl):
                            _j_decisions(pp, c, x))
         return j_apply(pp, c, x, rules=rules)
 
-    def t_recording(pp, c, x):
+    def t_recording(pp, c, x, tp=None):
         t_seen.append(_t_decisions(pp, c, x))
-        return t_apply(pp, c, x)
+        return t_apply(pp, c, x, tp=tp)
 
     with mock.patch.object(j_lm, "moe_apply", j_recording), \
             mock.patch.object(t_lm, "moe_apply", t_recording):
@@ -323,218 +312,3 @@ def test_forward_bf16_matches_jax_up_to_routing(arch, impl):
     assert first.sum() >= B * S // 4, first     # most positions are held
     for b in range(B):
         _close(got[b, :first[b]], want[b, :first[b]], 5e-2)
-
-
-@pytest.mark.parametrize("impl", ["dense", "capacity"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_decode_steps_and_caches_match_jax(arch, impl):
-    """Teacher-forced decode from the same zero state: each step's logits,
-    the final caches (MLA's (c, k_rope) for DeepSeek) and positions."""
-    jcfg, cfg = _cfgs(arch, dtype="float32", moe_impl=impl)
-    jp, p = _params(jcfg, cfg)
-    B, S = 2, 8
-    toks = _tokens(cfg, (B, S), seed=2)
-    jstate = j_init_decode_state(jcfg, B, S + 2)
-    state = convert.decode_state(jax.tree.map(np.asarray, jstate), cfg,
-                                 device="cpu")
-    for t in range(S):
-        jl, jstate = j_decode_step(jp, jcfg, jstate,
-                                   jnp.asarray(toks[:, t:t + 1], jnp.int32))
-        tl, state = decode_step(p, cfg, state,
-                                torch.from_numpy(toks[:, t:t + 1]))
-        _close(tl.numpy(), jl, 1e-4)
-    want = convert.decode_state(jax.tree.map(np.asarray, jstate), cfg,
-                                device="cpu")
-    assert torch.equal(state["pos"], want["pos"])
-    assert len(state["caches"]) == cfg.n_layers
-    for pair, wpair in zip(state["caches"], want["caches"]):
-        for got, w in zip(pair, wpair):
-            assert got.shape == w.shape
-            _close(got.numpy(), w.numpy(), 1e-4)
-    if cfg.attn_type == "mla":
-        assert state["caches"][0][0].shape == (B, S + 2, cfg.kv_lora_rank)
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_decode_matches_prefill(arch, dtype):
-    """The port's form of tests/test_models_smoke.py::
-    test_decode_matches_prefill, dense dispatch as that test pins it
-    (capacity drops at prefill but never at decode)."""
-    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype=dtype,
-                              moe_impl="dense")
-    p = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    B, S = 2, 16
-    toks = torch.from_numpy(_tokens(cfg, (B, S), seed=3))
-    ref = forward(p, cfg, toks)
-    state = init_decode_state(cfg, B, S, device="cpu")
-    outs = []
-    for t in range(S):
-        logits, state = decode_step(p, cfg, state, toks[:, t:t + 1])
-        outs.append(logits)
-    _close(torch.stack(outs, 1).numpy(), ref.numpy(), TOL[dtype])
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_greedy_generate_matches_jax(arch):
-    jcfg, cfg = _cfgs(arch, dtype="float32")
-    jp, p = _params(jcfg, cfg)
-    prompt = _tokens(cfg, (2, 5), seed=4)
-    want, _ = j_greedy_generate(jp, jcfg, j_init_decode_state(jcfg, 2, 32),
-                                jnp.asarray(prompt, jnp.int32), 6)
-    got, state = greedy_generate(p, cfg, init_decode_state(cfg, 2, 32,
-                                                           device="cpu"),
-                                 torch.from_numpy(prompt), 6)
-    assert got.tolist() == np.asarray(want).tolist()
-    assert state["pos"].tolist() == [10, 10]
-
-
-def _drive(engine_cls, request_cls, params, cfg):
-    eng = engine_cls(params, cfg, n_slots=2, max_seq=32)
-    reqs = [request_cls(rid=i, prompt=[3 + i, 7, 11, 2 * i + 1][:3 + i % 2],
-                        max_new_tokens=5) for i in range(5)]
-    for r in reqs[:3]:
-        eng.submit(r)
-    steps = 0
-    while (eng.pending or any(eng.slots)) and steps < 200:
-        eng.step()
-        steps += 1
-        if steps == 4:                        # arrivals mid-flight
-            eng.submit(reqs[3])
-            eng.submit(reqs[4])
-    return reqs, steps
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_serving_engine_matches_jax(arch):
-    """The same requests, arrivals and slots: the same tokens and steps
-    (slot reuse zeroes a slot of either cache kind)."""
-    jcfg, cfg = _cfgs(arch, dtype="float32")
-    jp, p = _params(jcfg, cfg)
-    want, j_steps = _drive(JServingEngine, JRequest, jp, jcfg)
-    got, steps = _drive(ServingEngine, Request, p, cfg)
-    assert steps == j_steps
-    assert all(r.done and len(r.generated) == 5 for r in got)
-    assert [r.generated for r in got] == [r.generated for r in want]
-
-
-def test_serving_engine_slot_reset_zeroes_the_mla_cache_pair():
-    """An admission zeroes its slot's c and k_rope in every layer and its
-    position, and leaves the other slot's cache as it was."""
-    cfg = dataclasses.replace(get_config("deepseek_v2_lite_16b",
-                                         reduced=True), dtype="float32")
-    p = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    eng = ServingEngine(p, cfg, n_slots=2, max_seq=16)
-    eng.submit(Request(rid=0, prompt=[1, 2, 3], max_new_tokens=2))
-    eng.submit(Request(rid=1, prompt=[4, 5, 6, 7], max_new_tokens=8))
-    for _ in range(3):
-        eng.step()
-    assert all(bool(c[i].abs().sum() > 0) for pair in eng.state["caches"]
-               for c in pair for i in range(2))
-    other = [tuple(c[1].clone() for c in pair)
-             for pair in eng.state["caches"]]
-    eng._reset_slot_state(0)
-    for pair, kept in zip(eng.state["caches"], other):
-        c, k_rope = pair
-        assert c.shape[-1] == cfg.kv_lora_rank
-        assert k_rope.shape[-1] == cfg.qk_rope_head_dim
-        assert not bool(c[0].any()) and not bool(k_rope[0].any())
-        assert torch.equal(c[1], kept[0]) and torch.equal(k_rope[1], kept[1])
-    assert int(eng.state["pos"][0]) == 0 and int(eng.state["pos"][1]) == 3
-
-
-@pytest.mark.parametrize("impl", ["dense", "capacity"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_loss_and_grads_match_jax(arch, impl):
-    """loss_fn's value and the gradient of every leaf (router, stacked
-    experts, shared experts, dense residual, MLA's projections and
-    kv_norm) against jax.value_and_grad, f32; a leaf JAX leaves at zero
-    (an expert no token reached) is zero here too."""
-    jcfg, cfg = _cfgs(arch, dtype="float32", moe_impl=impl)
-    jp, p = _params(jcfg, cfg)
-    jb = JTokenPipeline(jcfg.vocab_size, 32, 2, seed=1).batch(0)
-    b = {k: torch.from_numpy(np.array(v)) for k, v in jb.items()}
-    j_loss, j_grads = jax.value_and_grad(j_loss_fn)(jp, jcfg, jb)
-    want = leaves(convert.lm_params(_np(j_grads), cfg, device="cpu"))
-    loss, grads = loss_and_grads(p, cfg, b)
-    np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-4)
-    paths = [path for path, _ in leaves_with_paths(p)]
-    assert len(grads) == len(want) == len(paths)
-    for path, g, w in zip(paths, grads, want):
-        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
-        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
-                                   atol=1e-4, err_msg=str(path))
-    moe_paths = [i for i, path in enumerate(paths) if "moe" in path]
-    assert any("router" in paths[i] and bool(grads[i].abs().max() > 0)
-               for i in moe_paths)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_init_params_shapes_match_jax(arch):
-    """Random init from a torch.Generator and the meta-tensor tree: the
-    JAX layout layer by layer (experts (E, d, f) per layer), f32; the
-    count is param_count plus the norm scales."""
-    jcfg, cfg = _cfgs(arch)
-    _, carried = _params(jcfg, cfg)
-    p = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-
-    def shapes(tree):
-        if isinstance(tree, dict):
-            return {k: shapes(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [shapes(v) for v in tree]
-        assert tree.dtype == torch.float32
-        return tuple(tree.shape)
-
-    assert shapes(p) == shapes(carried) == shapes(abstract_params(cfg))
-    moe = p["blocks"][0]["moe"]
-    assert moe["wi_gate"].shape == (cfg.n_experts, cfg.d_model, cfg.moe_ff)
-    n_norm = cfg.n_layers * 2 * cfg.d_model + cfg.d_model
-    if cfg.attn_type == "mla":
-        n_norm += cfg.n_layers * cfg.kv_lora_rank
-    assert sum(t.numel() for t in leaves(p)) == cfg.param_count() + n_norm
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_new_leaves_decay_as_jax_stacked_tree(arch):
-    """AdamW's decay rule on the MoE / MLA leaves: every leaf under blocks
-    (router, experts, shared and residual MLPs, MLA's projections and
-    kv_norm) is decayed, as the JAX package's layer-stacked ndim >= 2
-    rule decays them, and final_norm is not; a zero-gradient update is
-    decay alone and equals JAX's."""
-    from repro.optim import AdamWConfig as JAdamWConfig
-    from repro.optim import adamw_init as j_adamw_init
-    from repro.optim import adamw_update as j_adamw_update
-    jcfg, cfg = _cfgs(arch, dtype="float32")
-    jp, p = _params(jcfg, cfg)
-    for path, t in leaves_with_paths(p):
-        assert decayed(path, t) == (path[0] != "final_norm"), path
-    acfg = AdamWConfig(lr=0.5, warmup_steps=0, total_steps=10)
-    p, _, _ = adamw_update(acfg, p, map_tree(torch.zeros_like, p),
-                           adamw_init(p))
-    jp, _, _ = j_adamw_update(JAdamWConfig(lr=0.5, warmup_steps=0,
-                                           total_steps=10), jp,
-                              jax.tree.map(jnp.zeros_like, jp),
-                              j_adamw_init(jp))
-    want = convert.lm_params(_np(jp), cfg, device="cpu")
-    for (path, a), b in zip(leaves_with_paths(p), leaves(want)):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
-                                   atol=1e-7, err_msg=str(path))
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "arctic-480b"])
-def test_serve_cli_on_cpu(arch, capsys):
-    serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
-                    "--batch", "2", "--prompt-len", "4", "--new-tokens",
-                    "3"])
-    out = capsys.readouterr().out
-    assert "ok" in out.splitlines()[-1] and "req1" in out
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "arctic-480b"])
-def test_train_cli_on_cpu_loss_decreases(arch):
-    losses = train_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
-                             "--steps", "12", "--batch", "4", "--seq",
-                             "32"])
-    assert len(losses) == 12 and all(np.isfinite(losses))
-    assert losses[-1] < losses[0]

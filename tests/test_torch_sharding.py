@@ -10,9 +10,17 @@ JAX's stacked leaf is 3-D, falls through to the table's ``(T, None, F)``
 and so shards the stacked layer axis over ``model``, where the port's
 2-D leaf takes ``(T, F)``, what the rule meant.
 
-Also: the tensor-parallel route's choice of block parts, the collective
-model of a step on the identity mesh, that a step carries no state into
-the next, and the raise of sharded decode (ROADMAP A11c)."""
+The decode-state layout: ``cache_spec`` called with JAX's paths and the
+per-layer shapes equals JAX's ``launch/specs._cache_pspec`` with its
+stacked layer axis dropped, on every leaf of the JAX ``init_decode_state``
+of all ten configs (Mamba states, Zamba2's shared cache and Whisper's
+cross-attention K / V included) on ``AbstractMesh`` (1, 1), (2, 2), (4,
+1), (1, 4) and (2, 1), at B in {1, 4}, S in {1056, 33}.
+
+Also: the tensor-parallel route's choice of block parts (MLA and the
+experts included), the collective model of a step on the identity mesh,
+that a step carries no state into the next, and the chunks a sharded
+decode state holds."""
 import dataclasses
 import functools
 
@@ -124,6 +132,138 @@ def test_leaf_specs_follow_paths_not_order():
                                "/".join(map(str, path)), tuple(t.shape))
 
 
+CACHE_MESHES = [(1, 1), (2, 2), (4, 1), (1, 4), (2, 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_state_leaves(arch, batch, seq):
+    """``[(path, leaf)]`` of JAX's abstract decode state, the path built as
+    ``launch/specs.decode_state_specs`` builds it."""
+    from repro.models import init_decode_state as jax_init_state
+    cfg = jax_config(arch)
+    state = jax.eval_shape(lambda: jax_init_state(
+        cfg, batch, seq, with_encoder=bool(cfg.encoder_layers)))
+    flat, _ = jax.tree_util.tree_flatten_with_path(state)
+    return [("/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                      for k in path), leaf) for path, leaf in flat]
+
+
+def _norm_spec(spec, ndim):
+    """A JAX spec as the port writes one: one entry a dim, a tuple of one
+    axis as its name."""
+    out = [a[0] if isinstance(a, tuple) and len(a) == 1 else a
+           for a in tuple(spec)]
+    return tuple(out + [None] * (ndim - len(out)))
+
+
+@pytest.mark.parametrize("seq", [1056, 33])
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("mesh", CACHE_MESHES, ids=str)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_spec_equals_jax_on_every_leaf(arch, mesh, batch, seq):
+    from repro.launch.specs import _cache_pspec
+    from repro_torch.models.sharding import cache_spec
+    jr, tr = _rules(mesh)
+    jcfg, cfg = jax_config(arch), get_config(arch)
+    leaves = _jax_state_leaves(arch, batch, seq)
+    assert any(p.startswith("caches/") for p, _ in leaves)
+    for path, leaf in leaves:
+        want = _norm_spec(_cache_pspec(jr, jcfg, path, leaf), leaf.ndim)
+        if path.endswith("pos"):
+            assert cache_spec(tr, cfg, path, leaf.shape) == want, path
+            continue
+        # the stacked layer axis is never split; the port's leaf lacks it
+        assert want[0] is None, path
+        assert cache_spec(tr, cfg, path, leaf.shape[1:]) == want[1:], path
+
+
+@pytest.mark.parametrize("arch", ["qwen3_1p7b", "deepseek_v2_lite_16b"])
+@pytest.mark.parametrize("mesh,batch", [((2, 2), 4), ((2, 2), 1),
+                                        ((1, 4), 4), ((4, 1), 2)])
+def test_sharded_decode_state_holds_the_chunks(arch, mesh, batch):
+    """``init_decode_state(rules=)`` holds each cache's chunk of its
+    ``cache_spec`` (S, batch or kv heads cut), ``pos`` whole, and the
+    full ``max_seq``; the collective model of a decode step counts a
+    ``seq`` merge for every layer whose cache S is split."""
+    from repro_torch.models.lm import (abstract_decode_state,
+                                       init_decode_state)
+    from repro_torch.models.sharding import chunk_shape, decode_state_specs
+    from repro_torch.train.train_step import decode_collectives
+    cfg = get_config(arch, reduced=True)
+    rules = MeshRules(Mesh(mesh))
+    seq = 64
+    state = init_decode_state(cfg, batch, seq, device="cpu", rules=rules)
+    full = abstract_decode_state(cfg, batch, seq)
+    specs = decode_state_specs(rules, cfg, full)
+    assert state["max_seq"] == seq and state["pos"].shape == (batch,)
+    split_s = 0
+    for pair, fpair, spair in zip(state["caches"], full["caches"],
+                                  specs["caches"]):
+        for t, f, sp in zip(pair, fpair, spair):
+            assert list(t.shape) == chunk_shape(rules.mesh, f.shape, sp)
+        split_s += sp[1] is not None and mesh[("data", "model").index(
+            sp[1])] > 1
+    calls = decode_collectives(cfg, rules, batch, seq)
+    merges = sum(k for (a, kind), k in calls.items() if kind == "seq")
+    per = 2 if arch.startswith("deepseek") and mesh[1] > 1 else 1
+    assert merges == split_s * per
+
+
+@pytest.mark.parametrize("arch,mesh,parts", [
+    ("deepseek_v2_lite_16b", (2, 2), {"attn", "moe"}),
+    ("deepseek_v2_lite_16b", (1, 4), {"attn", "moe"}),
+    ("deepseek_v2_lite_16b", (4, 1), set()),
+    ("arctic_480b", (1, 2), {"attn", "moe"}),
+    ("arctic_480b", (1, 4), {"moe"}),         # kv 2 does not divide 4
+])
+def test_mla_and_expert_parallel_parts(arch, mesh, parts):
+    """MLA's attention runs tensor-parallel where wq, w_uk, w_uv and wo
+    split their heads over ``model``, the experts expert-parallel where
+    their E divides it; MLA's latent leaves, the norm scales and the
+    router sit behind ``copy``, the shared experts are gathered."""
+    cfg = get_config(arch, reduced=True)
+    rules = MeshRules(Mesh(mesh))
+    sh = Sharded(rules, param_specs(rules, cfg))
+    assert sh.tp_parts == parts
+    if "attn" in parts and arch.startswith("deepseek"):
+        assert sh.leaf_use(("attn", "w_uk")) == (1, True, False)
+        assert sh.leaf_use(("attn", "w_dkv")) == (None, False, True)
+        assert sh.leaf_use(("attn", "kv_norm", "scale")) == (None, False,
+                                                             True)
+    if "moe" in parts:
+        assert sh.leaf_use(("moe", "wo")) == (0, True, False)
+        assert sh.leaf_use(("moe", "router")) == (None, False, True)
+        sub = "shared" if arch.startswith("deepseek") else "dense_residual"
+        assert sh.leaf_use(("moe", sub, "wi_gate")) == (None, True, False)
+
+
+@pytest.mark.parametrize("call", ["forward", "loss_fn", "decode_step",
+                                  "param_specs", "init_decode_state"])
+@pytest.mark.parametrize("arch,item", [
+    ("falcon_mamba_7b", "A13.5"), ("zamba2_1p2b", "A13.5"),
+    ("whisper_tiny", "A13.7"), ("qwen2_vl_72b", "A13.8")])
+def test_unported_families_raise_under_rules_too(arch, item, call):
+    """Sharding is ported for every family the port runs (GQA, MLA, MoE);
+    the families it does not run raise naming their ROADMAP item under
+    ``rules`` as they do without."""
+    from repro_torch.models import lm
+    cfg = get_config(arch, reduced=True)
+    rules = MeshRules(Mesh((2, 2)))
+    toks = torch.zeros((2, 4), dtype=torch.long)
+    calls = {
+        "forward": lambda: lm.forward({}, cfg, toks, rules=rules),
+        "loss_fn": lambda: lm.loss_fn({}, cfg, {"tokens": toks,
+                                                "labels": toks},
+                                      rules=rules),
+        "decode_step": lambda: lm.decode_step({}, cfg, {}, toks[:, :1],
+                                              rules=rules),
+        "param_specs": lambda: lm.param_specs(rules, cfg),
+        "init_decode_state": lambda: lm.init_decode_state(
+            cfg, 2, 8, device="cpu", rules=rules)}
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        calls[call]()
+
+
 @pytest.mark.parametrize("heads,kv,mesh,parts", [
     (4, 2, (2, 2), {"attn", "mlp"}),
     (4, 2, (4, 1), set()),               # no model axis to split over
@@ -205,14 +345,6 @@ def test_steps_carry_no_state_from_step_to_step(kind):
     assert all(torch.equal(x, y)
                for x, y in zip(leaves(a[:2]), leaves(b[:2])))
     assert float(a[2]["loss"]) == float(b[2]["loss"])
-
-
-def test_sharded_decode_raises_naming_a11c():
-    from repro_torch.models import decode_step
-    cfg = get_config("qwen3_1p7b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
-        decode_step({}, cfg, {}, torch.zeros((1, 1), dtype=torch.long),
-                    rules=MeshRules(Mesh((1, 1))))
 
 
 def test_mesh_rules_fit_drops_what_does_not_divide():

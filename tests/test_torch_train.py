@@ -16,6 +16,8 @@ relative; params within 2 sum(lr) of the JAX ones (the most AdamW's
 sign-like early steps move an entry whose near-zero gradient rounds to
 the other sign in the other package) and all but 1e-3 of the entries
 within 1e-6 (measured: 8e-6 at most, 3e-5 of the entries above 1e-6).
+
+The training CLI's own run is in tests/test_torch_train_cli.py.
 """
 import dataclasses
 import json
@@ -42,14 +44,12 @@ from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.launch import train as train_cli
-from repro_torch.models import decode_step
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                global_norm, schedule)
-from repro_torch.train import (CheckpointManager, TrainConfig,
-                               available_steps, init_train_state,
-                               load_checkpoint, loss_and_grads,
-                               make_defer_train_step, make_train_step,
-                               save_checkpoint)
+from repro_torch.train import (CheckpointManager, TrainConfig, available_steps,
+                               init_train_state, load_checkpoint,
+                               loss_and_grads, make_defer_train_step,
+                               make_train_step, save_checkpoint)
 from repro_torch.tree import leaves, leaves_with_paths, map_tree
 
 ARCH = "qwen3_1p7b"
@@ -234,14 +234,11 @@ def test_three_train_steps_match_jax(nm, impl, remat):
 
 
 def test_unported_distributed_trainers_raise_naming_a11():
-    """The distributed trainers are ported (A11b): what is left is sharded
-    decode (A11c), and the deferred step's knobs and a mesh are refused
-    where they cannot run, as in the JAX package."""
+    """The distributed trainers are ported (A11b): the deferred step's
+    knobs and a mesh are refused where they cannot run, as in the JAX
+    package."""
     _, cfg = _cfgs()
     acfg = AdamWConfig()
-    with pytest.raises(NotImplementedError, match="A11c"):
-        decode_step({}, cfg, {}, torch.zeros((1, 1), dtype=torch.long),
-                    rules=object())
     with pytest.raises(ValueError, match="make_defer_train_step"):
         make_train_step(cfg, acfg, TrainConfig(compress_int8=True))
     with pytest.raises(ValueError, match="make_defer_train_step"):
@@ -390,21 +387,3 @@ def test_convert_adamw_state():
                 want["blocks"][0]["attn"]["wq"][layer])
         np.testing.assert_array_equal(o[key]["embed"]["table"].numpy(),
                                       want["embed"]["table"])
-
-
-def test_train_cli_on_cpu_loss_decreases(capsys, tmp_path):
-    """The CLI's own run on the reduced config; then a second run resumes
-    from its last checkpoint."""
-    ckpt = str(tmp_path / "ckpt")
-    losses = train_cli.main(["--arch", "qwen3-1.7b", "--reduced",
-                             "--device", "cpu", "--steps", "20",
-                             "--ckpt-dir", ckpt, "--ckpt-every", "10"])
-    assert len(losses) == 20 and all(np.isfinite(losses))
-    assert losses[-1] < losses[0] - 0.5
-    assert available_steps(ckpt) == [10, 20]
-    out = capsys.readouterr().out
-    assert "final loss" in out and "device=cpu" in out
-    more = train_cli.main(["--arch", "qwen3-1.7b", "--reduced", "--device",
-                           "cpu", "--steps", "22", "--ckpt-dir", ckpt])
-    assert len(more) == 2
-    assert "resumed from step 20" in capsys.readouterr().out
