@@ -324,6 +324,41 @@ Phases (each one fails the run with a non-zero exit):
           step_collectives, the decode steps' rmsnorm launches, and the
           rmsnorm kernel at every shape the ranks launched it at, against
           its plain version, timed alone beside F.rms_norm and its bound
+ 16. the SSM family (models/mamba.py, the shared attention block in
+     models/lm.py), after phase 14: Falcon-Mamba-7B (64 Mamba-1 layers,
+     d_model 4096, d_inner 8192, state 16, vocab 65 024, tied; 28.0 GB of
+     f32 params) and Zamba2-1.2B (38 Mamba-2 layers through SSD, 64 SSM
+     heads x 64, state 64, and the shared attention + MLP block, 32
+     heads x 64 and d_ff 8192, applied after each of the 19 periods;
+     attn_impl="flash"), bf16 over f32 params, random weights from --seed:
+       a. Falcon at full width and depth: the leaf count against the JAX
+          package's abstract_params; a 4 x 1024 prefill (exactly 65
+          rmsnorm launches: norm1 a layer and final_norm; time, tokens/s,
+          idle share, peak), a warm-up, 32 timed and 2 profiled decode
+          steps, teacher-forced, whose logits are held against the
+          prefill's (TOL_LM_BF16), ServingEngine(n_slots=4) answering 8
+          requests in bf16 (timed) and f32 (every token equal to the
+          request decoded alone: slots are reused); the SSM core's share
+          of the prefill (A14j); then the depth cut to 2 layers: 64 f32
+          decode steps against the f32 prefill (TOL_LM_F32), the f32
+          gradient on 1 x 1024 tokens through the rmsnorm kernel against
+          the same with every rmsnorm plain, leaf by leaf (TOL_GRAD_F32),
+          and 2 AdamW steps of 4 x 1024 tokens in 2 microbatches with
+          remat (finite, falling losses, exact launches, step ms, peak)
+       b. Zamba2 at full width and depth: the same serving checks (77
+          rmsnorm launches a step: norm1 a layer, norm and norm2 an
+          application of the shared block, final_norm; 19 tensor-core
+          flash launches a prefill), 64 f32 decode steps against the f32
+          prefill at full depth (naive attention on both sides), SSD
+          against the elementwise scan on one layer at full width (the
+          JAX package's tests/test_ssd.py bounds), SSD's share of the
+          prefill, and 2 training steps at full depth (exact rmsnorm,
+          flash forward, dq and dkv launches)
+       c. rmsnorm (D = 4096 on the generic kernel, 2048 on the row kernel)
+          and the tensor-core flash forward, dq and dkv at hd = 64 at
+          every shape the phase launched them at, against their plain
+          versions (flash within its derived bf16 bounds), timed alone
+          beside F.rms_norm / SDPA and their bounds
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
@@ -639,6 +674,37 @@ MOE_SHORT_LAYERS = 2
 MOE_PARITY_BATCH, MOE_PARITY_SEQ = 2, 128
 MOE_TRAIN_STEPS, MOE_MICROBATCHES = 2, 2
 
+# Phase 16 (the SSM family): Falcon-Mamba-7B and Zamba2-1.2B at their
+# published widths, bf16 over f32 params, random weights.  At full depth:
+# a prefill of SSM_BATCH x SSM_SEQ, a warm-up, SSM_DECODE_STEPS timed and
+# LM_PROFILE_STEPS profiled teacher-forced decode steps, whose SSM_HELD
+# logits are held against the prefill's (TOL_LM_BF16), and an engine of
+# SSM_SLOTS slots answering SSM_REQUESTS requests of SSM_NEW_TOKENS new
+# tokens, in bf16 (timed) and in f32 (every token equal to the request
+# decoded alone: f32 sums the same products in another order, and a slot
+# reused with a state left over would part at once).  f32 decode against
+# the prefill over SSM_F32_PROMPT positions at TOL_LM_F32.  Falcon's
+# training cuts the depth to SSM_SHORT_LAYERS (the 28.0 GB of params
+# with gradient and moments would not fit); Zamba2 trains at full depth.
+# The f32 gradient on SSM_GRAD_BATCH x SSM_SEQ tokens through the rmsnorm
+# kernel against the same with every rmsnorm plain, at TOL_GRAD_F32.  SSD
+# against the elementwise scan at the JAX package's tests/test_ssd.py
+# bounds.  SSM_LEAVES: the leaf counts of the JAX package's
+# abstract_params (tests/test_torch_mamba_lm.py holds the port's to them;
+# ModelConfig.param_count leaves out the norms and Mamba-1's dt_rank
+# terms).
+SSM_BATCH, SSM_SEQ, SSM_DECODE_STEPS = 4, 1024, 32
+SSM_HELD = 1 + SSM_DECODE_STEPS + LM_PROFILE_STEPS
+SSM_SLOTS, SSM_REQUESTS, SSM_NEW_TOKENS, SSM_ENGINE_SEQ = 4, 8, 8, 64
+SSM_F32_PROMPT = 64
+SSM_SHORT_LAYERS = 2
+SSM_TRAIN_STEPS, SSM_MICROBATCHES = 2, 2
+SSM_GRAD_BATCH = 1
+SSM_PEAK_BYTES = 76e9
+SSM_LEAVES = {"falcon_mamba_7b": 7_005_802_496,
+              "zamba2_1p2b": 1_170_313_344}
+TOL_SSD_R, TOL_SSD_A = 2e-3, 2e-4
+
 # The libraries of the tensor-core flash kernels, whose SASS must hold
 # HGMMA (wgmma) and UTMALDG (TMA loads), and a kernel each names.
 WGMMA_LIBS = {"flash_fwd_wgmma": "flash_fwd_wgmma_kernel",
@@ -647,11 +713,17 @@ WGMMA_LIBS = {"flash_fwd_wgmma": "flash_fwd_wgmma_kernel",
 
 
 def lm_norms(cfg) -> int:
-    """RMSNorm launches in one forward or decode step: norm1 and norm2 of
-    every layer, q_norm and k_norm with qk-norm, MLA's kv_norm, and
-    final_norm."""
-    per_layer = 2 + (2 if cfg.qk_norm else 0) + (cfg.attn_type == "mla")
-    return per_layer * cfg.n_layers + 1
+    """RMSNorm launches in one forward or decode step: norm1 of every
+    layer, norm2 of every dense and MoE layer, q_norm and k_norm with
+    qk-norm, MLA's kv_norm, norm (and norm2 with an MLP) at every
+    application of the shared attention block, and final_norm.  A Mamba
+    layer has norm1 alone: Mamba-2's gated norm is inline and plain, as
+    in the JAX package (models/mamba.py), and launches nothing."""
+    attn = 1 + 2 * cfg.qk_norm + (cfg.attn_type == "mla")
+    period = sum(1 if kind.startswith("mamba") else attn + (kind != "attn")
+                 for kind in cfg.pattern)
+    shared = attn + bool(cfg.d_ff) if cfg.shared_attn_every else 0
+    return (period + shared) * cfg.n_periods + 1
 
 
 def fail(msg: str) -> int:
@@ -3637,9 +3709,11 @@ def _lmd_rmsnorm_entry(key, launches, cases, gen, dev, name=None):
     return entry, ratio
 
 
-def _lmd_flash_entries(key, launches_fwd, launches_bwd, cases, gen, dev):
-    """The kernels-record entries of the tensor-core flash forward, dq and
-    dkv at one (BH, S, hd) the ranks launched them at: each checked
+def _lmd_flash_entries(key, launches_fwd, launches_bwd, cases, gen, dev,
+                       tag="rank"):
+    """The kernels-record entries (named ``..._{tag}_bh{BH}``) of the
+    tensor-core flash forward, dq and dkv at one (BH, S, hd) a phase (the
+    ranks, by default) launched them at: each checked
     against the plain version within its derived bf16 bound and timed
     alone on the card, beside scaled_dot_product_attention (its forward,
     and its backward as forward + backward less forward)."""
@@ -3723,19 +3797,19 @@ def _lmd_flash_entries(key, launches_fwd, launches_bwd, cases, gen, dev):
                            "to back, time_cuda), this process alone on "
                            "the card"}
     entries = [
-        dict(common, name=f"flash_fwd_wgmma_rank_bh{BH}",
+        dict(common, name=f"flash_fwd_wgmma_{tag}_bh{BH}",
              source="src/repro_torch/csrc/flash_fwd_wgmma.cu",
              replaces="src/repro/kernels/flash_attention.py:95",
              launches=launches_fwd, max_abs_err=err_fwd, ms=ms["fwd"],
              plain_ms=plain_fwd, bound_ms=bounds["fwd"][0],
              bound_by=bounds["fwd"][1], library_ms=lib_fwd),
-        dict(common, name=f"flash_bwd_dq_wgmma_rank_bh{BH}",
+        dict(common, name=f"flash_bwd_dq_wgmma_{tag}_bh{BH}",
              source="src/repro_torch/csrc/flash_bwd_dq_wgmma.cu",
              replaces="src/repro/kernels/flash_attention.py:220",
              launches=launches_bwd, max_abs_err=errs["dq"], ms=ms["dq"],
              plain_ms=plain_bwd, bound_ms=bounds["dq"][0],
              bound_by=bounds["dq"][1], library_ms=lib_bwd),
-        dict(common, name=f"flash_bwd_dkv_wgmma_rank_bh{BH}",
+        dict(common, name=f"flash_bwd_dkv_wgmma_{tag}_bh{BH}",
              source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
              replaces="src/repro/kernels/flash_attention.py:240",
              launches=launches_bwd, max_abs_err=errs["dkv"], ms=ms["dkv"],
@@ -6153,6 +6227,480 @@ def moe_phase(dev, args, failures):
     return entries
 
 
+def ssm_phase(dev, args, failures):
+    """Phase 16 (module docstring): the SSM family on the card,
+    Falcon-Mamba-7B and Zamba2-1.2B at full width.  Returns the
+    kernels-record entries of rmsnorm and the tensor-core flash kernels,
+    one for each shape the phase launched them at."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import rmsnorm as rmsnorm_module
+    from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
+                                                     flash_fwd_cuda)
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.models import (abstract_params, decode_step, forward,
+                                    init_decode_state, init_params)
+    from repro_torch.models import mamba as mb
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import (Request, ServingEngine, TrainConfig,
+                                   greedy_generate, loss_and_grads,
+                                   make_train_step)
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+    gb = 1e9
+    B, S = SSM_BATCH, SSM_SEQ
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        print(f"[ssm] {what} took {laps[-1] - laps[-2]:.1f} s", flush=True)
+
+    def zero_counts():
+        rmsnorm_cuda.launches = 0
+        flash_fwd_cuda.launches = flash_fwd_cuda.launches_wgmma = 0
+        flash_bwd_cuda.launches_dq = flash_bwd_cuda.launches_dkv = 0
+        flash_bwd_cuda.launches_dq_wgmma = 0
+        flash_bwd_cuda.launches_dkv_wgmma = 0
+
+    def counts():
+        """(rmsnorm, tensor-core flash forward, dq, dkv, FP32-FMA flash
+        launches of any kind) since the last zero_counts."""
+        return (rmsnorm_cuda.launches, flash_fwd_cuda.launches_wgmma,
+                flash_bwd_cuda.launches_dq_wgmma,
+                flash_bwd_cuda.launches_dkv_wgmma,
+                flash_fwd_cuda.launches + flash_bwd_cuda.launches_dq
+                + flash_bwd_cuda.launches_dkv)
+
+    def expect(what, got, want):
+        if got != want:
+            failures.append(f"{what}: launches (rmsnorm, flash fwd, dq, "
+                            f"dkv, FP32-FMA) {got}, not {want}")
+
+    rmsnorm_cuda.by_shape = {}
+    flash_fwd_cuda.by_shape = {}
+    flash_bwd_cuda.by_shape = {}
+    torch.cuda.empty_cache()
+
+    def serve(arch, seed):
+        """16a / 16b: init, prefill, decode held against the prefill, the
+        engines, at full width and depth.  Returns (cfg, params, tokens,
+        prefill ms)."""
+        cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+        tag = "falcon" if arch.startswith("falcon") else "zamba2"
+        V, norms = cfg.vocab_size, lm_norms(cfg)
+        apps = cfg.n_periods if cfg.shared_attn_every else 0
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        t0 = time.perf_counter()
+        params = init_params(gen, cfg, device=dev)
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in leaves(params))
+        n_abs = sum(t.numel() for t in leaves(abstract_params(cfg)))
+        p_bytes = torch.cuda.memory_allocated()
+        print(f"[ssm-{tag}] {cfg.name}: {cfg.n_layers} layers "
+              f"{'x'.join(cfg.pattern)}, d_model {cfg.d_model}, d_inner "
+              f"{cfg.d_inner}, state {cfg.ssm_state}"
+              + (f", {cfg.d_inner // cfg.mamba_headdim} SSM heads x "
+                 f"{cfg.mamba_headdim}, ssm_impl {cfg.ssm_impl}"
+                 if cfg.pattern[0] == "mamba2" else "")
+              + (f", the shared block ({cfg.n_heads} heads x "
+                 f"{cfg.head_dim}, d_ff {cfg.d_ff}) applied {apps} times"
+                 if apps else "")
+              + f", vocab {V}: {n_par} f32 params ({n_par * 4 / gb:.2f} GB;"
+              f" the JAX abstract_params count {SSM_LEAVES[arch]}, "
+              f"param_count {cfg.param_count()}) drawn in "
+              f"{time.perf_counter() - t0:.1f} s; {p_bytes / gb:.2f} GB "
+              f"allocated", flush=True)
+        if not n_par == n_abs == SSM_LEAVES[arch]:
+            failures.append(f"{cfg.name}: {n_par} params, abstract_params "
+                            f"{n_abs}, JAX {SSM_LEAVES[arch]}")
+        tokens = torch.randint(0, V, (B, S), generator=gen, device=dev)
+        # the warm-up forward, profiled (device activity only: Falcon's
+        # prefill makes ~38 000 launches, whose host events took 50 s to
+        # sort through on the card's host)
+        t0 = time.perf_counter()
+        busy, n_k, top = device_profile(lambda: forward(params, cfg, tokens),
+                                        1, cpu=False)
+        t_prof = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        logits = forward(params, cfg, tokens)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        ok = bool(torch.isfinite(logits).all()) and logits.shape == (B, S, V)
+        ref = logits[:, :SSM_HELD].clone()
+        del logits
+        idle = ("not measured" if busy is None
+                else f"{1 - busy / (t_prefill * 1e3):.1%}")
+        print(f"[ssm-{tag}-prefill] forward B={B} S={S} bf16: "
+              f"{t_prefill * 1e3:.1f} ms, {B * S / t_prefill:.0f} tokens/s; "
+              f"device busy "
+              f"{'not measured' if busy is None else f'{busy:.2f} ms'}, "
+              f"idle share {idle}, {n_k:g} kernel launches (the warm-up "
+              f"forward profiled, {t_prof:.1f} s); peak {peak / gb:.2f} GB; logits finite and"
+              f" shaped: {ok}; launches {got} (expected rmsnorm {norms}, "
+              f"tensor-core flash {apps})", flush=True)
+        for name, ms, n in top:
+            print(f"[ssm-profile]   {ms:8.3f} ms  x{n:g}  {name}")
+        if not ok:
+            failures.append(f"{cfg.name} prefill logits not finite or "
+                            f"misshapen")
+        expect(f"{cfg.name} prefill", got, (norms, apps, 0, 0, 0))
+        lap(f"16{tag[0]} {tag} init and prefill")
+
+        # the decode steps, teacher-forced on the prefill's tokens: a
+        # warm-up step, SSM_DECODE_STEPS timed, LM_PROFILE_STEPS profiled,
+        # every step's logits held against the prefill's at its position
+        state = init_decode_state(cfg, B, SSM_HELD, device=dev)
+        outs = []
+
+        def one_step():
+            nonlocal state
+            t = len(outs)
+            lg, state = decode_step(params, cfg, state, tokens[:, t:t + 1])
+            outs.append(lg)
+            return lg
+
+        one_step()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(SSM_DECODE_STEPS):
+            one_step()
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / SSM_DECODE_STEPS
+        got = counts()
+        t0 = time.perf_counter()
+        busy, n_k, _ = device_profile(one_step, LM_PROFILE_STEPS, cpu=False)
+        t_prof = time.perf_counter() - t0
+        idle = ("not measured" if busy is None
+                else f"{1 - busy / (t_dec * 1e3):.1%}")
+        dec = torch.stack(outs, 1)
+        e_dec = rel_fro(dec, ref)
+        # context, not a check: both bf16 routes against an f32 prefill of
+        # the same positions (every kernel plain, naive attention)
+        with mock.patch.object(rmsnorm_module, "on_card",
+                               lambda t, name: False):
+            ref32 = forward(params, dataclasses.replace(
+                cfg, dtype="float32", attn_impl="naive"),
+                tokens[:, :SSM_HELD].contiguous())
+        noise = (rel_fro(ref, ref32), rel_fro(dec, ref32))
+        print(f"[ssm-{tag}-decode] {SSM_DECODE_STEPS} decode steps (B={B}):"
+              f" {t_dec * 1e3:.2f} ms a step; over {LM_PROFILE_STEPS} more, "
+              f"profiled ({t_prof:.1f} s), device busy "
+              f"{'not measured' if busy is None else f'{busy:.2f} ms'} a "
+              f"step, idle share {idle}, {n_k:g} launches a step; the "
+              f"{len(outs)} teacher-forced steps' logits against the "
+              f"prefill's: rel Frobenius {e_dec:.3e} (bound {TOL_LM_BF16});"
+              f" the bf16 prefill and decode against an f32 prefill of "
+              f"those positions: {noise[0]:.3e}, {noise[1]:.3e}; launches "
+              f"{got} (expected rmsnorm {SSM_DECODE_STEPS * norms})",
+              flush=True)
+        if not e_dec <= TOL_LM_BF16:
+            failures.append(f"{cfg.name} bf16 decode vs prefill {e_dec:.3e}")
+        expect(f"{cfg.name} decode", got,
+               (SSM_DECODE_STEPS * norms, 0, 0, 0, 0))
+        del state, outs, ref, dec, ref32
+        lap(f"16{tag[0]} {tag} decode")
+
+        lens = torch.randint(8, 17, (SSM_REQUESTS,), generator=gen,
+                             device=dev).tolist()
+        prompts = [torch.randint(0, V, (n,), generator=gen,
+                                 device=dev).tolist() for n in lens]
+
+        def engine(c):
+            reqs = [Request(rid=i, prompt=pr, max_new_tokens=SSM_NEW_TOKENS)
+                    for i, pr in enumerate(prompts)]
+            eng = ServingEngine(params, c, n_slots=SSM_SLOTS,
+                                max_seq=SSM_ENGINE_SEQ)
+            arrivals = {0: reqs[:4], 6: reqs[4:6], 12: reqs[6:]}
+            steps = 0
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            while steps < 1000:
+                for r in arrivals.get(steps, []):
+                    eng.submit(r)
+                if steps > max(arrivals) and not eng.pending and \
+                        all(s is None for s in eng.slots):
+                    break
+                eng.step()
+                steps += 1
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+            got = counts()
+            n_gen = sum(len(r.generated) for r in reqs)
+            done = all(r.done and len(r.generated) == SSM_NEW_TOKENS
+                       and all(0 <= x < V for x in r.generated)
+                       for r in reqs)
+            print(f"[ssm-{tag}-serve] ServingEngine({c.dtype}, n_slots="
+                  f"{SSM_SLOTS}, max_seq={SSM_ENGINE_SEQ}): {SSM_REQUESTS} "
+                  f"requests, prompts {lens} tokens, {SSM_NEW_TOKENS} new "
+                  f"each; {steps} steps in {t:.2f} s, "
+                  f"{t / steps * 1e3:.2f} ms a step, {n_gen / t:.1f} "
+                  f"generated tokens/s; all finished: {done}; launches "
+                  f"{got} (expected rmsnorm {steps * norms})", flush=True)
+            if not done:
+                failures.append(f"the {cfg.name} {c.dtype} engine did not "
+                                f"answer every request")
+            expect(f"{cfg.name} {c.dtype} engine", got,
+                   (steps * norms, 0, 0, 0, 0))
+            return reqs
+
+        engine(cfg)
+        lap(f"16{tag[0]} {tag} bf16 engine")
+        # f32: slots are reused (8 requests on 4 slots), so a state left
+        # unzeroed shows; every token must equal the request decoded alone
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        same = checked = 0
+        for r in engine(cfg32):
+            alone, _ = greedy_generate(params, cfg32, init_decode_state(
+                cfg32, 1, SSM_ENGINE_SEQ, device=dev), torch.tensor(
+                [r.prompt], device=dev), SSM_NEW_TOKENS)
+            alone = alone[0].tolist()
+            checked += len(alone)
+            same += sum(a == b for a, b in zip(r.generated, alone))
+            if r.generated != alone:
+                failures.append(f"{cfg.name} f32 request {r.rid}: the "
+                                f"engine's {r.generated}, alone {alone}")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[ssm-{tag}-serve] f32 engine against each request decoded "
+              f"alone by greedy_generate: {same} of {checked} tokens equal;"
+              f" serving peak {peak / gb:.2f} GB (the params "
+              f"{p_bytes / gb:.2f} GB)", flush=True)
+        if peak > SSM_PEAK_BYTES:
+            failures.append(f"{cfg.name} serving peak {peak / gb:.2f} GB")
+        lap(f"16{tag[0]} {tag} f32 engine and each request alone")
+        return cfg, params, tokens, t_prefill * 1e3
+
+    def core_share(cfg, ms_core, ms_prefill, what):
+        share = cfg.n_layers * ms_core / ms_prefill
+        print(f"[ssm-{cfg.name}] {what}: {ms_core:.3f} ms a layer (CUDA "
+              f"events, 3 calls) x {cfg.n_layers} layers = "
+              f"{share:.1%} of the {ms_prefill:.1f} ms prefill (what a "
+              f"fused selective-scan kernel would replace, ROADMAP A14j)",
+              flush=True)
+        return share
+
+    def train(cfg, params, what):
+        """2 AdamW steps of B x S tokens in SSM_MICROBATCHES microbatches,
+        bf16 with remat: finite, falling losses and exact launches."""
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=S,
+                             global_batch=B, seed=args.seed)
+        acfg = AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=0,
+                           total_steps=SSM_TRAIN_STEPS)
+        step_fn = make_train_step(cfg, acfg, TrainConfig(
+            microbatches=SSM_MICROBATCHES))
+        opt = adamw_init(params)
+        n_train = sum(t.numel() for t in leaves(params))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        times, losses = [], []
+        for s in range(SSM_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, pipe.batch(s))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        t_med = statistics.median(times)
+        apps = cfg.n_periods if cfg.shared_attn_every else 0
+        nm = SSM_TRAIN_STEPS * SSM_MICROBATCHES
+        want = (nm * (2 * lm_norms(cfg) - 1), nm * 2 * apps, nm * apps,
+                nm * apps, 0)
+        print(f"[ssm-train] {cfg.name} {what}: {SSM_TRAIN_STEPS} AdamW steps"
+              f" (lr {LM_TRAIN_LR}) of {B} x {S} tokens in "
+              f"{SSM_MICROBATCHES} microbatches, bf16 remat ({n_train} "
+              f"params, {4 * n_train * 4 / gb:.1f} GB with gradient and "
+              f"moments): losses {losses}; step walls "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms, "
+              f"{B * S / t_med:.0f} training tokens/s at the median; device"
+              f" memory peak {peak / gb:.2f} GB; launches {got} (expected "
+              f"{want}: a microbatch's forward and its remat recompute, "
+              f"final_norm once)", flush=True)
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            failures.append(f"{cfg.name} training losses {losses}")
+        expect(f"{cfg.name} training", got, want)
+        del opt, step_fn
+        return params
+
+    # ---- a. Falcon-Mamba-7B ------------------------------------------------
+    cfg, params, tokens, ms_prefill = serve("falcon_mamba_7b",
+                                            args.seed + 16)
+    p0 = params["blocks"][0]["mamba"]
+    xc = torch.randn((B, S, cfg.d_inner), generator=torch.Generator(
+        device=dev).manual_seed(args.seed), device=dev).to(torch.bfloat16)
+
+    def falcon_core():
+        decay, drive, Cc = mb._mamba1_ssm_inputs(p0, xc, xc.dtype)
+        return mb._chunked_ssm(decay, drive, Cc.float(), mb.CHUNK)
+
+    shares = {"falcon": core_share(cfg, time_cuda(falcon_core, 3),
+                                   ms_prefill,
+                                   "decay, drive and the chunked scan")}
+    del xc
+    # the depth cut to SSM_SHORT_LAYERS (full width): four copies of the
+    # 28.0 GB params (with gradient and AdamW moments) do not fit a card
+    del params["blocks"][SSM_SHORT_LAYERS:]
+    torch.cuda.empty_cache()
+    short = dataclasses.replace(cfg, n_layers=SSM_SHORT_LAYERS)
+    short32 = dataclasses.replace(short, dtype="float32")
+    prompt = tokens[:, :SSM_F32_PROMPT].contiguous()
+    ref = forward(params, short32, prompt)
+    state = init_decode_state(short32, B, SSM_F32_PROMPT, device=dev)
+    outs = []
+    for t in range(SSM_F32_PROMPT):
+        lg, state = decode_step(params, short32, state, prompt[:, t:t + 1])
+        outs.append(lg)
+    e32 = rel_fro(torch.stack(outs, 1), ref)
+    print(f"[ssm-falcon] depth {SSM_SHORT_LAYERS}, f32: {SSM_F32_PROMPT} "
+          f"teacher-forced decode steps against the prefill: rel Frobenius "
+          f"{e32:.3e} (bound {TOL_LM_F32})", flush=True)
+    if not e32 <= TOL_LM_F32:
+        failures.append(f"Falcon-Mamba f32 decode vs prefill {e32:.3e}")
+    del state, outs, ref, lg
+    # the f32 gradient through the rmsnorm kernel against the same step
+    # with every rmsnorm plain, leaf by leaf
+    batch = {k: v[:SSM_GRAD_BATCH].to(dev) for k, v in TokenPipeline(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+        seed=args.seed).batch(10 ** 6).items()}
+    loss_k, g_k = loss_and_grads(params, short32, batch)
+    with mock.patch.object(rmsnorm_module, "on_card", lambda t, name: False):
+        loss_p, g_p = loss_and_grads(params, short32, batch)
+    errs = {"/".join(map(str, path)): rel_fro(a, b) for (path, _), a, b in
+            zip(leaves_with_paths(params), g_k, g_p)}
+    worst = max(errs, key=errs.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+    zero = [k for k, g in zip(errs, g_k) if not bool(g.abs().max() > 0)]
+    print(f"[ssm-falcon] depth {SSM_SHORT_LAYERS}, f32 loss_and_grads on "
+          f"{SSM_GRAD_BATCH} x {S} tokens, the rmsnorm kernel against it "
+          f"plain: loss {float(loss_k):.6f} vs {float(loss_p):.6f}; the "
+          f"{len(errs)} leaves' worst rel Frobenius {errs[worst]:.3e} "
+          f"({worst}; bound {TOL_GRAD_F32}); every gradient finite: "
+          f"{finite}; zero leaves {zero}", flush=True)
+    if not (errs[worst] <= TOL_GRAD_F32 and finite and not zero):
+        failures.append(f"Falcon-Mamba f32 gradients vs plain: {worst} "
+                        f"{errs[worst]:.3e}, finite {finite}, zero {zero}")
+    del g_k, g_p, batch
+    lap("16a falcon depth-cut checks")
+    params = train(short, params, f"depth {SSM_SHORT_LAYERS}")
+    del params, tokens
+    torch.cuda.empty_cache()
+    lap("16a falcon training")
+
+    # ---- b. Zamba2-1.2B ----------------------------------------------------
+    cfg, params, tokens, ms_prefill = serve("zamba2_1p2b", args.seed + 17)
+    # f32 decode against the prefill at full depth (naive attention in
+    # both, so the f32 check reads the Mamba states and the shared
+    # caches; the f32 flash route is phase 7's)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attn_impl="naive")
+    prompt = tokens[:2, :SSM_F32_PROMPT].contiguous()
+    ref = forward(params, cfg32, prompt)
+    state = init_decode_state(cfg32, 2, SSM_F32_PROMPT, device=dev)
+    outs = []
+    for t in range(SSM_F32_PROMPT):
+        lg, state = decode_step(params, cfg32, state, prompt[:, t:t + 1])
+        outs.append(lg)
+    e32 = rel_fro(torch.stack(outs, 1), ref)
+    print(f"[ssm-zamba2] full depth, f32: {SSM_F32_PROMPT} teacher-forced "
+          f"decode steps of 2 rows against the prefill: rel Frobenius "
+          f"{e32:.3e} (bound {TOL_LM_F32})", flush=True)
+    if not e32 <= TOL_LM_F32:
+        failures.append(f"Zamba2 f32 decode vs prefill {e32:.3e}")
+    del state, outs, ref, lg
+    # SSD against the elementwise scan on one layer at full width, f32
+    p0 = params["blocks"][0]["mamba"]
+    x = 0.5 * torch.randn((2, S, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(args.seed), device=dev)
+    ssd = mb.mamba2_forward(p0, dataclasses.replace(cfg32, ssm_impl="ssd"), x)
+    scan = mb.mamba2_forward(p0, dataclasses.replace(cfg32, ssm_impl="scan"),
+                             x)
+    err = (ssd.double() - scan.double()).abs()
+    e_ssd = float(err.max())
+    r_ssd = float((err / (TOL_SSD_A + TOL_SSD_R * scan.double().abs())
+                   ).max())
+    print(f"[ssm-zamba2] one layer at full width, 2 x {S} f32: ssd against "
+          f"scan max abs err {e_ssd:.3e}, {r_ssd:.3f}x the tests/test_ssd.py"
+          f" bound (rtol {TOL_SSD_R}, atol {TOL_SSD_A})", flush=True)
+    if not r_ssd <= 1.0:
+        failures.append(f"Zamba2 ssd vs scan {r_ssd:.3f}x the bound")
+    del ssd, scan, err, x
+    zxbcdt = torch.randn((B, S, 2 * cfg.d_inner + 2 * cfg.ssm_state
+                          + cfg.d_inner // cfg.mamba_headdim),
+                         generator=torch.Generator(device=dev).manual_seed(
+                             args.seed), device=dev).to(torch.bfloat16)
+    _, xr, Bc, Cc, dt, decay, _ = mb._mamba2_parts(p0, cfg, zxbcdt)
+    xh = xr.reshape(B, S, -1, cfg.mamba_headdim).float()
+    Bc, Cc = Bc.float(), Cc.float()
+    shares["zamba2"] = core_share(cfg, time_cuda(lambda: mb._ssd_chunked(
+        xh, Bc, Cc, dt, decay, mb.CHUNK), 3), ms_prefill,
+        "SSD's chunked matrix form")
+    del zxbcdt, xr, Bc, Cc, dt, decay, xh
+    lap("16b zamba2 f32 decode and ssd vs scan")
+    params = train(cfg, params, "full depth")
+    del params, tokens
+    torch.cuda.empty_cache()
+    lap("16b zamba2 training")
+
+    # ---- c. the kernels at every shape the phase launched them at --------
+    gen_k = torch.Generator(device=dev).manual_seed(args.seed + 18)
+    entries = []
+    for key, n in sorted(rmsnorm_cuda.by_shape.items()):
+        rows, d, dt = key
+        entry, ratio = _lmd_rmsnorm_entry(key, n, ["phase 16"], gen_k, dev,
+                                          name=f"rmsnorm_ssm_{rows}x{d}_{dt}")
+        print(f"[ssm-time] rmsnorm {key}: {n} launches; {entry['ms']:.4f} ms"
+              f" | plain {entry['plain_ms']:.4f} ms | F.rms_norm "
+              f"{entry['library_ms']:.4f} ms | bound {entry['bound_ms']:.4f} "
+              f"ms ({entry['bound_by']}) | vs plain max abs err "
+              f"{entry['max_abs_err']:.3e} ({ratio:.2f}x tolerance)")
+        if not ratio <= 1.0:
+            failures.append(f"rmsnorm {key} disagrees with its plain "
+                            f"version")
+        entries.append(entry)
+    for d in (4096, 2048):
+        if not any(key[1] == d for key in rmsnorm_cuda.by_shape):
+            failures.append(f"phase 16 launched no rmsnorm at D = {d}")
+    for key, n in sorted(flash_fwd_cuda.by_shape.items()):
+        if key[0] != "wgmma":
+            failures.append(f"phase 16 launched the FP32-FMA flash forward "
+                            f"at {key}")
+            continue
+        n_bwd = flash_bwd_cuda.by_shape.get(key, 0)
+        new, ratios = _lmd_flash_entries(key, n, n_bwd, ["phase 16"], gen_k,
+                                         dev, tag="ssm")
+        if not n_bwd:           # a prefill shape: dq and dkv checked only
+            new = new[:1]
+        for e in new:
+            print(f"[ssm-time] {e['name']} {e['shape']}: {e['launches']} "
+                  f"launches; {e['ms']:.4f} ms | plain {e['plain_ms']:.4f} "
+                  f"ms | SDPA {e['library_ms']:.4f} ms | bound "
+                  f"{e['bound_ms']:.4f} ms ({e['bound_by']}) | vs plain max "
+                  f"abs err {e['max_abs_err']:.3e}")
+        print(f"[ssm-time] flash at {key[1:5]}: error / derived bound "
+              + ", ".join(f"{w} {r:.3f}" for w, r in ratios.items()))
+        if not max(ratios.values()) <= 1.0:
+            failures.append(f"flash at {key}: {ratios}")
+        entries.extend(new)
+    if not any(key[4] == 64 for key in flash_fwd_cuda.by_shape):
+        failures.append("phase 16 launched no flash forward at hd = 64")
+    lap("16c kernel entries")
+    torch.cuda.empty_cache()
+    print(f"[ssm] the SSM cores' share of the prefill (A14j): "
+          + ", ".join(f"{k} {v:.1%}" for k, v in shares.items()))
+    print(f"[ssm] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def mark(t_main: float, phase: str) -> None:
     """A line when a phase ends: the run's seconds so far (the contract's
     limit is on the whole run)."""
@@ -6763,6 +7311,15 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"[moe] FAIL {f}")
         return fail(f"{len(failures)} MoE check(s) failed")
+    mark(t_main, "phase 14")
+
+    # ---- 16. the SSM family -----------------------------------------------
+    ssm_entries = ssm_phase(dev, args, failures)
+    if failures:
+        for f in failures:
+            print(f"[ssm] FAIL {f}")
+        return fail(f"{len(failures)} SSM check(s) failed")
+    mark(t_main, "phase 16")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6810,6 +7367,7 @@ def main(argv=None) -> int:
         *lm_entries,
         *train_entries,
         *moe_entries,
+        *ssm_entries,
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

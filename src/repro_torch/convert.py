@@ -11,8 +11,11 @@ Nystrom representations too (``nystrom_map`` carries a fitted JAX
 ``lm_params``, ``decode_state`` and ``adamw_state`` carry an LM's
 params, decode state and AdamW state (numpy pytrees of the JAX
 ``init_params`` / ``init_decode_state`` / ``adamw_init``) across,
-unstacking the per-period layer axis into the port's list of layers;
-``lm_shards`` gives a rank of a mesh its shards of those params.
+unstacking the per-period layer axis into the port's list of layers
+(a hybrid pattern's shared block, which JAX does not stack, is copied
+as it is; its decode caches, stacked over the periods, become a list of
+one pair a period); ``lm_shards`` gives a rank of a mesh its shards of
+those params.
 """
 from __future__ import annotations
 
@@ -138,7 +141,8 @@ def lm_params(params: Mapping, cfg, device=None) -> dict:
     pytree given as numpy arrays (``jax.tree.map(np.asarray, params)``):
     f32 tensors on ``device`` with ``blocks`` unstacked into one dict per
     layer (a MoE layer's experts keep their leading E axis: (n_periods,
-    E, d, f) -> (E, d, f))."""
+    E, d, f) -> (E, d, f)); ``shared_attn`` is one block in JAX too and
+    is copied as it is."""
     from repro_torch.models import check_supported
     check_supported(cfg)
     dev = resolve_device(device)
@@ -155,7 +159,9 @@ def lm_params(params: Mapping, cfg, device=None) -> dict:
 def lm_shards(params: Mapping, cfg, rules, device=None) -> dict:
     """This rank's shards under ``rules`` (``models.sharding.MeshRules``)
     of a JAX ``init_params`` pytree given as numpy arrays: ``lm_params``,
-    then each leaf cut by its spec (``models.sharding.shard_tree``)."""
+    then each leaf cut by its spec (``models.sharding.shard_tree``).
+    Raises naming ROADMAP A11e for Mamba or shared-block configs
+    (``param_specs``)."""
     from repro_torch.models.lm import param_specs
     from repro_torch.models.sharding import shard_tree
     return shard_tree(rules, lm_params(params, cfg, device),
@@ -165,26 +171,44 @@ def lm_shards(params: Mapping, cfg, rules, device=None) -> dict:
 def decode_state(state: Mapping, cfg, device=None) -> dict:
     """The port's decode state from a JAX ``init_decode_state`` /
     ``decode_step`` state given as numpy arrays: one cache pair per layer
-    in the compute dtype (GQA's (k, v), MLA's (c, k_rope)) and ``pos`` as
-    int64."""
-    from repro_torch.models import check_supported
+    (GQA's (k, v), MLA's (c, k_rope), Mamba's (conv_state, h)), each in
+    the compute dtype but Mamba's h, which stays f32 as in JAX; the
+    shared block's caches one pair a period (``shared_cache``); ``pos``
+    as int64."""
+    from repro_torch.models import MAMBA1, MAMBA2, check_supported
+    from repro_torch.models.lm import layer_kinds
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = cfg.activation_dtype
-    # through f32: torch cannot read numpy's bf16 (ml_dtypes) arrays
-    caches = [tuple(as_tensor(np.asarray(c, np.float32), dev).to(dtype)
-                    for c in kv)
-              for kv in _layers(state["caches"], cfg)]
-    return {"caches": caches,
-            "pos": as_tensor(state["pos"], dev).to(torch.int64)}
+
+    def cast(c, dt):
+        # through f32: torch cannot read numpy's bf16 (ml_dtypes) arrays
+        return as_tensor(np.asarray(c, np.float32), dev).to(dt)
+
+    caches = []
+    for kind, pair in zip(layer_kinds(cfg), _layers(state["caches"], cfg)):
+        if kind in (MAMBA1, MAMBA2):
+            conv, h = pair
+            caches.append((cast(conv, dtype), cast(h, torch.float32)))
+        else:
+            caches.append(tuple(cast(c, dtype) for c in pair))
+    out = {"caches": caches,
+           "pos": as_tensor(state["pos"], dev).to(torch.int64)}
+    if "shared_cache" in state:
+        out["shared_cache"] = [
+            tuple(cast(c[period], dtype) for c in state["shared_cache"])
+            for period in range(cfg.n_periods)]
+    return out
 
 
 def decode_state_shards(state: Mapping, cfg, rules, device=None) -> dict:
     """This rank's chunks under ``rules`` (``models.sharding.MeshRules``)
     of a JAX decode state given as numpy arrays: ``decode_state``, then
     each cache cut by its ``cache_spec`` (``shard_leaf``); ``pos`` whole
-    and ``max_seq``, as ``init_decode_state(rules=)`` holds them."""
-    from repro_torch.models.lm import decode_state_layout
+    and ``max_seq``, as ``init_decode_state(rules=)`` holds them.
+    Raises naming ROADMAP A11e for Mamba or shared-block configs."""
+    from repro_torch.models.lm import check_shardable, decode_state_layout
+    check_shardable(cfg)
     from repro_torch.models.sharding import shard_leaf
     full = decode_state(state, cfg, device)
     batch, max_seq = full["caches"][0][0].shape[:2]

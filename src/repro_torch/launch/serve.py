@@ -7,16 +7,20 @@ runs on the CUDA card unless ``--device cpu`` is given.
         --reduced --device cpu --attn-impl naive
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch falcon-mamba-7b --reduced --device cpu
 
 Random weights from ``--seed`` (no checkpoint is in the repository).  The
 prompts go once through ``forward`` (the prefill, timed; with
 ``--attn-impl flash`` through the flash kernel) and then token by token
 through the decode step, which generates ``--new-tokens`` more.  Dense
-GQA configs (qwen3-1.7b, yi-6b, granite-20b, llama3-405b) and the MoE
-family run: deepseek-v2-lite-16b (MLA, whose attention ignores
+GQA configs (qwen3-1.7b, yi-6b, granite-20b, llama3-405b), the MoE
+family: deepseek-v2-lite-16b (MLA, whose attention ignores
 ``--attn-impl``; 64.8 GB of f32 params, one 80 GB card) and
-arctic-480b (``--reduced`` only on one card); the others raise naming
-their ROADMAP item.
+arctic-480b (``--reduced`` only on one card), and the SSM family run:
+falcon-mamba-7b (Mamba-1, attention-free; 28.0 GB of f32 params) and
+zamba2-1.2b (Mamba-2 with the shared attention block); whisper-tiny and
+qwen2-vl-72b raise naming their ROADMAP item.
 """
 from __future__ import annotations
 

@@ -13,6 +13,9 @@ is given.
         --arch arctic-480b --reduced --device cpu --steps 20
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch deepseek-v2-lite-16b --reduced --device cpu --mesh 2x2
+    # the SSM family, on one device only (a --mesh raises: ROADMAP A11e)
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch zamba2-1.2b --reduced --device cpu --steps 20
     # the s-step deferred sync on a 2 x 2 mesh of CPU ranks (gloo)
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --reduced --device cpu --mesh 2x2 --defer-s 2 --microbatches 4
@@ -33,7 +36,9 @@ microbatches (``make_defer_train_step``).  Every rank draws the same
 full params from ``--seed`` and keeps its shards; rank 0 logs.
 Checkpoints hold the full leaves, gathered to rank 0 (the format of the
 single-device run), and a resume re-shards them onto whatever mesh it
-runs on.
+runs on.  falcon-mamba-7b and zamba2-1.2b train on one device; with a
+``--mesh`` they raise before any process group starts, naming ROADMAP
+A11e.
 """
 from __future__ import annotations
 
@@ -50,7 +55,8 @@ from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.solve import process_backend
-from repro_torch.models.lm import abstract_params, param_specs
+from repro_torch.models.lm import (abstract_params, check_shardable,
+                                   param_specs)
 from repro_torch.models.sharding import (MeshRules, gather_tree,
                                          shard_tree)
 from repro_torch.optim import AdamWConfig
@@ -88,6 +94,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     d, m = (int(x) for x in args.mesh.split("x"))
+    if d * m > 1:
+        check_shardable(get_config(args.arch, reduced=args.reduced))
     if args.defer_s > 0 and d * m == 1:
         raise ValueError("--defer-s needs a multi-rank mesh (--mesh DxM "
                          "under torchrun)")

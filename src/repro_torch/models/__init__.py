@@ -1,10 +1,13 @@
-"""The LM workload of the port: decoders of dense or MoE blocks over GQA
-or MLA attention, their training forward and loss, prefill and decode."""
+"""The LM workload of the port: decoders of dense, MoE and Mamba blocks
+over GQA or MLA attention (with Zamba2's shared attention block), their
+training forward and loss, prefill and decode."""
 from .config import ATTN, DENSE, MAMBA1, MAMBA2, MOE, SHAPES, ModelConfig, \
     ShapeConfig
-from .lm import (check_supported, decode_step, forward, init_decode_state,
-                 init_params, loss_fn)
+from .lm import (abstract_params, check_shardable, check_supported,
+                 decode_step, forward, init_decode_state, init_params,
+                 loss_fn)
 
 __all__ = ["ATTN", "DENSE", "MAMBA1", "MAMBA2", "MOE", "SHAPES",
-           "ModelConfig", "ShapeConfig", "check_supported", "decode_step",
-           "forward", "init_decode_state", "init_params", "loss_fn"]
+           "ModelConfig", "ShapeConfig", "abstract_params",
+           "check_shardable", "check_supported", "decode_step", "forward",
+           "init_decode_state", "init_params", "loss_fn"]

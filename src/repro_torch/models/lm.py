@@ -1,6 +1,8 @@
-"""Model assembly for decoders of dense or MoE blocks over GQA or MLA
-attention: init, the training / prefill forward, the loss and the
-single-token decode step (the counterpart of ``repro/models/lm.py``).
+"""Model assembly for decoders of dense, MoE and Mamba blocks over GQA
+or MLA attention, with the hybrid pattern's shared
+attention block (Zamba2): init, the training / prefill forward, the loss
+and the single-token decode step (the counterpart of
+``repro/models/lm.py``).
 
 The JAX package stacks each pattern position's params over the
 ``n_periods`` repeats and walks them with ``lax.scan``; here
@@ -10,9 +12,16 @@ loop walks it.  ``convert.lm_params`` unstacks a JAX pytree into that
 form.  With ``cfg.remat == "full"`` each layer of a forward that is
 being differentiated runs under ``torch.utils.checkpoint`` (the
 counterpart of ``jax.checkpoint`` on the scan body): only the layer
-inputs are kept, and the backward recomputes each layer.  Families the
-port does not run yet raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+inputs are kept, and the backward recomputes each layer.  A Mamba
+block (``models.mamba``) is ``x + mamba(norm1(x))``; its decode state
+is (conv_state in the compute dtype, h in f32).  With
+``cfg.shared_attn_every`` one shared block (``params["shared_attn"]``:
+norm, attention, and norm2 + MLP where ``d_ff``) runs after every
+period of ``len(cfg.pattern)`` layers, the same weights every time (its
+gradient sums over the applications); each application has its own
+attention cache (``state["shared_cache"]``, one per period) and, under
+remat, its own checkpoint.  Families the port does not run yet raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 With ``rules`` (``models.sharding.MeshRules``) ``forward`` and
 ``loss_fn`` take this rank's shards of the params (``param_spec`` of
@@ -28,7 +37,9 @@ the decode state (``init_decode_state(rules=)``, laid out by
 rank's rows (``sharding.batch_rows``), its caches read through the
 split-S attention where their S is split (``models.attention``); it uses
 the embedding and head tables vocab-parallel (``Sharded.lookup``,
-``Sharded.project``), where ``forward`` gathers them at use.
+``Sharded.project``), where ``forward`` gathers them at use.  Mamba
+blocks and the shared block are not sharded yet: with ``rules`` every
+entry point raises on them, naming ROADMAP A11e.
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ from .attention import (SeqSplit, attention_decode, attention_forward,
 from .config import DENSE, MAMBA1, MAMBA2, ModelConfig
 from .layers import (apply_norm, embed, init_embedding, init_mlp,
                      init_norm, make_rope_cache, mlp, unembed)
+from . import mamba as mb
 from .moe import init_moe, moe_apply
 from .sharding import (Sharded, batch_rows, chunk_shape,
                        decode_state_specs, split_axes, tree_pspecs)
@@ -51,12 +63,10 @@ from .sharding import (Sharded, batch_rows, chunk_shape,
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config outside the port (it runs
-    decoders of dense and MoE blocks over GQA or MLA attention, with
-    rmsnorm and plain RoPE), naming its ROADMAP item."""
+    decoders of dense, MoE and Mamba blocks over GQA or MLA attention,
+    with the shared attention block, rmsnorm and plain RoPE), naming its
+    ROADMAP item."""
     unported = [
-        (MAMBA1 in cfg.pattern or MAMBA2 in cfg.pattern, "Mamba blocks",
-         "A13.5"),
-        (cfg.shared_attn_every > 0, "the shared attention block", "A13.6"),
         (cfg.encoder_layers > 0 or cfg.cross_attention
          or cfg.embedding_inputs, "the encoder-decoder stack", "A13.7"),
         (cfg.norm != "rmsnorm", f"{cfg.norm} models", "A13.7"),
@@ -66,9 +76,27 @@ def check_supported(cfg: ModelConfig) -> None:
         if hit:
             raise NotImplementedError(f"{cfg.name}: {what} are not ported "
                                       f"yet (ROADMAP {item})")
+    if cfg.is_attention_free:
+        return
     if cfg.attn_type not in ("gqa", "mla") or not cfg.n_heads:
         raise NotImplementedError(f"{cfg.name}: attn_type "
                                   f"{cfg.attn_type!r} is not ported")
+
+
+def check_shardable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP A11e for a config
+    whose sharded form is not ported: Mamba blocks or the shared
+    attention block (module docstring)."""
+    if cfg.has_ssm or cfg.shared_attn_every:
+        raise NotImplementedError(
+            f"{cfg.name}: sharded Mamba blocks and the shared attention "
+            f"block are not ported yet (ROADMAP A11e)")
+
+
+def _check(cfg: ModelConfig, rules) -> None:
+    check_supported(cfg)
+    if rules is not None:
+        check_shardable(cfg)
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -80,13 +108,29 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     dev = gen.device
-    p = {"norm1": init_norm(cfg.d_model, dev),
-         "attn": init_attention(gen, cfg),
-         "norm2": init_norm(cfg.d_model, dev)}
-    if kind == DENSE:
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff)
+    p = {"norm1": init_norm(cfg.d_model, dev)}
+    if kind == MAMBA1:
+        p["mamba"] = mb.init_mamba1(gen, cfg)
+    elif kind == MAMBA2:
+        p["mamba"] = mb.init_mamba2(gen, cfg)
     else:
-        p["moe"] = init_moe(gen, cfg)
+        p["attn"] = init_attention(gen, cfg)
+        p["norm2"] = init_norm(cfg.d_model, dev)
+        if kind == DENSE:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff)
+        else:
+            p["moe"] = init_moe(gen, cfg)
+    return p
+
+
+def _init_shared(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """The one shared attention (+ MLP) block of a hybrid pattern."""
+    dev = gen.device
+    p = {"norm": init_norm(cfg.d_model, dev),
+         "attn": init_attention(gen, cfg)}
+    if cfg.d_ff:
+        p["norm2"] = init_norm(cfg.d_model, dev)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff)
     return p
 
 
@@ -104,6 +148,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
         params["lm_head"] = init_embedding(gen, cfg.vocab_size, cfg.d_model)
     params["blocks"] = [_init_block(gen, cfg, kind)
                         for kind in layer_kinds(cfg)]
+    if cfg.shared_attn_every:
+        params["shared_attn"] = _init_shared(gen, cfg)
     return params
 
 
@@ -143,9 +189,27 @@ def abstract_params(cfg: ModelConfig) -> dict:
             p["dense_residual"] = mlp_leaves(cfg.dense_residual_ff)
         return p
 
+    def mamba(kind):
+        di, n, K = cfg.d_inner, cfg.ssm_state, cfg.d_conv
+        if kind == MAMBA1:
+            r = mb.dt_rank(cfg)
+            return {"in_proj": t(d, 2 * di), "conv_w": t(di, K),
+                    "x_proj": t(di, r + 2 * n), "dt_proj": t(r, di),
+                    "dt_bias": t(di), "A_log": t(di, n), "D": t(di),
+                    "out_proj": t(di, d)}
+        nh = di // cfg.mamba_headdim
+        return {"in_proj": t(d, 2 * di + 2 * n + nh),
+                "conv_w": t(di + 2 * n, K), "dt_bias": t(nh),
+                "A_log": t(nh), "D": t(nh), "norm_scale": t(di),
+                "out_proj": t(di, d)}
+
     def block(kind):
-        p = {"norm1": {"scale": t(d)}, "attn": attention(),
-             "norm2": {"scale": t(d)}}
+        p = {"norm1": {"scale": t(d)}}
+        if kind in (MAMBA1, MAMBA2):
+            p["mamba"] = mamba(kind)
+            return p
+        p["attn"] = attention()
+        p["norm2"] = {"scale": t(d)}
         if kind == DENSE:
             p["mlp"] = mlp_leaves(cfg.d_ff)
         else:
@@ -157,12 +221,19 @@ def abstract_params(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = {"table": t(cfg.vocab_size, d)}
     params["blocks"] = [block(kind) for kind in layer_kinds(cfg)]
+    if cfg.shared_attn_every:
+        params["shared_attn"] = {"norm": {"scale": t(d)},
+                                 "attn": attention()}
+        if cfg.d_ff:
+            params["shared_attn"]["norm2"] = {"scale": t(d)}
+            params["shared_attn"]["mlp"] = mlp_leaves(cfg.d_ff)
     return params
 
 
 @functools.lru_cache(maxsize=16)
 def param_specs(rules, cfg: ModelConfig) -> dict:
     """The spec of every params leaf of ``cfg`` under ``rules``."""
+    _check(cfg, rules)
     return tree_pspecs(rules, abstract_params(cfg))
 
 
@@ -176,6 +247,9 @@ def _block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, rope_cache,
                    sh: Optional[Sharded] = None,
                    spec: Optional[dict] = None) -> torch.Tensor:
+    if kind in (MAMBA1, MAMBA2):
+        fwd = mb.mamba1_forward if kind == MAMBA1 else mb.mamba2_forward
+        return x + fwd(p["mamba"], cfg, apply_norm(cfg.norm, p["norm1"], x))
     tp = _tp_of(sh)
     if sh is not None:
         p = sh.block(p, spec)
@@ -187,6 +261,34 @@ def _block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
     if kind == DENSE:
         return x + mlp(p["mlp"], h, x.dtype, tp=tp("mlp"))
     return x + moe_apply(p["moe"], cfg, h, tp=tp("moe"))
+
+
+def _shared_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, rope_cache) -> torch.Tensor:
+    """One application of the shared attention (+ MLP) block."""
+    x = x + attention_forward(p["attn"], cfg,
+                              apply_norm(cfg.norm, p["norm"], x),
+                              positions, rope_cache=rope_cache)
+    if "mlp" in p:
+        x = x + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], x), x.dtype)
+    return x
+
+
+def _period_ends(cfg: ModelConfig, i: int) -> bool:
+    """Whether the shared block runs after layer ``i``: at the end of
+    every period of the pattern."""
+    return bool(cfg.shared_attn_every) and (i + 1) % len(cfg.pattern) == 0
+
+
+def _remat(fn, p: dict, x: torch.Tensor, cfg: ModelConfig, *args,
+           early_stop: bool = True) -> torch.Tensor:
+    """``fn(*args)`` under activation checkpointing where ``cfg.remat ==
+    "full"`` and autograd records the call (``p`` and ``x`` are its
+    params and input), else directly."""
+    if cfg.remat == "full" and _differentiated(p, x):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          early_stop=early_stop)
+    return fn(*args)
 
 
 def _tp_of(sh: Optional[Sharded]):
@@ -225,7 +327,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     params are this rank's shards (module docstring); the embedding and
     head tables are gathered at use (not vocab-parallel), the head and
     the layers' weight matrices in the compute dtype."""
-    check_supported(cfg)
+    _check(cfg, rules)
     dtype = cfg.activation_dtype
     B, S = tokens.shape
     sh = specs = None
@@ -240,18 +342,17 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if positions is None:
         positions = _default_positions(B, S, tokens.device)
     rope_cache = None
-    if cfg.attn_type == "gqa":      # MLA rotates its rope part on the fly
+    if cfg.attn_type == "gqa" and cfg.n_heads:  # MLA rotates on the fly
         rope_cache = make_rope_cache(positions, cfg.head_dim,
                                      cfg.rope_theta)
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["blocks"])):
         spec = None if specs is None else specs["blocks"][i]
-        if cfg.remat == "full" and _differentiated(p, x):
-            x = checkpoint(_block_forward, kind, p, cfg, x, positions,
-                           rope_cache, sh, spec, use_reentrant=False,
-                           early_stop=sh is None)
-        else:
-            x = _block_forward(kind, p, cfg, x, positions, rope_cache, sh,
-                               spec)
+        x = _remat(_block_forward, p, x, cfg, kind, p, cfg, x, positions,
+                   rope_cache, sh, spec, early_stop=sh is None)
+        if _period_ends(cfg, i):
+            sp = params["shared_attn"]
+            x = _remat(_shared_forward, sp, x, cfg, sp, cfg, x, positions,
+                       rope_cache)
     if sh is None:
         final, head = params["final_norm"], params[_head_key(cfg)]
     else:
@@ -289,21 +390,31 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device=None, rules=None) -> dict:
-    """Decode state: one zeroed cache pair per layer in the compute dtype
-    (GQA: (k, v), each (batch, max_seq, kv, hd); MLA: (c, k_rope),
-    (batch, max_seq, kv_lora_rank) and (batch, max_seq,
-    qk_rope_head_dim)), and ``pos`` (batch,) int64.  With ``rules`` each
-    cache is this rank's chunk of it (``decode_state_specs``), ``pos``
-    is whole (replicated), and ``max_seq`` is kept in the state (a chunk
-    of S does not tell the full S)."""
-    check_supported(cfg)
+    """Decode state: one zeroed cache pair per layer (GQA: (k, v), each
+    (batch, max_seq, kv, hd); MLA: (c, k_rope), (batch, max_seq,
+    kv_lora_rank) and (batch, max_seq, qk_rope_head_dim); in the compute
+    dtype; Mamba: (conv_state (batch, d_conv - 1, C) in the compute
+    dtype, h in f32: (batch, d_inner, n) for Mamba-1, (batch, nh, hd, n)
+    for Mamba-2), with the shared attention block ``shared_cache``, one
+    GQA / MLA pair per period (one per application), and ``pos`` (batch,)
+    int64.  With ``rules`` each cache is this rank's chunk of it
+    (``decode_state_specs``), ``pos`` is whole (replicated), and
+    ``max_seq`` is kept in the state (a chunk of S does not tell the full
+    S)."""
+    _check(cfg, rules)
     dev = resolve_device(device)
     dtype = cfg.activation_dtype
     if rules is None:
-        return {"caches": [init_cache(cfg, batch, max_seq, dtype, dev)
-                           for _ in layer_kinds(cfg)],
-                "pos": torch.zeros((batch,), dtype=torch.int64,
-                                   device=dev)}
+        state = {"caches": [_init_layer_cache(cfg, kind, batch, max_seq,
+                                              dtype, dev)
+                            for kind in layer_kinds(cfg)],
+                 "pos": torch.zeros((batch,), dtype=torch.int64,
+                                    device=dev)}
+        if cfg.shared_attn_every:
+            state["shared_cache"] = [
+                init_cache(cfg, batch, max_seq, dtype, dev)
+                for _ in range(cfg.n_periods)]
+        return state
     full = abstract_decode_state(cfg, batch, max_seq)
     specs = decode_state_layout(rules, cfg, batch, max_seq)
     caches = [tuple(torch.zeros(chunk_shape(rules.mesh, t.shape, sp),
@@ -313,6 +424,15 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     return {"caches": caches,
             "pos": torch.zeros((batch,), dtype=torch.int64, device=dev),
             "max_seq": max_seq}
+
+
+def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int,
+                      max_seq: int, dtype: torch.dtype, dev):
+    if kind == MAMBA1:
+        return mb.init_mamba1_state(cfg, batch, dtype, dev)
+    if kind == MAMBA2:
+        return mb.init_mamba2_state(cfg, batch, dtype, dev)
+    return init_cache(cfg, batch, max_seq, dtype, dev)
 
 
 def abstract_decode_state(cfg: ModelConfig, batch: int,
@@ -348,7 +468,7 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
     embedding and head tables are used vocab-parallel, not gathered
     (``Sharded.lookup``, ``Sharded.project``): a step moves the rows and
     the logits, not the tables."""
-    check_supported(cfg)
+    _check(cfg, rules)
     dtype = cfg.activation_dtype
     B = tokens.shape[0]
     key = _head_key(cfg)
@@ -369,29 +489,56 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
                       tokens)[rows].to(dtype)
         final = {"scale": sh.use(params["final_norm"]["scale"],
                                  specs["final_norm"]["scale"])}
-    caches = []
+    caches, shared = [], []
     for i, (kind, p, c) in enumerate(zip(layer_kinds(cfg), params["blocks"],
                                          state["caches"])):
-        seq = None
-        if sh is not None:
-            # a GQA cache splits its kv heads over model exactly where the
-            # attention runs tensor-parallel (both need kv % model == 0)
-            p = sh.block(p, specs["blocks"][i])
-            seq = _seq_split(rules.mesh, sspecs["caches"][i][0], c[0])
-        a, c = attention_decode(p["attn"], cfg,
-                                apply_norm(cfg.norm, p["norm1"], h), c, pos,
-                                tp=tp("attn"), seq=seq)
-        h = h + a
-        hn = apply_norm(cfg.norm, p["norm2"], h)
-        if kind == DENSE:
-            h = h + mlp(p["mlp"], hn, dtype, tp=tp("mlp"))
+        if kind in (MAMBA1, MAMBA2):
+            dec = mb.mamba1_decode if kind == MAMBA1 else mb.mamba2_decode
+            a, c = dec(p["mamba"], cfg, apply_norm(cfg.norm, p["norm1"], h),
+                       c)
+            h = h + a
         else:
-            h = h + moe_apply(p["moe"], cfg, hn, tp=tp("moe"))
+            seq = None
+            if sh is not None:
+                # a GQA cache splits its kv heads over model exactly where
+                # the attention runs tensor-parallel (both need kv % model
+                # == 0)
+                p = sh.block(p, specs["blocks"][i])
+                seq = _seq_split(rules.mesh, sspecs["caches"][i][0], c[0])
+            a, c = attention_decode(p["attn"], cfg,
+                                    apply_norm(cfg.norm, p["norm1"], h), c,
+                                    pos, tp=tp("attn"), seq=seq)
+            h = h + a
+            hn = apply_norm(cfg.norm, p["norm2"], h)
+            if kind == DENSE:
+                h = h + mlp(p["mlp"], hn, dtype, tp=tp("mlp"))
+            else:
+                h = h + moe_apply(p["moe"], cfg, hn, tp=tp("moe"))
         caches.append(c)
+        if _period_ends(cfg, i):
+            h, c = _shared_decode(params["shared_attn"], cfg, h,
+                                  state["shared_cache"][len(shared)], pos)
+            shared.append(c)
     h = apply_norm(cfg.norm, final, h)
     if sh is None:
         logits = unembed(params[key], h, dtype)
     else:
         logits = sh.project(h, params[key]["table"], specs[key]["table"],
                             rows, B)
-    return logits[:, 0], dict(state, caches=caches, pos=state["pos"] + 1)
+    new = dict(state, caches=caches, pos=state["pos"] + 1)
+    if cfg.shared_attn_every:
+        new["shared_cache"] = shared
+    return logits[:, 0], new
+
+
+def _shared_decode(p: dict, cfg: ModelConfig, h: torch.Tensor, cache,
+                   pos: torch.Tensor):
+    """One application of the shared block in a decode step, on its own
+    period's cache: (h, the new cache)."""
+    a, cache = attention_decode(p["attn"], cfg,
+                                apply_norm(cfg.norm, p["norm"], h), cache,
+                                pos)
+    h = h + a
+    if "mlp" in p:
+        h = h + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], h), h.dtype)
+    return h, cache

@@ -11,7 +11,11 @@ and out of slots between steps:
   * retire: a slot whose request hit its token budget, EOS or the end of
     the cache frees up.
 
-The KV caches are slot-indexed, so an admission only zeroes its slot.
+Every cache is slot-indexed, so an admission only zeroes its slot: the
+attention caches of every layer and of every application of a shared
+block, and a Mamba layer's conv state and h.  A stale attention row is
+masked by ``pos`` anyway, but a Mamba h left unzeroed would carry the
+slot's previous request into the next one.
 The next-token ids come back to the host once per step (as the JAX
 engine's ``device_get``); the tokens fed to the next step go up in one
 copy.
@@ -69,14 +73,16 @@ class ServingEngine:
         self.pending.append(req)
 
     def _reset_slot_state(self, i: int):
-        """Zero the caches of slot i and its position (in place: the
-        engine owns its state); with ``rules`` the caches' row of slot i
-        where this rank holds it."""
+        """Zero the caches of slot i (``caches`` and ``shared_cache``, every
+        leaf, as the JAX engine zeroes every slot-indexed leaf) and its
+        position (in place: the engine owns its state); with ``rules`` the
+        caches' row of slot i where this rank holds it."""
         rows = batch_rows(self.rules, self.n_slots)
         if rows.start <= i < rows.stop:
-            for pair in self.state["caches"]:
-                for c in pair:
-                    c[i - rows.start].zero_()
+            for key in ("caches", "shared_cache"):
+                for pair in self.state.get(key, ()):
+                    for c in pair:
+                        c[i - rows.start].zero_()
         self.state["pos"][i] = 0
 
     def _admit(self):

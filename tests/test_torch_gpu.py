@@ -646,12 +646,14 @@ def test_nystrom_fit_on_card_matches_fit_on_host(cuda_device, problem):
 @pytest.mark.parametrize("shape", [(4, 16, 128), (2, 128), (3, 7, 384),
                                    (1, 1, 256), (37, 2048), (300, 16, 128),
                                    (5, 100), (1001, 128), (9, 1, 128),
-                                   (3, 5, 2048), (1, 2048), (67, 640)])
+                                   (3, 5, 2048), (1, 2048), (67, 640),
+                                   (4, 1024, 4096), (3, 4096)])
 def test_rmsnorm_cuda_matches_plain(cuda_device, dtype, shape):
     """Ragged row counts, D not a multiple of the 16-byte vector (100),
     the model's widths compiled in (128 qk-norm rows, 2048) at row counts
     that leave a block, a warp or half a warp short, and other widths on
-    the generic kernel (256, 384, 640)."""
+    the generic kernel (256, 384, 640, and Falcon-Mamba's 4096 at its
+    prefill's and its decode's rows)."""
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     scale = torch.from_numpy(
@@ -1075,6 +1077,40 @@ def test_reduced_deepseek_forward_on_card_matches_host(cuda_device, impl):
     np.testing.assert_allclose(card.cpu().numpy(), host.numpy(), rtol=1e-4,
                                atol=1e-4)
     cfg = dataclasses.replace(cfg, moe_impl="dense")
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", params_d)):
+        st = init_decode_state(cfg, 2, 8, device=dev)
+        logits = []
+        for t in range(8):
+            lg, st = decode_step(p, cfg, st, toks[:, t:t + 1].to(dev))
+            logits.append(lg.cpu())
+        outs[dev] = torch.stack(logits, 1)
+    np.testing.assert_allclose(outs["cuda"].numpy(), outs["cpu"].numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_1p2b"])
+def test_reduced_ssm_forward_on_card_matches_host(cuda_device, arch):
+    """Reduced Falcon-Mamba (Mamba-1) and Zamba2 (Mamba-2 SSD with the
+    shared attention block), f32, flash: the forward through the kernels
+    (card) against the plain versions (host), same weights, 1e-4; one
+    rmsnorm launch a norm (norm1 a layer, norm and norm2 an application
+    of the shared block, final_norm) and one flash launch an application;
+    then 8 teacher-forced decode steps on the card against the host."""
+    cfg, params = _reduced_lm(arch, "flash")
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (2, 100)))
+    host = forward(params, cfg, toks)
+    params_d = _to(params, cuda_device)
+    r0, f0 = rmsnorm_cuda.launches, sum(_fwd_counts().values())
+    card = forward(params_d, cfg, toks.to(cuda_device))
+    torch.cuda.synchronize()
+    shared = cfg.n_periods if cfg.shared_attn_every else 0
+    assert rmsnorm_cuda.launches - r0 == cfg.n_layers + 2 * shared + 1
+    assert sum(_fwd_counts().values()) - f0 == shared
+    np.testing.assert_allclose(card.cpu().numpy(), host.numpy(), rtol=1e-4,
+                               atol=1e-4)
     outs = {}
     for dev, p in (("cpu", params), ("cuda", params_d)):
         st = init_decode_state(cfg, 2, 8, device=dev)
