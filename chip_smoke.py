@@ -215,8 +215,9 @@ Phases (each one fails the run with a non-zero exit):
      card (torch.multiprocessing), each drawing the data as main() does
      and calling the same facade fits, SPMD:
        a. NCCL at world 1 on the (1, 1) mesh: the 1d K-SVM (s = 32) and
-          K-RR (s = 8, b = 32, tolerance path) fits against phases 3-4's
-          at 1e-5
+          K-RR (s = 8, b = 32, tolerance path; its first DIST_KRR_ITERS
+          iterations, 4 checks) fits against phases 3-4's at 1e-5 (K-RR
+          against a serial fit of that cut)
        b. 1d at P = 4, four processes sharing the card over gloo (CUDA
           tensors), n / 4 = 2048 features a rank: the same two fits and
           classical DCD (s = 1) on phases 3-4's schedules (classical DCD
@@ -231,8 +232,9 @@ Phases (each one fails the run with a non-zero exit):
           (resilience.poisoned_1d_factory) for the chunk holding iteration
           DIST_GUARD_FAULT_ITER: the ladder halves s and the fit ends
           within 1e-5 of the clean fit
-       e. the 16-lambda K-RR fleet on the 1d layout against phase 9's
-          serial fleet at 1e-5, one reduction a round for all members
+       e. the 16-lambda K-RR fleet on the 1d layout (DIST_KRR_ITERS
+          iterations) against phase 9's lambdas in a serial fleet of that
+          cut at 1e-5, one reduction a round for all members
        f. every fit's collectives by axis and kind with their words: the
           counts must be rounds x round_collectives + setup_collectives
           (once a fit; + the 2d alpha assembly a chunk) + rank 0's checks
@@ -359,6 +361,45 @@ Phases (each one fails the run with a non-zero exit):
           every shape the phase launched them at, against their plain
           versions (flash within its derived bf16 bounds), timed alone
           beside F.rms_norm / SDPA and their bounds
+ 17. the encoder-decoder stack and M-RoPE (models/lm.py's encoder,
+     cross-attention and prefill_cross_kv; layers.apply_mrope), after
+     phase 16, bf16 over f32 params, random weights from --seed:
+       w. Whisper-tiny at its published widths (4 encoder and 4 decoder
+          layers, d_model 384, 6 heads x 64, d_ff 1536, vocab 51 865 tied,
+          1500 frames, layernorm), attn_impl "naive" as its config says:
+          the leaf count against the JAX package's abstract_params; a
+          prefill of 4 x 448 tokens over 4 x 1500 frames (time, idle
+          share, no kernel launches: layernorm and naive attention are
+          plain); prefill_cross_kv and 32 teacher-forced decode steps
+          against the prefill (TOL_LM_BF16), 64 f32 steps against the f32
+          prefill (TOL_LM_F32); ServingEngine(n_slots=4) answering 8
+          requests in bf16 (timed) and f32 (every token equal to the
+          request decoded alone; cross_kv zero, as the reference's
+          engine leaves it); 2 AdamW steps of 4 x 448 tokens with their
+          frames in 2 microbatches with remat.  attn_impl "flash": the
+          1500 frames refused (ValueError) before any launch; at 1536
+          frames and 256 tokens the forward through the kernels against
+          every flash call plain (bf16 TOL_LM_BF16, f32 TOL_LM_F32, 8
+          flash launches a forward), the f32 gradient through the
+          FP32-FMA kernels (TOL_GRAD_F32) and the bf16 one through the
+          tensor-core kernels (TOL_GRAD_BF16), leaf by leaf
+       v. Qwen2-VL-72B at its published widths (d_model 8192, 64 / 8
+          heads x 128, d_ff 29 568, vocab 152 064 untied, M-RoPE sections
+          (16, 24, 24), theta 1e6), flash, depth cut to 2 layers: a 4 x
+          1024 prefill over the vision frontend's streams (16 text
+          tokens, a 16 x 16 patch grid, text resuming past the largest
+          position; 5 rmsnorm and 2 tensor-core flash launches), its
+          logits after the prefix apart from the aligned streams' (M-RoPE
+          acts); 32 decode steps against the aligned-stream prefill
+          (TOL_LM_BF16); the f32 engine against each request alone; at 1
+          layer, 2 AdamW steps of 2 x 1024 tokens with the (3, B, S)
+          streams in 2 microbatches with remat (finite, falling losses,
+          exact launches, peak within VL_PEAK_BYTES)
+       c. rmsnorm (D = 8192, the generic kernel) and the tensor-core
+          flash forward, dq and dkv (hd 64 at Whisper's (24, 1536) and
+          (24, 256), hd 128 at Qwen2-VL's (256, 1024) and (64, 1024)) at
+          every shape the phase launched them at, against their plain
+          versions, timed alone beside F.rms_norm / SDPA and their bounds
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
@@ -478,6 +519,12 @@ DIST_TIMEOUT_S = 900
 # host, at 1024 11.5-11.8 s on a slower one), held against a serial
 # classical fit of the same cut
 DIST_CLASSICAL_ITERS = 256
+# the ranks' s-step K-RR fits and 1d fleet replay the first DIST_KRR_ITERS
+# iterations of phase 4's schedule (64 rounds and 4 checks of 256 and 16:
+# a depth cut, to make room for phase 17; over gloo the three took 46 s of
+# the spawn at 256 rounds on an NVIDIA H100 80GB HBM3 at 700 W), held
+# against a serial fit and a serial fleet of the same cut
+DIST_KRR_ITERS = 512
 DIST_GUARD_ITERS = 512
 DIST_GUARD_FAULT_ITER = 200
 DIST_SPLIT_ROUNDS = 8
@@ -704,6 +751,51 @@ SSM_PEAK_BYTES = 76e9
 SSM_LEAVES = {"falcon_mamba_7b": 7_005_802_496,
               "zamba2_1p2b": 1_170_313_344}
 TOL_SSD_R, TOL_SSD_A = 2e-3, 2e-4
+
+# Phase 17 (the encoder-decoder stack and M-RoPE), bf16 over f32 params,
+# random weights from --seed.  Whisper-tiny at its published widths and
+# its own attn_impl ("naive"): a prefill of ENC_BATCH rows of ENC_TEXT
+# tokens (Whisper's text context, n_text_ctx) over the config's 1500
+# frames drawn from the seed; prefill_cross_kv, a warm-up and
+# ENC_DECODE_STEPS timed teacher-forced decode steps held against the
+# prefill (TOL_LM_BF16); f32 decode against the f32 prefill over
+# ENC_F32_PROMPT positions (TOL_LM_F32); an engine of ENC_SLOTS slots
+# answering ENC_REQUESTS requests of ENC_NEW_TOKENS new tokens in bf16
+# (timed) and f32 (every token equal to the request decoded alone);
+# ENC_TRAIN_STEPS AdamW steps at full depth with the frames in
+# ENC_MICROBATCHES microbatches (both models' training steps read one
+# batch, so that the falling loss checks the update).  With attn_impl
+# "flash" the 1500 frames are refused before any launch; at
+# ENC_FLASH_FRAMES (six blocks of 256:
+# the nearest length flash takes in both packages) and ENC_FLASH_TEXT
+# tokens the forward and the gradient through the kernels are held
+# against every flash call plain.  Qwen2-VL-72B at its published widths,
+# depth cut to VL_SERVE_LAYERS to serve and VL_TRAIN_LAYERS to train (288
+# GB of f32 params at 80 layers; params, gradient and moments of 3.37 B
+# params at 1 layer are 54 GB), flash: a VL_BATCH x VL_SEQ prefill over
+# the vision frontend's three position streams (vl_positions), held
+# apart from the aligned streams'; VL_DECODE_STEPS decode steps against
+# an aligned-stream prefill (the reference decodes with (t, t, t)); the
+# f32 engine against each request alone; ENC_TRAIN_STEPS steps of
+# VL_TRAIN_BATCH x VL_SEQ tokens with the streams.  WHISPER_LEAVES,
+# VL_LEAVES: the JAX package's abstract_params counts.
+ENC_BATCH, ENC_TEXT, ENC_DECODE_STEPS = 4, 448, 32
+ENC_F32_PROMPT = 64
+ENC_SLOTS, ENC_REQUESTS, ENC_NEW_TOKENS, ENC_ENGINE_SEQ = 4, 8, 8, 64
+ENC_FLASH_FRAMES, ENC_FLASH_TEXT = 1536, 256
+ENC_TRAIN_STEPS, ENC_MICROBATCHES = 2, 2
+WHISPER_LEAVES = 41_166_720
+VL_SERVE_LAYERS, VL_TRAIN_LAYERS = 2, 1
+VL_BATCH, VL_SEQ, VL_PREFIX, VL_GRID = 4, 1024, 16, 16
+VL_DECODE_STEPS = 32
+VL_TRAIN_BATCH = 2
+# AdamW's first update moves every weight by lr, coherently, so a
+# layer's output moves with its fan-in: at phase 8's lr 3e-5 the loss
+# rose from 13.64 to 36.66 at d_model 8192 and d_ff 29 568 (this phase on
+# the H100, NVIDIA H100 80GB HBM3 at 700 W); a tenth of it
+VL_TRAIN_LR = 3e-6
+VL_PEAK_BYTES = 76e9
+VL_LEAVES = {80: 72_705_384_448, 2: 4_246_773_760}
 
 # The libraries of the tensor-core flash kernels, whose SASS must hold
 # HGMMA (wgmma) and UTMALDG (TMA loads), and a kernel each names.
@@ -1430,6 +1522,7 @@ def sweep_phase(c, args, failures):
     # ---- 9a. KMV at c = F ---------------------------------------------
     code = check_inputs("kmv", A, A)
     kmv_at = {}
+    ones = {}       # the c = 1 time of each B, measured once
     for label, B, F in (("K-RR fleet round", c.B_of["r256"], 16),
                         ("K-SVM fleet round", c.B_of["r32"], 8),
                         ("full matvec, B = A", A, 4),
@@ -1444,7 +1537,10 @@ def sweep_phase(c, args, failures):
         same = torch.equal(got, kmv_cuda(A, B, X, rbf))
         iters = 2 if B is A else 10
         ms = time_queued(lambda: kmv_cuda(A, B, X, rbf), iters)
-        one = time_queued(lambda: kmv_cuda(A, B, X[:, 0], rbf), iters)
+        if label not in ones:
+            ones[label] = time_queued(lambda: kmv_cuda(A, B, X[:, 0], rbf),
+                                      iters)
+        one = ones[label]
         plain = time_queued(lambda: kmv_plain(A, B, X, rbf), 1 if B is A
                             else iters)
         pairs = m * (m + 1) // 2 if B is A else m * r
@@ -2809,7 +2905,7 @@ def serve_phase(c, args, failures):
     return entries
 
 
-def dist_rank(rank, world, backend, outdir, seed, svm_iters, krr_iters):
+def dist_rank(rank, world, backend, outdir, seed, svm_iters):
     """One rank of phases 12 and 13, spawned by ``spawn_ranks``
     (``torch.multiprocessing``): it draws phases 3-4's data as ``main``
     does, runs the layouts' fits on the card through the port's facade
@@ -2917,8 +3013,8 @@ def dist_rank(rank, world, backend, outdir, seed, svm_iters, krr_iters):
         run(f"{lay} K-RR s=8 b=32", KernelRidge(
             lam=1.0, kernel="rbf", device=dev, options=SolverOptions(
                 method="sstep", s=8, b=32, tol=1e-4, check_every=16,
-                max_iters=krr_iters, **common)),
-            Ar, yr, schedule=plan["krr_sched"].to(dev))
+                max_iters=DIST_KRR_ITERS, **common)),
+            Ar, yr, schedule=plan["krr_sched"][:DIST_KRR_ITERS].to(dev))
     if world > 1:
         # d. the guarded 1d fit, one rank poisoned (linear kernel, as the
         #    reference's poisoned factory requires)
@@ -2937,10 +3033,10 @@ def dist_rank(rank, world, backend, outdir, seed, svm_iters, krr_iters):
         run("1d K-RR fleet F=16", None, Ar, yr, fleet=dict(
             lams=plan["lams"], kernel="rbf", device=dev,
             options=SolverOptions(method="sstep", s=8, b=32, tol=1e-4,
-                                  check_every=16, max_iters=krr_iters,
+                                  check_every=16, max_iters=DIST_KRR_ITERS,
                                   seed=seed, layout="1d",
                                   mesh=meshes["1d"])),
-            schedule=plan["krr_sched"].to(dev))
+            schedule=plan["krr_sched"][:DIST_KRR_ITERS].to(dev))
         # g. a 1d K-RR round split into its partial kernel (CUDA events),
         #    its reduction (wall, gloo synchronises) and its local phase
         #    (events), with the wall of each part
@@ -3004,8 +3100,7 @@ def spawn_ranks(world: int, backend: str, d: Path, args, failures) -> bool:
     is a failure, and every process is ended before this returns."""
     import torch.multiprocessing as mp
     ctx = mp.start_processes(
-        dist_rank, args=(world, backend, str(d), args.seed, args.svm_iters,
-                         args.krr_iters),
+        dist_rank, args=(world, backend, str(d), args.seed, args.svm_iters),
         nprocs=world, join=False, start_method="spawn")
     deadline = time.perf_counter() + DIST_TIMEOUT_S
     try:
@@ -3159,14 +3254,25 @@ def dist_phase(c, args, failures):
                   f"{time.perf_counter() - t0:.1f} s (the walls below: "
                   f"processes time-sliced on one card, not a scaling "
                   f"measurement)")
-    from repro_torch.api import KernelSVM, SolverOptions
+    from repro_torch.api import KernelRidge, KernelSVM, SolverOptions
+    from repro_torch.tune import solve_fleet
     cut = KernelSVM(C=1.0, kernel="rbf", device=dev, options=SolverOptions(
         method="classical", max_iters=DIST_CLASSICAL_ITERS,
         seed=args.seed)).fit(c.A, c.y, schedule=c.r_c.schedule[
             :DIST_CLASSICAL_ITERS])
+    krr_opts = SolverOptions(method="sstep", s=8, b=32, tol=1e-4,
+                             check_every=16, max_iters=DIST_KRR_ITERS,
+                             seed=args.seed)
+    krr_sched = c.r_k.schedule[:DIST_KRR_ITERS]
+    krr_cut = KernelRidge(lam=1.0, kernel="rbf", device=dev,
+                          options=krr_opts).fit(c.Ar, c.yr,
+                                                schedule=krr_sched)
+    fleet_cut = solve_fleet(c.Ar, c.yr, lams=c.fleets.lams, kernel="rbf",
+                            options=krr_opts, schedule=krr_sched,
+                            device=dev)
     serial = {"K-SVM s=32": (c.r_s.alpha, None),
               "K-SVM classical": (cut.alpha, None),
-              "K-RR s=8 b=32": (c.r_k.alpha, c.r_k.history)}
+              "K-RR s=8 b=32": (krr_cut.alpha, krr_cut.history)}
     for (world, backend), ranks in zip(DIST_RUNS, runs.values()):
         tag = f"{backend}, world {world}"
         for r, res in enumerate(ranks):
@@ -3258,11 +3364,12 @@ def dist_phase(c, args, failures):
         failures.append(f"the poisoned 1d fit did not recover: "
                         f"{bad['events']}, {err:.3e}")
     fl = fits["1d K-RR fleet F=16"]
-    errs = [allclose_ratio(fl["alpha"][i].to(dev), c.fleets.alpha_k[i],
+    errs = [allclose_ratio(fl["alpha"][i].to(dev), fleet_cut.alpha[i],
                            TOL_ITERATE) for i in range(len(c.fleets.lams))]
     worst = max(r for r, _ in errs)
-    print(f"[dist] 1d fleet F = {len(errs)}: members vs phase 9's serial "
-          f"fleet max abs err {max(e for _, e in errs):.3e} ({worst:.2f}x "
+    print(f"[dist] 1d fleet F = {len(errs)}: members vs the serial fleet of "
+          f"the same {DIST_KRR_ITERS} iterations max abs err "
+          f"{max(e for _, e in errs):.3e} ({worst:.2f}x "
           f"{TOL_ITERATE}); {fl['calls'].get(('model', 'round'), 0)} "
           f"reductions for {fl['rounds']} rounds of all members")
     if not worst <= 1.0:
@@ -4758,25 +4865,28 @@ def sdd_kernel_entries(tally: dict, dev, seed: int, failures: list):
     torch.cuda.empty_cache()
     return entries
 
-def device_profile(run, calls: int, cpu: bool = True):
-    """Device-busy ms per call (the sum of the kernel durations that
-    torch.profiler records), kernel launches per call, and the five
-    kernels with the most device time, as (name, ms per call, launches
-    per call), over ``calls`` calls of ``run``; (None, 0, []) where the
-    profiler records no device time.  ``cpu=False`` records the device
-    activity alone (no host op events to sort through afterwards: the
-    cheap way over thousands of launches)."""
+def profiled_kernels(run, calls: int) -> list:
+    """The CUDA kernels torch.profiler records over ``calls`` calls of
+    ``run`` (``key_averages`` entries).  It records the device activity
+    alone: host op events cost more to sort through afterwards than the
+    run takes (a training step's 19 000 launches: 16 s)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA] + (
-            [ProfilerActivity.CPU] if cpu else [])) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def profile_summary(kernels: list, calls: int):
+    """Device-busy ms per call (the sum of the kernel durations), kernel
+    launches per call, and the five kernels with the most device time, as
+    (name, ms per call, launches per call), of ``profiled_kernels``' list;
+    (None, 0, []) where the profiler recorded no device time."""
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
     launches = sum(e.count for e in kernels) / calls
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
@@ -4785,20 +4895,16 @@ def device_profile(run, calls: int, cpu: bool = True):
               e.count / calls) for e in top])
 
 
-def kernel_device_ms(run, match: str):
+def device_profile(run, calls: int):
+    """``profile_summary`` of ``calls`` profiled calls of ``run``."""
+    return profile_summary(profiled_kernels(run, calls), calls)
+
+
+def kernel_device_ms(kernels: list, match: str):
     """(device ms a launch, launches) of the kernels whose name holds
-    ``match`` in one call of ``run``, from torch.profiler; (None, 0) where
-    the profiler records none."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and match in e.key]
+    ``match`` in ``profiled_kernels``' list; (None, 0) where it holds
+    none."""
+    hits = [e for e in kernels if match in e.key]
     count = sum(e.count for e in hits)
     total = sum(e.self_device_time_total for e in hits) / 1e3
     return (total / count if count and total > 0 else None), count
@@ -5219,12 +5325,14 @@ def lm_phase(dev, args, failures):
         one_step()
     torch.cuda.synchronize()
     t_step = (time.perf_counter() - t0) / LM_PROFILE_STEPS
-    for label, run, calls, wall in (
-            ("prefill forward", lambda: forward(params, cfg, tokens), 1,
-             t_best),
-            (f"decode step (B={B}, cache {LM_MAX_SEQ})", one_step,
-             LM_PROFILE_STEPS, t_step)):
-        busy, launches, top = device_profile(run, calls)
+    prefill_kernels = profiled_kernels(lambda: forward(params, cfg, tokens),
+                                       1)
+    for label, kernels, calls, wall in (
+            ("prefill forward", prefill_kernels, 1, t_best),
+            (f"decode step (B={B}, cache {LM_MAX_SEQ})",
+             profiled_kernels(one_step, LM_PROFILE_STEPS), LM_PROFILE_STEPS,
+             t_step)):
+        busy, launches, top = profile_summary(kernels, calls)
         if busy is None:
             print(f"[lm-profile] {label}: wall {wall * 1e3:.2f} ms; device "
                   f"time not measured (the profiler recorded none)")
@@ -5234,8 +5342,7 @@ def lm_phase(dev, args, failures):
               f"{launches:g} kernel launches")
         for name, ms, n in top:
             print(f"[lm-profile]   {ms:8.3f} ms  x{n:g}  {name}")
-    rms_prof = kernel_device_ms(lambda: forward(params, cfg, tokens),
-                                "rmsnorm")
+    rms_prof = kernel_device_ms(prefill_kernels, "rmsnorm")
     print(f"[lm-profile] rmsnorm kernels in one profiled prefill: "
           + ("not measured (the profiler recorded none)"
              if rms_prof[0] is None else
@@ -5955,7 +6062,7 @@ def moe_phase(dev, args, failures):
     # the profiled window: LM_PROFILE_STEPS steps (32 before phase 15
     # needed the time: 38 s of profiling on a slow host)
     t0 = time.perf_counter()
-    busy, n_k, _ = device_profile(one_step, LM_PROFILE_STEPS, cpu=False)
+    busy, n_k, _ = device_profile(one_step, LM_PROFILE_STEPS)
     t_prof = time.perf_counter() - t0
     idle = ("not measured" if busy is None
             else f"{1 - busy / (t_dec * 1e3):.1%}")
@@ -6227,6 +6334,38 @@ def moe_phase(dev, args, failures):
     return entries
 
 
+def lm_zero_counts() -> None:
+    """Zero the launch counters of rmsnorm and the flash kernels."""
+    from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
+                                                     flash_fwd_cuda)
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    rmsnorm_cuda.launches = 0
+    flash_fwd_cuda.launches = flash_fwd_cuda.launches_wgmma = 0
+    flash_bwd_cuda.launches_dq = flash_bwd_cuda.launches_dkv = 0
+    flash_bwd_cuda.launches_dq_wgmma = 0
+    flash_bwd_cuda.launches_dkv_wgmma = 0
+
+
+def lm_counts() -> tuple:
+    """(rmsnorm, tensor-core flash forward, dq, dkv, FP32-FMA flash
+    launches of any kind) since the last ``lm_zero_counts``."""
+    from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
+                                                     flash_fwd_cuda)
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    return (rmsnorm_cuda.launches, flash_fwd_cuda.launches_wgmma,
+            flash_bwd_cuda.launches_dq_wgmma,
+            flash_bwd_cuda.launches_dkv_wgmma,
+            flash_fwd_cuda.launches + flash_bwd_cuda.launches_dq
+            + flash_bwd_cuda.launches_dkv)
+
+
+def lm_expect(failures: list, what: str, got: tuple, want: tuple) -> None:
+    """A failure where ``lm_counts`` read other launches than ``want``."""
+    if got != want:
+        failures.append(f"{what}: launches (rmsnorm, flash fwd, dq, dkv, "
+                        f"FP32-FMA) {got}, not {want}")
+
+
 def ssm_phase(dev, args, failures):
     """Phase 16 (module docstring): the SSM family on the card,
     Falcon-Mamba-7B and Zamba2-1.2B at full width.  Returns the
@@ -6259,26 +6398,10 @@ def ssm_phase(dev, args, failures):
         laps.append(time.perf_counter())
         print(f"[ssm] {what} took {laps[-1] - laps[-2]:.1f} s", flush=True)
 
-    def zero_counts():
-        rmsnorm_cuda.launches = 0
-        flash_fwd_cuda.launches = flash_fwd_cuda.launches_wgmma = 0
-        flash_bwd_cuda.launches_dq = flash_bwd_cuda.launches_dkv = 0
-        flash_bwd_cuda.launches_dq_wgmma = 0
-        flash_bwd_cuda.launches_dkv_wgmma = 0
-
-    def counts():
-        """(rmsnorm, tensor-core flash forward, dq, dkv, FP32-FMA flash
-        launches of any kind) since the last zero_counts."""
-        return (rmsnorm_cuda.launches, flash_fwd_cuda.launches_wgmma,
-                flash_bwd_cuda.launches_dq_wgmma,
-                flash_bwd_cuda.launches_dkv_wgmma,
-                flash_fwd_cuda.launches + flash_bwd_cuda.launches_dq
-                + flash_bwd_cuda.launches_dkv)
+    zero_counts, counts = lm_zero_counts, lm_counts
 
     def expect(what, got, want):
-        if got != want:
-            failures.append(f"{what}: launches (rmsnorm, flash fwd, dq, "
-                            f"dkv, FP32-FMA) {got}, not {want}")
+        lm_expect(failures, what, got, want)
 
     rmsnorm_cuda.by_shape = {}
     flash_fwd_cuda.by_shape = {}
@@ -6323,7 +6446,7 @@ def ssm_phase(dev, args, failures):
         # sort through on the card's host)
         t0 = time.perf_counter()
         busy, n_k, top = device_profile(lambda: forward(params, cfg, tokens),
-                                        1, cpu=False)
+                                        1)
         t_prof = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -6377,7 +6500,7 @@ def ssm_phase(dev, args, failures):
         t_dec = (time.perf_counter() - t0) / SSM_DECODE_STEPS
         got = counts()
         t0 = time.perf_counter()
-        busy, n_k, _ = device_profile(one_step, LM_PROFILE_STEPS, cpu=False)
+        busy, n_k, _ = device_profile(one_step, LM_PROFILE_STEPS)
         t_prof = time.perf_counter() - t0
         idle = ("not measured" if busy is None
                 else f"{1 - busy / (t_dec * 1e3):.1%}")
@@ -6698,6 +6821,576 @@ def ssm_phase(dev, args, failures):
     print(f"[ssm] the SSM cores' share of the prefill (A14j): "
           + ", ".join(f"{k} {v:.1%}" for k, v in shares.items()))
     print(f"[ssm] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def vl_positions(B: int, S: int, dev, prefix: int = VL_PREFIX,
+                 grid: int = VL_GRID):
+    """(3, B, S) M-RoPE position streams laid out as Qwen2-VL's vision
+    frontend lays them out (arXiv:2409.12191 section 2.1): ``prefix``
+    text tokens (t = h = w = i), a ``grid`` x ``grid`` patch grid (t at
+    the prefix, h its row and w its column, both from the prefix), then
+    text from the largest position + 1."""
+    import torch
+    i = torch.arange(S, device=dev)
+    g = (i - prefix).clamp(0, grid * grid - 1)
+    in_grid = (i >= prefix) & (i < prefix + grid * grid)
+    text = torch.where(i < prefix, i, i - grid * grid + grid)
+    t = torch.where(in_grid, prefix, text)
+    h = torch.where(in_grid, prefix + g // grid, text)
+    w = torch.where(in_grid, prefix + g % grid, text)
+    return torch.stack([t, h, w])[:, None].expand(3, B, S).contiguous()
+
+
+def encdec_phase(dev, args, failures):
+    """Phase 17 (module docstring): Whisper-tiny (the encoder-decoder
+    stack) and Qwen2-VL-72B (M-RoPE) at their published widths.  Returns
+    the kernels-record entries of rmsnorm and the tensor-core flash
+    kernels, one for each shape the phase launched them at."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import flash_attention as flash_module
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
+                                                     flash_fwd_cuda)
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.models import (abstract_params, decode_step, forward,
+                                    init_decode_state, init_params,
+                                    prefill_cross_kv)
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import (Request, ServingEngine, TrainConfig,
+                                   greedy_generate, loss_and_grads,
+                                   make_train_step)
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+    gb = 1e9
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        print(f"[encdec] {what} took {laps[-1] - laps[-2]:.1f} s",
+              flush=True)
+
+    zero_counts, counts = lm_zero_counts, lm_counts
+
+    def expect(what, got, want):
+        lm_expect(failures, what, got, want)
+
+    def plain_flash():
+        """Every flash call through its plain version (the kernels'
+        reference on the same card)."""
+        stack = contextlib.ExitStack()
+        off = lambda t, name: False  # noqa: E731
+        stack.enter_context(mock.patch.object(flash_module, "on_card", off))
+        stack.enter_context(mock.patch.object(ops, "_on_card", off))
+        return stack
+
+    def norms_of(cfg):
+        return lm_norms(cfg) if cfg.norm == "rmsnorm" else 0
+
+    def grads_vs_plain(params, cfg, batch, what):
+        """loss_and_grads through the kernels against every flash call
+        plain, leaf by leaf: (worst rel Frobenius, its leaf)."""
+        loss_k, g_k = loss_and_grads(params, cfg, batch)
+        with plain_flash():
+            loss_p, g_p = loss_and_grads(params, cfg, batch)
+        errs = {"/".join(map(str, path)): rel_fro(a, b) for (path, _), a, b
+                in zip(leaves_with_paths(params), g_k, g_p)}
+        worst = max(errs, key=errs.get)
+        finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+        zero = [k for k, g in zip(errs, g_k) if not bool(g.abs().max() > 0)]
+        print(f"[encdec-whisper] {what} loss_and_grads, the flash kernels "
+              f"against every flash call plain: loss {float(loss_k):.6f} "
+              f"vs {float(loss_p):.6f}; the {len(errs)} leaves' worst rel "
+              f"Frobenius {errs[worst]:.3e} ({worst}); every gradient "
+              f"finite: {finite}; zero leaves {zero}", flush=True)
+        if not (finite and not zero):
+            failures.append(f"Whisper {what} gradients: finite {finite}, "
+                            f"zero leaves {zero}")
+        return errs[worst], worst
+
+    def engine(params, c, prompts):
+        """ENC_REQUESTS requests on ENC_SLOTS slots, arriving at steps 0,
+        6 and 12 (every slot reused): (requests, steps, seconds)."""
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=ENC_NEW_TOKENS)
+                for i, pr in enumerate(prompts)]
+        eng = ServingEngine(params, c, n_slots=ENC_SLOTS,
+                            max_seq=ENC_ENGINE_SEQ)
+        arrivals = {0: reqs[:4], 6: reqs[4:6], 12: reqs[6:]}
+        steps = 0
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        while steps < 1000:
+            for r in arrivals.get(steps, []):
+                eng.submit(r)
+            if steps > max(arrivals) and not eng.pending and \
+                    all(s is None for s in eng.slots):
+                break
+            eng.step()
+            steps += 1
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        got = counts()
+        n_gen = sum(len(r.generated) for r in reqs)
+        done = all(r.done and len(r.generated) == ENC_NEW_TOKENS
+                   and all(0 <= x < c.vocab_size for x in r.generated)
+                   for r in reqs)
+        print(f"[encdec-serve] {c.name} ServingEngine({c.dtype}, n_slots="
+              f"{ENC_SLOTS}, max_seq={ENC_ENGINE_SEQ}"
+              f"{', cross_kv zero' if c.encoder_layers else ''}): "
+              f"{len(reqs)} requests, prompts {[len(p) for p in prompts]} "
+              f"tokens, {ENC_NEW_TOKENS} new each; {steps} steps in "
+              f"{t:.2f} s, {t / steps * 1e3:.2f} ms a step, "
+              f"{n_gen / t:.1f} generated tokens/s; all finished: {done}; "
+              f"launches {got}", flush=True)
+        if not done:
+            failures.append(f"the {c.name} {c.dtype} engine did not "
+                            f"answer every request")
+        expect(f"{c.name} {c.dtype} engine", got,
+               (steps * norms_of(c), 0, 0, 0, 0))
+        return reqs
+
+    def each_alone(params, c, reqs):
+        """Every f32 engine token against the request decoded alone by
+        greedy_generate (Whisper: on a state with zero cross_kv, as the
+        engine's)."""
+        same = checked = 0
+        for r in reqs:
+            alone, _ = greedy_generate(params, c, init_decode_state(
+                c, 1, ENC_ENGINE_SEQ, device=dev,
+                with_encoder=bool(c.encoder_layers)), torch.tensor(
+                [r.prompt], device=dev), ENC_NEW_TOKENS)
+            alone = alone[0].tolist()
+            checked += len(alone)
+            same += sum(a == b for a, b in zip(r.generated, alone))
+            if r.generated != alone:
+                failures.append(f"{c.name} f32 request {r.rid}: the "
+                                f"engine's {r.generated}, alone {alone}")
+        print(f"[encdec-serve] {c.name} f32 engine against each request "
+              f"decoded alone by greedy_generate: {same} of {checked} "
+              f"tokens equal", flush=True)
+
+    def prompts_of(gen, V):
+        lens = torch.randint(8, 17, (ENC_REQUESTS,), generator=gen,
+                             device=dev).tolist()
+        return [torch.randint(0, V, (n,), generator=gen,
+                              device=dev).tolist() for n in lens]
+
+    def decode_run(params, cfg, state, tokens, steps):
+        """A warm-up step, then ``steps`` timed teacher-forced steps:
+        (logits of every step (B, 1 + steps, V), ms a step, launches of
+        the timed steps)."""
+        outs = []
+        lg, state = decode_step(params, cfg, state, tokens[:, :1])
+        outs.append(lg)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        for t in range(1, 1 + steps):
+            lg, state = decode_step(params, cfg, state, tokens[:, t:t + 1])
+            outs.append(lg)
+        torch.cuda.synchronize()
+        return (torch.stack(outs, 1),
+                (time.perf_counter() - t0) / steps * 1e3, counts())
+
+    rmsnorm_cuda.by_shape = {}
+    flash_fwd_cuda.by_shape = {}
+    flash_bwd_cuda.by_shape = {}
+    torch.cuda.empty_cache()
+
+    # ---- w. Whisper-tiny ----------------------------------------------------
+    cfg = get_config("whisper_tiny")
+    B, T, F = ENC_BATCH, ENC_TEXT, cfg.encoder_seq
+    V, D = cfg.vocab_size, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 19)
+    params = init_params(gen, cfg, device=dev)
+    n_par = sum(t.numel() for t in leaves(params))
+    n_abs = sum(t.numel() for t in leaves(abstract_params(cfg)))
+    print(f"[encdec-whisper] {cfg.name}: {cfg.encoder_layers} encoder and "
+          f"{cfg.n_layers} decoder layers, d_model {D}, {cfg.n_heads} heads"
+          f" x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {V} (tied), "
+          f"{F} frames, {cfg.norm}, attn_impl {cfg.attn_impl}, causal "
+          f"encoder {cfg.causal} (as the reference: ROADMAP C): {n_par} f32 "
+          f"params ({n_par * 4 / gb:.3f} GB; the JAX abstract_params count "
+          f"{WHISPER_LEAVES}, param_count {cfg.param_count()})", flush=True)
+    if not n_par == n_abs == WHISPER_LEAVES:
+        failures.append(f"{cfg.name}: {n_par} params, abstract_params "
+                        f"{n_abs}, JAX {WHISPER_LEAVES}")
+    frames = torch.randn((B, F, D), generator=gen, device=dev)
+    tokens = torch.randint(0, V, (B, T), generator=gen, device=dev)
+    busy, n_k, top = device_profile(
+        lambda: forward(params, cfg, tokens, audio_embed=frames), 1)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits = forward(params, cfg, tokens, audio_embed=frames)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    got = counts()
+    ok = bool(torch.isfinite(logits).all()) and logits.shape == (B, T, V)
+    ref = logits[:, :1 + ENC_DECODE_STEPS].clone()
+    del logits
+    idle = ("not measured" if busy is None
+            else f"{1 - busy / (t_prefill * 1e3):.1%}")
+    print(f"[encdec-whisper-prefill] forward B={B}, {F} frames and {T} "
+          f"tokens, bf16: {t_prefill * 1e3:.1f} ms, {B * T / t_prefill:.0f}"
+          f" decoder tokens/s ({B * (F + T) / t_prefill:.0f} positions/s);"
+          f" device busy "
+          f"{'not measured' if busy is None else f'{busy:.2f} ms'}, idle "
+          f"share {idle}, {n_k:g} kernel launches (the warm-up forward "
+          f"profiled); peak {torch.cuda.max_memory_allocated() / gb:.2f} "
+          f"GB; logits finite and shaped: {ok}; launches {got} (layernorm "
+          f"and naive attention are plain: none expected)", flush=True)
+    for name, ms, n in top:
+        print(f"[encdec-profile]   {ms:8.3f} ms  x{n:g}  {name}")
+    if not ok:
+        failures.append("Whisper prefill logits not finite or misshapen")
+    expect("Whisper prefill", got, (0, 0, 0, 0, 0))
+    lap("17w whisper init and prefill")
+
+    # decode over the encoder's keys and values, teacher-forced
+    t0 = time.perf_counter()
+    state = init_decode_state(cfg, B, 1 + ENC_DECODE_STEPS, device=dev,
+                              with_encoder=True)
+    state["cross_kv"] = prefill_cross_kv(params, cfg, frames)
+    torch.cuda.synchronize()
+    t_cross = time.perf_counter() - t0
+    dec, t_dec, got = decode_run(params, cfg, state, tokens,
+                                 ENC_DECODE_STEPS)
+    e_dec = rel_fro(dec, ref)
+    print(f"[encdec-whisper-decode] prefill_cross_kv (the encoder over "
+          f"{B} x {F} frames, {cfg.n_layers} (k, v) pairs) "
+          f"{t_cross * 1e3:.1f} ms; {ENC_DECODE_STEPS} decode steps (B={B})"
+          f": {t_dec:.2f} ms a step; the {1 + ENC_DECODE_STEPS} "
+          f"teacher-forced steps' logits against the prefill's: rel "
+          f"Frobenius {e_dec:.3e} (bound {TOL_LM_BF16}); launches {got}",
+          flush=True)
+    if not e_dec <= TOL_LM_BF16:
+        failures.append(f"Whisper bf16 decode vs prefill {e_dec:.3e}")
+    expect("Whisper decode", got, (0, 0, 0, 0, 0))
+    del state, dec, ref
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    prompt = tokens[:2, :ENC_F32_PROMPT].contiguous()
+    ref = forward(params, cfg32, prompt, audio_embed=frames[:2])
+    state = init_decode_state(cfg32, 2, ENC_F32_PROMPT, device=dev,
+                              with_encoder=True)
+    state["cross_kv"] = prefill_cross_kv(params, cfg32, frames[:2])
+    dec, _, _ = decode_run(params, cfg32, state, prompt,
+                           ENC_F32_PROMPT - 1)
+    e32 = rel_fro(dec, ref)
+    print(f"[encdec-whisper-decode] f32: {ENC_F32_PROMPT} teacher-forced "
+          f"decode steps of 2 rows against the f32 prefill: rel Frobenius "
+          f"{e32:.3e} (bound {TOL_LM_F32})", flush=True)
+    if not e32 <= TOL_LM_F32:
+        failures.append(f"Whisper f32 decode vs prefill {e32:.3e}")
+    del state, dec, ref
+    lap("17w whisper decode")
+
+    prompts = prompts_of(gen, V)
+    engine(params, cfg, prompts)
+    each_alone(params, cfg32, engine(params, cfg32, prompts))
+    lap("17w whisper engines")
+
+    # training at full depth: tokens with their frames
+    pipe = TokenPipeline(vocab_size=V, seq_len=T, global_batch=B,
+                         seed=args.seed)
+    acfg = AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=0,
+                       total_steps=ENC_TRAIN_STEPS)
+    step_fn = make_train_step(cfg, acfg, TrainConfig(
+        microbatches=ENC_MICROBATCHES))
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, losses = [], []
+    # one batch every step: the falling loss then reads the update, not
+    # the spread between batches (at d_model 384 one update at lr 3e-5
+    # moves the loss by less than two batches of 4 x 448 tokens differ)
+    batch = dict(pipe.batch(0), audio_embed=torch.randn(
+        (B, F, D), generator=gen, device=dev))
+    for s in range(ENC_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    got = counts()
+    print(f"[encdec-train] {cfg.name} full depth: {ENC_TRAIN_STEPS} AdamW "
+          f"steps (lr {LM_TRAIN_LR}) on one batch of {B} x {T} tokens with "
+          f"their {F} frames in {ENC_MICROBATCHES} microbatches, bf16 "
+          f"remat: losses "
+          f"{losses}; step walls "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms, "
+          f"{B * T / min(times):.0f} training tokens/s at the fastest; "
+          f"device memory peak {torch.cuda.max_memory_allocated() / gb:.2f}"
+          f" GB; launches {got}", flush=True)
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        failures.append(f"Whisper training losses {losses}")
+    expect("Whisper training", got, (0, 0, 0, 0, 0))
+    del opt, step_fn
+    lap("17w whisper training")
+
+    # flash: refused at the published frames, then at ENC_FLASH_FRAMES
+    fcfg = dataclasses.replace(cfg, attn_impl="flash")
+    zero_counts()
+    try:
+        forward(params, fcfg, tokens[:1, :ENC_FLASH_TEXT],
+                audio_embed=frames[:1])
+        failures.append(f"Whisper flash at {F} frames was not refused")
+        refused = "nothing"
+    except ValueError as e:
+        refused = str(e)
+    print(f"[encdec-whisper-flash] attn_impl flash at {F} frames: "
+          f"ValueError {refused!r}; launches {counts()} (none expected)",
+          flush=True)
+    expect(f"Whisper flash at {F} frames", counts(), (0, 0, 0, 0, 0))
+    L = cfg.encoder_layers + cfg.n_layers
+    w_bh, w_hd = B * cfg.n_heads, cfg.head_dim
+    ff = torch.randn((B, ENC_FLASH_FRAMES, D), generator=gen, device=dev)
+    ft = tokens[:, :ENC_FLASH_TEXT].contiguous()
+    zero_counts()
+    lg_k = forward(params, fcfg, ft, audio_embed=ff)
+    got = counts()
+    with plain_flash():
+        lg_p = forward(params, fcfg, ft, audio_embed=ff)
+    e_b = rel_fro(lg_k, lg_p)
+    fcfg32 = dataclasses.replace(fcfg, dtype="float32")
+    zero_counts()
+    lg_k32 = forward(params, fcfg32, ft, audio_embed=ff)
+    got32 = counts()
+    with plain_flash():
+        lg_p32 = forward(params, fcfg32, ft, audio_embed=ff)
+    e_f = rel_fro(lg_k32, lg_p32)
+    print(f"[encdec-whisper-flash] {ENC_FLASH_FRAMES} frames (six blocks "
+          f"of 256) and {ENC_FLASH_TEXT} tokens, B={B}: the forward with "
+          f"the kernels against every flash call plain, rel Frobenius bf16"
+          f" {e_b:.3e} (bound {TOL_LM_BF16}; launches {got}), f32 "
+          f"{e_f:.3e} (bound {TOL_LM_F32}; launches {got32})", flush=True)
+    if not (e_b <= TOL_LM_BF16 and e_f <= TOL_LM_F32):
+        failures.append(f"Whisper flash vs plain: bf16 {e_b:.3e}, f32 "
+                        f"{e_f:.3e}")
+    expect("Whisper bf16 flash forward", got, (0, L, 0, 0, 0))
+    expect("Whisper f32 flash forward", got32, (0, 0, 0, 0, L))
+    del lg_k, lg_p, lg_k32, lg_p32
+    gb_ = {"tokens": ft, "labels": ft.roll(-1, 1), "audio_embed": ff}
+    zero_counts()
+    w32, leaf32 = grads_vs_plain(params, fcfg32, gb_, "f32")
+    got32 = counts()
+    zero_counts()
+    w16, leaf16 = grads_vs_plain(params, fcfg, gb_, "bf16")
+    got = counts()
+    print(f"[encdec-whisper-flash] gradients: f32 through the FP32-FMA "
+          f"kernels {w32:.3e} ({leaf32}; bound {TOL_GRAD_F32}; launches "
+          f"{got32}), bf16 through the tensor-core kernels {w16:.3e} "
+          f"({leaf16}; bound {TOL_GRAD_BF16}; launches {got})", flush=True)
+    if not (w32 <= TOL_GRAD_F32 and w16 <= TOL_GRAD_BF16):
+        failures.append(f"Whisper flash gradients vs plain: f32 {w32:.3e} "
+                        f"({leaf32}), bf16 {w16:.3e} ({leaf16})")
+    # remat: a layer's forward again in the backward's recompute
+    expect("Whisper f32 flash gradient", got32, (0, 0, 0, 0, 4 * L))
+    expect("Whisper bf16 flash gradient", got, (0, 2 * L, L, L, 0))
+    del params, frames, tokens, ff, ft, gb_
+    torch.cuda.empty_cache()
+    lap("17w whisper flash")
+
+    # ---- v. Qwen2-VL-72B, depth cut --------------------------------------
+    full = get_config("qwen2_vl_72b")
+    n_full = sum(t.numel() for t in leaves(abstract_params(full)))
+    cfg = dataclasses.replace(full, n_layers=VL_SERVE_LAYERS,
+                              attn_impl="flash")
+    B, S, V = VL_BATCH, VL_SEQ, cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in leaves(params))
+    p_bytes = torch.cuda.memory_allocated()
+    print(f"[encdec-qwen2vl] {full.name}: d_model {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {V} (untied), M-RoPE sections "
+          f"{cfg.mrope_sections}, theta {cfg.rope_theta:g}; depth cut "
+          f"{full.n_layers} -> {VL_SERVE_LAYERS} ({n_full} params at full "
+          f"depth, {n_full * 4 / gb:.1f} GB of f32; the JAX count "
+          f"{VL_LEAVES[full.n_layers]}): {n_par} f32 params "
+          f"({p_bytes / gb:.2f} GB allocated; JAX "
+          f"{VL_LEAVES[VL_SERVE_LAYERS]}) drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not (n_full == VL_LEAVES[full.n_layers]
+            and n_par == VL_LEAVES[VL_SERVE_LAYERS]):
+        failures.append(f"Qwen2-VL params {n_full} / {n_par}, JAX "
+                        f"{VL_LEAVES}")
+    tokens = torch.randint(0, V, (B, S), generator=gen, device=dev)
+    pos = vl_positions(B, S, dev)
+    norms = norms_of(cfg)
+    busy, n_k, top = device_profile(
+        lambda: forward(params, cfg, tokens, positions=pos), 1)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits = forward(params, cfg, tokens, positions=pos)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    got = counts()
+    ok = bool(torch.isfinite(logits).all()) and logits.shape == (B, S, V)
+    idle = ("not measured" if busy is None
+            else f"{1 - busy / (t_prefill * 1e3):.1%}")
+    print(f"[encdec-qwen2vl-prefill] forward B={B} S={S} bf16, streams: "
+          f"{VL_PREFIX} text, a {VL_GRID} x {VL_GRID} patch grid, text from "
+          f"position {int(pos[0, 0, VL_PREFIX + VL_GRID ** 2])}: "
+          f"{t_prefill * 1e3:.1f} ms, {B * S / t_prefill:.0f} tokens/s; "
+          f"device busy "
+          f"{'not measured' if busy is None else f'{busy:.2f} ms'}, idle "
+          f"share {idle}, {n_k:g} kernel launches (the warm-up forward "
+          f"profiled); peak {torch.cuda.max_memory_allocated() / gb:.2f} "
+          f"GB; logits finite and shaped: {ok}; launches {got}", flush=True)
+    for name, ms, n in top:
+        print(f"[encdec-profile]   {ms:8.3f} ms  x{n:g}  {name}")
+    if not ok:
+        failures.append("Qwen2-VL prefill logits not finite or misshapen")
+    expect("Qwen2-VL prefill", got, (norms, VL_SERVE_LAYERS, 0, 0, 0))
+    # M-RoPE acts: against the same prefill with the three streams equal
+    aligned = forward(params, cfg, tokens)
+    e_pre = rel_fro(logits[:, :VL_PREFIX], aligned[:, :VL_PREFIX])
+    e_after = rel_fro(logits[:, VL_PREFIX:], aligned[:, VL_PREFIX:])
+    print(f"[encdec-qwen2vl-prefill] against the aligned streams (t, t, t):"
+          f" the text prefix rel Frobenius {e_pre:.3e} (the streams agree "
+          f"there), every position after it {e_after:.3e} (must exceed "
+          f"{TOL_LM_BF16}: M-RoPE acts)", flush=True)
+    if not e_after > TOL_LM_BF16:
+        failures.append(f"Qwen2-VL logits after the grid {e_after:.3e} "
+                        f"from the aligned streams'")
+    del logits
+    lap("17v qwen2-vl init and prefill")
+
+    ref = aligned[:, :1 + VL_DECODE_STEPS].clone()
+    del aligned
+    state = init_decode_state(cfg, B, 1 + VL_DECODE_STEPS, device=dev)
+    dec, t_dec, got = decode_run(params, cfg, state, tokens,
+                                 VL_DECODE_STEPS)
+    e_dec = rel_fro(dec, ref)
+    print(f"[encdec-qwen2vl-decode] {VL_DECODE_STEPS} decode steps (B={B},"
+          f" (t, t, t) streams as the reference decodes): {t_dec:.2f} ms a "
+          f"step; the {1 + VL_DECODE_STEPS} teacher-forced steps' logits "
+          f"against the aligned-stream prefill's: rel Frobenius "
+          f"{e_dec:.3e} (bound {TOL_LM_BF16}); launches {got}", flush=True)
+    if not e_dec <= TOL_LM_BF16:
+        failures.append(f"Qwen2-VL bf16 decode vs prefill {e_dec:.3e}")
+    expect("Qwen2-VL decode", got, (VL_DECODE_STEPS * norms, 0, 0, 0, 0))
+    del state, dec, ref
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    each_alone(params, cfg32, engine(params, cfg32, prompts_of(gen, V)))
+    print(f"[encdec-qwen2vl] serving peak "
+          f"{torch.cuda.max_memory_allocated() / gb:.2f} GB (the params "
+          f"{p_bytes / gb:.2f} GB)", flush=True)
+    lap("17v qwen2-vl decode and f32 engine")
+
+    # training at VL_TRAIN_LAYERS layers, the vision streams in the batch
+    del params["blocks"][VL_TRAIN_LAYERS:]
+    torch.cuda.empty_cache()
+    short = dataclasses.replace(cfg, n_layers=VL_TRAIN_LAYERS)
+    pipe = TokenPipeline(vocab_size=V, seq_len=S,
+                         global_batch=VL_TRAIN_BATCH, seed=args.seed)
+    acfg = AdamWConfig(lr=VL_TRAIN_LR, warmup_steps=0,
+                       total_steps=ENC_TRAIN_STEPS)
+    step_fn = make_train_step(short, acfg, TrainConfig(
+        microbatches=ENC_MICROBATCHES))
+    opt = adamw_init(params)
+    n_train = sum(t.numel() for t in leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, losses = [], []
+    batch = dict(pipe.batch(0), positions=vl_positions(VL_TRAIN_BATCH, S,
+                                                       dev))
+    for s in range(ENC_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    nm = ENC_TRAIN_STEPS * ENC_MICROBATCHES
+    Lt = VL_TRAIN_LAYERS
+    want = (nm * (2 * norms_of(short) - 1), nm * 2 * Lt, nm * Lt, nm * Lt,
+            0)
+    print(f"[encdec-train] {full.name} depth {Lt}: {ENC_TRAIN_STEPS} AdamW"
+          f" steps (lr {VL_TRAIN_LR}) on one batch of {VL_TRAIN_BATCH} x "
+          f"{S} tokens with"
+          f" the (3, B, S) vision streams in {ENC_MICROBATCHES} "
+          f"microbatches (split on the batch axis), bf16 remat ({n_train} "
+          f"params, {4 * n_train * 4 / gb:.1f} GB with gradient and "
+          f"moments): losses {losses}; step walls "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms, "
+          f"{VL_TRAIN_BATCH * S / min(times):.0f} training tokens/s at the "
+          f"fastest; device memory peak {peak / gb:.2f} GB (limit "
+          f"{VL_PEAK_BYTES / gb:.0f}); launches {got} (expected {want})",
+          flush=True)
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        failures.append(f"Qwen2-VL training losses {losses}")
+    if peak > VL_PEAK_BYTES:
+        failures.append(f"Qwen2-VL training peak {peak / gb:.2f} GB")
+    expect("Qwen2-VL training", got, want)
+    del opt, step_fn, params, tokens, pos
+    torch.cuda.empty_cache()
+    lap("17v qwen2-vl training")
+
+    # ---- the kernels at every shape the phase launched them at ----------
+    gen_k = torch.Generator(device=dev).manual_seed(args.seed + 21)
+    entries = []
+    for key, n in sorted(rmsnorm_cuda.by_shape.items()):
+        rows, d, dt = key
+        entry, ratio = _lmd_rmsnorm_entry(key, n, ["phase 17"], gen_k, dev,
+                                          name=f"rmsnorm_vl_{rows}x{d}_{dt}")
+        print(f"[encdec-time] rmsnorm {key}: {n} launches; "
+              f"{entry['ms']:.4f} ms | plain {entry['plain_ms']:.4f} ms | "
+              f"F.rms_norm {entry['library_ms']:.4f} ms | bound "
+              f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}) | vs plain"
+              f" max abs err {entry['max_abs_err']:.3e} ({ratio:.2f}x "
+              f"tolerance)")
+        if not (ratio <= 1.0 and d == cfg.d_model):
+            failures.append(f"rmsnorm {key}: {ratio:.2f}x its tolerance "
+                            f"(phase 17 launches it at D = {cfg.d_model} "
+                            f"only)")
+        entries.append(entry)
+    fma = [key for key in flash_fwd_cuda.by_shape if key[0] != "wgmma"]
+    print(f"[encdec-time] the FP32-FMA flash shapes (f32 checks, held by "
+          f"the f32 forward and gradient above): {sorted(fma)}")
+    want_keys = {(w_bh, ENC_FLASH_FRAMES, w_hd), (w_bh, ENC_FLASH_TEXT, w_hd),
+                 (B * cfg.n_heads, S, cfg.head_dim),
+                 (VL_TRAIN_BATCH // ENC_MICROBATCHES * cfg.n_heads, S,
+                  cfg.head_dim)}
+    seen = set()
+    for key, n in sorted(flash_fwd_cuda.by_shape.items()):
+        if key[0] != "wgmma":
+            continue
+        seen.add((key[1], key[2], key[4]))
+        n_bwd = flash_bwd_cuda.by_shape.get(key, 0)
+        new, ratios = _lmd_flash_entries(key, n, n_bwd, ["phase 17"], gen_k,
+                                         dev, tag=f"encdec_s{key[2]}")
+        if not n_bwd:           # a prefill shape: dq and dkv checked only
+            new = new[:1]
+        for e in new:
+            print(f"[encdec-time] {e['name']} {e['shape']}: "
+                  f"{e['launches']} launches; {e['ms']:.4f} ms | plain "
+                  f"{e['plain_ms']:.4f} ms | SDPA {e['library_ms']:.4f} ms "
+                  f"| bound {e['bound_ms']:.4f} ms ({e['bound_by']}) | vs "
+                  f"plain max abs err {e['max_abs_err']:.3e}")
+        print(f"[encdec-time] flash at {key[1:5]}: error / derived bound "
+              + ", ".join(f"{w} {r:.3f}" for w, r in ratios.items()))
+        if not max(ratios.values()) <= 1.0:
+            failures.append(f"flash at {key}: {ratios}")
+        entries.extend(new)
+    if seen != want_keys:
+        failures.append(f"phase 17 launched the tensor-core flash at "
+                        f"{sorted(seen)}, not {sorted(want_keys)}")
+    lap("17 kernel entries")
+    torch.cuda.empty_cache()
+    print(f"[encdec] phase 17 took {time.perf_counter() - t_phase:.1f} s")
     return entries
 
 
@@ -7321,6 +8014,15 @@ def main(argv=None) -> int:
         return fail(f"{len(failures)} SSM check(s) failed")
     mark(t_main, "phase 16")
 
+    # ---- 17. the encoder-decoder stack and M-RoPE -------------------------
+    encdec_entries = encdec_phase(dev, args, failures)
+    if failures:
+        for f in failures:
+            print(f"[encdec] FAIL {f}")
+        return fail(f"{len(failures)} encoder-decoder / M-RoPE check(s) "
+                    f"failed")
+    mark(t_main, "phase 17")
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
@@ -7368,6 +8070,7 @@ def main(argv=None) -> int:
         *train_entries,
         *moe_entries,
         *ssm_entries,
+        *encdec_entries,
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@ params, decode state and AdamW state (numpy pytrees of the JAX
 unstacking the per-period layer axis into the port's list of layers
 (a hybrid pattern's shared block, which JAX does not stack, is copied
 as it is; its decode caches, stacked over the periods, become a list of
-one pair a period); ``lm_shards`` gives a rank of a mesh its shards of
-those params.
+one pair a period; an encoder's blocks, stacked over its layers, become
+a list of one dict a layer, and the cross-attention keys and values one
+pair a decoder layer); ``lm_shards`` gives a rank of a mesh its shards
+of those params.
 """
 from __future__ import annotations
 
@@ -142,7 +144,8 @@ def lm_params(params: Mapping, cfg, device=None) -> dict:
     f32 tensors on ``device`` with ``blocks`` unstacked into one dict per
     layer (a MoE layer's experts keep their leading E axis: (n_periods,
     E, d, f) -> (E, d, f)); ``shared_attn`` is one block in JAX too and
-    is copied as it is."""
+    is copied as it is; ``encoder/blocks``, stacked over the
+    ``encoder_layers`` axis, is unstacked into one dict per layer."""
     from repro_torch.models import check_supported
     check_supported(cfg)
     dev = resolve_device(device)
@@ -151,8 +154,14 @@ def lm_params(params: Mapping, cfg, device=None) -> dict:
         return as_tensor(a, dev).float().contiguous()
 
     out = {k: map_tree(tensor, v) for k, v in params.items()
-           if k != "blocks"}
+           if k not in ("blocks", "encoder")}
     out["blocks"] = map_tree(tensor, _layers(params["blocks"], cfg))
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "blocks": [map_tree(lambda a: tensor(a[i]), enc["blocks"])
+                       for i in range(cfg.encoder_layers)],
+            "final_norm": map_tree(tensor, enc["final_norm"])}
     return out
 
 
@@ -160,8 +169,8 @@ def lm_shards(params: Mapping, cfg, rules, device=None) -> dict:
     """This rank's shards under ``rules`` (``models.sharding.MeshRules``)
     of a JAX ``init_params`` pytree given as numpy arrays: ``lm_params``,
     then each leaf cut by its spec (``models.sharding.shard_tree``).
-    Raises naming ROADMAP A11e for Mamba or shared-block configs
-    (``param_specs``)."""
+    Raises naming ROADMAP A11e for Mamba or shared-block configs, A11f
+    for the encoder-decoder stack or M-RoPE (``param_specs``)."""
     from repro_torch.models.lm import param_specs
     from repro_torch.models.sharding import shard_tree
     return shard_tree(rules, lm_params(params, cfg, device),
@@ -173,8 +182,9 @@ def decode_state(state: Mapping, cfg, device=None) -> dict:
     ``decode_step`` state given as numpy arrays: one cache pair per layer
     (GQA's (k, v), MLA's (c, k_rope), Mamba's (conv_state, h)), each in
     the compute dtype but Mamba's h, which stays f32 as in JAX; the
-    shared block's caches one pair a period (``shared_cache``); ``pos``
-    as int64."""
+    shared block's caches one pair a period (``shared_cache``); an
+    encoder-decoder's ``cross_kv``, (L, B, T, kv, hd) stacked, one (k, v)
+    pair a decoder layer; ``pos`` as int64."""
     from repro_torch.models import MAMBA1, MAMBA2, check_supported
     from repro_torch.models.lm import layer_kinds
     check_supported(cfg)
@@ -198,6 +208,10 @@ def decode_state(state: Mapping, cfg, device=None) -> dict:
         out["shared_cache"] = [
             tuple(cast(c[period], dtype) for c in state["shared_cache"])
             for period in range(cfg.n_periods)]
+    if "cross_kv" in state:
+        out["cross_kv"] = [
+            tuple(cast(c[layer], dtype) for c in state["cross_kv"])
+            for layer in range(cfg.n_layers)]
     return out
 
 
@@ -206,7 +220,8 @@ def decode_state_shards(state: Mapping, cfg, rules, device=None) -> dict:
     of a JAX decode state given as numpy arrays: ``decode_state``, then
     each cache cut by its ``cache_spec`` (``shard_leaf``); ``pos`` whole
     and ``max_seq``, as ``init_decode_state(rules=)`` holds them.
-    Raises naming ROADMAP A11e for Mamba or shared-block configs."""
+    Raises naming ROADMAP A11e for Mamba or shared-block configs, A11f
+    for the encoder-decoder stack or M-RoPE."""
     from repro_torch.models.lm import check_shardable, decode_state_layout
     check_shardable(cfg)
     from repro_torch.models.sharding import shard_leaf

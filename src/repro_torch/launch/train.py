@@ -16,6 +16,9 @@ is given.
     # the SSM family, on one device only (a --mesh raises: ROADMAP A11e)
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch zamba2-1.2b --reduced --device cpu --steps 20
+    # M-RoPE, on one device only (a --mesh raises: ROADMAP A11f)
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch qwen2-vl-72b --reduced --device cpu --steps 20
     # the s-step deferred sync on a 2 x 2 mesh of CPU ranks (gloo)
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --reduced --device cpu --mesh 2x2 --defer-s 2 --microbatches 4
@@ -38,7 +41,11 @@ Checkpoints hold the full leaves, gathered to rank 0 (the format of the
 single-device run), and a resume re-shards them onto whatever mesh it
 runs on.  falcon-mamba-7b and zamba2-1.2b train on one device; with a
 ``--mesh`` they raise before any process group starts, naming ROADMAP
-A11e.
+A11e.  qwen2-vl-72b trains on one device with the default position
+streams (t, t, t), as the JAX training CLI feeds it; with a ``--mesh`` it
+raises naming ROADMAP A11f.  whisper-tiny is refused before the first
+step: the token pipeline gives no frames for its encoder, and the JAX
+training CLI, which feeds tokens only, fails there too (ROADMAP C).
 """
 from __future__ import annotations
 
@@ -94,8 +101,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     d, m = (int(x) for x in args.mesh.split("x"))
+    cfg = get_config(args.arch, reduced=args.reduced)
     if d * m > 1:
-        check_shardable(get_config(args.arch, reduced=args.reduced))
+        check_shardable(cfg)
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the training CLI feeds tokens only "
+            f"(TokenPipeline), as the JAX training CLI does, and the "
+            f"encoder needs its frames (audio_embed); train it through "
+            f"make_train_step with batches that hold them")
     if args.defer_s > 0 and d * m == 1:
         raise ValueError("--defer-s needs a multi-rank mesh (--mesh DxM "
                          "under torchrun)")

@@ -1,8 +1,8 @@
-"""Attention blocks: GQA (covers MHA and MQA) with qk-norm (Qwen3) and
-RoPE, and MLA (DeepSeek-V2's compressed-KV attention); causal
-full-sequence attention (training and prefill) and single-token decode
-against a cache (the counterpart of the GQA and MLA parts of
-``repro/models/attention.py``).
+"""Attention blocks: GQA (covers MHA and MQA) with qk-norm (Qwen3), RoPE
+or M-RoPE (Qwen2-VL), self- or cross-attention (Whisper's decoder), and
+MLA (DeepSeek-V2's compressed-KV attention); full-sequence attention
+(training and prefill) and single-token decode against a cache (the
+counterpart of ``repro/models/attention.py``).
 
 Softmax and logit math in f32; products in the config's compute dtype.
 With ``attn_impl="flash"`` causal full-sequence attention (training and
@@ -23,8 +23,17 @@ kv, hd) twice.  Keys and values are expanded from the latent through
 of it, at every decode step, as in the JAX package); queries and keys
 are [nope | rope] of width hd + rd, so the softmax scale is (hd +
 rd)^-0.5.  MLA runs plain attention whatever ``attn_impl`` says, as the
-JAX package does.  M-RoPE (Qwen2-VL) and cross-attention (Whisper) are
-not ported yet and raise.
+JAX package does.
+
+Cross-attention (``gqa_forward(kv_x=)``) takes its keys and values from
+the encoder's output: no rotation of q or k, no mask, and always plain
+attention (the flash kernel is causal self-attention only, as in the
+JAX package); its decode (``gqa_decode(cross_kv=)``) attends over the
+keys and values ``lm.prefill_cross_kv`` computed once, and passes the
+self-attention cache through untouched.  M-RoPE rotates each section
+of the rotary frequencies by its own position stream ((3, B, S):
+temporal, height, width; ``layers.apply_mrope``); decode rotates with
+the three streams equal to ``pos``, as the JAX package does.
 
 Decode attention is one function for GQA and MLA, sharded or not:
 ``chunk_attention`` over a chunk of cache slots gives a partial output
@@ -53,11 +62,9 @@ import torch
 
 from repro_torch.kernels import ops
 from .config import ModelConfig
-from .layers import apply_rope, dense_init, init_norm, rmsnorm
+from .layers import apply_mrope, apply_rope, dense_init, init_norm, rmsnorm
 
 NEG_INF = -2.0e38
-
-UNPORTED_MROPE = "M-RoPE is not ported yet (ROADMAP A13.8)"
 
 
 def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -168,32 +175,48 @@ def merge_chunks(seq: Optional[SeqSplit], o: torch.Tensor,
     return out.to(o.dtype)
 
 
-def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, rope_cache=None,
-                tp=None) -> torch.Tensor:
-    """Full-sequence self-attention (training and prefill): x (B, S, D) ->
-    (B, S, D), causal unless ``cfg.causal`` is False; over this rank's
-    heads with ``tp`` (module docstring)."""
+def _rotate_qk(q, k, cfg: ModelConfig, positions, rope_cache=None):
+    """q and k rotated at ``positions``: M-RoPE over (3, B, S) streams
+    where ``cfg.mrope``, else RoPE over (B, S) (or ``rope_cache``)."""
     if cfg.mrope:
-        raise NotImplementedError(UNPORTED_MROPE)
+        return (apply_mrope(q, positions, cfg.rope_theta,
+                            cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta,
+                            cfg.mrope_sections))
+    return (apply_rope(q, positions, cfg.rope_theta, cache=rope_cache),
+            apply_rope(k, positions, cfg.rope_theta, cache=rope_cache))
+
+
+def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: Optional[torch.Tensor], rope_cache=None,
+                tp=None, kv_x: Optional[torch.Tensor] = None,
+                causal: Optional[bool] = None) -> torch.Tensor:
+    """Full-sequence attention (training and prefill): x (B, S, D) ->
+    (B, S, D), causal unless ``causal`` (by default ``cfg.causal``) is
+    False; over this rank's heads with ``tp`` (module docstring).  With
+    ``kv_x`` (B, T, D) cross-attention: keys and values from ``kv_x``,
+    neither rotated nor masked, through plain attention."""
     dtype = x.dtype
+    cross = kv_x is not None
     if tp is not None:
         x = tp.copy(x)
+    src = kv_x if cross else x
     q = _project(x, p["wq"], dtype)
-    k = _project(x, p["wk"], dtype)
-    v = _project(x, p["wv"], dtype)
+    k = _project(src, p["wk"], dtype)
+    v = _project(src, p["wv"], dtype)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
-    q = apply_rope(q, positions, cfg.rope_theta, cache=rope_cache)
-    k = apply_rope(k, positions, cfg.rope_theta, cache=rope_cache)
+    if not cross:
+        q, k = _rotate_qk(q, k, cfg, positions, rope_cache)
     k = _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
     v = _repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
-    if cfg.attn_impl == "flash" and cfg.causal:
+    use_causal = (cfg.causal if causal is None else causal) and not cross
+    if cfg.attn_impl == "flash" and use_causal:
         out = ops.sdpa_flash(q, k, v, causal=True)
     else:
         mask = None
-        if cfg.causal:
+        if use_causal:
             S, T = q.shape[1], k.shape[1]
             mask = torch.ones((S, T), dtype=torch.bool,
                               device=x.device).tril()
@@ -204,27 +227,38 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                cache: Tuple[torch.Tensor, torch.Tensor], pos: torch.Tensor,
-               tp=None, seq: Optional[SeqSplit] = None):
+               tp=None, seq: Optional[SeqSplit] = None,
+               cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """One-token decode.  x: (B, 1, D); cache: (k, v), each (B, S_max, kv,
     hd); pos: (B,) the position each row writes.  Returns (out, new
     cache); the caches are new tensors (the inputs are not written), and
     a ``pos`` at or past S_max writes nothing, as the JAX one-hot does.
     With ``tp`` over this rank's heads (the cache holds its kv heads);
     with ``seq`` the cache is this rank's chunk of S (module
-    docstring)."""
-    if cfg.mrope:
-        raise NotImplementedError(UNPORTED_MROPE)
+    docstring).  With ``cross_kv`` (k, v), each (B, T, kv, hd): plain
+    attention of the unrotated query over them, the cache returned as it
+    came."""
     dtype = x.dtype
     if tp is not None:
         x = tp.copy(x)
     q = _project(x, p["wq"], dtype)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+    if cross_kv is not None:
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        k, v = (_repeat_kv(t.to(dtype), n_rep) for t in cross_kv)
+        out = torch.einsum("bshk,hkd->bsd", _sdpa(q, k, v, None, dtype),
+                           p["wo"].to(dtype))
+        return (out if tp is None else tp.reduce(out)), cache
     k_new = _project(x, p["wk"], dtype)
     v_new = _project(x, p["wv"], dtype)
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q)
         k_new = rmsnorm(p["k_norm"], k_new)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    if cfg.mrope:       # the three streams equal: (t, t, t)
+        positions = pos[None, :, None].expand(3, -1, 1)
+    else:
+        positions = pos[:, None]
+    q, k_new = _rotate_qk(q, k_new, cfg, positions)
 
     offset = 0 if seq is None else seq.offset
     at, _ = slot_masks(cache[0].shape[1], offset, pos)      # (B, S)
@@ -346,8 +380,10 @@ def init_mla_cache(cfg: ModelConfig, batch: int, seq: int,
 
 # dispatchers ---------------------------------------------------------
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    if cfg.attn_type == "mla":
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   cross: bool = False) -> dict:
+    """A block's attention params; cross-attention is always GQA."""
+    if cfg.attn_type == "mla" and not cross:
         return init_mla(gen, cfg)
     return init_gqa(gen, cfg)
 

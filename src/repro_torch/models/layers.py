@@ -40,6 +40,17 @@ def init_norm(d: int, device) -> dict:
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
+def init_layernorm(d: int, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def init_norm_for(kind: str, d: int, device) -> dict:
+    """The params of a norm of ``kind`` ("rmsnorm" or "layernorm")."""
+    return init_norm(d, device) if kind == "rmsnorm" else \
+        init_layernorm(d, device)
+
+
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis, statistics in f32, result in x's dtype:
     the RMSNorm kernel on the card."""
@@ -95,16 +106,39 @@ def make_rope_cache(positions: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(angles), torch.sin(angles)
 
 
+def _rotate(x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     -1).to(x.dtype)
+
+
 def apply_rope(x: torch.Tensor, positions: Optional[torch.Tensor],
                theta: float, cache=None) -> torch.Tensor:
     """x: (..., S, H, hd); positions: (..., S) integers (ignored when a
     precomputed ``cache`` = (cos, sin) is given)."""
     if cache is None:
         cache = make_rope_cache(positions, x.shape[-1], theta)
-    cos, sin = cache
-    x1, x2 = x.float().chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
-                     -1).to(x.dtype)
+    return _rotate(x, *cache)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE.  x: (B, S, H, hd); positions3: (3, B, S), the
+    temporal, height and width position streams.  The hd / 2 rotary
+    frequencies are split into ``sections`` (their sum is hd / 2), each
+    rotated by its own stream."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum "
+                         f"to head_dim / 2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))
+    pos = positions3.float()[sec_id]                 # (hd/2, B, S)
+    angles = (pos.movedim(0, -1) * freqs)[..., None, :]  # (B, S, 1, hd/2)
+    return _rotate(x, torch.cos(angles), torch.sin(angles))
 
 
 # ------------------------------------------------------------ embedding ---

@@ -1,8 +1,8 @@
 """Model assembly for decoders of dense, MoE and Mamba blocks over GQA
 or MLA attention, with the hybrid pattern's shared
-attention block (Zamba2): init, the training / prefill forward, the loss
-and the single-token decode step (the counterpart of
-``repro/models/lm.py``).
+attention block (Zamba2), M-RoPE (Qwen2-VL) and an encoder in front
+(Whisper): init, the training / prefill forward, the loss and the
+single-token decode step (the counterpart of ``repro/models/lm.py``).
 
 The JAX package stacks each pattern position's params over the
 ``n_periods`` repeats and walks them with ``lax.scan``; here
@@ -20,8 +20,22 @@ norm, attention, and norm2 + MLP where ``d_ff``) runs after every
 period of ``len(cfg.pattern)`` layers, the same weights every time (its
 gradient sums over the applications); each application has its own
 attention cache (``state["shared_cache"]``, one per period) and, under
-remat, its own checkpoint.  Families the port does not run yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+remat, its own checkpoint.
+
+With ``cfg.encoder_layers`` (Whisper) ``params["encoder"]`` holds
+``blocks`` (one dense block a layer, no cross-attention) and
+``final_norm``; ``encoder_forward`` runs them over the frame embeddings
+``audio_embed`` (B, encoder_seq, D) with the default positions (RoPE,
+and causal where ``cfg.causal``, as the reference), each layer under
+its own checkpoint under remat.  With ``cfg.cross_attention`` every
+decoder block adds ``x + cross(norm_x(x), enc_out)`` after its
+self-attention; in decode the encoder's keys and values come from the
+state's ``cross_kv`` (one pair a layer, ``init_decode_state(
+with_encoder=True)``, filled by ``prefill_cross_kv``).  With
+``cfg.mrope`` the positions are (3, B, S) (``_default_positions``: the
+three streams equal) and no rope cache is built.  The norm kind of
+every block, of the shared block and of ``final_norm`` is ``cfg.norm``
+("rmsnorm": the kernel; "layernorm": plain, as in the reference).
 
 With ``rules`` (``models.sharding.MeshRules``) ``forward`` and
 ``loss_fn`` take this rank's shards of the params (``param_spec`` of
@@ -39,7 +53,8 @@ split-S attention where their S is split (``models.attention``); it uses
 the embedding and head tables vocab-parallel (``Sharded.lookup``,
 ``Sharded.project``), where ``forward`` gathers them at use.  Mamba
 blocks and the shared block are not sharded yet: with ``rules`` every
-entry point raises on them, naming ROADMAP A11e.
+entry point raises on them, naming ROADMAP A11e; on the encoder-decoder
+stack and M-RoPE it raises naming ROADMAP A11f.
 """
 from __future__ import annotations
 
@@ -51,10 +66,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from .attention import (SeqSplit, attention_decode, attention_forward,
-                        init_attention, init_cache)
+                        gqa_decode, gqa_forward, init_attention, init_cache)
 from .config import DENSE, MAMBA1, MAMBA2, ModelConfig
 from .layers import (apply_norm, embed, init_embedding, init_mlp,
-                     init_norm, make_rope_cache, mlp, unembed)
+                     init_norm_for, make_rope_cache, mlp, unembed)
 from . import mamba as mb
 from .moe import init_moe, moe_apply
 from .sharding import (Sharded, batch_rows, chunk_shape,
@@ -62,20 +77,9 @@ from .sharding import (Sharded, batch_rows, chunk_shape,
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the port (it runs
-    decoders of dense, MoE and Mamba blocks over GQA or MLA attention,
-    with the shared attention block, rmsnorm and plain RoPE), naming its
-    ROADMAP item."""
-    unported = [
-        (cfg.encoder_layers > 0 or cfg.cross_attention
-         or cfg.embedding_inputs, "the encoder-decoder stack", "A13.7"),
-        (cfg.norm != "rmsnorm", f"{cfg.norm} models", "A13.7"),
-        (cfg.mrope, "M-RoPE", "A13.8"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(f"{cfg.name}: {what} are not ported "
-                                      f"yet (ROADMAP {item})")
+    """Raise ``NotImplementedError`` for a config outside the port: an
+    attention type other than GQA or MLA (every config of the reference
+    runs)."""
     if cfg.is_attention_free:
         return
     if cfg.attn_type not in ("gqa", "mla") or not cfg.n_heads:
@@ -84,13 +88,18 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_shardable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A11e for a config
-    whose sharded form is not ported: Mamba blocks or the shared
-    attention block (module docstring)."""
+    """Raise ``NotImplementedError`` for a config whose sharded form is not
+    ported: naming ROADMAP A11e for Mamba blocks or the shared attention
+    block, A11f for the encoder-decoder stack or M-RoPE (module
+    docstring)."""
     if cfg.has_ssm or cfg.shared_attn_every:
         raise NotImplementedError(
             f"{cfg.name}: sharded Mamba blocks and the shared attention "
             f"block are not ported yet (ROADMAP A11e)")
+    if cfg.encoder_layers or cfg.cross_attention or cfg.mrope:
+        raise NotImplementedError(
+            f"{cfg.name}: the sharded encoder-decoder stack and M-RoPE "
+            f"are not ported yet (ROADMAP A11f)")
 
 
 def _check(cfg: ModelConfig, rules) -> None:
@@ -106,16 +115,22 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 # ---------------------------------------------------------------- init ----
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                cross: bool = False) -> dict:
+    """One layer's params; ``cross`` adds the decoder's cross-attention
+    (``norm_x``, ``cross``) to an attention block."""
     dev = gen.device
-    p = {"norm1": init_norm(cfg.d_model, dev)}
+    p = {"norm1": init_norm_for(cfg.norm, cfg.d_model, dev)}
     if kind == MAMBA1:
         p["mamba"] = mb.init_mamba1(gen, cfg)
     elif kind == MAMBA2:
         p["mamba"] = mb.init_mamba2(gen, cfg)
     else:
         p["attn"] = init_attention(gen, cfg)
-        p["norm2"] = init_norm(cfg.d_model, dev)
+        if cross:
+            p["norm_x"] = init_norm_for(cfg.norm, cfg.d_model, dev)
+            p["cross"] = init_attention(gen, cfg, cross=True)
+        p["norm2"] = init_norm_for(cfg.norm, cfg.d_model, dev)
         if kind == DENSE:
             p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff)
         else:
@@ -126,10 +141,10 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
 def _init_shared(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """The one shared attention (+ MLP) block of a hybrid pattern."""
     dev = gen.device
-    p = {"norm": init_norm(cfg.d_model, dev),
+    p = {"norm": init_norm_for(cfg.norm, cfg.d_model, dev),
          "attn": init_attention(gen, cfg)}
     if cfg.d_ff:
-        p["norm2"] = init_norm(cfg.d_model, dev)
+        p["norm2"] = init_norm_for(cfg.norm, cfg.d_model, dev)
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff)
     return p
 
@@ -143,13 +158,18 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
         raise ValueError(f"init_params: the generator is on {gen.device} "
                          f"but the params go to {dev}")
     params = {"embed": init_embedding(gen, cfg.vocab_size, cfg.d_model),
-              "final_norm": init_norm(cfg.d_model, dev)}
+              "final_norm": init_norm_for(cfg.norm, cfg.d_model, dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = init_embedding(gen, cfg.vocab_size, cfg.d_model)
-    params["blocks"] = [_init_block(gen, cfg, kind)
+    params["blocks"] = [_init_block(gen, cfg, kind, cfg.cross_attention)
                         for kind in layer_kinds(cfg)]
     if cfg.shared_attn_every:
         params["shared_attn"] = _init_shared(gen, cfg)
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "blocks": [_init_block(gen, cfg, DENSE)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": init_norm_for(cfg.norm, cfg.d_model, dev)}
     return params
 
 
@@ -162,11 +182,16 @@ def abstract_params(cfg: ModelConfig) -> dict:
     def t(*shape):
         return torch.empty(shape, dtype=torch.float32, device="meta")
 
+    def norm():
+        if cfg.norm == "rmsnorm":
+            return {"scale": t(d)}
+        return {"scale": t(d), "bias": t(d)}
+
     def mlp_leaves(f):
         return {"wi_gate": t(d, f), "wi_up": t(d, f), "wo": t(f, d)}
 
-    def attention():
-        if cfg.attn_type == "mla":
+    def attention(cross=False):
+        if cfg.attn_type == "mla" and not cross:
             rd, vd, r = cfg.qk_rope_head_dim, cfg.v_head, cfg.kv_lora_rank
             return {"wq": t(d, h, hd + rd), "w_dkv": t(d, r),
                     "w_kr": t(d, rd), "w_uk": t(r, h, hd),
@@ -203,13 +228,16 @@ def abstract_params(cfg: ModelConfig) -> dict:
                 "A_log": t(nh), "D": t(nh), "norm_scale": t(di),
                 "out_proj": t(di, d)}
 
-    def block(kind):
-        p = {"norm1": {"scale": t(d)}}
+    def block(kind, cross=False):
+        p = {"norm1": norm()}
         if kind in (MAMBA1, MAMBA2):
             p["mamba"] = mamba(kind)
             return p
         p["attn"] = attention()
-        p["norm2"] = {"scale": t(d)}
+        if cross:
+            p["norm_x"] = norm()
+            p["cross"] = attention(cross=True)
+        p["norm2"] = norm()
         if kind == DENSE:
             p["mlp"] = mlp_leaves(cfg.d_ff)
         else:
@@ -217,16 +245,20 @@ def abstract_params(cfg: ModelConfig) -> dict:
         return p
 
     params = {"embed": {"table": t(cfg.vocab_size, d)},
-              "final_norm": {"scale": t(d)}}
+              "final_norm": norm()}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"table": t(cfg.vocab_size, d)}
-    params["blocks"] = [block(kind) for kind in layer_kinds(cfg)]
+    params["blocks"] = [block(kind, cfg.cross_attention)
+                        for kind in layer_kinds(cfg)]
     if cfg.shared_attn_every:
-        params["shared_attn"] = {"norm": {"scale": t(d)},
-                                 "attn": attention()}
+        params["shared_attn"] = {"norm": norm(), "attn": attention()}
         if cfg.d_ff:
-            params["shared_attn"]["norm2"] = {"scale": t(d)}
+            params["shared_attn"]["norm2"] = norm()
             params["shared_attn"]["mlp"] = mlp_leaves(cfg.d_ff)
+    if cfg.encoder_layers:
+        params["encoder"] = {"blocks": [block(DENSE) for _ in
+                                        range(cfg.encoder_layers)],
+                             "final_norm": norm()}
     return params
 
 
@@ -246,7 +278,10 @@ def _head_key(cfg: ModelConfig) -> str:
 def _block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, rope_cache,
                    sh: Optional[Sharded] = None,
-                   spec: Optional[dict] = None) -> torch.Tensor:
+                   spec: Optional[dict] = None,
+                   enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer; with ``enc_out`` (B, T, D) a decoder block adds its
+    cross-attention over it after the self-attention."""
     if kind in (MAMBA1, MAMBA2):
         fwd = mb.mamba1_forward if kind == MAMBA1 else mb.mamba2_forward
         return x + fwd(p["mamba"], cfg, apply_norm(cfg.norm, p["norm1"], x))
@@ -257,6 +292,10 @@ def _block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
                               apply_norm(cfg.norm, p["norm1"], x),
                               positions, rope_cache=rope_cache,
                               tp=tp("attn"))
+    if cfg.cross_attention and enc_out is not None:
+        x = x + gqa_forward(p["cross"], cfg,
+                            apply_norm(cfg.norm, p["norm_x"], x), None,
+                            kv_x=enc_out)
     h = apply_norm(cfg.norm, p["norm2"], x)
     if kind == DENSE:
         return x + mlp(p["mlp"], h, x.dtype, tp=tp("mlp"))
@@ -313,17 +352,53 @@ def _differentiated(p: dict, x: torch.Tensor) -> bool:
     return x.requires_grad
 
 
-def _default_positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, dtype=torch.int64, device=device).expand(B, S)
+def _default_positions(cfg: ModelConfig, B: int, S: int,
+                       device) -> torch.Tensor:
+    """0 .. S - 1 for every row: (B, S), or (3, B, S) with the three
+    M-RoPE streams equal."""
+    pos = torch.arange(S, dtype=torch.int64, device=device).expand(B, S)
+    return pos.expand(3, B, S) if cfg.mrope else pos
+
+
+def _rope_cache(cfg: ModelConfig, positions: torch.Tensor):
+    """(cos, sin) for every layer's GQA rotation, or None (MLA rotates on
+    the fly, M-RoPE per section)."""
+    if cfg.mrope or cfg.attn_type != "gqa" or not cfg.n_heads:
+        return None
+    return make_rope_cache(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def encoder_forward(params: dict, cfg: ModelConfig,
+                    audio_embed: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over the frame embeddings (B, T, D) (the
+    frontend is a stub, as in the reference): its dense blocks at the
+    default positions, each under its own checkpoint under remat, then
+    its ``final_norm``; (B, T, D) in the compute dtype."""
+    if audio_embed is None:
+        raise ValueError(f"{cfg.name}: the encoder needs audio_embed, the "
+                         f"(B, encoder_seq, d_model) frame embeddings")
+    x = audio_embed.to(cfg.activation_dtype)
+    B, T = x.shape[:2]
+    positions = _default_positions(cfg, B, T, x.device)
+    rope_cache = _rope_cache(cfg, positions)
+    enc = params["encoder"]
+    for p in enc["blocks"]:
+        x = _remat(_block_forward, p, x, cfg, DENSE, p, cfg, x, positions,
+                   rope_cache)
+    return apply_norm(cfg.norm, enc["final_norm"], x)
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
+            audio_embed: Optional[torch.Tensor] = None,
             rules=None) -> torch.Tensor:
     """Training / prefill forward: tokens (B, S) -> f32 logits (B, S, V).
-    Layers run under activation checkpointing when ``cfg.remat ==
-    "full"`` and the forward is being differentiated; the final norm and
-    the head stay outside, as in the JAX package.  With ``rules`` the
+    ``positions``: (B, S), or (3, B, S) for M-RoPE; by default 0 .. S - 1.
+    ``audio_embed``: the encoder's frame embeddings (B, encoder_seq, D),
+    needed where ``cfg.encoder_layers``.  Layers run under activation
+    checkpointing when ``cfg.remat == "full"`` and the forward is being
+    differentiated; the final norm and the head stay outside, as in the
+    JAX package.  With ``rules`` the
     params are this rank's shards (module docstring); the embedding and
     head tables are gathered at use (not vocab-parallel), the head and
     the layers' weight matrices in the compute dtype."""
@@ -340,15 +415,15 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = embed({"table": sh.use(params["embed"]["table"],
                                    specs["embed"]["table"])}, tokens, dtype)
     if positions is None:
-        positions = _default_positions(B, S, tokens.device)
-    rope_cache = None
-    if cfg.attn_type == "gqa" and cfg.n_heads:  # MLA rotates on the fly
-        rope_cache = make_rope_cache(positions, cfg.head_dim,
-                                     cfg.rope_theta)
+        positions = _default_positions(cfg, B, S, tokens.device)
+    enc_out = None
+    if cfg.encoder_layers:
+        enc_out = encoder_forward(params, cfg, audio_embed)
+    rope_cache = _rope_cache(cfg, positions)
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["blocks"])):
         spec = None if specs is None else specs["blocks"][i]
         x = _remat(_block_forward, p, x, cfg, kind, p, cfg, x, positions,
-                   rope_cache, sh, spec, early_stop=sh is None)
+                   rope_cache, sh, spec, enc_out, early_stop=sh is None)
         if _period_ends(cfg, i):
             sp = params["shared_attn"]
             x = _remat(_shared_forward, sp, x, cfg, sp, cfg, x, positions,
@@ -369,12 +444,14 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
             rules=None) -> torch.Tensor:
     """Mean next-token cross entropy ``logsumexp(logits) - logits[label]``
     over f32 logits; ``batch`` holds ``tokens`` and ``labels`` (B, S)
-    (and optionally ``positions``).  ``cfg.ce_impl``: "gather" takes the
-    gold logit by index, "onehot" contracts with a one-hot (the JAX
-    package's V-sharding-friendly form; the same value).  With ``rules``
+    (and optionally ``positions``, (B, S) or (3, B, S), and
+    ``audio_embed``, the encoder's frames).  ``cfg.ce_impl``: "gather"
+    takes the gold logit by index, "onehot" contracts with a one-hot (the
+    JAX package's V-sharding-friendly form; the same value).  With ``rules``
     the mean is over this rank's rows (``forward``)."""
     logits = forward(params, cfg, batch["tokens"],
-                     positions=batch.get("positions"), rules=rules)
+                     positions=batch.get("positions"),
+                     audio_embed=batch.get("audio_embed"), rules=rules)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     if cfg.ce_impl == "onehot":
@@ -389,15 +466,19 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
 # ------------------------------------------------------------- decode -----
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
-                      device=None, rules=None) -> dict:
+                      device=None, rules=None,
+                      with_encoder: bool = False) -> dict:
     """Decode state: one zeroed cache pair per layer (GQA: (k, v), each
     (batch, max_seq, kv, hd); MLA: (c, k_rope), (batch, max_seq,
     kv_lora_rank) and (batch, max_seq, qk_rope_head_dim); in the compute
     dtype; Mamba: (conv_state (batch, d_conv - 1, C) in the compute
     dtype, h in f32: (batch, d_inner, n) for Mamba-1, (batch, nh, hd, n)
     for Mamba-2), with the shared attention block ``shared_cache``, one
-    GQA / MLA pair per period (one per application), and ``pos`` (batch,)
-    int64.  With ``rules`` each cache is this rank's chunk of it
+    GQA / MLA pair per period (one per application), with
+    ``with_encoder`` on an encoder-decoder config ``cross_kv``, one zeroed
+    (k, v) pair a decoder layer, each (batch, encoder_seq, kv, hd) in
+    the compute dtype (``prefill_cross_kv`` fills them), and ``pos``
+    (batch,) int64.  With ``rules`` each cache is this rank's chunk of it
     (``decode_state_specs``), ``pos`` is whole (replicated), and
     ``max_seq`` is kept in the state (a chunk of S does not tell the full
     S)."""
@@ -414,6 +495,11 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
             state["shared_cache"] = [
                 init_cache(cfg, batch, max_seq, dtype, dev)
                 for _ in range(cfg.n_periods)]
+        if cfg.encoder_layers and with_encoder:
+            shape = (batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+            state["cross_kv"] = [
+                tuple(torch.zeros(shape, dtype=dtype, device=dev)
+                      for _ in range(2)) for _ in range(cfg.n_layers)]
         return state
     full = abstract_decode_state(cfg, batch, max_seq)
     specs = decode_state_layout(rules, cfg, batch, max_seq)
@@ -433,6 +519,20 @@ def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int,
     if kind == MAMBA2:
         return mb.init_mamba2_state(cfg, batch, dtype, dev)
     return init_cache(cfg, batch, max_seq, dtype, dev)
+
+
+def prefill_cross_kv(params: dict, cfg: ModelConfig,
+                     audio_embed: torch.Tensor) -> list:
+    """Whisper: the encoder once over ``audio_embed``, then each decoder
+    layer's cross-attention keys and values: one (k, v) pair a layer,
+    each (B, encoder_seq, kv, hd) in the compute dtype, for the decode
+    state's ``cross_kv``."""
+    _check(cfg, None)
+    enc_out = encoder_forward(params, cfg, audio_embed)
+    dtype = enc_out.dtype
+    return [tuple(torch.einsum("btd,dhk->bthk", enc_out,
+                               p["cross"][w].to(dtype))
+                  for w in ("wk", "wv")) for p in params["blocks"]]
 
 
 def abstract_decode_state(cfg: ModelConfig, batch: int,
@@ -461,7 +561,8 @@ def _seq_split(mesh, spec, chunk: torch.Tensor) -> Optional[SeqSplit]:
 def decode_step(params: dict, cfg: ModelConfig, state: dict,
                 tokens: torch.Tensor, rules=None):
     """One new token per sequence.  tokens: (B, 1) -> (logits (B, V), new
-    state).  The input state is not written.  With ``rules`` (module
+    state).  The input state is not written; its ``cross_kv`` (where it
+    has one) passes into the new state as it is.  With ``rules`` (module
     docstring) ``params`` and the caches of ``state`` are this rank's
     chunks, ``tokens`` the global (B, 1), and the logits (full vocab)
     those of this rank's ``batch_rows``; ``pos`` stays whole.  The
@@ -509,6 +610,11 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
                                     apply_norm(cfg.norm, p["norm1"], h), c,
                                     pos, tp=tp("attn"), seq=seq)
             h = h + a
+            if cfg.cross_attention and "cross_kv" in state:
+                a, _ = gqa_decode(p["cross"], cfg,
+                                  apply_norm(cfg.norm, p["norm_x"], h), c,
+                                  pos, cross_kv=state["cross_kv"][i])
+                h = h + a
             hn = apply_norm(cfg.norm, p["norm2"], h)
             if kind == DENSE:
                 h = h + mlp(p["mlp"], hn, dtype, tp=tp("mlp"))

@@ -68,14 +68,18 @@ def global_norm(tree) -> torch.Tensor:
 
 def decayed(path, p: torch.Tensor) -> bool:
     """Whether weight decay applies to the leaf at ``path``: every leaf
-    under ``params["blocks"]`` and every leaf of ndim >= 2 elsewhere.
-    The JAX rule is ``p.ndim >= 2`` on its tree, where each block leaf
-    is stacked over ``n_periods``; that makes the block norm scales
-    ((n_periods, D), (n_periods, hd)) 2-D, so the JAX package decays
-    them, and ``final_norm`` ((D,)) not.  The port keeps one dict per
-    layer, where those scales are 1-D: the path test reproduces the
-    reference's decay exactly (ROADMAP C4)."""
-    return (bool(path) and path[0] == "blocks") or p.ndim >= 2
+    under ``params["blocks"]`` or ``params["encoder"]["blocks"]`` and
+    every leaf of ndim >= 2 elsewhere.  The JAX rule is ``p.ndim >= 2``
+    on its tree, where each block leaf is stacked over ``n_periods``
+    (an encoder's over ``encoder_layers``); that makes the block norm
+    scales and biases ((n_periods, D), (n_periods, hd)) 2-D, so the JAX
+    package decays them, and ``final_norm`` ((D,)), the encoder's too,
+    not.  The port keeps one dict per layer, where those leaves are 1-D:
+    the path test reproduces the reference's decay exactly (ROADMAP
+    C4)."""
+    path = tuple(path)
+    return (path[:1] == ("blocks",) or path[:2] == ("encoder", "blocks")
+            or p.ndim >= 2)
 
 
 def adamw_update(cfg: AdamWConfig, params, grads, state, gnorm=None):

@@ -13,9 +13,14 @@ and out of slots between steps:
 
 Every cache is slot-indexed, so an admission only zeroes its slot: the
 attention caches of every layer and of every application of a shared
-block, and a Mamba layer's conv state and h.  A stale attention row is
+block, a Mamba layer's conv state and h, and an encoder-decoder's
+cross-attention keys and values (``cross_kv``).  A stale attention row is
 masked by ``pos`` anyway, but a Mamba h left unzeroed would carry the
 slot's previous request into the next one.
+An encoder-decoder config (Whisper) gets a state with ``cross_kv``
+(``init_decode_state(with_encoder=True)``), as the JAX engine builds
+it; nothing fills it, so every request attends over zeros, as in the
+reference (ROADMAP C).
 The next-token ids come back to the host once per step (as the JAX
 engine's ``device_get``); the tokens fed to the next step go up in one
 copy.
@@ -61,7 +66,8 @@ class ServingEngine:
         self.eos_id = eos_id
         self.device = params["embed"]["table"].device
         self.state = init_decode_state(cfg, n_slots, max_seq,
-                                       device=self.device, rules=rules)
+                                       device=self.device, rules=rules,
+                                       with_encoder=bool(cfg.encoder_layers))
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.pending: List[Request] = []
         # per-slot cursor into the prompt (-1 = generating)
@@ -73,13 +79,14 @@ class ServingEngine:
         self.pending.append(req)
 
     def _reset_slot_state(self, i: int):
-        """Zero the caches of slot i (``caches`` and ``shared_cache``, every
-        leaf, as the JAX engine zeroes every slot-indexed leaf) and its
-        position (in place: the engine owns its state); with ``rules`` the
-        caches' row of slot i where this rank holds it."""
+        """Zero the caches of slot i (``caches``, ``shared_cache`` and
+        ``cross_kv``, every leaf, as the JAX engine zeroes every
+        slot-indexed leaf) and its position (in place: the engine owns its
+        state); with ``rules`` the caches' row of slot i where this rank
+        holds it."""
         rows = batch_rows(self.rules, self.n_slots)
         if rows.start <= i < rows.stop:
-            for key in ("caches", "shared_cache"):
+            for key in ("caches", "shared_cache", "cross_kv"):
                 for pair in self.state.get(key, ()):
                     for c in pair:
                         c[i - rows.start].zero_()

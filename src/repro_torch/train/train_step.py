@@ -80,13 +80,22 @@ class TrainConfig:
 
 def _microbatches(batch: dict, nm: int) -> list:
     """``nm`` microbatches of equal size, each a dict of (B / nm, ...)
-    slices along the batch axis."""
+    slices along the batch axis: dim 0 of every entry but M-RoPE's
+    (3, B, S) ``positions``, which split on dim 1 (as the JAX
+    ``_microbatch`` splits them)."""
     B = batch["tokens"].shape[0]
     if B % nm:
         raise ValueError(f"global batch {B} is not a multiple of "
                          f"{nm} microbatches")
-    return [{k: v[i * (B // nm):(i + 1) * (B // nm)]
-             for k, v in batch.items()} for i in range(nm)]
+    n = B // nm
+
+    def rows(k, v, i):
+        if k == "positions" and v.ndim == 3:
+            return v[:, i * n:(i + 1) * n]
+        return v[i * n:(i + 1) * n]
+
+    return [{k: rows(k, v, i) for k, v in batch.items()}
+            for i in range(nm)]
 
 
 def _accumulate(params, cfg: ModelConfig, mbs: list, rules=None):

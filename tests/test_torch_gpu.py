@@ -74,7 +74,7 @@ from repro_torch.kernels.ref import (flash_attention_ref,
 from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_cuda, rmsnorm_plain
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.models import (decode_step, forward, init_decode_state,
-                                init_params)
+                                init_params, prefill_cross_kv)
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.train import (Request, ServingEngine, TrainConfig,
                                loss_and_grads, make_train_step)
@@ -1114,6 +1114,117 @@ def test_reduced_ssm_forward_on_card_matches_host(cuda_device, arch):
     outs = {}
     for dev, p in (("cpu", params), ("cuda", params_d)):
         st = init_decode_state(cfg, 2, 8, device=dev)
+        logits = []
+        for t in range(8):
+            lg, st = decode_step(p, cfg, st, toks[:, t:t + 1].to(dev))
+            logits.append(lg.cpu())
+        outs[dev] = torch.stack(logits, 1)
+    np.testing.assert_allclose(outs["cuda"].numpy(), outs["cpu"].numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4096, 8192), (4, 8192), (2048, 8192),
+                                   (37, 8192), (4, 1, 8192)])
+def test_rmsnorm_cuda_at_the_qwen2_vl_width(cuda_device, dtype, shape):
+    """D = 8192, Qwen2-VL-72B's d_model, on the generic vector kernel: the
+    prefill's (4096, 8192), the decode step's (4, 8192), a training
+    microbatch's (2048, 8192) and ragged rows, against the plain
+    version."""
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    scale = torch.from_numpy(rng.standard_normal(8192).astype(np.float32))
+    x_d, s_d = x.to(cuda_device, dtype), scale.to(cuda_device)
+    before = rmsnorm_cuda.launches
+    got = rmsnorm_cuda(x_d, s_d)
+    want = rmsnorm_plain(x_d, s_d)
+    torch.cuda.synchronize()
+    assert rmsnorm_cuda.launches == before + 1
+    assert got.shape == x_d.shape and got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(24, 1536, 1536, 64, 64),
+                                   (24, 256, 256, 64, 64)],
+                         ids=["encoder", "decoder"])
+def test_flash_at_whisper_head_dims_matches_plain(cuda_device, shape):
+    """Whisper-tiny's self-attention at hd 64 in bf16 (4 rows x 6 heads):
+    the encoder's 1536 frames and the decoder's 256 tokens, causal,
+    through the tensor-core forward, dq and dkv kernels, held to their
+    derived bounds against the plain versions; lse at the f32 limits."""
+    q, k, v, do, lse_p, delta = _bwd_inputs(shape, torch.bfloat16,
+                                            cuda_device, True, 18)
+    assert flash_route(torch.bfloat16, 64, 64) == "wgmma"
+    f0, b0 = _fwd_counts(), _bwd_counts()
+    o, lse = flash_fwd_cuda(q, k, v, causal=True)
+    got = flash_bwd_cuda(q, k, v, do, lse_p, delta, causal=True)
+    o_p, _ = flash_fwd_plain(q, k, v, causal=True)
+    want = flash_bwd_plain(q, k, v, do, lse_p, delta, causal=True)
+    torch.cuda.synchronize()
+    assert _fwd_counts()["wgmma"] - f0["wgmma"] == 1
+    assert _bwd_counts()["dq_wgmma"] - b0["dq_wgmma"] == 1
+    assert _bwd_counts()["wgmma"] - b0["wgmma"] == 1
+    _assert_within(o, o_p, flash_fwd_bf16_tolerance(q, k, v, o_p, True),
+                   "o")
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                               rtol=2e-4, atol=2e-5)
+    tols = (flash_dq_bf16_tolerance(q, k, v, do, lse_p, delta, want[0],
+                                    True),
+            *flash_dkv_bf16_tolerance(q, k, v, do, lse_p, delta, want[1],
+                                      want[2], True))
+    for name, a, b, tol in zip(("dq", "dk", "dv"), got, want, tols):
+        _assert_within(a, b, tol, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper_tiny", "qwen2_vl_72b"])
+def test_reduced_encdec_and_mrope_forward_on_card_matches_host(cuda_device,
+                                                               arch):
+    """Reduced Whisper (encoder, cross-attention, layernorm) and Qwen2-VL
+    (M-RoPE over three distinct streams), f32, flash: the forward
+    through the kernels (card) against the plain versions (host), same
+    weights and frames, 1e-4; one flash launch a self-attention (the
+    encoder's and the decoder's; cross-attention is plain), one rmsnorm
+    launch a norm (Whisper's layernorms are plain); then 8
+    teacher-forced decode steps on the card (Whisper over the cross
+    keys and values of prefill_cross_kv) against the host."""
+    cfg, params = _reduced_lm(arch, "flash")
+    rng = np.random.default_rng(22)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+    kw = {}
+    if cfg.encoder_layers:
+        kw["audio_embed"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    if cfg.mrope:
+        pos = torch.arange(64).expand(3, 2, 64).clone()
+        pos[1, :, 8:24] = 8 + torch.arange(16) // 4
+        pos[2, :, 8:24] = 8 + torch.arange(16) % 4
+        kw["positions"] = pos
+    host = forward(params, cfg, toks, **kw)
+    params_d = _to(params, cuda_device)
+    kw_d = {k: v.to(cuda_device) for k, v in kw.items()}
+    r0, f0 = rmsnorm_cuda.launches, sum(_fwd_counts().values())
+    card = forward(params_d, cfg, toks.to(cuda_device), **kw_d)
+    torch.cuda.synchronize()
+    norms = 0 if cfg.norm == "layernorm" else 2 * cfg.n_layers + 1
+    assert rmsnorm_cuda.launches - r0 == norms
+    assert sum(_fwd_counts().values()) - f0 == (cfg.n_layers
+                                                + cfg.encoder_layers)
+    np.testing.assert_allclose(card.cpu().numpy(), host.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", params_d)):
+        st = init_decode_state(cfg, 2, 8, device=dev,
+                               with_encoder=bool(cfg.encoder_layers))
+        if cfg.encoder_layers:
+            st["cross_kv"] = prefill_cross_kv(
+                p, cfg, kw["audio_embed"].to(dev))
         logits = []
         for t in range(8):
             lg, st = decode_step(p, cfg, st, toks[:, t:t + 1].to(dev))

@@ -6,12 +6,14 @@ Bounds: f32 logits 1e-4 (the two packages sum the same f32 products in
 another order, ~1e-6 measured at these widths); bf16 logits 5e-2, the
 JAX model tests' own bound (tests/test_flash_attention.py,
 tests/test_models_smoke.py); greedy tokens and serving tokens equal in
-f32.  Families the port does not run yet must raise, naming their
-ROADMAP item (the MoE family, DeepSeek-V2-Lite and Arctic, runs:
-tests/test_torch_moe*.py; sharded: tests/test_torch_dist_moe.py, and
-sharded decode tests/test_torch_dist_decode.py; the SSM family,
-Falcon-Mamba and Zamba2 with its shared attention block, runs:
-tests/test_torch_mamba*.py).
+f32.  The other families are held to JAX in files of their own: the MoE
+family, DeepSeek-V2-Lite and Arctic, in tests/test_torch_moe*.py
+(sharded: tests/test_torch_dist_moe.py, and sharded decode
+tests/test_torch_dist_decode.py); the SSM family, Falcon-Mamba and
+Zamba2 with its shared attention block, in tests/test_torch_mamba*.py;
+Whisper's encoder-decoder stack in tests/test_torch_encdec.py and
+Qwen2-VL's M-RoPE in tests/test_torch_mrope.py (every config through
+every entry point: tests/test_torch_encdec_cli.py).
 """
 import dataclasses
 
@@ -33,8 +35,8 @@ from repro.train.serving import ServingEngine as JServingEngine
 from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
-from repro_torch.models import (check_supported, decode_step, forward,
-                                init_decode_state, init_params)
+from repro_torch.models import (decode_step, forward, init_decode_state,
+                                init_params)
 from repro_torch.train import Request, ServingEngine, greedy_generate
 
 ARCHS_RUN = ["qwen3_1p7b", "yi_6b"]
@@ -216,25 +218,6 @@ def test_serving_engine_matches_isolated_greedy():
     eng.submit(target)                        # takes slot 0 after rid 0
     assert eng.run_until_done() < 10000
     assert target.generated == ref[0].tolist()
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("whisper_tiny", "A13.7"), ("qwen2_vl_72b", "A13.8")])
-def test_unported_families_raise_naming_their_item(arch, item):
-    cfg = get_config(arch, reduced=True)
-    for call in (lambda: check_supported(cfg),
-                 lambda: init_params(torch.Generator(), cfg, device="cpu"),
-                 lambda: init_decode_state(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call()
-
-
-@pytest.mark.parametrize("change,item", [(dict(norm="layernorm"), "A13.7")])
-def test_unported_options_raise_naming_their_item(change, item):
-    cfg = dataclasses.replace(get_config("qwen3_1p7b", reduced=True),
-                              **change)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        check_supported(cfg)
 
 
 def test_layers_match_jax():

@@ -43,7 +43,7 @@ from repro_torch.models.sharding import (MeshRules, Sharded, leaf_specs,
 from repro_torch.tree import leaves_with_paths
 
 MESHES = [(1, 1), (2, 2), (4, 2), (16, 16)]
-# the configs the port's LM runs (dense GQA; the rest raise naming A13)
+# the dense GQA configs
 PORTED = ("llama3_405b", "granite_20b", "yi_6b", "qwen3_1p7b")
 
 
@@ -241,12 +241,12 @@ def test_mla_and_expert_parallel_parts(arch, mesh, parts):
                                   "param_specs", "init_decode_state"])
 @pytest.mark.parametrize("arch,item", [
     ("falcon_mamba_7b", "A11e"), ("zamba2_1p2b", "A11e"),
-    ("whisper_tiny", "A13.7"), ("qwen2_vl_72b", "A13.8")])
+    ("whisper_tiny", "A11f"), ("qwen2_vl_72b", "A11f")])
 def test_unported_families_raise_under_rules_too(arch, item, call):
     """Sharding is ported for GQA, MLA and MoE; the SSM family (Mamba
     blocks, the shared attention block) runs unsharded only and raises
-    naming A11e under ``rules``; the families the port does not run raise
-    naming their ROADMAP item under ``rules`` as they do without."""
+    naming A11e under ``rules``; the encoder-decoder stack (Whisper) and
+    M-RoPE (Qwen2-VL) run unsharded only and raise naming A11f."""
     from repro_torch.models import lm
     cfg = get_config(arch, reduced=True)
     rules = MeshRules(Mesh((2, 2)))
