@@ -87,7 +87,7 @@ Phases (each one fails the run with a non-zero exit):
           forward takes the FP32-FMA flash kernel 28 times; TF32
           attention must fail the f32 bound); time, tokens/s, memory peak
        c. 64 teacher-forced decode steps against the prefill logits
-       d. ServingEngine(n_slots=4, max_seq=256) answers 8 requests (16-64
+       d. ServingEngine(n_slots=4, max_seq=256) answers 8 requests (8-16
           prompt tokens, 16 new each, some arriving mid-flight), each
           held against the same request decoded alone by greedy_generate
           (where the tokens part, the isolated run's top-1 / top-2
@@ -400,6 +400,41 @@ Phases (each one fails the run with a non-zero exit):
           (24, 256), hd 128 at Qwen2-VL's (256, 1024) and (64, 1024)) at
           every shape the phase launched them at, against their plain
           versions, timed alone beside F.rms_norm / SDPA and their bounds
+ 18. the sharded SSM family and the sharded encoder-decoder stack with
+     M-RoPE (models/mamba.py's tensor-parallel blocks, models/sharding's
+     Sharded over every layer, the Mamba states', shared_cache's and
+     cross_kv's chunks), in phase 12's world-4 spawn after phase 15, at
+     full width from weights drawn leaf by leaf from --seed (a rank
+     keeps its chunks only); the references are the unsharded runs of the
+     same weights, made first in this process alone on the card:
+       a. Zamba2-1.2B at 2 periods, bf16, 1 x 4 (its Mamba-2 heads, the
+          shared block's heads and d_ff split 4 ways): a 4 x 256 forward
+          (9 rmsnorm and 2 tensor-core flash launches a rank) and 8
+          decode steps from a random state of 256 positions (Mamba states
+          and shared_cache), logits and state chunks within twice the
+          unsharded run's bf16 noise; in f32 at 2 x 2 one training step
+          of 2 x 256 tokens with remat (plain attention): loss and grad
+          norm at TOL_LM_F32 relative, AdamW's first moment entry by
+          entry (TOL_GRAD_F32 of each leaf's largest entry), replicated
+          chunks bit for bit
+       b. Falcon-Mamba-7B at 2 layers, bf16, 1 x 4 (d_inner 8192 split
+          4 ways): the 8 decode steps, as a.
+       c. Whisper-tiny whole, f32, 2 x 2 (6 heads, 3 a rank; d_model over
+          data): prefill_cross_kv(rules=)'s chunks, the 8 decode steps
+          (cross_kv random too) and the state chunks at TOL_LM_F32, an
+          f32 ServingEngine(rules=) answering 8 requests with the
+          unsharded engine's tokens, one training step of 2 x 256 tokens
+          over their frames, as a.
+       d. Qwen2-VL-72B at 1 layer, bf16, 1 x 4 (16 heads and 2 kv heads
+          a rank, vocab 152 064 split 4 ways, its tables vocab-parallel):
+          the 8 decode steps, as a. (Its sharded forward is cut for the
+          phase's time and the host's memory: S18_CASES.)
+       e. every part's collectives exactly decode_collectives /
+          step_collectives and its launches exact on every rank (counts
+          zeroed just before the part, read just after); rmsnorm and the
+          tensor-core flash forward at every shape the ranks launched
+          them at, against their plain versions, timed alone beside
+          F.rms_norm / SDPA and their bounds; the phase's seconds
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
@@ -507,7 +542,7 @@ SERVE_TICKETS = 4096
 SERVE_SINGLE = 0.7
 SERVE_PER_STEP = 32
 # phase 12: the ranks that share the card over gloo, their spawn's time
-# limit (phases 13 and 15 run in the same spawns), and the guarded 1d fit
+# limit (phases 13, 15 and 18 run in the same spawns), and the guarded 1d fit
 # (linear K-RR at s = 8, b = 32): its budget H, the iteration whose chunk a
 # poisoned rank corrupts, and rounds of the 1d K-RR round that are split
 # into kernel, reduction and local phase
@@ -623,10 +658,43 @@ TOL_MOE15_LOSS, TOL_MOE15_GNORM = 1e-3, 1e-2
 # params after step 2 read 1.30x that bound on the H100, NVIDIA H100
 # 80GB HBM3 at 700.00 W).
 MOE15_TREE_ENTRIES = 2 ** 23
+# Phase 18 (the sharded SSM family, the sharded encoder-decoder stack and
+# M-RoPE), in phase 12's world-4 spawn after phase 15.  Every case at full
+# width, its weights drawn leaf by leaf from --seed (s18_params: a rank
+# keeps its chunk of each leaf, never the whole model), held against the
+# unsharded run of the same weights made first in this process alone on
+# the card.  The cases: (model, (data, model), dtype, parts).  Depth cuts
+# (ROADMAP's cut list): Zamba2-1.2B at S18_ZAMBA_PERIODS periods of its 19,
+# Falcon-Mamba-7B at S18_FALCON_LAYERS layers of 64, Qwen2-VL-72B at
+# S18_VL_LAYERS layer of 80, decode only (its sharded forward gathered the
+# 5 GB f32 embedding over gloo: 30.5 s of the phase's 64.9, and 15 GiB of
+# pinned staging a rank, 22.9 GiB resident, on the H100 host, NVIDIA H100
+# 80GB HBM3 at 700 W); Whisper-tiny whole.  Zamba2's f32 training runs its
+# shared attention plain (attn_impl "naive": the tensor-core flash runs in
+# its bf16 forward).
+S18_ZAMBA_PERIODS, S18_FALCON_LAYERS, S18_VL_LAYERS = 2, 2, 1
+S18_CASES = (("zamba2", (1, 4), "bfloat16", ("forward", "decode")),
+             ("zamba2", (2, 2), "float32", ("train",)),
+             ("falcon", (1, 4), "bfloat16", ("decode",)),
+             ("whisper", (2, 2), "float32",
+              ("prefill", "decode", "engine", "train")),
+             ("vl", (1, 4), "bfloat16", ("decode",)))
+# decode: S18_SLOTS rows from a random state of S18_MAX_SEQ positions (the
+# Mamba states, shared_cache and cross_kv random too), the rows at S18_POS,
+# S18_STEPS steps; forwards of S18_FWD tokens; one training step of S18_TRAIN_BATCH
+# x S18_TRAIN_SEQ tokens (Whisper's with their frames); an f32 engine of
+# S18_SLOTS slots answering S18_REQUESTS requests
+S18_SLOTS, S18_MAX_SEQ, S18_STEPS = 4, 256, 8
+S18_POS = (3, 64, 127, 250)
+S18_FWD = {"zamba2": (4, 256)}
+S18_TRAIN_BATCH, S18_TRAIN_SEQ = 2, 256
+S18_REQUESTS, S18_PROMPT, S18_NEW, S18_ENGINE_SEQ = 8, 3, 3, 64
 
 # Phase 7 (the LM at Qwen3-1.7B width): B prompts of S tokens prefill, a
 # teacher-forced decode of the first LM_DECODE_PROMPT of them, and an
-# engine answering LM_REQUESTS requests of LM_NEW_TOKENS new tokens.
+# engine answering LM_REQUESTS requests of LM_NEW_TOKENS new tokens after
+# prompts of 8-16 tokens (16-64 before: each request is decoded alone
+# too, token by token, and that took 55 s; the run's time limit).
 LM_BATCH, LM_SEQ = 4, 2048
 LM_DECODE_PROMPT = 64
 LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_SEQ = 8, 16, 256
@@ -3090,6 +3158,9 @@ def dist_rank(rank, world, backend, outdir, seed, svm_iters):
     # phase 15 on the same ranks
     torch.cuda.empty_cache()
     res["sdd"] = sdd_rank(world, dev, seed, plan["sdd_ref"])
+    # phase 18 on the same ranks
+    torch.cuda.empty_cache()
+    res["s18"] = s18_rank(world, dev, seed, plan["s18_ref"])
     torch.save(res, out / f"rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -3240,6 +3311,18 @@ def dist_phase(c, args, failures):
         sdd_ref = sdd_reference(dev, args, Path(plan["sdd_ref"]))
         print(f"[sdd] the unsharded references run and saved in "
               f"{time.perf_counter() - t0:.1f} s")
+        # phase 18's references, also before the ranks take the card
+        t0 = time.perf_counter()
+        plan["s18_ref"] = str(Path(tmp) / "s18_ref.pt")
+        s18_info = s18_reference(dev, args, Path(plan["s18_ref"]))
+        t_s18 = time.perf_counter() - t0
+        before = _host_gib()
+        _release_host_cache()
+        print(f"[s18] the unsharded references run and saved in "
+              f"{t_s18:.1f} s; this process's host memory before the "
+              f"spawns (resident, peak resident GiB) ({before[0]:.1f}, "
+              f"{before[1]:.1f}), {_host_gib()[0]:.1f} resident after its "
+              f"pinned cache is released")
         for world, backend in DIST_RUNS:
             d = Path(tmp) / f"{backend}{world}"
             d.mkdir()
@@ -3433,7 +3516,20 @@ def dist_phase(c, args, failures):
     entries += sdd_kernel_entries(tally, dev, args.seed, failures)
     print(f"[sdd] phase 15's checks and kernel entries took "
           f"{time.perf_counter() - t0:.1f} s")
-    print(f"[dist] phases 12, 13 and 15 took "
+    # phase 18: the sharded SSM family and encoder-decoder stack, from the
+    # same spawns
+    t0 = time.perf_counter()
+    tally = s18_check(s18_info, {w: [res["s18"] for res in ranks]
+                                 for w, ranks in runs.items()}, failures)
+    entries += s18_kernel_entries(tally, dev, args.seed, failures)
+    t_check = time.perf_counter() - t0
+    t_ranks = max(res["s18"][-1]["seconds"] for res in runs[DIST_WORLD])
+    print(f"[s18] phase 18 took {t_s18 + t_ranks + t_check:.1f} s: the "
+          f"references {t_s18:.1f} s, in the ranks {t_ranks:.1f} s, the "
+          f"checks and kernel entries {t_check:.1f} s; this process's host "
+          f"memory (resident, peak resident GiB) "
+          f"({_host_gib()[0]:.1f}, {_host_gib()[1]:.1f})")
+    print(f"[dist] phases 12, 13, 15 and 18 took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return entries
 
@@ -4865,6 +4961,624 @@ def sdd_kernel_entries(tally: dict, dev, seed: int, failures: list):
     torch.cuda.empty_cache()
     return entries
 
+# ---- phase 18: the sharded SSM family and encoder-decoder stack ---------
+
+def s18_configs() -> dict:
+    """Phase 18's models at full width, their depth cut (S18_*)."""
+    from repro_torch.configs import get_config
+    return {"zamba2": dataclasses.replace(
+                get_config("zamba2_1p2b"), n_layers=2 * S18_ZAMBA_PERIODS,
+                attn_impl="flash"),
+            "falcon": dataclasses.replace(get_config("falcon_mamba_7b"),
+                                          n_layers=S18_FALCON_LAYERS),
+            "whisper": get_config("whisper_tiny"),
+            "vl": dataclasses.replace(get_config("qwen2_vl_72b"),
+                                      n_layers=S18_VL_LAYERS,
+                                      attn_impl="flash")}
+
+
+def s18_cfg(name: str, dt: str, part: str):
+    """A case's config in ``dt``; training on plain attention."""
+    cfg = dataclasses.replace(s18_configs()[name], dtype=dt)
+    return (dataclasses.replace(cfg, attn_impl="naive") if part == "train"
+            else cfg)
+
+
+def _s18_leaf(path, shape, gen, dev):
+    """One f32 leaf drawn as the port's init draws its kind: ones for the
+    norm scales and D, zeros for the biases, -4.6 for dt_bias, Mamba-1's
+    A_log log(1 .. n) and Mamba-2's zeros, N(0, 0.1) for conv_w, N(0,
+    0.02) for the tables, and the matrices truncated-normal over their
+    fan-in."""
+    import torch
+    name = path[-1]
+    if name in ("scale", "norm_scale", "D"):
+        return torch.ones(shape, device=dev)
+    if name == "bias":
+        return torch.zeros(shape, device=dev)
+    if name == "dt_bias":
+        return torch.full(shape, -4.6, device=dev)
+    if name == "A_log":
+        if len(shape) == 1:
+            return torch.zeros(shape, device=dev)
+        return torch.log(torch.arange(1, shape[1] + 1, dtype=torch.float32,
+                                      device=dev)).expand(shape).clone()
+    w = torch.empty(shape, device=dev)
+    if name in ("conv_w", "table"):
+        return w.normal_(0.0, 1.0, generator=gen).mul_(
+            0.1 if name == "conv_w" else 0.02)
+    fan_in = shape[0] * (shape[1] if name == "wo" and len(shape) == 3
+                         else 1)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.mul_(fan_in ** -0.5)
+
+
+def s18_params(cfg, dev, seed: int, rules=None) -> dict:
+    """Random f32 params of ``cfg`` on ``dev``, each leaf from a generator
+    of its own (``seed`` and the leaf's index, ``_s18_leaf``); with
+    ``rules`` this rank's chunk of each, its whole leaf dropped at once
+    (a rank of Qwen2-VL never holds the whole model)."""
+    import torch
+    from repro_torch.models import abstract_params
+    from repro_torch.models.lm import param_specs
+    from repro_torch.models.sharding import shard_leaf, spec_at
+    from repro_torch.tree import leaves_with_paths, unflatten
+    tree = abstract_params(cfg)
+    specs = None if rules is None else param_specs(rules, cfg)
+    out = []
+    for i, (path, meta) in enumerate(leaves_with_paths(tree)):
+        gen = torch.Generator(device=dev).manual_seed(seed * 7919 + i)
+        t = _s18_leaf(path, tuple(meta.shape), gen, dev)
+        if rules is not None:
+            t = shard_leaf(rules.mesh, t, spec_at(specs, path))
+        out.append(t)
+    return unflatten(tree, out)
+
+
+def _s18_seed(name: str, seed: int) -> int:
+    return seed + 40 + sorted(s18_configs()).index(name)
+
+
+def _s18_state(cfg, dev, seed: int) -> dict:
+    """The whole decode state of S18_SLOTS rows and S18_MAX_SEQ positions,
+    every cache (the Mamba states, shared_cache, cross_kv) drawn at random
+    (bf16 values in every dtype, as phase 15's), its rows at S18_POS."""
+    import torch
+    from repro_torch.models import init_decode_state
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    state = init_decode_state(cfg, S18_SLOTS, S18_MAX_SEQ, device=dev,
+                              with_encoder=bool(cfg.encoder_layers))
+    for key in ("caches", "shared_cache", "cross_kv"):
+        if key in state:
+            state[key] = [tuple(torch.randn(t.shape, generator=gen,
+                                            device=dev)
+                                .to(torch.bfloat16).to(t.dtype)
+                                for t in pair) for pair in state[key]]
+    state["pos"] = torch.tensor(S18_POS, dtype=torch.int64, device=dev)
+    return state
+
+
+def _s18_keys(state) -> list:
+    return [k for k in ("caches", "shared_cache", "cross_kv") if k in state]
+
+
+def _s18_audio(cfg, batch: int, seed: int):
+    """Frame embeddings (batch, encoder_seq, d_model) f32 on the host."""
+    import torch
+    gen = torch.Generator().manual_seed(seed + 9)
+    return torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=gen)
+
+
+def _s18_batch(cfg, seed: int) -> dict:
+    """The training step's batch on the host (Whisper's with frames)."""
+    from repro_torch.data.tokens import TokenPipeline
+    batch = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=S18_TRAIN_SEQ,
+                          global_batch=S18_TRAIN_BATCH,
+                          seed=seed).batch(0)
+    if cfg.encoder_layers:
+        batch["audio_embed"] = _s18_audio(cfg, S18_TRAIN_BATCH, seed + 1)
+    return batch
+
+
+def _s18_requests(cfg, seed: int) -> list:
+    from repro_torch.train import Request
+    toks = _sdd_tokens(cfg.vocab_size, (S18_REQUESTS, S18_PROMPT), seed + 2)
+    return [Request(rid=i, prompt=toks[i].tolist(), max_new_tokens=S18_NEW)
+            for i in range(S18_REQUESTS)]
+
+
+def _s18_forward(params, cfg, name: str, seed: int, dev, rules=None):
+    """The f32 logits of the forward of S18_FWD[name] tokens (this rank's
+    rows with ``rules``)."""
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.models.sharding import batch_rows
+    B, S = S18_FWD[name]
+    rows = batch_rows(rules, B)
+    toks = _sdd_tokens(cfg.vocab_size, (B, S), seed)[rows].to(dev)
+    with torch.no_grad():
+        return forward(params, cfg, toks, rules=rules).float()
+
+
+def s18_reference(dev, args, path: Path) -> dict:
+    """Phase 18's references, in this process alone on the card (before
+    the ranks take it): every case's parts run unsharded on the same
+    weights (the bf16 ones in f32 too: their bf16 noise), saved to
+    ``path``; returns the walls and the noise."""
+    import torch
+    from repro_torch.models import decode_step, prefill_cross_kv
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+    host, info = {}, {}
+    for name, shape, dt, parts in S18_CASES:
+        seed = _s18_seed(name, args.seed)
+        params = s18_params(s18_configs()[name], dev, seed)
+        for part in parts:
+            dts = (dt,) if dt == "float32" else (dt, "float32")
+            t0 = time.perf_counter()
+            if part == "forward":
+                lg = {d: _s18_forward(params, s18_cfg(name, d, part), name,
+                                      seed, dev).cpu() for d in dts}
+                host[(name, dt, part)] = {
+                    "logits": lg[dt],
+                    "noise": float((lg[dt] - lg["float32"]).abs().max())}
+            elif part == "decode":
+                runs = {}
+                for d in dts:
+                    cfg = s18_cfg(name, d, part)
+                    state = _s18_state(cfg, dev, seed)
+                    toks = _sdd_tokens(cfg.vocab_size,
+                                       (S18_STEPS, S18_SLOTS, 1), seed)
+                    logits = []
+                    with torch.no_grad():
+                        for t in range(S18_STEPS):
+                            lg, state = decode_step(params, cfg, state,
+                                                    toks[t].to(dev))
+                            logits.append(lg.float().cpu())
+                    runs[d] = {"logits": logits, "state": {
+                        k: [[c.float().cpu() for c in pair]
+                            for pair in state[k]] for k in _s18_keys(state)}}
+                rec = runs[dt]
+                rec["noise"] = _bf16_noise(rec["logits"],
+                                           runs["float32"]["logits"])
+                rec["state_noise"] = max(
+                    float((a - b).abs().max())
+                    for k in rec["state"]
+                    for pa, pb in zip(rec["state"][k],
+                                      runs["float32"]["state"][k])
+                    for a, b in zip(pa, pb))
+                host[(name, dt, part)] = rec
+            elif part == "prefill":
+                cfg = s18_cfg(name, dt, part)
+                with torch.no_grad():
+                    ck = prefill_cross_kv(params, cfg, _s18_audio(
+                        cfg, S18_SLOTS, seed).to(dev))
+                host[(name, dt, part)] = [[t.cpu() for t in pair]
+                                          for pair in ck]
+            elif part == "engine":
+                cfg = s18_cfg(name, dt, part)
+                host[(name, dt, part)] = _s18_engine(params, cfg, None,
+                                                     seed)
+            else:
+                cfg = s18_cfg(name, dt, part)
+                p = s18_params(cfg, dev, seed)
+                opt = adamw_init(p)
+                step = make_train_step(cfg, lmd_acfg(),
+                                       TrainConfig(microbatches=1))
+                p, opt, m = step(p, opt, _s18_batch(cfg, seed))
+                host[(name, dt, part)] = {
+                    "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "m1": [_tree_sample(t) for t in leaves(opt["m"])]}
+                del p, opt, step
+            torch.cuda.synchronize()
+            info[(name, dt, part)] = time.perf_counter() - t0
+            noise = host[(name, dt, part)]
+            if isinstance(noise, dict) and "noise" in noise:
+                info[(name, dt, part, "noise")] = noise["noise"]
+        del params
+        torch.cuda.empty_cache()
+    torch.save(host, path)
+    return info
+
+
+def _s18_engine(params, cfg, rules, seed: int) -> dict:
+    """The f32 engine answering phase 18's requests: generated tokens by
+    request, steps, mean step wall, collectives."""
+    import torch
+    from repro_torch.launch.mesh import COLLECTIVES
+    from repro_torch.train import ServingEngine
+    eng = ServingEngine(params, cfg, n_slots=S18_SLOTS,
+                        max_seq=S18_ENGINE_SEQ, rules=rules)
+    reqs = _s18_requests(cfg, seed)
+    for r in reqs:
+        eng.submit(r)
+    COLLECTIVES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = eng.run_until_done()
+    torch.cuda.synchronize()
+    return {"tokens": {r.rid: list(r.generated) for r in reqs},
+            "steps": steps, "ms": (time.perf_counter() - t0) / steps * 1e3,
+            "calls": dict(COLLECTIVES.calls)}
+
+
+def _s18_err(rec, got, want, noise=None, tol=TOL_LM_F32) -> None:
+    """``_sdd_err``: bf16 within twice ``noise`` (a noise of zero admits
+    no difference), f32 at ``tol``."""
+    if noise is not None:
+        noise = max(noise, 1e-30)
+    _sdd_err(rec, got, want, noise, None if noise is not None else tol)
+
+
+def _s18_part(part, name, dt, rules, params, host, seed, dev) -> dict:
+    """One part of a case on this rank, held against the reference."""
+    import torch
+    from repro_torch.launch.mesh import COLLECTIVES
+    from repro_torch.models import decode_step, prefill_cross_kv
+    from repro_torch.models.lm import decode_state_layout, param_specs
+    from repro_torch.models.sharding import (batch_rows, leaf_specs,
+                                             shard_leaf, split_axes)
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.train_step import (decode_collectives,
+                                              step_collectives)
+    from repro_torch.tree import leaves
+    cfg = s18_cfg(name, dt, part)
+    ref = host[(name, dt, part)]
+    mesh = rules.mesh
+    bf16 = dt != "float32"
+    rec = {"walls": [], "calls": []}
+
+    def chunks_err(state, want, noise):
+        layout = decode_state_layout(rules, cfg, S18_SLOTS, S18_MAX_SEQ)
+        out = {}
+        for k in want:
+            for pair, spair, wpair in zip(state[k], layout[k], want[k]):
+                for t, sp, w in zip(pair, spair, wpair):
+                    _s18_err(out, t.float(), shard_leaf(mesh, w, sp).to(dev),
+                             noise)
+        return out
+
+    if part == "forward":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = _s18_forward(params, cfg, name, seed, dev, rules)
+        torch.cuda.synchronize()
+        rec["walls"].append(time.perf_counter() - t0)
+        rows = batch_rows(rules, S18_FWD[name][0])
+        _s18_err(rec, lg, ref["logits"][rows], ref["noise"])
+        del lg
+    elif part == "decode":
+        full = _s18_state(cfg, dev, seed)
+        layout = decode_state_layout(rules, cfg, S18_SLOTS, S18_MAX_SEQ)
+        state = {k: [tuple(shard_leaf(mesh, t, sp) for t, sp in
+                           zip(pair, spair))
+                     for pair, spair in zip(full[k], layout[k])]
+                 for k in _s18_keys(full)}
+        state.update(pos=full["pos"], max_seq=S18_MAX_SEQ)
+        del full
+        toks = _sdd_tokens(cfg.vocab_size, (S18_STEPS, S18_SLOTS, 1), seed)
+        rows = batch_rows(rules, S18_SLOTS)
+        rec["want"] = decode_collectives(cfg, rules, S18_SLOTS, S18_MAX_SEQ)
+        noise = ref["noise"] if bf16 else None
+        for t in range(S18_STEPS):
+            COLLECTIVES.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                lg, state = decode_step(params, cfg, state, toks[t].to(dev),
+                                        rules=rules)
+            torch.cuda.synchronize()
+            rec["walls"].append(time.perf_counter() - t0)
+            rec["calls"].append(dict(COLLECTIVES.calls))
+            _s18_err(rec, lg, ref["logits"][t][rows], noise)
+        st = chunks_err(state, ref["state"],
+                        ref["state_noise"] if bf16 else None)
+        rec["state_ratio"], rec["state_err"] = st["ratio"], st["err"]
+        del state
+    elif part == "prefill":
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ck = prefill_cross_kv(params, cfg, _s18_audio(
+                cfg, S18_SLOTS, seed).to(dev), rules=rules)
+        torch.cuda.synchronize()
+        rec["walls"].append(time.perf_counter() - t0)
+        st = chunks_err({"cross_kv": ck}, {"cross_kv": ref}, None)
+        rec["ratio"], rec["err"] = st["ratio"], st["err"]
+        del ck
+    elif part == "engine":
+        eng = _s18_engine(params, cfg, rules, seed)
+        rec.update(steps=eng["steps"], ms=eng["ms"],
+                   engine_calls=eng["calls"],
+                   equal=eng["tokens"] == ref["tokens"])
+        rec["walls"] = [eng["ms"] / 1e3]
+    else:
+        tcfg = TrainConfig(microbatches=1)
+        flat = leaf_specs(param_specs(rules, cfg), params)
+        opt = adamw_init(params)
+        step = make_train_step(cfg, lmd_acfg(), tcfg, rules)
+        rec["want"] = step_collectives(cfg, tcfg, rules, False)
+        COLLECTIVES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, _s18_batch(cfg, seed))
+        torch.cuda.synchronize()
+        rec["walls"].append(time.perf_counter() - t0)
+        rec["calls"].append(dict(COLLECTIVES.calls))
+        rec.update(ref={k: ref[k] for k in ("loss", "grad_norm")},
+                   loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   sums=[_lmd_checksum(t) for t in leaves(params)],
+                   coords=(mesh.index("data"), mesh.index("model")),
+                   split=[[a for _, a in split_axes(mesh, sp)]
+                          for sp in flat])
+        rec["m1"] = _sdd_leaf_max(mesh, opt["m"], flat, ref["m1"], dev)
+        del opt, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _release_host_cache() -> None:
+    """Return the pinned host blocks the CUDA caching host allocator keeps
+    to the system: gloo stages a CUDA tensor's collective through them
+    (rounded up to a power of two), and four ranks' caches of phases
+    12-15 and of Qwen2-VL's table gathers (a 5 GB f32 embedding, gathered
+    whole) would otherwise add up past the host's 96 GiB."""
+    import torch
+    fn = getattr(torch._C, "_host_emptyCache", None)
+    if fn is not None:
+        fn()
+
+
+def _host_gib() -> tuple:
+    """(resident, peak resident) GiB of this process (``/proc``,
+    ``getrusage``)."""
+    import resource
+    rss = float("nan")
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                rss = int(line.split()[1]) / 2 ** 20
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    return rss, peak
+
+
+def s18_rank(world: int, dev, seed: int, ref_path: str) -> list:
+    """Phase 18 on one rank of phase 12's world-DIST_WORLD spawn (after
+    phase 15): each case's params drawn as this rank's chunks, each part
+    driven with the kernels' launch counts zeroed just before it and read
+    just after, with the shapes they were launched at."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
+                                                     flash_fwd_cuda)
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import MeshRules
+    if world != DIST_WORLD:
+        return []
+    host = torch.load(ref_path, mmap=True, weights_only=False)
+    out = []
+    t_all = time.perf_counter()
+    _release_host_cache()
+    for name, shape, dt, parts in S18_CASES:
+        rules = MeshRules(make_mesh(*shape))
+        case_seed = _s18_seed(name, seed)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = s18_params(s18_configs()[name], dev, case_seed, rules)
+        rec = {"label": f"{name} {shape[0]}x{shape[1]} {dt}", "name": name,
+               "dtype": dt, "mesh": shape, "parts": {},
+               "init_s": time.perf_counter() - t0}
+        for part in parts:
+            for fn in (rmsnorm_cuda, flash_fwd_cuda, flash_bwd_cuda):
+                fn.by_shape.clear()
+            lm_zero_counts()
+            t1 = time.perf_counter()
+            res = _s18_part(part, name, dt, rules, params, host, case_seed,
+                            dev)
+            res.update(launches=lm_counts(), seconds=time.perf_counter() - t1,
+                       shapes={"rmsnorm": dict(rmsnorm_cuda.by_shape),
+                               "flash_fwd": dict(flash_fwd_cuda.by_shape),
+                               "flash_bwd": dict(flash_bwd_cuda.by_shape)},
+                       host_gib=_host_gib())
+            _release_host_cache()
+            rec["parts"][part] = res
+        rec.update(seconds=time.perf_counter() - t0,
+                   peak=torch.cuda.max_memory_allocated() - base)
+        del params
+        torch.cuda.empty_cache()
+        out.append(rec)
+    out.append({"seconds": time.perf_counter() - t_all})
+    return out
+
+
+def _s18_launches(cfg, part: str) -> tuple:
+    """The launches (``lm_counts``) a part makes on a rank: rmsnorm at
+    every norm of a forward or decode step (none on Whisper's layernorm),
+    a remat training step's forward and recompute (the final norm once),
+    the tensor-core flash forward once a forward for each attention
+    (Zamba2's shared block at each application, Qwen2-VL's layers)."""
+    norms = lm_norms(cfg) if cfg.norm == "rmsnorm" else 0
+    if part == "forward":
+        attns = (cfg.n_periods if cfg.shared_attn_every
+                 else cfg.n_layers * (not cfg.has_ssm))
+        return (norms, attns, 0, 0, 0)
+    if part == "decode":
+        return (norms * S18_STEPS, 0, 0, 0, 0)
+    if part == "train":
+        return (max(2 * norms - 1, 0), 0, 0, 0, 0)
+    return (0, 0, 0, 0, 0)
+
+
+def s18_check(info: dict, runs: dict, failures: list) -> dict:
+    """Phase 18's checks of the ranks' records (``runs``: world -> the
+    ranks' ``s18_rank`` lists): every part against the unsharded run
+    (bf16 logits and state chunks within twice the unsharded run's bf16
+    noise, f32 at TOL_LM_F32; the f32 training's loss and grad norm at
+    TOL_LM_F32 relative and AdamW's first moment entry by entry within
+    TOL_GRAD_F32 of each leaf's largest entry; the engine's tokens equal
+    to the unsharded engine's); collectives exactly decode_collectives /
+    step_collectives; each part's kernel launches exact on every rank
+    (``_s18_launches``); ranks that hold the same chunk of a leaf the same
+    bits after the step.  Prints walls and peaks.  Returns the launch
+    tally by kernel and shape with the parts that launched it."""
+    gib = 2.0 ** 30
+    ranks = runs[DIST_WORLD]
+    print(f"[s18] reference, one process alone on the card: "
+          + "; ".join(f"{' '.join(k[:3])} {v:.1f} s" for k, v in
+                      info.items() if len(k) == 3)
+          + "; bf16 noise (max |bf16 - f32| logits of the unsharded run) "
+          + ", ".join(f"{' '.join(k[:3])} {v:.4f}" for k, v in
+                      info.items() if len(k) == 4))
+    print(f"[s18] phase 18 in the ranks "
+          f"{max(r[-1]['seconds'] for r in ranks):.1f} s")
+    tally = {}
+    for i, rec0 in enumerate(ranks[0][:-1]):
+        recs = [r[i] for r in ranks]
+        cfgs = {p: s18_cfg(rec0["name"], rec0["dtype"], p)
+                for p in rec0["parts"]}
+        label = f"gloo, world {DIST_WORLD} {rec0['label']}"
+        print(f"[s18] {label}: {rec0['seconds']:.1f} s (params "
+              f"{rec0['init_s']:.1f} s); device-memory peak a rank "
+              + ", ".join(f"{r['peak'] / gib:.2f}" for r in recs)
+              + " GiB; host memory a rank after each part (resident, "
+              "peak resident GiB) "
+              + "; ".join(f"{p} " + ", ".join(
+                  f"({r['parts'][p]['host_gib'][0]:.1f}, "
+                  f"{r['parts'][p]['host_gib'][1]:.1f})" for r in recs)
+                  for p in rec0["parts"]))
+        for part, res0 in rec0["parts"].items():
+            parts = [r["parts"][part] for r in recs]
+            what = f"{label} {part}"
+            line = f"[s18] {what}: {res0['seconds']:.1f} s"
+            want = _s18_launches(cfgs[part], part)
+            for r, res in enumerate(parts):
+                if res["launches"] != want:
+                    failures.append(f"{what} rank {r}: launches (rmsnorm, "
+                                    f"flash fwd, dq, dkv, FP32-FMA) "
+                                    f"{res['launches']}, not {want}")
+                if "want" in res and any(c != res["want"]
+                                         for c in res["calls"]):
+                    failures.append(f"{what} rank {r}: collectives "
+                                    f"{res['calls'][0]}, not {res['want']}")
+                for kname, shapes in res["shapes"].items():
+                    for key, n in shapes.items():
+                        t = tally.setdefault((kname, key), [0, set()])
+                        t[0] += n
+                        t[1].add(what)
+            line += f"; launches a rank {res0['launches']}"
+            if "ratio" in res0:
+                ratio = max(r["ratio"] for r in parts)
+                line += (f"; vs the unsharded run max abs err "
+                         f"{max(r['err'] for r in parts):.3e} "
+                         f"({ratio:.2f}x the bound)")
+                if not ratio <= 1.0:
+                    failures.append(f"{what}: {ratio:.2f}x the bound")
+            if "state_ratio" in res0:
+                ratio = max(r["state_ratio"] for r in parts)
+                line += (f", state chunks {max(r['state_err'] for r in parts):.3e}"
+                         f" ({ratio:.2f}x)")
+                if not ratio <= 1.0:
+                    failures.append(f"{what}: state chunks {ratio:.2f}x "
+                                    f"the bound")
+            if part == "engine":
+                line += (f"; {res0['steps']} steps at {res0['ms']:.2f} ms, "
+                         f"tokens equal to the unsharded engine's: "
+                         f"{all(r['equal'] for r in parts)}")
+                if not all(r["equal"] for r in parts):
+                    failures.append(f"{what}: tokens differ from the "
+                                    f"unsharded engine's")
+            if part == "train":
+                line += _s18_check_train(what, parts, failures)
+            if part in ("decode", "forward", "train"):
+                line += (f"; median wall a rank "
+                         + ", ".join(_median_ms(r["walls"]) for r in parts)
+                         + " ms (processes time-sliced on one card)")
+            if res0["calls"]:
+                line += f"; collectives a step {res0['calls'][0]}"
+            print(line)
+    return tally
+
+
+def _s18_check_train(what, parts, failures) -> str:
+    """The f32 training step's checks (``s18_check``); its printed part."""
+    res0 = parts[0]
+    ref = res0["ref"]
+    loss = abs(res0["loss"] - ref["loss"]) / abs(ref["loss"])
+    gnorm = abs(res0["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    if len({r["loss"] for r in parts}) != 1:
+        failures.append(f"{what}: the ranks report other losses")
+    if not (loss <= TOL_LM_F32 and gnorm <= TOL_LM_F32):
+        failures.append(f"{what}: loss {loss:.2e} / grad norm {gnorm:.2e} "
+                        f"relative to the unsharded step")
+    m1 = max(d / (TOL_GRAD_F32 * w) if w else d / TOL_GRAD_F32
+             for d, w in res0["m1"])
+    if not m1 <= 1.0:
+        failures.append(f"{what}: AdamW's first moment {m1:.2f}x "
+                        f"TOL_GRAD_F32 of the leaf's largest entry")
+    axes = {"data": 0, "model": 1}
+    for j, split in enumerate(res0["split"]):
+        groups = {}
+        for r in parts:
+            key = tuple(r["coords"][axes[a]] for a in split)
+            groups.setdefault(key, set()).add(r["sums"][j])
+        if any(len(v) > 1 for v in groups.values()):
+            failures.append(f"{what}: leaf {j}'s replicas differ")
+            break
+    return (f"; loss {res0['loss']:.6f} (unsharded {ref['loss']:.6f}, "
+            f"{loss:.1e} relative), grad norm {gnorm:.1e} relative, first "
+            f"moment {m1:.2f}x TOL_GRAD_F32 of the leaf's largest entry")
+
+
+def s18_kernel_entries(tally: dict, dev, seed: int, failures: list):
+    """The kernels-record entries of every shape phase 18's ranks launched
+    rmsnorm and the tensor-core flash forward at, each checked against its
+    plain version and timed here beside F.rms_norm / SDPA."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    entries = []
+    for (kname, key), (n, cases) in sorted(tally.items(),
+                                           key=lambda t: str(t[0])):
+        if kname == "rmsnorm":
+            rows, D, dt = key
+            entry, ratio = _lmd_rmsnorm_entry(
+                key, n, cases, gen, dev, f"rmsnorm_s18_{rows}x{D}_{dt}")
+            new, ratios = [entry], {"rmsnorm": ratio}
+        elif kname == "flash_fwd":
+            if key[0] != "wgmma":
+                failures.append(f"phase 18 launched the FP32-FMA flash "
+                                f"forward at {key}")
+                continue
+            n_bwd = tally.get(("flash_bwd", key), (0,))[0]
+            new, ratios = _lmd_flash_entries(key, n, n_bwd, cases, gen, dev,
+                                             tag="s18")
+            if not n_bwd:       # a forward's shape: dq and dkv checked only
+                new = new[:1]
+        else:
+            continue
+        for e in new:
+            print(f"[s18] {e['name']} {e['shape']}: {e['launches']} "
+                  f"launches; {e['ms']:.4f} ms | plain {e['plain_ms']:.4f} ms"
+                  f" | library {e['library_ms']:.4f} ms | bound "
+                  f"{e['bound_ms']:.4f} ms ({e['bound_by']}) | vs plain max "
+                  f"abs err {e['max_abs_err']:.3e}")
+        print(f"[s18] {kname} {key}: error / bound "
+              + ", ".join(f"{w} {r:.3f}" for w, r in ratios.items()))
+        if not max(ratios.values()) <= 1.0:
+            failures.append(f"phase 18: {kname} {key} disagrees with its "
+                            f"plain version: {ratios}")
+        entries.extend(new)
+    for kname in ("rmsnorm", "flash_fwd"):
+        if not any(k == kname for k, _ in tally):
+            failures.append(f"phase 18 launched no {kname}")
+    torch.cuda.empty_cache()
+    return entries
+
+
 def profiled_kernels(run, calls: int) -> list:
     """The CUDA kernels torch.profiler records over ``calls`` calls of
     ``run`` (``key_averages`` entries).  It records the device activity
@@ -5242,7 +5956,7 @@ def lm_phase(dev, args, failures):
     del got, outs, ref, state
 
     # ---- d. serving -------------------------------------------------------
-    lens = torch.randint(16, 65, (LM_REQUESTS,), generator=gen,
+    lens = torch.randint(8, 17, (LM_REQUESTS,), generator=gen,
                          device=dev).tolist()
     reqs = [Request(rid=i, prompt=torch.randint(
         0, V, (n,), generator=gen, device=dev).tolist(),
@@ -7972,7 +8686,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"[dist] FAIL {f}")
         return fail(f"{len(failures)} distributed-layout check(s) failed")
-    mark(t_main, "phases 12, 13 and 15")
+    mark(t_main, "phases 12, 13, 15 and 18")
 
     # ---- 7. LM prefill and serving ----------------------------------------
     del A, Ar, Aq, Arq, B_of, gram_blocks, Xv, Xm, svm, krr

@@ -168,9 +168,8 @@ def lm_params(params: Mapping, cfg, device=None) -> dict:
 def lm_shards(params: Mapping, cfg, rules, device=None) -> dict:
     """This rank's shards under ``rules`` (``models.sharding.MeshRules``)
     of a JAX ``init_params`` pytree given as numpy arrays: ``lm_params``,
-    then each leaf cut by its spec (``models.sharding.shard_tree``).
-    Raises naming ROADMAP A11e for Mamba or shared-block configs, A11f
-    for the encoder-decoder stack or M-RoPE (``param_specs``)."""
+    then each leaf cut by its spec (``models.sharding.shard_tree``), on
+    every config."""
     from repro_torch.models.lm import param_specs
     from repro_torch.models.sharding import shard_tree
     return shard_tree(rules, lm_params(params, cfg, device),
@@ -218,19 +217,36 @@ def decode_state(state: Mapping, cfg, device=None) -> dict:
 def decode_state_shards(state: Mapping, cfg, rules, device=None) -> dict:
     """This rank's chunks under ``rules`` (``models.sharding.MeshRules``)
     of a JAX decode state given as numpy arrays: ``decode_state``, then
-    each cache cut by its ``cache_spec`` (``shard_leaf``); ``pos`` whole
-    and ``max_seq``, as ``init_decode_state(rules=)`` holds them.
-    Raises naming ROADMAP A11e for Mamba or shared-block configs, A11f
-    for the encoder-decoder stack or M-RoPE."""
-    from repro_torch.models.lm import check_shardable, decode_state_layout
-    check_shardable(cfg)
+    each cache (``caches``, the shared block's ``shared_cache``, an
+    encoder-decoder's ``cross_kv``) cut by its ``cache_spec``
+    (``shard_leaf``); ``pos`` whole and ``max_seq``, as
+    ``init_decode_state(rules=)`` holds them."""
+    from repro_torch.models.lm import decode_state_layout
     from repro_torch.models.sharding import shard_leaf
     full = decode_state(state, cfg, device)
-    batch, max_seq = full["caches"][0][0].shape[:2]
+    batch, max_seq = _batch_and_seq(full, cfg)
     specs = decode_state_layout(rules, cfg, batch, max_seq)
-    caches = [tuple(shard_leaf(rules.mesh, t, sp) for t, sp in zip(c, cs))
-              for c, cs in zip(full["caches"], specs["caches"])]
-    return {"caches": caches, "pos": full["pos"], "max_seq": max_seq}
+    out = {"pos": full["pos"], "max_seq": max_seq}
+    for key in ("caches", "shared_cache", "cross_kv"):
+        if key in full:
+            out[key] = [tuple(shard_leaf(rules.mesh, t, sp)
+                              for t, sp in zip(c, cs))
+                        for c, cs in zip(full[key], specs[key])]
+    return out
+
+
+def _batch_and_seq(full: dict, cfg) -> tuple:
+    """The batch and the cache length S of a port decode state: from an
+    attention cache (a layer's, or the shared block's), or S = 1 on an
+    attention-free config (its states hold no S)."""
+    from repro_torch.models.lm import layer_kinds
+    from repro_torch.models import MAMBA1, MAMBA2
+    for kind, pair in zip(layer_kinds(cfg), full["caches"]):
+        if kind not in (MAMBA1, MAMBA2):
+            return tuple(pair[0].shape[:2])
+    if "shared_cache" in full:
+        return tuple(full["shared_cache"][0][0].shape[:2])
+    return full["caches"][0][0].shape[0], 1
 
 
 def adamw_state(opt: Mapping, cfg, device=None) -> dict:

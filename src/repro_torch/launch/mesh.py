@@ -39,7 +39,9 @@ FSDP gather of a leaf at use and the reduce-scatter of its gradient, or
 a gather over ``model`` where the tensor-parallel route does not split
 the leaf; in sharded decode also the vocab-parallel tables' sums and
 gathers of rows and logits), ``"tp"`` (the tensor-parallel reductions
-over ``model``) and ``"metric"`` (the clipping norm); sharded decode's
+over ``model``, and a Mamba block's gathers over it of its ``in_proj``
+activation, with the gradient's reduce-scatter, and of a decode
+state) and ``"metric"`` (the clipping norm); sharded decode's
 ``"seq"`` (the split-S attention: the gather of its chunks' partial
 softmaxes to merge them, and MLA's gather of the heads' queries over
 ``model``) and the serving steps' ``"token"`` (the gather of a step's

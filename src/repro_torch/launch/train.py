@@ -13,12 +13,15 @@ is given.
         --arch arctic-480b --reduced --device cpu --steps 20
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch deepseek-v2-lite-16b --reduced --device cpu --mesh 2x2
-    # the SSM family, on one device only (a --mesh raises: ROADMAP A11e)
+    # the SSM family (Mamba blocks tensor-parallel over their channels or
+    # heads, Zamba2's shared block as the dense block) and M-RoPE, on one
+    # device or a --mesh
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch zamba2-1.2b --reduced --device cpu --steps 20
-    # M-RoPE, on one device only (a --mesh raises: ROADMAP A11f)
-    PYTHONPATH=src python -m repro_torch.launch.train \\
-        --arch qwen2-vl-72b --reduced --device cpu --steps 20
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch falcon-mamba-7b --reduced --device cpu --mesh 2x2
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch qwen2-vl-72b --reduced --device cpu --mesh 1x2
     # the s-step deferred sync on a 2 x 2 mesh of CPU ranks (gloo)
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --reduced --device cpu --mesh 2x2 --defer-s 2 --microbatches 4
@@ -39,13 +42,13 @@ microbatches (``make_defer_train_step``).  Every rank draws the same
 full params from ``--seed`` and keeps its shards; rank 0 logs.
 Checkpoints hold the full leaves, gathered to rank 0 (the format of the
 single-device run), and a resume re-shards them onto whatever mesh it
-runs on.  falcon-mamba-7b and zamba2-1.2b train on one device; with a
-``--mesh`` they raise before any process group starts, naming ROADMAP
-A11e.  qwen2-vl-72b trains on one device with the default position
-streams (t, t, t), as the JAX training CLI feeds it; with a ``--mesh`` it
-raises naming ROADMAP A11f.  whisper-tiny is refused before the first
-step: the token pipeline gives no frames for its encoder, and the JAX
-training CLI, which feeds tokens only, fails there too (ROADMAP C).
+runs on.  Every config trains on a mesh as on one device:
+falcon-mamba-7b and zamba2-1.2b with their Mamba blocks tensor-parallel,
+qwen2-vl-72b with the default position streams (t, t, t), as the JAX
+training CLI feeds it.  whisper-tiny is refused before the first
+step, on one device or a mesh: the token pipeline gives no frames for
+its encoder, and the JAX training CLI, which feeds tokens only, fails
+there too (ROADMAP C32).
 """
 from __future__ import annotations
 
@@ -62,8 +65,7 @@ from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.solve import process_backend
-from repro_torch.models.lm import (abstract_params, check_shardable,
-                                   param_specs)
+from repro_torch.models.lm import abstract_params, param_specs
 from repro_torch.models.sharding import (MeshRules, gather_tree,
                                          shard_tree)
 from repro_torch.optim import AdamWConfig
@@ -102,8 +104,6 @@ def main(argv=None):
 
     d, m = (int(x) for x in args.mesh.split("x"))
     cfg = get_config(args.arch, reduced=args.reduced)
-    if d * m > 1:
-        check_shardable(cfg)
     if cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: the training CLI feeds tokens only "

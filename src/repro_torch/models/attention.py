@@ -131,12 +131,12 @@ def write_slot(cache: torch.Tensor, new: torch.Tensor,
 
 
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    offset: int, pos: torch.Tensor, scale: float):
+                    offset: int, pos: Optional[torch.Tensor], scale: float):
     """Decode attention over one chunk of a cache.  q (B, Sq, H, dk); k
     (B, T, G, dk) and v (B, T, G, dv), the chunk's T slots from global
     slot ``offset``, with H a multiple of G (head h reads k / v head h //
     (H / G), ``_repeat_kv``'s order); pos (B,): the slots at or before it
-    are valid.  Returns (o (B, Sq, H, dv) in q's dtype, lse (B, Sq, H)
+    are valid (None: every slot, as cross-attention reads its frames).  Returns (o (B, Sq, H, dv) in q's dtype, lse (B, Sq, H)
     f32): the softmax over the chunk's valid slots (logits in f32, the
     probabilities in q's dtype, as ``_sdpa``) and its log-sum-exp,
     ``NEG_INF`` where the chunk holds no valid slot (its softmax is then
@@ -145,7 +145,11 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = k.shape[2]
     qg = q.reshape(B, Sq, G, H // G, dk)
     logits = torch.einsum("bsgnd,btgd->bgnst", qg, k).float() * scale
-    _, valid = slot_masks(k.shape[1], offset, pos)           # (B, T)
+    if pos is None:
+        valid = torch.ones((B, k.shape[1]), dtype=torch.bool,
+                           device=q.device)
+    else:
+        _, valid = slot_masks(k.shape[1], offset, pos)       # (B, T)
     logits = torch.where(valid[:, None, None, None, :], logits,
                          torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -200,6 +204,8 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     cross = kv_x is not None
     if tp is not None:
         x = tp.copy(x)
+        if cross:
+            kv_x = tp.copy(kv_x)
     src = kv_x if cross else x
     q = _project(x, p["wq"], dtype)
     k = _project(src, p["wk"], dtype)
@@ -236,8 +242,9 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     With ``tp`` over this rank's heads (the cache holds its kv heads);
     with ``seq`` the cache is this rank's chunk of S (module
     docstring).  With ``cross_kv`` (k, v), each (B, T, kv, hd): plain
-    attention of the unrotated query over them, the cache returned as it
-    came."""
+    attention of the unrotated query over them (with ``seq`` over this
+    rank's chunk of the T frames, merged over its axis), the cache
+    returned as it came."""
     dtype = x.dtype
     if tp is not None:
         x = tp.copy(x)
@@ -245,10 +252,15 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
     if cross_kv is not None:
-        n_rep = cfg.n_heads // cfg.n_kv_heads
-        k, v = (_repeat_kv(t.to(dtype), n_rep) for t in cross_kv)
-        out = torch.einsum("bshk,hkd->bsd", _sdpa(q, k, v, None, dtype),
-                           p["wo"].to(dtype))
+        if seq is None:
+            n_rep = cfg.n_heads // cfg.n_kv_heads
+            k, v = (_repeat_kv(t.to(dtype), n_rep) for t in cross_kv)
+            o = _sdpa(q, k, v, None, dtype)
+        else:
+            k, v = (t.to(dtype) for t in cross_kv)
+            o = merge_chunks(seq, *chunk_attention(
+                q, k, v, seq.offset, None, q.shape[-1] ** -0.5))
+        out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(dtype))
         return (out if tp is None else tp.reduce(out)), cache
     k_new = _project(x, p["wk"], dtype)
     v_new = _project(x, p["wv"], dtype)

@@ -51,10 +51,19 @@ the decode state (``init_decode_state(rules=)``, laid out by
 rank's rows (``sharding.batch_rows``), its caches read through the
 split-S attention where their S is split (``models.attention``); it uses
 the embedding and head tables vocab-parallel (``Sharded.lookup``,
-``Sharded.project``), where ``forward`` gathers them at use.  Mamba
-blocks and the shared block are not sharded yet: with ``rules`` every
-entry point raises on them, naming ROADMAP A11e; on the encoder-decoder
-stack and M-RoPE it raises naming ROADMAP A11f.
+``Sharded.project``), where ``forward`` gathers them at use.  Every
+config runs sharded: a Mamba block runs tensor-parallel over its
+channels or heads (``models.mamba``), its states the rank's chunks (a
+chunk the block needs whole gathered over ``model`` at the step, the
+rank's chunk of the new state kept: ``_mamba_state``); the shared block
+is gathered at each application (its gradient sums over them, as
+unsharded) and reads its period's ``shared_cache`` through the split-S
+attention where its S is split; the encoder's blocks run as the
+decoder's, on the rank's rows of ``audio_embed``, and the decoder's
+cross-attention runs tensor-parallel on heads over the encoder's output
+(replicated over ``model``); ``cross_kv`` is laid out as a GQA cache
+(``prefill_cross_kv(rules=)`` writes the rank's chunk).  M-RoPE's (3, B,
+S) positions are the rank's rows on dim 1.
 """
 from __future__ import annotations
 
@@ -73,7 +82,8 @@ from .layers import (apply_norm, embed, init_embedding, init_mlp,
 from . import mamba as mb
 from .moe import init_moe, moe_apply
 from .sharding import (Sharded, batch_rows, chunk_shape,
-                       decode_state_specs, split_axes, tree_pspecs)
+                       decode_state_specs, shard_leaf, split_axes,
+                       tree_pspecs)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -85,27 +95,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.attn_type not in ("gqa", "mla") or not cfg.n_heads:
         raise NotImplementedError(f"{cfg.name}: attn_type "
                                   f"{cfg.attn_type!r} is not ported")
-
-
-def check_shardable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config whose sharded form is not
-    ported: naming ROADMAP A11e for Mamba blocks or the shared attention
-    block, A11f for the encoder-decoder stack or M-RoPE (module
-    docstring)."""
-    if cfg.has_ssm or cfg.shared_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: sharded Mamba blocks and the shared attention "
-            f"block are not ported yet (ROADMAP A11e)")
-    if cfg.encoder_layers or cfg.cross_attention or cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded encoder-decoder stack and M-RoPE "
-            f"are not ported yet (ROADMAP A11f)")
-
-
-def _check(cfg: ModelConfig, rules) -> None:
-    check_supported(cfg)
-    if rules is not None:
-        check_shardable(cfg)
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -265,7 +254,7 @@ def abstract_params(cfg: ModelConfig) -> dict:
 @functools.lru_cache(maxsize=16)
 def param_specs(rules, cfg: ModelConfig) -> dict:
     """The spec of every params leaf of ``cfg`` under ``rules``."""
-    _check(cfg, rules)
+    check_supported(cfg)
     return tree_pspecs(rules, abstract_params(cfg))
 
 
@@ -282,12 +271,13 @@ def _block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
                    enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One layer; with ``enc_out`` (B, T, D) a decoder block adds its
     cross-attention over it after the self-attention."""
-    if kind in (MAMBA1, MAMBA2):
-        fwd = mb.mamba1_forward if kind == MAMBA1 else mb.mamba2_forward
-        return x + fwd(p["mamba"], cfg, apply_norm(cfg.norm, p["norm1"], x))
     tp = _tp_of(sh)
     if sh is not None:
         p = sh.block(p, spec)
+    if kind in (MAMBA1, MAMBA2):
+        fwd = mb.mamba1_forward if kind == MAMBA1 else mb.mamba2_forward
+        return x + fwd(p["mamba"], cfg, apply_norm(cfg.norm, p["norm1"], x),
+                       tp=tp("mamba"))
     x = x + attention_forward(p["attn"], cfg,
                               apply_norm(cfg.norm, p["norm1"], x),
                               positions, rope_cache=rope_cache,
@@ -295,7 +285,7 @@ def _block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.cross_attention and enc_out is not None:
         x = x + gqa_forward(p["cross"], cfg,
                             apply_norm(cfg.norm, p["norm_x"], x), None,
-                            kv_x=enc_out)
+                            tp=tp("cross"), kv_x=enc_out)
     h = apply_norm(cfg.norm, p["norm2"], x)
     if kind == DENSE:
         return x + mlp(p["mlp"], h, x.dtype, tp=tp("mlp"))
@@ -303,13 +293,21 @@ def _block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _shared_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor, rope_cache) -> torch.Tensor:
-    """One application of the shared attention (+ MLP) block."""
+                    positions: torch.Tensor, rope_cache,
+                    sh: Optional[Sharded] = None,
+                    spec: Optional[dict] = None) -> torch.Tensor:
+    """One application of the shared attention (+ MLP) block (with ``sh``
+    its leaves gathered at this application)."""
+    tp = _tp_of(sh)
+    if sh is not None:
+        p = sh.block(p, spec)
     x = x + attention_forward(p["attn"], cfg,
                               apply_norm(cfg.norm, p["norm"], x),
-                              positions, rope_cache=rope_cache)
+                              positions, rope_cache=rope_cache,
+                              tp=tp("attn"))
     if "mlp" in p:
-        x = x + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], x), x.dtype)
+        x = x + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], x), x.dtype,
+                    tp=tp("mlp"))
     return x
 
 
@@ -368,12 +366,28 @@ def _rope_cache(cfg: ModelConfig, positions: torch.Tensor):
     return make_rope_cache(positions, cfg.head_dim, cfg.rope_theta)
 
 
+def _norm_use(sh: Optional[Sharded], p: dict, spec: Optional[dict]) -> dict:
+    """A norm's params (scale, and a layernorm's bias) as used: gathered
+    where split (``sh``)."""
+    if sh is None:
+        return p
+    return {k: sh.use(v, spec[k]) for k, v in p.items()}
+
+
 def encoder_forward(params: dict, cfg: ModelConfig,
                     audio_embed: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder over the frame embeddings (B, T, D) (the
     frontend is a stub, as in the reference): its dense blocks at the
     default positions, each under its own checkpoint under remat, then
     its ``final_norm``; (B, T, D) in the compute dtype."""
+    return _encode(params, cfg, audio_embed, None, None)
+
+
+def _encode(params, cfg, audio_embed, sh: Optional[Sharded],
+            specs: Optional[dict]) -> torch.Tensor:
+    """``encoder_forward``; with ``sh`` on this rank's shards (``specs``
+    theirs) and rows of ``audio_embed``, the blocks run as
+    ``forward``'s."""
     if audio_embed is None:
         raise ValueError(f"{cfg.name}: the encoder needs audio_embed, the "
                          f"(B, encoder_seq, d_model) frame embeddings")
@@ -382,10 +396,14 @@ def encoder_forward(params: dict, cfg: ModelConfig,
     positions = _default_positions(cfg, B, T, x.device)
     rope_cache = _rope_cache(cfg, positions)
     enc = params["encoder"]
-    for p in enc["blocks"]:
+    for i, p in enumerate(enc["blocks"]):
+        spec = None if specs is None else specs["encoder"]["blocks"][i]
         x = _remat(_block_forward, p, x, cfg, DENSE, p, cfg, x, positions,
-                   rope_cache)
-    return apply_norm(cfg.norm, enc["final_norm"], x)
+                   rope_cache, sh, spec, early_stop=sh is None)
+    final = _norm_use(sh, enc["final_norm"],
+                      None if specs is None else specs["encoder"]
+                      ["final_norm"])
+    return apply_norm(cfg.norm, final, x)
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -399,10 +417,11 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     checkpointing when ``cfg.remat == "full"`` and the forward is being
     differentiated; the final norm and the head stay outside, as in the
     JAX package.  With ``rules`` the
-    params are this rank's shards (module docstring); the embedding and
+    params are this rank's shards and tokens, positions and
+    ``audio_embed`` this rank's rows (module docstring); the embedding and
     head tables are gathered at use (not vocab-parallel), the head and
     the layers' weight matrices in the compute dtype."""
-    _check(cfg, rules)
+    check_supported(cfg)
     dtype = cfg.activation_dtype
     B, S = tokens.shape
     sh = specs = None
@@ -418,7 +437,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         positions = _default_positions(cfg, B, S, tokens.device)
     enc_out = None
     if cfg.encoder_layers:
-        enc_out = encoder_forward(params, cfg, audio_embed)
+        enc_out = _encode(params, cfg, audio_embed, sh, specs)
     rope_cache = _rope_cache(cfg, positions)
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["blocks"])):
         spec = None if specs is None else specs["blocks"][i]
@@ -426,14 +445,14 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                    rope_cache, sh, spec, enc_out, early_stop=sh is None)
         if _period_ends(cfg, i):
             sp = params["shared_attn"]
+            sspec = None if specs is None else specs["shared_attn"]
             x = _remat(_shared_forward, sp, x, cfg, sp, cfg, x, positions,
-                       rope_cache)
+                       rope_cache, sh, sspec, early_stop=sh is None)
+    key = _head_key(cfg)
     if sh is None:
-        final, head = params["final_norm"], params[_head_key(cfg)]
+        final, head = params["final_norm"], params[key]
     else:
-        key = _head_key(cfg)
-        final = {"scale": sh.use(params["final_norm"]["scale"],
-                                 specs["final_norm"]["scale"])}
+        final = _norm_use(sh, params["final_norm"], specs["final_norm"])
         head = {"table": sh.use(params[key]["table"], specs[key]["table"],
                                 cast=True)}
     x = apply_norm(cfg.norm, final, x)
@@ -482,7 +501,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     (``decode_state_specs``), ``pos`` is whole (replicated), and
     ``max_seq`` is kept in the state (a chunk of S does not tell the full
     S)."""
-    _check(cfg, rules)
+    check_supported(cfg)
     dev = resolve_device(device)
     dtype = cfg.activation_dtype
     if rules is None:
@@ -501,15 +520,20 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                 tuple(torch.zeros(shape, dtype=dtype, device=dev)
                       for _ in range(2)) for _ in range(cfg.n_layers)]
         return state
-    full = abstract_decode_state(cfg, batch, max_seq)
+    full = abstract_decode_state(cfg, batch, max_seq, with_encoder)
     specs = decode_state_layout(rules, cfg, batch, max_seq)
-    caches = [tuple(torch.zeros(chunk_shape(rules.mesh, t.shape, sp),
-                                dtype=dtype, device=dev)
-                    for t, sp in zip(c, cs))
-              for c, cs in zip(full["caches"], specs["caches"])]
-    return {"caches": caches,
-            "pos": torch.zeros((batch,), dtype=torch.int64, device=dev),
-            "max_seq": max_seq}
+
+    def chunks(pairs, spairs):
+        return [tuple(torch.zeros(chunk_shape(rules.mesh, t.shape, sp),
+                                  dtype=t.dtype, device=dev)
+                      for t, sp in zip(c, cs))
+                for c, cs in zip(pairs, spairs)]
+
+    state = {k: chunks(full[k], specs[k]) for k in
+             ("caches", "shared_cache", "cross_kv") if k in full}
+    state.update(pos=torch.zeros((batch,), dtype=torch.int64, device=dev),
+                 max_seq=max_seq)
+    return state
 
 
 def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int,
@@ -522,32 +546,58 @@ def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int,
 
 
 def prefill_cross_kv(params: dict, cfg: ModelConfig,
-                     audio_embed: torch.Tensor) -> list:
+                     audio_embed: torch.Tensor, rules=None) -> list:
     """Whisper: the encoder once over ``audio_embed``, then each decoder
     layer's cross-attention keys and values: one (k, v) pair a layer,
     each (B, encoder_seq, kv, hd) in the compute dtype, for the decode
-    state's ``cross_kv``."""
-    _check(cfg, None)
-    enc_out = encoder_forward(params, cfg, audio_embed)
-    dtype = enc_out.dtype
-    return [tuple(torch.einsum("btd,dhk->bthk", enc_out,
-                               p["cross"][w].to(dtype))
-                  for w in ("wk", "wv")) for p in params["blocks"]]
+    state's ``cross_kv``.  With ``rules`` the params are this rank's
+    shards, ``audio_embed`` the global batch, and each pair this rank's
+    chunk of it as ``init_decode_state(rules=)`` lays ``cross_kv`` out
+    (``cache_spec``): its rows, its kv heads where they divide ``model``
+    (the cross-attention then runs tensor-parallel), else its chunk of
+    the frames."""
+    check_supported(cfg)
+    if rules is None:
+        enc_out = encoder_forward(params, cfg, audio_embed)
+        dtype = enc_out.dtype
+        return [tuple(torch.einsum("btd,dhk->bthk", enc_out,
+                                   p["cross"][w].to(dtype))
+                      for w in ("wk", "wv")) for p in params["blocks"]]
+    B = audio_embed.shape[0]
+    specs = param_specs(rules, cfg)
+    sh = Sharded(rules, specs, cfg.activation_dtype)
+    enc_out = _encode(params, cfg, audio_embed[batch_rows(rules, B)], sh,
+                      specs)
+    sspecs = decode_state_layout(rules, cfg, B, 1)["cross_kv"]
+    out = []
+    for p, spec, pair in zip(params["blocks"], specs["blocks"], sspecs):
+        p = sh.block(p, spec)
+        kv = []
+        for w, sp in zip(("wk", "wv"), pair):
+            t = torch.einsum("btd,dhk->bthk", enc_out,
+                             p["cross"][w].to(enc_out.dtype))
+            # the frames' chunk where the spec splits them (the rows and
+            # heads are the rank's already)
+            kv.append(shard_leaf(rules.mesh, t, (None, sp[1], None, None)))
+        out.append(tuple(kv))
+    return out
 
 
-def abstract_decode_state(cfg: ModelConfig, batch: int,
-                          max_seq: int) -> dict:
+def abstract_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                          with_encoder: bool = False) -> dict:
     """The decode state of ``cfg`` at full size as meta tensors."""
-    return init_decode_state(cfg, batch, max_seq, device="meta")
+    return init_decode_state(cfg, batch, max_seq, device="meta",
+                             with_encoder=with_encoder)
 
 
 @functools.lru_cache(maxsize=32)
 def decode_state_layout(rules, cfg: ModelConfig, batch: int,
                         max_seq: int) -> dict:
     """The spec of every leaf of a decode state of ``batch`` rows and
-    ``max_seq`` positions under ``rules``."""
-    return decode_state_specs(rules, cfg,
-                              abstract_decode_state(cfg, batch, max_seq))
+    ``max_seq`` positions under ``rules`` (``cross_kv``'s too, on an
+    encoder-decoder config)."""
+    return decode_state_specs(rules, cfg, abstract_decode_state(
+        cfg, batch, max_seq, bool(cfg.encoder_layers)))
 
 
 def _seq_split(mesh, spec, chunk: torch.Tensor) -> Optional[SeqSplit]:
@@ -556,6 +606,36 @@ def _seq_split(mesh, spec, chunk: torch.Tensor) -> Optional[SeqSplit]:
         if d == 1:
             return SeqSplit(mesh, a, mesh.index(a) * chunk.shape[1])
     return None
+
+
+def mamba_state_whole(kind: str, tp_on: bool) -> tuple:
+    """Which leaves of a Mamba state (conv state, h) the block's decode
+    takes whole along ``model``: all of them where it computes replicated,
+    Mamba-2's conv state always (``models.mamba``)."""
+    return (kind == MAMBA2 or not tp_on, not tp_on)
+
+
+def _model_dims(rules, spec) -> list:
+    """The dims ``spec`` splits over the tensor-parallel axis."""
+    return [d for d, a in split_axes(rules.mesh, spec) if a == rules.tp]
+
+
+def _mamba_state(rules, kind: str, tp_on: bool, c, cspecs):
+    """The state a Mamba block's decode takes (``mamba_state_whole``):
+    each chunk it needs whole gathered over ``model`` (kind ``"tp"``),
+    and a function that cuts the block's new state back to this rank's
+    chunks."""
+    whole = mamba_state_whole(kind, tp_on)
+    cut = [w and _model_dims(rules, sp) for w, sp in zip(whole, cspecs)]
+    c = tuple(rules.mesh.all_gather(t, rules.tp, dims[0], "tp") if dims
+              else t for t, dims in zip(c, cut))
+
+    def back(new):
+        n, r = rules.axis_size(rules.tp), rules.mesh.index(rules.tp)
+        return tuple(t.chunk(n, dims[0])[r].contiguous() if dims else t
+                     for t, dims in zip(new, cut))
+
+    return c, back
 
 
 def decode_step(params: dict, cfg: ModelConfig, state: dict,
@@ -569,7 +649,7 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
     embedding and head tables are used vocab-parallel, not gathered
     (``Sharded.lookup``, ``Sharded.project``): a step moves the rows and
     the logits, not the tables."""
-    _check(cfg, rules)
+    check_supported(cfg)
     dtype = cfg.activation_dtype
     B = tokens.shape[0]
     key = _head_key(cfg)
@@ -581,6 +661,12 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
         sspecs = decode_state_layout(rules, cfg, B, state["max_seq"])
         rows = batch_rows(rules, B)
     tp = _tp_of(sh)
+
+    def seq_of(k, i, chunk):
+        # the split of a cache chunk's S, from its spec
+        return None if sh is None else _seq_split(rules.mesh,
+                                                  sspecs[k][i][0], chunk)
+
     pos = state["pos"][rows]
     if sh is None:
         h = embed(params["embed"], tokens, dtype)
@@ -588,32 +674,38 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
     else:
         h = sh.lookup(params["embed"]["table"], specs["embed"]["table"],
                       tokens)[rows].to(dtype)
-        final = {"scale": sh.use(params["final_norm"]["scale"],
-                                 specs["final_norm"]["scale"])}
+        final = _norm_use(sh, params["final_norm"], specs["final_norm"])
     caches, shared = [], []
     for i, (kind, p, c) in enumerate(zip(layer_kinds(cfg), params["blocks"],
                                          state["caches"])):
+        if sh is not None:
+            p = sh.block(p, specs["blocks"][i])
         if kind in (MAMBA1, MAMBA2):
             dec = mb.mamba1_decode if kind == MAMBA1 else mb.mamba2_decode
-            a, c = dec(p["mamba"], cfg, apply_norm(cfg.norm, p["norm1"], h),
-                       c)
-            h = h + a
-        else:
-            seq = None
+            back = None
             if sh is not None:
-                # a GQA cache splits its kv heads over model exactly where
-                # the attention runs tensor-parallel (both need kv % model
-                # == 0)
-                p = sh.block(p, specs["blocks"][i])
-                seq = _seq_split(rules.mesh, sspecs["caches"][i][0], c[0])
+                c, back = _mamba_state(rules, kind, tp("mamba") is not None,
+                                       c, sspecs["caches"][i])
+            a, c = dec(p["mamba"], cfg, apply_norm(cfg.norm, p["norm1"], h),
+                       c, tp=tp("mamba"))
+            h = h + a
+            if back is not None:
+                c = back(c)
+        else:
+            # a GQA cache splits its kv heads over model exactly where the
+            # attention runs tensor-parallel (both need kv % model == 0)
             a, c = attention_decode(p["attn"], cfg,
                                     apply_norm(cfg.norm, p["norm1"], h), c,
-                                    pos, tp=tp("attn"), seq=seq)
+                                    pos, tp=tp("attn"),
+                                    seq=seq_of("caches", i, c[0]))
             h = h + a
             if cfg.cross_attention and "cross_kv" in state:
+                kv = state["cross_kv"][i]
                 a, _ = gqa_decode(p["cross"], cfg,
                                   apply_norm(cfg.norm, p["norm_x"], h), c,
-                                  pos, cross_kv=state["cross_kv"][i])
+                                  pos, tp=tp("cross"),
+                                  seq=seq_of("cross_kv", i, kv[0]),
+                                  cross_kv=kv)
                 h = h + a
             hn = apply_norm(cfg.norm, p["norm2"], h)
             if kind == DENSE:
@@ -622,8 +714,13 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
                 h = h + moe_apply(p["moe"], cfg, hn, tp=tp("moe"))
         caches.append(c)
         if _period_ends(cfg, i):
-            h, c = _shared_decode(params["shared_attn"], cfg, h,
-                                  state["shared_cache"][len(shared)], pos)
+            k = len(shared)
+            c = state["shared_cache"][k]
+            sp = params["shared_attn"]
+            if sh is not None:
+                sp = sh.block(sp, specs["shared_attn"])
+            h, c = _shared_decode(sp, cfg, h, c, pos, tp,
+                                  seq_of("shared_cache", k, c[0]))
             shared.append(c)
     h = apply_norm(cfg.norm, final, h)
     if sh is None:
@@ -638,13 +735,17 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
 
 
 def _shared_decode(p: dict, cfg: ModelConfig, h: torch.Tensor, cache,
-                   pos: torch.Tensor):
+                   pos: torch.Tensor, tp=None, seq=None):
     """One application of the shared block in a decode step, on its own
-    period's cache: (h, the new cache)."""
+    period's cache: (h, the new cache); ``p`` as this application uses
+    it, ``tp`` the parts' tensor-parallel route, ``seq`` the cache's
+    split of S."""
+    tp = tp or (lambda part: None)
     a, cache = attention_decode(p["attn"], cfg,
                                 apply_norm(cfg.norm, p["norm"], h), cache,
-                                pos)
+                                pos, tp=tp("attn"), seq=seq)
     h = h + a
     if "mlp" in p:
-        h = h + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], h), h.dtype)
+        h = h + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], h), h.dtype,
+                    tp=tp("mlp"))
     return h, cache

@@ -21,6 +21,19 @@ are plain PyTorch, as the reference computes them outside any Pallas
 kernel.  Params are f32 and cast to the compute dtype at use; the
 decode state's h is f32 whatever the compute dtype (the reference's
 ``init_mamba{1,2}_state``), its conv state in the compute dtype.
+
+With ``tp`` (a ``models.sharding.Sharded`` whose ``tp_parts`` hold
+``"mamba"``) a block runs over this rank's channels (Mamba-1) or heads
+(Mamba-2): ``in_proj``'s output, computed on the rank's chunk of its
+columns, is gathered over ``model`` and the rank takes its x, z (and
+dt) channels, B and C whole; the per-channel leaves are the rank's
+(``tp.own`` slices a leaf given whole); Mamba-1's ``x_proj`` product
+and Mamba-2's gated-norm sum of squares are summed over ``model``
+(``tp.all_sum``), ``out_proj``'s partial products too (``tp.reduce``).
+The decode state is the rank's: Mamba-1's conv state and h its
+channels, Mamba-2's h its heads; Mamba-2's conv state comes whole (its
+contiguous chunk of ``[x | B | C]`` is not the rank's channels) and
+the whole new one is returned (``models.lm`` keeps the rank's chunk).
 """
 from __future__ import annotations
 
@@ -133,12 +146,41 @@ def init_mamba1(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _mamba1_ssm_inputs(p: dict, xc: torch.Tensor, dtype: torch.dtype):
+def _tp_in(x: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
+    """``x @ in_proj`` (``w`` in the compute dtype): with ``tp`` the
+    product on the rank's columns gathered over ``model`` (module
+    docstring), x's gradient summed over it."""
+    if tp is None:
+        return x @ w
+    return tp.gather_act(tp.copy(x) @ w, -1)
+
+
+def _tp_out(y: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
+    """``y @ out_proj``, with ``tp`` the rank's partial product summed."""
+    out = y @ w
+    return out if tp is None else tp.reduce(out)
+
+
+def _mamba1_own(p: dict, cfg: ModelConfig, tp) -> dict:
+    """The rank's channels of every Mamba-1 leaf (module docstring)."""
+    if tp is None:
+        return p
+    di = cfg.d_inner
+    dims = {"conv_w": 0, "x_proj": 0, "dt_proj": 1, "dt_bias": 0,
+            "A_log": 0, "D": 0}
+    return dict(p, **{k: tp.own(p[k], di, d) for k, d in dims.items()})
+
+
+def _mamba1_ssm_inputs(p: dict, xc: torch.Tensor, dtype: torch.dtype,
+                       tp=None):
     """Shared by the forward and decode: decay and drive (B, L, di, n) f32
-    and C (B, L, n) from the conv output."""
+    and C (B, L, n) from the conv output (with ``tp`` the rank's channels:
+    the ``x_proj`` partial products summed over ``model``)."""
     di, n = p["A_log"].shape
     r = p["x_proj"].shape[1] - 2 * n
     proj = xc @ p["x_proj"].to(dtype)
+    if tp is not None:
+        proj = tp.all_sum(proj)
     dt_in, Bc, Cc = torch.split(proj, [r, n, n], dim=-1)
     dt = F.softplus((dt_in @ p["dt_proj"].to(dtype)).float()
                     + p["dt_bias"])                    # (B, L, di)
@@ -149,35 +191,47 @@ def _mamba1_ssm_inputs(p: dict, xc: torch.Tensor, dtype: torch.dtype):
     return decay, drive, Cc
 
 
-def mamba1_forward(p: dict, cfg: ModelConfig, x: torch.Tensor):
-    """x: (B, L, D) -> (B, L, D)."""
-    dtype = x.dtype
-    xz = x @ p["in_proj"].to(dtype)
+def _mamba1_xz(p: dict, cfg: ModelConfig, x: torch.Tensor, tp):
+    """x and z (B, L, di) from ``in_proj``: with ``tp`` the rank's
+    channels of each."""
+    xz = _tp_in(x, p["in_proj"].to(x.dtype), tp)
     xr, z = xz.chunk(2, dim=-1)
+    if tp is not None:
+        xr, z = (tp.own(t, cfg.d_inner, 2) for t in (xr, z))
+    return xr, z
+
+
+def mamba1_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, tp=None):
+    """x: (B, L, D) -> (B, L, D); over this rank's channels with ``tp``
+    (module docstring)."""
+    dtype = x.dtype
+    xr, z = _mamba1_xz(p, cfg, x, tp)
+    p = _mamba1_own(p, cfg, tp)
     xc = F.silu(_causal_conv(xr, p["conv_w"]))
-    decay, drive, Cc = _mamba1_ssm_inputs(p, xc, dtype)
+    decay, drive, Cc = _mamba1_ssm_inputs(p, xc, dtype, tp)
     y = _chunked_ssm(decay, drive, Cc.float(), CHUNK)
     y = (y + p["D"] * xc.float()).to(dtype)
     y = y * F.silu(z)
-    return y @ p["out_proj"].to(dtype)
+    return _tp_out(y, p["out_proj"].to(dtype), tp)
 
 
 def mamba1_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                  state: Tuple[torch.Tensor, torch.Tensor]):
-    """x: (B, 1, D); state: (conv_state (B, K-1, di), h (B, di, n) f32).
-    Returns (out (B, 1, D), new state); the input state is not written."""
+                  state: Tuple[torch.Tensor, torch.Tensor], tp=None):
+    """x: (B, 1, D); state: (conv_state (B, K-1, di), h (B, di, n) f32),
+    with ``tp`` the rank's channels of both.  Returns (out (B, 1, D), new
+    state); the input state is not written."""
     dtype = x.dtype
     conv_s, h = state
-    xz = x @ p["in_proj"].to(dtype)
-    xr, z = xz.chunk(2, dim=-1)
+    xr, z = _mamba1_xz(p, cfg, x, tp)
+    p = _mamba1_own(p, cfg, tp)
     xc, conv_s = _causal_conv(xr, p["conv_w"], conv_s)
     xc = F.silu(xc)
-    decay, drive, Cc = _mamba1_ssm_inputs(p, xc, dtype)
+    decay, drive, Cc = _mamba1_ssm_inputs(p, xc, dtype, tp)
     h = decay[:, 0] * h + drive[:, 0]                  # (B, di, n)
     y = torch.einsum("bdn,bn->bd", h, Cc[:, 0].float())
     y = (y + p["D"] * xc[:, 0].float()).to(dtype)[:, None]
     y = y * F.silu(z)
-    return y @ p["out_proj"].to(dtype), (conv_s, h)
+    return _tp_out(y, p["out_proj"].to(dtype), tp), (conv_s, h)
 
 
 def init_mamba1_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
@@ -213,18 +267,47 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
+def _mamba2_own(p: dict, cfg: ModelConfig, tp) -> dict:
+    """The rank's heads of the per-head Mamba-2 leaves and its channels of
+    ``norm_scale`` (``conv_w`` is cut in ``_mamba2_parts``)."""
+    if tp is None:
+        return p
+    di = cfg.d_inner
+    nh = di // cfg.mamba_headdim
+    return dict(p, dt_bias=tp.own(p["dt_bias"], nh, 0),
+                A_log=tp.own(p["A_log"], nh, 0), D=tp.own(p["D"], nh, 0),
+                norm_scale=tp.own(p["norm_scale"], di, 0))
+
+
 def _mamba2_parts(p: dict, cfg: ModelConfig, zxbcdt: torch.Tensor,
-                  conv_state=None):
+                  conv_state=None, tp=None):
+    """z, x, B, C, dt, decay from ``in_proj``'s output, and the new conv
+    state where ``conv_state`` (B, K-1, di + 2n) is given (whole: the last
+    K - 1 steps of the pre-conv ``[x | B | C]``); with ``tp`` the rank's
+    heads' z, x and dt, B and C whole (module docstring), ``p`` the
+    rank's leaves (``_mamba2_own``) but ``conv_w``, whole."""
     di, n = cfg.d_inner, cfg.ssm_state
     nh = di // cfg.mamba_headdim
     z, xbc, dt_in = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
+    conv_w = p["conv_w"]
+    new_conv = None
+    if conv_state is not None:
+        pad = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
+        new_conv = pad[:, -(conv_w.shape[1] - 1):, :]
+    if tp is not None:
+        def rank_x(t, dim):
+            # the rank's x channels of [x | B | C], then B and C
+            x_, bc = t.narrow(dim, 0, di), t.narrow(dim, di, 2 * n)
+            return torch.cat([tp.own(x_, di, dim), bc], dim)
+        z, dt_in = tp.own(z, di, 2), tp.own(dt_in, nh, 2)
+        xbc, conv_w = rank_x(xbc, 2), rank_x(conv_w, 0)
+        if conv_state is not None:
+            conv_state = rank_x(conv_state, 2)
     if conv_state is None:
-        xbc = F.silu(_causal_conv(xbc, p["conv_w"]))
-        new_conv = None
+        xbc = F.silu(_causal_conv(xbc, conv_w))
     else:
-        xbc, new_conv = _causal_conv(xbc, p["conv_w"], conv_state)
-        xbc = F.silu(xbc)
-    xr, Bc, Cc = torch.split(xbc, [di, n, n], dim=-1)
+        xbc = F.silu(_causal_conv(xbc, conv_w, conv_state)[0])
+    xr, Bc, Cc = torch.split(xbc, [xbc.shape[-1] - 2 * n, n, n], dim=-1)
     dt = F.softplus(dt_in.float() + p["dt_bias"])      # (B, L, nh)
     a = -torch.exp(p["A_log"])                         # (nh,)
     decay = torch.exp(dt * a)                          # (B, L, nh)
@@ -292,23 +375,31 @@ def _ssd_chunked(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
 
 
 def _gated_norm(p: dict, y: torch.Tensor, z: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
-    """Mamba-2's gated RMSNorm, inline and plain as in the reference."""
+                dtype: torch.dtype, tp=None, d_full: int = 0) -> torch.Tensor:
+    """Mamba-2's gated RMSNorm, inline and plain as in the reference; with
+    ``tp`` over the rank's channels, the mean of squares over all
+    ``d_full`` of them (its sums summed over ``model``)."""
     y = y * F.silu(z)
     yf = y.float()
-    return (yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
-            * p["norm_scale"]).to(dtype)
+    if tp is None:
+        ms = (yf * yf).mean(-1, keepdim=True)
+    else:
+        ms = tp.all_sum((yf * yf).sum(-1, keepdim=True)) / d_full
+    return (yf * torch.rsqrt(ms + 1e-6) * p["norm_scale"]).to(dtype)
 
 
-def mamba2_forward(p: dict, cfg: ModelConfig, x: torch.Tensor):
+def mamba2_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, tp=None):
     """x: (B, L, D) -> (B, L, D), through SSD (``cfg.ssm_impl == "ssd"``)
-    or the elementwise chunked scan ("scan")."""
+    or the elementwise chunked scan ("scan"); over this rank's heads with
+    ``tp`` (module docstring)."""
     dtype = x.dtype
-    di, hd = cfg.d_inner, cfg.mamba_headdim
-    nh = di // hd
-    zxbcdt = x @ p["in_proj"].to(dtype)
-    z, xr, Bc, Cc, dt, decay, _ = _mamba2_parts(p, cfg, zxbcdt)
+    hd = cfg.mamba_headdim
+    zxbcdt = _tp_in(x, p["in_proj"].to(dtype), tp)
+    p = _mamba2_own(p, cfg, tp)
+    z, xr, Bc, Cc, dt, decay, _ = _mamba2_parts(p, cfg, zxbcdt, tp=tp)
     B_, L = x.shape[:2]
+    di = xr.shape[-1]
+    nh = di // hd
     xh = xr.reshape(B_, L, nh, hd).float()
     if cfg.ssm_impl == "ssd":
         y = _ssd_chunked(xh, Bc.float(), Cc.float(), dt, decay, CHUNK)
@@ -318,30 +409,35 @@ def mamba2_forward(p: dict, cfg: ModelConfig, x: torch.Tensor):
         decay_b = decay[..., None, None].expand(drive.shape)
         y = _chunked_ssm(decay_b, drive, Cc.float(), CHUNK)
     y = y + p["D"][:, None] * xh
-    y = _gated_norm(p, y.reshape(B_, L, di).to(dtype), z, dtype)
-    return y @ p["out_proj"].to(dtype)
+    y = _gated_norm(p, y.reshape(B_, L, di).to(dtype), z, dtype, tp,
+                    cfg.d_inner)
+    return _tp_out(y, p["out_proj"].to(dtype), tp)
 
 
 def mamba2_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                  state: Tuple[torch.Tensor, torch.Tensor]):
+                  state: Tuple[torch.Tensor, torch.Tensor], tp=None):
     """x: (B, 1, D); state: (conv_state (B, K-1, di + 2n), h (B, nh, hd,
-    n) f32).  Returns (out (B, 1, D), new state); the input state is not
-    written."""
+    n) f32), with ``tp`` the whole conv state and the rank's heads of h
+    (module docstring).  Returns (out (B, 1, D), new state, its conv
+    state whole); the input state is not written."""
     dtype = x.dtype
-    di, hd = cfg.d_inner, cfg.mamba_headdim
-    nh = di // hd
+    hd = cfg.mamba_headdim
     conv_s, h = state
-    zxbcdt = x @ p["in_proj"].to(dtype)
-    z, xr, Bc, Cc, dt, decay, conv_s = _mamba2_parts(p, cfg, zxbcdt, conv_s)
+    zxbcdt = _tp_in(x, p["in_proj"].to(dtype), tp)
+    p = _mamba2_own(p, cfg, tp)
+    z, xr, Bc, Cc, dt, decay, conv_s = _mamba2_parts(p, cfg, zxbcdt, conv_s,
+                                                     tp)
     B_ = x.shape[0]
-    xh = xr[:, 0].reshape(B_, nh, hd).float()
+    di = xr.shape[-1]
+    xh = xr[:, 0].reshape(B_, di // hd, hd).float()
     drive = (dt[:, 0, :, None, None] * xh[..., None]
              * Bc[:, 0, None, None, :].float())
     h = decay[:, 0, :, None, None] * h + drive         # (B, nh, hd, n)
     y = torch.einsum("bhdn,bn->bhd", h, Cc[:, 0].float())
     y = y + p["D"][:, None] * xh
-    y = _gated_norm(p, y.reshape(B_, 1, di).to(dtype), z, dtype)
-    return y @ p["out_proj"].to(dtype), (conv_s, h)
+    y = _gated_norm(p, y.reshape(B_, 1, di).to(dtype), z, dtype, tp,
+                    cfg.d_inner)
+    return _tp_out(y, p["out_proj"].to(dtype), tp), (conv_s, h)
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,

@@ -19,18 +19,37 @@ a forward uses sharded params, as GSPMD would for these specs:
 * a dimension on ``data`` is gathered at use (``Mesh.all_gather``) and
   the gradient of the gathered leaf is reduce-scattered back to the
   shards (``_Gather`` with ``reduce=True``): FSDP;
-* the attention block and the MLP run tensor-parallel over ``model``
-  where the specs split their heads / d_ff: column-parallel ``wq``,
-  ``wk``, ``wv`` (MLA: ``wq``, ``w_uk``, ``w_uv``), ``wi_gate``,
-  ``wi_up`` and row-parallel ``wo``, one all-reduce of the block's
-  output (``_ReduceFromTP``) and, in the backward, one of the gradient
-  of its input (``_CopyToTP``); the experts of a MoE block run
+* the attention block, the decoder's cross-attention and the MLP run
+  tensor-parallel over ``model`` where the specs split their heads /
+  d_ff: column-parallel ``wq``, ``wk``, ``wv`` (MLA: ``wq``, ``w_uk``,
+  ``w_uv``), ``wi_gate``, ``wi_up`` and row-parallel ``wo``, one
+  all-reduce of the block's output (``_ReduceFromTP``) and, in the
+  backward, one of the gradient of its input (``_CopyToTP``; the
+  cross-attention's encoder output too); the experts of a MoE block run
   expert-parallel where the specs split their E axis over ``model``
   (each rank its experts, one all-reduce of the partial output).  A
   leaf of such a part that every rank along ``model`` uses whole but
   that feeds only the rank's heads or experts (the q / k norm scales,
   MLA's ``w_dkv``, ``w_kr`` and ``kv_norm``, the router) sits behind
-  ``_CopyToTP`` too: its gradient is a sum over ``model`` of partials;
+  ``_CopyToTP`` too: its gradient is a sum over ``model`` of partials.
+  The parts are found in every layer: the decoder's, the encoder's and
+  the hybrid pattern's shared block;
+* a Mamba block runs tensor-parallel over its ``d_inner`` channels
+  (Mamba-1) or its heads (Mamba-2) where the specs split ``in_proj``'s
+  columns, ``out_proj``'s rows and the per-channel leaves over
+  ``model``: ``in_proj`` column-parallel on the spec's own chunk of
+  columns, whose output is gathered over ``model`` (its gradient
+  reduce-scattered back, ``gather_act``) because a contiguous chunk of
+  ``[x | z]`` (Mamba-2: ``[z | x | B | C | dt]``) does not hold matching
+  channels; each rank then takes its channels (Mamba-2: its heads' z, x
+  and dt, B and C whole), ``out_proj`` row-parallel (the block's one
+  ``reduce``).  Mamba-1's ``x_proj`` is row-parallel and its sum is used
+  per rank (``all_sum``: forward and backward each one all-reduce), as
+  is Mamba-2's sum of squares of its gated norm.  A leaf a rank slices
+  to its channels or heads where the spec does not split it (``D``,
+  ``dt_bias``, Mamba-2's ``norm_scale`` and its ``conv_w``, whose
+  contiguous chunk does not hold ``[x_r | B | C]``) is gathered whole
+  behind ``_CopyToTP``;
 * any other leaf split over ``model`` (the embedding and head tables on
   vocab, a spec that falls back to the d_model contraction, heads that
   do not divide ``model``) is gathered at use and its compute is
@@ -48,11 +67,15 @@ The decode state is laid out by ``cache_spec`` (the JAX package's
 caches): ``pos`` replicated; a GQA cache (B, S, kv, hd) with its batch
 over ``data`` where B divides, its kv heads over ``model`` where they
 divide and else S over ``model``, and S over ``data`` where B does not
-divide; MLA's latent ``c`` and rope key ``k_rope`` with S over
-``model``; the Mamba states' channels or heads over ``model``.  A cache
-whose S is split is read by the split-S attention of
+divide (the shared block's ``shared_cache`` and the decoder's
+``cross_kv`` too); MLA's latent ``c`` and rope key ``k_rope`` with S
+over ``model``; the Mamba states' channels or heads over ``model``.  A
+cache whose S is split is read by the split-S attention of
 ``models.attention`` (each rank its chunk, the partial softmaxes merged
-over the axis).
+over the axis).  A Mamba state chunk that the block needs whole
+(Mamba-2's conv state, whose contiguous chunk is not the rank's
+channels; any state of a block computed replicated) is gathered over
+``model`` at the step and the rank keeps its chunk of the new one.
 
 Every collective goes through ``launch.mesh.Mesh`` and is counted there.
 """
@@ -329,23 +352,24 @@ class _Gather(torch.autograd.Function):
     leaf, in half the bytes for bf16).  Backward: the gradient back in
     the chunk's dtype, then its reduce-scatter (``reduce``: the compute
     after the gather differs along the axis, FSDP over data) or this
-    rank's chunk of it (the compute is replicated along the axis)."""
+    rank's chunk of it (the compute is replicated along the axis).  Both
+    counted as ``kind`` (a leaf's ``"param"``, an activation's ``"tp"``)."""
 
     @staticmethod
-    def forward(ctx, t, mesh, axis, dim, reduce, dtype):
+    def forward(ctx, t, mesh, axis, dim, reduce, dtype, kind="param"):
         ctx.mesh, ctx.axis, ctx.dim, ctx.reduce = mesh, axis, dim, reduce
-        ctx.src = t.dtype
-        return mesh.all_gather(t.to(dtype), axis, dim, "param")
+        ctx.src, ctx.kind = t.dtype, kind
+        return mesh.all_gather(t.to(dtype), axis, dim, kind)
 
     @staticmethod
     def backward(ctx, g):
         mesh, axis, dim = ctx.mesh, ctx.axis, ctx.dim
         g = g.to(ctx.src)
         if ctx.reduce:
-            g = mesh.reduce_scatter(g, axis, dim, "param")
+            g = mesh.reduce_scatter(g, axis, dim, ctx.kind)
         else:
             g = g.chunk(mesh.shape[axis], dim)[mesh.index(axis)]
-        return g.contiguous(), None, None, None, None, None
+        return g.contiguous(), None, None, None, None, None, None
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -377,19 +401,50 @@ class _ReduceFromTP(torch.autograd.Function):
 
 # the TP split dim of each leaf the tensor-parallel route splits, by the
 # block part it belongs to (column-parallel on heads / d_ff, row-parallel
-# on heads / d_ff; the experts of a MoE block on E); an MLA block's
-# attention takes the "mla" row (``part_splits``)
+# on heads / d_ff; the experts of a MoE block on E; a Mamba block's
+# in_proj columns, out_proj rows and, for Mamba-1, every per-channel
+# matrix on d_inner, for Mamba-2 A_log on heads); an MLA block's attention
+# takes the "mla" row, a Mamba block the row of its kind (``part_row``)
 TP_SPLITS = {"attn": {"wq": 1, "wk": 1, "wv": 1, "wo": 0},
              "mla": {"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0},
+             "cross": {"wq": 1, "wk": 1, "wv": 1, "wo": 0},
              "mlp": {"wi_gate": 1, "wi_up": 1, "wo": 0},
-             "moe": {"wi_gate": 0, "wi_up": 0, "wo": 0}}
+             "moe": {"wi_gate": 0, "wi_up": 0, "wo": 0},
+             "mamba1": {"in_proj": 1, "conv_w": 0, "x_proj": 0,
+                        "dt_proj": 1, "A_log": 0, "out_proj": 0},
+             "mamba2": {"in_proj": 1, "A_log": 0, "out_proj": 0}}
+# the leaves of a tensor-parallel Mamba block that each rank slices to its
+# channels / heads along a dim: kept split where the spec splits that dim
+# over model (the chunk is the rank's), else gathered whole behind
+# ``copy``; None: always gathered whole (Mamba-2's conv_w, whose chunk is
+# not the rank's [x_r | B | C])
+TP_SLICED = {"mamba1": {"D": 0, "dt_bias": 0},
+             "mamba2": {"D": 0, "dt_bias": 0, "norm_scale": 0,
+                        "conv_w": None}}
+# leaves a forward uses in f32 whatever its compute dtype: never gathered
+# in the compute dtype
+UNCAST = ("scale", "bias", "A_log", "D", "dt_bias", "norm_scale")
 
 
-def part_splits(part: str, names) -> dict:
-    """The ``TP_SPLITS`` row of a block part whose leaves are ``names``."""
+def part_row(part: str, names) -> str:
+    """The ``TP_SPLITS`` row's name of a block part whose leaves are
+    ``names``."""
     if part == "attn" and "w_uk" in names:
-        return TP_SPLITS["mla"]
-    return TP_SPLITS.get(part, {})
+        return "mla"
+    if part == "mamba":
+        return "mamba1" if "x_proj" in names else "mamba2"
+    return part
+
+
+def model_blocks(specs) -> list:
+    """Every layer's dict of a params (or specs) tree: the decoder's
+    blocks, the hybrid pattern's shared block, the encoder's blocks."""
+    out = list(specs["blocks"])
+    if "shared_attn" in specs:
+        out.append(specs["shared_attn"])
+    if "encoder" in specs:
+        out.extend(specs["encoder"]["blocks"])
+    return out
 
 
 class Sharded:
@@ -398,9 +453,11 @@ class Sharded:
     tensor-parallel pair (module docstring).  ``tp_parts`` names the
     block parts that run tensor- or expert-parallel: those whose every
     split leaf of their ``TP_SPLITS`` row has its TP dim on ``model``
-    (heads and kv heads, d_ff or E divide it).  ``dtype``: the compute
-    dtype, in which the weight matrices (not the norm scales, nor the
-    embedding table the forward indexes in f32) are gathered."""
+    (heads and kv heads, d_ff, E or d_inner divide it), looked for in
+    every layer (``model_blocks``).  ``dtype``: the compute dtype, in
+    which the weight matrices (not the norm scales, the Mamba leaves
+    used in f32, nor the embedding table the forward indexes in f32) are
+    gathered."""
 
     def __init__(self, rules: MeshRules, specs,
                  dtype: torch.dtype = torch.float32):
@@ -408,16 +465,18 @@ class Sharded:
         self.dtype = dtype
         self.tp = rules.tp if (rules.tp is not None and
                                rules.axis_size(rules.tp) > 1) else None
-        self.tp_parts, self.splits = set(), {}
+        self.tp_parts, self.splits, self.sliced = set(), {}, {}
         if self.tp is not None:
-            for block in specs["blocks"]:
+            for block in model_blocks(specs):
                 for part, v in block.items():
-                    splits = part_splits(part, v)
+                    row = part_row(part, v)
+                    splits = TP_SPLITS.get(row, {})
                     if splits and part not in self.splits and all(
                             v[name][d] == self.tp
                             for name, d in splits.items()):
                         self.tp_parts.add(part)
                         self.splits[part] = splits
+                        self.sliced[part] = TP_SLICED.get(row, {})
 
     def use(self, t: torch.Tensor, spec: Spec, tp_dim: Optional[int] = None,
             cast: bool = False) -> torch.Tensor:
@@ -433,21 +492,31 @@ class Sharded:
                 t = _Gather.apply(t, self.mesh, a, d, False, dtype)
         return t
 
-    def leaf_use(self, path) -> Tuple[Optional[int], bool, bool]:
+    def leaf_use(self, path, spec: Optional[Spec] = None
+                 ) -> Tuple[Optional[int], bool, bool]:
         """``(tp_dim, cast, copy)`` of the block leaf at ``path`` (its keys
-        in the layer's dict): in a tensor-parallel part a leaf of its
-        ``TP_SPLITS`` row stays split at its TP dim; a leaf that feeds
-        only the rank's heads or experts (a norm scale of the part, MLA's
-        ``w_dkv`` / ``w_kr``, the router) is gathered whole, uncast, and
-        put behind ``copy``; a sub-MLP of the part (the shared experts,
-        Arctic's dense residual) is gathered and computed whole on every
-        rank.  Matrices are gathered in the compute dtype."""
+        in the layer's dict) of ``spec``: in a tensor-parallel part a leaf
+        of its ``TP_SPLITS`` row stays split at its TP dim; a Mamba leaf
+        of ``TP_SLICED`` stays split where ``spec`` splits its dim over
+        ``model``, else it is gathered whole and put behind ``copy``; a
+        leaf that feeds only the rank's heads or experts (a norm scale or
+        bias of the part, MLA's ``w_dkv`` / ``w_kr``, the router) is
+        gathered whole, uncast, and put behind ``copy``; a sub-MLP of the
+        part (the shared experts, Arctic's dense residual) is gathered and
+        computed whole on every rank.  Matrices are gathered in the
+        compute dtype, the ``UNCAST`` leaves in f32."""
         part, name = path[0], path[1]
+        cast = path[-1] not in UNCAST
         if part not in self.tp_parts:
-            return None, True, False
+            return None, cast, False
         if len(path) == 2 and name in self.splits[part]:
-            return self.splits[part][name], True, False
-        if len(path) == 2 or path[-1] == "scale":
+            return self.splits[part][name], cast, False
+        if len(path) == 2 and name in self.sliced[part]:
+            d = self.sliced[part][name]
+            if d is not None and spec is not None and spec[d] == self.tp:
+                return d, cast, False
+            return None, cast, True
+        if len(path) == 2 or path[-1] in ("scale", "bias"):
             return None, False, True
         return None, True, False
 
@@ -455,8 +524,9 @@ class Sharded:
         """A layer's params as its forward uses them (``leaf_use``)."""
         out = []
         for path, t in leaves_with_paths(p):
-            tp_dim, cast, copy = self.leaf_use(path)
-            w = self.use(t, spec_at(spec, path), tp_dim, cast)
+            sp = spec_at(spec, path)
+            tp_dim, cast, copy = self.leaf_use(path, sp)
+            w = self.use(t, sp, tp_dim, cast)
             out.append(self.copy(w) if copy else w)
         return unflatten(p, out)
 
@@ -525,13 +595,43 @@ class Sharded:
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         return _ReduceFromTP.apply(x, self.mesh, self.tp)
 
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over ``model`` of the ranks' partials ``x``, where each
+        rank uses the sum for its own channels: one all-reduce forward,
+        one of the gradient backward (``copy`` after ``reduce``)."""
+        return self.copy(self.reduce(x))
+
+    def gather_act(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' chunks of an activation ``x`` gathered over ``model``
+        along ``dim`` (kind ``"tp"``), its gradient reduce-scattered back:
+        every rank uses other parts of the whole."""
+        return _Gather.apply(x, self.mesh, self.tp, dim % x.ndim, True,
+                             x.dtype, "tp")
+
     def index(self) -> int:
         """This rank's coordinate along the tensor-parallel axis."""
         return self.mesh.index(self.tp)
 
+    def size(self) -> int:
+        """The ranks along the tensor-parallel axis."""
+        return self.mesh.shape[self.tp]
 
-__all__ = ["MeshRules", "Sharded", "Spec", "TP_SPLITS", "batch_rows",
-           "cache_spec", "chunk_shape", "decode_state_specs", "gather_leaf",
-           "gather_rows", "gather_tree", "leaf_specs", "param_spec",
-           "part_splits", "path_str", "replicated_axes", "shard_leaf",
+    def own(self, t: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+        """This rank's contiguous chunk of the ``n`` channels (or heads)
+        of ``t`` along ``dim``; ``t`` itself where it holds the chunk
+        already (a leaf the spec split there).  Any other width raises."""
+        c = n // self.size()
+        if t.shape[dim] == c:
+            return t
+        if t.shape[dim] != n:
+            raise ValueError(f"own: {tuple(t.shape)} along dim {dim} holds "
+                             f"neither the {n} channels nor a chunk of {c}")
+        return t.narrow(dim, self.index() * c, c)
+
+
+__all__ = ["MeshRules", "Sharded", "Spec", "TP_SLICED", "TP_SPLITS",
+           "UNCAST", "batch_rows", "cache_spec", "chunk_shape",
+           "decode_state_specs", "gather_leaf", "gather_rows", "gather_tree",
+           "leaf_specs", "model_blocks", "param_spec", "part_row",
+           "path_str", "replicated_axes", "shard_leaf",
            "shard_tree", "spec_at", "split_axes", "tree_pspecs"]

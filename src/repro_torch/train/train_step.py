@@ -43,9 +43,11 @@ counted once (by the rank at coordinate 0 on that axis).
 ``step_collectives`` gives the collectives a step makes, by axis and
 kind, from the config and the mesh (``decode_collectives`` those of a
 sharded decode step); every call is counted in
-``launch.mesh.COLLECTIVES``.  MLA and MoE configs run through both
-sharded steps: MLA's attention tensor-parallel on heads, the experts
-expert-parallel on E (under ``defer_rules`` too: its params are
+``launch.mesh.COLLECTIVES``.  Every config runs through both sharded
+steps: MLA's attention tensor-parallel on heads, the experts
+expert-parallel on E, a Mamba block on its channels or heads, the
+shared block and the encoder's layers as dense blocks, the decoder's
+cross-attention on heads (under ``defer_rules`` too: its params are
 replicated over ``data`` only).
 """
 from __future__ import annotations
@@ -377,7 +379,7 @@ class _DeferStep:
         self.mesh = rules.mesh
 
     @staticmethod
-    def int8_groups(mesh, params, specs) -> dict:
+    def int8_groups(mesh, params, specs, period: int = 1) -> dict:
         """The leaves whose int8 blocks are not their own chunk's blocks
         (``params`` this rank's chunks, ``specs`` theirs), by the flat
         array whose blocks they take: ``{key: {"leaves": [(leaf index,
@@ -385,11 +387,12 @@ class _DeferStep:
         bool}}``.  The JAX package quantizes each logically full leaf,
         stacked over layers: a layer's leaf whose full size is not a
         multiple of BLOCK (a norm scale) shares blocks with its
-        neighbours, so the layers of one name are one array, layer l at
-        offset l x its size; a leaf split over ``model`` whose chunks
-        cut its blocks takes the full leaf's.  Where a group holds a
-        split leaf (``model``), its block maxima are reduced over
-        ``model``."""
+        neighbours, so the layers of one name at one position of the
+        pattern (``period`` its length) are one array, the layer of
+        period p at offset p x its size, and the encoder's layers of one
+        name another; a leaf split over ``model`` whose chunks cut its
+        blocks takes the full leaf's.  Where a group holds a split leaf
+        (``model``), its block maxima are reduced over ``model``."""
         groups: dict = {}
         for i, ((path, t), spec) in enumerate(zip(leaves_with_paths(params),
                                                   specs)):
@@ -398,7 +401,11 @@ class _DeferStep:
                           for dim, a in split_axes(mesh, spec)), None)
             size = t.numel() * (split[1] if split else 1)
             if path[0] == "blocks" and size % BLOCK:
-                key, offset = ("stack",) + tuple(path[2:]), path[1] * size
+                p, pos = divmod(path[1], period)
+                key, offset = ("stack", pos) + tuple(path[2:]), p * size
+            elif path[:2] == ("encoder", "blocks") and size % BLOCK:
+                key = ("encoder",) + tuple(path[3:])
+                offset = path[2] * size
             elif split and (t.shape[split[0]]
                             * math.prod(t.shape[split[0] + 1:]) % BLOCK):
                 key, offset = ("leaf", i), 0
@@ -459,7 +466,8 @@ class _DeferStep:
         # the leaves whose int8 blocks span layers or model chunks: their
         # scales come from the blocks' maxima over the group, reduced
         # over model (one call a sync) where a chunk cuts them
-        groups = (self.int8_groups(mesh, params, specs)
+        groups = (self.int8_groups(mesh, params, specs,
+                                   len(self.cfg.pattern))
                   if tcfg.compress_int8 else {})
         rnd = _Bucket(params, [True] * len(flat))
         acc = None if nm == s else torch.zeros_like(rnd.buf)
@@ -508,42 +516,84 @@ def _add(calls, axis, kind, k=1) -> None:
 # uses whole but that feed only its heads or experts: their gradients are
 # sums of the ranks' partials, one ``tp`` reduction each in the backward
 # (``Sharded.copy``).  Written out here, not read from ``Sharded.leaf_use``,
-# so that a leaf the forward leaves out of ``copy`` changes the count.
+# so that a leaf the forward leaves out of ``copy`` changes the count.  A
+# Mamba block's leaves that each rank slices to its channels or heads
+# (``MAMBA_SLICED``: the dim, None where the leaf is always taken whole)
+# sit behind ``copy`` where the spec does not split that dim over model.
 COPIED = {"attn": ("q_norm", "k_norm", "w_dkv", "w_kr", "kv_norm"),
           "moe": ("router",)}
+MAMBA_SLICED = {"mamba1": {"D": 0, "dt_bias": 0},
+                "mamba2": {"conv_w": None, "D": 0, "dt_bias": 0,
+                           "norm_scale": 0}}
 
 
-def _layer_calls(calls, cfg, r, sh, times, backward) -> None:
+def _part_calls(calls, tp, part, sub, bspec, times, backward) -> None:
+    """The ``tp`` collectives of one tensor- or expert-parallel part
+    (``sub`` its leaves, ``bspec`` their specs) at ``times`` forward
+    passes, with ``backward`` its backward's."""
+    # the output's reduction, and the input's gradient
+    _add(calls, tp, "tp", times + backward)
+    copied = [k for k in sub if k in COPIED.get(part, ())]
+    if part == "cross":        # the encoder output's gradient
+        copied.append("kv_x")
+    if part == "mamba":
+        row = "mamba1" if "x_proj" in sub else "mamba2"
+        # in_proj's activation gathered (reduce-scattered back), and
+        # Mamba-1's x_proj / Mamba-2's norm sum of squares summed both ways
+        _add(calls, tp, "tp", 2 * (times + backward))
+        copied += [k for k, d in MAMBA_SLICED[row].items()
+                   if d is None or bspec[k][d] != tp]
+    _add(calls, tp, "tp", backward * len(copied))
+
+
+def _layer_calls(calls, cfg, r, sh, times, backward,
+                 encoder: bool = True) -> None:
     """The collectives of every layer's leaves (``Sharded.leaf_use``) and
-    tensor-parallel parts at ``times`` forward passes; with ``backward``
-    the gradients' reduce-scatters, the parts' input copies and the
-    copies of their model-replicated leaves (``COPIED``)."""
+    tensor-parallel parts (``_part_calls``) at ``times`` forward passes,
+    with ``backward`` the gradients' reduce-scatters and the backward's
+    ``tp`` reductions: the decoder's layers, the shared block at each of
+    its ``n_periods`` applications, and with ``encoder`` the encoder's
+    layers."""
     specs, mesh = sh.specs, r.mesh
-    for block, bspec in zip(abstract_params(cfg)["blocks"], specs["blocks"]):
+    full = abstract_params(cfg)
+    layers = [(b, s, 1) for b, s in zip(full["blocks"], specs["blocks"])]
+    if "shared_attn" in full:
+        layers.append((full["shared_attn"], specs["shared_attn"],
+                       cfg.n_periods))
+    if encoder and "encoder" in full:
+        layers += [(b, s, 1) for b, s in zip(full["encoder"]["blocks"],
+                                             specs["encoder"]["blocks"])]
+    for block, bspec, apps in layers:
         for path, _ in leaves_with_paths(block):
-            tp_dim = sh.leaf_use(path)[0]
-            _use_calls(calls, mesh, r.fsdp, spec_at(bspec, path), tp_dim,
-                       times, backward)
+            spec = spec_at(bspec, path)
+            tp_dim = sh.leaf_use(path, spec)[0]
+            _use_calls(calls, mesh, r.fsdp, spec, tp_dim, apps * times,
+                       apps * backward)
         for part, sub in block.items():
             if part in sh.tp_parts:
-                # the output's reduction, and the input's gradient
-                _add(calls, sh.tp, "tp", times + backward)
-                copied = [k for k in sub if k in COPIED.get(part, ())]
-                _add(calls, sh.tp, "tp", backward * len(copied))
+                _part_calls(calls, sh.tp, part, sub, bspec[part],
+                            apps * times, apps * backward)
 
 
 def step_collectives(cfg: ModelConfig, tcfg: TrainConfig, rules: MeshRules,
                      defer: bool) -> Dict[Tuple[str, str], int]:
     """Calls by ``(axis, kind)`` that one step of the sharded
     (``defer=False``) or the deferred step makes on every rank.  Per
-    microbatch: a gather of each leaf split over an axis of more than one
-    rank at each use (over ``model`` only where the tensor-parallel route
-    does not keep the leaf split), a reduce-scatter of each ``data``
-    gather in the backward, one ``tp`` reduction of each tensor- or
-    expert-parallel part's output (attention, MLP, experts) and, in the
-    backward, one for each part's input and each leaf behind ``copy``
-    (the q / k norm scales, MLA's ``w_dkv``, ``w_kr``, ``kv_norm``, the
-    router); with remat a layer's forward collectives twice.  Per step:
+    microbatch, in every layer (the decoder's, the encoder's, the shared
+    block's at each application): a gather of each leaf split over an
+    axis of more than one rank at each use (over ``model`` only where the
+    tensor-parallel route does not keep the leaf split), a reduce-scatter
+    of each ``data`` gather in the backward, one ``tp`` reduction of each
+    tensor- or expert-parallel part's output (attention, cross-attention,
+    MLP, experts, Mamba) and, in the backward, one for each part's input
+    (the cross-attention's encoder output too) and each leaf behind
+    ``copy`` (the q / k norm scales, MLA's ``w_dkv``, ``w_kr``,
+    ``kv_norm``, the router, the Mamba leaves a rank slices where the
+    spec leaves them whole); a tensor-parallel Mamba block also gathers
+    its ``in_proj`` activation (a reduce-scatter back) and sums its
+    ``x_proj`` product (Mamba-1) or its norm's sum of squares (Mamba-2)
+    forward and backward; with remat a layer's forward collectives
+    twice.  Per step:
     the sharded step's one ``grad`` bucket, the deferred step's
     ``microbatches / defer_s`` syncs (each an all-reduce over ``data``
     and, with int8 on leaves split over model whose chunks cut their
@@ -568,7 +618,8 @@ def step_collectives(cfg: ModelConfig, tcfg: TrainConfig, rules: MeshRules,
             for t, sp in zip(leaves(full), flat)])
         if tcfg.compress_int8 and any(
                 g["model"] for g in
-                _DeferStep.int8_groups(mesh, chunks, flat).values()):
+                _DeferStep.int8_groups(mesh, chunks, flat,
+                                       len(cfg.pattern)).values()):
             _add(calls, "model", "grad", syncs)
     else:
         _add(calls, "data", "grad")
@@ -581,13 +632,18 @@ def decode_collectives(cfg: ModelConfig, rules: MeshRules, batch: int,
     """Calls by ``(axis, kind)`` that one sharded ``decode_step`` of
     ``batch`` rows over a cache of ``max_seq`` positions makes on every
     rank: the vocab-parallel use of the two tables (``Sharded.lookup``,
-    ``Sharded.project``), the gathers at use of every layer's leaves,
-    one ``tp`` reduction of each tensor- or expert-parallel part's
-    output, and for each layer whose cache has its S split one ``seq``
-    merge (for MLA whose heads are split over the same axis also the
-    queries' ``seq`` gather and two ``param`` gathers, ``w_uk`` and
-    ``w_uv``).  The serving steps add their
-    ``"token"`` gather (``sharding.gather_rows``)."""
+    ``Sharded.project``), the gathers at use of every layer's leaves (the
+    shared block's at each application), one ``tp`` reduction of each
+    tensor- or expert-parallel part's output (a Mamba block's also its
+    activation gather and its sum), and for each attention cache
+    (``caches``, ``shared_cache``, ``cross_kv``) whose S is split one
+    ``seq`` merge (for MLA whose heads are split over the same axis also
+    the queries' ``seq`` gather and two ``param`` gathers, ``w_uk`` and
+    ``w_uv``); for each Mamba state chunk the block takes whole
+    (``lm.mamba_state_whole``) one ``tp`` gather.  The serving steps add
+    their ``"token"`` gather (``sharding.gather_rows``)."""
+    from repro_torch.models import MAMBA1, MAMBA2
+    from repro_torch.models.lm import layer_kinds, mamba_state_whole
     specs = param_specs(rules, cfg)
     sh = Sharded(rules, specs)
     mesh = rules.mesh
@@ -601,17 +657,30 @@ def decode_collectives(cfg: ModelConfig, rules: MeshRules, batch: int,
         if d_ax is not None:      # the rows' d gather / the partial logits'
             # reduction, after the rows' gather where the batch is split
             _add(calls, d_ax, "param", 1 + (head and split_rows))
-    _use_calls(calls, mesh, rules.fsdp, specs["final_norm"]["scale"], None,
-               1, 0)
-    _layer_calls(calls, cfg, rules, sh, 1, 0)
+    for spec in specs["final_norm"].values():
+        _use_calls(calls, mesh, rules.fsdp, spec, None, 1, 0)
+    _layer_calls(calls, cfg, rules, sh, 1, 0, encoder=False)
     sspecs = decode_state_layout(rules, cfg, batch, max_seq)
-    for cspec in sspecs["caches"]:
+    attn = [(cs, cfg.attn_type == "mla") for kind, cs in
+            zip(layer_kinds(cfg), sspecs["caches"])
+            if kind not in (MAMBA1, MAMBA2)]
+    attn += [(cs, cfg.attn_type == "mla")
+             for cs in sspecs.get("shared_cache", ())]
+    attn += [(cs, False) for cs in sspecs.get("cross_kv", ())]
+    for cspec, mla in attn:
         split = [a for d, a in split_axes(mesh, cspec[0]) if d == 1]
         if split:
-            every_head = (cfg.attn_type == "mla" and "attn" in sh.tp_parts
+            every_head = (mla and "attn" in sh.tp_parts
                           and split[0] == sh.tp)
             _add(calls, split[0], "seq", 1 + every_head)
             _add(calls, split[0], "param", 2 * every_head)
+    tp_on = "mamba" in sh.tp_parts
+    for kind, cspecs in zip(layer_kinds(cfg), sspecs["caches"]):
+        if kind in (MAMBA1, MAMBA2):
+            for whole, sp in zip(mamba_state_whole(kind, tp_on), cspecs):
+                if whole and any(a == rules.tp
+                                 for _, a in split_axes(mesh, sp)):
+                    _add(calls, rules.tp, "tp")
     return calls
 
 

@@ -131,13 +131,16 @@ def test_chunk_blocks_are_the_full_leafs(shape, dim, n):
     assert _equal(torch.cat(deqs, dim), jc.decompress_int8(jq, js, jmeta))
 
 
-@pytest.mark.parametrize("arch", ["qwen3_1p7b", "yi_6b"])
+@pytest.mark.parametrize("arch", ["qwen3_1p7b", "yi_6b", "zamba2_1p2b",
+                                  "whisper_tiny"])
 def test_deferred_step_quantizes_in_jax_stacked_blocks(arch):
     """The deferred step's int8 on the port's per-layer leaves equals JAX's
     ``error_feedback_compress`` on its stacked tree bit for bit: the
     layers' leaves of one name whose size is not a multiple of the block
-    (the norm scales) share blocks across layers, as in the stacked
-    array (``_DeferStep.int8_groups``)."""
+    (the norm scales, Mamba-2's per-head leaves) share blocks across the
+    layers of their stacked array (``_DeferStep.int8_groups``): one
+    array for each position of the pattern (Zamba2's two), one for the
+    encoder's layers (Whisper)."""
     import dataclasses
 
     import jax
@@ -167,7 +170,7 @@ def test_deferred_step_quantizes_in_jax_stacked_blocks(arch):
     views = leaves(params)
     resid = leaves(convert.lm_params(r, cfg, device="cpu"))
     groups = step.int8_groups(step.mesh, params, leaf_specs(
-        param_specs(step.rules, cfg), params))
+        param_specs(step.rules, cfg), params), len(cfg.pattern))
     assert any(key[0] == "stack" for key in groups)
     step._compress(views, resid, groups)
     for got, want in ((views, jdeq), (resid, jres)):

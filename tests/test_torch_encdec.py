@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_procs as tdm
 
 from repro.configs import get_config as j_get_config
 from repro.models import abstract_params as j_abstract_params
@@ -43,12 +44,10 @@ from repro.train.serving import Request as JRequest
 from repro.train.serving import ServingEngine as JServingEngine
 from repro_torch import convert
 from repro_torch.configs import get_config
-from repro_torch.launch.mesh import Mesh
 from repro_torch.models import (abstract_params, decode_step,
                                 encoder_forward, forward, init_decode_state,
                                 init_params, prefill_cross_kv)
 from repro_torch.models.attention import gqa_decode, gqa_forward
-from repro_torch.models.sharding import MeshRules
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.adamw import decayed
 from repro_torch.train import (Request, ServingEngine, greedy_generate,
@@ -428,11 +427,15 @@ def test_both_packages_refuse_flash_at_1500_frames():
 # ----------------------------------------------------------- sharding ----
 
 def test_convert_shards_raise_naming_a11f():
+    """Once these raised naming ROADMAP A11f: on every rank of a (2, 2)
+    mesh ``convert.lm_shards`` cuts each leaf by its spec and
+    ``convert.decode_state_shards`` of a JAX decode state (random and ``cross_kv``)
+    is, leaf for leaf, ``init_decode_state(rules=)``'s chunks with the
+    state's values."""
     jcfg, cfg = _cfgs()
     jp = _np(j_init_params(jax.random.key(0), jcfg))
-    rules = MeshRules(Mesh((2, 2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11f"):
-        convert.lm_shards(jp, cfg, rules, device="cpu")
-    jstate = _np(j_init_decode_state(jcfg, 2, 8, with_encoder=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11f"):
-        convert.decode_state_shards(jstate, cfg, rules, device="cpu")
+    rng = np.random.default_rng(0)
+    jstate = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
+        np.float32), _np(j_init_decode_state(jcfg, 2, 8, with_encoder=True)))
+    jstate["pos"] = np.asarray([3, 5], np.int32)
+    tdm.check_convert_shards(jp, jstate, cfg)

@@ -2,7 +2,8 @@
 the CPU (the serve CLI at reduced widths, the training CLI at reduced
 Qwen2-VL, whose loss falls; the Whisper trainer refused before its
 first step, since the token pipeline gives no frames, as the JAX
-training CLI gives none; a ``--mesh`` raising naming ROADMAP A11f), and
+training CLI gives none, on a ``--mesh`` too; Qwen2-VL's loss falls on a
+2 x 2 ``--mesh`` of gloo ranks under ``torch.distributed.run``), and
 every config of the reference through every unsharded model entry point
 at its reduced widths."""
 import dataclasses
@@ -10,6 +11,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_procs as tdm
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import serve as serve_cli
@@ -56,9 +58,19 @@ def test_whisper_train_cli_is_refused_before_its_first_step():
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-72b"])
 def test_train_cli_mesh_raises_naming_a11f(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11f"):
-        train_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
-                        "--mesh", "2x2", "--steps", "2"])
+    """Once it raised naming ROADMAP A11f: ``--mesh 2x2`` trains Qwen2-VL
+    on four gloo ranks and its loss falls; Whisper is refused before any
+    process group starts, as on one device (no frames, ROADMAP C32)."""
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--mesh", "2x2",
+            "--steps", "12", "--batch", "4", "--seq", "32", "--log-every",
+            "1"]
+    if arch.startswith("whisper"):
+        with pytest.raises(NotImplementedError, match="audio_embed"):
+            train_cli.main(argv)
+        return
+    losses = tdm.train_cli_on_mesh(argv, 4)
+    assert len(losses) == 12 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))

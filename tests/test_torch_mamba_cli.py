@@ -1,10 +1,11 @@
 """The SSM family through the command-line entry points on the CPU: the
 serve CLI at reduced Falcon-Mamba-7B and Zamba2-1.2B, the training CLI
-(its loss falls) at both, and a ``--mesh`` raising naming ROADMAP A11e
-before any process group starts."""
+(its loss falls) at both, on one device and on a 2 x 2 ``--mesh`` of
+gloo ranks under ``torch.distributed.run``."""
 import numpy as np
 import pytest
 import torch
+import torch_procs as tdm
 
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as train_cli
@@ -41,6 +42,12 @@ def test_train_cli_on_cpu_loss_decreases(arch):
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
 def test_train_cli_mesh_raises_naming_a11e(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11e"):
-        train_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
-                        "--mesh", "2x2", "--steps", "2"])
+    """Once it raised naming ROADMAP A11e: ``--mesh 2x2`` trains on four
+    gloo ranks (the FSDP + TP step, the Mamba blocks tensor-parallel) and
+    its loss falls."""
+    losses = tdm.train_cli_on_mesh(
+        ["--arch", arch, "--reduced", "--device", "cpu", "--mesh", "2x2",
+         "--steps", "12", "--batch", "4", "--seq", "32", "--log-every",
+         "1"], 4)
+    assert len(losses) == 12 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_procs as tdm
 
 from repro.configs import get_config as j_get_config
 from repro.data.tokens import TokenPipeline as JTokenPipeline
@@ -37,13 +38,12 @@ from repro.train.train_step import TrainConfig as JTrainConfig
 from repro.train.train_step import make_train_step as j_make_train_step
 from repro_torch import convert
 from repro_torch.configs import get_config
-from repro_torch.launch.mesh import Mesh
 from repro_torch.models import abstract_params, forward, init_params
-from repro_torch.models.sharding import MeshRules
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.adamw import decayed
 from repro_torch.train import TrainConfig, loss_and_grads, make_train_step
 from repro_torch.tree import leaves, leaves_with_paths, map_tree
+
 
 CASES = [("falcon_mamba_7b", "scan"), ("zamba2_1p2b", "ssd"),
          ("zamba2_1p2b", "scan")]
@@ -257,11 +257,15 @@ def test_two_train_steps_match_jax(arch, nm):
 
 @pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_1p2b"])
 def test_convert_shards_raise_naming_a11e(arch):
+    """Once these raised naming ROADMAP A11e: on every rank of a (2, 2)
+    mesh ``convert.lm_shards`` cuts each leaf by its spec and
+    ``convert.decode_state_shards`` of a JAX decode state (random, the
+    shared block's ``shared_cache`` included) is, leaf for leaf,
+    ``init_decode_state(rules=)``'s chunks with the state's values."""
     jcfg, cfg = _cfgs(arch)
     jp = _np(j_init_params(jax.random.key(0), jcfg))
-    rules = MeshRules(Mesh((2, 2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11e"):
-        convert.lm_shards(jp, cfg, rules, device="cpu")
-    jstate = jax.tree.map(np.asarray, j_init_decode_state(jcfg, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11e"):
-        convert.decode_state_shards(jstate, cfg, rules, device="cpu")
+    rng = np.random.default_rng(0)
+    jstate = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
+        np.float32), _np(j_init_decode_state(jcfg, 2, 8)))
+    jstate["pos"] = np.asarray([3, 5], np.int32)
+    tdm.check_convert_shards(jp, jstate, cfg)

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_procs as tdm
 
 from repro.configs import get_config as j_get_config
 from repro.models import abstract_params as j_abstract_params
@@ -36,11 +37,9 @@ from repro.train.train_step import TrainConfig as JTrainConfig
 from repro.train.train_step import make_train_step as j_make_train_step
 from repro_torch import convert
 from repro_torch.configs import get_config
-from repro_torch.launch.mesh import Mesh
 from repro_torch.models import (abstract_params, decode_step, forward,
                                 init_decode_state)
 from repro_torch.models.layers import apply_mrope
-from repro_torch.models.sharding import MeshRules
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.train import TrainConfig, loss_and_grads, make_train_step
 from repro_torch.train.train_step import _microbatches
@@ -274,11 +273,15 @@ def test_two_microbatch_train_steps_match_jax():
 # ----------------------------------------------------------- sharding ----
 
 def test_convert_shards_raise_naming_a11f():
+    """Once these raised naming ROADMAP A11f: on every rank of a (2, 2)
+    mesh ``convert.lm_shards`` cuts each leaf by its spec and
+    ``convert.decode_state_shards`` of a JAX decode state (random)
+    is, leaf for leaf, ``init_decode_state(rules=)``'s chunks with the
+    state's values."""
     jcfg, cfg = _cfgs()
     jp = _np(j_init_params(jax.random.key(0), jcfg))
-    rules = MeshRules(Mesh((2, 2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11f"):
-        convert.lm_shards(jp, cfg, rules, device="cpu")
-    jstate = _np(j_init_decode_state(jcfg, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11f"):
-        convert.decode_state_shards(jstate, cfg, rules, device="cpu")
+    rng = np.random.default_rng(0)
+    jstate = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
+        np.float32), _np(j_init_decode_state(jcfg, 2, 8)))
+    jstate["pos"] = np.asarray([3, 5], np.int32)
+    tdm.check_convert_shards(jp, jstate, cfg)

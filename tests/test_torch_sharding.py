@@ -39,7 +39,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.lm import abstract_params, param_specs
 from repro_torch.models.sharding import (MeshRules, Sharded, leaf_specs,
-                                         param_spec, tree_pspecs)
+                                         param_spec, shard_tree, tree_pspecs)
 from repro_torch.tree import leaves_with_paths
 
 MESHES = [(1, 1), (2, 2), (4, 2), (16, 16)]
@@ -237,32 +237,88 @@ def test_mla_and_expert_parallel_parts(arch, mesh, parts):
         assert sh.leaf_use(("moe", sub, "wi_gate")) == (None, True, False)
 
 
+class _ShapeMesh(Mesh):
+    """A (2, 2) mesh of one process whose collectives give the shapes the
+    real ones give (a gather repeats this rank's chunk, a reduce-scatter
+    keeps its first chunk, a reduction is the identity), counted as the
+    real ones are: a sharded entry point runs here end to end."""
+
+    def all_gather(self, t, axis, dim, kind="param"):
+        self._count(axis, kind, t.numel() * self.shape[axis])
+        return torch.cat([t] * self.shape[axis], dim)
+
+    def reduce_scatter(self, t, axis, dim, kind="param"):
+        self._count(axis, kind, t.numel())
+        return t.chunk(self.shape[axis], dim)[0].contiguous()
+
+
 @pytest.mark.parametrize("call", ["forward", "loss_fn", "decode_step",
                                   "param_specs", "init_decode_state"])
 @pytest.mark.parametrize("arch,item", [
     ("falcon_mamba_7b", "A11e"), ("zamba2_1p2b", "A11e"),
     ("whisper_tiny", "A11f"), ("qwen2_vl_72b", "A11f")])
 def test_unported_families_raise_under_rules_too(arch, item, call):
-    """Sharding is ported for GQA, MLA and MoE; the SSM family (Mamba
-    blocks, the shared attention block) runs unsharded only and raises
-    naming A11e under ``rules``; the encoder-decoder stack (Whisper) and
-    M-RoPE (Qwen2-VL) run unsharded only and raise naming A11f."""
+    """The SSM family (Mamba blocks, the shared attention block; ROADMAP
+    A11e), the encoder-decoder stack (Whisper) and M-RoPE (Qwen2-VL;
+    A11f) once raised under ``rules``: each entry point now runs on a
+    (2, 2) mesh of this rank's shards, and every tensor it takes or
+    returns has the shape ``chunk_shape`` gives its spec (the logits this
+    rank's rows)."""
     from repro_torch.models import lm
-    cfg = get_config(arch, reduced=True)
-    rules = MeshRules(Mesh((2, 2)))
-    toks = torch.zeros((2, 4), dtype=torch.long)
-    calls = {
-        "forward": lambda: lm.forward({}, cfg, toks, rules=rules),
-        "loss_fn": lambda: lm.loss_fn({}, cfg, {"tokens": toks,
-                                                "labels": toks},
-                                      rules=rules),
-        "decode_step": lambda: lm.decode_step({}, cfg, {}, toks[:, :1],
-                                              rules=rules),
-        "param_specs": lambda: lm.param_specs(rules, cfg),
-        "init_decode_state": lambda: lm.init_decode_state(
-            cfg, 2, 8, device="cpu", rules=rules)}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        calls[call]()
+    from repro_torch.models.sharding import batch_rows, chunk_shape
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    rules = MeshRules(_ShapeMesh((2, 2)))
+    B, S = 2, 4
+    rows = batch_rows(rules, B)
+    specs = lm.param_specs(rules, cfg)
+    full = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    params = shard_tree(rules, full, specs)
+    toks = torch.zeros((B, S), dtype=torch.long)
+    extra = {}
+    if cfg.encoder_layers:
+        extra["audio_embed"] = torch.zeros((1, cfg.encoder_seq,
+                                            cfg.d_model))
+    if call == "param_specs":
+        for t, f, sp in zip(leaves(params), leaves(full),
+                            leaf_specs(specs, full)):
+            assert list(t.shape) == chunk_shape(rules.mesh, f.shape, sp)
+        return
+    state = lm.init_decode_state(cfg, B, 8, device="cpu", rules=rules,
+                                 with_encoder=bool(cfg.encoder_layers))
+    layout = lm.decode_state_layout(rules, cfg, B, 8)
+    whole = lm.abstract_decode_state(cfg, B, 8,
+                                     bool(cfg.encoder_layers))
+
+    def check_state(st):
+        for key in ("caches", "shared_cache", "cross_kv"):
+            assert (key in st) == (key in whole)
+            for pair, spair, fpair in zip(st.get(key, ()), layout.get(
+                    key, ()), whole.get(key, ())):
+                for t, sp, f in zip(pair, spair, fpair):
+                    assert list(t.shape) == chunk_shape(rules.mesh,
+                                                        f.shape, sp)
+                    assert t.dtype == f.dtype
+
+    if call == "init_decode_state":
+        check_state(state)
+        return
+    with torch.no_grad():
+        if call == "forward":
+            out = lm.forward(params, cfg, toks[rows], rules=rules, **extra)
+            assert out.shape == (rows.stop - rows.start, S, cfg.vocab_size)
+        elif call == "loss_fn":
+            out = lm.loss_fn(params, cfg, {"tokens": toks[rows],
+                                           "labels": toks[rows], **extra},
+                             rules=rules)
+            assert out.shape == () and torch.isfinite(out)
+        else:
+            out, new = lm.decode_step(params, cfg, state, toks[:, :1],
+                                      rules=rules)
+            assert out.shape == (rows.stop - rows.start, cfg.vocab_size)
+            check_state(new)
 
 
 @pytest.mark.parametrize("heads,kv,mesh,parts", [
@@ -356,3 +412,19 @@ def test_mesh_rules_fit_drops_what_does_not_divide():
     assert rules.axis_size(("data", "model")) == 8
     assert rules.axis_size("pod") == 0 and rules.batch_axes == ("data",)
     np.testing.assert_equal(rules.fit((8,), ("pod",)), (None,))
+
+
+@pytest.mark.parametrize("coords", [(0, 0), (0, 1)])
+def test_own_takes_the_ranks_chunk_and_refuses_other_widths(coords):
+    """``Sharded.own``: a tensor of all ``n`` channels gives the rank's
+    contiguous chunk, the chunk itself passes through, and any other
+    width raises rather than passing through."""
+    cfg = get_config("falcon_mamba_7b", reduced=True)
+    rules = MeshRules(Mesh((1, 2), coords))
+    sh = Sharded(rules, param_specs(rules, cfg))
+    t = torch.arange(24.0).reshape(2, 12)
+    j = coords[1]
+    assert torch.equal(sh.own(t, 12, 1), t[:, 6 * j:6 * (j + 1)])
+    assert sh.own(t[:, :6], 12, 1).shape == (2, 6)
+    with pytest.raises(ValueError, match="neither"):
+        sh.own(t[:, :4], 12, 1)
