@@ -436,6 +436,27 @@ Phases (each one fails the run with a non-zero exit):
           them at, against their plain versions, timed alone beside
           F.rms_norm / SDPA and their bounds; the phase's seconds
 
+ 19. the analysis and the dry run (repro_torch.analysis,
+     repro_torch.launch.dryrun), after phase 17, in this process:
+       a. run_all() with the registry launching every entry point for
+          real on the card (the 16 C entry points of csrc/, each
+          recorded launch's grid, block and dynamic shared memory
+          printed beside the card's opt-in limit); any unsuppressed
+          finding fails the phase
+       b. the dry run of Qwen3-1.7B x train_4k at both production meshes
+          (16 x 16 and 2 x 16 x 16, on meta tensors): its JSON keys and
+          roofline terms, priced with the H100's data-sheet figures
+       c. its accounting against the card at a (1, 1) mesh: the
+          arguments' bytes it reports for Qwen3-1.7B's params and AdamW
+          state equal the bytes the card's allocator is asked for when
+          those tensors are made on the card, and memory_allocated()'s
+          growth within the allocator's rounding (ALLOCATOR_SLACK a
+          tensor); the
+          FLOPs of the dispatched (non-kernel) ops of a 4 x 1024 prefill
+          on meta equal a FlopCounterMode count of the same prefill on
+          the card (the hand-written kernels priced by their formulas in
+          both); the phase's seconds, held to ANALYSIS_PHASE_S
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the ``{"kernels": [...]}`` record.  Without a CUDA
 device, or without the port's sources beside this file, it exits
@@ -8108,6 +8129,141 @@ def encdec_phase(dev, args, failures):
     return entries
 
 
+# phase 19: its time budget on the card host (the ISSUE's 20 s)
+ANALYSIS_PHASE_S = 20.0
+ANALYSIS_PREFILL = (4, 1024)          # phase 19c's prefill, batch x tokens
+ALLOCATOR_SLACK = 1 << 20             # bytes a tensor's block may exceed it
+
+
+def analysis_phase(dev, args, failures):
+    """Phase 19 (module docstring): the static analysis with the registry
+    launching on the card, one dry-run cell at both production meshes,
+    and the dry run's bytes and FLOPs held against the card."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import analysis
+    from repro_torch.analysis import kernel_check, registry
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import forward
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.sharding import MeshRules
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+
+    # ---- 19a. the analysis, the kernels launched on the card -----------
+    calls = registry.capture_entry_points(launch=True)
+    limit = kernel_check.smem_limit()
+    print(f"[analysis] {len(calls)} launches of "
+          f"{len({c.symbol for c in calls})} C entry points; opt-in shared "
+          f"memory limit {limit} B a block")
+    for c in calls:
+        for k, rec in enumerate(c.launches or ()):
+            print(f"[analysis]   {c.entry:30s} {c.symbol:28s} #{k} grid "
+                  f"{rec['grid']} block {rec['block']} smem {rec['smem']} "
+                  f"/ {limit} B")
+        if not c.launches:
+            failures.append(f"19a: {c.entry} {c.symbol} noted no launch")
+    sites = {s.symbol for s in registry.discover_sites()}
+    if {c.symbol for c in calls} != sites:
+        failures.append(f"19a: sites not reached: "
+                        f"{sorted(sites - {c.symbol for c in calls})}")
+    orig = kernel_check.capture_entry_points
+    kernel_check.capture_entry_points = lambda: calls
+    try:
+        found = analysis.run_all()
+    finally:
+        kernel_check.capture_entry_points = orig
+    active = [f for f in found if not f.suppressed]
+    print(f"[analysis] run_all: {len(found)} findings, "
+          f"{len(found) - len(active)} suppressed, {len(active)} active")
+    for f in active:
+        print(f"[analysis] FINDING {f.format()}")
+        failures.append(f"19a: {f.check} {f.path}:{f.line}")
+    print(f"[analysis] 19a took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 19b. one dry-run cell at both production meshes ---------------
+    t0 = time.perf_counter()
+    for multi_pod in (False, True):
+        r = dryrun.run_cell("qwen3_1p7b", "train_4k", multi_pod)
+        if r["status"] != "ok":
+            failures.append(f"19b: {r['mesh']}: {r}")
+            continue
+        print(f"[dryrun] qwen3_1p7b x train_4k ({r['mesh']}): keys "
+              f"{sorted(r)}")
+        print(f"[dryrun]   flops {r['hlo_flops_per_device']:.4g} (kernels "
+              f"{r['kernel_flops_per_device']:.4g}), bytes "
+              f"{r['hlo_bytes_per_device']:.4g}, collective bytes "
+              f"{r['collective_bytes']}, t_compute {r['t_compute']:.4g} s, "
+              f"t_memory {r['t_memory']:.4g} s, t_collective "
+              f"{r['t_collective']:.4g} s, bottleneck {r['bottleneck']}, "
+              f"roofline_fraction {r['roofline_fraction']:.4g}, "
+              f"useful_flop_ratio {r['useful_flop_ratio']:.4g}, memory "
+              f"{r['memory_analysis']}")
+    print(f"[dryrun] 19b took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 19c. the dry run's accounting against the card ----------------
+    t0 = time.perf_counter()
+    cfg = dryrun.production_cfg(get_config("qwen3_1p7b"), "prefill_32k")
+    rules = MeshRules(Mesh((1, 1)))
+    want = (specs.chunk_bytes(specs.param_specs(cfg, rules))
+            + specs.chunk_bytes(specs.opt_specs(cfg, rules)))
+    torch.cuda.synchronize()
+
+    def requested():
+        return torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+
+    before = (torch.cuda.memory_allocated(dev), requested())
+    params = specs.local_tree(specs.param_specs(cfg, rules), dev)
+    opt = specs.local_tree(specs.opt_specs(cfg, rules), dev)
+    made = torch.cuda.memory_allocated(dev) - before[0]
+    asked = requested() - before[1]
+    n_alloc = len(leaves(params)) + len(leaves(opt))
+    print(f"[dryrun] 19c argument bytes: specs {want} B; the card's "
+          f"allocator: {asked} B requested, {made} B allocated "
+          f"({n_alloc} tensors; the 4-byte step lives on the host in the "
+          f"step, on the card here)")
+    # the allocator rounds a request up to 512 B, and hands a request of
+    # more than 1 MiB a cached block unsplit when less than 1 MiB would
+    # be left over (ALLOCATOR_SLACK a tensor)
+    if asked != want or not 0 <= made - want <= ALLOCATOR_SLACK * n_alloc:
+        failures.append(f"19c: argument bytes {want} vs the card's "
+                        f"{asked} requested, {made} allocated")
+    del opt
+    for t in leaves(params):
+        t.normal_(0.0, 0.02)
+    B, S_ = ANALYSIS_PREFILL
+    shape = ShapeConfig("prefill_4x1024", S_, B, "prefill")
+    meta = dryrun.measure(cfg, shape, rules)["costs"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, S_), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(args.seed))
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        logits = forward(params, cfg, tokens, rules=rules)
+    torch.cuda.synchronize()
+    card = fc.get_total_flops()
+    print(f"[dryrun] 19c prefill {B} x {S_}: dispatched FLOPs on meta "
+          f"{meta[('flops',)]:.6g}, on the card {card:.6g}; kernels by "
+          f"formula {meta[('kernel_flops',)]:.6g} FLOPs, "
+          f"{meta[('kernel_bytes',)]:.6g} B")
+    if meta[("flops",)] != card:
+        failures.append(f"19c: meta FLOPs {meta[('flops',)]} vs card "
+                        f"{card}")
+    if not torch.isfinite(logits).all():
+        failures.append("19c: the card prefill's logits are not finite")
+    del params, logits
+    torch.cuda.empty_cache()
+    print(f"[dryrun] 19c took {time.perf_counter() - t0:.1f} s")
+    took = time.perf_counter() - t_phase
+    print(f"[analysis] phase 19 took {took:.1f} s (budget "
+          f"{ANALYSIS_PHASE_S:.0f} s)")
+    if took > ANALYSIS_PHASE_S:
+        failures.append(f"phase 19 took {took:.1f} s, over its "
+                        f"{ANALYSIS_PHASE_S:.0f} s")
+
+
 def mark(t_main: float, phase: str) -> None:
     """A line when a phase ends: the run's seconds so far (the contract's
     limit is on the whole run)."""
@@ -8736,6 +8892,14 @@ def main(argv=None) -> int:
         return fail(f"{len(failures)} encoder-decoder / M-RoPE check(s) "
                     f"failed")
     mark(t_main, "phase 17")
+
+    # ---- 19. the analysis and the dry run ---------------------------------
+    analysis_phase(dev, args, failures)
+    if failures:
+        for f in failures:
+            print(f"[analysis] FAIL {f}")
+        return fail(f"{len(failures)} analysis / dry-run check(s) failed")
+    mark(t_main, "phase 19")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -329,6 +329,8 @@ class SolverOptions:
         return self.s
 
 
+# repro: noqa[CHK-TREE] a host-side result record handed to the caller; no
+#   tree function walks it
 @dataclasses.dataclass
 class FitResult:
     """What ``fit`` observed: the solution, its trajectory and the

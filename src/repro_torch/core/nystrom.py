@@ -41,6 +41,8 @@ def landmark_generator(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state))
 
 
+# repro: noqa[CHK-TREE] a fitted feature map held by its operator and predictor,
+#   never carried in a tree
 @dataclasses.dataclass(frozen=True)
 class NystromMap:
     """Fitted feature map ``phi(x) = K(x, L) @ K_LL^{-1/2}``."""

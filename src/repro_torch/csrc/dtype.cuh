@@ -6,6 +6,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "launch_log.cuh"
+
 namespace rt {
 
 constexpr int DTYPE_F32 = 0;

@@ -190,7 +190,7 @@ inline cudaError_t gram_f64(const double* A, const double* B, double* out,
                             cudaStream_t st) {
   if ((m + F64_T - 1) / F64_T > 65535) return cudaErrorInvalidValue;
   const dim3 grid((r + F64_T - 1) / F64_T, (m + F64_T - 1) / F64_T);
-  gram_f64_kernel<<<grid, F64_THREADS, 0, st>>>(A, B, out, m, r, n, p);
+  rt::launch(gram_f64_kernel, grid, F64_THREADS, 0, st, A, B, out, m, r, n, p);
   return cudaGetLastError();
 }
 
@@ -204,16 +204,16 @@ inline cudaError_t kmv_f64_partial(const double* A, const double* B,
   if (splits < 1 || splits > 65535 || rows_per_split % F64_T != 0)
     return cudaErrorInvalidValue;
   const dim3 grid((r + F64_T - 1) / F64_T, splits);
-  kmv_f64_kernel<<<grid, F64_THREADS, 0, st>>>(A, B, X, ws, rows, r, n, c,
-                                               rows_per_split, accumulate, p);
+  rt::launch(kmv_f64_kernel, grid, F64_THREADS, 0, st, A, B, X, ws, rows, r, n,
+      c, rows_per_split, accumulate, p);
   return cudaGetLastError();
 }
 
 inline cudaError_t kmv_f64_reduce(const double* ws, double* out, int splits,
                                   long long rc, cudaStream_t st) {
-  kmv_f64_reduce_kernel<<<(unsigned)((rc + F64_RED_THREADS - 1) /
-                                     F64_RED_THREADS),
-                          F64_RED_THREADS, 0, st>>>(ws, out, splits, rc);
+  rt::launch(kmv_f64_reduce_kernel,
+      (unsigned)((rc + F64_RED_THREADS - 1) / F64_RED_THREADS),
+      F64_RED_THREADS, 0, st, ws, out, splits, rc);
   return cudaGetLastError();
 }
 

@@ -312,7 +312,7 @@ int launch_flash_bwd(const void* q, const void* k, const void* v,
                                FB_DQ_SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((S + FB_B - 1) / FB_B, BH);
-    flash_bwd_dq_kernel<T><<<grid, FB_THREADS, FB_DQ_SMEM_BYTES, st>>>(
+    rt::launch(flash_bwd_dq_kernel<T>, grid, FB_THREADS, FB_DQ_SMEM_BYTES, st,
         q_, k_, v_, do_, lse, delta, static_cast<T*>(dq), S, Tk, hd, hdv,
         scale, causal);
   } else {
@@ -321,8 +321,8 @@ int launch_flash_bwd(const void* q, const void* k, const void* v,
                                FB_DKV_SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((Tk + FB_B - 1) / FB_B, BH);
-    flash_bwd_dkv_kernel<T><<<grid, FB_THREADS, FB_DKV_SMEM_BYTES, st>>>(
-        q_, k_, v_, do_, lse, delta, static_cast<T*>(dk),
+    rt::launch(flash_bwd_dkv_kernel<T>, grid, FB_THREADS, FB_DKV_SMEM_BYTES,
+        st, q_, k_, v_, do_, lse, delta, static_cast<T*>(dk),
         static_cast<T*>(dv), S, Tk, hd, hdv, scale, causal);
   }
   return static_cast<int>(cudaGetLastError());

@@ -240,9 +240,9 @@ int launch_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + DQ_BQ - 1) / DQ_BQ, BH);
-  flash_bwd_dq_wgmma_kernel<HD><<<grid, DQ_THREADS, L::BYTES, st>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), S, Tk,
-      scale, causal);
+  rt::launch(flash_bwd_dq_wgmma_kernel<HD>, grid, DQ_THREADS, L::BYTES, st, tq,
+      tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), S, Tk, scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 

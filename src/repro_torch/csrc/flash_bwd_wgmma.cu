@@ -253,7 +253,7 @@ int launch_flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Tk + DKV_BK - 1) / DKV_BK, BH);
-  flash_bwd_dkv_wgmma_kernel<HD><<<grid, DKV_THREADS, L::BYTES, st>>>(
+  rt::launch(flash_bwd_dkv_wgmma_kernel<HD>, grid, DKV_THREADS, L::BYTES, st,
       tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), S, Tk, scale, causal);
   return static_cast<int>(cudaGetLastError());

@@ -199,10 +199,10 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
       FA_SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + FA_BQ - 1) / FA_BQ, BH);
-  flash_fwd_kernel<T><<<grid, FA_THREADS, FA_SMEM_BYTES, st>>>(
+  rt::launch(flash_fwd_kernel<T>, grid, FA_THREADS, FA_SMEM_BYTES, st,
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Tk, hd, hdv,
-      scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Tk, hd, hdv, scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 

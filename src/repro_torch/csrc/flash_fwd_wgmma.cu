@@ -227,9 +227,9 @@ int launch_flash_fwd_wgmma(const void* q, const void* k, const void* v,
       L::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + FW_BQ - 1) / FW_BQ, BH);
-  flash_fwd_wgmma_kernel<HD><<<grid, FW_THREADS, L::BYTES, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, Tk,
-      scale * WG_LOG2E, causal);
+  rt::launch(flash_fwd_wgmma_kernel<HD>, grid, FW_THREADS, L::BYTES, st, tq,
+      tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, Tk, scale * WG_LOG2E,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 

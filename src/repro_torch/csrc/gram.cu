@@ -357,27 +357,27 @@ int launch_gram(const void* A_, const void* B_, void* out_, float* ws, int m,
                   reinterpret_cast<uintptr_t>(B) % align == 0;
   const dim3 grid((r + br - 1) / br, (m + bm - 1) / bm, splits);
   if (bm == G_DOT_MAX && br == G_DOT_MAX)
-    gram_dot_kernel<T, O><<<dim3(1, 1, splits), 32, 0, st>>>(A, B, out, ws, m,
-                                                            r, n, per, p);
+    rt::launch(gram_dot_kernel<T, O>, dim3(1, 1, splits), 32, 0, st, A, B, out,
+        ws, m, r, n, per, p);
   else if (bm == 32 && br == 32)
-    gram_partial_kernel<T, O, 32, 32><<<grid, 32, 0, st>>>(A, B, out, ws, m,
-                                                           r, n, per, vec, p);
+    rt::launch(gram_partial_kernel<T, O, 32, 32>, grid, 32, 0, st, A, B, out,
+        ws, m, r, n, per, vec, p);
   else if (bm == 32 && br == 64)
-    gram_partial_kernel<T, O, 32, 64><<<grid, 64, 0, st>>>(A, B, out, ws, m,
-                                                           r, n, per, vec, p);
+    rt::launch(gram_partial_kernel<T, O, 32, 64>, grid, 64, 0, st, A, B, out,
+        ws, m, r, n, per, vec, p);
   else if (bm == 64 && br == 32)
-    gram_partial_kernel<T, O, 64, 32><<<grid, 64, 0, st>>>(A, B, out, ws, m,
-                                                           r, n, per, vec, p);
+    rt::launch(gram_partial_kernel<T, O, 64, 32>, grid, 64, 0, st, A, B, out,
+        ws, m, r, n, per, vec, p);
   else if (bm == 64 && br == 64)
-    gram_partial_kernel<T, O, 64, 64><<<grid, 128, 0, st>>>(A, B, out, ws, m,
-                                                            r, n, per, vec, p);
+    rt::launch(gram_partial_kernel<T, O, 64, 64>, grid, 128, 0, st, A, B, out,
+        ws, m, r, n, per, vec, p);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const dim3 rgrid((r + G_RED_X - 1) / G_RED_X, (m + G_RED_Y - 1) / G_RED_Y);
-  gram_reduce_kernel<O><<<rgrid, G_RED_X * (G_RED_Y + 2), 0, st>>>(
-      ws, out, m, r, splits, p);
+  rt::launch(gram_reduce_kernel<O>, rgrid, G_RED_X * (G_RED_Y + 2), 0, st, ws,
+      out, m, r, splits, p);
   return static_cast<int>(cudaGetLastError());
 }
 

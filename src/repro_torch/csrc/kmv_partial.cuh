@@ -668,7 +668,7 @@ cudaError_t launch_kmv_pair(const KmvPairSeg& s0, const KmvPairSeg& s1,
         (int)G::SMEM);
     if (err != cudaSuccess) return err;
   }
-  kmv_pair_kernel<T, G><<<s0.blocks + s1.blocks, G::NT, G::SMEM, st>>>(
+  rt::launch(kmv_pair_kernel<T, G>, s0.blocks + s1.blocks, G::NT, G::SMEM, st,
       s0, s1, stride, n, c, vec, p);
   return cudaGetLastError();
 }
@@ -715,9 +715,11 @@ cudaError_t kmv_bnorms(const void* B_, float* bn, int r, int n,
                        cudaStream_t st) {
   const T* B = static_cast<const T*>(B_);
   if (vec_ok(B, B, n))
-    kmv_bnorm_kernel<T, true><<<r, KMV_NORM_THREADS, 0, st>>>(B, bn, n);
+    rt::launch(kmv_bnorm_kernel<T, true>, r, KMV_NORM_THREADS, 0, st, B, bn,
+        n);
   else
-    kmv_bnorm_kernel<T, false><<<r, KMV_NORM_THREADS, 0, st>>>(B, bn, n);
+    rt::launch(kmv_bnorm_kernel<T, false>, r, KMV_NORM_THREADS, 0, st, B, bn,
+        n);
   return cudaGetLastError();
 }
 
@@ -738,9 +740,8 @@ cudaError_t launch_kmv_tile(const T* A, const T* B, const float* bn,
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((r + G::BR - 1) / G::BR, splits);
-  kmv_tile_kernel<T, G><<<grid, G::NT, G::SMEM, st>>>(
-      A, B, bn, X, ws, rows, r, n, c, rows_per_split, accumulate, vec, sym,
-      p);
+  rt::launch(kmv_tile_kernel<T, G>, grid, G::NT, G::SMEM, st, A, B, bn, X, ws,
+      rows, r, n, c, rows_per_split, accumulate, vec, sym, p);
   return cudaGetLastError();
 }
 
@@ -751,10 +752,10 @@ cudaError_t launch_kmv_rows(const T* A, const T* B, const float* bn,
                             int vec, const KernelParams& p, cudaStream_t st) {
   const size_t smem = (size_t)KMV_ROW_WARPS * R * c * sizeof(float);
   if (vec)
-    kmv_rows_kernel<T, R, true><<<splits, KMV_ROW_THREADS, smem, st>>>(
+    rt::launch(kmv_rows_kernel<T, R, true>, splits, KMV_ROW_THREADS, smem, st,
         A, B, bn, X, ws, rows, n, c, rows_per_split, accumulate, p);
   else
-    kmv_rows_kernel<T, R, false><<<splits, KMV_ROW_THREADS, smem, st>>>(
+    rt::launch(kmv_rows_kernel<T, R, false>, splits, KMV_ROW_THREADS, smem, st,
         A, B, bn, X, ws, rows, n, c, rows_per_split, accumulate, p);
   return cudaGetLastError();
 }
@@ -810,8 +811,8 @@ inline cudaError_t kmv_reduce(const float* ws, float* out, int splits,
                               long long rc, cudaStream_t st) {
   int ex = 32;
   while (ex > 1 && ex / 2 >= rc) ex /= 2;
-  kmv_reduce_kernel<<<(unsigned)((rc + ex - 1) / ex), KMV_RED_THREADS, 0,
-                      st>>>(ws, out, splits, rc, ex);
+  rt::launch(kmv_reduce_kernel, (unsigned)((rc + ex - 1) / ex),
+      KMV_RED_THREADS, 0, st, ws, out, splits, rc, ex);
   return cudaGetLastError();
 }
 

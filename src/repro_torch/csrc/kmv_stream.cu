@@ -490,17 +490,17 @@ extern "C" int gather_rows_launch(const void* Xc, const void* idx, void* out,
       reinterpret_cast<uintptr_t>(attr.devicePointer) |
       reinterpret_cast<uintptr_t>(out) | row_bytes;
   if (align % sizeof(uint4) == 0) {               // 16-byte words
-    gather_rows_kernel<uint4><<<k, threads, 0, st>>>(
+    rt::launch(gather_rows_kernel<uint4>, k, threads, 0, st,
         static_cast<const uint4*>(attr.devicePointer), ix,
         static_cast<uint4*>(out), (int)(row_bytes / sizeof(uint4)),
         rows_total);
   } else if (align % sizeof(unsigned) == 0) {
-    gather_rows_kernel<unsigned><<<k, threads, 0, st>>>(
+    rt::launch(gather_rows_kernel<unsigned>, k, threads, 0, st,
         static_cast<const unsigned*>(attr.devicePointer), ix,
         static_cast<unsigned*>(out), (int)(row_bytes / sizeof(unsigned)),
         rows_total);
   } else {
-    gather_rows_kernel<unsigned short><<<k, threads, 0, st>>>(
+    rt::launch(gather_rows_kernel<unsigned short>, k, threads, 0, st,
         static_cast<const unsigned short*>(attr.devicePointer), ix,
         static_cast<unsigned short*>(out),
         (int)(row_bytes / sizeof(unsigned short)), rows_total);

@@ -172,8 +172,8 @@ void launch_rows(const T* x, const float* scale, T* y, int rows, float eps,
   constexpr int LPR = VPR < 32 ? VPR : 32, VPL = VPR / LPR;
   constexpr int PER_BLOCK =
       RMS_WARPS * (32 / LPR) * (VPL >= 4 ? 1 : 4 / VPL);
-  rmsnorm_row_kernel<T, D><<<(rows + PER_BLOCK - 1) / PER_BLOCK, RMS_THREADS,
-                             0, st>>>(x, scale, y, rows, eps);
+  rt::launch(rmsnorm_row_kernel<T, D>, (rows + PER_BLOCK - 1) / PER_BLOCK,
+      RMS_THREADS, 0, st, x, scale, y, rows, eps);
 }
 
 template <typename T>
@@ -190,11 +190,11 @@ void launch_rmsnorm(const void* x, const float* scale, void* y, int rows,
   else if (vector && D == 2048)
     launch_rows<T, 2048>(xt, scale, yt, rows, eps, st);
   else if (vector)
-    rmsnorm_kernel<T, true><<<blocks, RMS_THREADS, 0, st>>>(xt, scale, yt,
-                                                            rows, D, eps);
+    rt::launch(rmsnorm_kernel<T, true>, blocks, RMS_THREADS, 0, st, xt, scale,
+        yt, rows, D, eps);
   else
-    rmsnorm_kernel<T, false><<<blocks, RMS_THREADS, 0, st>>>(xt, scale, yt,
-                                                             rows, D, eps);
+    rt::launch(rmsnorm_kernel<T, false>, blocks, RMS_THREADS, 0, st, xt, scale,
+        yt, rows, D, eps);
 }
 
 }  // namespace rt

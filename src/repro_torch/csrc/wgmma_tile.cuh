@@ -27,6 +27,8 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include "launch_log.cuh"
+
 namespace rt {
 
 constexpr int WG_PANEL_COLS = 64;            // bf16 columns of a panel

@@ -20,6 +20,19 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+def card_tensor(t: torch.Tensor) -> bool:
+    """Whether a kernel may take ``t``: a CUDA tensor.  (Without a card,
+    ``analysis.registry.capture`` widens this to CPU tensors while its
+    stub launchers stand in for the kernels.)"""
+    return t.device.type == "cuda"
+
+
+def pinned_host(t: torch.Tensor) -> bool:
+    """Whether ``t`` is page-locked host memory, which the streamed
+    kernels read over the link (widened like ``card_tensor``)."""
+    return t.device.type == "cpu" and t.is_pinned()
+
+
 def check_inputs(name: str, A: torch.Tensor, B: torch.Tensor,
                  f64: bool = False) -> int:
     """Validate the (m, n) / (r, n) operands of a kernel; returns the
@@ -27,7 +40,7 @@ def check_inputs(name: str, A: torch.Tensor, B: torch.Tensor,
     route takes: ``f64=True``).  Raises on anything the kernel does not
     take."""
     for arg, t in (("A", A), ("B", B)):
-        if t.device.type != "cuda":
+        if not card_tensor(t):
             raise ValueError(f"{name}: {arg} must be a CUDA tensor, got "
                              f"{t.device}")
         if t.ndim != 2:

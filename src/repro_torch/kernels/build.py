@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -67,6 +67,8 @@ SIGNATURES = {
 }
 
 _LAUNCHERS: Dict[str, object] = {}
+_LIBRARIES: Dict[str, ctypes.CDLL] = {}
+LAUNCH_LOG_MAX = 64        # csrc/launch_log.cuh LAUNCH_LOG_MAX
 
 
 def find_nvcc() -> str:
@@ -154,15 +156,53 @@ def sass_counts(library: str, ops=("HGMMA", "UTMALDG")) -> Dict[str, dict]:
     return kernels
 
 
+def library(name: str) -> ctypes.CDLL:
+    """The loaded ``lib<name>.so`` of ``csrc/<name>.cu``, built on first
+    use."""
+    lib = _LIBRARIES.get(name)
+    if lib is None:
+        lib = _LIBRARIES[name] = ctypes.CDLL(str(build_all()[name]["path"]))
+    return lib
+
+
+def _read_launch_log(name: str):
+    """``(launches noted since the last read, their records)`` of library
+    ``name``, the log started afresh."""
+    fn = library(name).launch_log_read
+    fn.argtypes = [_P, _I]
+    fn.restype = _I
+    buf = (ctypes.c_ulonglong * (7 * LAUNCH_LOG_MAX))()
+    return fn(ctypes.cast(buf, _P), LAUNCH_LOG_MAX), buf
+
+
+def clear_launch_log(name: str) -> None:
+    """Start library ``name``'s launch log afresh, whatever it noted."""
+    _read_launch_log(name)
+
+
+def launch_log(name: str) -> List[dict]:
+    """The launches library ``name`` made since the last read (or
+    ``clear_launch_log``), in order: ``{"grid", "block", "smem"}`` each
+    (``csrc/launch_log.cuh``: the configuration each ``rt::launch``
+    used); the log starts afresh.  Raises if more launches were made than
+    the log holds."""
+    n, buf = _read_launch_log(name)
+    if n > LAUNCH_LOG_MAX:
+        raise RuntimeError(f"lib{name}: {n} launches since the last read, "
+                           f"more than the log's {LAUNCH_LOG_MAX}")
+    return [{"grid": tuple(buf[7 * i:7 * i + 3]),
+             "block": tuple(buf[7 * i + 3:7 * i + 6]),
+             "smem": int(buf[7 * i + 6])} for i in range(n)]
+
+
 def launcher(name: str):
     """The C entry point ``name`` of ``SIGNATURES``, its library built on
     first use, with its ctypes argument types set (pointers and streams
     as ``c_void_p``, so they are not cut to 32 bits)."""
     fn = _LAUNCHERS.get(name)
     if fn is None:
-        library, symbol, argtypes = SIGNATURES[name]
-        lib = ctypes.CDLL(str(build_all()[library]["path"]))
-        fn = getattr(lib, symbol)
+        library_name, symbol, argtypes = SIGNATURES[name]
+        fn = getattr(library(library_name), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _LAUNCHERS[name] = fn

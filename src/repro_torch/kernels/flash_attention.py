@@ -43,7 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import _launch, build
 from ._launch import DTYPE_CODES, on_card, raise_on_error
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
@@ -109,7 +109,7 @@ def _check_card(name: str, tensors, q: torch.Tensor, BH: int) -> None:
     CUDA tensors on q's device, one dtype the kernels take, contiguous;
     and BH within the grid."""
     for arg, t in tensors:
-        if t.device.type != "cuda" or t.device != q.device:
+        if not _launch.card_tensor(t) or t.device != q.device:
             raise ValueError(f"{name}: {arg} must be a CUDA tensor on "
                              f"{q.device}, got {t.device}")
         if t.dtype not in DTYPE_CODES or t.dtype != q.dtype:

@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core.kernels import RBF, KernelConfig, apply_epilogue
-from . import build
+from . import _launch as card, build
 from ._launch import (DTYPE_CODES, DTYPE_F64, acc_dtype, check_inputs,
                       kernel_args, raise_on_error, sm_count)
 from .kmv import REGIME_CODES, ROWS_MAX_R, kmv_f64_plan, kmv_plan
@@ -128,7 +128,7 @@ def kmv_stream_apply_plain(Xc: torch.Tensor, B: torch.Tensor,
 
 
 def _check_chunks(Xc, name: str) -> None:
-    if Xc.device.type != "cpu" or not Xc.is_pinned():
+    if not card.pinned_host(Xc):
         raise ValueError(
             f"{name}: Xc must be a page-locked (pinned) host tensor on "
             "the card path — a pageable copy serialises the pipe and "
@@ -147,7 +147,7 @@ def _check_stream_inputs(Xc, B, Xvc) -> None:
         raise ValueError(f"kmv_stream: Xc and B must share a dtype in "
                          f"{list(STREAM_DTYPES)}, got {Xc.dtype} and "
                          f"{B.dtype}")
-    if B.device.type != "cuda" or B.ndim != 2 or not B.is_contiguous() \
+    if not card.card_tensor(B) or B.ndim != 2 or not B.is_contiguous() \
             or B.shape[0] == 0 or B.shape[1] != n:
         raise ValueError(f"kmv_stream: B must be a contiguous, non-empty "
                          f"(r, {n}) CUDA tensor, got {tuple(B.shape)} on "
@@ -286,7 +286,7 @@ def _check_full_inputs(Xc, Xvc) -> None:
     if Xc.dtype not in STREAM_DTYPES:
         raise ValueError(f"kmv_stream_full: Xc must be one of "
                          f"{list(STREAM_DTYPES)}, got {Xc.dtype}")
-    if Xvc.device.type != "cuda" or Xvc.ndim != 3 or \
+    if not card.card_tensor(Xvc) or Xvc.ndim != 3 or \
             tuple(Xvc.shape[:2]) != (nc, cr) or Xvc.shape[2] < 1:
         raise ValueError(f"kmv_stream_full: Xvc must be ({nc}, {cr}, c) "
                          f"on the card, got {tuple(Xvc.shape)} on "
@@ -389,7 +389,7 @@ def gather_rows_cuda(Xc: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     a (k, n) device tensor, reading the mapped host buffer from the
     kernel: no host synchronisation, k * n elements over the link.  Xc
     is held until the gather has read it."""
-    if Xc.device.type != "cpu" or not Xc.is_pinned():
+    if not card.pinned_host(Xc):
         raise ValueError("gather_rows: Xc must be a page-locked (pinned) "
                          "host tensor on the card path")
     if Xc.ndim != 3 or not Xc.is_contiguous() or Xc.dtype not in \
@@ -397,7 +397,7 @@ def gather_rows_cuda(Xc: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather_rows: Xc must be a contiguous (nc, cr, "
                          f"n) f32/bf16/f64 tensor, got {tuple(Xc.shape)} "
                          f"{Xc.dtype}")
-    if idx.device.type != "cuda" or idx.ndim != 1 or \
+    if not card.card_tensor(idx) or idx.ndim != 1 or \
             idx.dtype != torch.long:
         raise ValueError(f"gather_rows: idx must be 1-D int64 on the "
                          f"card, got {idx.dtype} {tuple(idx.shape)} on "
@@ -479,7 +479,7 @@ def kmv_stream_apply_cuda(Xc: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"kmv_stream_apply: Xc and B must share a dtype "
                          f"in {list(STREAM_DTYPES)}, got {Xc.dtype} and "
                          f"{B.dtype}")
-    if B.device.type != "cuda" or B.ndim != 2 or not B.is_contiguous() \
+    if not card.card_tensor(B) or B.ndim != 2 or not B.is_contiguous() \
             or B.shape[0] == 0 or B.shape[1] != n:
         raise ValueError(f"kmv_stream_apply: B must be a contiguous, "
                          f"non-empty (sb, {n}) CUDA tensor, got "

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import _launch, build
 from ._launch import DTYPE_CODES, on_card, raise_on_error
 from .ref import rmsnorm_ref
 
@@ -33,7 +33,7 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     """Launch the RMSNorm kernel on the card: x (..., D) contiguous, f32 or
     bf16; scale (D,) f32 on the same device.  Returns y shaped and typed
     like x.  Never synchronises."""
-    if x.device.type != "cuda":
+    if not _launch.card_tensor(x):
         raise ValueError(f"rmsnorm: x must be a CUDA tensor, got {x.device}")
     if x.dtype not in DTYPE_CODES:
         raise ValueError(f"rmsnorm: x must be one of {list(DTYPE_CODES)}, "

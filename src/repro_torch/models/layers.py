@@ -133,9 +133,11 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
         raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum "
                          f"to head_dim / 2 = {hd // 2}")
     freqs = rope_freqs(hd, theta, x.device)
+    # output_size: the length is known on the host, so neither the card
+    # (a sync) nor a meta tensor (the dry run) has to read the repeats
     sec_id = torch.repeat_interleave(
         torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))
+        torch.tensor(sections, device=x.device), output_size=hd // 2)
     pos = positions3.float()[sec_id]                 # (hd/2, B, S)
     angles = (pos.movedim(0, -1) * freqs)[..., None, :]  # (B, S, 1, hd/2)
     return _rotate(x, torch.cos(angles), torch.sin(angles))

@@ -204,8 +204,9 @@ def tree_pspecs(rules: Optional[MeshRules], params):
 # ---- decode-state rules ---------------------------------------------------
 
 def _one_axis(axes):
-    """A tuple of one axis name as the name (the port's mesh has one
-    batch axis, and ``split_axes`` takes names)."""
+    """A tuple of one axis name as the name; the batch axes of a mesh
+    with ``pod`` stay the tuple ``("pod", "data")``, one spec entry, as
+    in the JAX package's specs."""
     return axes[0] if isinstance(axes, tuple) and len(axes) == 1 else axes
 
 
@@ -256,39 +257,64 @@ def decode_state_specs(rules: Optional[MeshRules], cfg, state):
 
 def batch_rows(rules: Optional[MeshRules], batch: int) -> slice:
     """The rows of a batch of ``batch`` that this rank computes: its chunk
-    over ``data`` where the batch divides (``decode_token_specs``), else
-    all of them (the compute replicated over ``data``)."""
+    over the batch axes (``data``, with ``pod`` ``("pod", "data")``, pod
+    major) where the batch divides (``decode_token_specs``), else all of
+    them (the compute replicated over them)."""
     if rules is None:
         return slice(0, batch)
-    n = rules.axis_size("data")
+    bax = rules.batch_axes
+    n = rules.axis_size(bax)
     if n <= 1 or batch % n:
         return slice(0, batch)
-    i = rules.mesh.index("data")
+    i = axis_index(rules.mesh, bax)
     return slice(i * (batch // n), (i + 1) * (batch // n))
 
 
 def gather_rows(rules: Optional[MeshRules], t: torch.Tensor,
                 batch: int) -> torch.Tensor:
     """All ``batch`` rows of ``t`` (dim 0) on every rank, from each rank's
-    ``batch_rows``: one counted gather over ``data`` (kind ``"token"``)
-    where the batch is split, else ``t``."""
+    ``batch_rows``: one counted gather over each batch axis of more than
+    one rank (kind ``"token"``; ``data`` first, then ``pod``) where the
+    batch is split, else ``t``."""
     if batch_rows(rules, batch) == slice(0, batch):
         return t
-    return rules.mesh.all_gather(t, "data", 0, "token")
+    for a in reversed(rules.batch_axes):
+        if rules.axis_size(a) > 1:
+            t = rules.mesh.all_gather(t, a, 0, "token")
+    return t
+
+
+def axis_extent(mesh, axis) -> int:
+    """The ranks along a spec entry: an axis name, or a tuple of them
+    (their product)."""
+    if isinstance(axis, tuple):
+        return math.prod(mesh.shape[a] for a in axis)
+    return mesh.shape[axis]
+
+
+def axis_index(mesh, axis) -> int:
+    """This rank's coordinate along a spec entry (for a tuple of axes the
+    row-major index over them, the first major)."""
+    if isinstance(axis, tuple):
+        i = 0
+        for a in axis:
+            i = i * mesh.shape[a] + mesh.index(a)
+        return i
+    return mesh.index(axis)
 
 
 def split_axes(mesh, spec: Spec):
-    """``[(dim, axis), ...]`` of the dims ``spec`` splits over an axis of
-    more than one rank."""
+    """``[(dim, axis), ...]`` of the dims ``spec`` splits over an axis (or
+    a tuple of axes) of more than one rank."""
     return [(d, a) for d, a in enumerate(spec)
-            if a is not None and mesh.shape[a] > 1]
+            if a is not None and axis_extent(mesh, a) > 1]
 
 
 def chunk_shape(mesh, shape, spec: Spec) -> list:
     """The shape of a rank's chunk of a leaf of ``shape``."""
     out = list(shape)
     for d, a in split_axes(mesh, spec):
-        out[d] //= mesh.shape[a]
+        out[d] //= axis_extent(mesh, a)
     return out
 
 
@@ -296,16 +322,19 @@ def shard_leaf(mesh, t: torch.Tensor, spec: Spec) -> torch.Tensor:
     """This rank's chunk of the full leaf ``t``: along each split dim the
     chunk at the rank's coordinate on that axis (a contiguous copy)."""
     for d, a in split_axes(mesh, spec):
-        t = t.chunk(mesh.shape[a], d)[mesh.index(a)]
+        t = t.chunk(axis_extent(mesh, a), d)[axis_index(mesh, a)]
     return t.clone(memory_format=torch.contiguous_format)
 
 
 def gather_leaf(mesh, t: torch.Tensor, spec: Spec,
                 kind: str = "param") -> torch.Tensor:
     """The full leaf from every rank's chunk ``t`` (collective: every rank
-    calls it for the same leaves in the same order)."""
+    calls it for the same leaves in the same order; a dim split over a
+    tuple of axes is gathered over its last axis first)."""
     for d, a in split_axes(mesh, spec):
-        t = mesh.all_gather(t, a, d, kind)
+        for ax in (reversed(a) if isinstance(a, tuple) else (a,)):
+            if mesh.shape[ax] > 1:
+                t = mesh.all_gather(t, ax, d, kind)
     return t
 
 
@@ -339,8 +368,10 @@ def gather_tree(rules: MeshRules, shards, specs):
 def replicated_axes(mesh, spec: Spec) -> Tuple[str, ...]:
     """The axes of more than one rank over which a leaf of ``spec`` is
     replicated (every rank along them holds the same chunk)."""
+    used = {x for a in spec if a is not None
+            for x in (a if isinstance(a, tuple) else (a,))}
     return tuple(a for a in mesh.axis_names
-                 if mesh.shape[a] > 1 and a not in spec)
+                 if mesh.shape[a] > 1 and a not in used)
 
 
 # ---- the collectives of a sharded forward, differentiable ----------------
@@ -630,7 +661,8 @@ class Sharded:
 
 
 __all__ = ["MeshRules", "Sharded", "Spec", "TP_SLICED", "TP_SPLITS",
-           "UNCAST", "batch_rows", "cache_spec", "chunk_shape",
+           "UNCAST", "axis_extent", "axis_index", "batch_rows",
+           "cache_spec", "chunk_shape",
            "decode_state_specs", "gather_leaf", "gather_rows", "gather_tree",
            "leaf_specs", "model_blocks", "param_spec", "part_row",
            "path_str", "replicated_axes", "shard_leaf",

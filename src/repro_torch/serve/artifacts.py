@@ -52,6 +52,8 @@ MANIFEST_VERSION = 1
 PROBLEMS = ("ksvm", "krr")
 
 
+# repro: noqa[CHK-TREE] a registry's record of a fitted model; its own methods
+#   move its tensors, no tree carries it
 @dataclasses.dataclass
 class ServableModel:
     """A fitted estimator reduced to its serving + refit essentials.

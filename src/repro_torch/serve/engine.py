@@ -50,6 +50,7 @@ EXPIRED = "expired"
 SHED = "shed"
 
 
+# repro: noqa[CHK-TREE] a queued request's host-side record; no tree carries it
 @dataclasses.dataclass
 class Ticket:
     """One submitted request: ``rows`` queries against one model.

@@ -49,6 +49,12 @@ expert-parallel on E, a Mamba block on its channels or heads, the
 shared block and the encoder's layers as dense blocks, the decoder's
 cross-attention on heads (under ``defer_rules`` too: its params are
 replicated over ``data`` only).
+
+On a mesh with ``pod`` (``launch.mesh.make_mesh(pod=)``, the JAX
+production mesh's ``(pod, data, model)``) the batch splits over
+``("pod", "data")``, params are replicated over ``pod`` (as the JAX
+trainer's), and both steps sum each gradient bucket over ``pod`` after
+its ``data`` sync (``_pod_sum``, counted as ``("pod", "grad")``).
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ from repro_torch.models import ModelConfig, init_params, loss_fn
 from repro_torch.launch.mesh import MESH_AXIS
 from repro_torch.models.lm import (abstract_params, decode_state_layout,
                                    param_specs)
-from repro_torch.models.sharding import (MeshRules, Sharded, batch_rows,
+from repro_torch.models.sharding import (MeshRules, Sharded, axis_extent,
+                                         axis_index, batch_rows,
                                          chunk_shape, leaf_specs,
                                          replicated_axes, shard_tree,
                                          spec_at, split_axes)
@@ -219,7 +226,7 @@ def _rows(batch: dict, n: int, i: int) -> dict:
 
 def _local_batch(batch: dict, dev, nm: int, n_data: int) -> dict:
     """The batch on ``dev``, checked to split into ``nm`` microbatches
-    on each of ``n_data`` data ranks."""
+    on each of ``n_data`` ranks along the batch axes."""
     B = batch["tokens"].shape[0]
     if B % (nm * n_data):
         raise ValueError(f"global batch {B} does not split into {nm} "
@@ -315,6 +322,22 @@ def _adamw(acfg, params, grads, opt, mesh, specs):
                         gnorm=torch.sqrt(sq))
 
 
+def _batch_split(rules: MeshRules) -> Tuple[int, int]:
+    """``(ranks, index)`` of this rank along the batch axes (``data``, or
+    ``("pod", "data")``): the microbatches split into that many row
+    chunks, this rank's at ``index``."""
+    bax = rules.batch_axes
+    return axis_extent(rules.mesh, bax), axis_index(rules.mesh, bax)
+
+
+def _pod_sum(mesh, buf: torch.Tensor, timer) -> None:
+    """On a mesh with ``pod``, the sum of a gradient bucket over it, in
+    place: params are replicated over ``pod``, so every leaf's gradient
+    is a sum over the pods of their partials."""
+    if "pod" in mesh.axis_names:
+        timer(lambda: mesh.all_reduce(buf, "pod", "grad", inplace=True))
+
+
 class _ShardedStep:
     """The FSDP + TP step (``make_train_step(rules=)``)."""
 
@@ -325,7 +348,7 @@ class _ShardedStep:
 
     def __call__(self, params, opt, batch):
         mesh, nm = self.mesh, self.nm
-        n_data, d = mesh.shape["data"], mesh.index("data")
+        n_data, d = _batch_split(self.rules)
         batch = _local_batch(batch, leaves(params)[0].device, nm, n_data)
         mbs = [_rows(mb, n_data, d) for mb in _microbatches(batch, nm)]
         specs = leaf_specs(param_specs(self.rules, self.cfg), params)
@@ -338,6 +361,7 @@ class _ShardedStep:
         timer = _SyncTimer(bucket.buf.device)
         timer(lambda: mesh.all_reduce(bucket.head, "data", "grad",
                                       inplace=True))
+        _pod_sum(mesh, bucket.buf, timer)
         bucket.buf.mul_(1.0 / (nm * n_data))
         loss = bucket.loss.clone()
         params, opt, om = _adamw(self.acfg, params, bucket.views, opt,
@@ -458,7 +482,7 @@ class _DeferStep:
     def __call__(self, params, opt, batch):
         mesh, tcfg = self.mesh, self.tcfg
         nm, s = tcfg.microbatches, tcfg.defer_s
-        n_data, d = mesh.shape["data"], mesh.index("data")
+        n_data, d = _batch_split(self.rules)
         batch = _local_batch(batch, leaves(params)[0].device, nm, n_data)
         mbs = _microbatches(_rows(batch, n_data, d), nm)
         flat = leaves(params)
@@ -483,6 +507,7 @@ class _DeferStep:
             # the s-step moment: one sync of s microbatches' gradients
             timer(lambda: mesh.all_reduce(rnd.buf, "data", "grad",
                                           inplace=True))
+            _pod_sum(mesh, rnd.buf, timer)
             if acc is not None:
                 acc.add_(rnd.buf)
         total = rnd.buf if acc is None else acc
@@ -597,8 +622,9 @@ def step_collectives(cfg: ModelConfig, tcfg: TrainConfig, rules: MeshRules,
     the sharded step's one ``grad`` bucket, the deferred step's
     ``microbatches / defer_s`` syncs (each an all-reduce over ``data``
     and, with int8 on leaves split over model whose chunks cut their
-    blocks, a max over ``model``); one ``metric`` reduction of the
-    clipping norm."""
+    blocks, a max over ``model``), on a mesh with ``pod`` each also
+    summed over ``pod``; one ``metric`` reduction of the clipping
+    norm."""
     r = defer_rules(rules) if defer else rules
     specs = param_specs(r, cfg)
     sh = Sharded(r, specs)
@@ -608,9 +634,11 @@ def step_collectives(cfg: ModelConfig, tcfg: TrainConfig, rules: MeshRules,
         _use_calls(per_mb, mesh, r.fsdp, specs[key]["table"], None, 1, 1)
     _layer_calls(per_mb, cfg, r, sh, 2 if cfg.remat == "full" else 1, 1)
     calls = {key: k * tcfg.microbatches for key, k in per_mb.items()}
+    pod = int("pod" in mesh.axis_names)
     if defer:
         syncs = tcfg.microbatches // tcfg.defer_s
         _add(calls, "data", "grad", syncs)
+        _add(calls, "pod", "grad", pod * syncs)
         full = abstract_params(cfg)
         flat = leaf_specs(specs, full)
         chunks = unflatten(full, [
@@ -623,6 +651,7 @@ def step_collectives(cfg: ModelConfig, tcfg: TrainConfig, rules: MeshRules,
             _add(calls, "model", "grad", syncs)
     else:
         _add(calls, "data", "grad")
+        _add(calls, "pod", "grad", pod)
     _add(calls, MESH_AXIS, "metric")
     return calls
 

@@ -50,6 +50,8 @@ from repro_torch.device import as_tensor, resolve_device
 FLEET_LAYOUTS = ("serial", "1d")
 
 
+# repro: noqa[CHK-TREE] a host-side result record handed to the caller; no
+#   tree function walks it
 @dataclasses.dataclass
 class FleetResult:
     """Everything ``solve_fleet`` observed, fleet-wide.

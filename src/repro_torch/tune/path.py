@@ -31,6 +31,8 @@ from repro_torch.device import as_tensor, resolve_device
 VIAS = ("fleet", "path")
 
 
+# repro: noqa[CHK-TREE] a host-side result record handed to the caller; no
+#   tree function walks it
 @dataclasses.dataclass
 class PathResult:
     """A solved regularisation ladder: ``results[i]`` is the ``FitResult``

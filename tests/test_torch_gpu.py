@@ -2211,3 +2211,24 @@ def test_lm_kernels_at_tensor_parallel_head_counts(cuda_device):
     np.testing.assert_allclose(y.float().cpu().numpy(),
                                y_p.float().cpu().numpy(), rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_registry_reaches_every_site_on_the_card(cuda_device):
+    """``analysis.registry`` launching every entry point for real reaches
+    the 16 C entry points of csrc/; each launch noted its grid, block and
+    dynamic shared memory (``csrc/launch_log.cuh``), and the sanitizer is
+    clean on them, CHK-SMEM against the device's own opt-in limit."""
+    from repro_torch.analysis import kernel_check, registry
+    calls = registry.capture_entry_points(launch=True)
+    sites = {(s.path, s.line) for s in registry.discover_sites()}
+    assert len(sites) == 16 and {c.site for c in calls} == sites
+    limit = torch.cuda.get_device_properties(
+        cuda_device).shared_memory_per_block_optin
+    assert kernel_check.smem_limit() == limit
+    assert all(c.launches for c in calls)
+    assert any(rec["smem"] > 48 * 1024 for c in calls
+               for rec in c.launches)
+    assert all(rec["smem"] <= limit and rec["grid"][0] >= 1
+               for c in calls for rec in c.launches)
+    assert kernel_check.run(calls) == []

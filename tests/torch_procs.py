@@ -111,11 +111,16 @@ class Suite:
 
 
 def world(mesh) -> int:
-    return mesh[0] * mesh[1]
+    return int(np.prod(mesh))
+
+
+def axis_names(mesh) -> tuple:
+    """The axes of a case's mesh: (data, model), or (pod, data, model)."""
+    return (("pod",) if len(mesh) == 3 else ()) + ("data", "model")
 
 
 def tid(c) -> str:
-    return (f"{c['arch'].split('_')[0]}-{c['mesh'][0]}x{c['mesh'][1]}"
+    return (f"{c['arch'].split('_')[0]}-{'x'.join(map(str, c['mesh']))}"
             + "".join(f"-{c[k]}" for k in ("kind", "impl") if k in c))
 
 
@@ -173,7 +178,7 @@ def _rank_model(suite, c, inp, rules):
     rows = batch_rows(rules, FWD[0])
     params = convert.lm_shards(inp["params"][arch], cfg, rules, device="cpu")
     rec = {"rows": (rows.start, rows.stop),
-           "coords": (mesh.index("data"), mesh.index("model"))}
+           "coords": tuple(mesh.index(a) for a in mesh.axis_names)}
     with torch.no_grad():
         for impl in suite.fwd_impls:
             rec[fwd_key(impl)] = forward(
@@ -233,7 +238,7 @@ def _rank_train(c, inp, rules):
     mesh = rules.mesh
     rec = {"loss": [], "calls": [], "hashes": [],
            "want": step_collectives(cfg, tcfg, rules, defer),
-           "coords": (mesh.index("data"), mesh.index("model")),
+           "coords": tuple(mesh.index(a) for a in mesh.axis_names),
            "split": [[a for _, a in split_axes(mesh, s)]
                      for s in leaf_specs(specs, params)]}
     for k in range(TRAIN_STEPS):
@@ -271,7 +276,9 @@ def rank_main(suite: Suite, n: int, rank: int, d: Path) -> None:
     out = {}
     for c in suite.model_cases() + suite.train_cases():
         if world(c["mesh"]) == n:
-            rules = MeshRules(make_mesh(*c["mesh"]))
+            shape = dict(zip(axis_names(c["mesh"]), c["mesh"]))
+            rules = MeshRules(make_mesh(shape["data"], shape["model"],
+                                        pod=shape.get("pod")))
             out[tid(c)] = (_rank_train(c, inp, rules) if "kind" in c
                            else _rank_model(suite, c, inp, rules))
     torch.save(out, d / f"rank{rank}.pt")
@@ -298,7 +305,7 @@ def jax_main(suite: Suite, d: Path, arch: str, mesh_shape) -> None:
                                         make_train_step)
     with open(d / "inputs.pkl", "rb") as f:
         inp = pickle.load(f)
-    mesh = make_mesh_auto(mesh_shape, ("data", "model"))
+    mesh = make_mesh_auto(mesh_shape, axis_names(mesh_shape))
     rules = MeshRules(mesh)
 
     def cfg_of(**kw):
@@ -460,7 +467,7 @@ def start(suite: Suite, script: str, d: Path) -> "Runs":
                     XLA_FLAGS=f"--xla_force_host_platform_device_count={n}")
         procs[("jax", n)] = Procs(
             f"jax {n}", script,
-            [["jax", str(d), c["arch"], f"{c['mesh'][0]}x{c['mesh'][1]}"]
+            [["jax", str(d), c["arch"], "x".join(map(str, c["mesh"]))]
              for c in suite.model_cases() if world(c["mesh"]) == n],
             jenv, d, TIMEOUT_S)
         wd = d / f"world{n}"
@@ -556,8 +563,11 @@ def check_decode(runs: Runs, case) -> None:
                 for j, (got, sp, w) in enumerate(zip(pair, spair, wpair)):
                     close(got, shard_leaf(mesh, w, sp).numpy(), TOL,
                           f"rank {r} {key} {i} {j}")
+                    used = {x for e in sp if e is not None
+                            for x in (e if isinstance(e, tuple) else (e,))}
                     k = (key, i, j) + tuple(c for c, a in zip(
-                        rec["coords"], ("data", "model")) if a in sp)
+                        rec["coords"], axis_names(case["mesh"]))
+                        if a in used)
                     seen.setdefault(k, set()).add(
                         hashlib.sha1(got.tobytes()).hexdigest())
     assert all(len(h) == 1 for h in seen.values())
@@ -588,7 +598,7 @@ def check_collectives_and_replicas(runs: Runs, case) -> None:
     ranks that hold the same chunk of a leaf hold the same bits; every
     rank reports the same loss."""
     recs = runs.ranks(case["mesh"], tid(case))
-    axes = {"data": 0, "model": 1}
+    axes = {a: i for i, a in enumerate(axis_names(case["mesh"]))}
     for rec in recs:
         assert all(c == rec["want"] for c in rec["calls"]), (
             rec["calls"], rec["want"])
